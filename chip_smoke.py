@@ -3,23 +3,39 @@
 
     python3 chip_smoke.py
 
-Phases, one line of output each (any failure raises, so the exit code is
-nonzero and no result line is printed):
+Phases (any failure raises, so the exit code is nonzero and no result line
+is printed):
 
 1. device   — a CUDA card is required; prints its name and power limit;
-2. build    — compiles ``optionslab_tpu_torch/csrc/*.cu`` with nvcc;
-3. parity   — the GBM kernel against its plain torch version on the card,
-              per-row moment sums, for every sampler with and without Greeks
-              at small shapes, and at the main path's shapes with ``prng``;
-4. main     — the main path at full size through ``MonteCarloPricer``:
-              1e9 paths on one contract, a 1024-contract book at 1e6 paths
-              each, and the price-only sibling, checked against
-              Black–Scholes, with warm wall times;
-5. server   — ``PricingServer`` on the card answering over a real socket;
-6. launches — the kernel's launch count over phases 4–5.
+2. build    — compiles ``optionslab_tpu_torch/csrc/*.cu`` with nvcc (one
+              process per source, all started together);
+3. parity   — every kernel against its plain torch version on the card,
+              per-row moment sums: the GBM kernel for every sampler with
+              and without Greeks at small shapes and at its main path's
+              shapes; the exotic price kernel for every payoff kind with
+              and without LR scores under ``hash`` and ``prng``, bridge QMC,
+              books of 2, 8 and 128 contracts; the exotic Greeks kernel for
+              its four kinds and both signs; and both exotic kernels at the
+              exotic path's own shapes with ``prng``;
+4. main     — the GBM path at full size through ``MonteCarloPricer``: 1e9
+              paths on one contract, a 1024-contract book at 1e6 paths each,
+              and the price-only sibling, checked against Black–Scholes;
+5. server   — ``PricingServer`` on the card answering ``/mc`` over a socket;
+6. exotic   — the exotic path through its entry points at the JAX
+              package's bench sizes (Asian 4M x 252, pathwise Greeks
+              8M x 252, barrier LR ladder 16M x 64, an 8-strike book 1M x 64
+              per contract, autocall/cliquet/range accrual), against closed
+              forms, Black–Scholes and the scan engine, with warm wall times;
+7. exotic server — ``/exotic`` and ``/book/exotic`` over a socket;
+8. launches — each kernel's launch count over its path's phases (the counts
+              are set to 0 just before a path and read just after it);
+9. timing   — device ms by CUDA events of each kernel and its plain
+              version at its path's shapes, beside the least time the card
+              could take (from the kernel's SASS, ``ops/sass_bound.py``).
 
-The last two lines are a JSON object of kernel measurements and
-``{"ok": true, "device": {...}}``. Imports nothing of JAX.
+The last three lines are a JSON object of kernel measurements, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``. Imports
+nothing of JAX.
 """
 
 from __future__ import annotations
@@ -33,14 +49,20 @@ import urllib.request
 import torch
 
 from optionslab_tpu_torch import ContractBatch, MCMethod, MonteCarloPricer, PricingServer
+from optionslab_tpu_torch.models import exotics as tex
 from optionslab_tpu_torch.models.black_scholes import bs_greeks
-from optionslab_tpu_torch.ops import _build
+from optionslab_tpu_torch.ops import _build, sass_bound
+from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
 # absolute Greek bounds of the reference's kernel test (tests/test_gbm_pallas_host.py)
 GREEK_BOUNDS = {"delta": 1e-3, "gamma": 1e-4, "vega": 0.05, "rho": 0.1, "dual_delta": 1e-3}
-RTOL = 1e-5  # kernel vs plain on per-row sums: summation order is the only difference
+# kernel vs plain on per-row sums: on the card both draw bit-equal paths with
+# CUDA's libm, so summation order is the only difference (float32 sums of up
+# to ~1e3 terms per thread, then fixed-order partials: ~1e-6 relative at most)
+RTOL = 1e-5
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
 def log(phase: str, msg: str) -> None:
@@ -258,15 +280,385 @@ def phase_server(dev) -> int:
     return len(requests)
 
 
-def phase_timing(dev) -> tuple[float, float]:
-    """Device ms of the kernel and of the plain version at the book shape
-    (1024 contracts x 1e6 paths, prng, Greeks). Not counted as main path."""
-    params, kw = moments_inputs(book_batch(1024, dev), 1_000_000, "prng", True)
-    gk._gbm_moments_cuda(0, 0, params, **kw)
-    ms = event_time(lambda: gk._gbm_moments_cuda(0, 0, params, **kw), 10)
+def phase_timing(dev) -> dict:
+    """Device ms of the GBM kernel at its path's two shapes, and of its plain
+    version at the book shape (1024 contracts x 1e6 paths; prng, Greeks).
+    Not counted as main path."""
+    out = {}
+    for tag, batch, n_paths in (("1x1e9", ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2,
+                                                             device=dev), 1_000_000_000),
+                                ("1024x1e6", book_batch(1024, dev), 1_000_000)):
+        params, kw = moments_inputs(batch, n_paths, "prng", True)
+        gk._gbm_moments_cuda(0, 0, params, **kw)
+        ms = event_time(lambda: gk._gbm_moments_cuda(0, 0, params, **kw), 10)
+        out[tag] = {"ms": ms, "trips": kw["n_blocks"] * kw["active_rows"] * kw["lanes"],
+                    "bytes": 4 * (7 + 4) * kw["rows"]}
     gk._gbm_moments_plain(0, 0, params, **kw)
-    plain_ms = event_time(lambda: gk._gbm_moments_plain(0, 0, params, **kw), 2)
+    out["1024x1e6"]["plain_ms"] = event_time(lambda: gk._gbm_moments_plain(0, 0, params, **kw), 2)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the exotic path (csrc/exotic_mc.cu, csrc/exotic_greeks.cu)
+# ---------------------------------------------------------------------------
+S0, STRIKE, T, RATE, VOL = 100.0, 100.0, 1.0, 0.05, 0.2
+ASIAN = (4_000_000, 252)  # the JAX package's bench.py sizes: paths, steps
+GREEKS = (8_000_000, 252)
+BARRIER_LR = (16_000_000, 64)
+BOOK = (1_000_000, 64)  # per contract
+BOOK_STRIKES = [80.0, 85.0, 90.0, 95.0, 100.0, 105.0, 110.0, 115.0]
+
+
+def exotic_inputs(kind: str, n_steps: int, dev, strike: float = STRIKE, barrier=None):
+    """(params, one-contract book) of a launch, with every kind's slots set."""
+    if barrier is None:
+        barrier = 115.0 if "up" in kind else 88.0
+    p, _ = ek._base_params(S0, strike, T, RATE, VOL, 0.01, barrier, n_steps)
+    if "double" in kind:
+        p[ek._P_A], p[ek._P_B] = 88.0, 115.0
+    if kind == "cliquet":
+        p[ek._P_A:] = [-0.03, 0.03, 0.0, 1e9, 100.0]
+    if kind == "autocall":
+        p[ek._P_A:] = [100.0, 80.0, 70.0, 2.0, 100.0]
+    if kind == "range_accrual":
+        p[ek._P_A], p[ek._P_B], p[ek._P_E] = 90.0, 110.0, 100.0
+    params = torch.tensor(p, dtype=torch.float32, device=dev)
+    return params, params[list(ek._BOOK_SLOTS)].reshape(1, 7).contiguous()
+
+
+def compare_sums(kern: torch.Tensor, plain: torch.Tensor, tag: str) -> float:
+    """Per-row sums within RTOL; the signed moments (index 2 on: LR scores,
+    pathwise P0/G1/G2) against their largest row, since they cancel inside
+    a row. Returns the largest absolute difference."""
+    k64, p64 = kern.double(), plain.double()
+    diff = (k64 - p64).abs()
+    scale = p64.abs()
+    scale[2:] = torch.maximum(scale[2:], scale[2:].amax(dim=1, keepdim=True))
+    bad = (diff > RTOL * scale).sum().item()
+    rel = (diff / scale.clamp_min(1e-30)).max().item()
+    exact = (kern == plain).all(dim=0).sum().item()
+    log("parity", f"{tag}: max_rel={rel:.3e} max_abs={diff.max().item():.3e} "
+                  f"bitwise_rows={exact} violations={bad}")
+    if bad or not torch.isfinite(kern).all():
+        raise AssertionError(f"kernel disagrees with plain: {tag}")
+    return diff.max().item()
+
+
+def exotic_parity_cases(dev):
+    """(tag, kwargs of _exotic_moments_*) of the price kernel's parity phase."""
+    cases = []
+    for kind in ek.PAYOFF_KINDS:
+        period = 3 if kind in ("cliquet", "autocall") else 1
+        for sampler in ("hash", "prng"):
+            for lr in (False, True):
+                if lr and kind == "asian_arith_cv":
+                    continue
+                params, book = exotic_inputs(kind, 12, dev)
+                cases.append((f"{kind} {sampler} lr={lr} 2x12",
+                              dict(params=params, book=book, kind=kind, n_steps=12, n_blocks=2,
+                                   cp=1.0, period=period, sampler=sampler, lr=lr)))
+    for kind in ("asian_geo", "asian_arith_cv", "barrier_up-and-out"):
+        params, book = exotic_inputs(kind, 16, dev)
+        cases.append((f"{kind} sobol_bb_hash 2x16",
+                      dict(params=params, book=book, kind=kind, n_steps=16, n_blocks=2, cp=1.0,
+                           sampler="sobol_bb_hash")))
+    for nc, kind, lr in ((2, "barrier_up-and-out", True), (8, "asian_arith", True),
+                         (128, "one_touch_up_hit", False)):
+        strikes = torch.linspace(90.0, 110.0, nc).tolist()
+        barriers = torch.linspace(110.0, 130.0, nc).tolist()
+        params, _ = exotic_inputs(kind, 12, dev)
+        book = torch.tensor(ek._book_table(strikes, barriers, [0.0] * nc, [0.0] * nc, nc),
+                            dtype=torch.float32, device=dev)
+        cases.append((f"book nc={nc} {kind} prng lr={lr} 3x12",
+                      dict(params=params, book=book, kind=kind, n_steps=12, n_blocks=3, cp=1.0,
+                           sampler="prng", lr=lr)))
+    # the exotic path's own shapes (many path blocks per thread), prng
+    for kind, (n_paths, n_steps), lr in (("asian_arith", ASIAN, False),
+                                         ("barrier_up-and-out", BARRIER_LR, True)):
+        params, book = exotic_inputs(kind, n_steps, dev, barrier=1e6 if lr else None)
+        cases.append((f"{kind} prng lr={lr} {n_paths}x{n_steps}",
+                      dict(params=params, book=book, kind=kind, n_steps=n_steps,
+                           n_blocks=ek._n_blocks(n_paths, ek.PATHS_PER_BLOCK), cp=1.0,
+                           sampler="prng", lr=lr)))
+    params, _ = exotic_inputs("asian_arith", BOOK[1], dev)
+    nc = len(BOOK_STRIKES)
+    book = torch.tensor(ek._book_table(BOOK_STRIKES, [0.0] * nc, [0.0] * nc, [0.0] * nc, nc),
+                        dtype=torch.float32, device=dev)
+    cases.append((f"book nc={nc} asian_arith prng {BOOK[0]}x{BOOK[1]}",
+                  dict(params=params, book=book, kind="asian_arith", n_steps=BOOK[1],
+                       n_blocks=ek._n_blocks(BOOK[0], (ek.ROWS // nc) * ek.LANES * 4), cp=1.0,
+                       sampler="prng")))
+    return cases
+
+
+def phase_exotic_parity(dev) -> tuple[float, float]:
+    """Both exotic kernels against their plain versions; returns the largest
+    absolute difference of each."""
+    worst_mc = 0.0
+    for tag, kw in exotic_parity_cases(dev):
+        params, book = kw.pop("params"), kw.pop("book")
+        kern = ek._exotic_moments_cuda(7, 1, params, book, **kw)
+        plain = ek._exotic_moments_plain(7, 1, params, book, **kw)
+        torch.cuda.synchronize()
+        worst_mc = max(worst_mc, compare_sums(kern, plain, f"exotic_mc {tag}"))
+    worst_g = 0.0
+    cases = [(kind, cp, sampler, 2, 12) for kind in ek.GREEK_KINDS for cp in (1.0, -1.0)
+             for sampler in ("hash", "prng")]
+    cases.append(("asian_geo", 1.0, "prng", ek._n_blocks(GREEKS[0], ek.PATHS_PER_BLOCK_G),
+                  GREEKS[1]))
+    for kind, cp, sampler, n_blocks, n_steps in cases:
+        params, _ = exotic_inputs(kind, n_steps, dev, strike=105.0)
+        kw = dict(kind=kind, n_steps=n_steps, n_blocks=n_blocks, cp=cp, sampler=sampler)
+        kern = ek._exotic_greeks_cuda(7, 1, params, **kw)
+        plain = ek._exotic_greeks_plain(7, 1, params, **kw)
+        torch.cuda.synchronize()
+        worst_g = max(worst_g, compare_sums(
+            kern, plain, f"exotic_greeks {kind} cp={cp:+.0f} {sampler} {n_blocks}x{n_steps}"))
+    return worst_mc, worst_g
+
+
+def timed(fn, iters: int = 3):
+    """(result of a first call, mean warm wall ms of ``iters`` more calls)."""
+    out = fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) / iters * 1e3
+
+
+def phase_exotic_main(dev, card: str) -> dict:
+    """The exotic path through its entry points, against oracles. Returns
+    the number of calls routed to each kernel."""
+    calls = {"mc": 0, "greeks": 0}
+    rows = []
+
+    def record(tag, n_paths, n_steps, ms):
+        rows.append(f"{tag} {ms:.3f} ms ({n_paths * n_steps / (ms / 1e3):.4e} path-steps/s)")
+
+    # geometric Asian against its exact discrete closed form
+    n, m = ASIAN
+    (p, se, paths), ms = timed(lambda: ek.exotic_price("asian_geo", S0, STRIKE, T, RATE, VOL,
+                                                       n_paths=n, n_steps=m, device=dev))
+    calls["mc"] += 4
+    cf = tex.geometric_asian_closed_form(S0, STRIKE, T, RATE, VOL, n_steps=m).item()
+    if not abs(p.item() - cf) < 4 * se.item():
+        raise AssertionError(f"asian_geo {p.item()} vs closed form {cf} (4·se {4 * se.item()})")
+    log("exotic", f"asian_geo {paths}x{m}: price={p.item():.6f} cf={cf:.6f} se={se.item():.3e}")
+    record(f"asian_geo {n}x{m}", paths, m, ms)
+
+    # arithmetic Asian, plain and with the geometric control variate
+    (pl, se_pl, _), ms = timed(lambda: ek.exotic_price("asian_arith", S0, STRIKE, T, RATE, VOL,
+                                                       n_paths=n, n_steps=m, seed=1,
+                                                       device=dev))
+    record(f"asian_arith {n}x{m}", paths, m, ms)
+    (cv, se_cv, _), ms = timed(lambda: ek.exotic_price("asian_arith", S0, STRIKE, T, RATE, VOL,
+                                                       n_paths=n, n_steps=m, seed=2,
+                                                       control_variate=True, device=dev))
+    record(f"asian_arith CV {n}x{m}", paths, m, ms)
+    calls["mc"] += 8
+    if not (abs(cv.item() - pl.item()) < 4 * math.hypot(se_cv.item(), se_pl.item())
+            and se_cv.item() < se_pl.item() / 8):
+        raise AssertionError(f"CV {cv.item()}±{se_cv.item()} vs plain {pl.item()}±{se_pl.item()}")
+    log("exotic", f"asian_arith: plain={pl.item():.6f}±{se_pl.item():.2e} "
+                  f"CV={cv.item():.6f}±{se_cv.item():.2e} (se ratio {se_pl.item() / se_cv.item():.1f})")
+
+    # pathwise Greeks of the geometric Asian against autograd of the closed form
+    n, m = GREEKS
+    g, ms = timed(lambda: ek.exotic_greeks("asian_geo", S0, STRIKE, T, RATE, VOL, n_paths=n,
+                                           n_steps=m, device=dev))
+    calls["greeks"] += 4
+    record(f"greeks asian_geo {n}x{m}", g["paths"], m, ms)
+    args = [torch.tensor(x, dtype=torch.float64, requires_grad=True) for x in (S0, VOL, RATE, T)]
+    price = tex.geometric_asian_closed_form(args[0], STRIKE, args[3], args[2], args[1], 1.0, 0.0,
+                                            m)
+    ad = dict(zip(("delta", "vega", "rho", "theta"), torch.autograd.grad(price, args)))
+    ad["theta"] = -ad["theta"]
+    bounds = {"delta": 0.01, "vega": 0.6, "rho": 0.6, "theta": 0.3}  # tests/test_exotic_pallas.py
+    if not abs(g["price"].item() - price.item()) < 5 * g["std_error"].item() + 1e-3 or any(
+            not abs(g[k].item() - ad[k].item()) < b for k, b in bounds.items()):
+        raise AssertionError(f"asian_geo Greeks {g} vs closed-form AD {ad}")
+    log("exotic", "asian_geo pathwise vs AD of closed form: " + " ".join(
+        f"{k}={g[k].item():.5f}/{ad[k].item():.5f}" for k in bounds))
+
+    # LR ladder of an unreachable up-and-out (a vanilla) against Black–Scholes
+    n, m = BARRIER_LR
+    lr, ms = timed(lambda: ek.exotic_lr_greeks("barrier_up-and-out", S0, STRIKE, T, RATE, VOL,
+                                               barrier=1e6, n_paths=n, n_steps=m, device=dev))
+    calls["mc"] += 4
+    record(f"barrier LR {n}x{m}", lr["paths"], m, ms)
+    bs = bs_greeks(S0, STRIKE, T, RATE, VOL, 1.0, 0.0)
+    bounds = {"price": 0.08, "delta": 0.02, "gamma": 0.01, "vega": 2.0, "rho": 2.0, "theta": 1.0}
+    if any(not abs(lr[k].item() - bs[k].item()) < b for k, b in bounds.items()):
+        raise AssertionError(f"far-barrier LR ladder {lr} vs BS {bs}")
+    log("exotic", "far up-and-out LR vs BS: " + " ".join(
+        f"{k}={lr[k].item():.5f}/{bs[k].item():.5f}" for k in bounds))
+
+    # range accrual against its exact closed form
+    n, m = ASIAN
+    (ra, se_ra, paths), ms = timed(lambda: ek.range_accrual_price(S0, 90.0, 110.0, T, RATE, VOL,
+                                                                  n_paths=n, n_steps=m,
+                                                                  device=dev))
+    calls["mc"] += 4
+    record(f"range_accrual {n}x{m}", paths, m, ms)
+    cf = tex.range_accrual_closed_form(S0, 90.0, 110.0, T, RATE, VOL, n_steps=m).item()
+    if not abs(ra.item() - cf) < 4 * se_ra.item():
+        raise AssertionError(f"range accrual {ra.item()} vs closed form {cf}")
+    log("exotic", f"range_accrual: price={ra.item():.6f} cf={cf:.6f} se={se_ra.item():.2e}")
+
+    # autocall and cliquet against the scan engine
+    gen = torch.Generator(device=dev)
+    for name, kernel_fn, scan_fn in (
+            ("autocall", lambda: ek.autocall_price(S0, T, RATE, VOL, n_paths=1_000_000,
+                                                   n_steps=252, device=dev),
+             lambda: tex.autocallable_price(S0, T, RATE, VOL, gen.manual_seed(3),
+                                            n_paths=200_000, n_steps=252, return_stderr=True)),
+            ("cliquet", lambda: ek.cliquet_price(S0, T, RATE, VOL, n_paths=1_000_000,
+                                                 n_steps=252, device=dev),
+             lambda: tex.cliquet_price(S0, T, RATE, VOL, gen.manual_seed(4), n_paths=200_000,
+                                       n_steps=252, return_stderr=True))):
+        (kp, kse, paths), ms = timed(kernel_fn)
+        calls["mc"] += 4
+        record(f"{name} 1000000x252", paths, 252, ms)
+        sp, sse = scan_fn()
+        z = (kp.item() - sp.item()) / math.hypot(kse.item(), sse.item())
+        if not (math.isfinite(kp.item()) and abs(z) < 5):
+            raise AssertionError(f"{name}: kernel {kp.item()} vs scan {sp.item()} (z={z:.2f})")
+        log("exotic", f"{name}: kernel={kp.item():.5f}±{kse.item():.2e} "
+                      f"scan={sp.item():.5f}±{sse.item():.2e} z={z:+.2f}")
+
+    # an 8-strike Asian book against its single-contract siblings
+    n, m = BOOK
+    (bp, bse, bn), ms = timed(lambda: ek.exotic_book_price("asian_arith", S0, BOOK_STRIKES, T,
+                                                           RATE, VOL, n_paths=n, n_steps=m,
+                                                           device=dev))
+    calls["mc"] += 4
+    record(f"book 8x{n}x{m}", bn * len(BOOK_STRIKES), m, ms)
+    zs = []
+    for j, k in enumerate(BOOK_STRIKES):
+        sp, sse, _ = ek.exotic_price("asian_arith", S0, k, T, RATE, VOL, n_paths=n, n_steps=m,
+                                     seed=100 + j, device=dev)
+        calls["mc"] += 1
+        zs.append((bp[j].item() - sp.item()) / math.hypot(bse[j].item(), sse.item()))
+    if not all(abs(z) < 5 for z in zs):
+        raise AssertionError(f"book vs single contracts: z = {zs}")
+    log("exotic", f"book of 8 vs singles: max|z|={max(abs(z) for z in zs):.2f}")
+    log("exotic", f"warm wall, mean of 3 [{card}]: " + "; ".join(rows))
+    return calls
+
+
+def phase_exotic_server(dev) -> dict:
+    """``/exotic`` and ``/book/exotic`` on the card over a socket."""
+    calls = {"mc": 0, "greeks": 0}
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}/exotic"
+    big = {"n_paths": 4_000_000, "n_steps": 64}
+    try:
+        for body, route in (({"kind": "asian", "greeks": True, **big}, "greeks"),
+                            ({"kind": "barrier", "greeks": True, "barrier": 130.0, **big}, "mc"),
+                            ({"kind": "autocallable", "greeks": True, **big}, "mc")):
+            status, out = _request(base, body)
+            calls[route] += 1
+            if status != 200 or not all(math.isfinite(out[k]) for k in
+                                        ("price", "std_error", "delta", "vega", "rho")):
+                raise AssertionError(f"/exotic {body}: {status} {out}")
+            log("exotic server", f"/exotic {body['kind']} greeks: price={out['price']:.5f} "
+                                 f"delta={out['delta']:.5f} vega={out['vega']:.4f} "
+                                 f"({out['greek_method']})")
+        status, out = _request(base, {"kind": "double-barrier", "lower": 80.0, "upper": 125.0,
+                                      **big})
+        calls["mc"] += 1
+        cf = out.get("closed_form_continuous")
+        if status != 200 or cf is None or not out["price"] >= cf - 4 * out["std_error"]:
+            raise AssertionError(f"/exotic double-barrier: {status} {out}")
+        log("exotic server", f"/exotic double-barrier: discrete={out['price']:.5f} "
+                             f"continuous cf={cf:.5f} (discrete monitoring knocks out less)")
+        status, out = _request(base, {"kind": "one-touch", "pay": "hit", "barrier": 115.0, **big})
+        calls["mc"] += 1
+        hit_cf = tex.one_touch_closed_form(S0, 115.0, T, RATE, VOL, pay="hit").item()
+        if status != 200 or not 0.0 < out["price"] <= hit_cf + 4 * out["std_error"]:
+            raise AssertionError(f"/exotic one-touch at hit: {status} {out}")
+        log("exotic server", f"/exotic one-touch pay-at-hit: {out['price']:.5f} "
+                             f"(continuous cf {hit_cf:.5f})")
+        status, out = _request(base.replace("/exotic", "/book/exotic"),
+                               {"kind": "barrier", "strikes": [95.0, 100.0, 105.0],
+                                "barriers": [120.0, 125.0, 130.0], "greeks": True,
+                                "n_paths": 1_000_000})
+        calls["mc"] += 1
+        if status != 200 or len(out["delta"]) != 3 or not all(
+                math.isfinite(x) for x in out["price"] + out["delta"]):
+            raise AssertionError(f"/book/exotic: {status} {out}")
+        log("exotic server", f"/book/exotic barrier x3 greeks: prices={out['price']} "
+                             f"deltas={out['delta']}")
+    finally:
+        server.stop()
+    return calls
+
+
+def event_pair(kernel_fn, plain_fn, iters: int = 5) -> tuple[float, float]:
+    """Device ms of the kernel (mean of ``iters`` after a warm-up) and of its
+    plain version (one warm call)."""
+    kernel_fn()
+    ms = event_time(kernel_fn, iters)
+    plain_fn()
+    plain_ms = event_time(plain_fn, 1)
     return ms, plain_ms
+
+
+def load_sass() -> dict:
+    return sass_bound.parse_functions(
+        sass_bound.dump_sass(_build.library_path(), _build.cuda_tool("cuobjdump")))
+
+
+def sm_clock_hz() -> float:
+    out = subprocess.run(["nvidia-smi", "-i", "0", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True)
+    return float(out.stdout.strip()) * 1e6
+
+
+def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, tag: str):
+    """(bound ms, bound_by) of a launch: the larger of its bytes over the HBM
+    rate and its hot loop's busiest pipe (``ops/sass_bound.py``)."""
+    counts = sass_bound.hot_loop_counts(sass_bound.find_function(funcs, *name_parts))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    clock = sm_clock_hz()
+    ops_ms, pipe = sass_bound.bound_ms(counts, trips, n_sm, clock)
+    per_pipe = sass_bound.pipe_ms(counts, trips, n_sm, clock)
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    log("bound", f"{tag}: per trip fp32={counts['fp32']:.1f} int={counts['int']:.1f} "
+                 f"mufu={counts['mufu']:.1f} issued={counts['issue']:.1f} (unroll "
+                 f"{counts['unroll']}); {trips:.4e} trips on {n_sm} SMs at {clock / 1e6:.0f} "
+                 f"MHz -> ms by pipe " + " ".join(f"{p}={v:.4f}" for p, v in per_pipe.items())
+        + f"; bound {ops_ms:.4f} ms ({pipe}); bytes {bytes_ms:.2e} ms")
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def exotic_timing(dev) -> dict:
+    """Device ms of both exotic kernels and their plain versions at the
+    exotic path's shapes (prng). Not counted as main path."""
+    out = {}
+    for tag, kind, (n_paths, n_steps), lr in (("asian_arith 4Mx252", "asian_arith", ASIAN, False),
+                                              ("barrier LR 16Mx64", "barrier_up-and-out",
+                                               BARRIER_LR, True)):
+        params, book = exotic_inputs(kind, n_steps, dev, barrier=1e6 if lr else None)
+        kw = dict(kind=kind, n_steps=n_steps, n_blocks=ek._n_blocks(n_paths, ek.PATHS_PER_BLOCK),
+                  cp=1.0, sampler="prng", lr=lr)
+        ms, plain_ms = event_pair(lambda: ek._exotic_moments_cuda(0, 0, params, book, **kw),
+                                  lambda: ek._exotic_moments_plain(0, 0, params, book, **kw))
+        out[tag] = {"ms": ms, "plain_ms": plain_ms,
+                    "trips": kw["n_blocks"] * ek.ROWS * ek.LANES * n_steps,
+                    "bytes": 4 * (ek.N_PARAMS + 7 + ek._n_moments(kind, lr) * ek.ROWS)}
+    params, _ = exotic_inputs("asian_geo", GREEKS[1], dev)
+    kw = dict(kind="asian_geo", n_steps=GREEKS[1], cp=1.0, sampler="prng",
+              n_blocks=ek._n_blocks(GREEKS[0], ek.PATHS_PER_BLOCK_G))
+    ms, plain_ms = event_pair(lambda: ek._exotic_greeks_cuda(0, 0, params, **kw),
+                              lambda: ek._exotic_greeks_plain(0, 0, params, **kw))
+    out["greeks asian_geo 8Mx252"] = {"ms": ms, "plain_ms": plain_ms,
+                                      "trips": kw["n_blocks"] * ek.ROWS * ek.LANES_G * GREEKS[1],
+                                      "bytes": 4 * (ek.N_PARAMS + 5 * ek.ROWS)}
+    return out
 
 
 def main() -> None:
@@ -278,34 +670,68 @@ def main() -> None:
                   f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     _build.load_library()
-    log("build", f"libgbm_kernels.so ready in {_build.build_seconds():.1f} s")
+    n_src = len(list(_build.CSRC.glob("*.cu")))
+    log("build", f"{_build.LIB_NAME} ready in {_build.build_seconds():.1f} s "
+                 f"({n_src} sources, one nvcc each, in parallel)")
 
-    max_abs_err = phase_parity(dev)
+    gbm_err = phase_parity(dev)
+    mc_err, greeks_err = phase_exotic_parity(dev)
 
+    # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
     main_stats = phase_main(dev, card)
     n_mc = phase_server(dev)
-    launches = gk._gbm_moments_cuda.launches
+    gbm_launches = gk._gbm_moments_cuda.launches
     expected = main_stats["calls"] + n_mc
-    log("launches", f"gbm_mc launched {launches} times for {expected} kernel-route calls")
-    if launches < expected:
-        raise AssertionError(f"main path launched the kernel {launches} < {expected} times")
+    log("launches", f"gbm_mc launched {gbm_launches} times for {expected} kernel-route calls")
+    if gbm_launches < expected:
+        raise AssertionError(f"GBM path launched its kernel {gbm_launches} < {expected} times")
 
-    ms, plain_ms = phase_timing(dev)
-    log("timing", f"book 1024x1e6 prng Greeks, device ms by CUDA events [{card}]: "
-                  f"kernel {ms:.3f}, plain torch {plain_ms:.3f}")
+    # the exotic path
+    ek._exotic_moments_cuda.launches = 0
+    ek._exotic_greeks_cuda.launches = 0
+    calls = phase_exotic_main(dev, card)
+    served = phase_exotic_server(dev)
+    mc_launches = ek._exotic_moments_cuda.launches
+    greeks_launches = ek._exotic_greeks_cuda.launches
+    for name, n, want in (("exotic_mc", mc_launches, calls["mc"] + served["mc"]),
+                          ("exotic_greeks", greeks_launches, calls["greeks"] + served["greeks"])):
+        log("launches", f"{name} launched {n} times for {want} kernel-route calls")
+        if n < want or n == 0:
+            raise AssertionError(f"exotic path launched {name} {n} < {want} times")
 
-    print(json.dumps({"kernels": [{
-        "name": "gbm_mc_kernel",
-        "route": "cuda",
-        "source": "optionslab_tpu_torch/csrc/gbm_mc.cu",
-        "replaces": "optionslab_tpu/ops/gbm_pallas.py:104",
-        "launches": launches,
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
-    print(f"card: {card}")
+    funcs = load_sass()
+    gbm_t = phase_timing(dev)
+    for tag, t in gbm_t.items():
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, ("gbm_mc_kernelILi0ELb1E",),
+                                                    t["trips"], t["bytes"], f"gbm_mc {tag}")
+    ex_t = exotic_timing(dev)
+    names = {"asian_arith 4Mx252": ("exotic_mc_kernelILi0ELb0ELi0E",),
+             "barrier LR 16Mx64": ("exotic_mc_kernelILi4ELb1ELi0E",),
+             "greeks asian_geo 8Mx252": ("exotic_greeks_kernelILi1ELi0E",)}
+    for tag, t in ex_t.items():
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, names[tag], t["trips"], t["bytes"], tag)
+    for tag, t in list(gbm_t.items()) + list(ex_t.items()):
+        log("timing", f"{tag} prng, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
+                      f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
+                      f"{t['bound_ms']:.4f} ({t['bound_by']})")
+
+    def entry(name, source, replaces, launches, err, t):
+        return {"name": name, "route": "cuda", "source": f"optionslab_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": None}
+
+    print(json.dumps({"kernels": [
+        entry("gbm_mc_kernel", "gbm_mc.cu", "optionslab_tpu/ops/gbm_pallas.py:104",
+              gbm_launches, gbm_err, gbm_t["1024x1e6"]),
+        entry("exotic_mc_kernel", "exotic_mc.cu", "optionslab_tpu/ops/exotic_pallas.py:150",
+              mc_launches, mc_err, ex_t["asian_arith 4Mx252"]),
+        entry("exotic_greeks_kernel", "exotic_greeks.cu",
+              "optionslab_tpu/ops/exotic_pallas.py:1315", greeks_launches, greeks_err,
+              ex_t["greeks asian_geo 8Mx252"]),
+    ]}))
+    print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -1,6 +1,20 @@
 """Kernels and numerical primitives. Each kernel's module holds its plain
 torch version beside the wrapper that launches the CUDA kernel."""
 
+from .exotic_kernel import (
+    autocall_lr_greeks,
+    autocall_price,
+    cliquet_lr_greeks,
+    cliquet_price,
+    exotic_book_lr_greeks,
+    exotic_book_price,
+    exotic_greeks,
+    exotic_kernel_ladder,
+    exotic_lr_greeks,
+    exotic_price,
+    range_accrual_lr_greeks,
+    range_accrual_price,
+)
 from .gbm_kernel import (
     gbm_mc_price,
     gbm_mc_price_greeks,
@@ -8,4 +22,21 @@ from .gbm_kernel import (
     gbm_paths_per_launch,
 )
 
-__all__ = ["gbm_mc_price", "gbm_mc_price_greeks", "gbm_mc_price_only", "gbm_paths_per_launch"]
+__all__ = [
+    "autocall_lr_greeks",
+    "autocall_price",
+    "cliquet_lr_greeks",
+    "cliquet_price",
+    "exotic_book_lr_greeks",
+    "exotic_book_price",
+    "exotic_greeks",
+    "exotic_kernel_ladder",
+    "exotic_lr_greeks",
+    "exotic_price",
+    "gbm_mc_price",
+    "gbm_mc_price_greeks",
+    "gbm_mc_price_only",
+    "gbm_paths_per_launch",
+    "range_accrual_lr_greeks",
+    "range_accrual_price",
+]

@@ -1,10 +1,12 @@
 """Build the CUDA sources of ``csrc/`` with ``nvcc`` and load them with ctypes.
 
-The library is compiled once per content hash of ``csrc/*`` and the build
-flags, into ``optionslab_tpu_torch/_build/<hash>/``; later calls and later
-processes load the cached file. The sources have a plain C interface (no
-PyTorch headers), so a build takes seconds, not minutes. Nothing here runs
-at import time: the CPU-only test environment imports every module.
+One library holds every kernel. It is compiled once per content hash of
+``csrc/*`` and the build flags, into ``optionslab_tpu_torch/_build/<hash>/``;
+later calls and later processes load the cached file. Each ``.cu`` source is
+compiled to an object by its own ``nvcc``, all started together, and the
+objects are then linked. The sources have a plain C interface (no PyTorch
+headers). Nothing here runs at import time: the CPU-only test environment
+imports every module.
 """
 
 from __future__ import annotations
@@ -22,9 +24,9 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-LIB_NAME = "libgbm_kernels.so"
+LIB_NAME = "liboptionslab_kernels.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -33,6 +35,7 @@ _build_seconds: float | None = None
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _U = ctypes.c_uint32
+_F = ctypes.c_float
 
 
 def _sources() -> list[Path]:
@@ -47,32 +50,52 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (``nvcc``, ``cuobjdump``)."""
     home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [os.path.join(home, "bin", "nvcc")] if home else []
-    candidates += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
+    candidates = [os.path.join(home, "bin", name)] if home else []
+    candidates += [shutil.which(name) or "", f"/usr/local/cuda/bin/{name}"]
     for c in candidates:
         if c and os.access(c, os.X_OK):
             return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+    raise RuntimeError(f"{name} not found: set CUDA_HOME or put {name} on PATH")
+
+
+def _run_nvcc(procs) -> None:
+    for cmd, proc in procs:
+        stdout, stderr = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                               f"{stdout}{stderr}")
 
 
 def _compile(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     # build beside the target, then rename: concurrent processes never load a
     # half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sorted(CSRC.glob("*.cu")))]
+    tmp_dir = Path(tempfile.mkdtemp(dir=out.parent))
+    procs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)
+        objects = []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = tmp_dir / (src.stem + ".o")
+            cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                stderr=subprocess.PIPE, text=True)))
+            objects.append(str(obj))
+        _run_nvcc(procs)
+        lib = tmp_dir / LIB_NAME
+        cmd = [cuda_tool("nvcc"), "-shared", "-o", str(lib), *objects]
+        procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                        text=True))]
+        _run_nvcc(procs)
+        os.replace(lib, out)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _cmd, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(tmp_dir, ignore_errors=True)
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -86,9 +109,33 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.gbm_mc_moments.restype = _I
+    lib.exotic_mc_moments.argtypes = [
+        _P, _P, _I,                  # params, book, nc
+        _U, _U,                      # seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _I, _F,                  # n_steps, period, cp
+        _I, _I, _I, _I, _I,          # family, mode, sampler, lr, n_mom
+        _P, _P,                      # plan ints, plan floats (host arrays)
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.exotic_mc_moments.restype = _I
+    lib.exotic_greeks_moments.argtypes = [
+        _P, _U, _U,                  # params, seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _F, _I, _I,              # n_steps, cp, kind, sampler
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.exotic_greeks_moments.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def library_path() -> Path:
+    """Where the library of the current sources is (or will be) built."""
+    return BUILD_DIR / _digest() / LIB_NAME
 
 
 def load_library() -> ctypes.CDLL:
@@ -96,7 +143,7 @@ def load_library() -> ctypes.CDLL:
     global _lib, _build_seconds
     with _lock:
         if _lib is None:
-            path = BUILD_DIR / _digest() / LIB_NAME
+            path = library_path()
             t0 = time.perf_counter()
             if not path.exists():
                 _compile(path)

@@ -36,11 +36,12 @@ from .kernel_rng import (
     GOLDEN,
     GROUP_SALT,
     HASH_SALT,
-    TWO_PI,
+    box_muller,
     fmix32,
     hash_uniform,
     philox_uniform_pair,
     sobol_pair,
+    sqrt_rn,
     wrap32,
 )
 
@@ -62,15 +63,6 @@ _TARGET_CTAS = 4096
 # Elements (blocks x rows x lanes) per step of the plain version's loop.
 _PLAIN_CHUNK_ELEMS = 1 << 22
 _LAUNCH_LOCK = threading.Lock()  # the server launches from several threads
-
-
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root, as XLA's and CUDA's sqrtf are.
-
-    torch's CPU float32 sqrt is off by an ulp on some inputs; the float64
-    root rounded once to float32 is exact (53 >= 2·24 + 2 bits).
-    """
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def _lanes_for(rows: int) -> int:
@@ -121,7 +113,7 @@ def _prepare(batch: ContractBatch):
     k = expand(flat.strike)
     cp = expand(flat.cp)
     a = expand((flat.rate - flat.dividend - 0.5 * flat.vol**2) * flat.maturity)
-    s = expand(flat.vol * _sqrt_rn(t))
+    s = expand(flat.vol * sqrt_rn(t))
     row = torch.arange(rows, dtype=torch.int32, device=flat.spot.device)
     rep_id = torch.clamp_max(row // c, reps - 1)
     cid = row % c
@@ -179,10 +171,7 @@ def _gbm_moments_plain(seed: int, block0: int, params, *, n_blocks: int, rows: i
         block = (blocks + block0).to(torch.int32).reshape(-1, 1, 1)
         u1, u2 = _uniforms(sampler, seed, block, row, col, rows=rows, lanes=lanes,
                            reps=reps, rep_id=rep_id, cid=cid)
-        radius = _sqrt_rn(-2.0 * torch.log(u1))
-        theta = TWO_PI * u2
-        z_cos = radius * torch.cos(theta)
-        z_sin = radius * torch.sin(theta)
+        z_cos, z_sin = box_muller(u1, u2)
         grow_cos = torch.exp(s * z_cos)
         grow_sin = torch.exp(s * z_sin)
         for z, st in ((z_cos, base * grow_cos), (-z_cos, base / grow_cos),

@@ -11,10 +11,30 @@ version of each kernel (and the tests) reproduce the kernel's path set:
   ``optionslab_tpu.ops.gbm_pallas._sobol_pair`` (30-bit direction numbers);
 * :func:`philox4x32_10` — Random123's Philox4x32-10 on uint32 values held
   in int64 tensors. It stands in for the TPU's hardware generator, which has
-  no counterpart on the card.
+  no counterpart on the card;
+* :func:`draw_normals` — the per-step Box–Muller pair of the path kernels
+  (``optionslab_tpu.ops.kernel_rng.draw_normals``), for ``hash`` bit for bit
+  with the reference's uniforms, and for ``prng`` on Philox;
+* :func:`sobol_nd` and :func:`bridge_plan` — the up-to-8-dimensional
+  scrambled Sobol points and the Brownian-bridge plan of the exotic kernel's
+  ``sobol_bb`` sampler (``optionslab_tpu.ops.exotic_pallas._sobol_nd`` and
+  ``_bridge_plan``).
+
+Philox streams of the path kernels. The TPU seeds its generator once per
+path block and then draws sequentially; a counter-based generator needs the
+step in its counter instead. Every Philox draw is keyed by
+``(seed, PHILOX_BLOCK_SALT ^ block)`` and its counter is
+``(row, col, step, stream)``:
+
+* stream 0 — the Box–Muller pair of :func:`draw_normals` (and, at step 0,
+  the terminal GBM kernel's single pair);
+* streams 1 and 2 — reserved for the Heston kernels' ``draw_uniform`` and
+  ``draw_jump``, so that no two draws of one lane ever share a counter.
 """
 
 from __future__ import annotations
+
+from collections import deque
 
 import torch
 
@@ -117,10 +137,93 @@ def philox4x32_10(c0, c1, c2, c3, k0, k1):
     return c
 
 
-def philox_uniform_pair(row: torch.Tensor, col: torch.Tensor, seed: int, block: torch.Tensor):
-    """(u1, u2) of the kernel's ``prng`` sampler: Philox keyed by
-    ``(seed, PHILOX_BLOCK_SALT ^ block)`` at counter ``(row, col, 0, 0)``,
+def philox_uniform_pair(row: torch.Tensor, col: torch.Tensor, seed: int, block: torch.Tensor,
+                        step=0):
+    """(u1, u2) of the kernels' ``prng`` sampler: Philox keyed by
+    ``(seed, PHILOX_BLOCK_SALT ^ block)`` at counter ``(row, col, step, 0)``,
     24 bits per uniform from output words 0 and 1."""
     key1 = (block.to(torch.int64) & _U32) ^ PHILOX_BLOCK_SALT
-    x = philox4x32_10(row, col, 0, 0, int(seed) & _U32, key1)
+    x = philox4x32_10(row, col, step, 0, int(seed) & _U32, key1)
     return _bits24_to_uniform(x[0] >> 8), _bits24_to_uniform(x[1] >> 8)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as XLA's and CUDA's sqrtf are.
+
+    torch's CPU float32 sqrt is off by an ulp on some inputs; the float64
+    root rounded once to float32 is exact (53 >= 2·24 + 2 bits).
+    """
+    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
+
+
+def box_muller(u1: torch.Tensor, u2: torch.Tensor):
+    """(r·cos θ, r·sin θ) with r = sqrt(-2 log u1), θ = 2π·u2, in float32."""
+    radius = sqrt_rn(-2.0 * torch.log(u1))
+    theta = TWO_PI * u2
+    return radius * torch.cos(theta), radius * torch.sin(theta)
+
+
+def draw_normals(sampler: str, seed: int, block: torch.Tensor, step: int, n_steps: int,
+                 rows: int, lanes: int):
+    """One Box–Muller pair (z_cos, z_sin) per lane for path blocks ``block``
+    (int32 of shape (nb, 1, 1)) at time step ``step``: tensors of shape
+    (nb, rows, lanes) on ``block``'s device.
+
+    ``hash`` draws the counters of ``optionslab_tpu.ops.kernel_rng``
+    (unique per block, step, draw and lane); ``prng`` draws Philox stream 0
+    at counter ``(row, col, step, 0)`` (module docstring).
+    """
+    dev = block.device
+    row = torch.arange(rows, dtype=torch.int32, device=dev).reshape(1, -1, 1)
+    col = torch.arange(lanes, dtype=torch.int32, device=dev).reshape(1, 1, -1)
+    if sampler == "hash":
+        lane_id = row * lanes + col
+        base = ((block * wrap32(n_steps) + wrap32(step)) * 2) * wrap32(rows * lanes)
+        u1 = hash_uniform(base + lane_id, seed)
+        u2 = hash_uniform(base + wrap32(rows * lanes) + lane_id, seed)
+    elif sampler == "prng":
+        u1, u2 = philox_uniform_pair(row, col, seed, block, step)
+    else:
+        raise ValueError(f"draw_normals: unknown sampler {sampler!r}")
+    return box_muller(u1, u2)
+
+
+def _sobol_v8() -> tuple:
+    from .rng import _direction_matrix
+
+    return tuple(tuple(int(x) for x in row) for row in _direction_matrix()[:8])
+
+
+V8 = _sobol_v8()  # 30-bit direction numbers of the first 8 Joe–Kuo dimensions
+
+
+def sobol_nd(idx: torch.Tensor, scrambles, n_dim: int) -> list:
+    """``n_dim`` <= 8 scrambled-Sobol uniforms for int32 point indices ``idx``:
+    the Gray-code XOR of :data:`V8`, then one digital shift per dimension."""
+    gray = idx ^ (idx >> 1)
+    xs = [torch.zeros_like(idx) for _ in range(n_dim)]
+    for k in range(_QMC_BITS):
+        bit = (gray >> k) & 1
+        for d in range(n_dim):
+            xs[d] = xs[d] ^ (bit * V8[d][k])
+    return [(x ^ s).to(torch.float32) * _INV_2_30 + 0.5 * _INV_2_30
+            for x, s in zip(xs, scrambles)]
+
+
+def bridge_plan(n_steps: int, max_levels: int):
+    """Dyadic-bisection plan of the bridge coordinates: the sorted segment
+    bounds (0 and ``n_steps`` included) and the constructs ``[(mid, lo, hi)]``
+    in breadth-first order, at most ``max_levels - 1`` of them."""
+    bounds = [0, n_steps]
+    constructs = []
+    q = deque([(0, n_steps)])
+    while len(constructs) < max_levels - 1 and q:
+        a, b = q.popleft()
+        if b - a < 2:
+            continue
+        m = (a + b) // 2
+        constructs.append((m, a, b))
+        bounds.append(m)
+        q.append((a, m))
+        q.append((m, b))
+    return sorted(bounds), constructs

@@ -1,0 +1,160 @@
+"""Instruction-issue lower bound of a path kernel, from its compiled SASS.
+
+The path kernels move next to no bytes, so their least time on the card is
+set by how many instructions of each kind one loop trip issues. This module
+reads the SASS of the built library (``cuobjdump -sass``), finds a kernel's
+hot loop and counts its instructions by pipe:
+
+* the hot loop is the innermost loop (a backward branch) whose body holds a
+  ``MUFU.RSQ``: every trip of it does exactly one Box–Muller, whose
+  ``sqrtf`` issues one ``MUFU.RSQ``. For the exotic kernels that is the
+  time-step loop (one step of one lane), for the terminal GBM kernel the
+  lane loop (one lane);
+* the code a trip skips on its fast path is left out: a region that a
+  forward conditional branch jumps over and that holds a call or a loop
+  (the slow paths of ``sincosf``, ``sqrtf`` and the divide);
+* the ``MUFU.RSQ`` count of what remains is the compiler's unroll factor,
+  and every count is divided by it.
+
+Code behind a branch on a runtime argument (a kernel family's mode) is
+counted as if it ran, so a kernel whose step loop holds such code gets a
+bound above its least time; the kernels keep that code out of their loops.
+
+Pipe rates per SM and clock for compute capability 9.0 (CUDA C++
+Programming Guide, throughput of native arithmetic instructions): 128 for
+FP32 add/multiply/FMA, 64 for 32-bit integer add/multiply/shift/logic/compare,
+16 for the multi-function unit (transcendentals) and for float↔int
+conversions, and 4 warp instructions (128 thread instructions) issued per SM
+and clock. The bound of a launch is its trip count times the busiest pipe's
+count over that pipe's rate, over SMs × SM clock.
+"""
+
+from __future__ import annotations
+
+import re
+import subprocess
+from dataclasses import dataclass
+from pathlib import Path
+
+PIPE_RATE = {"fp32": 128, "int": 64, "mufu": 16, "issue": 128}
+
+_FP32 = {"FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSEL", "FCHK", "FRND", "FSWZADD", "HFMA2",
+         "HADD2", "HMUL2", "FSET"}
+_INT = {"IMAD", "IADD3", "IADD", "LOP3", "LOP", "SHF", "SHL", "SHR", "LEA", "ISETP", "IMNMX",
+        "SEL", "PRMT", "FLO", "POPC", "BREV", "I2FP", "IABS", "VIADD", "VIMNMX", "PLOP3", "P2R",
+        "R2P", "MOV", "IDP", "BMSK", "SGXT"}
+_XU = {"MUFU", "I2F", "F2I", "F2F", "I2I"}
+
+_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(@!?U?P[0-7T]\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
+
+
+@dataclass(frozen=True)
+class Instr:
+    addr: int
+    pred: bool  # predicated (@P / @!P)
+    op: str  # full opcode with modifiers, e.g. "MUFU.RSQ"
+    args: str
+
+    @property
+    def base(self) -> str:
+        return self.op.split(".")[0]
+
+    def branch_target(self) -> int | None:
+        if self.base != "BRA":
+            return None
+        m = re.search(r"0x([0-9a-f]+)", self.args)
+        return int(m.group(1), 16) if m else None
+
+
+def parse_functions(sass: str) -> dict[str, list[Instr]]:
+    """``{mangled name: [Instr]}`` of a ``cuobjdump -sass`` listing."""
+    funcs: dict[str, list[Instr]] = {}
+    current = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            current = funcs.setdefault(line.split("Function :", 1)[1].strip(), [])
+            continue
+        m = _LINE.search(line)
+        if m and current is not None:
+            current.append(Instr(int(m.group(1), 16), bool(m.group(2)), m.group(3),
+                                 m.group(4).strip()))
+    return funcs
+
+
+def _pipe(instr: Instr) -> str | None:
+    if instr.base in _XU:
+        return "mufu"
+    if instr.base in _FP32:
+        return "fp32"
+    if instr.base in _INT:
+        return "int"
+    return None
+
+
+def hot_loop_counts(instrs: list[Instr]) -> dict[str, float]:
+    """Instructions per trip of the hot loop, by pipe (``fp32``, ``int``,
+    ``mufu``) and in all (``issue``), with ``unroll`` and the loop's
+    ``span`` in bytes of code."""
+    loops = [(t, i.addr) for i in instrs if (t := i.branch_target()) is not None and t < i.addr]
+    calls = [i.addr for i in instrs if i.base == "CALL"]
+
+    def skipped(lo: int, hi: int) -> list[tuple[int, int]]:
+        """Regions inside (lo, hi] that a forward conditional branch jumps
+        over and that hold a call or a nested loop."""
+        out = []
+        for i in instrs:
+            t = i.branch_target()
+            if not (i.pred and t is not None and lo <= i.addr < t <= hi):
+                continue
+            if any(i.addr < c < t for c in calls) or any(
+                    i.addr < b <= t and a < b for a, b in loops if (a, b) != (lo, hi)):
+                out.append((i.addr, t))
+        return out
+
+    best = None
+    for lo, hi in sorted(loops, key=lambda ab: ab[1] - ab[0]):
+        holes = skipped(lo, hi)
+        body = [i for i in instrs if lo <= i.addr <= hi
+                and not any(a < i.addr < b for a, b in holes)]
+        if any(i.op.startswith("MUFU.RSQ") for i in body):
+            best = (lo, hi, body)
+            break
+    if best is None:
+        raise ValueError("no loop with a MUFU.RSQ (one Box–Muller per trip) in this function")
+    lo, hi, body = best
+    unroll = sum(i.op.startswith("MUFU.RSQ") for i in body)
+    counts = {"fp32": 0, "int": 0, "mufu": 0, "issue": len(body)}
+    for i in body:
+        pipe = _pipe(i)
+        if pipe is not None:
+            counts[pipe] += 1
+    out = {k: v / unroll for k, v in counts.items()}
+    out.update(unroll=unroll, span=hi - lo)
+    return out
+
+
+def pipe_ms(counts: dict[str, float], trips: float, n_sm: int, clock_hz: float) -> dict:
+    """Milliseconds each pipe needs for ``trips`` loop trips at ``counts`` per trip."""
+    return {p: counts[p] * trips / (PIPE_RATE[p] * n_sm * clock_hz) * 1e3 for p in PIPE_RATE}
+
+
+def bound_ms(counts: dict[str, float], trips: float, n_sm: int, clock_hz: float):
+    """(ms, busiest pipe) of ``trips`` loop trips at ``counts`` per trip."""
+    per_pipe = pipe_ms(counts, trips, n_sm, clock_hz)
+    pipe = max(per_pipe, key=per_pipe.get)
+    return per_pipe[pipe], pipe
+
+
+def dump_sass(library: Path, cuobjdump: str = "cuobjdump") -> str:
+    """``cuobjdump -sass`` of a built library."""
+    proc = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True)
+    return proc.stdout
+
+
+def find_function(funcs: dict[str, list[Instr]], *parts: str) -> list[Instr]:
+    """The one function whose mangled name contains every string of ``parts``."""
+    hits = [name for name in funcs if all(p in name for p in parts)]
+    if len(hits) != 1:
+        raise KeyError(f"{len(hits)} functions match {parts}: {hits[:4]}")
+    return funcs[hits[0]]

@@ -10,6 +10,17 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
   /mc           {"n_paths": N, "seed": s, "method": "pallas|xla",
                  contract fields...}                → MC price, stderr and
                 Greeks; "pallas" (the default) runs the fused GBM kernel
+  /exotic       {"kind": "asian|barrier|lookback|cliquet|one-touch|no-touch|
+                 double-barrier|double-touch|autocallable", "greeks": bool,
+                 ...}                               → GBM exotics ("model"
+                "bs" only; "american" and the other models: 400, not yet
+                ported). ``greeks`` runs the kernel Greek ladders; the
+                digital, double and rebate kinds run the exotic kernel; the
+                rest the scan engine. An optional "sampler" picks the
+                kernel's sampler (default "prng")
+  /book/exotic  {"kind": ..., "strikes": [...], "barriers"/"lowers"/
+                 "uppers": [...], "greeks": bool}   → a same-kind book in
+                one launch of the exotic kernel ("model" "bs" only)
   /health  (GET) → status, device name and device count
   /metrics (GET) → per-endpoint request-latency count/p50/p95/max (ms)
 
@@ -20,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -27,7 +39,17 @@ import numpy as np
 import torch
 
 from .models.black_scholes import bs_greeks, bs_price
+from .models.books import exotic_book_quote
+from .models.exotics import (
+    AsianOption,
+    BarrierOption,
+    CliquetOption,
+    LookbackOption,
+    double_barrier_closed_form,
+    double_no_touch_closed_form,
+)
 from .models.monte_carlo import MCConfig, mc_greeks, mc_price_result
+from .ops.exotic_kernel import exotic_kernel_ladder, exotic_price
 from .ops.gbm_kernel import gbm_mc_price_greeks
 from .types import ContractBatch
 from .utils.config import DEFAULT_DTYPE, as_tensors
@@ -94,11 +116,168 @@ def handle_mc(body: dict, device) -> dict:
             **{k: _to_jsonable(v) for k, v in g.items() if k != "price"}}
 
 
+EXOTIC_KINDS = ("asian", "barrier", "lookback", "cliquet", "one-touch", "no-touch",
+                "double-barrier", "double-touch", "autocallable")
+
+
+def _check_bs(body: dict, route: str) -> None:
+    model = str(body.get("model", "bs"))
+    if model != "bs":
+        raise ValidationError(f"{route} model {model!r} is not yet ported; available: ['bs']")
+
+
+def handle_exotic(body: dict, device) -> dict:
+    """GBM exotics, with the request bodies and answer keys of the JAX
+    package's ``/exotic`` (``model`` "bs")."""
+    _check_bs(body, "/exotic")
+    p, cp = _contract(body)
+    kind = body.get("kind", "asian")
+    if kind not in EXOTIC_KINDS:
+        raise ValidationError(f"/exotic kind {kind!r} is not yet ported; available: "
+                              f"{list(EXOTIC_KINDS)}")
+    n_paths = int(body.get("n_paths", 100_000))
+    n_steps = int(body.get("n_steps", 64))
+    seed = int(body.get("seed", 0))
+    sampler = body.get("sampler")
+    kw = dict(n_paths=n_paths, n_steps=n_steps, seed=seed,
+              sampler="prng" if sampler is None else str(sampler), device=device)
+    common = (p["spot"], p["strike"], p["maturity"], p["rate"], p["vol"])
+    if body.get("greeks"):
+        btype = body.get("barrier_type", "up-and-out")
+        if kind == "double-barrier":
+            btype = body.get("knock", "out")
+        elif kind == "double-touch":
+            btype = body.get("touch", "no")
+        return exotic_kernel_ladder(
+            kind, *common, cp, p["dividend"], barrier=float(body.get("barrier", 120.0)),
+            barrier_type=btype, lower=float(body.get("lower", 0.0)),
+            upper=float(body.get("upper", 0.0)),
+            averaging=body.get("averaging", "arithmetic"),
+            floating=bool(body.get("floating", True)), pay=str(body.get("pay", "expiry")),
+            **{**kw, "sampler": sampler})
+    if kind in ("double-barrier", "double-touch"):
+        return _exotic_double(body, p, cp, kind, common, kw)
+    if kind in ("one-touch", "no-touch"):
+        barrier = float(body.get("barrier", 120.0))
+        pay = str(body.get("pay", "expiry"))
+        if pay == "hit" and kind == "no-touch":
+            raise ValidationError("a no-touch pays at expiry by definition")
+        side = "up" if barrier >= p["spot"] else "down"
+        kname = f"{kind.replace('-', '_')}_{side}" + ("_hit" if pay == "hit" else "")
+        pr, se, n = exotic_price(kname, *common, barrier=barrier, **kw)
+        return {"kind": kname, "price": _to_jsonable(pr), "std_error": _to_jsonable(se),
+                "paths": int(n),
+                "pays": "unit cash at the first hit" if pay == "hit" else "unit cash at expiry"}
+    if kind == "barrier" and float(body.get("rebate", 0.0)):
+        barrier = float(body.get("barrier", 120.0))
+        btype = body.get("barrier_type", "up-and-out")
+        rebate = float(body["rebate"])
+        pr, se, n = exotic_price(f"barrier_{btype}", *common, cp, p["dividend"],
+                                 barrier=barrier, **kw)
+        side = "up" if barrier >= p["spot"] else "down"
+        out_leg = btype.endswith("out")
+        leg_kind = f"one_touch_{side}_hit" if out_leg else f"no_touch_{side}"
+        leg, se_l, _ = exotic_price(leg_kind, *common, cp, p["dividend"], barrier=barrier, **kw)
+        return {"kind": f"barrier_{btype}", "price": float(pr) + rebate * float(leg),
+                "std_error": float(np.hypot(float(se), rebate * float(se_l))), "paths": int(n),
+                "rebate": rebate,
+                "rebate_pays": "at first hit" if out_leg else "at expiry if never knocked in"}
+    if kind == "asian" and body.get("control_variate"):
+        pr, se, n = exotic_price("asian_arith", *common, cp, p["dividend"],
+                                 control_variate=True, **kw)
+        return {"kind": kind, "price": _to_jsonable(pr), "std_error": _to_jsonable(se),
+                "paths": int(n), "control_variate": "geometric"}
+    if kind == "autocallable":
+        raise ValidationError("/exotic prices an autocallable with greeks: true (the kernel "
+                              "LR ladder); the price-only branch has no autocallable")
+    scan = dict(n_paths=n_paths, device=str(device))
+    if kind == "asian":
+        opt = AsianOption(*common, option_type=p["option_type"],
+                          averaging=body.get("averaging", "arithmetic"), **scan)
+    elif kind == "barrier":
+        opt = BarrierOption(p["spot"], p["strike"], float(body.get("barrier", 120.0)),
+                            p["maturity"], p["rate"], p["vol"], option_type=p["option_type"],
+                            barrier_type=body.get("barrier_type", "up-and-out"),
+                            continuous=bool(body.get("continuous", False)), **scan)
+    elif kind == "lookback":
+        opt = LookbackOption(*common, option_type=p["option_type"],
+                             floating=bool(body.get("floating", True)), **scan)
+    else:  # cliquet
+        opt = CliquetOption(p["spot"], p["maturity"], p["rate"], p["vol"], **scan)
+    price, se = opt.price(return_stderr=True)
+    return {"kind": kind, "price": _to_jsonable(price), "std_error": _to_jsonable(se)}
+
+
+def _exotic_double(body: dict, p: dict, cp: float, kind: str, common: tuple, kw: dict) -> dict:
+    """Double barriers and double touches on the exotic kernel, with the
+    continuously monitored closed form beside the discretely monitored price."""
+    lower = float(body.get("lower", 90.0))
+    upper = float(body.get("upper", 110.0))
+    pay = str(body.get("pay", "expiry"))
+    rebate = float(body.get("rebate", 0.0))
+    if kind == "double-barrier":
+        knock = body.get("knock", "out")
+        kname = f"barrier_double-{knock}"
+        cf = double_barrier_closed_form(p["spot"], p["strike"], lower, upper, p["maturity"],
+                                        p["rate"], p["vol"], cp, p["dividend"], knock=knock)
+    else:
+        touch = body.get("touch", "no")
+        if pay == "hit" and touch != "one":
+            raise ValidationError("a no-touch pays at expiry by definition")
+        kname = "one_touch_double_hit" if pay == "hit" else f"{touch}_touch_double"
+        dnt = double_no_touch_closed_form(p["spot"], lower, upper, p["maturity"], p["rate"],
+                                          p["vol"], p["dividend"])
+        cf = dnt if touch == "no" else math.exp(-p["rate"] * p["maturity"]) - float(dnt)
+        if pay == "hit":
+            cf = None
+    pr, se, n = exotic_price(kname, *common, cp, p["dividend"], lower=lower, upper=upper, **kw)
+    extra = {}
+    if kind == "double-barrier" and rebate:
+        leg_kind = "one_touch_double_hit" if kname.endswith("out") else "no_touch_double"
+        leg, se_l, _ = exotic_price(leg_kind, *common, cp, p["dividend"], lower=lower,
+                                    upper=upper, **kw)
+        pr = float(pr) + rebate * float(leg)
+        se = float(np.hypot(float(se), rebate * float(se_l)))
+        extra = {"rebate": rebate, "rebate_pays": ("at first hit" if kname.endswith("out")
+                                                   else "at expiry if never knocked in")}
+    return {"kind": kname, "price": _to_jsonable(pr), "std_error": _to_jsonable(se),
+            "paths": int(n), "band": [lower, upper], **extra,
+            "closed_form_continuous": None if cf is None else _to_jsonable(cf)}
+
+
+def handle_book(body: dict, device) -> dict:
+    """A same-kind contract book in one launch of the exotic kernel, with the
+    request body of the JAX package's ``/book/exotic`` (``model`` "bs")."""
+    _check_bs(body, "/book/exotic")
+
+    def lst(name):
+        v = body.get(name)
+        return [float(x) for x in v] if v else None
+
+    sampler = body.get("sampler")
+    return exotic_book_quote(
+        str(body.get("kind", "asian")), float(body.get("spot", 100.0)),
+        [float(s) for s in body.get("strikes", [100.0])], float(body.get("maturity", 1.0)),
+        float(body.get("rate", 0.05)), vol=float(body.get("vol", 0.2)),
+        cp=1.0 if str(body.get("type", "call")).startswith("c") else -1.0,
+        dividend=float(body.get("dividend", 0.0)), barriers=lst("barriers"),
+        lowers=lst("lowers"), uppers=lst("uppers"), greeks=bool(body.get("greeks", False)),
+        n_paths=int(body.get("n_paths", 200_000)), n_steps=int(body.get("n_steps", 64)),
+        seed=int(body.get("seed", 0)), sampler=None if sampler is None else str(sampler),
+        barrier_type=str(body.get("barrier_type", "up-and-out")),
+        averaging=str(body.get("averaging", "arithmetic")),
+        floating=bool(body.get("floating", True)), knock=str(body.get("knock", "out")),
+        touch=str(body.get("touch", "no")), direction=str(body.get("direction", "up")),
+        device=device)
+
+
 ROUTES = {
     "/price": handle_price,
     "/greeks": handle_greeks,
     "/mc": handle_mc,
+    "/exotic": handle_exotic,
     "/batch/price": handle_price,  # same handler — fields may be lists
+    "/book/exotic": handle_book,
 }
 
 

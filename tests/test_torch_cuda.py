@@ -1,4 +1,4 @@
-"""The port's CUDA kernel on a card, against its plain torch version.
+"""The port's CUDA kernels on a card, against their plain torch versions.
 
 Imports torch and the port only, so it also runs where JAX is not installed:
 
@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from optionslab_tpu_torch import ContractBatch, MCMethod, MonteCarloPricer, bs_price
+from optionslab_tpu_torch.models import exotics as tex
+from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
 
 # per-row sums: the kernel and the plain version draw bit-equal paths with
@@ -95,3 +97,112 @@ def test_kernel_wrapper_rejects_bad_inputs(cuda_device):
         gk._gbm_moments_cuda(0, 0, bad, **kw)
     with pytest.raises(ValueError, match="sampler"):
         gk._gbm_moments_cuda(0, 0, params, **{**kw, "sampler": "halton"})
+
+
+# ---------------------------------------------------------------------------
+# the exotic kernels (csrc/exotic_mc.cu, csrc/exotic_greeks.cu)
+# ---------------------------------------------------------------------------
+def _exotic_params(kind, n_steps, device, strike=100.0):
+    p, _ = ek._base_params(100.0, strike, 1.0, 0.05, 0.2, 0.01, 115.0 if "up" in kind else 88.0,
+                           n_steps)
+    if "double" in kind:
+        p[ek._P_A], p[ek._P_B] = 88.0, 115.0
+    if kind == "cliquet":
+        p[ek._P_A:] = [-0.03, 0.03, 0.0, 1e9, 100.0]
+    if kind == "autocall":
+        p[ek._P_A:] = [100.0, 80.0, 70.0, 2.0, 100.0]
+    if kind == "range_accrual":
+        p[ek._P_A], p[ek._P_B], p[ek._P_E] = 90.0, 110.0, 100.0
+    params = torch.tensor(p, dtype=torch.float32, device=device)
+    return params, params[list(ek._BOOK_SLOTS)].reshape(1, 7).contiguous()
+
+
+def _assert_sums_close(kern, plain):
+    """Row sums within rtol 1e-5; the signed moments (index 2 on) against
+    their largest row, since they cancel inside a row."""
+    assert kern.shape == plain.shape and torch.isfinite(kern).all()
+    k64, p64 = kern.double(), plain.double()
+    scale = p64.abs()
+    scale[2:] = torch.maximum(scale[2:], scale[2:].amax(dim=1, keepdim=True))
+    assert torch.all((k64 - p64).abs() <= MOMENT_RTOL * scale)
+
+
+# 70 path blocks: 24 chunks of 3, so each CUDA block sums several path blocks
+EXOTIC_CASES = [(k, lr, "prng") for k in ("asian_arith", "asian_geo", "lookback_float",
+                                          "barrier_up-and-out", "cliquet", "autocall",
+                                          "range_accrual", "one_touch_double_hit")
+                for lr in (False, True)] + [
+    ("asian_arith_cv", False, "prng"), ("lookback_fixed", True, "hash"),
+    ("no_touch_down", True, "hash"), ("asian_geo", False, "sobol_bb"),
+    ("barrier_double-in", False, "sobol_bb")]
+
+
+@pytest.mark.parametrize("kind,lr,sampler", EXOTIC_CASES)
+def test_exotic_kernel_matches_plain_on_card(cuda_device, kind, lr, sampler):
+    params, book = _exotic_params(kind, 12, cuda_device)
+    kw = dict(kind=kind, n_steps=12, n_blocks=70, cp=1.0, sampler=sampler, lr=lr,
+              period=3 if kind in ("cliquet", "autocall") else 1)
+    before = ek._exotic_moments_cuda.launches
+    kern = ek._exotic_moments_cuda(5, 2, params, book, **kw)
+    assert ek._exotic_moments_cuda.launches == before + 1
+    _assert_sums_close(kern, ek._exotic_moments_plain(5, 2, params, book, **kw))
+
+
+@pytest.mark.parametrize("cp", [1.0, -1.0])
+@pytest.mark.parametrize("kind", ek.GREEK_KINDS)
+def test_greeks_kernel_matches_plain_on_card(cuda_device, kind, cp):
+    params, _ = _exotic_params(kind, 12, cuda_device, strike=105.0)
+    kw = dict(kind=kind, n_steps=12, n_blocks=70, cp=cp, sampler="prng")
+    before = ek._exotic_greeks_cuda.launches
+    kern = ek._exotic_greeks_cuda(5, 2, params, **kw)
+    assert ek._exotic_greeks_cuda.launches == before + 1
+    _assert_sums_close(kern, ek._exotic_greeks_plain(5, 2, params, **kw))
+
+
+def test_book_128_contracts_on_card(cuda_device):
+    """128 contracts x 1e6 paths x 64 steps: 489 path blocks, one row each."""
+    strikes = torch.linspace(80.0, 120.0, 128).tolist()
+    p, _ = ek._base_params(100.0, strikes[0], 1.0, 0.05, 0.2, 0.0, 0.0, 64)
+    params = torch.tensor(p, dtype=torch.float32, device=cuda_device)
+    book = torch.tensor(ek._book_table(strikes, [0.0] * 128, [0.0] * 128, [0.0] * 128, 128),
+                        dtype=torch.float32, device=cuda_device)
+    n_blocks = ek._n_blocks(1_000_000, 4 * ek.LANES)
+    assert n_blocks == 489
+    kw = dict(kind="asian_arith", n_steps=64, n_blocks=n_blocks, cp=1.0, sampler="prng")
+    _assert_sums_close(ek._exotic_moments_cuda(0, 0, params, book, **kw),
+                       ek._exotic_moments_plain(0, 0, params, book, **kw))
+    prices, ses, n = ek.exotic_book_price("asian_arith", 100.0, strikes, 1.0, 0.05, 0.2,
+                                          n_paths=1_000_000, device=cuda_device)
+    assert n == 489 * 4 * ek.LANES and prices.shape == (128,)
+    assert torch.all(prices[1:] <= prices[:-1] + 3 * ses[1:])  # calls fall with the strike
+
+
+def test_pallas_engine_classes_on_card(cuda_device):
+    before = ek._exotic_moments_cuda.launches, ek._exotic_greeks_cuda.launches
+    kw = dict(n_paths=2_000_000, n_steps=32, device="cuda", engine="pallas")
+    p, se = tex.AsianOption(100.0, 100.0, 1.0, 0.05, 0.2, averaging="geometric",
+                            **kw).price(return_stderr=True)
+    cf = tex.geometric_asian_closed_form(100.0, 100.0, 1.0, 0.05, 0.2, n_steps=32)
+    assert p.device.type == "cuda" and abs(p.item() - cf.item()) < 4 * se.item()
+    g = tex.LookbackOption(100.0, 100.0, 1.0, 0.05, 0.2, **kw).greeks()
+    assert g["delta"].item() == pytest.approx(g["price"].item() / 100.0, rel=1e-4)
+    for opt in (tex.BarrierOption(100.0, 100.0, 120.0, 1.0, 0.05, 0.2, **kw),
+                tex.AutocallableNote(100.0, 1.0, 0.05, 0.2, **{**kw, "n_steps": 252}),
+                tex.CliquetOption(100.0, 1.0, 0.05, 0.2, **{**kw, "n_steps": 252})):
+        assert torch.isfinite(opt.price())
+    assert ek._exotic_moments_cuda.launches == before[0] + 4
+    assert ek._exotic_greeks_cuda.launches == before[1] + 1
+
+
+def test_exotic_wrappers_reject_cpu_tensors(cuda_device):
+    params, book = _exotic_params("asian_arith", 4, "cpu")
+    kw = dict(kind="asian_arith", n_steps=4, n_blocks=1, cp=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        ek._exotic_moments_cuda(0, 0, params, book, **kw)
+    with pytest.raises(ValueError, match="CUDA"):
+        ek._exotic_greeks_cuda(0, 0, params, **kw)
+    gparams, gbook = _exotic_params("asian_arith", 4, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        ek._exotic_moments_cuda(0, 0, gparams.double(), gbook, **kw)
+    with pytest.raises(ValueError, match="power-of-two"):
+        ek._exotic_moments_cuda(0, 0, gparams, gbook.expand(3, 7).contiguous(), **kw)

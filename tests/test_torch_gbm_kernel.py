@@ -22,6 +22,17 @@ from optionslab_tpu_torch.ops import gbm_kernel as gk
 from optionslab_tpu_torch.types import FIELDS, ContractBatch
 from optionslab_tpu_torch.utils.exceptions import ValidationError
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes on a
+    few cores, where torch's thread pools would spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # per-row sums: rtol on Σpay, Σpay², Σ1{ex}·S_T; the signed Σ1{ex}·S_T·z
 # against the scale Σ1{ex}·S_T (f32 transcendentals and summation order)
 MOMENT_RTOL = 1e-5

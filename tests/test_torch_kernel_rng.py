@@ -11,6 +11,17 @@ from optionslab_tpu.ops import gbm_pallas as gp
 from optionslab_tpu.ops import kernel_rng as jrng
 from optionslab_tpu_torch.ops import kernel_rng as trng
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes on a
+    few cores, where torch's thread pools would spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 N = 1 << 20
 
 

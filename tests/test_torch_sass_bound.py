@@ -1,0 +1,93 @@
+"""The SASS instruction counter behind the kernels' bounds, on a listing in
+``cuobjdump -sass`` form (the card's own listing is read by
+``chip_smoke.py``)."""
+
+import pytest
+
+from optionslab_tpu_torch.ops import sass_bound as sb
+
+LISTING = """
+        code for sm_90a
+                Function : _ZN10optionslab4stepILi0EEEvNS_4ArgsE
+        .headerflags    @"EF_CUDA_SM90 EF_CUDA_VIRTUAL_SM(EF_CUDA_SM90)"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;                 /* 0x00000a00ff017b82 */
+        /*0010*/                   FFMA R2, R3, R4, R5 ;                  /* 0x0000000403027223 */
+        /*0020*/                   MUFU.RSQ R6, R7 ;                      /* 0x0000000700067308 */
+        /*0030*/               @!P0 BRA 0x70 ;                            /* 0x0000000000108947 */
+        /*0040*/                   CALL.REL.NOINC 0x100 ;                 /* 0x0000000000047944 */
+        /*0050*/                   BRA 0x70 ;                             /* 0x0000000000047947 */
+        /*0060*/                   NOP ;                                  /* 0x0000000000007918 */
+        /*0070*/                   IADD3 R1, R1, 0x1, RZ ;                /* 0x0000000101017810 */
+        /*0080*/                   FMUL R2, R2, R2 ;                      /* 0x0000000202027220 */
+        /*0090*/                   MUFU.EX2 R3, R3 ;                      /* 0x0000000300037308 */
+        /*00a0*/                @P1 BRA 0x10 ;                            /* 0xffffff6000001947 */
+        /*00b0*/                   EXIT ;                                 /* 0x000000000000794d */
+                ..........
+
+                Function : _ZN10optionslab4laneILi1EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   MUFU.RSQ R6, R7 ;                      /* 0x0000000700067308 */
+        /*0020*/                   LOP3.LUT R1, R1, 0xff, RZ, 0xc0, !PT ; /* 0x000000ff01017812 */
+        /*0030*/               @!P2 BRA 0x70 ;                            /* 0x0000000000108947 */
+        /*0040*/                   FADD R8, R8, 1 ;                       /* 0x3f80000008087421 */
+        /*0050*/                   BRA 0x40 ;                             /* 0xfffffff000007947 */
+        /*0060*/                   NOP ;                                  /* 0x0000000000007918 */
+        /*0070*/                   MUFU.RSQ R9, R7 ;                      /* 0x0000000700097308 */
+        /*0080*/                   I2F.U32 R4, R4 ;                       /* 0x0000000400047306 */
+        /*0090*/                @P1 BRA 0x10 ;                            /* 0xffffff7000001947 */
+        /*00a0*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+@pytest.fixture(scope="module")
+def funcs():
+    return sb.parse_functions(LISTING)
+
+
+def test_parse_functions(funcs):
+    assert sorted(funcs) == ["_ZN10optionslab4laneILi1EEEvNS_4ArgsE",
+                             "_ZN10optionslab4stepILi0EEEvNS_4ArgsE"]
+    step = sb.find_function(funcs, "stepILi0E")
+    assert [i.addr for i in step] == list(range(0, 0xC0, 0x10))
+    bra = step[3]
+    assert bra.pred and bra.op == "BRA" and bra.branch_target() == 0x70
+    assert step[2].op == "MUFU.RSQ" and step[2].base == "MUFU"
+    assert step[10].branch_target() == 0x10 and step[11].branch_target() is None
+
+
+def test_hot_loop_skips_slow_path(funcs):
+    """The loop 0x10..0xa0 minus the call region 0x40..0x60 its branch jumps over."""
+    counts = sb.hot_loop_counts(sb.find_function(funcs, "stepILi0E"))
+    assert counts == {"fp32": 2, "int": 1, "mufu": 2, "issue": 7, "unroll": 1, "span": 0x90}
+
+
+def test_hot_loop_unroll_and_nested_loop(funcs):
+    """Two MUFU.RSQ in the trip: an unroll of 2; the region holding the inner
+    loop 0x40..0x50 is skipped."""
+    counts = sb.hot_loop_counts(sb.find_function(funcs, "laneILi1E"))
+    # kept: 0x10 RSQ, 0x20 LOP3, 0x30 BRA, 0x70 RSQ, 0x80 I2F, 0x90 BRA
+    assert counts["unroll"] == 2
+    assert counts["issue"] == 3.0 and counts["mufu"] == 1.5 and counts["int"] == 0.5
+    assert counts["fp32"] == 0.0
+
+
+def test_bound_ms_picks_busiest_pipe():
+    counts = {"fp32": 128, "int": 80, "mufu": 10, "issue": 200}
+    n_sm, clock = 132, 1.98e9
+    trips = n_sm * clock * 1e-3  # one trip per SM and clock for 1 ms
+    ms, pipe = sb.bound_ms(counts, trips, n_sm, clock)
+    assert pipe == "issue" and ms == pytest.approx(200 / 128)
+    ms, pipe = sb.bound_ms({**counts, "int": 160}, trips, n_sm, clock)
+    assert pipe == "int" and ms == pytest.approx(160 / 64)
+    ms, pipe = sb.bound_ms({**counts, "mufu": 30}, trips, n_sm, clock)
+    assert pipe == "mufu" and ms == pytest.approx(30 / 16)
+
+
+def test_errors(funcs):
+    with pytest.raises(KeyError):
+        sb.find_function(funcs, "optionslab")  # two match
+    with pytest.raises(KeyError):
+        sb.find_function(funcs, "nothing")
+    with pytest.raises(ValueError, match="MUFU.RSQ"):
+        sb.hot_loop_counts([i for i in sb.find_function(funcs, "stepILi0E")
+                            if not i.op.startswith("MUFU.RSQ")])

@@ -10,8 +10,20 @@ import urllib.request
 from pathlib import Path
 
 import pytest
+import torch
 
 from optionslab_tpu_torch.server import PricingServer
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes on a
+    few cores, where torch's thread pools would spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 PORT_PKG = Path(__file__).resolve().parent.parent / "optionslab_tpu_torch"
 
@@ -84,12 +96,94 @@ def test_metrics_count_requests(base_url):
     assert status == 200 and out["/greeks"]["count"] >= 1
 
 
-@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/exotic"),
+@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/american"),
                                          ("POST", "/health")])
 def test_unknown_route_is_404(base_url, method, path):
     status, out = _call(base_url + path, {} if method == "POST" else None)
     assert status == 404
-    assert "/mc" in out["endpoints"]
+    assert {"/mc", "/exotic", "/book/exotic"} <= set(out["endpoints"])
+
+
+# /exotic and /book/exotic against the JAX package's handlers. Off the TPU the
+# reference's kernel routes draw with the `hash` sampler, which the port's
+# requests name; both run one path block of 8 steps.
+KERNEL_BODIES = {
+    "asian_greeks": {"kind": "asian", "greeks": True},
+    "barrier_greeks": {"kind": "barrier", "greeks": True, "barrier": 125.0},
+    "autocallable_greeks": {"kind": "autocallable", "greeks": True, "n_steps": 6},
+    "double_barrier": {"kind": "double-barrier", "lower": 80.0, "upper": 125.0},
+    "double_barrier_rebate": {"kind": "double-barrier", "lower": 80.0, "upper": 125.0,
+                              "rebate": 1.5, "knock": "in"},
+    "double_touch_hit": {"kind": "double-touch", "touch": "one", "pay": "hit",
+                         "lower": 85.0, "upper": 118.0},
+    "one_touch_hit": {"kind": "one-touch", "pay": "hit", "barrier": 115.0},
+    "no_touch": {"kind": "no-touch", "barrier": 88.0},
+    "barrier_rebate": {"kind": "barrier", "barrier": 125.0, "rebate": 2.0},
+    "asian_cv": {"kind": "asian", "control_variate": True, "n_steps": 16},
+}
+
+
+def _same_answer(ours: dict, ref: dict, rtol=1e-5):
+    assert set(ours) == set(ref)
+    for key, v in ref.items():
+        if isinstance(v, (int, float)) and not isinstance(v, bool):
+            assert ours[key] == pytest.approx(v, rel=rtol, abs=1e-6), key
+        elif isinstance(v, list) and v and isinstance(v[0], float):
+            assert ours[key] == pytest.approx(v, rel=rtol, abs=1e-6), key
+        else:
+            assert ours[key] == v, key
+
+
+@pytest.mark.parametrize("case", sorted(KERNEL_BODIES))
+def test_exotic_kernel_routes_match_reference(base_url, case):
+    from optionslab_tpu.server import handle_exotic
+
+    body = {"n_paths": 1, "n_steps": 8, "seed": 2, **KERNEL_BODIES[case]}
+    status, out = _call(base_url + "/exotic", {**body, "sampler": "hash"})
+    assert status == 200, out
+    _same_answer(out, handle_exotic(dict(body)))
+    if case == "double_barrier":
+        assert out["closed_form_continuous"] > 0.0
+
+
+@pytest.mark.parametrize("body", [{"kind": "asian"}, {"kind": "lookback", "floating": False},
+                                  {"kind": "barrier", "barrier_type": "down-and-out",
+                                   "barrier": 90.0},
+                                  {"kind": "cliquet"}])
+def test_exotic_scan_routes_match_reference(base_url, body):
+    """The scan engines draw from different generators: same keys, prices
+    within 5 combined standard errors."""
+    from optionslab_tpu.server import handle_exotic
+
+    status, out = _call(base_url + "/exotic", {**body, "n_paths": 20_000})
+    ref = handle_exotic({**body, "n_paths": 20_000})
+    assert status == 200 and set(out) == set(ref) and out["kind"] == ref["kind"]
+    assert abs(out["price"] - ref["price"]) < 5 * (out["std_error"] ** 2
+                                                   + ref["std_error"] ** 2) ** 0.5
+
+
+@pytest.mark.parametrize("greeks", [False, True])
+def test_book_exotic_matches_reference(base_url, greeks):
+    from optionslab_tpu.server import handle_book
+
+    body = {"kind": "asian", "strikes": [90.0, 100.0, 110.0], "n_paths": 60_000,
+            "n_steps": 8, "greeks": greeks, "type": "put"}
+    status, out = _call(base_url + "/book/exotic", {**body, "sampler": "hash"})
+    assert status == 200, out
+    _same_answer(out, handle_book(dict(body)))
+    assert len(out["price"]) == 3 and out["n_contracts"] == 3
+
+
+@pytest.mark.parametrize("path,body,names", [
+    ("/exotic", {"kind": "american"}, "autocallable"),
+    ("/exotic", {"kind": "asian", "model": "heston"}, "['bs']"),
+    ("/exotic", {"kind": "barrier", "model": "lv"}, "['bs']"),
+    ("/book/exotic", {"kind": "asian", "model": "bates"}, "['bs']"),
+    ("/exotic", {"kind": "no-touch", "pay": "hit"}, "no-touch"),
+])
+def test_exotic_unported_is_400(base_url, path, body, names):
+    status, out = _call(base_url + path, body)
+    assert status == 400 and names in out["error"]
 
 
 def test_port_package_never_imports_jax():

@@ -16,6 +16,17 @@ from optionslab_tpu_torch.ops import math as tmath
 from optionslab_tpu_torch.types import FIELDS, ContractBatch
 from optionslab_tpu_torch.utils.exceptions import ValidationError
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs in several worker processes on a
+    few cores, where torch's thread pools would spin against each other."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 # the JAX package's models/__init__ re-exports a function under the module's name
 jbs = importlib.import_module("optionslab_tpu.models.black_scholes")
 
