@@ -15,8 +15,11 @@ is printed):
               shapes; the exotic price kernel for every payoff kind with
               and without LR scores under ``hash`` and ``prng``, bridge QMC,
               books of 2, 8 and 128 contracts; the exotic Greeks kernel for
-              its four kinds and both signs; and both exotic kernels at the
-              exotic path's own shapes with ``prng``;
+              its four kinds and both signs; both exotic kernels at the
+              exotic path's own shapes with ``prng``; the four Heston
+              kernels (Euler price/vega/ladder, QE, QE ladder, chain) for
+              every mode and sampler at small shapes and at the Heston
+              path's shapes;
 4. main     — the GBM path at full size through ``MonteCarloPricer``: 1e9
               paths on one contract, a 1024-contract book at 1e6 paths each,
               and the price-only sibling, checked against Black–Scholes;
@@ -27,9 +30,16 @@ is printed):
               per contract, autocall/cliquet/range accrual), against closed
               forms, Black–Scholes and the scan engine, with warm wall times;
 7. exotic server — ``/exotic`` and ``/book/exotic`` over a socket;
-8. launches — each kernel's launch count over its path's phases (the counts
+8. heston   — the Heston European path through its entry points: Euler
+              price, v0-vega and full ladder at 8,388,608 x 252, QE price
+              and QE ladder at 8,388,608 x 32, bridge QMC at 4,194,304 x 64,
+              a 40-quote chain at 1,048,576 paths, ``calibrate_heston_mc``
+              (200 Adam steps, exactly 202 chain launches), the
+              ``HestonPricer`` kernel engine, and ``/price`` with
+              ``model: "heston"``; against Lewis and autograd of Lewis;
+9. launches — each kernel's launch count over its path's phases (the counts
               are set to 0 just before a path and read just after it);
-9. timing   — device ms by CUDA events of each kernel and its plain
+10. timing  — device ms by CUDA events of each kernel and its plain
               version at its path's shapes, beside the least time the card
               could take (from the kernel's SASS, ``ops/sass_bound.py``).
 
@@ -46,14 +56,17 @@ import subprocess
 import time
 import urllib.request
 
+import numpy as np
 import torch
 
 from optionslab_tpu_torch import ContractBatch, MCMethod, MonteCarloPricer, PricingServer
 from optionslab_tpu_torch.models import exotics as tex
+from optionslab_tpu_torch.models import heston as hmodel
 from optionslab_tpu_torch.models.black_scholes import bs_greeks
 from optionslab_tpu_torch.ops import _build, sass_bound
 from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
+from optionslab_tpu_torch.ops import heston_kernel as hk
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
 # absolute Greek bounds of the reference's kernel test (tests/test_gbm_pallas_host.py)
@@ -326,14 +339,15 @@ def exotic_inputs(kind: str, n_steps: int, dev, strike: float = STRIKE, barrier=
     return params, params[list(ek._BOOK_SLOTS)].reshape(1, 7).contiguous()
 
 
-def compare_sums(kern: torch.Tensor, plain: torch.Tensor, tag: str) -> float:
-    """Per-row sums within RTOL; the signed moments (index 2 on: LR scores,
-    pathwise P0/G1/G2) against their largest row, since they cancel inside
-    a row. Returns the largest absolute difference."""
+def compare_sums(kern: torch.Tensor, plain: torch.Tensor, tag: str, n_plain: int = 2) -> float:
+    """Per-row sums within RTOL; the signed moments (index ``n_plain`` on: LR
+    scores, pathwise P0/G1/G2, Heston sensitivities) against their largest
+    row, since they cancel inside a row. Returns the largest absolute
+    difference."""
     k64, p64 = kern.double(), plain.double()
     diff = (k64 - p64).abs()
     scale = p64.abs()
-    scale[2:] = torch.maximum(scale[2:], scale[2:].amax(dim=1, keepdim=True))
+    scale[n_plain:] = torch.maximum(scale[n_plain:], scale[n_plain:].amax(dim=1, keepdim=True))
     bad = (diff > RTOL * scale).sum().item()
     rel = (diff / scale.clamp_min(1e-30)).max().item()
     exact = (kern == plain).all(dim=0).sum().item()
@@ -618,10 +632,12 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip()) * 1e6
 
 
-def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, tag: str):
+def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, tag: str,
+                 rsq_per_trip: int = 1):
     """(bound ms, bound_by) of a launch: the larger of its bytes over the HBM
     rate and its hot loop's busiest pipe (``ops/sass_bound.py``)."""
-    counts = sass_bound.hot_loop_counts(sass_bound.find_function(funcs, *name_parts))
+    counts = sass_bound.hot_loop_counts(sass_bound.find_function(funcs, *name_parts),
+                                        rsq_per_trip)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
     ops_ms, pipe = sass_bound.bound_ms(counts, trips, n_sm, clock)
@@ -661,6 +677,422 @@ def exotic_timing(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the Heston European path (csrc/heston_mc.cu, heston_qe.cu, heston_chain.cu)
+# ---------------------------------------------------------------------------
+H_PARAMS = (0.04, 2.0, 0.04, 0.3, -0.7)  # HestonParams.make() of the JAX bench.py
+H_EULER = (8_388_608, 252)  # bench.py:138 (price) and :154 (vega ladder)
+H_QE = (8_388_608, 32)
+H_QMC = (4_194_304, 64)
+H_CHAIN_PATHS, H_CHAIN_DT = 1_048_576, 0.02
+H_CHAIN_T = (0.25, 0.5, 1.0, 1.5, 2.0)
+H_CHAIN_K = (80.0, 85.0, 90.0, 95.0, 100.0, 105.0, 110.0, 115.0)
+H_CALIB_GEN = (0.04, 2.0, 0.05, 0.3, -0.7)  # tests/test_heston_pallas.py:311
+H_CALIB_INIT = (0.05, 1.5, 0.04, 0.4, -0.5)
+H_CALIB_STEPS = 200
+# the calibration's grid: at the chain's dt = 0.02 the Euler bias of the short
+# expiries moves the fitted kappa outside the reference test's bound; the
+# kernel-priced loss at dt = 0.01 recovers it (PERF.md)
+H_CALIB_DT = 0.01
+H_NAMES = ("v0", "kappa", "theta", "sigma", "rho")
+
+
+def check(ok: bool, msg: str) -> None:
+    """Fail the run with ``msg`` unless ``ok``."""
+    if not ok:
+        raise AssertionError(msg)
+
+
+def heston_chain_quotes():
+    """The 5-expiry × 8-strike chain: calls above the forward, puts below."""
+    strikes, mats, cps = [], [], []
+    for t in H_CHAIN_T:
+        fwd = S0 * math.exp(RATE * t)
+        for k in H_CHAIN_K:
+            strikes.append(k)
+            mats.append(t)
+            cps.append(1.0 if k >= fwd else -1.0)
+    return strikes, mats, cps
+
+
+def heston_parity_cases(dev):
+    """(tag, kernel fn, plain fn, args, kwargs) of the Heston parity phase:
+    every mode and sampler at small shapes, then each kernel at its path's
+    shapes (prng)."""
+    par = hmodel.HestonParams.make(*H_PARAMS)
+    cases = []
+
+    def euler(n_steps, strike=105.0):
+        return torch.tensor(hk._params_vec(S0, strike, T, RATE, par, 0.01, n_steps)[1], device=dev)
+
+    def qe(n_steps, ladder):
+        if ladder:
+            return torch.tensor(hk._params_vec_qe_ladder(S0, STRIKE, T, RATE, par, 0.01,
+                                                         n_steps)[1], device=dev)
+        return torch.tensor(hk._params_vec_qe(S0, STRIKE, T, RATE, par, 0.01, n_steps)[1],
+                            device=dev)
+
+    for mode in hk.MODES:
+        for sampler in ("hash", "prng") + (("sobol_bb",) if mode == "price" else ()):
+            for cp in (1.0, -1.0):
+                cases.append((f"heston_mc {mode} {sampler} cp={cp:+.0f} 3x12", hk._heston_mc_cuda,
+                              hk._heston_mc_plain, (euler(12, 105.0 if cp > 0 else 95.0),),
+                              dict(n_steps=12, n_blocks=3, cp=cp, sampler=sampler, mode=mode)))
+    for sampler in ("hash", "prng"):
+        for cp in (1.0, -1.0):
+            kw = dict(n_steps=12, n_blocks=3, cp=cp, sampler=sampler)
+            cases.append((f"heston_qe {sampler} cp={cp:+.0f} 3x12", hk._heston_qe_cuda,
+                          hk._heston_qe_plain, (qe(12, False),), kw))
+            cases.append((f"heston_qe_ladder {sampler} cp={cp:+.0f} 3x12",
+                          hk._heston_qe_ladder_cuda, hk._heston_qe_ladder_plain,
+                          (qe(12, True),), kw))
+        plan = hk.chain_plan([90.0, 100.0, 110.0, 95.0, 105.0], [0.5, 0.5, 0.5, 1.0, 1.0],
+                             [-1.0, 1.0, 1.0, -1.0, 1.0], 0.1, dev)
+        cases.append((f"heston_chain {sampler} 5 quotes 3x15", hk._heston_chain_cuda,
+                      hk._heston_chain_plain, (chain_head(dev), plan),
+                      dict(n_blocks=3, sampler=sampler)))
+    # the path's own shapes
+    for mode in hk.MODES:
+        n, m = H_EULER
+        nb = hk._n_blocks(n, hk.LADDER_PATHS_PER_BLOCK if mode == "ladder" else hk.PATHS_PER_BLOCK)
+        cases.append((f"heston_mc {mode} prng {n}x{m}", hk._heston_mc_cuda, hk._heston_mc_plain,
+                      (euler(m, STRIKE),), dict(n_steps=m, n_blocks=nb, cp=1.0, sampler="prng",
+                                                mode=mode)))
+    n, m = H_QMC
+    cases.append((f"heston_mc price sobol_bb {n}x{m}", hk._heston_mc_cuda, hk._heston_mc_plain,
+                  (euler(m, STRIKE),), dict(n_steps=m, n_blocks=hk._n_blocks(n, hk.PATHS_PER_BLOCK),
+                                            cp=1.0, sampler="sobol_bb", mode="price")))
+    n, m = H_QE
+    cases.append((f"heston_qe prng {n}x{m}", hk._heston_qe_cuda, hk._heston_qe_plain,
+                   (qe(m, False),), dict(n_steps=m, n_blocks=hk._n_blocks(n, hk.PATHS_PER_BLOCK),
+                                         cp=1.0, sampler="prng")))
+    cases.append((f"heston_qe_ladder prng {n}x{m}", hk._heston_qe_ladder_cuda,
+                  hk._heston_qe_ladder_plain, (qe(m, True),),
+                  dict(n_steps=m, n_blocks=hk._n_blocks(n, hk.LADDER_PATHS_PER_BLOCK), cp=1.0,
+                       sampler="prng")))
+    strikes, mats, cps = heston_chain_quotes()
+    plan = hk.chain_plan(strikes, mats, cps, H_CHAIN_DT, dev)
+    cases.append((f"heston_chain prng 40 quotes {H_CHAIN_PATHS}x{plan.n_steps}",
+                  hk._heston_chain_cuda, hk._heston_chain_plain, (chain_head(dev), plan),
+                  dict(n_blocks=hk._n_blocks(H_CHAIN_PATHS, hk.PATHS_PER_BLOCK), sampler="prng")))
+    return cases
+
+
+def chain_head(dev) -> torch.Tensor:
+    return hk._chain_head(torch.tensor(H_PARAMS, device=dev), S0, RATE, 0.01)
+
+
+def phase_heston_parity(dev) -> dict:
+    """Kernels 4–7 against their plain versions; the largest absolute
+    difference of each."""
+    worst = {"mc": 0.0, "qe": 0.0, "qe_ladder": 0.0, "chain": 0.0}
+    for tag, kfn, pfn, args, kw in heston_parity_cases(dev):
+        kern = kfn(7, 1, *args, **kw)
+        plain = pfn(7, 1, *args, **kw)
+        torch.cuda.synchronize()
+        key = tag.split()[0].replace("heston_", "")
+        if kern.dim() == 3:  # the chain: (Q, 7, ROWS), pay and pay² per row, 5 gradients
+            err = max(compare_sums(kern[q], plain[q], f"{tag} q{q}") for q in range(len(kern)))
+        else:  # Euler: pay, pay², m1, then the sensitivities; QE: all own-row
+            err = compare_sums(kern, plain, tag, n_plain=9 if key == "qe_ladder" else 3)
+        worst[key] = max(worst[key], err)
+    return worst
+
+
+def lewis_ad(dev, strike=STRIKE, t=T, cp=1.0, params=H_PARAMS):
+    """(price, {v0, kappa, theta, sigma, rho, T, r, S: ∂price}) by autograd of
+    the port's Lewis pricer, float64 on the card."""
+    f64 = torch.float64
+    x = {k: torch.tensor(v, dtype=f64, device=dev, requires_grad=True)
+         for k, v in zip(H_NAMES + ("T", "r", "S"), tuple(params) + (t, RATE, S0))}
+    par = hmodel.HestonParams(*(x[k] for k in H_NAMES))
+
+    def c(v):
+        return torch.tensor(v, dtype=f64, device=dev)
+
+    price = hmodel.heston_price(ContractBatch(x["S"], c(strike), x["T"], x["r"], c(0.2),
+                                              c(0.0), c(cp)), par)
+    grads = torch.autograd.grad(price, list(x.values()))
+    return price.item(), {k: g.item() for k, g in zip(x, grads)}
+
+
+def euler_bias(dev, n_steps: int, exact: float, pay_sd: float, n_scan: int = 4_194_304) -> float:
+    """|scan engine − Lewis| at ``n_steps`` plus 4 of the scan's standard
+    errors (payoff sd ``pay_sd`` over √n_scan): the Euler discretization
+    bias the tolerance of a kernel price at that step count allows."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    scan = hmodel.heston_mc_price(ContractBatch.make(S0, STRIKE, T, RATE, 0.2, device=dev),
+                                  hmodel.HestonParams.make(*H_PARAMS, device=dev), gen,
+                                  n_paths=n_scan, n_steps=n_steps).item()
+    bias = abs(scan - exact) + 4 * pay_sd / math.sqrt(n_scan)
+    log("heston", f"scan engine at {n_steps} steps: {scan:.6f} vs Lewis {exact:.6f} "
+                  f"(Euler bias allowance {bias:.5f})")
+    return bias
+
+
+def heston_greek_stderrs(dev) -> dict:
+    """Standard errors of the Euler and QE ladders' Greeks at the path's
+    shapes, from the 128 independent row groups of one launch of each kernel
+    (another seed than the main path's). Not counted as main path."""
+    par = hmodel.HestonParams.make(*H_PARAMS)
+    n, m = H_EULER
+    df = math.exp(-RATE * T)
+    _, p = hk._params_vec(S0, STRIKE, T, RATE, par, 0.0, m)
+    nb = hk._n_blocks(n, hk.LADDER_PATHS_PER_BLOCK)
+    rows = hk._heston_mc_cuda(99, 0, torch.tensor(p, device=dev), n_steps=m, n_blocks=nb, cp=1.0,
+                              mode="ladder").double()
+    n_row = nb * hk.LADDER_PATHS_PER_BLOCK / hk.ROWS
+    out = {}
+    for k, key in enumerate(("vega_v0", "d_kappa", "d_theta", "d_sigma", "d_rho", "theta")):
+        out[("euler", key)] = (df * rows[3 + k] / n_row).std().item() / math.sqrt(hk.ROWS)
+    out[("euler", "rho")] = T * df * (rows[2] / n_row).std().item() / math.sqrt(hk.ROWS)
+    n, m = H_QE
+    _, p, hs = hk._params_vec_qe_ladder(S0, STRIKE, T, RATE, par, 0.0, m)
+    nb = hk._n_blocks(n, hk.LADDER_PATHS_PER_BLOCK)
+    rows = hk._heston_qe_ladder_cuda(99, 0, torch.tensor(p, device=dev), n_steps=m, n_blocks=nb,
+                                     cp=1.0).double()
+    n_row = nb * hk.LADDER_PATHS_PER_BLOCK / hk.ROWS
+    keys = ("vega_v0", "d_kappa", "d_theta", "d_sigma", "d_rho", "theta")
+    for k, (key, h) in enumerate(zip(keys, hs)):
+        out[("qe", key)] = df * ((rows[3 + k] - rows[0]) / (h * n_row)).std().item() \
+            / math.sqrt(hk.ROWS)
+    out[("qe", "delta")] = df * (rows[2] / n_row).std().item() / S0 / math.sqrt(hk.ROWS)
+    out[("qe", "rho")] = T * df * (rows[2] / n_row).std().item() / math.sqrt(hk.ROWS)
+    log("heston", "ladder Greek stderrs from 128 row groups: " + " ".join(
+        f"{s}:{k}={v:.2e}" for (s, k), v in out.items()))
+    return out
+
+
+def phase_heston_main(dev, card: str, greek_se: dict) -> dict:
+    """The Heston European path through its entry points at full width,
+    against Lewis and autograd of Lewis. Returns the wrapper calls routed to
+    each kernel and the warm wall times."""
+    calls = {"mc": 0, "qe": 0, "qe_ladder": 0, "chain": 0}
+    walls = []
+    par = hmodel.HestonParams.make(*H_PARAMS, device=dev)
+    exact, ad = lewis_ad(dev)
+
+    def record(tag, n_paths, n_steps, ms):
+        walls.append(f"{tag} {ms:.3f} ms ({n_paths * n_steps / (ms / 1e3):.4e} path-steps/s)")
+
+    # Euler price, 8,388,608 × 252
+    n, m = H_EULER
+    (p, se, paths), ms = timed(lambda: hk.heston_kernel_price(S0, STRIKE, T, RATE, par,
+                                                             n_paths=n, n_steps=m, device=dev))
+    calls["mc"] += 4
+    record(f"heston_kernel_price euler {n}x{m}", paths, m, ms)
+    p, se = p.item(), se.item()
+    pay_sd = se * math.sqrt(paths)  # discounted payoff sd
+    bias252 = euler_bias(dev, m, exact, pay_sd)
+    tol = 4 * se + bias252
+    log("heston", f"euler price {paths}x{m}: {p:.6f} se={se:.3e} Lewis={exact:.6f} "
+                  f"|err|={abs(p - exact):.2e} tol={tol:.2e}")
+    check(abs(p - exact) < tol, f"Heston Euler price {p} vs Lewis {exact} (tol {tol})")
+
+    # v0-vega ladder, 8,388,608 × 252: delta, rho, vega against autograd of Lewis
+    g, ms = timed(lambda: hk.heston_kernel_greeks(S0, STRIKE, T, RATE, par, n_paths=n,
+                                                   n_steps=m, device=dev))
+    calls["mc"] += 4
+    record(f"heston_kernel_greeks vega {n}x{m}", g["paths"], m, ms)
+    errs = {"delta": (g["delta"].item(), ad["S"], 0.01), "rho": (g["rho"].item(), ad["r"], 0.6),
+            "vega_v0": (g["vega_v0"].item(), ad["v0"], 0.06 * abs(ad["v0"]) + 1.0)}
+    log("heston", "vega ladder vs AD of Lewis (test_heston_pallas.py bounds): " + " ".join(
+        f"{k}={v:.5f}/{e:.5f}" for k, (v, e, _b) in errs.items()))
+    for k, (v, e, b) in errs.items():
+        check(abs(v - e) < b, f"Heston vega ladder {k} {v} vs AD {e} (bound {b})")
+
+    # full Euler ladder, 8,388,608 × 252 on 128 ladder blocks
+    lad, ms = timed(lambda: hk.heston_kernel_greeks(S0, STRIKE, T, RATE, par, n_paths=n,
+                                                     n_steps=m, ladder=True, device=dev))
+    calls["mc"] += 4
+    record(f"heston_kernel_greeks ladder {n}x{m}", lad["paths"], m, ms)
+    # the reference test's bounds (262144 paths) scaled to this run's stderr,
+    # and never below 5 of the Greek's own standard errors
+    scale = math.sqrt(2 * 131072 / lad["paths"])
+    bounds = {"vega_v0": ("v0", 0.8), "d_kappa": ("kappa", 0.03), "d_theta": ("theta", 1.2),
+              "d_sigma": ("sigma", 0.12), "d_rho": ("rho", 0.08), "theta": ("T", 0.15),
+              "rho": ("r", 0.6)}
+    rows = []
+    for key, (name, b) in bounds.items():
+        exact_k = -ad[name] if key == "theta" else ad[name]
+        got = lad[key].item()
+        bound = max(b * scale, 5 * greek_se[("euler", key)])
+        rows.append(f"{key}={got:.5f}/{exact_k:.5f} (bound {bound:.4f})")
+        check(abs(got - exact_k) < bound, f"Heston ladder {key} {got} vs AD {exact_k}")
+    log("heston", "full ladder vs AD of Lewis, bounds max(test_heston_pallas.py:187 × "
+                  f"{scale:.4f}, 5·se): " + " ".join(rows))
+
+    # QE price and QE ladder, 8,388,608 × 32
+    n, m = H_QE
+    (pq, seq, paths), ms = timed(lambda: hk.heston_kernel_price(S0, STRIKE, T, RATE, par,
+                                                               n_paths=n, n_steps=m, scheme="qe",
+                                                               device=dev))
+    calls["qe"] += 4
+    record(f"heston_kernel_price qe {n}x{m}", paths, m, ms)
+    log("heston", f"QE price {paths}x{m}: {pq.item():.6f} se={seq.item():.3e} Lewis={exact:.6f}")
+    check(abs(pq.item() - exact) < 4 * seq.item() + 0.01, "Heston QE price vs Lewis")
+    ql, ms = timed(lambda: hk.heston_kernel_greeks(S0, STRIKE, T, RATE, par, n_paths=n,
+                                                    n_steps=m, scheme="qe", ladder=True,
+                                                    device=dev))
+    calls["qe_ladder"] += 4
+    record(f"heston_kernel_greeks qe ladder {n}x{m}", ql["paths"], m, ms)
+    scale = math.sqrt(131072 / ql["paths"])
+    qbounds = {"vega_v0": ("v0", 1.5), "d_kappa": ("kappa", 0.05), "d_theta": ("theta", 2.0),
+               "d_sigma": ("sigma", 0.05), "d_rho": ("rho", 0.02), "delta": ("S", 0.01),
+               "rho": ("r", 0.25), "theta": ("T", 0.05)}
+    rows = []
+    for key, (name, b) in qbounds.items():
+        exact_k = -ad[name] if key == "theta" else ad[name]
+        got = ql[key].item()
+        bound = max(b * scale, 5 * greek_se[("qe", key)])
+        rows.append(f"{key}={got:.5f}/{exact_k:.5f} (bound {bound:.4f})")
+        check(abs(got - exact_k) < bound, f"Heston QE ladder {key} {got} vs AD {exact_k}")
+    log("heston", f"QE ladder vs AD of Lewis, bounds max(test_heston_pallas.py:414 × {scale:.4f}, "
+                  "5·se): " + " ".join(rows))
+
+    # bridge QMC, 4,194,304 × 64
+    n, m = H_QMC
+    (pb, seb, paths), ms = timed(lambda: hk.heston_kernel_price(S0, STRIKE, T, RATE, par,
+                                                               n_paths=n, n_steps=m,
+                                                               sampler="sobol_bb", device=dev))
+    calls["mc"] += 4
+    record(f"heston_kernel_price sobol_bb {n}x{m}", paths, m, ms)
+    tol = 4 * seb.item() + euler_bias(dev, m, exact, pay_sd)
+    log("heston", f"sobol_bb {paths}x{m}: {pb.item():.6f} RQMC se={seb.item():.3e} "
+                  f"Lewis={exact:.6f} tol={tol:.2e}")
+    check(abs(pb.item() - exact) < tol, "Heston bridge-QMC price vs Lewis")
+
+    # the 40-quote chain: prices against Lewis, gradients against its autograd
+    strikes, mats, cps = heston_chain_quotes()
+    (cp_, cse, cg), ms = timed(lambda: hk.heston_chain_ladder(
+        strikes, mats, cps, S0, RATE, par, n_paths=H_CHAIN_PATHS, max_dt=H_CHAIN_DT, device=dev))
+    calls["chain"] += 4
+    plan = hk.chain_plan(strikes, mats, cps, H_CHAIN_DT, dev)
+    record(f"heston_chain_ladder 40 quotes {H_CHAIN_PATHS}x{plan.n_steps}",
+           hk._n_blocks(H_CHAIN_PATHS, hk.PATHS_PER_BLOCK) * hk.PATHS_PER_BLOCK, plan.n_steps, ms)
+    pv = torch.tensor(H_PARAMS, dtype=torch.float64, device=dev, requires_grad=True)
+    lew = hmodel.heston_price(ContractBatch.make(S0, torch.tensor(strikes, dtype=torch.float64),
+                                                 torch.tensor(mats, dtype=torch.float64), RATE,
+                                                 0.2, torch.tensor(cps, dtype=torch.float64),
+                                                 device=dev, dtype=torch.float64),
+                              hmodel.HestonParams(*pv.unbind()))
+    jac = torch.stack([torch.autograd.grad(lew[q], pv, retain_graph=True)[0]
+                       for q in range(len(strikes))]).cpu().numpy()
+    lew = lew.detach().cpu().numpy()
+    price_err = (cp_.cpu().numpy() - lew) / cse.cpu().numpy()
+    # Euler at dt = 0.02: the reference's 0.06 allowance at dt = 1/16 (weak order 1) scaled
+    bias = 0.06 * H_CHAIN_DT * 16
+    bad_p = [q for q in range(len(strikes))
+             if not abs(cp_[q].item() - lew[q]) < 5 * cse[q].item() + bias]
+    gscale = math.sqrt(131072 / H_CHAIN_PATHS)
+    gtol = (np.maximum(0.12 * gscale, 0.03 * np.abs(jac)) + 0.12 * np.abs(jac))
+    gerr = np.abs(cg.cpu().numpy() - jac)
+    log("heston", f"chain 40 quotes: max|price − Lewis|/se={np.abs(price_err).max():.2f} "
+                  f"max|price − Lewis|={np.abs(cp_.cpu().numpy() - lew).max():.4f} "
+                  f"(bound 5·se + {bias:.3f}); grads max err/tol={float((gerr / gtol).max()):.3f}")
+    check(not bad_p, f"Heston chain prices vs Lewis at quotes {bad_p}")
+    check(bool(np.all(gerr <= gtol)), "Heston chain gradients vs autograd of Lewis")
+
+    # kernel-speed calibration on that chain's Lewis prices
+    gen = hmodel.HestonParams.make(*H_CALIB_GEN, dtype=torch.float64, device=dev)
+    market = hmodel.heston_price(ContractBatch.make(
+        S0, torch.tensor(strikes, dtype=torch.float64), torch.tensor(mats, dtype=torch.float64),
+        RATE, 0.2, torch.tensor(cps, dtype=torch.float64), device=dev, dtype=torch.float64), gen)
+    before = hk._heston_chain_cuda.launches
+    t0 = time.perf_counter()
+    fit, loss = hmodel.calibrate_heston_mc(
+        market.float(), strikes, mats, cps, S0, RATE,
+        init=hmodel.HestonParams.make(*H_CALIB_INIT, device=dev), n_steps=H_CALIB_STEPS,
+        learning_rate=0.06, n_paths=H_CHAIN_PATHS, max_dt=H_CALIB_DT, device=dev)
+    torch.cuda.synchronize()
+    calib_ms = (time.perf_counter() - t0) * 1e3
+    launches = hk._heston_chain_cuda.launches - before
+    calls["chain"] += H_CALIB_STEPS + 2
+    walls.append(f"calibrate_heston_mc {H_CALIB_STEPS} Adam steps {calib_ms:.1f} ms")
+    got = {k: getattr(fit, k).item() for k in H_NAMES}
+    cbounds = {"v0": 0.004, "kappa": 0.25, "theta": 0.004, "rho": 0.15, "sigma": 0.1}
+    log("heston", f"calibrate_heston_mc (dt {H_CALIB_DT}, {calib_ms:.1f} ms): loss={loss:.3e} "
+                  f"launches={launches} " + " ".join(
+        f"{k}={got[k]:.5f}/{v:.5f}" for k, v in zip(H_NAMES, H_CALIB_GEN)))
+    check(loss < 5e-5, f"calibrate_heston_mc loss {loss}")
+    check(launches == H_CALIB_STEPS + 2,
+          f"calibrate_heston_mc made {launches} chain launches, not {H_CALIB_STEPS + 2}")
+    for k, v in zip(H_NAMES, H_CALIB_GEN):
+        check(abs(got[k] - v) < cbounds[k], f"calibrate_heston_mc {k}={got[k]} vs {v}")
+
+    # the object façade's kernel engine
+    pricer = hmodel.HestonPricer(*H_PARAMS, device=dev)
+    pp, ms = timed(lambda: pricer.price_monte_carlo(S0, STRIKE, T, RATE, n_paths=H_EULER[0],
+                                                    n_steps=H_EULER[1], seed=5,
+                                                    engine="pallas"))
+    calls["mc"] += 4
+    record("HestonPricer.price_monte_carlo(engine='pallas')", H_EULER[0], H_EULER[1], ms)
+    check(abs(pp.item() - exact) < 4 * se + bias252,
+          f"HestonPricer pallas engine {pp.item()} vs Lewis {exact}")
+    log("heston", f"warm wall, mean of 3 [{card}]: " + "; ".join(walls))
+    return calls
+
+
+def phase_heston_server(dev) -> None:
+    """``/price`` with ``model: "heston"`` served on the card."""
+    server = PricingServer(port=0, device=dev).start()
+    try:
+        body = {"model": "heston", "heston_params": dict(zip(H_NAMES, H_PARAMS)),
+                "strike": 105.0}
+        status, out = _request(f"http://127.0.0.1:{server.port}/price", body)
+        ref = hmodel.heston_price(ContractBatch.make(S0, 105.0, T, RATE, 0.2, device=dev),
+                                  hmodel.HestonParams.make(*H_PARAMS, device=dev)).item()
+        check(status == 200 and out["price"] == ref, f"/price heston: {status} {out} vs {ref}")
+        log("heston server", f"/price heston K=105: {out['price']:.6f} (Lewis on the card)")
+    finally:
+        server.stop()
+
+
+def heston_timing(dev) -> dict:
+    """Device ms of kernels 4–7 and their plain versions at the Heston path's
+    shapes (prng). Not counted as main path."""
+    out = {}
+    for tag, kfn, pfn, args, kw in heston_parity_cases(dev):
+        if "3x1" in tag or "5 quotes" in tag:
+            continue
+        ms, plain_ms = event_pair(lambda: kfn(0, 0, *args, **kw), lambda: pfn(0, 0, *args, **kw))
+        nb = kw["n_blocks"]
+        if "chain" in tag:
+            plan = args[1]
+            trips = nb * hk.ROWS * hk.LANES * plan.n_steps
+            n_bytes = 4 * (9 + 2 * plan.n_steps + 3 * plan.n_quotes + 7 * plan.n_quotes * hk.ROWS)
+        else:
+            lanes = hk.LADDER_LANES if ("ladder" in tag) else hk.LANES
+            trips = nb * hk.ROWS * lanes * kw["n_steps"]
+            n_mom = 9 if "ladder" in tag else (4 if "vega" in tag else 3)
+            n_bytes = 4 * (args[0].numel() + n_mom * hk.ROWS)
+        out[tag] = {"ms": ms, "plain_ms": plain_ms, "trips": trips, "bytes": n_bytes}
+    return out
+
+
+# mangled-name parts and MUFU.RSQ per step trip (the Box–Muller root and one
+# sqrtf(v⁺) per branch; QE: three roots per path system and branch)
+HESTON_SASS = {"heston_mc price": (("heston_mc_kernelILi0ELi0E",), 3),
+               "heston_mc vega": (("heston_mc_kernelILi1ELi0E",), 3),
+               "heston_mc ladder": (("heston_mc_kernelILi2ELi0E",), 3),
+               "heston_mc price sobol_bb": None,  # two-pass segments: no single step loop
+               "heston_qe prng": (("heston_qe_kernelILi1ELi0E",), 7),
+               "heston_qe_ladder": (("heston_qe_kernelILi7ELi0E",), 43),
+               "heston_chain": (("heston_chain_kernelILi0E",), 3)}
+
+
+def h_timing(h_t: dict, prefix: str) -> dict:
+    (tag,) = [t for t in h_t if t.startswith(prefix)]
+    return h_t[tag]
+
+
+def heston_sass_key(tag: str):
+    for key in sorted(HESTON_SASS, key=len, reverse=True):
+        if tag.startswith(key):
+            return key
+    raise KeyError(tag)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -676,6 +1108,7 @@ def main() -> None:
 
     gbm_err = phase_parity(dev)
     mc_err, greeks_err = phase_exotic_parity(dev)
+    h_err = phase_heston_parity(dev)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -700,6 +1133,20 @@ def main() -> None:
         if n < want or n == 0:
             raise AssertionError(f"exotic path launched {name} {n} < {want} times")
 
+    # the Heston European path
+    h_fns = {"mc": hk._heston_mc_cuda, "qe": hk._heston_qe_cuda,
+             "qe_ladder": hk._heston_qe_ladder_cuda, "chain": hk._heston_chain_cuda}
+    h_se = heston_greek_stderrs(dev)
+    for fn in h_fns.values():
+        fn.launches = 0
+    h_calls = phase_heston_main(dev, card, h_se)
+    phase_heston_server(dev)
+    h_launches = {key: fn.launches for key, fn in h_fns.items()}
+    for key, n in h_launches.items():
+        log("launches", f"heston_{key} launched {n} times for {h_calls[key]} kernel-route calls")
+        check(n == h_calls[key] and n > 0, f"Heston path launched heston_{key} {n} times, "
+                                           f"not {h_calls[key]}")
+
     funcs = load_sass()
     gbm_t = phase_timing(dev)
     for tag, t in gbm_t.items():
@@ -711,7 +1158,15 @@ def main() -> None:
              "greeks asian_geo 8Mx252": ("exotic_greeks_kernelILi1ELi0E",)}
     for tag, t in ex_t.items():
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, names[tag], t["trips"], t["bytes"], tag)
-    for tag, t in list(gbm_t.items()) + list(ex_t.items()):
+    h_t = heston_timing(dev)
+    for tag, t in h_t.items():
+        sass = HESTON_SASS[heston_sass_key(tag)]
+        if sass is None:
+            t["bound_ms"], t["bound_by"] = float("nan"), "not computed"
+            continue
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, sass[0], t["trips"], t["bytes"], tag,
+                                                    rsq_per_trip=sass[1])
+    for tag, t in list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items()):
         log("timing", f"{tag} prng, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
                       f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
                       f"{t['bound_ms']:.4f} ({t['bound_by']})")
@@ -730,6 +1185,15 @@ def main() -> None:
         entry("exotic_greeks_kernel", "exotic_greeks.cu",
               "optionslab_tpu/ops/exotic_pallas.py:1315", greeks_launches, greeks_err,
               ex_t["greeks asian_geo 8Mx252"]),
+        entry("heston_mc_kernel", "heston_mc.cu", "optionslab_tpu/ops/heston_pallas.py:59",
+              h_launches["mc"], h_err["mc"], h_timing(h_t, "heston_mc price prng")),
+        entry("heston_qe_kernel", "heston_qe.cu", "optionslab_tpu/ops/heston_pallas.py:280",
+              h_launches["qe"], h_err["qe"], h_timing(h_t, "heston_qe prng")),
+        entry("heston_qe_ladder_kernel", "heston_qe.cu",
+              "optionslab_tpu/ops/heston_pallas.py:365", h_launches["qe_ladder"],
+              h_err["qe_ladder"], h_timing(h_t, "heston_qe_ladder prng")),
+        entry("heston_chain_kernel", "heston_chain.cu", "optionslab_tpu/ops/heston_pallas.py:469",
+              h_launches["chain"], h_err["chain"], h_timing(h_t, "heston_chain prng 40")),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,12 +9,18 @@ and the GBM exotic path: path-dependent payoffs, likelihood-ratio and
 pathwise Greek ladders and contract books from two more kernels
 (``csrc/exotic_mc.cu``, ``csrc/exotic_greeks.cu``), served through the
 ``ops.exotic_kernel`` functions, the ``models.exotics`` dataclasses and the
-server's ``/exotic`` and ``/book/exotic``.
+server's ``/exotic`` and ``/book/exotic``; and the Heston European path: the
+Lewis and COS pricers, the scan engine and calibration (``models.heston``),
+and Euler and QE prices and Greek ladders and whole-chain pricing with the
+calibration gradient from four more kernels (``csrc/heston_mc.cu``,
+``csrc/heston_qe.cu``, ``csrc/heston_chain.cu``), served through the
+``ops.heston_kernel`` functions, :class:`HestonPricer` and the server's
+``/price`` with ``model: "heston"``.
 
 Subpackages
 -----------
 ``models``  Black–Scholes, Monte Carlo, exotics (closed forms, scan engine,
-            dataclasses) and contract books
+            dataclasses), contract books and Heston
 ``ops``     the kernels' wrappers and plain versions, samplers, QMC, math
 ``utils``   dtype policy, exceptions, validation, logging, timing
 """
@@ -23,12 +29,17 @@ from .models import (
     BlackScholesPricer,
     MCConfig,
     MCMethod,
+    HestonParams,
+    HestonPricer,
     MCResult,
     MonteCarloPricer,
     bs_greeks,
     bs_greeks_ad,
     bs_price,
     bs_vega,
+    calibrate_heston,
+    calibrate_heston_mc,
+    heston_price,
     mc_greeks,
     mc_price,
     mc_price_control_variate,
@@ -43,6 +54,10 @@ from .ops import (
     gbm_mc_price_greeks,
     gbm_mc_price_only,
     gbm_paths_per_launch,
+    heston_chain_ladder,
+    heston_kernel_greeks,
+    heston_kernel_price,
+    make_chain_pricer,
 )
 from .server import PricingServer
 from .types import ContractBatch
@@ -51,6 +66,8 @@ from .utils import ValidationError
 __all__ = [
     "BlackScholesPricer",
     "ContractBatch",
+    "HestonParams",
+    "HestonPricer",
     "MCConfig",
     "MCMethod",
     "MCResult",
@@ -61,6 +78,8 @@ __all__ = [
     "bs_greeks_ad",
     "bs_price",
     "bs_vega",
+    "calibrate_heston",
+    "calibrate_heston_mc",
     "exotic_greeks",
     "exotic_kernel_ladder",
     "exotic_lr_greeks",
@@ -69,6 +88,11 @@ __all__ = [
     "gbm_mc_price_greeks",
     "gbm_mc_price_only",
     "gbm_paths_per_launch",
+    "heston_chain_ladder",
+    "heston_kernel_greeks",
+    "heston_kernel_price",
+    "heston_price",
+    "make_chain_pricer",
     "mc_greeks",
     "mc_price",
     "mc_price_control_variate",

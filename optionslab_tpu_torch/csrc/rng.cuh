@@ -103,14 +103,34 @@ __device__ __forceinline__ void draw_normals_hash(uint32_t seed, uint32_t block,
 }
 
 // The path kernels' per-step normal pair, `prng` sampler: Philox keyed by
-// (seed, salt ^ block) at counter (row, col, step, stream 0); streams 1 and 2
-// are reserved for the Heston kernels' uniform and jump draws.
+// (seed, salt ^ block) at counter (row, col, step, stream 0); stream 1 is the
+// Heston QE uniform below, stream 2 is reserved for the Bates jump draws.
 __device__ __forceinline__ void draw_normals_philox(uint32_t seed, uint32_t block, uint32_t step,
                                                     uint32_t row, uint32_t col, float* z1,
                                                     float* z2) {
   const uint4 x = philox4x32_10(make_uint4(row, col, step, 0u),
                                 make_uint2(seed, kPhiloxBlockSalt ^ block));
   box_muller(bits24_to_uniform(x.x >> 8), bits24_to_uniform(x.y >> 8), z1, z2);
+}
+
+constexpr uint32_t kUniformSalt = 0x27220A95u;
+
+// The per-step uniform of the Heston QE kernels, `hash` sampler: the counters
+// of the JAX package's kernel_rng.draw_uniform, (block*n_steps + step) *
+// (rows*lanes) + lane (no factor 2), with the seed salted by kUniformSalt.
+__device__ __forceinline__ float draw_uniform_hash(uint32_t seed, uint32_t block, uint32_t step,
+                                                   uint32_t n_steps, uint32_t row, uint32_t col,
+                                                   uint32_t rows, uint32_t lanes) {
+  const uint32_t base = (block * n_steps + step) * (rows * lanes);
+  return hash_uniform(base + row * lanes + col, seed ^ kUniformSalt);
+}
+
+// The same uniform, `prng` sampler: Philox stream 1 at counter (row, col, step, 1).
+__device__ __forceinline__ float draw_uniform_philox(uint32_t seed, uint32_t block, uint32_t step,
+                                                     uint32_t row, uint32_t col) {
+  const uint4 x = philox4x32_10(make_uint4(row, col, step, 1u),
+                                make_uint2(seed, kPhiloxBlockSalt ^ block));
+  return bits24_to_uniform(x.x >> 8);
 }
 
 namespace {

@@ -15,6 +15,13 @@ from .exotic_kernel import (
     range_accrual_lr_greeks,
     range_accrual_price,
 )
+from .heston_kernel import (
+    heston_chain_ladder,
+    heston_kernel_greeks,
+    heston_kernel_price,
+    make_chain_pricer,
+)
+from .optim import scan_adam, scan_adam_batched, scan_adam_cached
 from .gbm_kernel import (
     gbm_mc_price,
     gbm_mc_price_greeks,
@@ -37,6 +44,13 @@ __all__ = [
     "gbm_mc_price_greeks",
     "gbm_mc_price_only",
     "gbm_paths_per_launch",
+    "heston_chain_ladder",
+    "heston_kernel_greeks",
+    "heston_kernel_price",
+    "make_chain_pricer",
     "range_accrual_lr_greeks",
     "range_accrual_price",
+    "scan_adam",
+    "scan_adam_batched",
+    "scan_adam_cached",
 ]

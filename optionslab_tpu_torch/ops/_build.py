@@ -128,6 +128,33 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.exotic_greeks_moments.restype = _I
+    lib.heston_mc_moments.argtypes = [
+        _P, _U, _U,                  # params, seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _F, _I, _I,              # n_steps, cp, mode, sampler
+        _P, _P,                      # plan ints, plan floats (host arrays)
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.heston_mc_moments.restype = _I
+    lib.heston_qe_moments.argtypes = [
+        _P, _U, _U,                  # params, seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _F, _I, _I,              # n_steps, cp, n_sets, sampler
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.heston_qe_moments.restype = _I
+    lib.heston_chain_moments.argtypes = [
+        _P, _P, _P, _P, _P,          # head, dt, sqrt_dt, strikes, cps
+        _P, _P, _I,                  # exp_ptr, exp_quote, n_quotes
+        _U, _U,                      # seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _I,                      # n_steps, sampler
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.heston_chain_moments.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

@@ -551,13 +551,14 @@ def _kernel_codes(kind: str, cp: float) -> tuple[int, int]:
     return _F_HIT, side | (pay << 2)
 
 
-def _bridge_plan_arrays(n_steps: int):
-    """The ``sobol_bb`` bridge plan as the C entry point takes it: 32 int32
-    (n_seg, bounds[9], n_con, mid[7], lo[7], hi[7]; the last three index the
-    sorted bounds) and 23 float32 (√n, frac[7], sd[7], 1/len per segment [8])."""
+def _bridge_plan_arrays(n_steps: int, max_levels: int = 8):
+    """The ``sobol_bb`` bridge plan (``bridge_plan(n_steps, max_levels)``,
+    ``max_levels`` <= 8) as the C entry points take it: 32 int32 (n_seg,
+    bounds[9], n_con, mid[7], lo[7], hi[7]; the last three index the sorted
+    bounds) and 23 float32 (√n, frac[7], sd[7], 1/len per segment [8])."""
     ints = np.zeros(32, np.int32)
     floats = np.zeros(23, np.float32)
-    bounds, constructs = bridge_plan(n_steps, 8)
+    bounds, constructs = bridge_plan(n_steps, max_levels)
     pos = {b: j for j, b in enumerate(bounds)}
     ints[0] = len(bounds) - 1
     ints[1:1 + len(bounds)] = bounds

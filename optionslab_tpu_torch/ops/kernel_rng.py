@@ -15,6 +15,9 @@ version of each kernel (and the tests) reproduce the kernel's path set:
 * :func:`draw_normals` — the per-step Box–Muller pair of the path kernels
   (``optionslab_tpu.ops.kernel_rng.draw_normals``), for ``hash`` bit for bit
   with the reference's uniforms, and for ``prng`` on Philox;
+* :func:`draw_uniform` — the per-step uniform of the Heston QE kernels
+  (``optionslab_tpu.ops.kernel_rng.draw_uniform``), on its own hash salt and
+  Philox stream;
 * :func:`sobol_nd` and :func:`bridge_plan` — the up-to-8-dimensional
   scrambled Sobol points and the Brownian-bridge plan of the exotic kernel's
   ``sobol_bb`` sampler (``optionslab_tpu.ops.exotic_pallas._sobol_nd`` and
@@ -28,8 +31,9 @@ step in its counter instead. Every Philox draw is keyed by
 
 * stream 0 — the Box–Muller pair of :func:`draw_normals` (and, at step 0,
   the terminal GBM kernel's single pair);
-* streams 1 and 2 — reserved for the Heston kernels' ``draw_uniform`` and
-  ``draw_jump``, so that no two draws of one lane ever share a counter.
+* stream 1 — the uniform of :func:`draw_uniform` (the Heston QE kernels);
+* stream 2 — reserved for the Bates kernels' ``draw_jump``, so that no two
+  draws of one lane ever share a counter.
 """
 
 from __future__ import annotations
@@ -186,6 +190,41 @@ def draw_normals(sampler: str, seed: int, block: torch.Tensor, step: int, n_step
     else:
         raise ValueError(f"draw_normals: unknown sampler {sampler!r}")
     return box_muller(u1, u2)
+
+
+UNIFORM_SALT = 0x27220A95  # seed salt of the hash stream of draw_uniform
+
+
+def philox_uniform(row: torch.Tensor, col: torch.Tensor, seed: int, block: torch.Tensor,
+                   step=0):
+    """The ``prng`` sampler's uniform of :func:`draw_uniform`: Philox keyed
+    by ``(seed, PHILOX_BLOCK_SALT ^ block)`` at counter ``(row, col, step,
+    1)`` (stream 1), 24 bits of output word 0."""
+    key1 = (block.to(torch.int64) & _U32) ^ PHILOX_BLOCK_SALT
+    x = philox4x32_10(row, col, step, 1, int(seed) & _U32, key1)
+    return _bits24_to_uniform(x[0] >> 8)
+
+
+def draw_uniform(sampler: str, seed: int, block: torch.Tensor, step: int, n_steps: int,
+                 rows: int, lanes: int) -> torch.Tensor:
+    """One (0,1) uniform per lane for path blocks ``block`` (int32 of shape
+    (nb, 1, 1)) at time step ``step``, on a stream disjoint from
+    :func:`draw_normals`: the Andersen-QE variance transition's uniform.
+
+    ``hash`` draws the counters of ``optionslab_tpu.ops.kernel_rng.
+    draw_uniform``, ``(block·n_steps + step)·(rows·lanes) + lane`` (no
+    factor 2) with the seed salted by :data:`UNIFORM_SALT`; ``prng`` draws
+    Philox stream 1 at counter ``(row, col, step, 1)``.
+    """
+    dev = block.device
+    row = torch.arange(rows, dtype=torch.int32, device=dev).reshape(1, -1, 1)
+    col = torch.arange(lanes, dtype=torch.int32, device=dev).reshape(1, 1, -1)
+    if sampler == "hash":
+        base = (block * wrap32(n_steps) + wrap32(step)) * wrap32(rows * lanes)
+        return hash_uniform(base + (row * lanes + col), wrap32(seed) ^ UNIFORM_SALT)
+    if sampler == "prng":
+        return philox_uniform(row, col, seed, block, step)
+    raise ValueError(f"draw_uniform: unknown sampler {sampler!r}")
 
 
 def _sobol_v8() -> tuple:

@@ -6,15 +6,18 @@ reads the SASS of the built library (``cuobjdump -sass``), finds a kernel's
 hot loop and counts its instructions by pipe:
 
 * the hot loop is the innermost loop (a backward branch) whose body holds a
-  ``MUFU.RSQ``: every trip of it does exactly one Box–Muller, whose
-  ``sqrtf`` issues one ``MUFU.RSQ``. For the exotic kernels that is the
+  ``MUFU.RSQ``: every trip of it does one Box–Muller, whose ``sqrtf``
+  issues one ``MUFU.RSQ``. For the exotic and Heston kernels that is the
   time-step loop (one step of one lane), for the terminal GBM kernel the
-  lane loop (one lane);
+  lane loop (one lane). A kernel whose trip takes more square roots than
+  the Box–Muller's names their count, ``rsq_per_trip`` (the Heston Euler
+  and chain kernels: 3, one ``sqrtf(v⁺)`` per antithetic branch; the QE
+  kernels: 1 + 6 per path system);
 * the code a trip skips on its fast path is left out: a region that a
   forward conditional branch jumps over and that holds a call or a loop
   (the slow paths of ``sincosf``, ``sqrtf`` and the divide);
-* the ``MUFU.RSQ`` count of what remains is the compiler's unroll factor,
-  and every count is divided by it.
+* the ``MUFU.RSQ`` count of what remains over ``rsq_per_trip`` is the
+  compiler's unroll factor, and every count is divided by it.
 
 Code behind a branch on a runtime argument (a kernel family's mode) is
 counted as if it ran, so a kernel whose step loop holds such code gets a
@@ -91,10 +94,11 @@ def _pipe(instr: Instr) -> str | None:
     return None
 
 
-def hot_loop_counts(instrs: list[Instr]) -> dict[str, float]:
+def hot_loop_counts(instrs: list[Instr], rsq_per_trip: int = 1) -> dict[str, float]:
     """Instructions per trip of the hot loop, by pipe (``fp32``, ``int``,
     ``mufu``) and in all (``issue``), with ``unroll`` and the loop's
-    ``span`` in bytes of code."""
+    ``span`` in bytes of code. ``rsq_per_trip``: the ``MUFU.RSQ`` count of
+    one trip; a loop whose count is not a multiple of it is refused."""
     loops = [(t, i.addr) for i in instrs if (t := i.branch_target()) is not None and t < i.addr]
     calls = [i.addr for i in instrs if i.base == "CALL"]
 
@@ -122,7 +126,11 @@ def hot_loop_counts(instrs: list[Instr]) -> dict[str, float]:
     if best is None:
         raise ValueError("no loop with a MUFU.RSQ (one Box–Muller per trip) in this function")
     lo, hi, body = best
-    unroll = sum(i.op.startswith("MUFU.RSQ") for i in body)
+    n_rsq = sum(i.op.startswith("MUFU.RSQ") for i in body)
+    if n_rsq % rsq_per_trip:
+        raise ValueError(f"the hot loop 0x{lo:x}..0x{hi:x} holds {n_rsq} MUFU.RSQ, not a "
+                         f"multiple of {rsq_per_trip} per trip")
+    unroll = n_rsq // rsq_per_trip
     counts = {"fp32": 0, "int": 0, "mufu": 0, "issue": len(body)}
     for i in body:
         pipe = _pipe(i)

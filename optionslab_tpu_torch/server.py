@@ -3,8 +3,10 @@
 Endpoints (POST, JSON body, JSON response), with the request bodies of
 ``optionslab_tpu.server``:
 
-  /price        {"model": "bs", contract fields...}   (other models: 400,
-                not yet ported)
+  /price        {"model": "bs|heston", contract fields...}; "heston" prices
+                by the Lewis integral with the optional "heston_params"
+                {v0, kappa, theta, sigma, rho} (other models: 400, not yet
+                ported)
   /batch/price  the same; fields may be lists
   /greeks       {contract fields...}                → full BS Greek ladder
   /mc           {"n_paths": N, "seed": s, "method": "pallas|xla",
@@ -40,6 +42,7 @@ import torch
 
 from .models.black_scholes import bs_greeks, bs_price
 from .models.books import exotic_book_quote
+from .models.heston import HestonParams, heston_price
 from .models.exotics import (
     AsianOption,
     BarrierOption,
@@ -87,9 +90,14 @@ def _batch(p: dict, device) -> ContractBatch:
 def handle_price(body: dict, device) -> dict:
     p, cp = _contract(body)
     model = body.get("model", "bs")
-    if model != "bs":
-        raise ValidationError(f"model {model!r} is not yet ported; available: ['bs']")
-    return {"model": model, "price": _to_jsonable(bs_price(*_bs_args(p, cp, device)))}
+    if model == "bs":
+        out = bs_price(*_bs_args(p, cp, device))
+    elif model == "heston":
+        params = HestonParams.make(**body.get("heston_params", {}), device=device)
+        out = heston_price(_batch(p, device), params)
+    else:
+        raise ValidationError(f"model {model!r} is not yet ported; available: ['bs', 'heston']")
+    return {"model": model, "price": _to_jsonable(out)}
 
 
 def handle_greeks(body: dict, device) -> dict:

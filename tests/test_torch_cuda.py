@@ -206,3 +206,104 @@ def test_exotic_wrappers_reject_cpu_tensors(cuda_device):
         ek._exotic_moments_cuda(0, 0, gparams.double(), gbook, **kw)
     with pytest.raises(ValueError, match="power-of-two"):
         ek._exotic_moments_cuda(0, 0, gparams, gbook.expand(3, 7).contiguous(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# the Heston kernels (csrc/heston_mc.cu, heston_qe.cu, heston_chain.cu)
+# ---------------------------------------------------------------------------
+def _heston_params():
+    from optionslab_tpu_torch.models.heston import HestonParams
+
+    return HestonParams.make(0.04, 2.0, 0.04, 0.3, -0.7)
+
+
+def _heston_close(kern, plain, n_plain):
+    """Row sums within rtol 1e-5; the signed sensitivity moments (from
+    ``n_plain`` on) against their largest row."""
+    assert kern.shape == plain.shape and torch.isfinite(kern).all()
+    k64, p64 = kern.double(), plain.double()
+    scale = p64.abs()
+    scale[n_plain:] = torch.maximum(scale[n_plain:], scale[n_plain:].amax(dim=-1, keepdim=True))
+    assert torch.all((k64 - p64).abs() <= MOMENT_RTOL * scale)
+
+
+# 70 path blocks: 24 chunks of 3, so each CUDA block sums several path blocks
+@pytest.mark.parametrize("mode,sampler,cp", [(m, s, cp) for m in ("price", "vega", "ladder")
+                                             for s in ("prng", "hash") for cp in (1.0, -1.0)]
+                         + [("price", "sobol_bb", 1.0)])
+def test_heston_mc_kernel_matches_plain_on_card(cuda_device, mode, sampler, cp):
+    from optionslab_tpu_torch.ops import heston_kernel as hk
+
+    _, p = hk._params_vec(100.0, 105.0 if cp > 0 else 95.0, 1.0, 0.05, _heston_params(), 0.01,
+                          12)
+    params = torch.tensor(p, device=cuda_device)
+    kw = dict(n_steps=12, n_blocks=70, cp=cp, sampler=sampler, mode=mode)
+    before = hk._heston_mc_cuda.launches
+    kern = hk._heston_mc_cuda(5, 2, params, **kw)
+    assert hk._heston_mc_cuda.launches == before + 1
+    _heston_close(kern, hk._heston_mc_plain(5, 2, params, **kw), 3)
+
+
+@pytest.mark.parametrize("ladder", [False, True])
+@pytest.mark.parametrize("sampler", ["prng", "hash"])
+def test_heston_qe_kernels_match_plain_on_card(cuda_device, ladder, sampler):
+    from optionslab_tpu_torch.ops import heston_kernel as hk
+
+    if ladder:
+        _, p, _ = hk._params_vec_qe_ladder(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0, 12)
+        kfn, pfn = hk._heston_qe_ladder_cuda, hk._heston_qe_ladder_plain
+    else:
+        _, p = hk._params_vec_qe(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0, 12)
+        kfn, pfn = hk._heston_qe_cuda, hk._heston_qe_plain
+    params = torch.tensor(p, device=cuda_device)
+    kw = dict(n_steps=12, n_blocks=70, cp=-1.0, sampler=sampler)
+    before = kfn.launches
+    kern = kfn(5, 2, params, **kw)
+    assert kfn.launches == before + 1
+    _heston_close(kern, pfn(5, 2, params, **kw), 9)
+
+
+@pytest.mark.parametrize("sampler", ["prng", "hash"])
+def test_heston_chain_kernel_matches_plain_on_card(cuda_device, sampler):
+    from optionslab_tpu_torch.ops import heston_kernel as hk
+
+    plan = hk.chain_plan([90.0, 100.0, 110.0, 95.0, 105.0, 100.0], [0.5, 0.5, 0.5, 1.0, 1.0, 0.25],
+                         [-1.0, 1.0, 1.0, -1.0, 1.0, 1.0], 0.05, cuda_device)
+    head = hk._chain_head(torch.tensor([0.04, 2.0, 0.04, 0.3, -0.7], device=cuda_device), 100.0,
+                          0.05, 0.01)
+    kw = dict(n_blocks=70, sampler=sampler)
+    before = hk._heston_chain_cuda.launches
+    kern = hk._heston_chain_cuda(5, 2, head, plan, **kw)
+    assert hk._heston_chain_cuda.launches == before + 1
+    plain = hk._heston_chain_plain(5, 2, head, plan, **kw)
+    for q in range(plan.n_quotes):
+        _heston_close(kern[q], plain[q], 2)
+
+
+def test_heston_entry_points_on_card(cuda_device):
+    from optionslab_tpu_torch.models.heston import HestonPricer, calibrate_heston_mc
+    from optionslab_tpu_torch.ops import heston_kernel as hk
+
+    par = _heston_params()
+    p, se, _ = hk.heston_kernel_price(100.0, 100.0, 1.0, 0.05, par, n_paths=2_000_000,
+                                      n_steps=64, device=cuda_device)
+    lewis = HestonPricer(device=cuda_device).price(100.0, 100.0, 1.0, 0.05)
+    assert p.device.type == "cuda" and abs(p.item() - lewis.item()) < 4 * se.item() + 0.03
+    before = hk._heston_chain_cuda.launches
+    strikes, mats, cps = [95.0, 105.0], [0.5, 1.0], [-1.0, 1.0]
+    market, _, _ = hk.heston_chain_ladder(strikes, mats, cps, 100.0, 0.05, par, n_paths=262_144,
+                                          max_dt=0.05, device=cuda_device)
+    calibrate_heston_mc(market, strikes, mats, cps, 100.0, 0.05, n_steps=10, n_paths=262_144,
+                        max_dt=0.05, device=cuda_device)
+    assert hk._heston_chain_cuda.launches == before + 1 + 10 + 2
+
+
+def test_heston_wrappers_reject_cpu_tensors(cuda_device):
+    from optionslab_tpu_torch.ops import heston_kernel as hk
+
+    _, p = hk._params_vec(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0, 4)
+    kw = dict(n_steps=4, n_blocks=1, cp=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        hk._heston_mc_cuda(0, 0, torch.tensor(p), **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk._heston_mc_cuda(0, 0, torch.tensor(p, device=cuda_device).double(), **kw)

@@ -36,6 +36,21 @@ LISTING = """
         /*0080*/                   I2F.U32 R4, R4 ;                       /* 0x0000000400047306 */
         /*0090*/                @P1 BRA 0x10 ;                            /* 0xffffff7000001947 */
         /*00a0*/                   EXIT ;                                 /* 0x000000000000794d */
+
+                Function : _ZN10optionslab5chainILi0EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   MUFU.RSQ R6, R7 ;                      /* 0x0000000700067308 */
+        /*0020*/                   FMUL R2, R2, R3 ;                      /* 0x0000000302027220 */
+        /*0030*/                   MUFU.RSQ R8, R9 ;                      /* 0x0000000900087308 */
+        /*0040*/                   MUFU.RSQ R10, R11 ;                    /* 0x0000000b000a7308 */
+        /*0050*/               @!P0 BRA 0xa0 ;                            /* 0x0000000000108947 */
+        /*0060*/                   MUFU.EX2 R12, R12 ;                    /* 0x0000000c000c7308 */
+        /*0070*/                   SHFL.DOWN PT, R13, R12, 0x10, 0x1f ;   /* 0x0000000c0d007f89 */
+        /*0080*/                   IADD3 R14, R14, 0x1, RZ ;              /* 0x000000010e0e7810 */
+        /*0090*/                @P2 BRA 0x60 ;                            /* 0xfffffffc00002947 */
+        /*00a0*/                   FADD R2, R2, R6 ;                      /* 0x0000000602027221 */
+        /*00b0*/                @P1 BRA 0x10 ;                            /* 0xffffff5000001947 */
+        /*00c0*/                   EXIT ;                                 /* 0x000000000000794d */
 """
 
 
@@ -46,7 +61,8 @@ def funcs():
 
 def test_parse_functions(funcs):
     assert sorted(funcs) == ["_ZN10optionslab4laneILi1EEEvNS_4ArgsE",
-                             "_ZN10optionslab4stepILi0EEEvNS_4ArgsE"]
+                             "_ZN10optionslab4stepILi0EEEvNS_4ArgsE",
+                             "_ZN10optionslab5chainILi0EEEvNS_4ArgsE"]
     step = sb.find_function(funcs, "stepILi0E")
     assert [i.addr for i in step] == list(range(0, 0xC0, 0x10))
     bra = step[3]
@@ -71,6 +87,22 @@ def test_hot_loop_unroll_and_nested_loop(funcs):
     assert counts["fp32"] == 0.0
 
 
+def test_step_loop_with_several_roots_and_an_expiry_loop(funcs):
+    """A Heston-style step loop: three MUFU.RSQ per trip (the Box–Muller root
+    and one sqrtf(v⁺) per branch) and the chain's expiry loop behind a
+    forward branch. The innermost loop (the expiry loop) holds no RSQ, so
+    the step loop is picked, the expiry region 0x60..0x90 is left out, and
+    with ``rsq_per_trip=3`` one trip is one step, not a third of one."""
+    chain = sb.find_function(funcs, "chainILi0E")
+    counts = sb.hot_loop_counts(chain, rsq_per_trip=3)
+    # kept: 0x10 RSQ, 0x20 FMUL, 0x30 RSQ, 0x40 RSQ, 0x50 BRA, 0xa0 FADD, 0xb0 BRA
+    assert counts == {"fp32": 2, "int": 0, "mufu": 3, "issue": 7, "unroll": 1, "span": 0xA0}
+    # the old rule (one RSQ per trip) reads the three roots as an unroll of 3
+    assert sb.hot_loop_counts(chain)["unroll"] == 3
+    with pytest.raises(ValueError, match="not a multiple of 2"):
+        sb.hot_loop_counts(chain, rsq_per_trip=2)
+
+
 def test_bound_ms_picks_busiest_pipe():
     counts = {"fp32": 128, "int": 80, "mufu": 10, "issue": 200}
     n_sm, clock = 132, 1.98e9
@@ -85,7 +117,7 @@ def test_bound_ms_picks_busiest_pipe():
 
 def test_errors(funcs):
     with pytest.raises(KeyError):
-        sb.find_function(funcs, "optionslab")  # two match
+        sb.find_function(funcs, "optionslab")  # three match
     with pytest.raises(KeyError):
         sb.find_function(funcs, "nothing")
     with pytest.raises(ValueError, match="MUFU.RSQ"):

@@ -61,8 +61,22 @@ def test_price_and_batch_price(base_url):
     assert status == 200 and out["price"] == pytest.approx([5.5735] * 2, abs=1e-3)
 
 
+@pytest.mark.parametrize("body", [{}, {"heston_params": {"v0": 0.09, "rho": -0.3},
+                                       "strike": 110.0, "option_type": "put"}])
+def test_price_heston_is_the_ports_lewis_price(base_url, body):
+    from optionslab_tpu_torch.models.heston import HestonParams, heston_price
+    from optionslab_tpu_torch.types import ContractBatch
+
+    status, out = _call(base_url + "/price", {"model": "heston", **body})
+    assert status == 200 and out["model"] == "heston"
+    b = ContractBatch.make(100.0, body.get("strike", 100.0), 1.0, 0.05, 0.2,
+                           body.get("option_type", "call"))
+    params = HestonParams.make(**body.get("heston_params", {}))
+    assert out["price"] == heston_price(b, params).item()
+
+
 def test_price_unported_model_is_400(base_url):
-    status, out = _call(base_url + "/price", {"model": "heston"})
+    status, out = _call(base_url + "/price", {"model": "bates"})
     assert status == 400 and "not yet ported" in out["error"]
 
 
