@@ -19,7 +19,11 @@ is printed):
               exotic path's own shapes with ``prng``; the four Heston
               kernels (Euler price/vega/ladder, QE, QE ladder, chain) for
               every mode and sampler at small shapes and at the Heston
-              path's shapes;
+              path's shapes; the Heston exotic kernel for all 22 kinds with
+              and without LR under ``hash`` and ``prng`` (both signs where
+              the payoff takes one), QE, Bates jumps under both schemes,
+              bridge QMC, books of 2, 8 and 128 contracts, and at the
+              Heston exotic path's shapes;
 4. main     — the GBM path at full size through ``MonteCarloPricer``: 1e9
               paths on one contract, a 1024-contract book at 1e6 paths each,
               and the price-only sibling, checked against Black–Scholes;
@@ -37,9 +41,19 @@ is printed):
               (200 Adam steps, exactly 202 chain launches), the
               ``HestonPricer`` kernel engine, and ``/price`` with
               ``model: "heston"``; against Lewis and autograd of Lewis;
-9. launches — each kernel's launch count over its path's phases (the counts
+9. heston exotic — the Heston/Bates exotic path through its entry points
+              at the JAX package's bench sizes (Asian and barrier LR
+              8,388,608 x 64, 8-strike books 1,000,000 x 64 per contract,
+              Bates barrier 8,388,608 x 64 and Bates QE Asian x 16,
+              autocall/cliquet/range accrual 4,194,304 x 252 price and LR,
+              bridge QMC 4,194,304 x 64), against the exact in/out and
+              touch/no-touch identities, Lewis, Bates, the GBM closed forms,
+              the scan engine and CRN finite differences, with warm wall
+              times; then ``/exotic``, ``/book/exotic`` and ``/price`` bates
+              over a socket;
+10. launches — each kernel's launch count over its path's phases (the counts
               are set to 0 just before a path and read just after it);
-10. timing  — device ms by CUDA events of each kernel and its plain
+11. timing  — device ms by CUDA events of each kernel and its plain
               version at its path's shapes, beside the least time the card
               could take (from the kernel's SASS, ``ops/sass_bound.py``).
 
@@ -62,10 +76,13 @@ import torch
 from optionslab_tpu_torch import ContractBatch, MCMethod, MonteCarloPricer, PricingServer
 from optionslab_tpu_torch.models import exotics as tex
 from optionslab_tpu_torch.models import heston as hmodel
+from optionslab_tpu_torch.models import heston_exotics as hscan
+from optionslab_tpu_torch.models.bates import BatesParams, bates_price
 from optionslab_tpu_torch.models.black_scholes import bs_greeks
 from optionslab_tpu_torch.ops import _build, sass_bound
 from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
+from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
 from optionslab_tpu_torch.ops import heston_kernel as hk
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
@@ -633,11 +650,14 @@ def sm_clock_hz() -> float:
 
 
 def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, tag: str,
-                 rsq_per_trip: int = 1):
+                 rsq_per_trip=1):
     """(bound ms, bound_by) of a launch: the larger of its bytes over the HBM
-    rate and its hot loop's busiest pipe (``ops/sass_bound.py``)."""
-    counts = sass_bound.hot_loop_counts(sass_bound.find_function(funcs, *name_parts),
-                                        rsq_per_trip)
+    rate and its hot loop's busiest pipe (``ops/sass_bound.py``). A pair
+    ``rsq_per_trip`` names a two-pass bridge kernel: its pre-pass and replay
+    loops each run once per step, and their counts add."""
+    fn = sass_bound.find_function(funcs, *name_parts)
+    counts = (sass_bound.two_pass_counts(fn, rsq_per_trip) if isinstance(rsq_per_trip, tuple)
+              else sass_bound.hot_loop_counts(fn, rsq_per_trip))
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
     ops_ms, pipe = sass_bound.bound_ms(counts, trips, n_sm, clock)
@@ -1075,10 +1095,445 @@ def heston_timing(dev) -> dict:
 HESTON_SASS = {"heston_mc price": (("heston_mc_kernelILi0ELi0E",), 3),
                "heston_mc vega": (("heston_mc_kernelILi1ELi0E",), 3),
                "heston_mc ladder": (("heston_mc_kernelILi2ELi0E",), 3),
-               "heston_mc price sobol_bb": None,  # two-pass segments: no single step loop
+               # two passes per bridge segment: a Box–Muller per pre-pass trip, three
+               # roots per replay trip
+               "heston_mc price sobol_bb": (("heston_mc_kernelILi0ELi2E",), (1, 3)),
                "heston_qe prng": (("heston_qe_kernelILi1ELi0E",), 7),
                "heston_qe_ladder": (("heston_qe_kernelILi7ELi0E",), 43),
                "heston_chain": (("heston_chain_kernelILi0E",), 3)}
+
+
+# ---------------------------------------------------------------------------
+# the Heston/Bates exotic path (csrc/heston_exotic.cu)
+# ---------------------------------------------------------------------------
+HX_MAIN = (8_388_608, 64)  # bench.py:195 (Asian) and :211 (barrier LR ladder)
+HX_BOOK = (1_000_000, 64)  # bench.py:284, paths per contract
+HX_BOOK_K = [80.0, 85.0, 90.0, 95.0, 100.0, 105.0, 110.0, 115.0]
+HX_BATES_QE = (8_388_608, 16)
+HX_STRUCT = (4_194_304, 252)
+HX_QMC = (4_194_304, 64)
+HX_SCAN = 1_048_576  # the scan engine's paths
+HX_BATES = dict(lam=0.5, mu_j=-0.1, sigma_j=0.15)
+# the kinds whose payoff takes the sign cp
+HX_CP_KINDS = ("asian_arith", "asian_geo", "lookback_float", "lookback_fixed",
+               "barrier_up-and-out", "barrier_up-and-in", "barrier_down-and-out",
+               "barrier_down-and-in", "barrier_double-out", "barrier_double-in")
+HX_SLOTS = {"cliquet": [-0.03, 0.03, 0.0, 1e9, 100.0],  # A..E as the wrappers set them
+            "autocall": [0.0, math.log(0.8), math.log(0.7), 2.0, 100.0],
+            "range_accrual": [math.log(0.9), math.log(1.1), 0.0, 0.0, 100.0]}
+
+
+def hx_params(bates: bool = False, dev=None, **over):
+    vals = dict(zip(H_NAMES, H_PARAMS), **over)
+    if bates:
+        return BatesParams.make(**vals, **HX_BATES, device=dev)
+    return hmodel.HestonParams.make(**vals, device=dev)
+
+
+def hx_inputs(kind: str, n_steps: int, dev, scheme: str = "euler", bates: bool = False):
+    """(params, one-contract book) of a launch, with every kind's slots set."""
+    barrier = 115.0 if "up" in kind else (88.0 if "down" in kind else 0.0)
+    p, _ = hx._exotic_params(S0, STRIKE, T, RATE, hx_params(bates), 0.01, barrier, n_steps, scheme)
+    if "double" in kind:
+        hx._set_double_band(p, S0, 88.0, 115.0)
+    if kind in HX_SLOTS:
+        p[hx._HX_A:hx._HX_DYN] = HX_SLOTS[kind]
+    params = torch.tensor(p, dtype=torch.float32, device=dev)
+    return params, params[list(hx._BOOK_SLOTS)].reshape(1, 7).contiguous()
+
+
+def hx_parity_cases(dev) -> list:
+    """(tag, params, book, kwargs) of the Heston exotic parity phase: every
+    kind × lr × hash/prng × cp (Euler), QE price of every non-structured kind,
+    jumps under both schemes, bridge QMC, books, then the path's shapes."""
+    cases = []
+
+    def add(tag, kind, n_steps, n_blocks, dev_, scheme="euler", bates=False, book=None, **kw):
+        params, one = hx_inputs(kind, n_steps, dev_, scheme, bates)
+        kw = dict(kind=kind, n_steps=n_steps, n_blocks=n_blocks, scheme=scheme, jumps=bates,
+                  period=kw.pop("period", 3 if kind in ("cliquet", "autocall") else 1), **kw)
+        cases.append((tag, params, one if book is None else book, kw))
+
+    for kind in hx.HESTON_EXOTIC_KINDS:
+        for sampler in ("hash", "prng"):
+            for lr in (False, True):
+                for cp in ((1.0, -1.0) if kind in HX_CP_KINDS else (1.0,)):
+                    add(f"{kind} {sampler} lr={lr} cp={cp:+.0f} 3x12", kind, 12, 3, dev, cp=cp,
+                        sampler=sampler, lr=lr)
+    for j, kind in enumerate(k for k in hx.HESTON_EXOTIC_KINDS if k not in hx.STRUCTURED):
+        sampler = ("hash", "prng")[j % 2]
+        add(f"{kind} qe {sampler} 3x12", kind, 12, 3, dev, "qe", cp=1.0, sampler=sampler)
+    for kind, scheme, sampler, lr, cp in (("asian_arith", "euler", "prng", True, 1.0),
+                                          ("barrier_down-and-in", "euler", "hash", False, -1.0),
+                                          ("autocall", "qe", "prng", False, 1.0),
+                                          ("one_touch_down_hit", "qe", "hash", False, 1.0),
+                                          ("range_accrual", "euler", "hash", True, 1.0)):
+        add(f"{kind} bates {scheme} {sampler} lr={lr} 3x12", kind, 12, 3, dev, scheme, True,
+            cp=cp, sampler=sampler, lr=lr)
+    for kind, bates in (("asian_arith", False), ("barrier_up-and-out", False), ("cliquet", False),
+                        ("one_touch_double_hit", True)):
+        add(f"{kind} sobol_bb bates={bates} 3x12", kind, 12, 3, dev, bates=bates, cp=1.0,
+            sampler="sobol_bb")
+    for nc, kind in ((2, "barrier_up-and-out"), (8, "asian_arith"), (128, "one_touch_up_hit")):
+        strikes = torch.linspace(90.0, 110.0, nc).tolist()
+        barriers = torch.linspace(110.0, 130.0, nc).tolist()
+        table, *_ = hx._heston_book_vec(kind, S0, strikes, barriers, None, None)
+        book = torch.tensor(table, dtype=torch.float32, device=dev)
+        for lr in (False, True):
+            add(f"book nc={nc} {kind} prng lr={lr} 3x12", kind, 12, 3, dev, book=book, cp=1.0,
+                sampler="prng", lr=lr)
+    # the path's own shapes (many path blocks per thread), prng
+    nb_main = hx._n_blocks(HX_MAIN[0], hx.PATHS_PER_BLOCK)
+    add(f"asian_arith prng {HX_MAIN[0]}x{HX_MAIN[1]}", "asian_arith", HX_MAIN[1], nb_main, dev,
+        cp=1.0, sampler="prng")
+    add(f"barrier_up-and-out prng lr {HX_MAIN[0]}x{HX_MAIN[1]}", "barrier_up-and-out",
+        HX_MAIN[1], nb_main, dev, cp=1.0, sampler="prng", lr=True)
+    add(f"barrier_down-and-in bates prng {HX_MAIN[0]}x{HX_MAIN[1]}", "barrier_down-and-in",
+        HX_MAIN[1], nb_main, dev, bates=True, cp=-1.0, sampler="prng")
+    add(f"asian_arith bates qe prng {HX_BATES_QE[0]}x{HX_BATES_QE[1]}", "asian_arith",
+        HX_BATES_QE[1], hx._n_blocks(HX_BATES_QE[0], hx.PATHS_PER_BLOCK), dev, "qe", True, cp=1.0,
+        sampler="prng")
+    nb_s = hx._n_blocks(HX_STRUCT[0], hx.PATHS_PER_BLOCK)
+    for kind, period in (("autocall", 63), ("cliquet", 21)):
+        for lr in (False, True):
+            add(f"{kind} prng lr={lr} {HX_STRUCT[0]}x{HX_STRUCT[1]}", kind, HX_STRUCT[1], nb_s, dev,
+                cp=1.0, sampler="prng", lr=lr, period=period)
+    add(f"asian_arith sobol_bb {HX_QMC[0]}x{HX_QMC[1]}", "asian_arith", HX_QMC[1],
+        hx._n_blocks(HX_QMC[0], hx.PATHS_PER_BLOCK), dev, cp=1.0, sampler="sobol_bb")
+    nc = len(HX_BOOK_K)
+    table, *_ = hx._heston_book_vec("asian_arith", S0, HX_BOOK_K, None, None, None)
+    add(f"book nc={nc} asian_arith prng {HX_BOOK[0]}x{HX_BOOK[1]}", "asian_arith", HX_BOOK[1],
+        hx._n_blocks(HX_BOOK[0], (hx.ROWS // nc) * hx.LANES * 2), dev,
+        book=torch.tensor(table, dtype=torch.float32, device=dev), cp=1.0, sampler="prng")
+    return cases
+
+
+def phase_hx_parity(dev) -> float:
+    """The Heston exotic kernel against its plain version; returns the
+    largest absolute difference."""
+    worst = 0.0
+    for tag, params, book, kw in hx_parity_cases(dev):
+        kern = hx._heston_exotic_cuda(7, 1, params, book, **kw)
+        plain = hx._heston_exotic_plain(7, 1, params, book, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_sums(kern, plain, f"heston_exotic {tag}"))
+    return worst
+
+
+def hx_lr_runs():
+    """(tag, wrapper, args, kwargs, n_paths, n_steps) of the LR workloads of
+    the path, whose Greeks are checked against CRN finite differences."""
+    n, m = HX_MAIN
+    ns, ms = HX_STRUCT
+    return [("barrier LR", "exotic", ("barrier_up-and-out", S0, STRIKE, T, RATE),
+             dict(barrier=120.0), n, m),
+            ("autocall LR", "autocall", (S0, T, RATE), {}, ns, ms),
+            ("cliquet LR", "cliquet", (S0, T, RATE), {}, ns, ms),
+            ("range accrual LR", "range_accrual", (S0, 90.0, 110.0, T, RATE), {}, ns, ms)]
+
+
+def hx_lr_stderrs(dev) -> dict:
+    """Standard errors of the LR Greeks at the path's shapes from the 128
+    independent row groups of one launch each (another seed than the main
+    path's). Not counted as main path."""
+    par = hx_params()
+    out = {}
+    for tag, name, args, kw, n_paths, n_steps in hx_lr_runs():
+        if name == "exotic":
+            p, t = hx._exotic_params(*args[1:], par, 0.0, kw["barrier"], n_steps, "euler")
+            kind, period = args[0], 1
+        elif name == "autocall":
+            p, t = hx._autocall_params(*args, par, 0.0, 100.0, 1.0, 0.8, 0.7, 0.08, 4, n_steps,
+                                       "euler")
+            kind, period = name, n_steps // 4
+        elif name == "cliquet":
+            p, t = hx._cliquet_params(*args, par, 0.0, -0.05, 0.05, 0.0, 1e9, 100.0, 12, n_steps,
+                                      "euler")
+            kind, period = name, n_steps // 12
+        else:
+            p, t = hx._range_params(*args, par, 0.0, 100.0, n_steps, "euler")
+            kind, period = name, 1
+        nb = hx._n_blocks(n_paths, hx.PATHS_PER_BLOCK)
+        params = torch.tensor(p, dtype=torch.float32, device=dev)
+        rows = hx._heston_exotic_cuda(99, 0, params, params[list(hx._BOOK_SLOTS)].reshape(1, 7),
+                                      kind=kind, n_steps=n_steps, n_blocks=nb, cp=1.0,
+                                      period=period, lr=True).double()
+        n_row = nb * hx.LANES * 2
+        g = hx._combine_exotic_lr(list(rows / n_row), n_row,
+                                  hx._lr_scalars(S0, t, RATE, par, n_steps), n_steps,
+                                  discounted=kind == "autocall")
+        for key in ("delta", "rho", "theta", "vega_v0"):
+            out[(tag, key)] = g[key].double().std().item() / math.sqrt(hx.ROWS)
+    log("heston exotic", "LR Greek stderrs from 128 row groups: " + " ".join(
+        f"{t}:{k}={v:.2e}" for (t, k), v in out.items()))
+    return out
+
+
+def phase_hx_main(dev, card: str, lr_se: dict) -> int:
+    """The Heston/Bates exotic path through its entry points at the JAX
+    package's bench sizes, against exact identities, closed forms, the scan
+    engine and CRN finite differences. Returns the number of calls routed
+    to the kernel."""
+    calls = [0]
+    walls = []
+    par, bpar = hx_params(dev=dev), hx_params(True, dev)
+    df = math.exp(-RATE * T)
+
+    def k(fn, *a, **kw):
+        calls[0] += 1
+        return fn(*a, device=dev, **kw)
+
+    def record(tag, n_paths, n_steps, ms):
+        walls.append(f"{tag} {ms:.3f} ms ({n_paths * n_steps / (ms / 1e3):.4e} path-steps/s)")
+
+    def scan_check(tag, got, se, scan_p, scan_se, extra=0.01):
+        tol = 5 * math.hypot(se, scan_se) + extra
+        log("heston exotic", f"{tag}: kernel={got:.6f}±{se:.2e} scan={scan_p:.6f}±{scan_se:.2e} "
+                             f"|diff|={abs(got - scan_p):.2e} tol={tol:.2e}")
+        check(abs(got - scan_p) < tol, f"{tag}: kernel {got} vs scan engine {scan_p}")
+
+    gen = torch.Generator(device=dev)
+    n, m = HX_MAIN
+    # the Asian price, 8,388,608 × 64, against the scan engine
+    (pa, sea, paths), ms = timed(lambda: k(hx.heston_kernel_exotic_price, "asian_arith", S0,
+                                           STRIKE, T, RATE, par, n_paths=n, n_steps=m))
+    record(f"asian_arith {n}x{m}", paths, m, ms)
+    sp, sse = hscan.heston_exotic_price("asian_arith", S0, STRIKE, T, RATE, par, gen.manual_seed(1),
+                                        n_paths=HX_SCAN, n_steps=m, return_stderr=True)
+    scan_check(f"asian_arith {paths}x{m}", pa.item(), sea.item(), sp.item(), sse.item())
+
+    # the LR ladders against CRN finite differences of the kernel
+    # the reference tests' bounds and their path counts (tests/test_heston_exotics.py)
+    fd_bounds = {"barrier LR": (500_000, {"delta": (0.02, 0.0), "rho": (1.0, 0.0)}),
+                 "autocall LR": (250_000, {"rho": (0.3, 0.08), "theta": (0.3, 0.12)}),
+                 "cliquet LR": (250_000, {"rho": (0.3, 0.08)}),
+                 "range accrual LR": (400_000, {"delta": (0.025, 0.0)})}
+    for tag, name, args, kw, n_paths, n_steps in hx_lr_runs():
+        price_fn = getattr(hx, f"heston_kernel_{name}_price")
+        lr_fn = getattr(hx, f"heston_kernel_{name}_lr_greeks")
+        g, ms = timed(lambda: k(lr_fn, *args, par, n_paths=n_paths, n_steps=n_steps, **kw))
+        record(f"{tag} {n_paths}x{n_steps}", g["paths"], n_steps, ms)
+
+        def price(s=S0, r=RATE, t=T):
+            a = list(args)
+            if tag == "barrier LR":
+                a[1], a[3], a[4] = s, t, r
+            elif tag == "range accrual LR":
+                a[0], a[3], a[4] = s, t, r
+            else:
+                a[0], a[1], a[2] = s, t, r
+            return k(price_fn, *a, par, n_paths=n_paths, n_steps=n_steps, **kw)[0].item()
+
+        p0 = price()
+        check(abs(g["price"].item() - p0) < 1e-5 * abs(p0) + 1e-6,
+              f"{tag}: LR price {g['price'].item()} differs from the price launch {p0}")
+        fd = {"delta": lambda: (price(s=S0 + 0.5) - price(s=S0 - 0.5)) / 1.0,
+              "rho": lambda: (price(r=RATE + 0.002) - price(r=RATE - 0.002)) / 0.004,
+              "theta": lambda: -(price(t=T + 0.01) - price(t=T - 0.01)) / 0.02}
+        ref_paths, bounds = fd_bounds[tag]
+        scale = math.sqrt(ref_paths / g["paths"])
+        rows = []
+        for key, (absb, relb) in bounds.items():
+            want = fd[key]()
+            bound = max((absb + relb * abs(want)) * scale, 5 * lr_se[(tag, key)])
+            got = g[key].item()
+            rows.append(f"{key}={got:.5f}/{want:.5f} (bound {bound:.4f})")
+            check(abs(got - want) < bound, f"{tag} {key}: LR {got} vs CRN FD {want}")
+        log("heston exotic", f"{tag} {g['paths']}x{n_steps} vs CRN FD, bounds max(reference "
+                             f"bound × {scale:.4f}, 5·se): " + " ".join(rows))
+
+    # exact pathwise identities on one seed: in + out = vanilla, one + no touch = df
+    kw = dict(n_paths=n, n_steps=m, seed=3)
+    (van, sev, _), ms = timed(lambda: k(hx.heston_kernel_exotic_price, "barrier_up-and-out", S0,
+                                        STRIKE, T, RATE, par, barrier=1e6, **kw))
+    record(f"vanilla (far up-and-out) {n}x{m}", n, m, ms)
+    p_in = k(hx.heston_kernel_exotic_price, "barrier_up-and-in", S0, STRIKE, T, RATE, par,
+             barrier=120.0, **kw)[0].item()
+    p_out = k(hx.heston_kernel_exotic_price, "barrier_up-and-out", S0, STRIKE, T, RATE, par,
+              barrier=120.0, **kw)[0].item()
+    one = k(hx.heston_kernel_exotic_price, "one_touch_up", S0, 0.0, T, RATE, par, barrier=120.0,
+            **kw)[0].item()
+    no = k(hx.heston_kernel_exotic_price, "no_touch_up", S0, 0.0, T, RATE, par, barrier=120.0,
+           **kw)[0].item()
+    log("heston exotic", f"identities: in+out={p_in + p_out:.7f} vanilla={van.item():.7f}; "
+                         f"one+no touch={one + no:.8f} df={df:.8f}")
+    check(abs(p_in + p_out - van.item()) < 1e-5 * van.item(), "up-and-in + up-and-out != vanilla")
+    check(abs(one + no - df) < 1e-6, "one-touch + no-touch != df")
+    # the far-barrier vanilla against Lewis within 4σ + the Euler bias at 64 steps
+    exact, _ = lewis_ad(dev)
+    bias = euler_bias(dev, m, exact, sev.item() * math.sqrt(n))
+    log("heston exotic", f"vanilla {van.item():.6f}±{sev.item():.2e} Lewis={exact:.6f} "
+                         f"tol={4 * sev.item() + bias:.2e}")
+    check(abs(van.item() - exact) < 4 * sev.item() + bias, "far-barrier vanilla vs Lewis")
+
+    # Bates: the down-and-in put at B = 80, its identity and the Bates CF
+    put = dict(cp=-1.0, **kw)
+    (pdi, sedi, _), ms = timed(lambda: k(hx.heston_kernel_exotic_price, "barrier_down-and-in", S0,
+                                         STRIKE, T, RATE, bpar, barrier=80.0, **put))
+    record(f"bates down-and-in put {n}x{m}", n, m, ms)
+    pdo = k(hx.heston_kernel_exotic_price, "barrier_down-and-out", S0, STRIKE, T, RATE, bpar,
+            barrier=80.0, **put)[0].item()
+    bvan, bse, _ = k(hx.heston_kernel_exotic_price, "barrier_up-and-out", S0, STRIKE, T, RATE,
+                     bpar, barrier=1e6, **put)
+    bexact = bates_price(ContractBatch.make(S0, STRIKE, T, RATE, 0.2, "put", device=dev,
+                                            dtype=torch.float64),
+                         hx_params(True, dev).to(dtype=torch.float64)).item()
+    hdi = k(hx.heston_kernel_exotic_price, "barrier_down-and-in", S0, STRIKE, T, RATE, par,
+            barrier=80.0, **put)[0].item()
+    log("heston exotic", f"bates down-and-in put {pdi.item():.6f}±{sedi.item():.2e} (heston "
+                         f"{hdi:.6f}); in+out={pdi.item() + pdo:.7f} vanilla={bvan.item():.7f}; "
+                         f"vanilla vs bates_price {bexact:.6f} tol={4 * bse.item() + 0.05:.3f}")
+    check(abs(pdi.item() + pdo - bvan.item()) < 1e-5 * bvan.item(), "Bates in + out != vanilla")
+    check(abs(bvan.item() - bexact) < 4 * bse.item() + 0.05, "Bates vanilla vs bates_price")
+    check(pdi.item() > hdi + 0.5, "negative-mean jumps must raise the down-and-in put")
+
+    # Bates QE Asian, 8,388,608 × 16, against the scan engine
+    nq, mq = HX_BATES_QE
+    (pq, seq, paths), ms = timed(lambda: k(hx.heston_kernel_exotic_price, "asian_arith", S0,
+                                           STRIKE, T, RATE, bpar, n_paths=nq, n_steps=mq,
+                                           scheme="qe"))
+    record(f"bates qe asian_arith {nq}x{mq}", paths, mq, ms)
+    sp, sse = hscan.heston_exotic_price("asian_arith", S0, STRIKE, T, RATE, bpar,
+                                        gen.manual_seed(2), n_paths=HX_SCAN, n_steps=mq,
+                                        scheme="qe", return_stderr=True)
+    scan_check(f"bates qe asian_arith {paths}x{mq}", pq.item(), seq.item(), sp.item(), sse.item())
+
+    # the GBM limit: σ_v → 0, v0 = θ (Euler), against the closed forms at σ = 0.2
+    lim = hx_params(dev=dev, sigma=1e-7)
+    pg, seg, _ = k(hx.heston_kernel_exotic_price, "asian_geo", S0, STRIKE, T, RATE, lim, **kw)
+    cf = tex.geometric_asian_closed_form(S0, STRIKE, T, RATE, 0.2, n_steps=m).item()
+    pr, ser, _ = k(hx.heston_kernel_range_accrual_price, S0, 90.0, 110.0, T, RATE, lim, **kw)
+    cfr = tex.range_accrual_closed_form(S0, 90.0, 110.0, T, RATE, 0.2, n_steps=m).item()
+    log("heston exotic", f"GBM limit: asian_geo {pg.item():.6f}±{seg.item():.2e} cf={cf:.6f}; "
+                         f"range accrual {pr.item():.6f}±{ser.item():.2e} cf={cfr:.6f}")
+    check(abs(pg.item() - cf) < 4 * seg.item() + 1e-3, "GBM-limit asian_geo vs closed form")
+    # the reference's bound for the range accrual (tests/test_heston_exotics.py:454)
+    check(abs(pr.item() - cfr) < 4 * ser.item() + 0.05, "GBM-limit range accrual vs closed form")
+
+    # the structured products, 4,194,304 × 252, against the scan engine
+    ns, ms_ = HX_STRUCT
+    for tag, fn, sfn, args in (
+            ("autocall", hx.heston_kernel_autocall_price, hscan.heston_autocall_price,
+             (S0, T, RATE)),
+            ("cliquet", hx.heston_kernel_cliquet_price, hscan.heston_cliquet_price, (S0, T, RATE)),
+            ("range_accrual", hx.heston_kernel_range_accrual_price,
+             hscan.heston_range_accrual_price, (S0, 90.0, 110.0, T, RATE))):
+        (pk, sk, paths), ms = timed(lambda: k(fn, *args, par, n_paths=ns, n_steps=ms_))
+        record(f"{tag} {ns}x{ms_}", paths, ms_, ms)
+        sp, sse = sfn(*args, par, gen.manual_seed(3), n_paths=HX_SCAN, n_steps=ms_,
+                      return_stderr=True)
+        scan_check(f"{tag} {paths}x{ms_}", pk.item(), sk.item(), sp.item(), sse.item(),
+                   0.02 if tag == "autocall" else 0.01)
+
+    # bridge QMC, 4,194,304 × 64, against the prng Asian of the same scheme
+    nb_, mb = HX_QMC
+    (pb, seb, paths), ms = timed(lambda: k(hx.heston_kernel_exotic_price, "asian_arith", S0,
+                                           STRIKE, T, RATE, par, n_paths=nb_, n_steps=mb,
+                                           sampler="sobol_bb"))
+    record(f"sobol_bb asian_arith {nb_}x{mb}", paths, mb, ms)
+    log("heston exotic", f"sobol_bb asian {pb.item():.6f} RQMC se={seb.item():.2e} vs prng "
+                         f"{pa.item():.6f}±{sea.item():.2e}")
+    check(abs(pb.item() - pa.item()) < 5 * math.hypot(seb.item(), sea.item()),
+          "bridge-QMC Asian vs the prng Asian")
+
+    # books: 8 Asian strikes, then the barrier book's LR ladder, each contract
+    # against its single-contract call
+    nbk, mbk = HX_BOOK
+    for greeks in (False, True):
+        kind = "barrier_up-and-out" if greeks else "asian_arith"
+        bkw = dict(barriers=[130.0] * len(HX_BOOK_K)) if greeks else {}
+        if greeks:
+            out, ms = timed(lambda: k(hx.heston_kernel_exotic_book_lr_greeks, kind, S0, HX_BOOK_K,
+                                      T, RATE, par, n_paths=nbk, n_steps=mbk, **bkw))
+            bp, bse, bn = out["price"], out["std_error"], out["paths"]
+            check(all(torch.isfinite(out[g]).all() for g in ("delta", "gamma", "vega", "rho",
+                                                               "theta")), "book LR not finite")
+        else:
+            (bp, bse, bn), ms = timed(lambda: k(hx.heston_kernel_exotic_book_price, kind, S0,
+                                                HX_BOOK_K, T, RATE, par, n_paths=nbk,
+                                                n_steps=mbk))
+        record(f"book 8 {kind} greeks={greeks} {nbk}x{mbk}", bn * len(HX_BOOK_K), mbk, ms)
+        zs = []
+        for j, strike in enumerate(HX_BOOK_K):
+            sp_, sse_, _ = k(hx.heston_kernel_exotic_price, kind, S0, strike, T, RATE, par,
+                             barrier=130.0 if greeks else 0.0, n_paths=nbk, n_steps=mbk,
+                             seed=100 + j)
+            zs.append((bp[j].item() - sp_.item()) / math.hypot(bse[j].item(), sse_.item()))
+        log("heston exotic", f"book of 8 {kind} greeks={greeks} vs singles: "
+                             f"max|z|={max(abs(z) for z in zs):.2f}")
+        check(all(abs(z) < 5 for z in zs), f"book {kind} vs single contracts: z = {zs}")
+    log("heston exotic", f"warm wall, mean of 3 [{card}]: " + "; ".join(walls))
+    return calls[0]
+
+
+def phase_hx_server(dev) -> int:
+    """``/exotic`` heston|heston-qe|bates, ``/book/exotic`` heston|bates and
+    ``/price`` bates over a socket. Returns the requests routed to the
+    kernel."""
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    big = {"n_paths": 4_000_000, "n_steps": 64}
+    routed = 0
+    try:
+        for body in ({"model": "heston", "kind": "barrier", "greeks": True, "barrier": 130.0},
+                     {"model": "heston-qe", "kind": "asian"},
+                     {"model": "bates", "kind": "barrier", "barrier_type": "down-and-in",
+                      "barrier": 80.0, "option_type": "put"},
+                     {"model": "bates", "kind": "autocallable", "greeks": True}):
+            status, out = _request(base + "/exotic", {**body, **big})
+            routed += 1
+            keys = ("price", "std_error") + (("delta", "vega", "rho") if body.get("greeks") else ())
+            check(status == 200 and all(math.isfinite(out[k_]) for k_ in keys),
+                  f"/exotic {body}: {status} {out}")
+            log("heston server", f"/exotic {body['model']} {out['kind']}: price={out['price']:.5f} "
+                                 f"se={out['std_error']:.2e} scheme={out['scheme']}")
+        for model in ("heston", "bates"):
+            body = {"model": model, "kind": "barrier", "strikes": [95.0, 100.0, 105.0],
+                    "barriers": [120.0, 125.0, 130.0], "greeks": model == "heston",
+                    "n_paths": 1_000_000}
+            status, out = _request(base + "/book/exotic", body)
+            routed += 1
+            check(status == 200 and len(out["price"]) == 3 and all(
+                math.isfinite(x) for x in out["price"]), f"/book/exotic {model}: {status} {out}")
+            log("heston server", f"/book/exotic {model} barrier x3: prices={out['price']}")
+        body = {"model": "bates", "bates_params": {"lam": 0.8}, "strike": 95.0}
+        status, out = _request(base + "/price", body)
+        ref = bates_price(ContractBatch.make(S0, 95.0, T, RATE, 0.2, device=dev),
+                          BatesParams.make(lam=0.8, device=dev)).item()
+        check(status == 200 and out["price"] == ref, f"/price bates: {status} {out} vs {ref}")
+        log("heston server", f"/price bates K=95: {out['price']:.6f} (Lewis on the card)")
+    finally:
+        server.stop()
+    return routed
+
+
+def hx_timing(dev) -> dict:
+    """Device ms of the Heston exotic kernel and its plain version at the
+    path's price, LR and bridge shapes (prng; the bridge draws hash). Not
+    counted as main path."""
+    out = {}
+    n, m = HX_MAIN
+    for tag, kind, lr, sampler, shape in (
+            (f"asian_arith {n}x{m}", "asian_arith", False, "prng", HX_MAIN),
+            (f"barrier LR {n}x{m}", "barrier_up-and-out", True, "prng", HX_MAIN),
+            (f"asian_arith sobol_bb {HX_QMC[0]}x{HX_QMC[1]}", "asian_arith", False, "sobol_bb",
+             HX_QMC)):
+        params, book = hx_inputs(kind, shape[1], dev)
+        kw = dict(kind=kind, n_steps=shape[1], n_blocks=hx._n_blocks(shape[0], hx.PATHS_PER_BLOCK),
+                  cp=1.0, sampler=sampler, lr=lr)
+        ms, plain_ms = event_pair(lambda: hx._heston_exotic_cuda(0, 0, params, book, **kw),
+                                  lambda: hx._heston_exotic_plain(0, 0, params, book, **kw))
+        out[tag] = {"ms": ms, "plain_ms": plain_ms,
+                    "trips": kw["n_blocks"] * hx.ROWS * hx.LANES * shape[1],
+                    "bytes": 4 * (params.numel() + 7 + hx._n_moments(kind, lr) * hx.ROWS)}
+    return out
+
+
+# mangled-name parts and MUFU.RSQ per step trip (the Box–Muller root and one
+# sqrtf(v⁺) per branch; the bridge: a pre-pass and a replay loop per step)
+HX_SASS = {"asian_arith 8": (("heston_exotic_kernelILi0ELb0ELi0ELi0E",), 3),
+           "barrier LR": (("heston_exotic_kernelILi3ELb1ELi0ELi0E",), 3),
+           "asian_arith sobol_bb": (("heston_exotic_kernelILi0ELb0ELi0ELi2E",), (1, 3))}
 
 
 def h_timing(h_t: dict, prefix: str) -> dict:
@@ -1109,6 +1564,7 @@ def main() -> None:
     gbm_err = phase_parity(dev)
     mc_err, greeks_err = phase_exotic_parity(dev)
     h_err = phase_heston_parity(dev)
+    hx_err = phase_hx_parity(dev)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -1147,6 +1603,15 @@ def main() -> None:
         check(n == h_calls[key] and n > 0, f"Heston path launched heston_{key} {n} times, "
                                            f"not {h_calls[key]}")
 
+    # the Heston/Bates exotic path
+    hx_se = hx_lr_stderrs(dev)
+    hx._heston_exotic_cuda.launches = 0
+    hx_calls = phase_hx_main(dev, card, hx_se) + phase_hx_server(dev)
+    hx_launches = hx._heston_exotic_cuda.launches
+    log("launches", f"heston_exotic launched {hx_launches} times for {hx_calls} kernel-route calls")
+    check(hx_launches == hx_calls and hx_launches > 0,
+          f"Heston exotic path launched its kernel {hx_launches} times, not {hx_calls}")
+
     funcs = load_sass()
     gbm_t = phase_timing(dev)
     for tag, t in gbm_t.items():
@@ -1161,13 +1626,18 @@ def main() -> None:
     h_t = heston_timing(dev)
     for tag, t in h_t.items():
         sass = HESTON_SASS[heston_sass_key(tag)]
-        if sass is None:
-            t["bound_ms"], t["bound_by"] = float("nan"), "not computed"
-            continue
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, sass[0], t["trips"], t["bytes"], tag,
                                                     rsq_per_trip=sass[1])
-    for tag, t in list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items()):
-        log("timing", f"{tag} prng, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
+    hx_t = hx_timing(dev)
+    for tag, t in hx_t.items():
+        (key,) = [k_ for k_ in HX_SASS if tag.startswith(k_)]
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, HX_SASS[key][0], t["trips"], t["bytes"],
+                                                    f"heston_exotic {tag}",
+                                                    rsq_per_trip=HX_SASS[key][1])
+    for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
+                   + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]):
+        sampler = "hash residuals" if "sobol_bb" in tag else "prng"
+        log("timing", f"{tag} {sampler}, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
                       f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
                       f"{t['bound_ms']:.4f} ({t['bound_by']})")
 
@@ -1194,6 +1664,9 @@ def main() -> None:
               h_err["qe_ladder"], h_timing(h_t, "heston_qe_ladder prng")),
         entry("heston_chain_kernel", "heston_chain.cu", "optionslab_tpu/ops/heston_pallas.py:469",
               h_launches["chain"], h_err["chain"], h_timing(h_t, "heston_chain prng 40")),
+        entry("heston_exotic_kernel", "heston_exotic.cu",
+              "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches, hx_err,
+              hx_t[f"asian_arith {HX_MAIN[0]}x{HX_MAIN[1]}"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -15,17 +15,27 @@ and Euler and QE prices and Greek ladders and whole-chain pricing with the
 calibration gradient from four more kernels (``csrc/heston_mc.cu``,
 ``csrc/heston_qe.cu``, ``csrc/heston_chain.cu``), served through the
 ``ops.heston_kernel`` functions, :class:`HestonPricer` and the server's
-``/price`` with ``model: "heston"``.
+``/price`` with ``model: "heston"``; and the Heston/Bates exotic path: the
+Bates model (``models.bates``), the scan engine of ``models.heston_exotics``
+and path-dependent prices, one-pass LR Greek ladders and contract books
+under Heston or Bates, Euler or QE, from one more kernel
+(``csrc/heston_exotic.cu``), served through the ``ops.heston_exotic_kernel``
+functions, the Heston/Bates books and the server's ``/exotic`` and
+``/book/exotic`` with ``model: "heston"|"bates"`` and ``/price`` with
+``model: "bates"``.
 
 Subpackages
 -----------
 ``models``  Black–Scholes, Monte Carlo, exotics (closed forms, scan engine,
-            dataclasses), contract books and Heston
+            dataclasses), contract books, Heston, Bates and the
+            Heston/Bates exotics' scan engine
 ``ops``     the kernels' wrappers and plain versions, samplers, QMC, math
 ``utils``   dtype policy, exceptions, validation, logging, timing
 """
 
 from .models import (
+    BatesParams,
+    BatesPricer,
     BlackScholesPricer,
     MCConfig,
     MCMethod,
@@ -36,7 +46,9 @@ from .models import (
     bs_greeks,
     bs_greeks_ad,
     bs_price,
+    bates_price,
     bs_vega,
+    calibrate_bates,
     calibrate_heston,
     calibrate_heston_mc,
     heston_price,
@@ -55,6 +67,9 @@ from .ops import (
     gbm_mc_price_only,
     gbm_paths_per_launch,
     heston_chain_ladder,
+    heston_kernel_exotic_book_price,
+    heston_kernel_exotic_lr_greeks,
+    heston_kernel_exotic_price,
     heston_kernel_greeks,
     heston_kernel_price,
     make_chain_pricer,
@@ -64,6 +79,8 @@ from .types import ContractBatch
 from .utils import ValidationError
 
 __all__ = [
+    "BatesParams",
+    "BatesPricer",
     "BlackScholesPricer",
     "ContractBatch",
     "HestonParams",
@@ -74,10 +91,12 @@ __all__ = [
     "MonteCarloPricer",
     "PricingServer",
     "ValidationError",
+    "bates_price",
     "bs_greeks",
     "bs_greeks_ad",
     "bs_price",
     "bs_vega",
+    "calibrate_bates",
     "calibrate_heston",
     "calibrate_heston_mc",
     "exotic_greeks",
@@ -89,6 +108,9 @@ __all__ = [
     "gbm_mc_price_only",
     "gbm_paths_per_launch",
     "heston_chain_ladder",
+    "heston_kernel_exotic_book_price",
+    "heston_kernel_exotic_lr_greeks",
+    "heston_kernel_exotic_price",
     "heston_kernel_greeks",
     "heston_kernel_price",
     "heston_price",

@@ -16,13 +16,16 @@
 // integer work (4 murmur mixes for `hash`, 10 Philox rounds for `prng`), the
 // two branches' state updates and, in vega and ladder mode, their
 // sensitivities and one divide (1/(2√v⁺)) each. ops/sass_bound.py counts the
-// step loop from the built SASS (three MUFU.RSQ per trip); with `prng` one
+// step loop from the built SASS (three MUFU.RSQ per trip; the `sobol_bb`
+// instance's pre-pass and replay loops, one and three, each once per step:
+// 313 instructions a step, heston_bridge.cuh); with `prng` one
 // step issues 195 instructions in price mode (97 FP32, 65 INT32), 255 in
 // vega mode and 403 in ladder mode (294 FP32), and chip_smoke.py prints the
 // counts beside the kernel's time. Device memory is idle: 12 floats in,
 // O(moments · rows · chunks) floats out. `-Xptxas -v` (sm_90a, CUDA 12.9):
 // 38 / 43 / 78 registers for price / vega / ladder with `prng`, no spills;
-// `sobol_bb` 40 registers and a 4-byte spill (its bridge arrays).
+// `sobol_bb` a few more and a small spill (its bridge arrays; the verify
+// skill notes list every instance).
 //
 // What the design does about it:
 //  * Nothing per step touches memory: one thread owns one (block, row, col)
@@ -44,6 +47,7 @@
 
 #include <cstdint>
 
+#include "heston_bridge.cuh"
 #include "heston_euler.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
@@ -53,20 +57,9 @@ namespace {
 
 constexpr int kRows = 128;
 constexpr int kThreads = 256;
-constexpr uint32_t kMask30 = (1u << 30) - 1u;
 
 enum Mode : int { kPrice = 0, kVega = 1, kLadder = 2 };
 enum Sampler : int { kPrng = 0, kHash = 1, kSobolBB = 2 };
-
-struct Plan {  // sobol_bb bridge plan, from exotic_kernel._bridge_plan_arrays(n, 4)
-  int n_seg;
-  int bounds[9];
-  int n_con;
-  int con_mid[7], con_lo[7], con_hi[7];  // indices into bounds
-  float sqrt_n;
-  float con_frac[7], con_sd[7];
-  float seg_inv[8];
-};
 
 struct EulerArgs {
   const float* params;  // (12,)
@@ -75,7 +68,7 @@ struct EulerArgs {
   int n_blocks, blocks_per_chunk, n_chunks;
   int n_steps;
   float cp;
-  Plan plan;
+  heston::BridgePlan plan;
   float* partials;  // (n_mom, 128, n_chunks)
 };
 
@@ -123,7 +116,7 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const EulerArgs& a, 
                         static_cast<uint32_t>(a.n_steps), row, col, kRows, kLanes, zv, zo);
     }
   };
-  auto step = [&](float zva, float zoa, float zvb, float zob) {
+  auto step = [&](int, float zva, float zoa, float zvb, float zob) {
     const float zxa = add(mul(c.rho, zva), mul(c.srho, zoa));
     const float zxb = add(mul(c.rho, zvb), mul(c.srho, zob));
     heston::euler_step<kNs>(c.step, xa, va, sa, zva, zoa, zxa);
@@ -131,57 +124,15 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const EulerArgs& a, 
   };
 
   if constexpr (kS == kSobolBB) {
-    // one scrambled Sobol point per lane (8 replicate groups: row & 7); pair k
-    // of dimensions is (z_v level k, z_o level k)
-    const Plan& pl = a.plan;
-    const int32_t idx = static_cast<int32_t>(
-        block * ((kRows / 8) * kLanes) + (row >> 3) * kLanes + col + 1u);
-    uint32_t h = fmix32((a.seed + (row & 7u) * kGroupSalt) * kGolden + kHashSalt);
-    uint32_t scr[8];
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      scr[d] = h & kMask30;
-      h = fmix32(h + 0x9E3779B9u);
-    }
-    float u[8], gv[4], go[4];
-    sobol_nd(idx, scr, u);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) box_muller(u[2 * k], u[2 * k + 1], &gv[k], &go[k]);
-    float cv[9], co[9];  // z-sums of both streams pinned at the sorted bridge bounds
-    cv[0] = co[0] = 0.0f;
-    cv[pl.n_seg] = mul(pl.sqrt_n, gv[0]);
-    co[pl.n_seg] = mul(pl.sqrt_n, go[0]);
-    for (int j = 0; j < pl.n_con; ++j) {
-      const float lv = cv[pl.con_lo[j]], lo = co[pl.con_lo[j]];
-      cv[pl.con_mid[j]] = add(add(lv, mul(sub(cv[pl.con_hi[j]], lv), pl.con_frac[j])),
-                              mul(pl.con_sd[j], gv[j + 1]));
-      co[pl.con_mid[j]] = add(add(lo, mul(sub(co[pl.con_hi[j]], lo), pl.con_frac[j])),
-                              mul(pl.con_sd[j], go[j + 1]));
-    }
-    for (int j = 0; j < pl.n_seg; ++j) {
-      // pass 1 sums the segment's residuals; pass 2 replays the same counters
-      // shifted so that each branch hits its targets
-      float sv = 0.0f, so = 0.0f, zv, zo;
-      for (int i = pl.bounds[j]; i < pl.bounds[j + 1]; ++i) {
-        draw(i, &zv, &zo);
-        sv = add(sv, zv);
-        so = add(so, zo);
-      }
-      const float tv = sub(cv[j + 1], cv[j]), to = sub(co[j + 1], co[j]);
-      const float inv = pl.seg_inv[j];
-      const float ovp = mul(sub(tv, sv), inv), oop = mul(sub(to, so), inv);
-      const float ovm = mul(add(tv, sv), inv), oom = mul(add(to, so), inv);
-      for (int i = pl.bounds[j]; i < pl.bounds[j + 1]; ++i) {
-        draw(i, &zv, &zo);
-        step(add(zv, ovp), add(zo, oop), add(-zv, ovm), add(-zo, oom));
-      }
-    }
+    float cv[9], co[9];
+    heston::bridge_targets(a.plan, a.seed, kHashSalt, block, row, col, kRows, kLanes, cv, co);
+    heston::bridge_replay(a.plan, cv, co, draw, step);
   } else {
 #pragma unroll 1  // one step per trip: the loop body is what the bound counts
     for (int i = 0; i < a.n_steps; ++i) {
       float zv, zo;
       draw(i, &zv, &zo);
-      step(zv, zo, -zv, -zo);
+      step(i, zv, zo, -zv, -zo);
     }
   }
 
@@ -280,18 +231,7 @@ extern "C" int heston_mc_moments(const void* params, uint32_t seed, uint32_t blo
   a.n_chunks = n_chunks;
   a.n_steps = n_steps;
   a.cp = cp;
-  a.plan.n_seg = plan_i[0];
-  for (int j = 0; j < 9; ++j) a.plan.bounds[j] = plan_i[1 + j];
-  a.plan.n_con = plan_i[10];
-  for (int j = 0; j < 7; ++j) {
-    a.plan.con_mid[j] = plan_i[11 + j];
-    a.plan.con_lo[j] = plan_i[18 + j];
-    a.plan.con_hi[j] = plan_i[25 + j];
-    a.plan.con_frac[j] = plan_f[1 + j];
-    a.plan.con_sd[j] = plan_f[8 + j];
-  }
-  a.plan.sqrt_n = plan_f[0];
-  for (int j = 0; j < 8; ++j) a.plan.seg_inv[j] = plan_f[15 + j];
+  a.plan = heston::load_plan(plan_i, plan_f);
   a.partials = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int n_mom = 3;

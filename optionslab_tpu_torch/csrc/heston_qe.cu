@@ -11,9 +11,7 @@
 //    floats per lane); per-row Σpay, Σpay², Σ1{ex}·S_T of the base and Σpay of
 //    each bumped system, from which ops/heston_kernel.py takes forward
 //    differences.
-// The variance step samples the moment-matched law: both the quadratic
-// (ψ ≤ 1.5) and the exponential branch are computed and one is selected,
-// with the reference's 1e-30 / 1e-10 / 1 − 1e-7 guards.
+// The QE step itself (heston_qe.cuh) is shared with heston_exotic.cu.
 //
 // What bounds it: instruction issue. Per lane, step and path system: three
 // sqrtf, a logf, five divides and ~40 FP32 operations, twice (the pair); per
@@ -42,6 +40,7 @@
 
 #include <cstdint>
 
+#include "heston_qe.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
@@ -51,7 +50,6 @@ namespace {
 constexpr int kRows = 128;
 constexpr int kThreads = 256;
 constexpr int kConsts = 11;  // mu_dt, emkd, c1, s2_v, s2_0, k0, k1, k2, k3, k4, v0
-constexpr float kPMax = static_cast<float>(1.0 - 1e-7);
 
 enum Sampler : int { kPrng = 0, kHash = 1 };
 
@@ -65,35 +63,9 @@ struct QeArgs {
   float* partials;  // (2 + kSets, 128, n_chunks)
 };
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
-
-// One QE step of one path system (constants c), branch-free as the reference.
-__device__ __forceinline__ void qe_advance(const float* c, float& x, float& v, float zv, float zx,
-                                           float u) {
-  const float m = add(c[2], mul(c[1], v));
-  const float s2 = add(mul(c[3], v), c[4]);
-  const float psi = quo(s2, fmaxf(mul(m, m), 1e-30f));
-  // quadratic branch (ψ ≤ 1.5)
-  const float inv_psi = quo(2.0f, fmaxf(psi, 1e-10f));
-  const float b2 = fmaxf(
-      add(sub(inv_psi, 1.0f), sqrtf(fmaxf(mul(inv_psi, sub(inv_psi, 1.0f)), 0.0f))), 0.0f);
-  const float a = quo(m, add(1.0f, b2));
-  const float root = add(sqrtf(b2), zv);
-  const float v_quad = mul(a, mul(root, root));
-  // exponential branch (ψ > 1.5)
-  const float p_mass = fminf(fmaxf(quo(sub(psi, 1.0f), add(psi, 1.0f)), 0.0f), kPMax);
-  const float beta = quo(sub(1.0f, p_mass), fmaxf(m, 1e-30f));
-  const float v_log =
-      quo(logf(quo(sub(1.0f, p_mass), fmaxf(sub(1.0f, u), 1e-30f))), fmaxf(beta, 1e-30f));
-  const float v_exp = u <= p_mass ? 0.0f : v_log;
-  const float v_new = psi <= 1.5f ? v_quad : v_exp;
-  x = add(add(add(add(add(x, c[0]), c[5]), mul(c[6], v)), mul(c[7], v_new)),
-          mul(sqrtf(fmaxf(add(mul(c[8], v), mul(c[9], v_new)), 0.0f)), zx));
-  v = v_new;
-}
+using heston::mul;
+using heston::qe_advance;
+using heston::sub;
 
 // grid.x = 128 rows × n_chunks; one CUDA block sums one row over one chunk of
 // path blocks, its threads striding over the row's lanes.

@@ -104,7 +104,7 @@ __device__ __forceinline__ void draw_normals_hash(uint32_t seed, uint32_t block,
 
 // The path kernels' per-step normal pair, `prng` sampler: Philox keyed by
 // (seed, salt ^ block) at counter (row, col, step, stream 0); stream 1 is the
-// Heston QE uniform below, stream 2 is reserved for the Bates jump draws.
+// Heston QE uniform below, stream 2 the Bates jump draw.
 __device__ __forceinline__ void draw_normals_philox(uint32_t seed, uint32_t block, uint32_t step,
                                                     uint32_t row, uint32_t col, float* z1,
                                                     float* z2) {
@@ -114,6 +114,39 @@ __device__ __forceinline__ void draw_normals_philox(uint32_t seed, uint32_t bloc
 }
 
 constexpr uint32_t kUniformSalt = 0x27220A95u;
+
+constexpr uint32_t kJumpCountSalt = 0x11C98F2Du;
+constexpr uint32_t kJumpSizeSalt = 0x5BD1E995u;
+
+// √(−2 ln u1)·cos(2π u2): the jump draws' normal (cosf, as torch.cos).
+__device__ __forceinline__ float jump_normal(float u1, float u2) {
+  return sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+}
+
+// The per-step Bates jump draw (count uniform u, size normal z), `hash`
+// sampler: the counters of the JAX package's kernel_rng.draw_jump, u at
+// base + lane (seed ^ kJumpCountSalt), the normal's uniforms at base + tile +
+// lane and base + lane (seed ^ kJumpSizeSalt).
+__device__ __forceinline__ void draw_jump_hash(uint32_t seed, uint32_t block, uint32_t step,
+                                               uint32_t n_steps, uint32_t row, uint32_t col,
+                                               uint32_t rows, uint32_t lanes, float* u, float* z) {
+  const uint32_t tile = rows * lanes;
+  const uint32_t base = ((block * n_steps + step) * 2u) * tile;
+  const uint32_t lane_id = row * lanes + col;
+  *u = hash_uniform(base + lane_id, seed ^ kJumpCountSalt);
+  *z = jump_normal(hash_uniform(base + tile + lane_id, seed ^ kJumpSizeSalt),
+                   hash_uniform(base + lane_id, seed ^ kJumpSizeSalt));
+}
+
+// The same draw, `prng` sampler: words 0, 1, 2 of Philox stream 2 at counter
+// (row, col, step, 2).
+__device__ __forceinline__ void draw_jump_philox(uint32_t seed, uint32_t block, uint32_t step,
+                                                 uint32_t row, uint32_t col, float* u, float* z) {
+  const uint4 x = philox4x32_10(make_uint4(row, col, step, 2u),
+                                make_uint2(seed, kPhiloxBlockSalt ^ block));
+  *u = bits24_to_uniform(x.x >> 8);
+  *z = jump_normal(bits24_to_uniform(x.y >> 8), bits24_to_uniform(x.z >> 8));
+}
 
 // The per-step uniform of the Heston QE kernels, `hash` sampler: the counters
 // of the JAX package's kernel_rng.draw_uniform, (block*n_steps + step) *

@@ -1,15 +1,19 @@
 """Contract-book façade: one kernel launch quotes a same-kind book.
 
-The port of ``optionslab_tpu/models/books.py`` for ``model="bs"``: N
-contracts (mixed strikes / barriers / bands) interleave the rows of one
-launch of the GBM exotic kernel. The Heston and Bates books raise
-``ValidationError`` until their kernel is ported. The one façade → kernel
-mapping shared by the HTTP ``/book/exotic`` route and any CLI.
+The port of ``optionslab_tpu/models/books.py``: N contracts (mixed strikes /
+barriers / bands) interleave the rows of one kernel launch, under GBM
+(``model="bs"``, the exotic kernel) or Heston/Bates (``model="heston"|
+"bates"``, the Heston exotic kernel). The one façade → kernel mapping shared
+by the HTTP ``/book/exotic`` route and any CLI.
 """
 
 from __future__ import annotations
 
 from ..ops.exotic_kernel import exotic_book_lr_greeks, exotic_book_price
+from ..ops.heston_exotic_kernel import (
+    heston_kernel_exotic_book_lr_greeks,
+    heston_kernel_exotic_book_price,
+)
 from ..utils.exceptions import ValidationError
 
 FACADE_BOOK_KINDS = ("asian", "lookback", "barrier", "one-touch", "no-touch",
@@ -40,31 +44,46 @@ def facade_kernel_kind(kind: str, *, barrier_type: str = "up-and-out",
 
 
 def exotic_book_quote(kind: str, spot, strikes, maturity, rate, vol: float = 0.2,
-                      model: str = "bs", cp: float = 1.0, dividend: float = 0.0,
+                      model: str = "bs", params=None, cp: float = 1.0, dividend: float = 0.0,
                       barriers=None, lowers=None, uppers=None, greeks: bool = False,
                       n_paths: int = 200_000, n_steps: int = 64, seed: int = 0,
-                      sampler: str | None = None, barrier_type: str = "up-and-out",
-                      averaging: str = "arithmetic", floating: bool = True,
-                      knock: str = "out", touch: str = "no", direction: str = "up",
-                      device="cuda") -> dict:
-    """Quote a same-kind book in ONE kernel launch under GBM at ``vol``;
-    ``greeks=True`` returns the per-contract LR ladder. ``n_paths`` is per
-    contract; ``sampler=None`` means ``"prng"``. Every metric is a list with
-    one entry per contract."""
-    if model in ("heston", "bates"):
-        raise ValidationError(f"book model {model!r} is not yet ported; available: ['bs']")
-    if model != "bs":
+                      sampler: str | None = None, scheme: str = "euler",
+                      barrier_type: str = "up-and-out", averaging: str = "arithmetic",
+                      floating: bool = True, knock: str = "out", touch: str = "no",
+                      direction: str = "up", device="cuda") -> dict:
+    """Quote a same-kind book in ONE kernel launch: under GBM at ``vol``
+    (``model="bs"``) or under ``params`` (a HestonParams / BatesParams) with
+    ``model="heston"|"bates"`` and ``scheme`` euler|qe. ``greeks=True``
+    returns the per-contract LR ladder (the Euler scheme: ``scheme="qe"``
+    with ``greeks=True`` raises, where the reference silently runs Euler).
+    ``n_paths`` is per contract; ``sampler=None`` means ``"prng"``. Every
+    metric is a list with one entry per contract."""
+    if model not in ("bs", "heston", "bates"):
         raise ValidationError(f"book models are bs|heston|bates: got {model!r}")
     k = facade_kernel_kind(kind, barrier_type=barrier_type, averaging=averaging,
                            floating=floating, knock=knock, touch=touch, direction=direction)
     kw = dict(cp=cp, dividend=dividend, barriers=barriers, lowers=lowers, uppers=uppers,
               n_paths=n_paths, n_steps=n_steps, seed=seed,
               sampler="prng" if sampler is None else sampler, device=device)
-    if greeks:
-        out = dict(exotic_book_lr_greeks(k, spot, strikes, maturity, rate, vol, **kw))
+    if model == "bs":
+        if greeks:
+            out = dict(exotic_book_lr_greeks(k, spot, strikes, maturity, rate, vol, **kw))
+        else:
+            prices, ses, n = exotic_book_price(k, spot, strikes, maturity, rate, vol, **kw)
+            out = {"price": prices, "std_error": ses, "paths": n}
     else:
-        prices, ses, n = exotic_book_price(k, spot, strikes, maturity, rate, vol, **kw)
-        out = {"price": prices, "std_error": ses, "paths": n}
+        if params is None:
+            raise ValidationError(f"model={model!r} needs params (HestonParams/BatesParams)")
+        if greeks:
+            if scheme != "euler":
+                raise ValidationError("book greeks are the Euler LR ladder: scheme must be "
+                                      f"'euler', got {scheme!r}")
+            out = dict(heston_kernel_exotic_book_lr_greeks(k, spot, strikes, maturity, rate,
+                                                           params, **kw))
+        else:
+            prices, ses, n = heston_kernel_exotic_book_price(k, spot, strikes, maturity, rate,
+                                                             params, scheme=scheme, **kw)
+            out = {"price": prices, "std_error": ses, "paths": n}
     result = {"kind": k, "model": model, "n_contracts": len(strikes),
               "strikes": [float(s) for s in strikes],
               "greek_method": "likelihood-ratio" if greeks else None}

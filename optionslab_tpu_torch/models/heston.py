@@ -188,6 +188,16 @@ def heston_price_cos(batch: ContractBatch, params: HestonParams, n_terms: int = 
     """European prices by the COS expansion on [c1 ∓ L·√c2] around the
     log-moneyness; the put coefficients are evaluated (bounded payoff) and
     calls follow by parity."""
+    return cos_price(batch, lambda u, t: _heston_cf(u, params, t),
+                     lambda flat, t: _heston_cumulants(params, flat.rate, flat.dividend, t),
+                     n_terms, trunc_l)
+
+
+def cos_price(batch: ContractBatch, cf_fn, cumulants_fn, n_terms: int = 256,
+              trunc_l: float = 12.0) -> torch.Tensor:
+    """The COS engine for a forward-normalized CF ``cf_fn(u, t)`` whose
+    truncation range comes from ``cumulants_fn(flat batch, t) -> (c1, c2)``
+    of ln(S_T/S_0)."""
     shape = batch.shape
     dtype = batch.dtype
     flat = _flat(batch)
@@ -195,14 +205,14 @@ def heston_price_cos(batch: ContractBatch, params: HestonParams, n_terms: int = 
     t = torch.clamp_min(flat.maturity, EPS_TIME)
     x = torch.log(flat.spot / flat.strike)
 
-    c1, c2 = _heston_cumulants(params, flat.rate, flat.dividend, t)
+    c1, c2 = cumulants_fn(flat, t)
     a = c1 + x - trunc_l * torch.sqrt(c2)
     bb = c1 + x + trunc_l * torch.sqrt(c2)
     width = bb - a
 
     k = torch.arange(n_terms, dtype=dtype, device=dev)[:, None]
     u = k * math.pi / width[None, :]
-    phi = _heston_cf(u - 0.0j, params, t[None, :]) * torch.exp(
+    phi = cf_fn(u - 0.0j, t[None, :]) * torch.exp(
         1j * u * (flat.rate - flat.dividend)[None, :] * t[None, :])
 
     # put payoff cosine coefficients on [a, d0], d0 = 0 clipped into [a, b]

@@ -15,6 +15,18 @@ from .exotic_kernel import (
     range_accrual_lr_greeks,
     range_accrual_price,
 )
+from .heston_exotic_kernel import (
+    heston_kernel_autocall_lr_greeks,
+    heston_kernel_autocall_price,
+    heston_kernel_cliquet_lr_greeks,
+    heston_kernel_cliquet_price,
+    heston_kernel_exotic_book_lr_greeks,
+    heston_kernel_exotic_book_price,
+    heston_kernel_exotic_lr_greeks,
+    heston_kernel_exotic_price,
+    heston_kernel_range_accrual_lr_greeks,
+    heston_kernel_range_accrual_price,
+)
 from .heston_kernel import (
     heston_chain_ladder,
     heston_kernel_greeks,
@@ -45,6 +57,16 @@ __all__ = [
     "gbm_mc_price_only",
     "gbm_paths_per_launch",
     "heston_chain_ladder",
+    "heston_kernel_autocall_lr_greeks",
+    "heston_kernel_autocall_price",
+    "heston_kernel_cliquet_lr_greeks",
+    "heston_kernel_cliquet_price",
+    "heston_kernel_exotic_book_lr_greeks",
+    "heston_kernel_exotic_book_price",
+    "heston_kernel_exotic_lr_greeks",
+    "heston_kernel_exotic_price",
+    "heston_kernel_range_accrual_lr_greeks",
+    "heston_kernel_range_accrual_price",
     "heston_kernel_greeks",
     "heston_kernel_price",
     "make_chain_pricer",

@@ -155,6 +155,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.heston_chain_moments.restype = _I
+    lib.heston_exotic_moments.argtypes = [
+        _P, _P, _I,                  # params, book, nc
+        _U, _U,                      # seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _I, _F,                  # n_steps, period, cp
+        _I, _I, _I, _I,              # family, mode, scheme, jumps
+        _I, _I, _I,                  # sampler, lr, n_mom
+        _P, _P,                      # plan ints, plan floats (host arrays)
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.heston_exotic_moments.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

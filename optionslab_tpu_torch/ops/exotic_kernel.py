@@ -315,11 +315,12 @@ def _exotic_block_plain(seed, block, p, book, *, kind, n_steps, cp, period, samp
     return moms
 
 
-def _qmc_scrambles(seed: int, dev) -> list:
+def _qmc_scrambles(seed: int, dev, salt: int = HASH_SALT) -> list:
     """Digital shifts of the 8 replicate groups (row & 7), 8 dimensions,
-    each as int32 of shape (1, ROWS, 1)."""
+    each as int32 of shape (1, ROWS, 1); ``salt`` seeds the hash chain (the
+    Heston exotic kernel's differs from the others')."""
     g_id = torch.arange(ROWS, dtype=torch.int32, device=dev).reshape(1, -1, 1) & 7
-    h = fmix32((wrap32(seed) + g_id * GROUP_SALT) * GOLDEN + HASH_SALT)
+    h = fmix32((wrap32(seed) + g_id * GROUP_SALT) * GOLDEN + wrap32(salt))
     scrambles = []
     for _ in range(8):
         scrambles.append(h & ((1 << 30) - 1))

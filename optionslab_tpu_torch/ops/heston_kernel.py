@@ -57,7 +57,15 @@ from .exotic_kernel import (
     _n_blocks,
     _qmc_scrambles,
 )
-from .kernel_rng import box_muller, bridge_plan, draw_normals, draw_uniform, sobol_nd, sqrt_rn
+from .kernel_rng import (
+    HASH_SALT,
+    box_muller,
+    bridge_plan,
+    draw_normals,
+    draw_uniform,
+    sobol_nd,
+    sqrt_rn,
+)
 
 ROWS = 128
 LANES = 512
@@ -120,21 +128,22 @@ def _sum_blocks(block_fn, n_blocks: int, block0: int, lanes: int, n_out, dev) ->
 # ---------------------------------------------------------------------------
 # Kernel 4: full-truncation Euler (plain version)
 # ---------------------------------------------------------------------------
-def _bridge_offsets(seed, block, n_steps, lanes, zero):
+def _bridge_offsets(seed, block, n_steps, lanes, zero, salt: int = HASH_SALT):
     """[(a, b, (ovp, oop, ovm, oom))] per bridge segment of ``sobol_bb``.
 
     One scrambled Sobol point per lane (8 replicate groups, row & 7) pins up
     to 4 dyadic z-sum coordinates of the variance stream z_v and 4 of the
     orthogonal spot stream z_o (dimension pairs: z_v level k, z_o level k);
     the hash residuals of each segment are shifted by constant offsets so
-    that each antithetic branch hits the shared bridge targets."""
+    that each antithetic branch hits the shared bridge targets. ``salt``
+    seeds the scrambles' hash chain (the exotic kernel has its own)."""
     dev = block.device
     bounds, constructs = bridge_plan(n_steps, _BRIDGE_LEVELS)
     n_lvl = 1 + len(constructs)
     rid = torch.arange(ROWS, dtype=torch.int32, device=dev).reshape(1, -1, 1)
     cid = torch.arange(lanes, dtype=torch.int32, device=dev).reshape(1, 1, -1)
     idx = block * ((ROWS // 8) * lanes) + (rid >> 3) * lanes + cid + 1
-    us = sobol_nd(idx, _qmc_scrambles(seed, dev), 2 * n_lvl)
+    us = sobol_nd(idx, _qmc_scrambles(seed, dev, salt), 2 * n_lvl)
     gv, go = [], []
     for k in range(n_lvl):
         c, s = box_muller(us[2 * k], us[2 * k + 1])

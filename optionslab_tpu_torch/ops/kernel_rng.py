@@ -18,6 +18,9 @@ version of each kernel (and the tests) reproduce the kernel's path set:
 * :func:`draw_uniform` — the per-step uniform of the Heston QE kernels
   (``optionslab_tpu.ops.kernel_rng.draw_uniform``), on its own hash salt and
   Philox stream;
+* :func:`draw_jump` — the per-step compound-Poisson draw of the Bates kernel
+  (``optionslab_tpu.ops.kernel_rng.draw_jump``): a count uniform and a size
+  normal, on hash salts and a Philox stream of their own;
 * :func:`sobol_nd` and :func:`bridge_plan` — the up-to-8-dimensional
   scrambled Sobol points and the Brownian-bridge plan of the exotic kernel's
   ``sobol_bb`` sampler (``optionslab_tpu.ops.exotic_pallas._sobol_nd`` and
@@ -32,8 +35,10 @@ step in its counter instead. Every Philox draw is keyed by
 * stream 0 — the Box–Muller pair of :func:`draw_normals` (and, at step 0,
   the terminal GBM kernel's single pair);
 * stream 1 — the uniform of :func:`draw_uniform` (the Heston QE kernels);
-* stream 2 — reserved for the Bates kernels' ``draw_jump``, so that no two
-  draws of one lane ever share a counter.
+* stream 2 — the count uniform and the two size uniforms of
+  :func:`draw_jump` (the Bates kernel), output words 0, 1 and 2,
+
+so that no two draws of one lane ever share a counter.
 """
 
 from __future__ import annotations
@@ -225,6 +230,44 @@ def draw_uniform(sampler: str, seed: int, block: torch.Tensor, step: int, n_step
     if sampler == "prng":
         return philox_uniform(row, col, seed, block, step)
     raise ValueError(f"draw_uniform: unknown sampler {sampler!r}")
+
+
+JUMP_COUNT_SALT = 0x11C98F2D  # seed salt of draw_jump's count uniform (hash)
+JUMP_SIZE_SALT = 0x5BD1E995  # seed salt of its two size uniforms (hash)
+
+
+def draw_jump(sampler: str, seed: int, block: torch.Tensor, step: int, n_steps: int,
+              rows: int, lanes: int):
+    """``(u_count, z_size)`` per lane for path blocks ``block`` (int32 of
+    shape (nb, 1, 1)) at time step ``step``: the uniform that sets the
+    step's inverse-CDF jump count and the standard normal of the jump sizes'
+    sum, on streams disjoint from :func:`draw_normals` and
+    :func:`draw_uniform`.
+
+    ``hash`` draws the counters of ``optionslab_tpu.ops.kernel_rng.
+    draw_jump``: ``u`` at ``base + lane`` with the seed salted by
+    :data:`JUMP_COUNT_SALT`, ``u1`` at ``base + rows·lanes + lane`` and
+    ``u2`` at ``base + lane`` with :data:`JUMP_SIZE_SALT`, ``base =
+    ((block·n_steps + step)·2)·rows·lanes``; ``prng`` takes output words 0,
+    1 and 2 of one Philox call on stream 2, counter ``(row, col, step, 2)``.
+    Then ``z = √(−2 ln u1)·cos(2π u2)``.
+    """
+    dev = block.device
+    row = torch.arange(rows, dtype=torch.int32, device=dev).reshape(1, -1, 1)
+    col = torch.arange(lanes, dtype=torch.int32, device=dev).reshape(1, 1, -1)
+    if sampler == "hash":
+        lane_id = row * lanes + col
+        base = ((block * wrap32(n_steps) + wrap32(step)) * 2) * wrap32(rows * lanes)
+        u = hash_uniform(base + lane_id, wrap32(seed) ^ JUMP_COUNT_SALT)
+        u1 = hash_uniform(base + wrap32(rows * lanes) + lane_id, wrap32(seed) ^ JUMP_SIZE_SALT)
+        u2 = hash_uniform(base + lane_id, wrap32(seed) ^ JUMP_SIZE_SALT)
+    elif sampler == "prng":
+        key1 = (block.to(torch.int64) & _U32) ^ PHILOX_BLOCK_SALT
+        x = philox4x32_10(row, col, step, 2, int(seed) & _U32, key1)
+        u, u1, u2 = (_bits24_to_uniform(w >> 8) for w in x[:3])
+    else:
+        raise ValueError(f"draw_jump: unknown sampler {sampler!r}")
+    return u, sqrt_rn(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
 
 
 def _sobol_v8() -> tuple:

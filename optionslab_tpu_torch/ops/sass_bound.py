@@ -17,7 +17,11 @@ hot loop and counts its instructions by pipe:
   forward conditional branch jumps over and that holds a call or a loop
   (the slow paths of ``sincosf``, ``sqrtf`` and the divide);
 * the ``MUFU.RSQ`` count of what remains over ``rsq_per_trip`` is the
-  compiler's unroll factor, and every count is divided by it.
+  compiler's unroll factor, and every count is divided by it;
+* the bridge-QMC (``sobol_bb``) instances of the Heston kernels run two
+  loops per bridge segment, a pre-pass (one Box–Muller per trip) and the
+  replay of the same steps (the step itself), so one step costs a trip of
+  each: :func:`two_pass_counts` finds both and adds their per-trip counts.
 
 Code behind a branch on a runtime argument (a kernel family's mode) is
 counted as if it ran, so a kernel whose step loop holds such code gets a
@@ -94,11 +98,9 @@ def _pipe(instr: Instr) -> str | None:
     return None
 
 
-def hot_loop_counts(instrs: list[Instr], rsq_per_trip: int = 1) -> dict[str, float]:
-    """Instructions per trip of the hot loop, by pipe (``fp32``, ``int``,
-    ``mufu``) and in all (``issue``), with ``unroll`` and the loop's
-    ``span`` in bytes of code. ``rsq_per_trip``: the ``MUFU.RSQ`` count of
-    one trip; a loop whose count is not a multiple of it is refused."""
+def _rsq_loops(instrs: list[Instr]) -> list[tuple[int, int, list[Instr]]]:
+    """(lo, hi, body) of every loop whose body, its skipped regions left out,
+    holds a ``MUFU.RSQ``, innermost (smallest span) first."""
     loops = [(t, i.addr) for i in instrs if (t := i.branch_target()) is not None and t < i.addr]
     calls = [i.addr for i in instrs if i.base == "CALL"]
 
@@ -115,17 +117,19 @@ def hot_loop_counts(instrs: list[Instr], rsq_per_trip: int = 1) -> dict[str, flo
                 out.append((i.addr, t))
         return out
 
-    best = None
-    for lo, hi in sorted(loops, key=lambda ab: ab[1] - ab[0]):
+    found = []
+    for lo, hi in sorted(set(loops), key=lambda ab: ab[1] - ab[0]):
         holes = skipped(lo, hi)
         body = [i for i in instrs if lo <= i.addr <= hi
                 and not any(a < i.addr < b for a, b in holes)]
         if any(i.op.startswith("MUFU.RSQ") for i in body):
-            best = (lo, hi, body)
-            break
-    if best is None:
+            found.append((lo, hi, body))
+    if not found:
         raise ValueError("no loop with a MUFU.RSQ (one Box–Muller per trip) in this function")
-    lo, hi, body = best
+    return found
+
+
+def _trip_counts(lo: int, hi: int, body: list[Instr], rsq_per_trip: int) -> dict[str, float]:
     n_rsq = sum(i.op.startswith("MUFU.RSQ") for i in body)
     if n_rsq % rsq_per_trip:
         raise ValueError(f"the hot loop 0x{lo:x}..0x{hi:x} holds {n_rsq} MUFU.RSQ, not a "
@@ -138,6 +142,36 @@ def hot_loop_counts(instrs: list[Instr], rsq_per_trip: int = 1) -> dict[str, flo
             counts[pipe] += 1
     out = {k: v / unroll for k, v in counts.items()}
     out.update(unroll=unroll, span=hi - lo)
+    return out
+
+
+def hot_loop_counts(instrs: list[Instr], rsq_per_trip: int = 1) -> dict[str, float]:
+    """Instructions per trip of the hot loop (the innermost loop with a
+    ``MUFU.RSQ``), by pipe (``fp32``, ``int``, ``mufu``) and in all
+    (``issue``), with ``unroll`` and the loop's ``span`` in bytes of code.
+    ``rsq_per_trip``: the ``MUFU.RSQ`` count of one trip; a loop whose count
+    is not a multiple of it is refused."""
+    return _trip_counts(*_rsq_loops(instrs)[0], rsq_per_trip)
+
+
+def two_pass_counts(instrs: list[Instr], rsq_per_trip=(1, 3)) -> dict[str, float]:
+    """Instructions per time step of a two-pass bridge kernel (``sobol_bb``):
+    every bridge segment runs a pre-pass loop (one Box–Muller per trip, the
+    residuals' sums) and then a replay loop (the step itself) over the same
+    steps, so one step costs one trip of each. The two loops are the
+    innermost ``MUFU.RSQ`` loops that hold no other such loop, in code order;
+    ``rsq_per_trip`` gives each one's roots per trip. Returns the per-pipe
+    sums of both loops' per-trip counts, with ``unroll`` and ``span`` per
+    loop."""
+    found = _rsq_loops(instrs)
+    inner = [(lo, hi, body) for lo, hi, body in found
+             if not any(lo <= a and b <= hi and (a, b) != (lo, hi) for a, b, _ in found)]
+    if len(inner) != 2:
+        raise ValueError(f"a two-pass kernel has two innermost MUFU.RSQ loops, found {len(inner)}")
+    passes = [_trip_counts(lo, hi, body, rsq)
+              for (lo, hi, body), rsq in zip(sorted(inner), rsq_per_trip)]
+    out = {k: passes[0][k] + passes[1][k] for k in PIPE_RATE}
+    out.update(unroll=tuple(p["unroll"] for p in passes), span=tuple(p["span"] for p in passes))
     return out
 
 

@@ -3,10 +3,11 @@
 Endpoints (POST, JSON body, JSON response), with the request bodies of
 ``optionslab_tpu.server``:
 
-  /price        {"model": "bs|heston", contract fields...}; "heston" prices
-                by the Lewis integral with the optional "heston_params"
-                {v0, kappa, theta, sigma, rho} (other models: 400, not yet
-                ported)
+  /price        {"model": "bs|heston|bates", contract fields...}; "heston"
+                and "bates" price by the Lewis integral with the optional
+                "heston_params" {v0, kappa, theta, sigma, rho} or
+                "bates_params" (the same plus lam, mu_j, sigma_j) (other
+                models: 400, not yet ported)
   /batch/price  the same; fields may be lists
   /greeks       {contract fields...}                → full BS Greek ladder
   /mc           {"n_paths": N, "seed": s, "method": "pallas|xla",
@@ -15,14 +16,20 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
   /exotic       {"kind": "asian|barrier|lookback|cliquet|one-touch|no-touch|
                  double-barrier|double-touch|autocallable", "greeks": bool,
                  ...}                               → GBM exotics ("model"
-                "bs" only; "american" and the other models: 400, not yet
-                ported). ``greeks`` runs the kernel Greek ladders; the
+                "bs"): ``greeks`` runs the kernel Greek ladders; the
                 digital, double and rebate kinds run the exotic kernel; the
-                rest the scan engine. An optional "sampler" picks the
-                kernel's sampler (default "prng")
+                rest the scan engine. "model": "heston|heston-qe|bates|
+                bates-qe" runs the Heston exotic kernel (Euler or QE, Bates
+                jumps) with the dynamics from the body (v0, kappa, theta,
+                sigma_v, rho_sv; lam, mu_j, sigma_j); ``greeks`` the one-pass
+                LR ladder (Euler). "american" and the other models: 400, not
+                yet ported. An optional "sampler" picks the kernel's sampler
+                (default "prng")
   /book/exotic  {"kind": ..., "strikes": [...], "barriers"/"lowers"/
                  "uppers": [...], "greeks": bool}   → a same-kind book in
-                one launch of the exotic kernel ("model" "bs" only)
+                one kernel launch, "model" "bs" (the exotic kernel) or
+                "heston"|"bates" (the Heston exotic kernel; dynamics and
+                "scheme" from the body)
   /health  (GET) → status, device name and device count
   /metrics (GET) → per-endpoint request-latency count/p50/p95/max (ms)
 
@@ -40,6 +47,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from .models.bates import BatesParams, bates_price
 from .models.black_scholes import bs_greeks, bs_price
 from .models.books import exotic_book_quote
 from .models.heston import HestonParams, heston_price
@@ -54,6 +62,14 @@ from .models.exotics import (
 from .models.monte_carlo import MCConfig, mc_greeks, mc_price_result
 from .ops.exotic_kernel import exotic_kernel_ladder, exotic_price
 from .ops.gbm_kernel import gbm_mc_price_greeks
+from .ops.heston_exotic_kernel import (
+    heston_kernel_autocall_lr_greeks,
+    heston_kernel_autocall_price,
+    heston_kernel_cliquet_lr_greeks,
+    heston_kernel_cliquet_price,
+    heston_kernel_exotic_lr_greeks,
+    heston_kernel_exotic_price,
+)
 from .types import ContractBatch
 from .utils.config import DEFAULT_DTYPE, as_tensors
 from .utils.exceptions import ValidationError
@@ -95,8 +111,12 @@ def handle_price(body: dict, device) -> dict:
     elif model == "heston":
         params = HestonParams.make(**body.get("heston_params", {}), device=device)
         out = heston_price(_batch(p, device), params)
+    elif model == "bates":
+        params = BatesParams.make(**body.get("bates_params", {}), device=device)
+        out = bates_price(_batch(p, device), params)
     else:
-        raise ValidationError(f"model {model!r} is not yet ported; available: ['bs', 'heston']")
+        raise ValidationError(f"model {model!r} is not yet ported; available: "
+                              "['bs', 'heston', 'bates']")
     return {"model": model, "price": _to_jsonable(out)}
 
 
@@ -128,17 +148,37 @@ EXOTIC_KINDS = ("asian", "barrier", "lookback", "cliquet", "one-touch", "no-touc
                 "double-barrier", "double-touch", "autocallable")
 
 
-def _check_bs(body: dict, route: str) -> None:
+EXOTIC_MODELS = ("bs", "heston", "heston-qe", "bates", "bates-qe")
+
+
+def _check_model(body: dict, route: str, models) -> str:
     model = str(body.get("model", "bs"))
-    if model != "bs":
-        raise ValidationError(f"{route} model {model!r} is not yet ported; available: ['bs']")
+    if model not in models:
+        raise ValidationError(f"{route} model {model!r} is not yet ported; available: "
+                              f"{list(models)}")
+    return model
+
+
+def _dynamics(body: dict, model: str, device):
+    """HestonParams, or BatesParams for a "bates" model, from the body keys
+    v0, kappa, theta, sigma_v, rho_sv (+ lam, mu_j, sigma_j)."""
+    heston = (float(body.get("v0", 0.04)), float(body.get("kappa", 2.0)),
+              float(body.get("theta", 0.04)), float(body.get("sigma_v", 0.3)),
+              float(body.get("rho_sv", -0.7)))
+    if model.startswith("bates"):
+        return BatesParams.make(*heston, lam=float(body.get("lam", 0.5)),
+                                mu_j=float(body.get("mu_j", -0.1)),
+                                sigma_j=float(body.get("sigma_j", 0.15)), device=device)
+    return HestonParams.make(*heston, device=device)
 
 
 def handle_exotic(body: dict, device) -> dict:
-    """GBM exotics, with the request bodies and answer keys of the JAX
-    package's ``/exotic`` (``model`` "bs")."""
-    _check_bs(body, "/exotic")
+    """Exotics, with the request bodies and answer keys of the JAX package's
+    ``/exotic``: GBM (``model`` "bs") or Heston/Bates."""
+    model = _check_model(body, "/exotic", EXOTIC_MODELS)
     p, cp = _contract(body)
+    if model != "bs":
+        return _exotic_heston(body, p, cp, model, device)
     kind = body.get("kind", "asian")
     if kind not in EXOTIC_KINDS:
         raise ValidationError(f"/exotic kind {kind!r} is not yet ported; available: "
@@ -253,10 +293,85 @@ def _exotic_double(body: dict, p: dict, cp: float, kind: str, common: tuple, kw:
             "closed_form_continuous": None if cf is None else _to_jsonable(cf)}
 
 
+def _exotic_heston(body: dict, p: dict, cp: float, model: str, device) -> dict:
+    """``model`` heston[-qe] | bates[-qe]: exotics under stochastic vol (and
+    compound-Poisson jumps) on the Heston exotic kernel, with the body and
+    answer keys of the JAX package's ``_exotic_heston``; ``greeks`` adds the
+    one-pass joint-density LR ladder (Euler)."""
+    kind = body.get("kind", "asian")
+    par = _dynamics(body, model, device)
+    scheme = "qe" if model.endswith("-qe") else "euler"
+    sampler = body.get("sampler")
+    kw = dict(n_paths=int(body.get("n_paths", 100_000)), n_steps=int(body.get("n_steps", 64)),
+              seed=int(body.get("seed", 0)), sampler="prng" if sampler is None else str(sampler),
+              device=device)
+    base = {"model": model, "scheme": scheme,
+            "dynamics": "bates" if model.startswith("bates") else "heston"}
+    greeks = bool(body.get("greeks"))
+    if greeks and scheme != "euler":
+        raise ValidationError("greeks under heston use the Euler LR ladder; drop -qe")
+    ladder = {"greek_method": "lr-joint-density", "vega_convention": "2*sqrt(v0)*vega_v0"}
+    if kind in ("autocallable", "cliquet"):
+        if kind == "autocallable":
+            skw = dict(n_obs=int(body.get("n_obs", 4)),
+                       coupon_rate=float(body.get("coupon_rate", 0.08)))
+        else:
+            skw = dict(n_periods=int(body.get("n_periods", 4)),
+                       local_floor=float(body.get("local_floor", -0.05)),
+                       local_cap=float(body.get("local_cap", 0.05)))
+        args = (p["spot"], p["maturity"], p["rate"], par)
+        if greeks:
+            fn = (heston_kernel_autocall_lr_greeks if kind == "autocallable"
+                  else heston_kernel_cliquet_lr_greeks)
+            res = {k: _to_jsonable(v) for k, v in fn(*args, **skw, **kw).items()}
+            return {**res, **base, "kind": kind, **ladder}
+        fn = heston_kernel_autocall_price if kind == "autocallable" else heston_kernel_cliquet_price
+        pr, se, n = fn(*args, scheme=scheme, **skw, **kw)
+        return {**base, "kind": kind, "price": _to_jsonable(pr), "std_error": _to_jsonable(se),
+                "paths": int(n)}
+    barrier = float(body.get("barrier", 120.0))
+    pay = str(body.get("pay", "expiry"))
+    band = {}
+    if kind in ("one-touch", "no-touch"):
+        if pay == "hit" and kind == "no-touch":
+            raise ValidationError("a no-touch pays at expiry by definition")
+        side = "up" if barrier >= p["spot"] else "down"
+        kname = f"{kind.replace('-', '_')}_{side}" + ("_hit" if pay == "hit" else "")
+    elif kind == "double-barrier":
+        kname = f"barrier_double-{body.get('knock', 'out')}"
+        band = dict(lower=float(body.get("lower", 90.0)), upper=float(body.get("upper", 110.0)))
+    elif kind == "double-touch":
+        if pay == "hit":
+            if body.get("touch", "no") != "one":
+                raise ValidationError("a no-touch pays at expiry by definition")
+            kname = "one_touch_double_hit"
+        else:
+            kname = f"{body.get('touch', 'no')}_touch_double"
+        band = dict(lower=float(body.get("lower", 90.0)), upper=float(body.get("upper", 110.0)))
+    elif kind == "asian":
+        kname = "asian_arith"
+    elif kind == "lookback":
+        kname = "lookback_float"
+    elif kind == "barrier":
+        kname = f"barrier_{body.get('barrier_type', 'up-and-out')}"
+    else:
+        raise ValidationError(f"model={model} supports asian/barrier/lookback/one-touch/no-touch/"
+                              f"double-barrier/double-touch/autocallable/cliquet, not {kind!r}")
+    args = (kname, p["spot"], p["strike"], p["maturity"], p["rate"], par, cp)
+    if greeks:
+        out = heston_kernel_exotic_lr_greeks(*args, barrier=barrier, **band, **kw)
+        res = {k: _to_jsonable(v) for k, v in out.items()}
+        return {**res, **base, "kind": kname, **ladder}
+    pr, se, n = heston_kernel_exotic_price(*args, barrier=barrier, scheme=scheme, **band, **kw)
+    return {**base, "kind": kname, "price": _to_jsonable(pr), "std_error": _to_jsonable(se),
+            "paths": int(n)}
+
+
 def handle_book(body: dict, device) -> dict:
-    """A same-kind contract book in one launch of the exotic kernel, with the
-    request body of the JAX package's ``/book/exotic`` (``model`` "bs")."""
-    _check_bs(body, "/book/exotic")
+    """A same-kind contract book in one kernel launch, with the request body
+    of the JAX package's ``/book/exotic`` (``model`` bs|heston|bates)."""
+    model = _check_model(body, "/book/exotic", ("bs", "heston", "bates"))
+    params = None if model == "bs" else _dynamics(body, model, device)
 
     def lst(name):
         v = body.get(name)
@@ -266,12 +381,13 @@ def handle_book(body: dict, device) -> dict:
     return exotic_book_quote(
         str(body.get("kind", "asian")), float(body.get("spot", 100.0)),
         [float(s) for s in body.get("strikes", [100.0])], float(body.get("maturity", 1.0)),
-        float(body.get("rate", 0.05)), vol=float(body.get("vol", 0.2)),
-        cp=1.0 if str(body.get("type", "call")).startswith("c") else -1.0,
+        float(body.get("rate", 0.05)), vol=float(body.get("vol", 0.2)), model=model,
+        params=params, cp=1.0 if str(body.get("type", "call")).startswith("c") else -1.0,
         dividend=float(body.get("dividend", 0.0)), barriers=lst("barriers"),
         lowers=lst("lowers"), uppers=lst("uppers"), greeks=bool(body.get("greeks", False)),
         n_paths=int(body.get("n_paths", 200_000)), n_steps=int(body.get("n_steps", 64)),
         seed=int(body.get("seed", 0)), sampler=None if sampler is None else str(sampler),
+        scheme=str(body.get("scheme", "euler")),
         barrier_type=str(body.get("barrier_type", "up-and-out")),
         averaging=str(body.get("averaging", "arithmetic")),
         floating=bool(body.get("floating", True)), knock=str(body.get("knock", "out")),

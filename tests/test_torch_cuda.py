@@ -8,6 +8,8 @@ Imports torch and the port only, so it also runs where JAX is not installed:
 card every test here skips: a CUDA kernel has no CPU mode.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -307,3 +309,100 @@ def test_heston_wrappers_reject_cpu_tensors(cuda_device):
         hk._heston_mc_cuda(0, 0, torch.tensor(p), **kw)
     with pytest.raises(ValueError, match="contiguous"):
         hk._heston_mc_cuda(0, 0, torch.tensor(p, device=cuda_device).double(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# the Heston/Bates exotic kernel (csrc/heston_exotic.cu)
+# ---------------------------------------------------------------------------
+def _hx_inputs(kind, device, scheme="euler", jumps=False, n_steps=12):
+    from optionslab_tpu_torch.models.bates import BatesParams
+    from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
+
+    par = BatesParams.make() if jumps else _heston_params()
+    p, _ = hx._exotic_params(100.0, 100.0, 1.0, 0.05, par, 0.01,
+                             115.0 if "up" in kind else 88.0, n_steps, scheme)
+    if "double" in kind:
+        hx._set_double_band(p, 100.0, 88.0, 115.0)
+    slots = {"cliquet": [-0.03, 0.03, 0.0, 1e9, 100.0],
+             "autocall": [0.0, -0.105, -0.223, 2.0, 100.0],
+             "range_accrual": [-0.105, 0.095, 0.0, 0.0, 100.0]}
+    if kind in slots:
+        p[hx._HX_A:hx._HX_DYN] = slots[kind]
+    params = torch.tensor(p, dtype=torch.float32, device=device)
+    return params, params[list(hx._BOOK_SLOTS)].reshape(1, 7).contiguous()
+
+
+HX_CASES = [(k, lr, "prng", "euler", False) for k in
+            ("asian_arith", "lookback_fixed", "barrier_down-and-in", "one_touch_double_hit",
+             "cliquet", "autocall", "range_accrual") for lr in (False, True)] + [
+    ("no_touch_up", True, "hash", "euler", False), ("asian_geo", False, "sobol_bb", "euler", False),
+    ("barrier_up-and-out", False, "prng", "qe", False), ("autocall", False, "hash", "qe", True),
+    ("asian_arith", True, "prng", "euler", True), ("barrier_double-out", False, "sobol_bb",
+                                                   "euler", True)]
+
+
+@pytest.mark.parametrize("kind,lr,sampler,scheme,jumps", HX_CASES)
+def test_heston_exotic_kernel_matches_plain_on_card(cuda_device, kind, lr, sampler, scheme,
+                                                    jumps):
+    from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
+
+    params, book = _hx_inputs(kind, cuda_device, scheme, jumps)
+    kw = dict(kind=kind, n_steps=12, n_blocks=70, cp=-1.0 if "down" in kind else 1.0,
+              period=3 if kind in ("cliquet", "autocall") else 1, sampler=sampler,
+              scheme=scheme, lr=lr, jumps=jumps)
+    before = hx._heston_exotic_cuda.launches
+    kern = hx._heston_exotic_cuda(5, 2, params, book, **kw)
+    assert hx._heston_exotic_cuda.launches == before + 1
+    _assert_sums_close(kern, hx._heston_exotic_plain(5, 2, params, book, **kw))
+
+
+@pytest.mark.parametrize("nc,lr", [(8, True), (128, False)])
+def test_heston_exotic_books_on_card(cuda_device, nc, lr):
+    from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
+
+    strikes = torch.linspace(85.0, 115.0, nc).tolist()
+    table, *_ = hx._heston_book_vec("barrier_up-and-out", 100.0, strikes,
+                                    torch.linspace(115.0, 140.0, nc).tolist(), None, None)
+    params, _ = _hx_inputs("barrier_up-and-out", cuda_device)
+    book = torch.tensor(table, dtype=torch.float32, device=cuda_device)
+    kw = dict(kind="barrier_up-and-out", n_steps=12, n_blocks=40, cp=1.0, lr=lr)
+    _assert_sums_close(hx._heston_exotic_cuda(0, 0, params, book, **kw),
+                       hx._heston_exotic_plain(0, 0, params, book, **kw))
+
+
+def test_heston_exotic_entry_points_on_card(cuda_device):
+    """The wrappers route through the kernel: a far up-and-out is the vanilla
+    (Lewis), and one-touch + no-touch = df on the same paths."""
+    from optionslab_tpu_torch.models.heston import HestonPricer
+    from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
+
+    par = _heston_params()
+    before = hx._heston_exotic_cuda.launches
+    p, se, _ = hx.heston_kernel_exotic_price("barrier_up-and-out", 100.0, 100.0, 1.0, 0.05, par,
+                                             barrier=1e6, n_paths=2_000_000, device=cuda_device)
+    lewis = HestonPricer(device=cuda_device).price(100.0, 100.0, 1.0, 0.05)
+    assert p.device.type == "cuda" and abs(p.item() - lewis.item()) < 4 * se.item() + 0.05
+    kw = dict(barrier=115.0, n_paths=1_000_000, seed=4, device=cuda_device)
+    one, _, _ = hx.heston_kernel_exotic_price("one_touch_up", 100.0, 0.0, 1.0, 0.05, par, **kw)
+    no, _, _ = hx.heston_kernel_exotic_price("no_touch_up", 100.0, 0.0, 1.0, 0.05, par, **kw)
+    assert abs(one.item() + no.item() - math.exp(-0.05)) < 1e-5
+    g = hx.heston_kernel_autocall_lr_greeks(100.0, 1.0, 0.05, par, n_paths=1_000_000,
+                                            device=cuda_device)
+    assert all(torch.isfinite(g[k]) for k in ("price", "delta", "vega", "rho", "theta"))
+    assert hx._heston_exotic_cuda.launches == before + 4
+
+
+def test_heston_exotic_wrappers_reject_cpu_tensors(cuda_device):
+    from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
+
+    params, book = _hx_inputs("asian_arith", "cpu", n_steps=4)
+    kw = dict(kind="asian_arith", n_steps=4, n_blocks=1, cp=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        hx._heston_exotic_cuda(0, 0, params, book, **kw)
+    gparams, gbook = _hx_inputs("asian_arith", cuda_device, n_steps=4)
+    with pytest.raises(ValueError, match="contiguous"):
+        hx._heston_exotic_cuda(0, 0, gparams.double(), gbook, **kw)
+    with pytest.raises(ValueError, match="contiguous"):  # a Bates vector without jumps=True
+        hx._heston_exotic_cuda(0, 0, torch.cat([gparams, gparams[:6]]), gbook, **kw)
+    with pytest.raises(ValueError, match="power-of-two"):
+        hx._heston_exotic_cuda(0, 0, gparams, gbook.expand(3, 7).contiguous(), **kw)

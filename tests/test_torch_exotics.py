@@ -495,7 +495,7 @@ def test_book_quote_matches_reference():
 
 
 def test_book_quote_validation():
-    with pytest.raises(ValidationError, match="not yet ported"):
+    with pytest.raises(ValidationError, match="needs params"):
         books.exotic_book_quote("asian", S, [K], T, R, model="heston", device="cpu")
     with pytest.raises(ValidationError):
         books.exotic_book_quote("asian", S, [K], T, R, model="sabr", device="cpu")

@@ -105,3 +105,51 @@ def test_philox_uniforms_are_uniform():
 def test_wrap32():
     assert trng.wrap32(1 << 31) == -(1 << 31)
     assert trng.wrap32(3 * -1640531535) == np.int32(np.int64(3 * -1640531535).astype(np.int32))
+
+
+@pytest.mark.parametrize("seed,block,step,n_steps", [(3, 0, 0, 8), (-7, 3, 5, 8),
+                                                     (123456789, 7, 251, 252), (0, 40000, 3, 64)])
+def test_draw_jump_hash_bitwise(seed, block, step, n_steps):
+    """The Bates jump draw: the count uniform and the size normal's two
+    uniforms bit for bit (the counters and salts of the reference); the
+    normal itself within 4 ulps, because XLA's and torch's float32 log and
+    cos on the CPU differ by an ulp on some inputs (on the card the kernel
+    and its plain version share CUDA's libm)."""
+    blk = torch.tensor([[[block]]], dtype=torch.int32)
+    u, z = trng.draw_jump("hash", seed, blk, step, n_steps, 128, 512)
+    ju, jz = jrng.draw_jump("hash", jnp.int32(seed), jnp.int32(block), jnp.int32(step), n_steps,
+                            (128, 512))
+    assert u.shape == z.shape == (1, 128, 512) and u.dtype == z.dtype == torch.float32
+    np.testing.assert_array_equal(_bits(u[0].numpy()), _bits(ju))
+    lane = np.arange(128 * 512, dtype=np.int64).reshape(128, 512)
+    base = ((block * n_steps + step) * 2) * 128 * 512
+    salted = int(np.int32(seed) ^ np.int32(trng.JUMP_SIZE_SALT))
+    for off in (128 * 512, 0):  # u1, u2 of the Box–Muller
+        ctr = (base + off + lane).astype(np.uint32).view(np.int32)
+        np.testing.assert_array_equal(
+            _bits(trng.hash_uniform(torch.from_numpy(ctr), salted).numpy()),
+            _bits(jrng.hash_uniform(jnp.asarray(ctr), jnp.int32(salted))))
+    ulps = np.abs(z[0].numpy().view(np.int32).astype(np.int64)
+                  - np.asarray(jz).view(np.int32).astype(np.int64))
+    assert np.all(np.sign(z[0].numpy()) == np.sign(np.asarray(jz))) and ulps.max() <= 4
+
+
+def test_draw_jump_philox_stream_2():
+    """``prng``: words 0–2 of one Philox call at counter (row, col, step, 2),
+    independent of the normals' stream 0 and the QE uniform's stream 1."""
+    block = torch.tensor([[[5]]], dtype=torch.int32)
+    u, z = trng.draw_jump("prng", 11, block, 2, 8, 128, 512)
+    row = torch.arange(128, dtype=torch.int32).reshape(1, -1, 1)
+    col = torch.arange(512, dtype=torch.int32).reshape(1, 1, -1)
+    x = trng.philox4x32_10(row, col, 2, 2, 11, 5 ^ trng.PHILOX_BLOCK_SALT)
+    assert torch.equal(u, (x[0] >> 8).to(torch.float32) * trng.INV_2_24 + trng.INV_2_25)
+    u0, _ = trng.philox_uniform_pair(row, col, 11, block, 2)
+    u1 = trng.philox_uniform(row, col, 11, block, 2)
+    for other in (u0, u1):
+        assert abs(np.corrcoef(u.flatten().numpy(), other.flatten().numpy())[0, 1]) < 0.01
+    assert 0.0 < u.min() and u.max() < 1.0
+    # 65536 normals: mean 0 and variance 1 within 6 sigma
+    assert abs(z.double().mean().item()) < 6 / 256
+    assert abs(z.double().var().item() - 1.0) < 6 * (2 / z.numel()) ** 0.5
+    with pytest.raises(ValueError, match="sampler"):
+        trng.draw_jump("sobol", 0, block, 0, 8, 128, 512)

@@ -103,6 +103,52 @@ def test_step_loop_with_several_roots_and_an_expiry_loop(funcs):
         sb.hot_loop_counts(chain, rsq_per_trip=2)
 
 
+BRIDGE_LISTING = """
+        code for sm_90a
+                Function : _ZN10optionslab6bridgeILi2EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   MUFU.RSQ R1, R2 ;                      /* 0x0000000200017308 */
+        /*0020*/                   FMUL R3, R3, R4 ;                      /* 0x0000000403037220 */
+        /*0030*/                   MUFU.RSQ R5, R6 ;                      /* 0x0000000600057308 */
+        /*0040*/                   FADD R7, R7, R5 ;                      /* 0x0000000507077221 */
+        /*0050*/                   IADD3 R8, R8, 0x1, RZ ;                /* 0x0000000108087810 */
+        /*0060*/                @P0 BRA 0x30 ;                            /* 0xfffffffc00000947 */
+        /*0070*/                   FMUL R9, R9, R10 ;                     /* 0x0000000a09097220 */
+        /*0080*/                   MUFU.RSQ R11, R12 ;                    /* 0x0000000c000b7308 */
+        /*0090*/                   MUFU.RSQ R13, R14 ;                    /* 0x0000000e000d7308 */
+        /*00a0*/                   MUFU.RSQ R15, R16 ;                    /* 0x00000010000f7308 */
+        /*00b0*/                   FFMA R17, R17, R18, R19 ;              /* 0x0000001211117223 */
+        /*00c0*/                @P1 BRA 0x80 ;                            /* 0xfffffffc00001947 */
+        /*00d0*/                   IADD3 R20, R20, 0x1, RZ ;              /* 0x0000000114147810 */
+        /*00e0*/                @P2 BRA 0x20 ;                            /* 0xfffffff800002947 */
+        /*00f0*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+def test_two_pass_bridge_counts_both_loops():
+    """A bridge-QMC kernel: per segment (the loop 0x20..0xe0) a pre-pass loop
+    0x30..0x60 (one Box–Muller per trip) and a replay loop 0x80..0xc0 (the
+    Box–Muller root and one sqrtf(v⁺) per branch). A step costs one trip of
+    each, so their per-trip counts add; the segment loop, which holds both,
+    is not a hot loop, and the single-loop rule alone reads only the
+    pre-pass."""
+    fn = sb.find_function(sb.parse_functions(BRIDGE_LISTING), "bridgeILi2E")
+    counts = sb.two_pass_counts(fn, rsq_per_trip=(1, 3))
+    # pre-pass: RSQ, FADD, IADD3, BRA; replay: 3 RSQ, FFMA, BRA
+    assert counts == {"fp32": 2, "int": 1, "mufu": 4, "issue": 9, "unroll": (1, 1),
+                      "span": (0x30, 0x40)}
+    assert sb.hot_loop_counts(fn)["span"] == 0x30
+    with pytest.raises(ValueError, match="not a multiple of 3"):
+        sb.hot_loop_counts(fn, rsq_per_trip=3)
+    with pytest.raises(ValueError, match="not a multiple of 2"):
+        sb.two_pass_counts(fn, rsq_per_trip=(1, 2))
+
+
+def test_two_pass_needs_two_inner_loops(funcs):
+    with pytest.raises(ValueError, match="found 1"):
+        sb.two_pass_counts(sb.find_function(funcs, "stepILi0E"))
+
+
 def test_bound_ms_picks_busiest_pipe():
     counts = {"fp32": 128, "int": 80, "mufu": 10, "issue": 200}
     n_sm, clock = 132, 1.98e9

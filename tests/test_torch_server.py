@@ -76,8 +76,26 @@ def test_price_heston_is_the_ports_lewis_price(base_url, body):
 
 
 def test_price_unported_model_is_400(base_url):
-    status, out = _call(base_url + "/price", {"model": "bates"})
+    status, out = _call(base_url + "/price", {"model": "vg"})
     assert status == 400 and "not yet ported" in out["error"]
+
+
+@pytest.mark.parametrize("body", [{}, {"bates_params": {"lam": 1.2, "mu_j": -0.2, "v0": 0.06},
+                                       "strike": 90.0, "option_type": "put"}])
+def test_price_bates_is_the_ports_lewis_price(base_url, body):
+    """/price bates answers the port's Lewis price of the Bates CF, which
+    agrees with the JAX package's handler to float32 rounding."""
+    from optionslab_tpu.server import handle_price
+    from optionslab_tpu_torch.models.bates import BatesParams, bates_price
+    from optionslab_tpu_torch.types import ContractBatch
+
+    status, out = _call(base_url + "/price", {"model": "bates", **body})
+    assert status == 200 and out["model"] == "bates"
+    b = ContractBatch.make(100.0, body.get("strike", 100.0), 1.0, 0.05, 0.2,
+                           body.get("option_type", "call"))
+    assert out["price"] == bates_price(b, BatesParams.make(**body.get("bates_params", {}))).item()
+    assert out["price"] == pytest.approx(handle_price({"model": "bates", **body})["price"],
+                                         rel=1e-5)
 
 
 def test_greeks(base_url):
@@ -190,14 +208,73 @@ def test_book_exotic_matches_reference(base_url, greeks):
 
 @pytest.mark.parametrize("path,body,names", [
     ("/exotic", {"kind": "american"}, "autocallable"),
-    ("/exotic", {"kind": "asian", "model": "heston"}, "['bs']"),
-    ("/exotic", {"kind": "barrier", "model": "lv"}, "['bs']"),
-    ("/book/exotic", {"kind": "asian", "model": "bates"}, "['bs']"),
+    ("/exotic", {"kind": "asian", "model": "rbergomi"}, "'bates-qe'"),
+    ("/exotic", {"kind": "barrier", "model": "lv"}, "not yet ported"),
+    ("/book/exotic", {"kind": "asian", "model": "slv"}, "'bates'"),
     ("/exotic", {"kind": "no-touch", "pay": "hit"}, "no-touch"),
+    ("/exotic", {"kind": "asian", "model": "heston-qe", "greeks": True}, "drop -qe"),
+    ("/exotic", {"kind": "american", "model": "bates"}, "supports"),
+    ("/exotic", {"kind": "no-touch", "pay": "hit", "model": "heston"}, "no-touch"),
 ])
 def test_exotic_unported_is_400(base_url, path, body, names):
     status, out = _call(base_url + path, body)
     assert status == 400 and names in out["error"]
+
+
+# /exotic and /book/exotic under Heston and Bates against the JAX package's
+# handlers (its kernel routes draw with `hash` off the TPU), one path block of
+# 8 steps. Prices and the price-like Greeks to rtol 1e-5; the LR rho and
+# theta carry the rate and maturity scores, which divide by √v⁺ per step: an
+# ulp of XLA-vs-torch libm on a path that grazes v = 0 moves that lane's term
+# by up to ~1e-3 of the moment (tests/test_torch_heston_exotic_kernel.py),
+# hence 1e-2 there.
+HESTON_BODIES = {
+    "heston_asian": {"model": "heston", "kind": "asian"},
+    "heston_qe_barrier": {"model": "heston-qe", "kind": "barrier", "barrier": 125.0,
+                          "option_type": "put", "strike": 105.0},
+    "bates_down_in_put": {"model": "bates", "kind": "barrier", "barrier_type": "down-and-in",
+                          "barrier": 85.0, "option_type": "put"},
+    "bates_qe_double_touch_hit": {"model": "bates-qe", "kind": "double-touch", "touch": "one",
+                                  "pay": "hit", "lower": 85.0, "upper": 118.0},
+    "heston_one_touch_greeks": {"model": "heston", "kind": "one-touch", "barrier": 115.0,
+                                "greeks": True},
+    "bates_asian_greeks": {"model": "bates", "kind": "asian", "greeks": True, "lam": 0.8},
+    "heston_autocall_greeks": {"model": "heston", "kind": "autocallable", "greeks": True},
+    "heston_cliquet": {"model": "heston", "kind": "cliquet", "v0": 0.05, "rho_sv": -0.5},
+}
+
+
+def _same_heston_answer(ours: dict, ref: dict):
+    assert set(ours) == set(ref)
+    for key, v in ref.items():
+        rtol = 1e-2 if key in ("rho", "theta") else 1e-5
+        if isinstance(v, float) or (isinstance(v, list) and v and isinstance(v[0], float)):
+            assert ours[key] == pytest.approx(v, rel=rtol, abs=1e-5), key
+        else:
+            assert ours[key] == v, key
+
+
+@pytest.mark.parametrize("case", sorted(HESTON_BODIES))
+def test_exotic_heston_routes_match_reference(base_url, case):
+    from optionslab_tpu.server import handle_exotic
+
+    body = {"n_paths": 1, "n_steps": 8, "seed": 2, **HESTON_BODIES[case]}
+    status, out = _call(base_url + "/exotic", {**body, "sampler": "hash"})
+    assert status == 200, out
+    _same_heston_answer(out, handle_exotic(dict(body)))
+    assert out["dynamics"] == ("bates" if body["model"].startswith("bates") else "heston")
+
+
+@pytest.mark.parametrize("model,greeks", [("heston", False), ("heston", True), ("bates", False)])
+def test_book_exotic_heston_matches_reference(base_url, model, greeks):
+    from optionslab_tpu.server import handle_book
+
+    body = {"kind": "barrier", "model": model, "strikes": [95.0, 105.0],
+            "barriers": [125.0, 130.0], "n_paths": 60_000, "n_steps": 8, "greeks": greeks}
+    status, out = _call(base_url + "/book/exotic", {**body, "sampler": "hash"})
+    assert status == 200, out
+    _same_heston_answer(out, handle_book(dict(body)))
+    assert out["model"] == model and len(out["price"]) == 2
 
 
 def test_port_package_never_imports_jax():
