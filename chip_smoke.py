@@ -51,9 +51,22 @@ is printed):
               the scan engine and CRN finite differences, with warm wall
               times; then ``/exotic``, ``/book/exotic`` and ``/price`` bates
               over a socket;
-10. launches — each kernel's launch count over its path's phases (the counts
+10. smile   — the local-vol kernel (20 payoffs × greeks × hash/prng × cp,
+              bridge QMC) and the SLV kernel (23 kinds × lr × hash/prng × cp)
+              against their plain versions at small shapes and at their
+              paths' shapes; then the local-vol path at the JAX package's
+              bench size (``LocalVolKernelPricer`` 8,126,464 x 100 on the
+              sample smile) against Black–Scholes on a flat surface, the
+              Dupire PDE, the scan engine, the in/out and touch identities,
+              the GBM exotic kernel and CRN finite differences; the SLV path
+              (the 262,144-particle calibration on the card, the barrier
+              8,126,464 x 64) against the PDE and the LV kernel at mixing 0,
+              0.5 and 1, the replay scan on the same rows, finite
+              differences and the structured scans; then ``/exotic`` lv and
+              slv over a socket;
+11. launches — each kernel's launch count over its path's phases (the counts
               are set to 0 just before a path and read just after it);
-11. timing  — device ms by CUDA events of each kernel and its plain
+12. timing  — device ms by CUDA events of each kernel and its plain
               version at its path's shapes, beside the least time the card
               could take (from the kernel's SASS, ``ops/sass_bound.py``).
 
@@ -77,6 +90,8 @@ from optionslab_tpu_torch import ContractBatch, MCMethod, MonteCarloPricer, Pric
 from optionslab_tpu_torch.models import exotics as tex
 from optionslab_tpu_torch.models import heston as hmodel
 from optionslab_tpu_torch.models import heston_exotics as hscan
+from optionslab_tpu_torch.models import local_vol as lvm
+from optionslab_tpu_torch.models import slv as slvm
 from optionslab_tpu_torch.models.bates import BatesParams, bates_price
 from optionslab_tpu_torch.models.black_scholes import bs_greeks
 from optionslab_tpu_torch.ops import _build, sass_bound
@@ -84,6 +99,8 @@ from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
 from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
 from optionslab_tpu_torch.ops import heston_kernel as hk
+from optionslab_tpu_torch.ops import local_vol_kernel as lk
+from optionslab_tpu_torch.ops import slv_kernel as sk
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
 # absolute Greek bounds of the reference's kernel test (tests/test_gbm_pallas_host.py)
@@ -1536,6 +1553,466 @@ HX_SASS = {"asian_arith 8": (("heston_exotic_kernelILi0ELb0ELi0ELi0E",), 3),
            "asian_arith sobol_bb": (("heston_exotic_kernelILi0ELb0ELi0ELi2E",), (1, 3))}
 
 
+# ---------------------------------------------------------------------------
+# the smile path: local vol and SLV (csrc/local_vol_mc.cu, csrc/slv_mc.cu)
+# ---------------------------------------------------------------------------
+LV_MAIN = (8_000_000, 100)  # bench.py:297: 31 blocks, 8,126,464 paths
+SLV_MAIN = (8_000_000, 64)  # bench.py:313: 62 blocks, 8,126,464 paths
+SLV_PARAMS = (0.04, 2.0, 0.04, 0.5, -0.7)  # the bench's HestonParams.make
+SLV_CAL = 262_144  # the calibration's particles (SLVKernelPricer's default)
+SMILE_SCAN = 1_048_576  # the scan engines' paths
+# the rho oracle's regime: σ_v = 0.3 (Feller holds), as the reference test, at
+# the path's 64 steps (the reference's 16 steps leave the gated score a bias
+# of ≈1.2 in ρ, inside its bound at 131,072 paths but not at 8M)
+SLV_RHO_STEPS = 64
+LV_CP_PAYOFFS = ("european", "asian", "lookback_float", "lookback_fixed",
+                 "barrier_up-and-out", "barrier_up-and-in", "barrier_down-and-out",
+                 "barrier_down-and-in", "barrier_double-out", "barrier_double-in")
+SLV_CP_KINDS = ("european", "asian_arith", "asian_geo") + LV_CP_PAYOFFS[2:]
+SLV_SLOTS = {"cliquet": (-0.03, 0.03, 0.0, 1e9, 100.0),
+             "autocall": (0.0, math.log(0.9), math.log(0.8), 2.0, 100.0),
+             "range_accrual": (math.log(0.9), math.log(1.1), 0.0, 0.0, 100.0)}
+
+
+def smile_dupire(dev, flat: bool = False):
+    iv = (lambda k, t: 0.2 + 0.0 * k) if flat else lvm.sample_smile_iv_fn()
+    return lvm.DupireLocalVol(iv, S0, RATE, device=dev)
+
+
+def slv_params(dev, **over):
+    return hmodel.HestonParams.make(**dict(zip(H_NAMES, SLV_PARAMS), **over), device=dev)
+
+
+def _level(kind):
+    return 120.0 if "up" in kind else 85.0
+
+
+def lv_parity_cases(dev) -> list:
+    """(tag, params, kwargs) of the local-vol parity phase."""
+    pricer = lk.LocalVolKernelPricer(smile_dupire(dev), T, n_steps=12)
+    cases = []
+    for payoff in lk.PAYOFFS:
+        p = pricer._params(STRIKE, payoff, _level(payoff), 85.0, 118.0)
+        for sampler in ("hash", "prng"):
+            for greeks in (False, True):
+                for cp in ((1.0, -1.0) if payoff in LV_CP_PAYOFFS else (1.0,)):
+                    cases.append((f"{payoff} {sampler} greeks={greeks} cp={cp:+.0f} 3x12", p,
+                                  dict(n_steps=12, n_blocks=3, cp=cp, payoff=payoff,
+                                       sampler=sampler, greeks=greeks)))
+        cases.append((f"{payoff} sobol_bb 3x12", p, dict(n_steps=12, n_blocks=3, cp=1.0,
+                                                          payoff=payoff, sampler="sobol_bb")))
+    main = lk.LocalVolKernelPricer(smile_dupire(dev), T, n_steps=LV_MAIN[1])
+    nb = lk._n_blocks(LV_MAIN[0], lk.PATHS_PER_BLOCK)
+    for payoff, greeks, sampler in (("european", False, "prng"), ("barrier_up-and-out", True, "prng"),
+                                    ("asian", False, "sobol_bb")):
+        cases.append((f"{payoff} {sampler} greeks={greeks} {LV_MAIN[0]}x{LV_MAIN[1]}",
+                       main._params(STRIKE, payoff, 125.0),
+                       dict(n_steps=LV_MAIN[1], n_blocks=nb, cp=1.0, payoff=payoff,
+                            sampler=sampler, greeks=greeks)))
+    return cases
+
+
+def slv_vector(pricer, kind):
+    if kind in SLV_SLOTS:
+        head = pricer._head.copy()
+        head[sk._S_A:sk._S_E + 1] = SLV_SLOTS[kind]
+        return pricer._vector(head)
+    return pricer._params_vec(kind, STRIKE, _level(kind), 85.0, 118.0)
+
+
+def slv_parity_cases(dev) -> list:
+    """(tag, params, kwargs) of the SLV parity phase (each pricer calibrates
+    on the card; the kernel and its plain version replay the same table)."""
+    small = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev), T, n_steps=12,
+                               n_cal_paths=65_536)
+    cases = []
+    for kind in sk.KINDS + sk.STRUCTURED_KINDS:
+        p = slv_vector(small, kind)
+        for sampler in ("hash", "prng"):
+            for lr in (False, True):
+                for cp in ((1.0, -1.0) if kind in SLV_CP_KINDS else (1.0,)):
+                    cases.append((f"{kind} {sampler} lr={lr} cp={cp:+.0f} 3x12", p,
+                                  dict(kind=kind, n_steps=12, n_blocks=3, cp=cp, sampler=sampler,
+                                       lr=lr, period=3 if kind in ("cliquet", "autocall") else 1)))
+    main = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev), T, n_steps=SLV_MAIN[1],
+                              n_cal_paths=65_536)
+    nb = sk._n_blocks(SLV_MAIN[0], sk.PATHS_PER_BLOCK)
+    for kind, lr in (("barrier_up-and-out", False), ("barrier_up-and-out", True),
+                     ("autocall", True)):
+        cases.append((f"{kind} prng lr={lr} {SLV_MAIN[0]}x{SLV_MAIN[1]}", slv_vector(main, kind),
+                      dict(kind=kind, n_steps=SLV_MAIN[1], n_blocks=nb, cp=1.0, sampler="prng",
+                           lr=lr, period=16 if kind == "autocall" else 1)))
+    return cases
+
+
+def phase_smile_parity(dev) -> tuple[float, float]:
+    """Both smile kernels against their plain versions; returns their largest
+    absolute differences."""
+    worst_lv = worst_slv = 0.0
+    for tag, p, kw in lv_parity_cases(dev):
+        kern, plain = lk._lv_cuda(7, 1, p, **kw), lk._lv_plain(7, 1, p, **kw)
+        torch.cuda.synchronize()
+        worst_lv = max(worst_lv, compare_sums(kern, plain, f"local_vol {tag}"))
+    for tag, p, kw in slv_parity_cases(dev):
+        kern, plain = sk._slv_cuda(7, 1, p, **kw), sk._slv_plain(7, 1, p, **kw)
+        torch.cuda.synchronize()
+        worst_slv = max(worst_slv, compare_sums(kern, plain, f"slv {tag}"))
+    return worst_lv, worst_slv
+
+
+def _row_se(combine, outs, n_row, keys) -> dict:
+    """Standard errors of a ladder's entries from the 128 independent row
+    groups of one launch."""
+    per = [combine(outs[:, r:r + 1], n_row) for r in range(outs.shape[1])]
+    return {k: float(np.std([float(g[k]) for g in per], ddof=1)) / math.sqrt(len(per))
+            for k in keys}
+
+
+def smile_greek_stderrs(dev) -> dict:
+    """Row-group standard errors of the Greeks checked below, each from one
+    launch at the path's shape (another seed than the main path's). Not
+    counted as main path."""
+    out = {}
+    lv_n, lv_m = LV_MAIN
+    nb = lk._n_blocks(lv_n, lk.PATHS_PER_BLOCK)
+    for tag, dup, payoff in (("flat", smile_dupire(dev, flat=True), "european"),
+                             ("smile asian", smile_dupire(dev), "asian"),
+                             ("smile barrier", smile_dupire(dev), "barrier_up-and-out")):
+        pr = lk.LocalVolKernelPricer(dup, T, n_steps=lv_m)
+        outs = lk._lv_cuda(99, 0, pr._params(STRIKE, payoff, 120.0), n_steps=lv_m, n_blocks=nb,
+                           cp=1.0, payoff=payoff, greeks=True).double()
+        se = _row_se(lambda o, n: pr._combine_greeks(o, n, payoff), outs,
+                     nb * lk.LANES * 4, ("delta", "gamma", "vega"))
+        out.update({(f"lv {tag}", k): v for k, v in se.items()})
+    s_n, s_m = SLV_MAIN
+    nb = sk._n_blocks(s_n, sk.PATHS_PER_BLOCK)
+    pr = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev), T, n_steps=s_m,
+                            n_cal_paths=65_536)
+    rho_pr = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev, sigma=0.3), T,
+                                n_steps=SLV_RHO_STEPS, n_cal_paths=65_536)
+    for tag, kind, pr_, m_ in (("barrier_up-and-out", "barrier_up-and-out", pr, s_m),
+                               ("asian_arith", "asian_arith", pr, s_m),
+                               ("rho", "european", rho_pr, SLV_RHO_STEPS)):
+        outs = sk._slv_cuda(99, 0, slv_vector(pr_, kind), kind=kind, n_steps=m_, n_blocks=nb,
+                            cp=1.0, lr=True).double()
+        se = _row_se(lambda o, n, pr_=pr_, kind=kind: pr_._combine_lr(o, n, kind), outs,
+                     nb * sk.LANES * 2, ("delta", "vega_v0", "rho"))
+        out.update({(f"slv {tag}", k): v for k, v in se.items()})
+    log("smile", "Greek stderrs from 128 row groups: " + " ".join(
+        f"{t}:{k}={v:.2e}" for (t, k), v in out.items()))
+    return out
+
+
+def fd_check(tag: str, got: float, want: float, ref_bound: float, ref_paths: int, paths: int,
+             se: float) -> str:
+    """LR Greek against its CRN finite difference, within max(the
+    reference test's bound scaled by √(paths ratio), 5·se)."""
+    bound = max(ref_bound * math.sqrt(ref_paths / paths), 5 * se)
+    check(abs(got - want) < bound, f"{tag}: LR {got} vs CRN FD {want} (bound {bound})")
+    return f"{tag}={got:.5f}/{want:.5f} (bound {bound:.4f})"
+
+
+def route_counter(calls: dict, name: str):
+    """A caller of entry points that counts its calls in ``calls[name]``:
+    each is one launch of that kernel."""
+    def k(fn, *a, **kw):
+        calls[name] += 1
+        return fn(*a, **kw)
+
+    return k
+
+
+def phase_lv_main(dev, card: str, se: dict, calls: dict) -> None:
+    """The local-vol path through ``LocalVolKernelPricer`` at the JAX
+    package's bench size, against its oracles; ``calls["lv"]`` counts the
+    calls routed to the kernel."""
+    k = route_counter(calls, "lv")
+    walls = []
+
+    n, m = LV_MAIN
+    df = math.exp(-RATE * T)
+    dup = smile_dupire(dev)
+    t0 = time.perf_counter()
+    pricer = lk.LocalVolKernelPricer(dup, T, n_steps=m)
+    fit_ms = (time.perf_counter() - t0) * 1e3
+    (p, se_p, paths), ms = timed(lambda: k(pricer.price, STRIKE, n_paths=n))
+    walls.append(f"price european {paths}x{m} {ms:.3f} ms ({paths * m / (ms / 1e3):.4e} "
+                 f"path-steps/s); Dupire build + table fit {fit_ms:.1f} ms")
+    # the vanilla against the local-vol PDE (201 x 200), on the CPU
+    pde = dup.to("cpu").price(S0, STRIKE, T).item()
+    log("smile", f"LV european {p.item():.6f}±{se_p.item():.2e} ({paths} x {m}, fit residual "
+                 f"{pricer.fit_residual:.2e}) vs PDE {pde:.6f}")
+    check(abs(p.item() - pde) < 4 * se_p.item() + 0.03, "LV european vs the Dupire PDE")
+    # a flat surface against Black–Scholes, price and Greeks
+    flat = lk.LocalVolKernelPricer(smile_dupire(dev, flat=True), T, n_steps=m)
+    g = k(flat.greeks, STRIKE, n_paths=n)
+    bs = bs_greeks(S0, STRIKE, T, RATE, VOL, 1.0, 0.0)
+    rows = [fd_check("flat delta", g["delta"], bs["delta"].item(), 0.02, 262_144, g["paths"],
+                     se[("lv flat", "delta")]),
+            fd_check("flat gamma", g["gamma"], bs["gamma"].item(), 0.004, 262_144, g["paths"],
+                     se[("lv flat", "gamma")]),
+            fd_check("flat vega", g["vega"], bs["vega"].item(), 2.5, 262_144, g["paths"],
+                     se[("lv flat", "vega")])]
+    check(abs(g["price"].item() - BS_ATM_CALL) < 4 * g["std_error"].item() + 2e-3,
+          "flat LV price vs Black–Scholes")
+    log("smile", f"flat LV {g['price'].item():.6f}±{g['std_error'].item():.2e} vs BS "
+                 f"{BS_ATM_CALL:.6f}; Greeks vs BS: " + " ".join(rows))
+    # the Asian against the scan engine (the bilinear surface itself)
+    (pa, sea, _), ms = timed(lambda: k(pricer.price, STRIKE, payoff="asian", n_paths=n))
+    walls.append(f"asian {paths}x{m} {ms:.3f} ms")
+    sp, sse = lvm.local_vol_mc_price(dup, STRIKE, T, payoff="asian", n_paths=SMILE_SCAN,
+                                     n_steps=m, seed=5)
+    tol = 5 * math.hypot(sea.item(), sse.item()) + 5e-3  # the reference test's allowance
+    log("smile", f"LV asian {pa.item():.6f}±{sea.item():.2e} vs scan {sp.item():.6f}±"
+                 f"{sse.item():.2e} tol {tol:.2e}")
+    check(abs(pa.item() - sp.item()) < tol, "LV asian vs the scan engine")
+    # exact identities on one seed
+    kw = dict(n_paths=n, seed=3, barrier=125.0)
+    van = k(pricer.price, STRIKE, **kw)[0].item()
+    p_in = k(pricer.price, STRIKE, payoff="barrier_up-and-in", **kw)[0].item()
+    (p_out, se_out, _), ms = timed(lambda: k(pricer.price, STRIKE, payoff="barrier_up-and-out",
+                                             **kw))
+    walls.append(f"barrier_up-and-out {paths}x{m} {ms:.3f} ms")
+    one = k(pricer.price, 0.0, payoff="one_touch_up", **kw)[0].item()
+    no = k(pricer.price, 0.0, payoff="no_touch_up", **kw)[0].item()
+    log("smile", f"LV identities: in+out={p_in + p_out.item():.7f} vanilla={van:.7f}; "
+                 f"one+no touch={one + no:.8f} df={df:.8f}")
+    check(abs(p_in + p_out.item() - van) < 1e-5 * van, "LV in + out != vanilla")
+    check(abs(one + no - df) < 1e-6, "LV one-touch + no-touch != df")
+    # flat barrier and lookback against the GBM exotic kernel at the same steps
+    for payoff, kind, bkw in (("barrier_up-and-out", "barrier_up-and-out", dict(barrier=125.0)),
+                              ("lookback_float", "lookback_float", {})):
+        fp, fse, _ = k(flat.price, STRIKE, payoff=payoff, n_paths=n, **bkw)
+        gp, gse, _ = ek.exotic_price(kind, S0, STRIKE, T, RATE, VOL, n_paths=n, n_steps=m,
+                                     seed=11, device=dev, **bkw)
+        log("smile", f"flat LV {payoff} {fp.item():.6f}±{fse.item():.2e} vs GBM exotic kernel "
+                     f"{gp.item():.6f}±{gse.item():.2e}")
+        check(abs(fp.item() - gp.item()) < 5 * math.hypot(fse.item(), gse.item()),
+              f"flat LV {payoff} vs the GBM exotic kernel")
+    # the smile's sticky-strike delta (table refitted at the bumped spot from
+    # the same physical surface) and the c0-shift vega, against CRN FD
+    rows = []
+    for tag, payoff, bkw in (("smile asian", "asian", {}),
+                             ("smile barrier", "barrier_up-and-out", dict(barrier=120.0))):
+        g = k(pricer.greeks, STRIKE, payoff=payoff, n_paths=n, **bkw)
+
+        def bumped(h):
+            view = type("Bumped", (), {"surface": dup.surface, "spot": S0 + h, "rate": RATE,
+                                       "dividend": 0.0})()
+            pr = lk.LocalVolKernelPricer(view, T, n_steps=m)
+            return k(pr.price, STRIKE, payoff=payoff, n_paths=n, **bkw)[0].item()
+
+        fd = (bumped(0.5) - bumped(-0.5)) / 1.0
+        rows.append(fd_check(f"{tag} delta", g["delta"], fd, 0.03, 262_144, g["paths"],
+                             se[(f"lv {tag}", "delta")]))
+        if payoff == "asian":
+            eps = 2e-3
+            shifted = []
+            for sgn in (1.0, -1.0):
+                rows_b = pricer.rows.copy()
+                rows_b[:, -1] += sgn * eps
+                pr = lk.LocalVolKernelPricer.from_numpy(rows_b, pricer.fit_residual, S0, RATE,
+                                                        0.0, T, device=dev)
+                shifted.append(k(pr.price, STRIKE, payoff=payoff, n_paths=n)[0].item())
+            fd_v = (shifted[0] - shifted[1]) / (2 * eps)
+            rows.append(fd_check(f"{tag} vega", g["vega"], fd_v, 0.08 * abs(fd_v) + 1.5,
+                                 262_144, g["paths"], se[(f"lv {tag}", "vega")]))
+    log("smile", f"LV smile Greeks vs CRN FD ({n} paths x {m}), bounds max(reference bound x "
+                 f"sqrt(paths ratio), 5 se): " + " ".join(rows))
+    # bridge QMC: the randomized-QMC stderr below the prng one
+    (pq, seq, _), ms = timed(lambda: k(pricer.price, STRIKE, n_paths=n, sampler="sobol_bb"))
+    walls.append(f"european sobol_bb {paths}x{m} {ms:.3f} ms")
+    log("smile", f"LV sobol_bb {pq.item():.6f} RQMC se {seq.item():.2e} vs prng "
+                 f"{p.item():.6f}±{se_p.item():.2e}")
+    check(seq.item() < se_p.item(), "LV sobol_bb stderr not below prng")
+    check(abs(pq.item() - p.item()) < 5 * math.hypot(seq.item(), se_p.item()),
+          "LV sobol_bb vs prng")
+    log("smile", f"LV warm wall, mean of 3 [{card}]: " + "; ".join(walls))
+
+
+def phase_slv_main(dev, card: str, se: dict, calls: dict) -> None:
+    """The SLV path at the JAX package's bench size: the 262,144-particle
+    calibration on the card, then the barrier 8,126,464 x 64, against its
+    oracles; ``calls["slv"]`` (and ``calls["lv"]`` for the LV vanilla it is
+    held to) count the calls routed to the kernels."""
+    k, k_lv = route_counter(calls, "slv"), route_counter(calls, "lv")
+    walls = []
+
+    n, m = SLV_MAIN
+    dup = smile_dupire(dev)
+    par = slv_params(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pricer = sk.SLVKernelPricer(dup, par, T, mixing=1.0, n_steps=m)
+    torch.cuda.synchronize()
+    cal_ms = (time.perf_counter() - t0) * 1e3
+    kw = dict(barrier=125.0, n_paths=n)
+    (pb, seb, paths), ms = timed(lambda: k(pricer.price, "barrier_up-and-out", STRIKE, **kw))
+    walls.append(f"calibration {SLV_CAL} particles x {m} + fit {cal_ms:.1f} ms; barrier "
+                 f"{paths}x{m} {ms:.3f} ms ({paths * m / (ms / 1e3):.4e} path-steps/s)")
+    log("smile", f"SLV barrier_up-and-out {pb.item():.6f}±{seb.item():.2e} (fit residual "
+                 f"{pricer.fit_residual:.2e})")
+    # the same rows replayed by the scan engine
+    rp, rse = slvm.slv_replay_price("barrier_up-and-out", S0, STRIKE, T, RATE, par,
+                                    torch.Generator(device=dev).manual_seed(7), pricer.x_rows,
+                                    pricer.l_rows, barrier=125.0, n_paths=SMILE_SCAN, n_steps=m,
+                                    return_stderr=True)
+    tol = 5 * math.hypot(seb.item(), rse.item()) + 0.02
+    log("smile", f"SLV barrier vs replay scan {rp.item():.6f}±{rse.item():.2e} tol {tol:.2e}")
+    check(abs(pb.item() - rp.item()) < tol, "SLV kernel vs slv_replay_price on the same rows")
+    # vanillas pinned to the smile at every mixing; mixing moves the barrier
+    pde = dup.to("cpu").price(S0, STRIKE, T).item()
+    lv_p, lv_se, _ = k_lv(lk.LocalVolKernelPricer(dup, T, n_steps=m).price, STRIKE, n_paths=n)
+    barriers = {}
+    for mixing in (0.0, 0.5, 1.0):
+        pr = pricer if mixing == 1.0 else sk.SLVKernelPricer(dup, par, T, mixing=mixing,
+                                                             n_steps=m)
+        pe, pse, _ = k(pr.price, "european", STRIKE, n_paths=n, seed=1)
+        barriers[mixing] = k(pr.price, "barrier_up-and-out", STRIKE, **kw)[:2]
+        tol = 5 * pse.item() + 0.05
+        log("smile", f"SLV mixing {mixing}: european {pe.item():.6f}±{pse.item():.2e} vs PDE "
+                     f"{pde:.6f} and LV kernel {lv_p.item():.6f} (tol {tol:.3f}); barrier "
+                     f"{barriers[mixing][0].item():.6f}")
+        check(abs(pe.item() - pde) < tol, f"SLV european at mixing {mixing} vs the PDE")
+        check(abs(pe.item() - lv_p.item()) < tol + 5 * lv_se.item(),
+              f"SLV european at mixing {mixing} vs the LV kernel")
+    (b1, s1), (b0, s0) = barriers[1.0], barriers[0.0]
+    check(b1.item() - b0.item() > 8 * math.hypot(s1.item(), s0.item()),
+          "mixing does not move the barrier")
+    # the LR ladder against CRN finite differences on frozen leverage
+    rows = []
+    for kind in ("barrier_up-and-out", "asian_arith"):
+        bkw = dict(barrier=125.0) if kind.startswith("barrier") else {}
+        g = k(pricer.greeks, kind, STRIKE, n_paths=n, **bkw)
+        check(abs(g["price"].item() - k(pricer.price, kind, STRIKE, n_paths=n, **bkw)[0].item())
+              < 1e-5 * g["price"].item() + 1e-6, f"SLV {kind}: LR price != price launch")
+
+        def bumped_spot(h):
+            rows_b, _ = sk.fit_leverage_polys(pricer.x_rows - math.log((S0 + h) / S0),
+                                              pricer.l_rows)
+            pr = sk.SLVKernelPricer.from_numpy(rows_b, 0.0, par, S0 + h, RATE, 0.0, T, device=dev)
+            return k(pr.price, kind, STRIKE, n_paths=n, **bkw)[0].item()
+
+        fd = bumped_spot(0.5) - bumped_spot(-0.5)
+        rows.append(fd_check(f"{kind} delta", g["delta"], fd, 0.035, 131_072, g["paths"],
+                             se[(f"slv {kind}", "delta")]))
+        if kind == "asian_arith":
+            vals = []
+            for sgn in (1.0, -1.0):
+                pr = sk.SLVKernelPricer.from_numpy(pricer.rows, 0.0,
+                                                   slv_params(dev, v0=0.04 + sgn * 0.004), S0,
+                                                   RATE, 0.0, T, device=dev)
+                vals.append(k(pr.price, kind, STRIKE, n_paths=n)[0].item())
+            fd_v = (vals[0] - vals[1]) / 0.008
+            rows.append(fd_check(f"{kind} vega_v0", g["vega_v0"], fd_v, 0.12 * abs(fd_v) + 1.0,
+                                 131_072, g["paths"], se[(f"slv {kind}", "vega_v0")]))
+    # rho with σ_v = 0.3 (Feller holds), as the reference test
+    par3 = slv_params(dev, sigma=0.3)
+    base = sk.SLVKernelPricer(dup, par3, T, mixing=1.0, n_steps=SLV_RHO_STEPS)
+    g = k(base.greeks, "european", STRIKE, n_paths=n)
+    vals = []
+    for sgn in (1.0, -1.0):
+        pr = sk.SLVKernelPricer.from_numpy(base.rows, 0.0, par3, S0, RATE + sgn * 1e-3, 0.0, T,
+                                           device=dev)
+        vals.append(k(pr.price, "european", STRIKE, n_paths=n)[0].item())
+    fd_r = (vals[0] - vals[1]) / 2e-3
+    rows.append(fd_check(f"european rho (σ_v 0.3, {SLV_RHO_STEPS} steps)", g["rho"], fd_r,
+                         0.06 * abs(fd_r) + 0.5, 131_072, g["paths"], se[("slv rho", "rho")]))
+    log("smile", f"SLV LR vs CRN FD ({n} paths), bounds max(reference bound x sqrt(paths "
+                 f"ratio), 5 se): " + " ".join(rows))
+    # the structured products, price and LR, against the scan engines
+    gen = torch.Generator(device=dev)
+    # the reference tests' allowances (tests/test_slv_pallas.py)
+    for name, skw, args, extra in (("cliquet", dict(n_periods=4), (), 0.05),
+                                   ("autocall", dict(n_obs=4), (), 0.1),
+                                   ("range_accrual", {}, (90.0, 110.0), 0.2)):
+        (pk, pse, paths_s), ms = timed(lambda: k(getattr(pricer, name), *args, n_paths=n, **skw))
+        walls.append(f"{name} {paths_s}x{m} {ms:.3f} ms")
+        g = k(getattr(pricer, name), *args, n_paths=n, greeks=True, **skw)
+        check(abs(g["price"].item() - pk.item()) < 1e-5 * abs(pk.item()) + 1e-6,
+              f"SLV {name}: LR price != price launch")
+        check(all(math.isfinite(float(g[key])) for key in ("delta", "gamma", "vega_v0", "rho")),
+              f"SLV {name} LR ladder not finite")
+        scan_args = (S0, 90.0, 110.0, T, RATE) if name == "range_accrual" else (S0, T, RATE)
+        sp, sse = getattr(slvm, f"slv_{name}_price")(
+            *scan_args, par, gen.manual_seed(9), dup.surface.k_grid, dup.surface.t_grid,
+            dup.surface.grid, n_paths=SMILE_SCAN, n_steps=m, return_stderr=True, **skw)
+        tol = 5 * math.hypot(pse.item(), sse.item()) + extra
+        log("smile", f"SLV {name} {pk.item():.6f}±{pse.item():.2e} vs scan {sp.item():.6f}±"
+                     f"{sse.item():.2e} (tol {tol:.3f}); LR delta {g['delta']:.5f} vega_v0 "
+                     f"{g['vega_v0']:.5f} rho {g['rho']:.5f}")
+        check(abs(pk.item() - sp.item()) < tol, f"SLV {name} vs the scan engine")
+    log("smile", f"SLV warm wall, mean of 3 [{card}]: " + "; ".join(walls))
+
+
+def phase_smile_server(dev) -> tuple[int, int]:
+    """``/exotic`` lv and slv over a socket. Returns the requests routed to
+    the local-vol and the SLV kernel."""
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    routed = [0, 0]
+    try:
+        for body, route in (({"model": "lv", "kind": "barrier", "barrier": 125.0}, 0),
+                            ({"model": "lv", "kind": "asian", "greeks": True}, 0),
+                            ({"model": "lv", "kind": "cliquet", "n_paths": 262_144}, None),
+                            ({"model": "slv", "kind": "autocallable", "greeks": True}, 1),
+                            ({"model": "slv", "kind": "barrier", "greeks": True,
+                              "barrier": 125.0}, 1),
+                            ({"model": "slv", "kind": "asian", "n_paths": 262_144}, None)):
+            status, out = _request(base + "/exotic", {"n_paths": 2_000_000, "n_steps": 64,
+                                                      **body})
+            if route is not None:
+                routed[route] += 1
+            check(status == 200 and math.isfinite(out["price"]) and out["std_error"] > 0,
+                  f"/exotic {body}: {status} {out}")
+            log("smile server", f"/exotic {body['model']} {out['kind']}: "
+                                f"price={out['price']:.5f} se={out['std_error']:.2e} "
+                                f"engine={out.get('engine', 'scan')}")
+    finally:
+        server.stop()
+    return routed[0], routed[1]
+
+
+def smile_timing(dev) -> dict:
+    """Device ms of both smile kernels and their plain versions at the
+    paths' shapes (prng). Not counted as main path."""
+    out = {}
+    n, m = LV_MAIN
+    pricer = lk.LocalVolKernelPricer(smile_dupire(dev), T, n_steps=m)
+    for tag, payoff, greeks in ((f"local_vol european {n}x{m}", "european", False),
+                                (f"local_vol barrier greeks {n}x{m}", "barrier_up-and-out",
+                                 True)):
+        p = pricer._params(STRIKE, payoff, 125.0)
+        kw = dict(n_steps=m, n_blocks=lk._n_blocks(n, lk.PATHS_PER_BLOCK), cp=1.0, payoff=payoff,
+                  sampler="prng", greeks=greeks)
+        ms, plain_ms = event_pair(lambda: lk._lv_cuda(0, 0, p, **kw),
+                                  lambda: lk._lv_plain(0, 0, p, **kw))
+        out[tag] = {"ms": ms, "plain_ms": plain_ms,
+                    "trips": kw["n_blocks"] * lk.ROWS * lk.LANES * m,
+                    "bytes": 4 * (p.numel() + lk._n_moments(payoff, greeks) * lk.ROWS)}
+    n, m = SLV_MAIN
+    spr = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev), T, n_steps=m,
+                             n_cal_paths=65_536)
+    for tag, lr in ((f"slv barrier {n}x{m}", False), (f"slv barrier LR {n}x{m}", True)):
+        p = slv_vector(spr, "barrier_up-and-out")
+        kw = dict(kind="barrier_up-and-out", n_steps=m, n_blocks=sk._n_blocks(n, sk.PATHS_PER_BLOCK),
+                  cp=1.0, sampler="prng", lr=lr)
+        ms, plain_ms = event_pair(lambda: sk._slv_cuda(0, 0, p, **kw),
+                                  lambda: sk._slv_plain(0, 0, p, **kw))
+        out[tag] = {"ms": ms, "plain_ms": plain_ms,
+                    "trips": kw["n_blocks"] * sk.ROWS * sk.LANES * m,
+                    "bytes": 4 * (p.numel() + sk._n_moments("barrier_up-and-out", lr) * sk.ROWS)}
+    return out
+
+
+# mangled-name parts and MUFU.RSQ per step trip: the Box–Muller root (local
+# vol: σ has no root); SLV: and one sqrtf(v⁺) per branch
+SMILE_SASS = {"local_vol european": (("local_vol_kernelILi0ELb0ELi0E",), 1),
+              "local_vol barrier greeks": (("local_vol_kernelILi4ELb1ELi0E",), 1),
+              "slv barrier LR": (("slv_kernelILi3ELb1ELi0E",), 3),
+              "slv barrier": (("slv_kernelILi3ELb0ELi0E",), 3)}
+
+
 def h_timing(h_t: dict, prefix: str) -> dict:
     (tag,) = [t for t in h_t if t.startswith(prefix)]
     return h_t[tag]
@@ -1565,6 +2042,7 @@ def main() -> None:
     mc_err, greeks_err = phase_exotic_parity(dev)
     h_err = phase_heston_parity(dev)
     hx_err = phase_hx_parity(dev)
+    lv_err, slv_err = phase_smile_parity(dev)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -1612,6 +2090,20 @@ def main() -> None:
     check(hx_launches == hx_calls and hx_launches > 0,
           f"Heston exotic path launched its kernel {hx_launches} times, not {hx_calls}")
 
+    # the smile path: local vol, then SLV
+    smile_se = smile_greek_stderrs(dev)
+    smile_calls = {"lv": 0, "slv": 0}
+    lk._lv_cuda.launches = 0
+    sk._slv_cuda.launches = 0
+    phase_lv_main(dev, card, smile_se, smile_calls)
+    phase_slv_main(dev, card, smile_se, smile_calls)
+    lv_served, slv_served = phase_smile_server(dev)
+    lv_launches, slv_launches = lk._lv_cuda.launches, sk._slv_cuda.launches
+    for name, n_l, want in (("local_vol_mc", lv_launches, smile_calls["lv"] + lv_served),
+                            ("slv_mc", slv_launches, smile_calls["slv"] + slv_served)):
+        log("launches", f"{name} launched {n_l} times for {want} kernel-route calls")
+        check(n_l == want and n_l > 0, f"smile path launched {name} {n_l} times, not {want}")
+
     funcs = load_sass()
     gbm_t = phase_timing(dev)
     for tag, t in gbm_t.items():
@@ -1634,8 +2126,16 @@ def main() -> None:
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, HX_SASS[key][0], t["trips"], t["bytes"],
                                                     f"heston_exotic {tag}",
                                                     rsq_per_trip=HX_SASS[key][1])
+    smile_t = smile_timing(dev)
+    for tag, t in smile_t.items():
+        key = next(k_ for k_ in sorted(SMILE_SASS, key=len, reverse=True)
+                   if tag.startswith(k_))
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, SMILE_SASS[key][0], t["trips"],
+                                                    t["bytes"], tag,
+                                                    rsq_per_trip=SMILE_SASS[key][1])
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
-                   + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]):
+                   + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
+                   + list(smile_t.items())):
         sampler = "hash residuals" if "sobol_bb" in tag else "prng"
         log("timing", f"{tag} {sampler}, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
                       f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
@@ -1667,6 +2167,11 @@ def main() -> None:
         entry("heston_exotic_kernel", "heston_exotic.cu",
               "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches, hx_err,
               hx_t[f"asian_arith {HX_MAIN[0]}x{HX_MAIN[1]}"]),
+        entry("local_vol_mc_kernel", "local_vol_mc.cu",
+              "optionslab_tpu/ops/local_vol_pallas.py:64", lv_launches, lv_err,
+              smile_t[f"local_vol european {LV_MAIN[0]}x{LV_MAIN[1]}"]),
+        entry("slv_mc_kernel", "slv_mc.cu", "optionslab_tpu/ops/slv_pallas.py:106", slv_launches,
+              slv_err, smile_t[f"slv barrier {SLV_MAIN[0]}x{SLV_MAIN[1]}"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -22,13 +22,19 @@ under Heston or Bates, Euler or QE, from one more kernel
 (``csrc/heston_exotic.cu``), served through the ``ops.heston_exotic_kernel``
 functions, the Heston/Bates books and the server's ``/exotic`` and
 ``/book/exotic`` with ``model: "heston"|"bates"`` and ``/price`` with
-``model: "bates"``.
+``model: "bates"``; and the smile path: Dupire local vol (``models.local_vol``:
+the surface, the local-vol PDE, the scan engine) and stochastic local vol
+(``models.slv``: the particle calibration, the scan engine), priced on two
+more kernels (``csrc/local_vol_mc.cu``, ``csrc/slv_mc.cu``) through
+``ops.local_vol_kernel.LocalVolKernelPricer`` and
+``ops.slv_kernel.SLVKernelPricer``, and served by ``/exotic`` with
+``model: "lv"|"slv"``.
 
 Subpackages
 -----------
 ``models``  Black–Scholes, Monte Carlo, exotics (closed forms, scan engine,
             dataclasses), contract books, Heston, Bates and the
-            Heston/Bates exotics' scan engine
+            Heston/Bates exotics' scan engine, local vol and SLV
 ``ops``     the kernels' wrappers and plain versions, samplers, QMC, math
 ``utils``   dtype policy, exceptions, validation, logging, timing
 """
@@ -37,12 +43,15 @@ from .models import (
     BatesParams,
     BatesPricer,
     BlackScholesPricer,
+    DupireLocalVol,
+    LocalVolSurface,
     MCConfig,
     MCMethod,
     HestonParams,
     HestonPricer,
     MCResult,
     MonteCarloPricer,
+    SLVModel,
     bs_greeks,
     bs_greeks_ad,
     bs_price,
@@ -58,6 +67,8 @@ from .models import (
     mc_price_result,
 )
 from .ops import (
+    LocalVolKernelPricer,
+    SLVKernelPricer,
     exotic_greeks,
     exotic_kernel_ladder,
     exotic_lr_greeks,
@@ -83,6 +94,9 @@ __all__ = [
     "BatesPricer",
     "BlackScholesPricer",
     "ContractBatch",
+    "DupireLocalVol",
+    "LocalVolKernelPricer",
+    "LocalVolSurface",
     "HestonParams",
     "HestonPricer",
     "MCConfig",
@@ -90,6 +104,8 @@ __all__ = [
     "MCResult",
     "MonteCarloPricer",
     "PricingServer",
+    "SLVKernelPricer",
+    "SLVModel",
     "ValidationError",
     "bates_price",
     "bs_greeks",

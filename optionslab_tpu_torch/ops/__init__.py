@@ -33,7 +33,10 @@ from .heston_kernel import (
     heston_kernel_price,
     make_chain_pricer,
 )
+from .local_vol_kernel import LocalVolKernelPricer, fit_sigma_polys, local_vol_kernel_price
 from .optim import scan_adam, scan_adam_batched, scan_adam_cached
+from .slv_kernel import SLVKernelPricer, fit_leverage_polys, slv_kernel_exotic_price
+from .tridiag import tridiag_solve
 from .gbm_kernel import (
     gbm_mc_price,
     gbm_mc_price_greeks,
@@ -52,6 +55,8 @@ __all__ = [
     "exotic_kernel_ladder",
     "exotic_lr_greeks",
     "exotic_price",
+    "fit_leverage_polys",
+    "fit_sigma_polys",
     "gbm_mc_price",
     "gbm_mc_price_greeks",
     "gbm_mc_price_only",
@@ -69,10 +74,15 @@ __all__ = [
     "heston_kernel_range_accrual_price",
     "heston_kernel_greeks",
     "heston_kernel_price",
+    "LocalVolKernelPricer",
+    "local_vol_kernel_price",
     "make_chain_pricer",
     "range_accrual_lr_greeks",
     "range_accrual_price",
     "scan_adam",
     "scan_adam_batched",
     "scan_adam_cached",
+    "SLVKernelPricer",
+    "slv_kernel_exotic_price",
+    "tridiag_solve",
 ]

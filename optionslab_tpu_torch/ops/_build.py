@@ -167,6 +167,25 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.heston_exotic_moments.restype = _I
+    lib.local_vol_moments.argtypes = [
+        _P, _U, _U,                  # params, seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _F,                      # n_steps, cp
+        _I, _I, _I, _I, _I,          # family, mode, sampler, greeks, n_mom
+        _P, _P,                      # plan ints, plan floats (host arrays)
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.local_vol_moments.restype = _I
+    lib.slv_moments.argtypes = [
+        _P, _U, _U,                  # params, seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _I, _F,                  # n_steps, period, cp
+        _I, _I, _I, _I, _I,          # family, mode, sampler, lr, n_mom
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.slv_moments.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

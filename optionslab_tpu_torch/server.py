@@ -22,9 +22,16 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
                 bates-qe" runs the Heston exotic kernel (Euler or QE, Bates
                 jumps) with the dynamics from the body (v0, kappa, theta,
                 sigma_v, rho_sv; lam, mu_j, sigma_j); ``greeks`` the one-pass
-                LR ladder (Euler). "american" and the other models: 400, not
-                yet ported. An optional "sampler" picks the kernel's sampler
-                (default "prng")
+                LR ladder (Euler). "model": "lv" prices under a Dupire
+                surface built from the sample smile at base vol "vol": the
+                local-vol kernel (european/asian/barrier/lookback/touches/
+                doubles/range-accrual; ``greeks`` the sticky-strike LR
+                ladder), the SLV scan at mixing 0 for autocallable/cliquet.
+                "model": "slv" adds Heston dynamics with the body's "mixing":
+                the SLV kernel for autocallable/cliquet/range-accrual and for
+                ``greeks``, the SLV scan engine otherwise. "american" and the
+                other models: 400, not yet ported. An optional "sampler"
+                picks the kernel's sampler (default "prng")
   /book/exotic  {"kind": ..., "strikes": [...], "barriers"/"lowers"/
                  "uppers": [...], "greeks": bool}   → a same-kind book in
                 one kernel launch, "model" "bs" (the exotic kernel) or
@@ -51,6 +58,13 @@ from .models.bates import BatesParams, bates_price
 from .models.black_scholes import bs_greeks, bs_price
 from .models.books import exotic_book_quote
 from .models.heston import HestonParams, heston_price
+from .models.local_vol import (
+    DupireLocalVol,
+    local_vol_autocall_price,
+    local_vol_cliquet_price,
+    sample_smile_iv_fn,
+)
+from .models.slv import SLVModel
 from .models.exotics import (
     AsianOption,
     BarrierOption,
@@ -62,6 +76,8 @@ from .models.exotics import (
 from .models.monte_carlo import MCConfig, mc_greeks, mc_price_result
 from .ops.exotic_kernel import exotic_kernel_ladder, exotic_price
 from .ops.gbm_kernel import gbm_mc_price_greeks
+from .ops.local_vol_kernel import LocalVolKernelPricer
+from .ops.slv_kernel import SLVKernelPricer
 from .ops.heston_exotic_kernel import (
     heston_kernel_autocall_lr_greeks,
     heston_kernel_autocall_price,
@@ -148,7 +164,7 @@ EXOTIC_KINDS = ("asian", "barrier", "lookback", "cliquet", "one-touch", "no-touc
                 "double-barrier", "double-touch", "autocallable")
 
 
-EXOTIC_MODELS = ("bs", "heston", "heston-qe", "bates", "bates-qe")
+EXOTIC_MODELS = ("bs", "heston", "heston-qe", "bates", "bates-qe", "lv", "slv")
 
 
 def _check_model(body: dict, route: str, models) -> str:
@@ -177,6 +193,10 @@ def handle_exotic(body: dict, device) -> dict:
     ``/exotic``: GBM (``model`` "bs") or Heston/Bates."""
     model = _check_model(body, "/exotic", EXOTIC_MODELS)
     p, cp = _contract(body)
+    if model == "lv":
+        return _exotic_lv(body, p, cp, device)
+    if model == "slv":
+        return _exotic_slv(body, p, cp, device)
     if model != "bs":
         return _exotic_heston(body, p, cp, model, device)
     kind = body.get("kind", "asian")
@@ -365,6 +385,136 @@ def _exotic_heston(body: dict, p: dict, cp: float, model: str, device) -> dict:
     pr, se, n = heston_kernel_exotic_price(*args, barrier=barrier, scheme=scheme, **band, **kw)
     return {**base, "kind": kname, "price": _to_jsonable(pr), "std_error": _to_jsonable(se),
             "paths": int(n)}
+
+
+def _smile_kind(body: dict, p: dict, kind: str, model: str, kind_map: dict):
+    """(kernel kind name, barrier, band) of a non-structured ``/exotic`` kind
+    of the lv and slv models; the band (lower, upper) of the double kinds and
+    the range accrual, else None."""
+    barrier = float(body.get("barrier", 120.0))
+    pay = str(body.get("pay", "expiry"))
+    band = (float(body.get("lower", 90.0)), float(body.get("upper", 110.0)))
+    if kind in ("one-touch", "no-touch"):
+        if pay == "hit" and kind == "no-touch":
+            raise ValidationError("a no-touch pays at expiry by definition")
+        side = "up" if barrier >= p["spot"] else "down"
+        return f"{kind.replace('-', '_')}_{side}" + ("_hit" if pay == "hit" else ""), barrier, None
+    if kind == "double-barrier":
+        return f"barrier_double-{body.get('knock', 'out')}", barrier, band
+    if kind == "double-touch":
+        if pay == "hit":
+            if body.get("touch", "no") != "one":
+                raise ValidationError("a no-touch pays at expiry by definition")
+            return "one_touch_double_hit", barrier, band
+        return f"{body.get('touch', 'no')}_touch_double", barrier, band
+    if kind == "range-accrual" and model == "lv":
+        return "range_accrual", barrier, band
+    if kind in kind_map:
+        return kind_map[kind], barrier, None
+    raise ValidationError(f"model={model} supports {'/'.join(kind_map)}/one-touch/no-touch/"
+                          f"double-barrier/double-touch/range-accrual/cliquet/autocallable, "
+                          f"not {kind!r}")
+
+
+def _exotic_lv(body: dict, p: dict, cp: float, device) -> dict:
+    """``model`` lv: smile-consistent exotics under the Dupire local vol of
+    the sample smile at base vol ``vol``, with the body and answer keys of
+    the JAX package's ``_exotic_lv``: the local-vol kernel (``greeks``: the
+    one-pass LR ladder, sticky-strike delta/gamma, parallel-shift vega); the
+    autocallable and cliquet by the SLV scan at mixing 0 (pure local vol)."""
+    kind = body.get("kind", "asian")
+    seed = int(body.get("seed", 0))
+    n_paths = int(body.get("n_paths", 100_000))
+    n_steps = int(body.get("n_steps", 64))
+    dup = DupireLocalVol(sample_smile_iv_fn(base_vol=float(p["vol"])), p["spot"], p["rate"],
+                         device=device)
+    base = {"model": "lv", "dynamics": "dupire-local-vol"}
+    if kind in ("autocallable", "cliquet"):
+        kw = dict(n_paths=n_paths, n_steps=n_steps, seed=seed, return_stderr=True)
+        if kind == "autocallable":
+            pr, se = local_vol_autocall_price(dup, p["maturity"], n_obs=int(body.get("n_obs", 4)),
+                                              **kw)
+        else:
+            pr, se = local_vol_cliquet_price(dup, p["maturity"],
+                                             n_periods=int(body.get("n_periods", 8)), **kw)
+        return {**base, "kind": kind, "engine": "slv-scan-mixing0", "price": _to_jsonable(pr),
+                "std_error": _to_jsonable(se)}
+    kname, barrier, band = _smile_kind(body, p, kind, "lv", {
+        "european": "european", "asian": "asian", "lookback": "lookback_float",
+        "barrier": f"barrier_{body.get('barrier_type', 'up-and-out')}"})
+    band = {} if band is None else dict(lower=band[0], upper=band[1])
+    pricer = LocalVolKernelPricer(dup, p["maturity"], n_steps=n_steps)
+    sampler = body.get("sampler")
+    kw = dict(cp=cp, payoff=kname, barrier=barrier, n_paths=n_paths, seed=seed,
+              sampler="prng" if sampler is None else str(sampler), **band)
+    base.update(kind=kname, engine="kernel")
+    # the LV pricer quotes the range accrual on unit notional; the wire
+    # convention is notional 100 (the GBM and Heston routes')
+    scale = float(body.get("notional", 100.0)) if kname == "range_accrual" else 1.0
+    if body.get("greeks"):
+        out = pricer.greeks(p["strike"], **kw)
+        res = {k: _to_jsonable(scale * v if k in ("price", "std_error", "delta", "gamma", "vega")
+                               else v) for k, v in out.items()}
+        return {**res, **base, "greek_method": "lr-sticky-strike",
+                "vega_convention": "parallel surface shift"}
+    pr, se, n = pricer.price(p["strike"], **kw)
+    return {**base, "price": _to_jsonable(scale * pr), "std_error": _to_jsonable(scale * se),
+            "paths": int(n), "fit_residual": float(pricer.fit_residual)}
+
+
+def _exotic_slv(body: dict, p: dict, cp: float, device) -> dict:
+    """``model`` slv: Heston dynamics × the Dupire leverage of the sample
+    smile, ``mixing`` in [0, 1], with the body and answer keys of the JAX
+    package's ``_exotic_slv``: the SLV kernel for the structured kinds and
+    for ``greeks`` (the one-pass LR ladder), the SLV scan engine (calibrate
+    and price in one particle loop) for the other prices."""
+    kind = body.get("kind", "asian")
+    seed = int(body.get("seed", 0))
+    n_paths = int(body.get("n_paths", 100_000))
+    n_steps = int(body.get("n_steps", 64))
+    dup = DupireLocalVol(sample_smile_iv_fn(base_vol=float(p["vol"])), p["spot"], p["rate"],
+                         device=device)
+    par = HestonParams.make(float(body.get("v0", 0.04)), float(body.get("kappa", 2.0)),
+                            float(body.get("theta", 0.04)), float(body.get("sigma_v", 0.5)),
+                            float(body.get("rho_sv", -0.7)), device=device)
+    mixing = float(body.get("mixing", 1.0))
+    sampler = body.get("sampler")
+    kw = dict(n_paths=n_paths, seed=seed, sampler="prng" if sampler is None else str(sampler))
+    base = {"model": "slv", "dynamics": "heston-x-dupire-leverage", "mixing": mixing}
+
+    def jsonable(out):
+        return {k: v if isinstance(v, (str, int)) else _to_jsonable(v) for k, v in out.items()}
+
+    if kind in ("autocallable", "cliquet", "range-accrual"):
+        pricer = SLVKernelPricer(dup, par, p["maturity"], mixing=mixing, n_steps=n_steps)
+        if kind == "range-accrual":
+            fn = pricer.range_accrual
+            skw = dict(lower=float(body.get("lower", 90.0)), upper=float(body.get("upper", 110.0)),
+                       notional=float(body.get("notional", 100.0)))
+        elif kind == "autocallable":
+            fn, skw = pricer.autocall, dict(n_obs=int(body.get("n_obs", 4)))
+        else:
+            fn, skw = pricer.cliquet, dict(n_periods=int(body.get("n_periods", 8)))
+        base.update(kind=kind, engine="kernel")
+        if body.get("greeks"):
+            return {**jsonable(fn(**skw, **kw, greeks=True)), **base,
+                    "greek_method": "lr-joint-density"}
+        pr, se, n = fn(**skw, **kw)
+        return {**base, "price": _to_jsonable(pr), "std_error": _to_jsonable(se), "paths": int(n)}
+    kname, barrier, band = _smile_kind(body, p, kind, "slv", {
+        "asian": "asian_arith", "lookback": "lookback_float",
+        "barrier": f"barrier_{body.get('barrier_type', 'up-and-out')}"})
+    if body.get("greeks"):
+        pricer = SLVKernelPricer(dup, par, p["maturity"], mixing=mixing, n_steps=n_steps)
+        bkw = dict(barrier=barrier) if band is None else dict(lower=band[0], upper=band[1])
+        out = pricer.greeks(kname, p["strike"], cp=cp, **bkw, **kw)
+        return {**jsonable(out), **base, "kind": kname, "greek_method": "lr-joint-density"}
+    gen = torch.Generator(device=device).manual_seed(seed)
+    pr, se = SLVModel(dup, par, mixing=mixing).price(
+        kname, p["strike"], p["maturity"], gen, cp=cp,
+        barrier=barrier if band is None else band, n_paths=n_paths, n_steps=n_steps,
+        return_stderr=True)
+    return {**base, "kind": kname, "price": _to_jsonable(pr), "std_error": _to_jsonable(se)}
 
 
 def handle_book(body: dict, device) -> dict:

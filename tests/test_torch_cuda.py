@@ -406,3 +406,129 @@ def test_heston_exotic_wrappers_reject_cpu_tensors(cuda_device):
         hx._heston_exotic_cuda(0, 0, torch.cat([gparams, gparams[:6]]), gbook, **kw)
     with pytest.raises(ValueError, match="power-of-two"):
         hx._heston_exotic_cuda(0, 0, gparams, gbook.expand(3, 7).contiguous(), **kw)
+
+
+# ---------------------------------------------------------------------------
+# The local-vol and SLV kernels (csrc/local_vol_mc.cu, csrc/slv_mc.cu)
+# ---------------------------------------------------------------------------
+@pytest.fixture(scope="module")
+def smile_dupire():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    from optionslab_tpu_torch.models.local_vol import DupireLocalVol, sample_smile_iv_fn
+
+    return DupireLocalVol(sample_smile_iv_fn(), 100.0, 0.05, device="cuda")
+
+
+@pytest.fixture(scope="module")
+def slv_pricer(smile_dupire):
+    from optionslab_tpu_torch.models.heston import HestonParams
+    from optionslab_tpu_torch.ops import slv_kernel as sk
+
+    return sk.SLVKernelPricer(smile_dupire, HestonParams.make(0.04, 2.0, 0.04, 0.5, -0.7,
+                                                              device="cuda"),
+                              1.0, n_steps=12, n_cal_paths=65_536)
+
+
+def _levels(kind):
+    return 120.0 if "up" in kind else 85.0
+
+
+@pytest.mark.parametrize("payoff", ["european", "asian", "range_accrual", "lookback_float",
+                                    "lookback_fixed", "barrier_up-and-in",
+                                    "barrier_double-out", "no_touch_down", "one_touch_up_hit"])
+@pytest.mark.parametrize("greeks,sampler", [(False, "hash"), (False, "sobol_bb"),
+                                            (True, "prng")])
+def test_local_vol_kernel_matches_plain_on_card(cuda_device, smile_dupire, payoff, greeks,
+                                                sampler):
+    from optionslab_tpu_torch.ops import local_vol_kernel as lk
+
+    pricer = lk.LocalVolKernelPricer(smile_dupire, 1.0, n_steps=12)
+    params = pricer._params(100.0, payoff, _levels(payoff), 85.0, 118.0)
+    kw = dict(n_steps=12, n_blocks=70, cp=-1.0 if "lookback" in payoff else 1.0, payoff=payoff,
+              sampler=sampler, greeks=greeks)
+    before = lk._lv_cuda.launches
+    kern = lk._lv_cuda(5, 2, params, **kw)
+    assert lk._lv_cuda.launches == before + 1
+    _assert_sums_close(kern, lk._lv_plain(5, 2, params, **kw))
+
+
+@pytest.mark.parametrize("kind", ["european", "asian_arith", "asian_geo", "lookback_fixed",
+                                  "barrier_down-and-out", "one_touch_double", "one_touch_down_hit",
+                                  "cliquet", "autocall", "range_accrual"])
+@pytest.mark.parametrize("lr,sampler", [(False, "hash"), (True, "prng")])
+def test_slv_kernel_matches_plain_on_card(cuda_device, slv_pricer, kind, lr, sampler):
+    import numpy as np
+
+    from optionslab_tpu_torch.ops import slv_kernel as sk
+
+    if kind in sk.STRUCTURED_KINDS:
+        head = slv_pricer._head.copy()
+        head[sk._S_A:sk._S_E + 1] = {"cliquet": (-0.03, 0.03, 0.0, 1e9, 100.0),
+                                     "autocall": (0.0, np.log(0.9), np.log(0.8), 2.0, 100.0),
+                                     "range_accrual": (np.log(0.9), np.log(1.1), 0.0, 0.0,
+                                                       100.0)}[kind]
+        params = slv_pricer._vector(head)
+    else:
+        params = slv_pricer._params_vec(kind, 100.0, _levels(kind), 85.0, 118.0)
+    kw = dict(kind=kind, n_steps=12, n_blocks=70, cp=1.0, sampler=sampler, lr=lr,
+              period=3 if kind in ("cliquet", "autocall") else 1)
+    before = sk._slv_cuda.launches
+    kern = sk._slv_cuda(5, 2, params, **kw)
+    assert sk._slv_cuda.launches == before + 1
+    _assert_sums_close(kern, sk._slv_plain(5, 2, params, **kw))
+
+
+def test_local_vol_entry_points_on_card(cuda_device, smile_dupire):
+    """The pricer routes through the kernel: in + out = vanilla on the same
+    paths, the vanilla against the PDE, finite Greeks."""
+    from optionslab_tpu_torch.ops import local_vol_kernel as lk
+
+    pricer = lk.LocalVolKernelPricer(smile_dupire, 1.0, n_steps=50)
+    assert pricer.device.type == "cuda"
+    before = lk._lv_cuda.launches
+    kw = dict(n_paths=2_000_000, seed=3, barrier=125.0)
+    van, se, _ = pricer.price(100.0, **kw)
+    p_in, _, _ = pricer.price(100.0, payoff="barrier_up-and-in", **kw)
+    p_out, _, _ = pricer.price(100.0, payoff="barrier_up-and-out", **kw)
+    assert van.device.type == "cuda" and abs((p_in + p_out - van).item()) < 1e-5 * van.item()
+    pde = smile_dupire.to("cpu")._solve(100.0, 1.0, 1.0, n_space=101, n_time=100).item()
+    assert abs(van.item() - pde) < 4 * se.item() + 0.05
+    g = pricer.greeks(100.0, payoff="lookback_float", n_paths=1_000_000)
+    assert all(math.isfinite(float(g[k])) for k in ("price", "delta", "gamma", "vega"))
+    assert lk._lv_cuda.launches == before + 4
+
+
+def test_slv_entry_points_on_card(cuda_device, smile_dupire, slv_pricer):
+    """The SLV pricer routes through the kernel; one-touch + no-touch = df;
+    the calibration is bit for bit repeatable on the card."""
+    from optionslab_tpu_torch.models.slv import slv_calibrate_leverage
+    from optionslab_tpu_torch.ops import slv_kernel as sk
+
+    before = sk._slv_cuda.launches
+    kw = dict(barrier=115.0, n_paths=1_000_000, seed=4)
+    one, _, _ = slv_pricer.price("one_touch_up", 0.0, **kw)
+    no, _, _ = slv_pricer.price("no_touch_up", 0.0, **kw)
+    assert abs(one.item() + no.item() - math.exp(-0.05)) < 1e-5
+    g = slv_pricer.autocall(n_obs=4, n_paths=1_000_000, greeks=True)
+    assert all(math.isfinite(float(g[k])) for k in ("price", "delta", "vega_v0", "rho"))
+    assert sk._slv_cuda.launches == before + 3
+    surf = smile_dupire.surface  # one seed, one table, on the card too
+    again = slv_calibrate_leverage(100.0, 1.0, 0.05, slv_pricer.params,
+                                   torch.Generator("cuda").manual_seed(0), surf.k_grid,
+                                   surf.t_grid, surf.grid, n_paths=65_536, n_steps=12)
+    assert torch.equal(again[0], slv_pricer.x_rows) and torch.equal(again[1], slv_pricer.l_rows)
+
+
+def test_local_vol_and_slv_wrappers_reject_cpu_tensors(cuda_device, slv_pricer):
+    from optionslab_tpu_torch.ops import local_vol_kernel as lk
+    from optionslab_tpu_torch.ops import slv_kernel as sk
+
+    cpu = torch.zeros(8 + 9 * 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        lk._lv_cuda(0, 0, cpu, n_steps=4, n_blocks=1, cp=1.0, payoff="european")
+    with pytest.raises(ValueError, match="contiguous"):
+        lk._lv_cuda(0, 0, cpu.to(cuda_device), n_steps=5, n_blocks=1, cp=1.0, payoff="european")
+    with pytest.raises(ValueError, match="contiguous"):
+        sk._slv_cuda(0, 0, slv_pricer._params_vec("european", 100.0, 0.0).double(),
+                     kind="european", n_steps=12, n_blocks=1, cp=1.0)

@@ -2,6 +2,7 @@
 that keeps JAX out of the port."""
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -209,7 +210,7 @@ def test_book_exotic_matches_reference(base_url, greeks):
 @pytest.mark.parametrize("path,body,names", [
     ("/exotic", {"kind": "american"}, "autocallable"),
     ("/exotic", {"kind": "asian", "model": "rbergomi"}, "'bates-qe'"),
-    ("/exotic", {"kind": "barrier", "model": "lv"}, "not yet ported"),
+    ("/exotic", {"kind": "barrier", "model": "rbergomi"}, "not yet ported"),
     ("/book/exotic", {"kind": "asian", "model": "slv"}, "'bates'"),
     ("/exotic", {"kind": "no-touch", "pay": "hit"}, "no-touch"),
     ("/exotic", {"kind": "asian", "model": "heston-qe", "greeks": True}, "drop -qe"),
@@ -275,6 +276,94 @@ def test_book_exotic_heston_matches_reference(base_url, model, greeks):
     assert status == 200, out
     _same_heston_answer(out, handle_book(dict(body)))
     assert out["model"] == model and len(out["price"]) == 2
+
+
+# /exotic under Dupire local vol against the JAX package's handler (its kernel
+# routes draw with `hash` off the TPU), one path block of 8 steps: the two
+# packages' Dupire grids agree to 1.2e-7 and their σ tables' polynomials to
+# 7e-9 (tests/test_torch_local_vol_kernel.py), so prices and Greeks agree to
+# rtol 1e-5. The reference's range-accrual Greeks answer multiplies "paths"
+# and "fit_residual" by the notional with the prices; the port scales the
+# prices and Greeks only.
+LV_BODIES = {
+    "lv_barrier": {"kind": "barrier", "barrier": 125.0},
+    "lv_asian_greeks": {"kind": "asian", "greeks": True},
+    "lv_lookback_put": {"kind": "lookback", "option_type": "put"},
+    "lv_range_accrual": {"kind": "range-accrual", "notional": 50.0},
+    "lv_range_accrual_greeks": {"kind": "range-accrual", "greeks": True},
+    "lv_double_touch_hit": {"kind": "double-touch", "touch": "one", "pay": "hit",
+                            "lower": 85.0, "upper": 118.0},
+    "lv_european": {"kind": "european", "strike": 105.0, "vol": 0.25},
+}
+
+
+@pytest.mark.parametrize("case", sorted(LV_BODIES))
+def test_exotic_lv_kernel_routes_match_reference(base_url, case):
+    from optionslab_tpu.server import handle_exotic
+
+    body = {"model": "lv", "n_paths": 1, "n_steps": 8, "seed": 2, **LV_BODIES[case]}
+    status, out = _call(base_url + "/exotic", {**body, "sampler": "hash"})
+    assert status == 200, out
+    ref = handle_exotic(dict(body))
+    if case == "lv_range_accrual_greeks":
+        assert out["paths"] == ref["paths"] / 100.0
+        ref["paths"], ref["fit_residual"] = out["paths"], ref["fit_residual"] / 100.0
+    assert out["engine"] == "kernel" and out["dynamics"] == "dupire-local-vol"
+    _same_answer(out, ref)
+
+
+# the SLV routes calibrate their own leverage (another generator than the
+# reference's): the same keys and strings, prices within 5 combined standard
+# errors plus 1% of the price (the two calibrations' difference)
+SLV_BODIES = {
+    "slv_autocall": {"kind": "autocallable"},
+    "slv_cliquet_greeks": {"kind": "cliquet", "greeks": True, "mixing": 0.5},
+    "slv_range_accrual": {"kind": "range-accrual"},
+    "slv_barrier_greeks": {"kind": "barrier", "greeks": True, "barrier": 125.0},
+    "slv_asian_scan": {"kind": "asian", "n_paths": 16_384},
+    "slv_double_barrier_scan": {"kind": "double-barrier", "n_paths": 16_384, "mixing": 0.3},
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLV_BODIES))
+def test_exotic_slv_routes_match_reference(base_url, case):
+    from optionslab_tpu.server import handle_exotic
+
+    body = {"model": "slv", "n_paths": 1, "n_steps": 8, "seed": 2, **SLV_BODIES[case]}
+    status, out = _call(base_url + "/exotic", {**body, "sampler": "hash"})
+    assert status == 200, out
+    ref = handle_exotic(dict(body))
+    assert set(out) == set(ref)
+    for key, v in ref.items():
+        if isinstance(v, str):
+            assert out[key] == v, key
+    tol = 5 * (out["std_error"] ** 2 + ref["std_error"] ** 2) ** 0.5 + 0.01 * abs(ref["price"])
+    assert abs(out["price"] - ref["price"]) < tol
+    assert all(math.isfinite(out[k]) for k in out if isinstance(out[k], float))
+
+
+@pytest.mark.parametrize("kind", ["cliquet", "autocallable"])
+def test_exotic_lv_structured_routes_match_reference(base_url, kind):
+    """The pure-LV autocallable and cliquet run the SLV scan at mixing 0."""
+    from optionslab_tpu.server import handle_exotic
+
+    body = {"model": "lv", "kind": kind, "n_paths": 16_384, "n_steps": 8}
+    status, out = _call(base_url + "/exotic", body)
+    ref = handle_exotic(dict(body))
+    assert status == 200 and set(out) == set(ref) and out["engine"] == "slv-scan-mixing0"
+    assert abs(out["price"] - ref["price"]) < 5 * (out["std_error"] ** 2
+                                                   + ref["std_error"] ** 2) ** 0.5
+
+
+@pytest.mark.parametrize("model,body,names", [
+    ("lv", {"kind": "no-touch", "pay": "hit"}, "no-touch"),
+    ("lv", {"kind": "american"}, "supports"),
+    ("slv", {"kind": "european"}, "supports"),
+    ("slv", {"kind": "barrier", "sampler": "sobol_bb", "greeks": True}, "prng|hash"),
+])
+def test_exotic_smile_bad_requests_are_400(base_url, model, body, names):
+    status, out = _call(base_url + "/exotic", {"model": model, "n_steps": 4, **body})
+    assert status == 400 and names in out["error"]
 
 
 def test_port_package_never_imports_jax():
