@@ -32,6 +32,7 @@
 
 #include <cstdint>
 
+#include "fp.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
@@ -56,10 +57,10 @@ struct GreeksArgs {
   float* partials;  // (5, 128, n_chunks)
 };
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
+using fp::add;
+using fp::mul;
+using fp::quo;
+using fp::sub;
 
 template <int kKind, int kS>
 __global__ void __launch_bounds__(kThreads) exotic_greeks_kernel(GreeksArgs a) {

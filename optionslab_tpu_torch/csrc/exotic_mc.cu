@@ -48,6 +48,8 @@
 
 #include <cstdint>
 
+#include "bridge.cuh"
+#include "fp.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
@@ -58,7 +60,6 @@ constexpr int kRows = 128;
 constexpr int kLanes = 512;
 constexpr int kThreads = 256;
 constexpr int kBookSlots = 7;  // K, BARRIER, A, B, C, D, E
-constexpr uint32_t kMask30 = (1u << 30) - 1u;
 
 // kHit: barriers and touches paid at expiry; kHitAt: touches paid at the
 // first hit (their discounting runs in the step loop)
@@ -71,16 +72,6 @@ enum Side : int { kUp = 0, kDown = 1, kDouble = 2 };
 enum HitPayoff : int { kKnockOut = 0, kKnockIn = 1, kOneTouch = 2, kNoTouch = 3 };
 // lookback family: mode bit 0 floating strike, bit 1 running minimum
 
-struct Plan {  // sobol_bb bridge plan, from kernel_rng.bridge_plan
-  int n_seg;
-  int bounds[9];
-  int n_con;
-  int con_mid[7], con_lo[7], con_hi[7];  // indices into bounds
-  float sqrt_n;
-  float con_frac[7], con_sd[7];
-  float seg_inv[8];
-};
-
 struct ExoticArgs {
   const float* params;  // (14,)
   const float* book;    // (nc, 7); contract of a row = row % nc
@@ -90,15 +81,15 @@ struct ExoticArgs {
   int n_blocks, blocks_per_chunk, n_chunks;
   int n_steps, period, mode;
   float cp;
-  Plan plan;
+  bridge::Plan plan;
   float* partials;  // (n_mom, 128, n_chunks)
 };
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float ind(bool b) { return b ? 1.0f : 0.0f; }
+using fp::add;
+using fp::ind;
+using fp::mul;
+using fp::quo;
+using fp::sub;
 
 struct Ctx {
   float s0, inv_s0, drift_dt, vsd, inv_n, growth, rdt, dt;
@@ -225,19 +216,19 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const ExoticArgs& a,
                         static_cast<uint32_t>(c.n_steps), row, col, kRows, kLanes, z1, z2);
     }
   };
-  auto step = [&](int i, float z1, float z2, float oc_p, float oc_m, float os_p, float os_m) {
+  auto step = [&](int i, float z0, float z1, float z2, float z3) {  // the four paths' normals
     if (kQmc) {  // conditional-law residuals pinned to the bridge targets
-      x[0] = add(add(x[0], c.drift_dt), mul(c.vsd, add(z1, oc_p)));
-      x[1] = add(add(x[1], c.drift_dt), mul(c.vsd, add(-z1, oc_m)));
-      x[2] = add(add(x[2], c.drift_dt), mul(c.vsd, add(z2, os_p)));
-      x[3] = add(add(x[3], c.drift_dt), mul(c.vsd, add(-z2, os_m)));
-    } else if (kLog) {
-      x[0] = add(add(x[0], c.drift_dt), mul(c.vsd, z1));
-      x[1] = sub(add(x[1], c.drift_dt), mul(c.vsd, z1));
+      x[0] = add(add(x[0], c.drift_dt), mul(c.vsd, z0));
+      x[1] = add(add(x[1], c.drift_dt), mul(c.vsd, z1));
+      x[2] = add(add(x[2], c.drift_dt), mul(c.vsd, z2));
+      x[3] = add(add(x[3], c.drift_dt), mul(c.vsd, z3));
+    } else if (kLog) {  // z1 = −z0, z3 = −z2
+      x[0] = add(add(x[0], c.drift_dt), mul(c.vsd, z0));
+      x[1] = sub(add(x[1], c.drift_dt), mul(c.vsd, z0));
       x[2] = add(add(x[2], c.drift_dt), mul(c.vsd, z2));
       x[3] = sub(add(x[3], c.drift_dt), mul(c.vsd, z2));
     } else {  // the antithetic shares the exponential: e^{-s·z} = 1/e^{s·z}
-      const float w1 = expf(mul(c.vsd, z1));
+      const float w1 = expf(mul(c.vsd, z0));
       const float w2 = expf(mul(c.vsd, z2));
       x[0] = mul(x[0], mul(c.growth, w1));
       x[1] = quo(mul(x[1], c.growth), w1);
@@ -249,66 +240,31 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const ExoticArgs& a,
       const float s = (kQmc && F != kAsianGeo) ? mul(c.s0, expf(x[b])) : x[b];
       update_stat<F, kLr>(c, st[b], s, i);
     }
-    if (kLr) {
+    if (kLr) {  // never with the bridge
       if (i == 0) {
-        zf1 = z1;
+        zf1 = z0;
         zf2 = z2;
       }
-      sz1 = add(sz1, z1);
+      sz1 = add(sz1, z0);
       sz2 = add(sz2, z2);
-      szz1 = sub(add(szz1, mul(z1, z1)), 1.0f);
+      szz1 = sub(add(szz1, mul(z0, z0)), 1.0f);
       szz2 = sub(add(szz2, mul(z2, z2)), 1.0f);
     }
   };
 
-  if constexpr (kQmc) {
-    // one scrambled 8-D Sobol point per lane (8 replicate groups: row & 7)
-    const Plan& pl = a.plan;
-    const int32_t idx = static_cast<int32_t>(
-        block * static_cast<uint32_t>((kRows / 8) * kLanes) + (row >> 3) * kLanes + col + 1u);
-    uint32_t h = fmix32((a.seed + (row & 7u) * kGroupSalt) * kGolden + kHashSalt);
-    uint32_t scr[8];
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      scr[d] = h & kMask30;
-      h = fmix32(h + 0x9E3779B9u);
-    }
-    float u[8], g[8];
-    sobol_nd(idx, scr, u);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) box_muller(u[2 * q], u[2 * q + 1], &g[2 * q], &g[2 * q + 1]);
-    float csum[9];  // z-sums pinned at the sorted bridge bounds
-    csum[0] = 0.0f;
-    csum[pl.n_seg] = mul(pl.sqrt_n, g[0]);
-    for (int j = 0; j < pl.n_con; ++j) {
-      const float lo = csum[pl.con_lo[j]];
-      csum[pl.con_mid[j]] = add(add(lo, mul(sub(csum[pl.con_hi[j]], lo), pl.con_frac[j])),
-                                mul(pl.con_sd[j], g[j + 1]));
-    }
-    for (int j = 0; j < pl.n_seg; ++j) {
-      // pass 1 over the segment sums its residuals; pass 2 replays the same
-      // counters with the offsets that pin each branch to its target
-      float sc = 0.0f, ss = 0.0f, z1, z2;
-      for (int i = pl.bounds[j]; i < pl.bounds[j + 1]; ++i) {
-        draw(i, &z1, &z2);
-        sc = add(sc, z1);
-        ss = add(ss, z2);
-      }
-      const float target = sub(csum[j + 1], csum[j]);
-      const float inv = pl.seg_inv[j];
-      const float oc_p = mul(sub(target, sc), inv), oc_m = mul(add(target, sc), inv);
-      const float os_p = mul(sub(target, ss), inv), os_m = mul(add(target, ss), inv);
-      for (int i = pl.bounds[j]; i < pl.bounds[j + 1]; ++i) {
-        draw(i, &z1, &z2);
-        step(i, z1, z2, oc_p, oc_m, os_p, os_m);
-      }
-    }
+  if constexpr (kQmc) {  // both residual streams pinned to the one stream's targets
+    float csum[9];
+    bridge::targets(a.plan, a.seed, kHashSalt, block, row, col, kRows, kLanes, csum);
+    bridge::replay(a.plan, csum, csum, draw,
+                   [&](int i, float z1a, float z2a, float z1b, float z2b) {
+                     step(i, z1a, z1b, z2a, z2b);
+                   });
   } else {
 #pragma unroll 1  // one step per trip: the loop body is what the bound counts
     for (int i = 0; i < c.n_steps; ++i) {
       float z1, z2;
       draw(i, &z1, &z2);
-      step(i, z1, z2, 0.0f, 0.0f, 0.0f, 0.0f);
+      step(i, z1, -z1, z2, -z2);
     }
   }
 
@@ -456,18 +412,7 @@ extern "C" int exotic_mc_moments(const void* params, const void* book, int nc, u
   a.period = period;
   a.mode = mode;
   a.cp = cp;
-  a.plan.n_seg = plan_i[0];
-  for (int j = 0; j < 9; ++j) a.plan.bounds[j] = plan_i[1 + j];
-  a.plan.n_con = plan_i[10];
-  for (int j = 0; j < 7; ++j) {
-    a.plan.con_mid[j] = plan_i[11 + j];
-    a.plan.con_lo[j] = plan_i[18 + j];
-    a.plan.con_hi[j] = plan_i[25 + j];
-    a.plan.con_frac[j] = plan_f[1 + j];
-    a.plan.con_sd[j] = plan_f[8 + j];
-  }
-  a.plan.sqrt_n = plan_f[0];
-  for (int j = 0; j < 8; ++j) a.plan.seg_inv[j] = plan_f[15 + j];
+  a.plan = bridge::load_plan(plan_i, plan_f);
   a.partials = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   launch(a, family, sampler, lr != 0, st);

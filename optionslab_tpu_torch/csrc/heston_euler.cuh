@@ -11,13 +11,15 @@
 // its plain twin's.
 #pragma once
 
+#include "fp.cuh"
+
 namespace optionslab {
 namespace heston {
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
+using fp::add;
+using fp::mul;
+using fp::quo;
+using fp::sub;
 
 struct StepCoeffs {
   float drift;  // (r − q)·dt

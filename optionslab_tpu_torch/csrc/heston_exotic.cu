@@ -35,7 +35,8 @@
 //    block): the normals on stream 0, the QE uniform on stream 1, the jump
 //    draw on stream 2.
 //  * The Euler step is heston_euler.cuh's (the European kernels'), the QE
-//    step heston_qe.cuh's, the bridge heston_bridge.cuh's.
+//    step heston_qe.cuh's, the bridge bridge.cuh's, the statistics and
+//    payoffs exotic_stats.cuh's (the SLV kernel's too).
 //  * Fixed-order reduction (reduce.cuh): no float atomics.
 //  * Precise libm, every product that feeds a path value rounded on its own
 //    (__fmul_rn/__fadd_rn, never an FMA) in the reference's association
@@ -53,7 +54,8 @@
 
 #include <cstdint>
 
-#include "heston_bridge.cuh"
+#include "bridge.cuh"
+#include "exotic_stats.cuh"
 #include "heston_euler.cuh"
 #include "heston_qe.cuh"
 #include "reduce.cuh"
@@ -68,24 +70,14 @@ constexpr int kThreads = 256;
 constexpr int kBookSlots = 7;  // K, log(B/S0), A, B, C, D, E
 constexpr int kHead = 12;      // S0, K, log(B/S0), 1/n, r·dt, dt, √dt, A, B, C, D, E
 
-// kHit: barriers and touches paid at expiry; kHitAt: touches paid at the
-// first hit (discounted in the step loop)
-enum Family : int {
-  kAsianArith = 0, kAsianGeo, kLookback, kHit, kHitAt, kCliquet, kAutocall, kRange
-};
 enum Scheme : int { kEuler = 0, kQe = 1 };
 enum Sampler : int { kPrng = 0, kHash = 1, kSobolBB = 2 };
-// barrier/touch families: mode = side | payoff << 2; lookback: bit 0
-// floating strike, bit 1 running minimum
-enum Side : int { kUp = 0, kDown = 1, kDouble = 2 };
-enum HitPayoff : int { kKnockOut = 0, kKnockIn = 1, kOneTouch = 2, kNoTouch = 3 };
 
+using namespace stats;  // the families, their statistics and payoffs
 using heston::add;
 using heston::mul;
 using heston::quo;
 using heston::sub;
-
-__device__ __forceinline__ float ind(bool b) { return b ? 1.0f : 0.0f; }
 
 struct HxArgs {
   const float* __restrict__ params;  // head, scheme tail[, jump tail]
@@ -96,7 +88,7 @@ struct HxArgs {
   int n_blocks, blocks_per_chunk, n_chunks;
   int n_steps, period, mode, jumps;
   float cp;
-  heston::BridgePlan plan;
+  bridge::Plan plan;
   float* partials;  // (n_mom, 128, n_chunks)
 };
 
@@ -116,95 +108,6 @@ struct Ctx {
 template <int F, bool kLr>
 __host__ __device__ constexpr int n_moments() {
   return kLr ? ((F == kHitAt || F == kAutocall) ? 8 : 7) : 2;
-}
-
-__device__ __forceinline__ float hit_now(const Ctx& c, float x) {
-  const int side = c.mode & 3;
-  if (side == kDouble) return ind(x <= c.a || x >= c.b);
-  return ind(side == kUp ? x >= c.log_b : x <= c.log_b);
-}
-
-// statistics at x0 = 0 (S0 included: a level already crossed counts as hit)
-template <int F>
-__device__ __forceinline__ void init_stat(const Ctx& c, float* st) {
-  st[0] = st[1] = st[2] = st[3] = 0.0f;
-  if (F == kAutocall) st[0] = 1.0f;                                  // (alive, ki, pv, dr)
-  if (F == kHit || F == kHitAt) st[0] = st[1] = hit_now(c, 0.0f);   // (hit, pv at hit, dr)
-}
-
-template <int F, bool kLr>
-__device__ __forceinline__ void update_stat(const Ctx& c, float* st, float x, int i) {
-  if (F == kAsianArith) {
-    st[0] = add(st[0], expf(x));  // relative prices
-  } else if (F == kAsianGeo) {
-    st[0] = add(st[0], x);
-  } else if (F == kLookback) {
-    st[0] = (c.mode & 2) ? fminf(st[0], x) : fmaxf(st[0], x);
-  } else if (F == kHit) {
-    st[0] = fmaxf(st[0], hit_now(c, x));
-  } else if (F == kHitAt) {
-    const float now = hit_now(c, x);
-    const float newly = mul(sub(1.0f, st[0]), now);
-    const float steps = static_cast<float>(i + 1);
-    const float df_i = expf(mul(-c.rdt, steps));
-    st[1] = add(st[1], mul(newly, df_i));
-    if (kLr) st[2] = sub(st[2], mul(mul(mul(steps, c.dt), newly), df_i));
-    st[0] = fmaxf(st[0], now);
-  } else if (F == kCliquet) {  // (period-start x, capped-return sum)
-    const float is_end = ind((i + 1) % c.period == 0);
-    const float capped = fminf(fmaxf(sub(expf(sub(x, st[0])), 1.0f), c.a), c.b);
-    st[1] = add(st[1], mul(is_end, capped));
-    st[0] = add(st[0], mul(is_end, sub(x, st[0])));
-  } else if (F == kAutocall) {
-    st[1] = fmaxf(st[1], ind(x <= c.c));
-    const float is_obs = ind((i + 1) % c.period == 0);
-    const float steps = static_cast<float>(i + 1);
-    const float df_i = expf(mul(-c.rdt, steps));
-    const float called = mul(mul(st[0], is_obs), ind(x >= c.a));
-    const float couponed = mul(mul(st[0], is_obs), ind(x >= c.b));
-    const float cash = add(mul(c.d, couponed), mul(c.e, called));
-    st[2] = add(st[2], mul(df_i, cash));
-    st[0] = mul(st[0], sub(1.0f, called));
-    if (kLr) st[3] = sub(st[3], mul(mul(mul(steps, c.dt), df_i), cash));
-  } else {  // kRange: corridor [A, B] in relative log space
-    st[0] = add(st[0], ind(x >= c.a && x <= c.b));
-  }
-}
-
-// the autocall's final redemption at expiry (undiscounted)
-__device__ __forceinline__ float autocall_final(const Ctx& c, const float* st, float x) {
-  const float loss = fmaxf(sub(1.0f, expf(x)), 0.0f);
-  return mul(c.e, sub(1.0f, mul(st[1], loss)));
-}
-
-template <int F>
-__device__ __forceinline__ float payoff(const Ctx& c, const float* st, float x, float df_t) {
-  if (F == kAsianArith) {
-    return fmaxf(mul(c.cp, sub(mul(mul(c.s0, st[0]), c.inv_n), c.k)), 0.0f);
-  } else if (F == kAsianGeo) {
-    return fmaxf(mul(c.cp, sub(mul(c.s0, expf(mul(st[0], c.inv_n))), c.k)), 0.0f);
-  } else if (F == kLookback) {
-    const float ext = mul(c.s0, expf(st[0]));
-    if (c.mode & 1) {
-      const float s_t = mul(c.s0, expf(x));
-      return c.cp > 0.0f ? sub(s_t, ext) : sub(ext, s_t);
-    }
-    return fmaxf(mul(c.cp, sub(ext, c.k)), 0.0f);
-  } else if (F == kHit) {
-    const int pay = c.mode >> 2;
-    if (pay == kOneTouch) return st[0];
-    if (pay == kNoTouch) return sub(1.0f, st[0]);
-    const float vanilla = fmaxf(mul(c.cp, sub(mul(c.s0, expf(x)), c.k)), 0.0f);
-    return mul(vanilla, pay == kKnockIn ? st[0] : sub(1.0f, st[0]));
-  } else if (F == kHitAt) {
-    return st[1];  // discounted at the hit in the kernel
-  } else if (F == kCliquet) {
-    return mul(c.e, fminf(fmaxf(st[1], c.c), c.d));
-  } else if (F == kAutocall) {  // discounted in the kernel
-    return add(st[2], mul(mul(st[0], df_t), autocall_final(c, st, x)));
-  } else {  // kRange
-    return mul(mul(c.e, st[0]), c.inv_n);
-  }
 }
 
 // One branch's step scores at fixed endpoints, gated where v⁺ = 0: the rate
@@ -299,9 +202,9 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const HxArgs& a, uin
 
   if constexpr (kS == kSobolBB) {
     float cv[9], co[9];
-    heston::bridge_targets(a.plan, a.seed, heston::kExoticQmcSalt, block, row, col, kRows, kLanes,
-                           cv, co);
-    heston::bridge_replay(a.plan, cv, co, draw, step);
+    bridge::targets_pair(a.plan, a.seed, bridge::kHestonExoticSalt, block, row, col, kRows,
+                         kLanes, cv, co);
+    bridge::replay(a.plan, cv, co, draw, step);
   } else {
 #pragma unroll 1  // one step per trip: the loop body is what the bound counts
     for (int i = 0; i < c.n_steps; ++i) {
@@ -503,7 +406,7 @@ extern "C" int heston_exotic_moments(const void* params, const void* book, int n
   a.mode = mode;
   a.jumps = jumps;
   a.cp = cp;
-  a.plan = heston::load_plan(plan_i, plan_f);
+  a.plan = bridge::load_plan(plan_i, plan_f);
   a.partials = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   launch(a, family, scheme, sampler, lr != 0, st);

@@ -18,7 +18,7 @@
 // sensitivities and one divide (1/(2√v⁺)) each. ops/sass_bound.py counts the
 // step loop from the built SASS (three MUFU.RSQ per trip; the `sobol_bb`
 // instance's pre-pass and replay loops, one and three, each once per step:
-// 313 instructions a step, heston_bridge.cuh); with `prng` one
+// 313 instructions a step, bridge.cuh); with `prng` one
 // step issues 195 instructions in price mode (97 FP32, 65 INT32), 255 in
 // vega mode and 403 in ladder mode (294 FP32), and chip_smoke.py prints the
 // counts beside the kernel's time. Device memory is idle: 12 floats in,
@@ -47,7 +47,7 @@
 
 #include <cstdint>
 
-#include "heston_bridge.cuh"
+#include "bridge.cuh"
 #include "heston_euler.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
@@ -68,7 +68,7 @@ struct EulerArgs {
   int n_blocks, blocks_per_chunk, n_chunks;
   int n_steps;
   float cp;
-  heston::BridgePlan plan;
+  bridge::Plan plan;
   float* partials;  // (n_mom, 128, n_chunks)
 };
 
@@ -125,8 +125,8 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const EulerArgs& a, 
 
   if constexpr (kS == kSobolBB) {
     float cv[9], co[9];
-    heston::bridge_targets(a.plan, a.seed, kHashSalt, block, row, col, kRows, kLanes, cv, co);
-    heston::bridge_replay(a.plan, cv, co, draw, step);
+    bridge::targets_pair(a.plan, a.seed, kHashSalt, block, row, col, kRows, kLanes, cv, co);
+    bridge::replay(a.plan, cv, co, draw, step);
   } else {
 #pragma unroll 1  // one step per trip: the loop body is what the bound counts
     for (int i = 0; i < a.n_steps; ++i) {
@@ -231,7 +231,7 @@ extern "C" int heston_mc_moments(const void* params, uint32_t seed, uint32_t blo
   a.n_chunks = n_chunks;
   a.n_steps = n_steps;
   a.cp = cp;
-  a.plan = heston::load_plan(plan_i, plan_f);
+  a.plan = bridge::load_plan(plan_i, plan_f);
   a.partials = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int n_mom = 3;

@@ -31,9 +31,9 @@
 //    moment sums in registers through the whole time loop.
 //  * The counter space is the reference's, so the `hash` path set and the
 //    `sobol_bb` bridge (8 dyadic levels, hash residuals, the exotic GBM
-//    kernel's construction with the scramble salt 0x632BE5AB) are the JAX
-//    kernel's own; `prng` is Philox keyed by (seed, salt ^ block) at counter
-//    (row, col, step, 0).
+//    kernel's construction in bridge.cuh with the scramble salt 0x632BE5AB)
+//    are the JAX kernel's own; `prng` is Philox keyed by (seed, salt ^
+//    block) at counter (row, col, step, 0).
 //  * Fixed-order reduction (reduce.cuh): no float atomics.
 //  * Precise libm, every product that feeds a path value rounded on its own
 //    (__fmul_rn/__fadd_rn, never an FMA) in the reference's association order,
@@ -50,6 +50,9 @@
 
 #include <cstdint>
 
+#include "bridge.cuh"
+#include "exotic_stats.cuh"
+#include "fp.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
@@ -63,32 +66,23 @@ constexpr int kScalars = 8;  // S0, K, μ·dt, dt, √dt, barrier/lower, upper, 
 constexpr int kDegree = 6;
 constexpr int kRow = kDegree + 3;  // x_lo, x_hi, c6..c0
 constexpr int kMaxSteps = 6000;    // 9·6000 floats of shared memory
-constexpr uint32_t kMask30 = (1u << 30) - 1u;
 
 // kHit: barriers and touches paid at expiry; kHitAt: one-touches paid at the
 // first hit (their discounting runs in the step loop)
 enum Family : int { kEuro = 0, kAsian, kRange, kLookback, kHit, kHitAt };
 enum Sampler : int { kPrng = 0, kHash = 1, kBridge = 2 };
-// barrier/touch families: mode = side | payoff << 2; lookback: bit 0 floating
-// strike, bit 1 running minimum
-enum Side : int { kUp = 0, kDown = 1, kDouble = 2 };
-enum HitPayoff : int { kKnockOut = 0, kKnockIn = 1, kOneTouch = 2, kNoTouch = 3 };
-
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float ind(bool b) { return b ? 1.0f : 0.0f; }
-
-struct Plan {  // sobol_bb bridge plan, from kernel_rng.bridge_plan(n_steps, 8)
-  int n_seg;
-  int bounds[9];
-  int n_con;
-  int con_mid[7], con_lo[7], con_hi[7];  // indices into bounds
-  float sqrt_n;
-  float con_frac[7], con_sd[7];
-  float seg_inv[8];
-};
+// barrier/touch families: mode = side | payoff << 2 (exotic_stats.cuh);
+// lookback: bit 0 floating strike, bit 1 running minimum
+using fp::add;
+using fp::ind;
+using fp::mul;
+using fp::quo;
+using fp::sub;
+using stats::hit_now;
+using stats::kKnockIn;
+using stats::kNoTouch;
+using stats::kOneTouch;
+using stats::lookback_start_term;
 
 struct LvArgs {
   const float* __restrict__ params;  // 8 scalars, then the (n_steps, 9) step table
@@ -97,12 +91,14 @@ struct LvArgs {
   int n_blocks, blocks_per_chunk, n_chunks;
   int n_steps, mode;
   float cp;
-  Plan plan;
+  bridge::Plan plan;
   float* partials;  // (n_mom, 128, n_chunks)
 };
 
 struct Ctx {
-  float s0, k, mu_dt, dt, sqdt, b1, b2, rdt, cp, inv_n;
+  float s0, k, mu_dt, dt, sqdt;
+  float log_b, a, b;  // the barrier; the band of a double barrier or the range
+  float rdt, cp, inv_n;
   int mode, n_steps;
   const float* table;  // shared memory
 };
@@ -123,12 +119,6 @@ __device__ __forceinline__ float sigma(const Ctx& c, float x, int i) {
   return fmaxf(acc, 1e-4f);
 }
 
-__device__ __forceinline__ float hit_now(const Ctx& c, float x) {
-  const int side = c.mode & 3;
-  if (side == kDouble) return ind(x <= c.b1 || x >= c.b2);
-  return ind(side == kUp ? x >= c.b1 : x <= c.b1);
-}
-
 // statistics at x0 = 0 (S0 included: a level already crossed counts as hit)
 template <int F>
 __device__ __forceinline__ void init_stat(const Ctx& c, float* st) {
@@ -141,7 +131,7 @@ __device__ __forceinline__ void update_stat(const Ctx& c, float* st, float x, in
   if (F == kAsian) {
     st[0] = add(st[0], mul(c.s0, expf(x)));
   } else if (F == kRange) {  // corridor [lower, upper] in relative log space
-    st[0] = add(st[0], ind(x >= c.b1 && x <= c.b2));
+    st[0] = add(st[0], ind(x >= c.a && x <= c.b));
   } else if (F == kLookback) {
     st[0] = (c.mode & 2) ? fminf(st[0], x) : fmaxf(st[0], x);
   } else if (F == kHit) {
@@ -202,21 +192,10 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const LvArgs& a, uin
                         static_cast<uint32_t>(c.n_steps), row, col, kRows, kLanes, z1, z2);
     }
   };
-  auto step = [&](int i, float z1, float z2, float oc_p, float oc_m, float os_p, float os_m) {
-    float zs[4];
-    if (kS == kBridge) {  // conditional-law residuals pinned to the bridge targets
-      zs[0] = add(z1, oc_p);
-      zs[1] = add(-z1, oc_m);
-      zs[2] = add(z2, os_p);
-      zs[3] = add(-z2, os_m);
-    } else {
-      zs[0] = z1;
-      zs[1] = -z1;
-      zs[2] = z2;
-      zs[3] = -z2;
-    }
+  auto step = [&](int i, float z0, float z1, float z2, float z3) {  // the four paths' normals
+    const float zs[4] = {z0, z1, z2, z3};
     if (kGreeks && i == 0) {
-      gz1 = z1;
+      gz1 = z0;
       gz2 = z2;
     }
 #pragma unroll
@@ -230,56 +209,19 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const LvArgs& a, uin
     }
   };
 
-  if constexpr (kS == kBridge) {
-    // one scrambled 8-D Sobol point per lane (8 replicate groups: row & 7)
-    const Plan& pl = a.plan;
-    const int32_t idx = static_cast<int32_t>(
-        block * static_cast<uint32_t>((kRows / 8) * kLanes) + (row >> 3) * kLanes + col + 1u);
-    uint32_t h = fmix32((a.seed + (row & 7u) * kGroupSalt) * kGolden + kHashSalt);
-    uint32_t scr[8];
-#pragma unroll
-    for (int d = 0; d < 8; ++d) {
-      scr[d] = h & kMask30;
-      h = fmix32(h + 0x9E3779B9u);
-    }
-    float u[8], g[8];
-    sobol_nd(idx, scr, u);
-#pragma unroll
-    for (int q = 0; q < 4; ++q) box_muller(u[2 * q], u[2 * q + 1], &g[2 * q], &g[2 * q + 1]);
-    float csum[9];  // z-sums pinned at the sorted bridge bounds
-    csum[0] = 0.0f;
-    csum[pl.n_seg] = mul(pl.sqrt_n, g[0]);
-    for (int j = 0; j < pl.n_con; ++j) {
-      const float lo = csum[pl.con_lo[j]];
-      csum[pl.con_mid[j]] = add(add(lo, mul(sub(csum[pl.con_hi[j]], lo), pl.con_frac[j])),
-                                mul(pl.con_sd[j], g[j + 1]));
-    }
-    for (int j = 0; j < pl.n_seg; ++j) {
-      // pass 1 sums the segment's residuals; pass 2 replays the same counters
-      // with the offsets that pin each path to its target
-      float sc = 0.0f, ss = 0.0f, z1, z2;
-#pragma unroll 1
-      for (int i = pl.bounds[j]; i < pl.bounds[j + 1]; ++i) {
-        draw(i, &z1, &z2);
-        sc = add(sc, z1);
-        ss = add(ss, z2);
-      }
-      const float target = sub(csum[j + 1], csum[j]);
-      const float inv = pl.seg_inv[j];
-      const float oc_p = mul(sub(target, sc), inv), oc_m = mul(add(target, sc), inv);
-      const float os_p = mul(sub(target, ss), inv), os_m = mul(add(target, ss), inv);
-#pragma unroll 1
-      for (int i = pl.bounds[j]; i < pl.bounds[j + 1]; ++i) {
-        draw(i, &z1, &z2);
-        step(i, z1, z2, oc_p, oc_m, os_p, os_m);
-      }
-    }
+  if constexpr (kS == kBridge) {  // both residual streams pinned to the one stream's targets
+    float csum[9];
+    bridge::targets(a.plan, a.seed, kHashSalt, block, row, col, kRows, kLanes, csum);
+    bridge::replay(a.plan, csum, csum, draw,
+                   [&](int i, float z1a, float z2a, float z1b, float z2b) {
+                     step(i, z1a, z1b, z2a, z2b);
+                   });
   } else {
 #pragma unroll 1  // one step per trip: the loop body is what the bound counts
     for (int i = 0; i < c.n_steps; ++i) {
       float z1, z2;
       draw(i, &z1, &z2);
-      step(i, z1, z2, 0.0f, 0.0f, 0.0f, 0.0f);
+      step(i, z1, -z1, z2, -z2);
     }
   }
 
@@ -294,14 +236,8 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const LvArgs& a, uin
       acc[2] += mul(p, zs1);
       acc[3] += mul(p, sub(mul(z1b, z1b), 1.0f));
       acc[4] += mul(p, gvs[b]);
-      if constexpr (F == kLookback) {  // ∂pay/∂x0 where the extremum is attained at t = 0
-        const float at0 = ind(st[b][0] == 0.0f);
-        float f0;
-        if (c.mode & 1) {
-          f0 = c.cp > 0.0f ? -at0 : at0;  // the float call pays S_T − min, the put max − S_T
-        } else {
-          f0 = mul(mul(c.cp, at0), ind(mul(c.cp, sub(c.s0, c.k)) > 0.0f));
-        }
+      if constexpr (F == kLookback) {
+        const float f0 = lookback_start_term(c, st[b][0]);
         acc[5] += f0;
         acc[6] += mul(f0, zs1);
       }
@@ -324,7 +260,7 @@ __global__ void __launch_bounds__(kThreads) local_vol_kernel(LvArgs a) {
   const int b_begin = chunk * a.blocks_per_chunk;
   const int b_end = min(a.n_blocks, b_begin + a.blocks_per_chunk);
   const float* p = a.params;
-  const Ctx c{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], a.cp,
+  const Ctx c{p[0], p[1], p[2], p[3], p[4], p[5], p[5], p[6], p[7], a.cp,
               static_cast<float>(1.0 / static_cast<double>(a.n_steps)), a.mode, a.n_steps,
               table};
 
@@ -409,18 +345,7 @@ extern "C" int local_vol_moments(const void* params, uint32_t seed, uint32_t blo
   a.n_steps = n_steps;
   a.mode = mode;
   a.cp = cp;
-  a.plan.n_seg = plan_i[0];
-  for (int j = 0; j < 9; ++j) a.plan.bounds[j] = plan_i[1 + j];
-  a.plan.n_con = plan_i[10];
-  for (int j = 0; j < 7; ++j) {
-    a.plan.con_mid[j] = plan_i[11 + j];
-    a.plan.con_lo[j] = plan_i[18 + j];
-    a.plan.con_hi[j] = plan_i[25 + j];
-    a.plan.con_frac[j] = plan_f[1 + j];
-    a.plan.con_sd[j] = plan_f[8 + j];
-  }
-  a.plan.sqrt_n = plan_f[0];
-  for (int j = 0; j < 8; ++j) a.plan.seg_inv[j] = plan_f[15 + j];
+  a.plan = bridge::load_plan(plan_i, plan_f);
   a.partials = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = launch(a, family, sampler, greeks != 0, st);

@@ -34,7 +34,8 @@
 //    row, col) lane at a time and keeps its pair, statistics, scores and
 //    moment sums in registers through the whole time loop.
 //  * Its own Euler step (the x-step's volatility is L·√v⁺, the score divides
-//    by L), not heston_euler.cuh's, whose kernels it would otherwise move.
+//    by L), not heston_euler.cuh's, whose kernels it would otherwise move;
+//    the Heston exotic kernel's statistics and payoffs (exotic_stats.cuh).
 //  * The counter space is the reference's, so the `hash` path set is the JAX
 //    kernel's own; `prng` is Philox keyed by (seed, salt ^ block) at counter
 //    (row, col, step, 0).
@@ -52,6 +53,8 @@
 
 #include <cstdint>
 
+#include "exotic_stats.cuh"
+#include "fp.cuh"
 #include "reduce.cuh"
 #include "rng.cuh"
 
@@ -67,21 +70,13 @@ constexpr int kDegree = 6;
 constexpr int kRow = kDegree + 3;  // x_lo, x_hi, c6..c0
 constexpr int kMaxSteps = 6000;
 
-// the Heston exotic kernel's families (heston_exotic.cu), then the European
-enum Family : int {
-  kAsianArith = 0, kAsianGeo, kLookback, kHit, kHitAt, kCliquet, kAutocall, kRange, kEuro
-};
 enum Sampler : int { kPrng = 0, kHash = 1 };
-// barrier/touch families: mode = side | payoff << 2; lookback: bit 0 floating
-// strike, bit 1 running minimum
-enum Side : int { kUp = 0, kDown = 1, kDouble = 2 };
-enum HitPayoff : int { kKnockOut = 0, kKnockIn = 1, kOneTouch = 2, kNoTouch = 3 };
 
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ float ind(bool b) { return b ? 1.0f : 0.0f; }
+using namespace stats;  // the Heston exotic kernel's families, then the European
+using fp::add;
+using fp::mul;
+using fp::quo;
+using fp::sub;
 
 struct SlvArgs {
   const float* __restrict__ params;  // 19 scalars, then the (n_steps, 9) step table
@@ -115,97 +110,6 @@ __device__ __forceinline__ float horner(const float* r, float x) {
 #pragma unroll
   for (int j = 1; j <= kDegree; ++j) acc = add(mul(acc, xc), r[2 + j]);
   return acc;
-}
-
-__device__ __forceinline__ float hit_now(const Ctx& c, float x) {
-  const int side = c.mode & 3;
-  if (side == kDouble) return ind(x <= c.a || x >= c.b);
-  return ind(side == kUp ? x >= c.log_b : x <= c.log_b);
-}
-
-// statistics at x0 = 0 (S0 included: a level already crossed counts as hit)
-template <int F>
-__device__ __forceinline__ void init_stat(const Ctx& c, float* st) {
-  st[0] = st[1] = st[2] = st[3] = 0.0f;
-  if (F == kAutocall) st[0] = 1.0f;                                 // (alive, ki, pv, dr)
-  if (F == kHit || F == kHitAt) st[0] = st[1] = hit_now(c, 0.0f);  // (hit, pv at hit, dr)
-}
-
-template <int F, bool kLr>
-__device__ __forceinline__ void update_stat(const Ctx& c, float* st, float x, int i) {
-  if (F == kAsianArith) {
-    st[0] = add(st[0], expf(x));  // relative prices
-  } else if (F == kAsianGeo) {
-    st[0] = add(st[0], x);
-  } else if (F == kLookback) {
-    st[0] = (c.mode & 2) ? fminf(st[0], x) : fmaxf(st[0], x);
-  } else if (F == kHit) {
-    st[0] = fmaxf(st[0], hit_now(c, x));
-  } else if (F == kHitAt) {
-    const float now = hit_now(c, x);
-    const float newly = mul(sub(1.0f, st[0]), now);
-    const float steps = static_cast<float>(i + 1);
-    const float df_i = expf(mul(-c.rdt, steps));
-    st[1] = add(st[1], mul(newly, df_i));
-    if (kLr) st[2] = sub(st[2], mul(mul(mul(steps, c.dt), newly), df_i));
-    st[0] = fmaxf(st[0], now);
-  } else if (F == kCliquet) {  // (period-start x, capped-return sum)
-    const float is_end = ind((i + 1) % c.period == 0);
-    const float capped = fminf(fmaxf(sub(expf(sub(x, st[0])), 1.0f), c.a), c.b);
-    st[1] = add(st[1], mul(is_end, capped));
-    st[0] = add(st[0], mul(is_end, sub(x, st[0])));
-  } else if (F == kAutocall) {
-    st[1] = fmaxf(st[1], ind(x <= c.c));
-    const float is_obs = ind((i + 1) % c.period == 0);
-    const float steps = static_cast<float>(i + 1);
-    const float df_i = expf(mul(-c.rdt, steps));
-    const float called = mul(mul(st[0], is_obs), ind(x >= c.a));
-    const float couponed = mul(mul(st[0], is_obs), ind(x >= c.b));
-    const float cash = add(mul(c.d, couponed), mul(c.e, called));
-    st[2] = add(st[2], mul(df_i, cash));
-    st[0] = mul(st[0], sub(1.0f, called));
-    if (kLr) st[3] = sub(st[3], mul(mul(mul(steps, c.dt), df_i), cash));
-  } else if (F == kRange) {  // corridor [A, B] in relative log space
-    st[0] = add(st[0], ind(x >= c.a && x <= c.b));
-  }  // kEuro: no statistic
-}
-
-// the autocall's final redemption at expiry (undiscounted)
-__device__ __forceinline__ float autocall_final(const Ctx& c, const float* st, float x) {
-  const float loss = fmaxf(sub(1.0f, expf(x)), 0.0f);
-  return mul(c.e, sub(1.0f, mul(st[1], loss)));
-}
-
-template <int F>
-__device__ __forceinline__ float payoff(const Ctx& c, const float* st, float x, float df_t) {
-  if (F == kAsianArith) {
-    return fmaxf(mul(c.cp, sub(mul(mul(c.s0, st[0]), c.inv_n), c.k)), 0.0f);
-  } else if (F == kAsianGeo) {
-    return fmaxf(mul(c.cp, sub(mul(c.s0, expf(mul(st[0], c.inv_n))), c.k)), 0.0f);
-  } else if (F == kLookback) {
-    const float ext = mul(c.s0, expf(st[0]));
-    if (c.mode & 1) {
-      const float s_t = mul(c.s0, expf(x));
-      return c.cp > 0.0f ? sub(s_t, ext) : sub(ext, s_t);
-    }
-    return fmaxf(mul(c.cp, sub(ext, c.k)), 0.0f);
-  } else if (F == kHit) {
-    const int pay = c.mode >> 2;
-    if (pay == kOneTouch) return st[0];
-    if (pay == kNoTouch) return sub(1.0f, st[0]);
-    const float vanilla = fmaxf(mul(c.cp, sub(mul(c.s0, expf(x)), c.k)), 0.0f);
-    return mul(vanilla, pay == kKnockIn ? st[0] : sub(1.0f, st[0]));
-  } else if (F == kHitAt) {
-    return st[1];  // discounted at the hit in the kernel
-  } else if (F == kCliquet) {
-    return mul(c.e, fminf(fmaxf(st[1], c.c), c.d));
-  } else if (F == kAutocall) {  // discounted in the kernel
-    return add(st[2], mul(mul(st[0], df_t), autocall_final(c, st, x)));
-  } else if (F == kRange) {
-    return mul(mul(c.e, st[0]), c.inv_n);
-  } else {  // kEuro
-    return fmaxf(mul(c.cp, sub(mul(c.s0, expf(x)), c.k)), 0.0f);
-  }
 }
 
 // One full-truncation Euler step of one branch with the leverage of step i;
@@ -294,14 +198,8 @@ __device__ __forceinline__ void simulate_lane(const Ctx& c, const SlvArgs& a, ui
         const float t_total = mul(c.dt, static_cast<float>(c.n_steps));
         acc[7] += sub(st[3], mul(mul(mul(st[0], t_total), df_t), autocall_final(c, st, x)));
       }
-      if constexpr (F == kLookback) {  // ∂pay/∂x0 where the extremum is attained at t = 0
-        const float at0 = ind(st[0] == 0.0f);
-        float f0;
-        if (c.mode & 1) {
-          f0 = c.cp > 0.0f ? -at0 : at0;
-        } else {
-          f0 = mul(mul(c.cp, at0), ind(mul(c.cp, sub(c.s0, c.k)) > 0.0f));
-        }
+      if constexpr (F == kLookback) {
+        const float f0 = lookback_start_term(c, st[0]);
         acc[7] += f0;
         acc[8] += mul(f0, zos);
       }

@@ -21,7 +21,8 @@ The port of ``optionslab_tpu/models/local_vol.py``.
   the SLV scan (``models/slv.py``) at mixing 0, which is pure local vol.
 
 Every function runs on the device of the surface's tensors;
-:class:`DupireLocalVol` builds on ``device`` (default ``"cuda"``).
+:class:`DupireLocalVol` and :class:`LocalVolSurface` build on ``device``
+(default ``"cuda"``).
 """
 
 from __future__ import annotations
@@ -60,9 +61,10 @@ def _bilinear(grid_x, grid_y, values, xq, yq):
 
 class LocalVolSurface:
     """σ_loc(S, t) interpolator on a dense (log-moneyness, T) grid: float32
-    tensors ``k_grid`` (n_k,), ``t_grid`` (n_t,), ``grid`` (n_t, n_k)."""
+    tensors ``k_grid`` (n_k,), ``t_grid`` (n_t,), ``grid`` (n_t, n_k) on
+    ``device`` (default ``"cuda"``, as :class:`DupireLocalVol`)."""
 
-    def __init__(self, k_grid, t_grid, local_vol_grid, spot, rate, dividend=0.0, device=None):
+    def __init__(self, k_grid, t_grid, local_vol_grid, spot, rate, dividend=0.0, device="cuda"):
         def f32(x):
             return torch.as_tensor(x, dtype=torch.float32, device=device).detach()
 
@@ -75,7 +77,7 @@ class LocalVolSurface:
 
     @classmethod
     def from_numpy(cls, k_grid, t_grid, grid, spot, rate, dividend=0.0,
-                   device=None) -> "LocalVolSurface":
+                   device="cuda") -> "LocalVolSurface":
         """A surface from numpy arrays, e.g. the JAX package's ``np.asarray``
         of its ``LocalVolSurface`` grids."""
         return cls(np.array(k_grid, np.float32), np.array(t_grid, np.float32),

@@ -200,3 +200,46 @@ def find_function(funcs: dict[str, list[Instr]], *parts: str) -> list[Instr]:
     if len(hits) != 1:
         raise KeyError(f"{len(hits)} functions match {parts}: {hits[:4]}")
     return funcs[hits[0]]
+
+
+def _unit_free(name: str) -> str:
+    """A mangled name without its anonymous namespace, whose name nvcc derives
+    from the translation unit: ``<length>_GLOBAL__N_...`` is cut by its length."""
+    m = re.search(r"(\d+)_GLOBAL__N_", name)
+    if m is None:
+        return name
+    return name[:m.start()] + name[m.start(1) + len(m.group(1)) + int(m.group(1)):]
+
+
+def compare(funcs_a: dict[str, list[Instr]], funcs_b: dict[str, list[Instr]],
+            *parts: str) -> dict:
+    """The functions of two listings whose mangled names contain every string
+    of ``parts``: how many each listing has, how many are the same code in
+    both (every instruction's address, predication, opcode and operands), and
+    each listing's instruction total over them. Functions are paired by name
+    less their anonymous namespace."""
+    a, b = ({_unit_free(n): v for n, v in f.items() if all(p in n for p in parts)}
+            for f in (funcs_a, funcs_b))
+    return {"functions": [len(a), len(b)],
+            "same": sum(n in b and a[n] == b[n] for n in a),
+            "instructions": [sum(map(len, f.values())) for f in (a, b)]}
+
+
+def main(argv: list[str] | None = None) -> None:
+    """``python -m optionslab_tpu_torch.ops.sass_bound LIB_A LIB_B PART...``:
+    one JSON line per PART, :func:`compare` of the two built libraries'
+    listings over the functions whose names contain it."""
+    import json
+    import sys
+
+    from ._build import cuda_tool
+
+    lib_a, lib_b, *parts = sys.argv[1:] if argv is None else argv
+    funcs = [parse_functions(dump_sass(Path(lib), cuda_tool("cuobjdump")))
+             for lib in (lib_a, lib_b)]
+    for part in parts:
+        print(json.dumps({"part": part, **compare(*funcs, part)}))
+
+
+if __name__ == "__main__":
+    main()

@@ -520,6 +520,30 @@ def test_slv_entry_points_on_card(cuda_device, smile_dupire, slv_pricer):
     assert torch.equal(again[0], slv_pricer.x_rows) and torch.equal(again[1], slv_pricer.l_rows)
 
 
+def test_pricers_on_a_carried_surface_launch_their_kernels(cuda_device, smile_dupire):
+    """A surface carried across from numpy with no device lies on the card,
+    and both pricers built on it with no device launch their kernels."""
+    from optionslab_tpu_torch.models.heston import HestonParams
+    from optionslab_tpu_torch.models.local_vol import LocalVolSurface
+    from optionslab_tpu_torch.ops import local_vol_kernel as lk
+    from optionslab_tpu_torch.ops import slv_kernel as sk
+
+    s = smile_dupire.surface
+    surf = LocalVolSurface.from_numpy(s.k_grid.cpu().numpy(), s.t_grid.cpu().numpy(),
+                                      s.grid.cpu().numpy(), 100.0, 0.05)
+    assert surf.device.type == "cuda"
+    lv_before, slv_before = lk._lv_cuda.launches, sk._slv_cuda.launches
+    lv = lk.LocalVolKernelPricer(surf, 1.0, n_steps=12)
+    slv = sk.SLVKernelPricer(surf, HestonParams.make(0.04, 2.0, 0.04, 0.5, -0.7, device="cuda"),
+                             1.0, n_steps=12, n_cal_paths=16_384)
+    assert lv.device.type == "cuda" and slv.device.type == "cuda"
+    p, _, _ = lv.price(100.0, n_paths=lk.PATHS_PER_BLOCK)
+    q, _, _ = slv.price("european", 100.0, n_paths=sk.PATHS_PER_BLOCK)
+    assert p.device.type == "cuda" and q.device.type == "cuda"
+    assert math.isfinite(p.item()) and math.isfinite(q.item())
+    assert lk._lv_cuda.launches == lv_before + 1 and sk._slv_cuda.launches == slv_before + 1
+
+
 def test_local_vol_and_slv_wrappers_reject_cpu_tensors(cuda_device, slv_pricer):
     from optionslab_tpu_torch.ops import local_vol_kernel as lk
     from optionslab_tpu_torch.ops import slv_kernel as sk

@@ -57,7 +57,7 @@ def tdup():
 
 def _flat(vol=0.2):
     return tlv.LocalVolSurface(torch.linspace(-3.0, 3.0, 11), torch.linspace(0.01, 2.0, 9),
-                               torch.full((9, 11), vol), S, R)
+                               torch.full((9, 11), vol), S, R, device=CPU)
 
 
 def test_bilinear_matches_reference_inside_and_clamped():
@@ -108,10 +108,25 @@ def test_surface_call_matches_reference(jdup, tdup):
 def test_surface_from_numpy_and_to(jdup, tdup):
     surf = tlv.LocalVolSurface.from_numpy(np.asarray(jdup.surface.k_grid),
                                           np.asarray(jdup.surface.t_grid),
-                                          np.asarray(jdup.surface.grid), S, R)
+                                          np.asarray(jdup.surface.grid), S, R, device=CPU)
     assert torch.equal(surf.grid, torch.tensor(np.asarray(jdup.surface.grid)))
     moved = tdup.to(CPU)
     assert moved is not tdup and torch.equal(moved.surface.grid, tdup.surface.grid)
+
+
+def test_surface_defaults_to_the_card():
+    """A surface carried across with no device goes to the card, as
+    ``DupireLocalVol`` does; a CPU-only build refuses rather than keep it on
+    the host, where the pricers built on it would quietly run their plain
+    versions."""
+    args = (np.linspace(-1.0, 1.0, 5), np.linspace(0.1, 1.0, 3), np.full((3, 5), 0.2), S, R)
+    if torch.cuda.is_available():
+        assert tlv.LocalVolSurface.from_numpy(*args).device.type == "cuda"
+        assert tlv.LocalVolSurface(*args).device.type == "cuda"
+    else:
+        for make in (tlv.LocalVolSurface.from_numpy, tlv.LocalVolSurface):
+            with pytest.raises((AssertionError, RuntimeError)):
+                make(*args)
 
 
 @pytest.mark.parametrize("dtype,tol", [(np.float64, 1e-12), (np.float32, 1e-5)])

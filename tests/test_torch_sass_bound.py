@@ -169,3 +169,23 @@ def test_errors(funcs):
     with pytest.raises(ValueError, match="MUFU.RSQ"):
         sb.hot_loop_counts([i for i in sb.find_function(funcs, "stepILi0E")
                             if not i.op.startswith("MUFU.RSQ")])
+
+
+def test_compare_counts_same_and_changed_functions(funcs):
+    changed = LISTING.replace("FMUL R2, R2, R3 ;", "FADD R2, R2, R3 ;")
+    other = sb.parse_functions(changed.replace("Function : _ZN10optionslab4laneILi1EEEvNS_4ArgsE",
+                                               "Function : _ZN10optionslab4laneILi2EEEvNS_4ArgsE"))
+    assert sb.compare(funcs, funcs, "optionslab") == {"functions": [3, 3], "same": 3,
+                                                      "instructions": [36, 36]}
+    assert sb.compare(funcs, other, "chain") == {"functions": [1, 1], "same": 0,
+                                                 "instructions": [13, 13]}
+    assert sb.compare(funcs, other, "lane") == {"functions": [1, 1], "same": 0,
+                                                "instructions": [11, 11]}
+    assert sb.compare(funcs, other, "step") == {"functions": [1, 1], "same": 1,
+                                                "instructions": [12, 12]}
+    # the anonymous namespace nvcc names after the translation unit pairs up
+    units = [sb.parse_functions(LISTING.replace("_ZN10optionslab4step",
+                                                f"_ZN10optionslab{len(u)}{u}4step"))
+             for u in ("_GLOBAL__N__1a2b3c4d_9_x_cu_5e6f", "_GLOBAL__N__0f0f0f0f_9_x_cu_7a7a")]
+    assert sb.compare(*units, "step") == {"functions": [1, 1], "same": 1,
+                                          "instructions": [12, 12]}

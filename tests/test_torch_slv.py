@@ -205,7 +205,7 @@ def test_swap_strikes_match_reference(jdup, tdup):
 
 def test_flat_mixing_zero_variance_swap_is_sigma_squared():
     flat = tlv.LocalVolSurface(torch.linspace(-3.0, 3.0, 11), torch.linspace(0.01, 2.0, 9),
-                               torch.full((9, 11), 0.2), S, R)
+                               torch.full((9, 11), 0.2), S, R, device=CPU)
     par = HestonParams.make(0.04, 2.0, 0.04, 0.3, -0.7)
     m, se, vol, _ = tslv.slv_swap_strikes(S, T, R, par, _gen(), flat.k_grid, flat.t_grid,
                                           flat.grid, mixing=0.0, n_paths=4_096, n_steps=N_STEPS)
