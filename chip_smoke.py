@@ -64,9 +64,19 @@ is printed):
               0.5 and 1, the replay scan on the same rows, finite
               differences and the structured scans; then ``/exotic`` lv and
               slv over a socket;
-11. launches — each kernel's launch count over its path's phases (the counts
+11. multi-asset — the multi-asset kernel (every kind × lr × d = 2, 3, 4 ×
+              hash/prng × cp, sobol on the terminal kinds, basket_cv) against
+              its plain version per row within 1e-6 at 2 blocks and at the
+              path's shapes; then the path at the JAX package's bench shapes
+              (3 assets: the basket Asian 4,063,232 x 252 against the scan
+              engine, its LR ladder at x 64 against CRN finite differences of
+              the kernel price, the geometric basket's price and ladder at
+              x 1 against its closed form and autograd, spread K = 0 against
+              Margrabe, sobol against the prng error bar, the geometric
+              control variate against plain), then ``/basket`` over a socket;
+12. launches — each kernel's launch count over its path's phases (the counts
               are set to 0 just before a path and read just after it);
-12. timing  — device ms by CUDA events of each kernel and its plain
+13. timing  — device ms by CUDA events of each kernel and its plain
               version at its path's shapes, beside the least time the card
               could take (from the kernel's SASS, ``ops/sass_bound.py``).
 
@@ -91,6 +101,7 @@ from optionslab_tpu_torch.models import exotics as tex
 from optionslab_tpu_torch.models import heston as hmodel
 from optionslab_tpu_torch.models import heston_exotics as hscan
 from optionslab_tpu_torch.models import local_vol as lvm
+from optionslab_tpu_torch.models import multi_asset as mam
 from optionslab_tpu_torch.models import slv as slvm
 from optionslab_tpu_torch.models.bates import BatesParams, bates_price
 from optionslab_tpu_torch.models.black_scholes import bs_greeks
@@ -100,6 +111,7 @@ from optionslab_tpu_torch.ops import gbm_kernel as gk
 from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
 from optionslab_tpu_torch.ops import heston_kernel as hk
 from optionslab_tpu_torch.ops import local_vol_kernel as lk
+from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 from optionslab_tpu_torch.ops import slv_kernel as sk
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
@@ -373,16 +385,17 @@ def exotic_inputs(kind: str, n_steps: int, dev, strike: float = STRIKE, barrier=
     return params, params[list(ek._BOOK_SLOTS)].reshape(1, 7).contiguous()
 
 
-def compare_sums(kern: torch.Tensor, plain: torch.Tensor, tag: str, n_plain: int = 2) -> float:
-    """Per-row sums within RTOL; the signed moments (index ``n_plain`` on: LR
-    scores, pathwise P0/G1/G2, Heston sensitivities) against their largest
+def compare_sums(kern: torch.Tensor, plain: torch.Tensor, tag: str, n_plain: int = 2,
+                 rtol: float = RTOL) -> float:
+    """Per-row sums within ``rtol``; the signed moments (index ``n_plain`` on:
+    LR scores, pathwise P0/G1/G2, Heston sensitivities) against their largest
     row, since they cancel inside a row. Returns the largest absolute
     difference."""
     k64, p64 = kern.double(), plain.double()
     diff = (k64 - p64).abs()
     scale = p64.abs()
     scale[n_plain:] = torch.maximum(scale[n_plain:], scale[n_plain:].amax(dim=1, keepdim=True))
-    bad = (diff > RTOL * scale).sum().item()
+    bad = (diff > rtol * scale).sum().item()
     rel = (diff / scale.clamp_min(1e-30)).max().item()
     exact = (kern == plain).all(dim=0).sum().item()
     log("parity", f"{tag}: max_rel={rel:.3e} max_abs={diff.max().item():.3e} "
@@ -2013,6 +2026,283 @@ SMILE_SASS = {"local_vol european": (("local_vol_kernelILi0ELb0ELi0E",), 1),
               "slv barrier": (("slv_kernelILi3ELb0ELi0E",), 3)}
 
 
+# ---------------------------------------------------------------------------
+# the multi-asset path (csrc/multi_asset_mc.cu)
+# ---------------------------------------------------------------------------
+# the JAX package's bench.py:366-404: 3 assets, basket Asian 4M x 252 (price)
+# and 4M x 64 (the full LR ladder); the terminal kinds at 4M x 1
+MA_SPOTS = [100.0, 95.0, 105.0]
+MA_VOLS = [0.2, 0.25, 0.3]
+MA_CORR = [[1.0, 0.5, 0.3], [0.5, 1.0, 0.4], [0.3, 0.4, 1.0]]
+MA_W = [0.4, 0.3, 0.3]
+MA_PRICE = (4_000_000, 252)  # 31 blocks: 4,063,232 paths
+MA_LADDER = (4_000_000, 64)
+MA_TERMINAL = (4_000_000, 1)
+MA_SCAN = 1_048_576  # the scan engine's paths
+MA_REF_PATHS = mk.PATHS_PER_BLOCK  # the reference tests' one block (n_paths=4)
+MA_RTOL = 1e-6  # kernel vs plain per row: the paths are bitwise, the sums' order differs
+MA_ARGS = (MA_SPOTS, STRIKE, T, RATE, MA_VOLS, MA_CORR)
+MA_D4 = ([100.0, 95.0, 105.0, 98.0], [0.2, 0.25, 0.3, 0.22],
+         [[1.0, 0.5, 0.3, 0.2], [0.5, 1.0, 0.4, 0.1], [0.3, 0.4, 1.0, 0.25],
+          [0.2, 0.1, 0.25, 1.0]], [0.3, 0.3, 0.2, 0.2])
+
+
+def ma_vector(d, kind, n_steps, lr, dev, strike=STRIKE):
+    spots, vols, corr, w = MA_D4
+    if d == 3:
+        spots, vols, corr, w = MA_SPOTS, MA_VOLS, MA_CORR, MA_W
+    corr = [row[:d] for row in corr[:d]]
+    p = mk._params_vec(spots[:d], w[:d] if d > 2 else None, strike, T, RATE, vols[:d], corr,
+                       0.0, n_steps, lr=lr, cv=kind == "basket_cv")[2]
+    return torch.tensor(p, device=dev)
+
+
+def ma_parity_cases(dev) -> list:
+    """(tag, params, kwargs) of the multi-asset parity phase: every kind ×
+    lr × d ∈ {2, 3, 4} × hash/prng × cp ±1 at 2 blocks (the Asian at 6
+    steps), sobol on the terminal kinds, basket_cv, and the path's shapes."""
+    cases = []
+    for d in (2, 3, 4):
+        for kind in mk.KINDS:
+            if kind == "spread" and d != 2:
+                continue
+            n_steps = 6 if kind == "basket_asian" else 1
+            samplers = ("hash", "prng") if kind == "basket_asian" else ("hash", "prng", "sobol")
+            for lr in ((False,) if kind == "basket_cv" else (False, True)):
+                p = ma_vector(d, kind, n_steps, lr, dev, 0.0 if kind == "spread" else STRIKE)
+                for sampler in samplers:
+                    for cp in (1.0, -1.0):
+                        cases.append((f"{kind} d={d} {sampler} lr={lr} cp={cp:+.0f} 2x{n_steps}",
+                                      p, dict(d=d, kind=kind, n_steps=n_steps, n_blocks=2,
+                                              cp=cp, sampler=sampler, lr=lr)))
+    for kind, (n, m), lr, sampler in (("basket_asian", MA_PRICE, False, "prng"),
+                                      ("basket_asian", MA_LADDER, True, "prng"),
+                                      ("basket_geo", MA_TERMINAL, True, "prng"),
+                                      ("basket_geo", MA_TERMINAL, True, "sobol"),
+                                      ("basket_cv", MA_TERMINAL, False, "prng")):
+        cases.append((f"{kind} d=3 {sampler} lr={lr} {n}x{m}", ma_vector(3, kind, m, lr, dev),
+                      dict(d=3, kind=kind, n_steps=m, n_blocks=mk._n_blocks(n, mk.PATHS_PER_BLOCK),
+                           cp=1.0, sampler=sampler, lr=lr)))
+    return cases
+
+
+def phase_ma_parity(dev) -> float:
+    """The multi-asset kernel against its plain version, per row within
+    MA_RTOL; returns the largest absolute difference."""
+    worst = 0.0
+    for tag, p, kw in ma_parity_cases(dev):
+        kern, plain = mk._ma_cuda(7, 1, p, **kw), mk._ma_plain(7, 1, p, **kw)
+        torch.cuda.synchronize()
+        worst = max(worst, compare_sums(kern, plain, f"multi_asset {tag}", rtol=MA_RTOL))
+    return worst
+
+
+def ma_ladder(outs, n, n_steps):
+    return mk._combine_lr(outs, n, 3, T, RATE, MA_SPOTS, MA_VOLS, MA_CORR, n_steps)
+
+
+def ma_greek_stderrs(dev) -> dict:
+    """Row-group standard errors of the ladders checked below, from one
+    launch at each path shape (another seed than the main path's). Not
+    counted as main path."""
+    out = {}
+    for tag, kind, (n, m) in (("asian", "basket_asian", MA_LADDER),
+                              ("geo", "basket_geo", MA_TERMINAL)):
+        nb = mk._n_blocks(n, mk.PATHS_PER_BLOCK)
+        outs = mk._ma_cuda(99, 0, ma_vector(3, kind, m, True, dev), d=3, kind=kind, n_steps=m,
+                           n_blocks=nb, cp=1.0, lr=True).double()
+        n_row = nb * mk.LANES * 4
+        per = [ma_ladder(outs[:, r:r + 1], n_row, m) for r in range(mk.ROWS)]
+        for key in ("delta", "vega", "gamma", "theta", "rho"):
+            vals = np.stack([np.asarray(g[key], np.float64) for g in per])
+            out[(tag, key)] = vals.std(axis=0, ddof=1) / math.sqrt(len(per))
+    log("multi_asset", "Greek stderrs from 128 row groups: " + " ".join(
+        f"{t}:{k}={sci(v)}"
+        for (t, k), v in out.items()))
+    return out
+
+
+SCI = {"float_kind": lambda x: f"{x:.3e}"}
+
+
+def sci(x) -> str:
+    """An array on one line, in scientific notation."""
+    return np.array2string(np.asarray(x, np.float64).ravel(), formatter=SCI,
+                           max_line_width=1 << 20)
+
+
+def ma_fd_check(tag, got, want, ref_bound, se, paths) -> str:
+    """Entries of an LR Greek against their oracle, within max(the reference
+    test's bound scaled by √(paths ratio), 5·se) entrywise."""
+    got, want, se = (np.asarray(x, np.float64) for x in (got, want, se))
+    bound = np.maximum(ref_bound * math.sqrt(MA_REF_PATHS / paths), 5 * se)
+    check(bool(np.all(np.abs(got - want) < bound)),
+          f"multi_asset {tag}: LR {got} vs {want} (bound {bound})")
+    return f"{tag}={sci(got)}/{sci(want)} (bound {sci(bound)})"
+
+
+def phase_ma_main(dev, card: str, se: dict, calls: dict) -> None:
+    """The multi-asset path through ``multi_asset_kernel_price`` and
+    ``multi_asset_kernel_greeks`` at the JAX package's bench shapes, against
+    its oracles; ``calls["ma"]`` counts the calls routed to the kernel."""
+    k = route_counter(calls, "ma")
+    kw = dict(weights=MA_W, device=dev)
+    walls = []
+    # the basket Asian 4M x 252 against the scan engine
+    n, m = MA_PRICE
+    (p, se_p, paths), ms = timed(lambda: k(mk.multi_asset_kernel_price, "basket_asian", *MA_ARGS,
+                                           n_paths=n, n_steps=m, **kw))
+    walls.append(f"basket_asian {paths}x{m} {ms:.3f} ms ({paths * m * 3 / (ms / 1e3):.4e} "
+                 f"asset-steps/s)")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sp, sse = mam.basket_asian_price(MA_SPOTS, MA_W, STRIKE, T, RATE, MA_VOLS, MA_CORR, gen,
+                                     n_paths=MA_SCAN, n_steps=m, return_stderr=True)
+    tol = 5 * math.hypot(se_p.item(), sse.item()) + 2e-3
+    log("multi_asset", f"basket_asian {p.item():.6f}±{se_p.item():.2e} ({paths} x {m}) vs scan "
+                       f"{sp.item():.6f}±{sse.item():.2e} (tol {tol:.2e})")
+    check(abs(p.item() - sp.item()) < tol, "basket_asian vs the scan engine")
+
+    # the basket Asian ladder 4M x 64 against CRN finite differences of the
+    # kernel price (same seed: the same normals)
+    n, m = MA_LADDER
+    g, ms = timed(lambda: k(mk.multi_asset_kernel_greeks, "basket_asian", *MA_ARGS, n_paths=n,
+                            n_steps=m, seed=1, **kw))
+    walls.append(f"basket_asian LR ladder {g['paths']}x{m} {ms:.3f} ms")
+
+    def price(spots=MA_SPOTS, vols=MA_VOLS, t=T, r=RATE):
+        return k(mk.multi_asset_kernel_price, "basket_asian", spots, STRIKE, t, r, vols,
+                 MA_CORR, n_paths=n, n_steps=m, seed=1, **kw)[0].item()
+
+    def bump(vec, i, h):
+        out = list(vec)
+        out[i] += h
+        return out
+
+    fd_delta = [(price(spots=bump(MA_SPOTS, i, 0.5)) - price(spots=bump(MA_SPOTS, i, -0.5)))
+                for i in range(3)]
+    fd_vega = [(price(vols=bump(MA_VOLS, i, 1e-3)) - price(vols=bump(MA_VOLS, i, -1e-3))) / 2e-3
+               for i in range(3)]
+    fd_theta = -(price(t=T + 1e-2) - price(t=T - 1e-2)) / 2e-2
+    fd_rho = (price(r=RATE + 1e-2) - price(r=RATE - 1e-2)) / 2e-2
+    pg = g["paths"]
+    rows = [ma_fd_check("asian delta", g["delta"], fd_delta, 0.02, se[("asian", "delta")], pg),
+            ma_fd_check("asian vega", g["vega"], fd_vega,
+                        0.12 * np.abs(fd_vega) + 1.0, se[("asian", "vega")], pg),
+            ma_fd_check("asian theta", g["theta"], fd_theta, 0.15, se[("asian", "theta")], pg),
+            ma_fd_check("asian rho", g["rho"], fd_rho, 0.5, se[("asian", "rho")], pg)]
+    log("multi_asset", f"basket_asian ladder vs CRN FD ({pg} paths x {m}), bounds max(reference "
+                       f"bound x sqrt(paths ratio), 5 se): " + " ".join(rows))
+
+    # the terminal kinds at 4M x 1
+    n, m = MA_TERMINAL
+    (pg_, se_g, _), ms = timed(lambda: k(mk.multi_asset_kernel_price, "basket_geo", *MA_ARGS,
+                                         n_paths=n, **kw))
+    walls.append(f"basket_geo {paths}x1 {ms:.3f} ms")
+    s64 = torch.tensor(MA_SPOTS, dtype=torch.float64, requires_grad=True)
+    v64 = torch.tensor(MA_VOLS, dtype=torch.float64, requires_grad=True)
+    t64 = torch.tensor(T, dtype=torch.float64, requires_grad=True)
+    r64 = torch.tensor(RATE, dtype=torch.float64, requires_grad=True)
+    exact = mam.geometric_basket_closed_form(s64, MA_W, STRIKE, t64, r64, v64, MA_CORR)
+    d_s, d_v, d_t, d_r = torch.autograd.grad(exact, (s64, v64, t64, r64), create_graph=True)
+    hess = torch.stack([torch.autograd.grad(d_s[i], s64, retain_graph=True)[0]
+                        for i in range(3)])
+    log("multi_asset", f"basket_geo {pg_.item():.6f}±{se_g.item():.2e} vs closed form "
+                       f"{exact.item():.6f}")
+    check(abs(pg_.item() - exact.item()) < 5 * se_g.item(), "basket_geo vs its closed form")
+    gl, ms = timed(lambda: k(mk.multi_asset_kernel_greeks, "basket_geo", *MA_ARGS, n_paths=n,
+                             **kw))
+    walls.append(f"basket_geo LR ladder {gl['paths']}x1 {ms:.3f} ms")
+    pl = gl["paths"]
+    rows = [ma_fd_check("geo delta", gl["delta"], d_s.detach(), 0.02, se[("geo", "delta")], pl),
+            ma_fd_check("geo vega", gl["vega"], d_v.detach(), 1.6, se[("geo", "vega")], pl),
+            ma_fd_check("geo gamma", gl["gamma"], hess.detach(), 1e-3, se[("geo", "gamma")], pl),
+            ma_fd_check("geo theta", gl["theta"], -d_t.item(), 0.15, se[("geo", "theta")], pl),
+            ma_fd_check("geo rho", gl["rho"], d_r.item(), 0.4, se[("geo", "rho")], pl)]
+    check(bool(torch.equal(gl["gamma"], gl["gamma"].T)), "basket_geo gamma not symmetric")
+    log("multi_asset", f"basket_geo ladder vs autograd of the closed form ({pl} paths), bounds "
+                       f"max(reference bound x sqrt(paths ratio), 5 se): " + " ".join(rows))
+    # spread K = 0 against Margrabe
+    ps, se_s, _ = k(mk.multi_asset_kernel_price, "spread", [100.0, 95.0], 0.0, T, RATE,
+                    [0.2, 0.25], [[1.0, 0.6], [0.6, 1.0]], n_paths=n, device=dev)
+    marg = mam.margrabe_price(100.0, 95.0, T, 0.2, 0.25, 0.6).item()
+    log("multi_asset", f"spread K=0 {ps.item():.6f}±{se_s.item():.2e} vs Margrabe {marg:.6f}")
+    check(abs(ps.item() - marg) < 5 * se_s.item(), "spread K=0 vs Margrabe")
+    # sobol: the pure QMC terminal law well inside the prng stderr
+    (pq, se_q, _), ms = timed(lambda: k(mk.multi_asset_kernel_price, "basket_geo", *MA_ARGS,
+                                        n_paths=n, sampler="sobol", **kw))
+    walls.append(f"basket_geo sobol {paths}x1 {ms:.3f} ms")
+    log("multi_asset", f"basket_geo sobol {pq.item():.6f} (RQMC se {se_q.item():.2e}) vs closed "
+                       f"form {exact.item():.6f}, prng se {se_g.item():.2e}")
+    check(abs(pq.item() - exact.item()) < 0.5 * se_g.item(), "sobol not well inside prng noise")
+    check(se_q.item() < se_g.item(), "sobol RQMC stderr not below the prng stderr")
+    # the geometric control variate: unbiased against plain, and tighter
+    p_pl, se_pl, _ = k(mk.multi_asset_kernel_price, "basket", *MA_ARGS, n_paths=n, **kw)
+    (p_cv, se_cv, _), ms = timed(lambda: k(mk.multi_asset_kernel_price, "basket", *MA_ARGS,
+                                           n_paths=n, control_variate=True, **kw))
+    walls.append(f"basket CV {paths}x1 {ms:.3f} ms")
+    log("multi_asset", f"basket CV {p_cv.item():.6f}±{se_cv.item():.2e} vs plain "
+                       f"{p_pl.item():.6f}±{se_pl.item():.2e} "
+                       f"({se_pl.item() / se_cv.item():.1f}x tighter)")
+    check(abs(p_cv.item() - p_pl.item()) < 4 * math.hypot(se_cv.item(), se_pl.item()),
+          "basket CV vs plain")
+    check(se_cv.item() < se_pl.item() / 4.0, "basket CV not 4x tighter")
+    log("multi_asset", f"warm wall, mean of 3 [{card}]: " + "; ".join(walls))
+
+
+def phase_ma_server(dev) -> int:
+    """``/basket`` over a socket; returns the requests routed to the
+    kernel."""
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    routed = 0
+    try:
+        for body in ({}, {"control_variate": True}, {"kind": "basket_geo", "sampler": "sobol"},
+                     {"kind": "basket_asian", "n_steps": 64, "greeks": True},
+                     {"kind": "spread", "spots": [100.0, 95.0], "vols": [0.2, 0.25],
+                      "strike": 0.0, "greeks": True}):
+            status, out = _request(base + "/basket", {"n_paths": 4_000_000, **body})
+            routed += 1
+            check(status == 200 and math.isfinite(out["price"]) and out["std_error"] > 0,
+                  f"/basket {body}: {status} {out}")
+            log("multi_asset server", f"/basket {out['kind']} {out['sampler']}: "
+                                      f"price={out['price']:.5f} se={out['std_error']:.2e} "
+                                      f"paths={out['paths']}"
+                + (f" delta={np.round(out['delta'], 4).tolist()}" if "delta" in out else "")
+                + (f" [{out['stderr_note']}]" if "stderr_note" in out else ""))
+    finally:
+        server.stop()
+    return routed
+
+
+def ma_timing(dev) -> dict:
+    """Device ms of the multi-asset kernel and its plain version at the
+    path's three shapes (prng). Not counted as main path."""
+    out = {}
+    for tag, kind, (n, m), lr in ((f"multi_asset basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}",
+                                   "basket_asian", MA_PRICE, False),
+                                  (f"multi_asset basket_asian LR {MA_LADDER[0]}x{MA_LADDER[1]}",
+                                   "basket_asian", MA_LADDER, True),
+                                  (f"multi_asset basket_geo LR {MA_TERMINAL[0]}x1", "basket_geo",
+                                   MA_TERMINAL, True)):
+        p = ma_vector(3, kind, m, lr, dev)
+        kw = dict(d=3, kind=kind, n_steps=m, n_blocks=mk._n_blocks(n, mk.PATHS_PER_BLOCK),
+                  cp=1.0, sampler="prng", lr=lr)
+        ms, plain_ms = event_pair(lambda: mk._ma_cuda(0, 0, p, **kw),
+                                  lambda: mk._ma_plain(0, 0, p, **kw))
+        out[tag] = {"ms": ms, "plain_ms": plain_ms,
+                    "trips": kw["n_blocks"] * mk.ROWS * mk.LANES * m,
+                    "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS)}
+    return out
+
+
+# mangled-name parts (D, basket Asian, lr, sampler) and MUFU.RSQ per step
+# trip: d = 3 Box–Mullers; the bound counts the step loop (the terminal
+# shape's epilogue, as large as its one step, is left out: a lower bound)
+MA_SASS = {"multi_asset basket_asian LR": (("multi_asset_kernelILi3ELb1ELb1ELi0E",), 3),
+           "multi_asset basket_asian": (("multi_asset_kernelILi3ELb1ELb0ELi0E",), 3),
+           "multi_asset basket_geo LR": (("multi_asset_kernelILi3ELb0ELb1ELi0E",), 3)}
+
+
 def h_timing(h_t: dict, prefix: str) -> dict:
     (tag,) = [t for t in h_t if t.startswith(prefix)]
     return h_t[tag]
@@ -2043,6 +2333,7 @@ def main() -> None:
     h_err = phase_heston_parity(dev)
     hx_err = phase_hx_parity(dev)
     lv_err, slv_err = phase_smile_parity(dev)
+    ma_err = phase_ma_parity(dev)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -2104,6 +2395,17 @@ def main() -> None:
         log("launches", f"{name} launched {n_l} times for {want} kernel-route calls")
         check(n_l == want and n_l > 0, f"smile path launched {name} {n_l} times, not {want}")
 
+    # the multi-asset path
+    ma_se = ma_greek_stderrs(dev)
+    ma_calls = {"ma": 0}
+    mk._ma_cuda.launches = 0
+    phase_ma_main(dev, card, ma_se, ma_calls)
+    ma_served = phase_ma_server(dev)
+    ma_launches, ma_want = mk._ma_cuda.launches, ma_calls["ma"] + ma_served
+    log("launches", f"multi_asset_mc launched {ma_launches} times for {ma_want} kernel-route calls")
+    check(ma_launches == ma_want and ma_launches > 0,
+          f"multi-asset path launched its kernel {ma_launches} times, not {ma_want}")
+
     funcs = load_sass()
     gbm_t = phase_timing(dev)
     for tag, t in gbm_t.items():
@@ -2133,9 +2435,14 @@ def main() -> None:
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, SMILE_SASS[key][0], t["trips"],
                                                     t["bytes"], tag,
                                                     rsq_per_trip=SMILE_SASS[key][1])
+    ma_t = ma_timing(dev)
+    for tag, t in ma_t.items():
+        key = next(k_ for k_ in sorted(MA_SASS, key=len, reverse=True) if tag.startswith(k_))
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, MA_SASS[key][0], t["trips"], t["bytes"],
+                                                    tag, rsq_per_trip=MA_SASS[key][1])
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
-                   + list(smile_t.items())):
+                   + list(smile_t.items()) + list(ma_t.items())):
         sampler = "hash residuals" if "sobol_bb" in tag else "prng"
         log("timing", f"{tag} {sampler}, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
                       f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
@@ -2172,6 +2479,9 @@ def main() -> None:
               smile_t[f"local_vol european {LV_MAIN[0]}x{LV_MAIN[1]}"]),
         entry("slv_mc_kernel", "slv_mc.cu", "optionslab_tpu/ops/slv_pallas.py:106", slv_launches,
               slv_err, smile_t[f"slv barrier {SLV_MAIN[0]}x{SLV_MAIN[1]}"]),
+        entry("multi_asset_mc_kernel", "multi_asset_mc.cu",
+              "optionslab_tpu/ops/multi_asset_pallas.py:58", ma_launches, ma_err,
+              ma_t[f"multi_asset basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}"]),
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -28,13 +28,19 @@ the surface, the local-vol PDE, the scan engine) and stochastic local vol
 more kernels (``csrc/local_vol_mc.cu``, ``csrc/slv_mc.cu``) through
 ``ops.local_vol_kernel.LocalVolKernelPricer`` and
 ``ops.slv_kernel.SLVKernelPricer``, and served by ``/exotic`` with
-``model: "lv"|"slv"``.
+``model: "lv"|"slv"``; and the multi-asset path: correlated baskets,
+rainbows, spreads and the basket Asian on d = 2–4 assets with a per-asset
+likelihood-ratio Greek ladder, from one more kernel
+(``csrc/multi_asset_mc.cu``) through ``ops.multi_asset_kernel``, the scan
+engine and closed forms of ``models.multi_asset``, the Bermudan max-call
+bracket of ``models.multi_asset_american``, and the server's ``/basket``.
 
 Subpackages
 -----------
 ``models``  Black–Scholes, Monte Carlo, exotics (closed forms, scan engine,
             dataclasses), contract books, Heston, Bates and the
-            Heston/Bates exotics' scan engine, local vol and SLV
+            Heston/Bates exotics' scan engine, local vol and SLV, the
+            multi-asset engines and the multi-asset Bermudan bracket
 ``ops``     the kernels' wrappers and plain versions, samplers, QMC, math
 ``utils``   dtype policy, exceptions, validation, logging, timing
 """
@@ -84,6 +90,8 @@ from .ops import (
     heston_kernel_greeks,
     heston_kernel_price,
     make_chain_pricer,
+    multi_asset_kernel_greeks,
+    multi_asset_kernel_price,
 )
 from .server import PricingServer
 from .types import ContractBatch
@@ -131,6 +139,8 @@ __all__ = [
     "heston_kernel_price",
     "heston_price",
     "make_chain_pricer",
+    "multi_asset_kernel_greeks",
+    "multi_asset_kernel_price",
     "mc_greeks",
     "mc_price",
     "mc_price_control_variate",

@@ -7,9 +7,13 @@
   random numbers by construction).
 * ``MCMethod.KERNEL`` prices through the fused GBM kernel, with the full
   Greek ladder from the same pass.
+* ``MCMethod.QMC`` is the tensor path on scrambled Sobol normals
+  (``ops/rng.qmc_normals``, one random digital shift per dimension drawn
+  from the generator).
 * Greeks on the tensor path are pathwise by ``torch.autograd`` through the
   simulator at fixed normals; gamma uses the mixed likelihood-ratio /
-  pathwise estimator (see :func:`mc_greeks`).
+  pathwise estimator (see :func:`mc_greeks`), or, for any payoff, the
+  sigmoid-smoothed second derivative (:func:`mc_greeks_smoothed`).
 
 The enum's wire values (``"xla"``, ``"pallas"``) are those of
 ``optionslab_tpu.models.monte_carlo.MCMethod``, so configs and request
@@ -26,6 +30,8 @@ from typing import Callable
 import torch
 
 from ..ops.gbm_kernel import gbm_mc_price_greeks
+from ..ops.math import smooth_indicator
+from ..ops.rng import qmc_normals
 from ..types import ContractBatch
 from ..utils.config import DEFAULT_DTYPE, EPS_TIME
 from ..utils.exceptions import ValidationError
@@ -35,7 +41,7 @@ class MCMethod(enum.Enum):
     """Sampling backend."""
 
     TENSOR = "xla"  # torch tensor ops from a torch.Generator
-    QMC = "qmc"  # scrambled Sobol: not ported yet (needs ops/rng)
+    QMC = "qmc"  # scrambled Sobol normals (ops/rng.qmc_normals)
     KERNEL = "pallas"  # fused GBM kernel (ops/gbm_kernel.py)
 
 
@@ -67,20 +73,25 @@ def _validate_config(cfg: MCConfig) -> None:
         raise ValidationError(f"n_steps must be positive, got {cfg.n_steps}")
     if cfg.antithetic and cfg.n_paths % 2:
         raise ValidationError("antithetic sampling requires an even n_paths")
-    if cfg.method == MCMethod.QMC:
-        raise ValidationError("MCMethod.QMC is not yet ported; use TENSOR or KERNEL")
 
 
 # ---------------------------------------------------------------------------
 # Normal draws — (n_paths, n_steps), shared across the contract axis (CRN)
 # ---------------------------------------------------------------------------
-def draw_normals(generator: torch.Generator, cfg: MCConfig) -> torch.Tensor:
+def draw_normals(generator: torch.Generator | None, cfg: MCConfig) -> torch.Tensor:
     """(n_paths, n_steps) standard normals on the generator's device
-    (antithetic pairs are rows i and i + n/2)."""
+    (antithetic pairs are rows i and i + n/2). ``MCMethod.QMC`` draws Sobol
+    points through the inverse normal CDF, scrambled by the generator (with
+    no generator: the unscrambled sequence on the CPU)."""
     _validate_config(cfg)
     n, m = cfg.n_paths, cfg.n_steps
     rows = n // 2 if cfg.antithetic else n
-    z = torch.randn((rows, m), generator=generator, dtype=cfg.dtype, device=generator.device)
+    if cfg.method == MCMethod.QMC:
+        dev = generator.device if generator is not None else None
+        z = qmc_normals(rows, m, generator=generator, dtype=cfg.dtype, device=dev)
+    else:
+        z = torch.randn((rows, m), generator=generator, dtype=cfg.dtype,
+                        device=generator.device)
     return torch.cat([z, -z], dim=0) if cfg.antithetic else z
 
 
@@ -224,6 +235,26 @@ def mc_greeks(batch: ContractBatch, generator: torch.Generator,
         "dual_delta": dK,
         "dividend_rho": dq,
     }
+
+
+def mc_greeks_smoothed(batch: ContractBatch, generator: torch.Generator,
+                       cfg: MCConfig = MCConfig(), width: float = 0.5) -> dict:
+    """Delta and gamma for any payoff by kink smoothing.
+
+    The payoff's indicator becomes a sigmoid of width ``width`` (spot
+    units), so the second derivative by ``torch.autograd`` is meaningful;
+    the bias is O(width²). Gamma is the diagonal of the Hessian: contracts
+    are independent, so it is the gradient of the summed deltas."""
+    z = draw_normals(generator, cfg)
+    b0 = batch.broadcast()
+    spot = b0.spot.detach().clone().requires_grad_(True)
+    with torch.enable_grad():
+        b = ContractBatch(spot, b0.strike, b0.maturity, b0.rate, b0.vol, b0.dividend, b0.cp)
+        x = b.cp[..., None] * (gbm_terminal(b, z) - b.strike[..., None])
+        total = (b.discount() * (x * smooth_indicator(x, width)).mean(dim=-1)).sum()
+        (delta,) = torch.autograd.grad(total, spot, create_graph=True)
+        (gamma,) = torch.autograd.grad(delta.sum(), spot)
+    return {"delta": delta.detach(), "gamma": gamma}
 
 
 # ---------------------------------------------------------------------------

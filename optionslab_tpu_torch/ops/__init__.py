@@ -34,6 +34,7 @@ from .heston_kernel import (
     make_chain_pricer,
 )
 from .local_vol_kernel import LocalVolKernelPricer, fit_sigma_polys, local_vol_kernel_price
+from .multi_asset_kernel import multi_asset_kernel_greeks, multi_asset_kernel_price
 from .optim import scan_adam, scan_adam_batched, scan_adam_cached
 from .slv_kernel import SLVKernelPricer, fit_leverage_polys, slv_kernel_exotic_price
 from .tridiag import tridiag_solve
@@ -77,6 +78,8 @@ __all__ = [
     "LocalVolKernelPricer",
     "local_vol_kernel_price",
     "make_chain_pricer",
+    "multi_asset_kernel_greeks",
+    "multi_asset_kernel_price",
     "range_accrual_lr_greeks",
     "range_accrual_price",
     "scan_adam",

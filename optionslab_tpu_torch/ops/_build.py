@@ -186,6 +186,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.slv_moments.restype = _I
+    lib.multi_asset_moments.argtypes = [
+        _P, _I, _U, _U,              # params, n_params, seed, block0
+        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _I, _I, _F,              # d, kind, n_steps, cp
+        _I, _I, _I,                  # sampler, lr, n_mom
+        _P, _P,                      # partials, out
+        _I, _P,                      # device, stream
+    ]
+    lib.multi_asset_moments.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

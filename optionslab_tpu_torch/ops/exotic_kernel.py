@@ -723,12 +723,13 @@ def _f32(x: torch.Tensor) -> torch.Tensor:
 def _mean_stderr(pay: torch.Tensor, pay2: torch.Tensor, n: int, df: float, sampler: str):
     """(price, stderr) float32 from per-row sums, computed in float64.
 
-    Plain samplers: sqrt(Var/n). QMC samplers: the 8 row groups (row & 7)
-    are independently scrambled replicates, and the stderr is the std of
-    their means over sqrt(8) — the randomized-QMC replication estimate."""
+    Plain samplers: sqrt(Var/n). QMC samplers (``sobol_bb*``, and the
+    multi-asset kernel's ``sobol``): the 8 row groups (row & 7) are
+    independently scrambled replicates, and the stderr is the std of their
+    means over sqrt(8) — the randomized-QMC replication estimate."""
     pay = pay.double()
     mean = pay.sum() / n
-    if _is_qmc(sampler):
+    if sampler.startswith("sobol"):
         rep = pay.reshape(ROWS // 8, 8).sum(dim=0) * (8.0 / n)
         se = rep.std(correction=1) / math.sqrt(8.0)
     else:

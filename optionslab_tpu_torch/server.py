@@ -37,6 +37,14 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
                 one kernel launch, "model" "bs" (the exotic kernel) or
                 "heston"|"bates" (the Heston exotic kernel; dynamics and
                 "scheme" from the body)
+  /basket       {"kind": "basket|basket_geo|rainbow_best|rainbow_worst|
+                 spread|basket_asian", "spots", "vols", "corr" or "rho",
+                 "weights", "control_variate": bool, "greeks": bool, ...}
+                                                    → the multi-asset kernel:
+                price (``control_variate`` adds the geometric control
+                variate to an arithmetic basket) or, with ``greeks``, the
+                per-asset LR ladder; "sampler" prng (default), hash or sobol
+                (terminal kinds, the error bar labelled by "stderr_note")
   /health  (GET) → status, device name and device count
   /metrics (GET) → per-endpoint request-latency count/p50/p95/max (ms)
 
@@ -77,6 +85,8 @@ from .models.monte_carlo import MCConfig, mc_greeks, mc_price_result
 from .ops.exotic_kernel import exotic_kernel_ladder, exotic_price
 from .ops.gbm_kernel import gbm_mc_price_greeks
 from .ops.local_vol_kernel import LocalVolKernelPricer
+from .ops.multi_asset_kernel import KINDS as BASKET_KINDS
+from .ops.multi_asset_kernel import multi_asset_kernel_greeks, multi_asset_kernel_price
 from .ops.slv_kernel import SLVKernelPricer
 from .ops.heston_exotic_kernel import (
     heston_kernel_autocall_lr_greeks,
@@ -545,7 +555,49 @@ def handle_book(body: dict, device) -> dict:
         device=device)
 
 
+def handle_basket(body: dict, device) -> dict:
+    """The multi-asset kernel over the wire, with the request body and
+    answer keys of the JAX package's ``/basket``: a price (any kind, the
+    geometric control variate with ``control_variate``) or the full
+    per-asset LR ladder (``greeks``). ``rho`` builds an equicorrelation
+    matrix when ``corr`` is absent; ``n_paths`` is capped at 4,000,000."""
+    spots = [float(x) for x in body.get("spots", [100.0, 95.0, 105.0])]
+    vols = [float(x) for x in body.get("vols", [0.2, 0.25, 0.3])]
+    d = len(spots)
+    corr = body.get("corr")
+    if corr is None:
+        corr = np.full((d, d), float(body.get("rho", 0.4)))
+        np.fill_diagonal(corr, 1.0)
+    kind = str(body.get("kind", "basket"))
+    if kind not in BASKET_KINDS:
+        raise ValidationError(f"unknown kind {kind!r}; choose {BASKET_KINDS}")
+    cp = 1.0 if str(body.get("option_type", "call")).lower().startswith("c") else -1.0
+    kw = dict(weights=body.get("weights"), cp=cp,
+              n_paths=min(int(body.get("n_paths", 500_000)), 4_000_000),
+              n_steps=int(body.get("n_steps", 1)), seed=int(body.get("seed", 0)),
+              sampler=str(body.get("sampler", "prng")), device=device)
+    args = (kind, spots, float(body.get("strike", 100.0)), float(body.get("maturity", 1.0)),
+            float(body.get("rate", 0.05)), vols, corr)
+    greeks = bool(body.get("greeks"))
+    if greeks:
+        out = {k: _to_jsonable(v) for k, v in multi_asset_kernel_greeks(*args, **kw).items()}
+    else:
+        cv = bool(body.get("control_variate"))
+        p, se, n = multi_asset_kernel_price(*args, **kw, control_variate=cv)
+        out = {"price": float(p), "std_error": float(se), "paths": int(n)}
+        if cv:
+            out["control_variate"] = "geometric"
+    out.update(kind=kind, sampler=kw["sampler"])
+    if kw["sampler"] == "sobol":
+        out["stderr_note"] = (
+            "QMC: std_error uses the plain-MC formula and is indicative only" if greeks else
+            "randomized QMC: std_error is the std of 8 independently scrambled replicates' "
+            "means over sqrt(8)")
+    return out
+
+
 ROUTES = {
+    "/basket": handle_basket,
     "/price": handle_price,
     "/greeks": handle_greeks,
     "/mc": handle_mc,

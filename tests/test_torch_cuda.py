@@ -556,3 +556,73 @@ def test_local_vol_and_slv_wrappers_reject_cpu_tensors(cuda_device, slv_pricer):
     with pytest.raises(ValueError, match="contiguous"):
         sk._slv_cuda(0, 0, slv_pricer._params_vec("european", 100.0, 0.0).double(),
                      kind="european", n_steps=12, n_blocks=1, cp=1.0)
+
+
+# ---------------------------------------------------------------------------
+# The multi-asset kernel (csrc/multi_asset_mc.cu)
+# ---------------------------------------------------------------------------
+MA_SPOTS = [100.0, 95.0, 105.0, 98.0]
+MA_VOLS = [0.2, 0.25, 0.3, 0.22]
+MA_CORR = [[1.0, 0.5, 0.3, 0.2], [0.5, 1.0, 0.4, 0.1], [0.3, 0.4, 1.0, 0.25],
+           [0.2, 0.1, 0.25, 1.0]]
+
+
+def _ma_vec(d, kind, n_steps, lr, device):
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    corr = [row[:d] for row in MA_CORR[:d]]
+    p = mk._params_vec(MA_SPOTS[:d], None, 100.0, 1.0, 0.05, MA_VOLS[:d], corr, 0.0, n_steps,
+                       lr=lr, cv=kind == "basket_cv")[2]
+    return torch.tensor(p, device=device)
+
+
+# (d, kind, n_steps) × (sampler, lr); sobol is terminal-only, basket_cv has no lr
+MA_CASES = [(d, kind, n_steps, sampler, lr and kind != "basket_cv")
+            for d, kind, n_steps in ((2, "spread", 1), (3, "basket", 1), (4, "rainbow_worst", 1),
+                                     (3, "basket_asian", 6), (4, "basket_cv", 1),
+                                     (2, "basket_geo", 1))
+            for sampler, lr in (("hash", False), ("prng", True), ("sobol", True))
+            if sampler != "sobol" or n_steps == 1]
+
+
+@pytest.mark.parametrize("d,kind,n_steps,sampler,lr", MA_CASES)
+def test_multi_asset_kernel_matches_plain_on_card(cuda_device, d, kind, n_steps, sampler, lr):
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    params = _ma_vec(d, kind, n_steps, lr, cuda_device)
+    kw = dict(d=d, kind=kind, n_steps=n_steps, n_blocks=3, cp=-1.0 if d == 4 else 1.0,
+              sampler=sampler, lr=lr)
+    before = mk._ma_cuda.launches
+    kern = mk._ma_cuda(5, 2, params, **kw)
+    assert mk._ma_cuda.launches == before + 1
+    _assert_sums_close(kern, mk._ma_plain(5, 2, params, **kw))
+
+
+def test_multi_asset_entry_points_on_card(cuda_device):
+    from optionslab_tpu_torch.models.multi_asset import geometric_basket_closed_form
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    args = ("basket_geo", MA_SPOTS[:3], 100.0, 1.0, 0.05, MA_VOLS[:3],
+            [row[:3] for row in MA_CORR[:3]])
+    before = mk._ma_cuda.launches
+    p, se, n = mk.multi_asset_kernel_price(*args, n_paths=4_000_000)
+    g = mk.multi_asset_kernel_greeks(*args, n_paths=1_000_000)
+    cv, cv_se, _ = mk.multi_asset_kernel_price("basket", *args[1:], n_paths=1_000_000,
+                                               control_variate=True)
+    assert mk._ma_cuda.launches == before + 3
+    assert p.device.type == "cuda" and n >= 4_000_000
+    spots, strike, t, r, vols, corr = args[1:]
+    exact = geometric_basket_closed_form(spots, [1.0 / 3] * 3, strike, t, r, vols, corr).item()
+    assert abs(p.item() - exact) < 5 * se.item()
+    assert abs(g["price"].item() - exact) < 5 * g["std_error"].item()
+    assert g["gamma"].shape == (3, 3) and math.isfinite(g["theta"]) and math.isfinite(cv.item())
+
+
+def test_multi_asset_wrapper_rejects_bad_tensors(cuda_device):
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    kw = dict(d=3, kind="basket", n_steps=1, n_blocks=1, cp=1.0)
+    with pytest.raises(ValueError, match="CUDA"):
+        mk._ma_cuda(0, 0, _ma_vec(3, "basket", 1, False, "cpu"), **kw)
+    with pytest.raises(ValueError, match="contiguous"):  # an lr vector without lr=True
+        mk._ma_cuda(0, 0, _ma_vec(3, "basket", 1, True, cuda_device), **kw)

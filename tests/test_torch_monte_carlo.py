@@ -103,7 +103,7 @@ def test_mc_greeks_autograd_matches_jax_grad(rng, same_normals, n_steps):
 
 @pytest.mark.parametrize("kwargs", [dict(n_paths=0), dict(n_steps=0),
                                     dict(n_paths=1001, antithetic=True),
-                                    dict(method=tmc.MCMethod.QMC)])
+                                    dict(n_paths=1001, method=tmc.MCMethod.QMC)])
 def test_validate_config_errors(kwargs):
     with pytest.raises(ValidationError):
         tmc._validate_config(tmc.MCConfig(**kwargs))
@@ -111,11 +111,70 @@ def test_validate_config_errors(kwargs):
         tmc.MonteCarloPricer(**kwargs, device="cpu")
 
 
+@pytest.mark.parametrize("antithetic", [True, False])
+@pytest.mark.parametrize("n_steps", [1, 3])
+def test_qmc_normals_and_price_match_jax(n_steps, antithetic):
+    """Unscrambled (no generator / no key) the two packages draw the same
+    Sobol normals, so the QMC prices agree to float64 rounding."""
+    jb, tb = _books(np.random.default_rng(5))
+    jcfg = jmc.MCConfig(n_paths=4096, n_steps=n_steps, antithetic=antithetic,
+                        method=jmc.MCMethod.QMC, dtype=jnp.float64)
+    tcfg = tmc.MCConfig(n_paths=4096, n_steps=n_steps, antithetic=antithetic,
+                        method=tmc.MCMethod.QMC, dtype=torch.float64)
+    z = tmc.draw_normals(None, tcfg)
+    np.testing.assert_allclose(_np(z), np.asarray(jmc.draw_normals(None, jcfg)), rtol=1e-9,
+                               atol=1e-12)
+    if antithetic:
+        torch.testing.assert_close(z[2048:], -z[:2048])
+    np.testing.assert_allclose(_np(tmc.mc_price(tb, None, tcfg)),
+                               np.asarray(jmc.mc_price(jb, None, jcfg)), rtol=1e-9)
+
+
+def test_qmc_pricer_matches_bs():
+    """MCMethod.QMC (scrambled by the pricer's generator) lands closer to
+    Black–Scholes than the pseudo-random tensor path's error bar, and is
+    reproducible."""
+    kw = dict(n_paths=65_536, seed=3, device="cpu", dtype=torch.float64)
+    qmc = tmc.MonteCarloPricer(method=tmc.MCMethod.QMC, **kw)
+    exact = bs_greeks(100.0, 100.0, 1.0, 0.05, 0.2)["price"].item()
+    res = tmc.MonteCarloPricer(**kw).price(100.0, 100.0, 1.0, 0.05, 0.2, return_result=True)
+    p_q = qmc.price(100.0, 100.0, 1.0, 0.05, 0.2)
+    assert abs(p_q.item() - exact) < 0.25 * res.std_error.item()
+    assert p_q.item() == qmc.price(100.0, 100.0, 1.0, 0.05, 0.2).item()
+    g = qmc.greeks(100.0, 100.0, 1.0, 0.05, 0.2)
+    assert abs(g["delta"].item() - 0.6368) < 2e-3
+
+
+@pytest.mark.parametrize("width", [0.5, 2.0])
+def test_mc_greeks_smoothed_matches_jax(rng, same_normals, width):
+    jb, tb = _books(rng)
+    same_normals(rng.standard_normal((4096, 1)))
+    jcfg = jmc.MCConfig(n_paths=4096, antithetic=False)
+    tcfg = tmc.MCConfig(n_paths=4096, antithetic=False)
+    jg = jmc.mc_greeks_smoothed(jb, None, jcfg, width=width)
+    tg = tmc.mc_greeks_smoothed(tb, None, tcfg, width=width)
+    for k in ("delta", "gamma"):
+        np.testing.assert_allclose(_np(tg[k]), np.asarray(jg[k]), rtol=1e-9, atol=1e-12,
+                                   err_msg=k)
+
+
+def test_mc_greeks_smoothed_near_bs():
+    """O(width²) bias: a narrow sigmoid recovers the Black–Scholes delta and
+    gamma on a QMC draw."""
+    b = ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, "call", dtype=torch.float64)
+    cfg = tmc.MCConfig(n_paths=262_144, method=tmc.MCMethod.QMC, dtype=torch.float64)
+    g = tmc.mc_greeks_smoothed(b, torch.Generator().manual_seed(0), cfg, width=0.5)
+    ex = bs_greeks(100.0, 100.0, 1.0, 0.05, 0.2)
+    assert abs(g["delta"].item() - ex["delta"].item()) < 2e-3
+    assert abs(g["gamma"].item() - ex["gamma"].item()) < 1e-3
+
+
 def test_method_wire_values_match_jax():
     assert tmc.MCMethod("xla") is tmc.MCMethod.TENSOR
     assert tmc.MCMethod("pallas") is tmc.MCMethod.KERNEL
     assert tmc.MCMethod.KERNEL.value == jmc.MCMethod.PALLAS.value
     assert tmc.MCMethod.TENSOR.value == jmc.MCMethod.XLA.value
+    assert tmc.MCMethod.QMC.value == jmc.MCMethod.QMC.value
 
 
 def test_draw_normals_antithetic_and_reproducible():

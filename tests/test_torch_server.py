@@ -10,6 +10,7 @@ import urllib.error
 import urllib.request
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -129,12 +130,63 @@ def test_metrics_count_requests(base_url):
     assert status == 200 and out["/greeks"]["count"] >= 1
 
 
+# /basket against the JAX package's handler (its kernel draws with `hash` or
+# `sobol` off the TPU), one path block: the same keys, prices and stderrs to
+# rtol 1e-5 (a sobol stderr: 1e-5 of the price), Greeks to 1e-4 of
+# max(|value|, 1e-2·price)
+BASKET_BODIES = {
+    "price": {},
+    "cv_put": {"control_variate": True, "option_type": "put", "strike": 105.0},
+    "sobol_geo": {"kind": "basket_geo", "sampler": "sobol", "weights": [0.4, 0.3, 0.3]},
+    "greeks": {"greeks": True, "rho": 0.2},
+    "greeks_sobol_spread": {"greeks": True, "kind": "spread", "spots": [100.0, 95.0],
+                            "vols": [0.2, 0.25], "strike": 0.0, "sampler": "sobol"},
+    "asian": {"kind": "basket_asian", "n_steps": 8,
+              "corr": [[1.0, 0.5, 0.3], [0.5, 1.0, 0.4], [0.3, 0.4, 1.0]]},
+}
+
+
+@pytest.mark.parametrize("case", sorted(BASKET_BODIES))
+def test_basket_matches_reference(base_url, case):
+    from optionslab_tpu.server import handle_basket
+
+    body = {"n_paths": 1, "seed": 4, "sampler": "hash", **BASKET_BODIES[case]}
+    status, out = _call(base_url + "/basket", body)
+    assert status == 200, out
+    ref = handle_basket(dict(body))
+    assert set(out) == set(ref)
+    for key in ("kind", "sampler", "paths", "control_variate"):
+        assert out.get(key) == ref.get(key), key
+    np.testing.assert_allclose(out["price"], ref["price"], rtol=1e-5)
+    # the sobol stderr is the spread of 8 replicate means, each good to 1e-5 of the price
+    np.testing.assert_allclose(out["std_error"], ref["std_error"], rtol=1e-5,
+                               atol=1e-5 * ref["price"])
+    for key in ("delta", "vega", "gamma", "theta", "rho"):
+        if key in ref:
+            want = np.asarray(ref[key])
+            scale = np.maximum(np.abs(want), 1e-2 * ref["price"])
+            assert (np.abs(np.asarray(out[key]) - want) / scale).max() < 1e-4, key
+    if body["sampler"] == "sobol":  # the error bar labelled for what it is
+        note = out["stderr_note"]
+        assert ("plain-MC" in note) == bool(body.get("greeks")), note
+
+
+@pytest.mark.parametrize("body,names", [({"kind": "nope"}, "unknown kind"),
+                                        ({"kind": "spread"}, "2 assets"),
+                                        ({"kind": "basket_asian", "n_steps": 4,
+                                          "sampler": "sobol"}, "terminal-only"),
+                                        ({"rho": -0.9}, "positive definite")])
+def test_basket_bad_requests_are_400(base_url, body, names):
+    status, out = _call(base_url + "/basket", {"n_paths": 1, **body})
+    assert status == 400 and names in out["error"], out
+
+
 @pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/american"),
                                          ("POST", "/health")])
 def test_unknown_route_is_404(base_url, method, path):
     status, out = _call(base_url + path, {} if method == "POST" else None)
     assert status == 404
-    assert {"/mc", "/exotic", "/book/exotic"} <= set(out["endpoints"])
+    assert {"/mc", "/exotic", "/book/exotic", "/basket"} <= set(out["endpoints"])
 
 
 # /exotic and /book/exotic against the JAX package's handlers. Off the TPU the
