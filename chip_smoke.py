@@ -19,7 +19,10 @@ is printed):
               exotic path's own shapes with ``prng``; the four Heston
               kernels (Euler price/vega/ladder, QE, QE ladder, chain) for
               every mode and sampler at small shapes and at the Heston
-              path's shapes; the Heston exotic kernel for all 22 kinds with
+              path's shapes, the QE ladder also at the edges of its 7-step
+              draw chunks (1, 6, 8 and 32 steps on 1 and 70 blocks, both
+              samplers and signs) within 1e-6 per row and bitwise equal
+              over two launches; the Heston exotic kernel for all 22 kinds with
               and without LR under ``hash`` and ``prng`` (both signs where
               the payoff takes one), QE, Bates jumps under both schemes,
               bridge QMC, books of 2, 8 and 128 contracts, and at the
@@ -78,7 +81,10 @@ is printed):
               are set to 0 just before a path and read just after it);
 13. timing  — device ms by CUDA events of each kernel and its plain
               version at its path's shapes, beside the least time the card
-              could take (from the kernel's SASS, ``ops/sass_bound.py``).
+              could take (from the kernel's SASS, ``ops/sass_bound.py``);
+              the QE ladder's registers, CUDA blocks per SM and issue share,
+              and the SASS digests of the QE instances it shares a source
+              or a header with, beside the ones it was split from.
 
 The last three lines are a JSON object of kernel measurements, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports
@@ -87,6 +93,7 @@ nothing of JAX.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -680,14 +687,21 @@ def sm_clock_hz() -> float:
 
 
 def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, tag: str,
-                 rsq_per_trip=1):
+                 rsq_per_trip=1, n_steps: int = 0):
     """(bound ms, bound_by) of a launch: the larger of its bytes over the HBM
     rate and its hot loop's busiest pipe (``ops/sass_bound.py``). A pair
     ``rsq_per_trip`` names a two-pass bridge kernel: its pre-pass and replay
-    loops each run once per step, and their counts add."""
+    loops each run once per step, and their counts add. A dict names a loop
+    nest (``levels``) and the epilogue's passes per lane (``tail``), spread
+    over the lane's ``n_steps``: :func:`sass_bound.nest_counts`."""
     fn = sass_bound.find_function(funcs, *name_parts)
-    counts = (sass_bound.two_pass_counts(fn, rsq_per_trip) if isinstance(rsq_per_trip, tuple)
-              else sass_bound.hot_loop_counts(fn, rsq_per_trip))
+    if isinstance(rsq_per_trip, dict):
+        counts = sass_bound.nest_counts(fn, rsq_per_trip["levels"],
+                                        rsq_per_trip["tail"] / n_steps)
+    elif isinstance(rsq_per_trip, tuple):
+        counts = sass_bound.two_pass_counts(fn, rsq_per_trip)
+    else:
+        counts = sass_bound.hot_loop_counts(fn, rsq_per_trip)
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
     ops_ms, pipe = sass_bound.bound_ms(counts, trips, n_sm, clock)
@@ -695,7 +709,9 @@ def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, t
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
     log("bound", f"{tag}: per trip fp32={counts['fp32']:.1f} int={counts['int']:.1f} "
                  f"mufu={counts['mufu']:.1f} issued={counts['issue']:.1f} (unroll "
-                 f"{counts['unroll']}); {trips:.4e} trips on {n_sm} SMs at {clock / 1e6:.0f} "
+                 f"{counts['unroll']}" + (f", epilogue {counts['tail_issue']} per pass"
+                                          if "tail_issue" in counts else "")
+        + f"); {trips:.4e} trips on {n_sm} SMs at {clock / 1e6:.0f} "
                  f"MHz -> ms by pipe " + " ".join(f"{p}={v:.4f}" for p, v in per_pipe.items())
         + f"; bound {ops_ms:.4f} ms ({pipe}); bytes {bytes_ms:.2e} ms")
     return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
@@ -733,6 +749,11 @@ def exotic_timing(dev) -> dict:
 H_PARAMS = (0.04, 2.0, 0.04, 0.3, -0.7)  # HestonParams.make() of the JAX bench.py
 H_EULER = (8_388_608, 252)  # bench.py:138 (price) and :154 (vega ladder)
 H_QE = (8_388_608, 32)
+# the QE ladder kernel draws in chunks of K = 7 steps: 1, K − 1, K + 1 and
+# the path's 32 steps, on one path block and on 70 (several chunks per row)
+H_QE_EDGE_STEPS = (1, 6, 8, 32)
+H_QE_EDGE_BLOCKS = (1, 70)
+QE_LADDER_RTOL = 1e-6  # per row: the paths are bitwise, the sums' order differs
 H_QMC = (4_194_304, 64)
 H_CHAIN_PATHS, H_CHAIN_DT = 1_048_576, 0.02
 H_CHAIN_T = (0.25, 0.5, 1.0, 1.5, 2.0)
@@ -828,23 +849,44 @@ def heston_parity_cases(dev):
     return cases
 
 
+def qe_ladder_edge_cases(dev):
+    """(tag, kernel fn, plain fn, args, kwargs) of the QE ladder at the edges
+    of its draw chunks (not timed)."""
+    par = hmodel.HestonParams.make(*H_PARAMS)
+    cases = []
+    for n_steps in H_QE_EDGE_STEPS:
+        p = torch.tensor(hk._params_vec_qe_ladder(S0, STRIKE, T, RATE, par, 0.01, n_steps)[1],
+                         device=dev)
+        for nb in H_QE_EDGE_BLOCKS:
+            for sampler in ("hash", "prng"):
+                for cp in (1.0, -1.0):
+                    cases.append((f"heston_qe_ladder edge {sampler} cp={cp:+.0f} {nb}x{n_steps}",
+                                  hk._heston_qe_ladder_cuda, hk._heston_qe_ladder_plain, (p,),
+                                  dict(n_steps=n_steps, n_blocks=nb, cp=cp, sampler=sampler)))
+    return cases
+
+
 def chain_head(dev) -> torch.Tensor:
     return hk._chain_head(torch.tensor(H_PARAMS, device=dev), S0, RATE, 0.01)
 
 
 def phase_heston_parity(dev) -> dict:
-    """Kernels 4–7 against their plain versions; the largest absolute
-    difference of each."""
+    """Kernels 4–7 against their plain versions (block0 = 1: odd); the
+    largest absolute difference of each. The QE ladder runs twice per case
+    and must repeat its rows bit for bit."""
     worst = {"mc": 0.0, "qe": 0.0, "qe_ladder": 0.0, "chain": 0.0}
-    for tag, kfn, pfn, args, kw in heston_parity_cases(dev):
+    for tag, kfn, pfn, args, kw in heston_parity_cases(dev) + qe_ladder_edge_cases(dev):
         kern = kfn(7, 1, *args, **kw)
         plain = pfn(7, 1, *args, **kw)
         torch.cuda.synchronize()
         key = tag.split()[0].replace("heston_", "")
         if kern.dim() == 3:  # the chain: (Q, 7, ROWS), pay and pay² per row, 5 gradients
             err = max(compare_sums(kern[q], plain[q], f"{tag} q{q}") for q in range(len(kern)))
+        elif key == "qe_ladder":  # all nine moments own-row
+            err = compare_sums(kern, plain, tag, n_plain=9, rtol=QE_LADDER_RTOL)
+            check(torch.equal(kfn(7, 1, *args, **kw), kern), f"{tag}: two launches differ")
         else:  # Euler: pay, pay², m1, then the sensitivities; QE: all own-row
-            err = compare_sums(kern, plain, tag, n_plain=9 if key == "qe_ladder" else 3)
+            err = compare_sums(kern, plain, tag, n_plain=3)
         worst[key] = max(worst[key], err)
     return worst
 
@@ -1116,7 +1158,8 @@ def heston_timing(dev) -> dict:
             trips = nb * hk.ROWS * lanes * kw["n_steps"]
             n_mom = 9 if "ladder" in tag else (4 if "vega" in tag else 3)
             n_bytes = 4 * (args[0].numel() + n_mom * hk.ROWS)
-        out[tag] = {"ms": ms, "plain_ms": plain_ms, "trips": trips, "bytes": n_bytes}
+        out[tag] = {"ms": ms, "plain_ms": plain_ms, "trips": trips, "bytes": n_bytes,
+                    "steps": plan.n_steps if "chain" in tag else kw["n_steps"]}
     return out
 
 
@@ -1129,8 +1172,20 @@ HESTON_SASS = {"heston_mc price": (("heston_mc_kernelILi0ELi0E",), 3),
                # roots per replay trip
                "heston_mc price sobol_bb": (("heston_mc_kernelILi0ELi2E",), (1, 3)),
                "heston_qe prng": (("heston_qe_kernelILi1ELi0E",), 7),
-               "heston_qe_ladder": (("heston_qe_kernelILi7ELi0E",), 43),
+               # a nest (sass_bound.nest_counts): per lane-step 7 trips of the advance loop
+               # (one system pair, 6 roots), 1 of the chunk loop that draws (1 root), and
+               # per lane 7 payoff epilogues (one per system)
+               "heston_qe_ladder": (("heston_qe_ladder_kernelILi0E",),
+                                    {"levels": ((6, 7), (1, 1)), "tail": 7}),
                "heston_chain": (("heston_chain_kernelILi0E",), 3)}
+# SASS digests (sass_bound.digest) of the QE instances that share heston_qe.cu
+# or heston_qe.cuh with the QE ladder, as built from the tree before the
+# ladder was split (nvcc 12.9, sm_90a): (function count, SHA-256)
+QE_SASS_PINS = {
+    ("heston_qe_kernelILi1E",):
+        (2, "aece293e5209e0b07bfc07dcb087723baa0223637e0fa157c33b70c81bf02e42"),
+    ("heston_exotic_kernel", "ELb0ELi1ELi"):
+        (16, "2544d00a657d915dd6680f55d93b7c2ea85f79e94ff10e27fb00736449009238")}
 
 
 # ---------------------------------------------------------------------------
@@ -2291,16 +2346,36 @@ def ma_timing(dev) -> dict:
                                   lambda: mk._ma_plain(0, 0, p, **kw))
         out[tag] = {"ms": ms, "plain_ms": plain_ms,
                     "trips": kw["n_blocks"] * mk.ROWS * mk.LANES * m,
-                    "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS)}
+                    "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS), "steps": m}
     return out
 
 
-# mangled-name parts (D, basket Asian, lr, sampler) and MUFU.RSQ per step
-# trip: d = 3 Box–Mullers; the bound counts the step loop (the terminal
-# shape's epilogue, as large as its one step, is left out: a lower bound)
-MA_SASS = {"multi_asset basket_asian LR": (("multi_asset_kernelILi3ELb1ELb1ELi0E",), 3),
-           "multi_asset basket_asian": (("multi_asset_kernelILi3ELb1ELb0ELi0E",), 3),
-           "multi_asset basket_geo LR": (("multi_asset_kernelILi3ELb0ELb1ELi0E",), 3)}
+# mangled-name parts (D, basket Asian, lr, sampler); the step loop with d = 3
+# Box–Mullers (3 MUFU.RSQ) a trip, and once per lane the epilogue after it
+# (payoff and moments, counted along its shortest path over the payoff
+# kinds): at n_steps = 1 it is as large as the one step
+_MA_NEST = {"levels": ((3, 1),), "tail": 1}
+MA_SASS = {"multi_asset basket_asian LR": (("multi_asset_kernelILi3ELb1ELb1ELi0E",), _MA_NEST),
+           "multi_asset basket_asian": (("multi_asset_kernelILi3ELb1ELb0ELi0E",), _MA_NEST),
+           "multi_asset basket_geo LR": (("multi_asset_kernelILi3ELb0ELb1ELi0E",), _MA_NEST)}
+
+
+def qe_ladder_report(funcs: dict, t: dict) -> None:
+    """Registers, CUDA blocks per SM and issue share of the QE ladder kernel,
+    and the SASS digests of the QE instances beside their pins."""
+    lib = _build.load_library()
+    for name, sampler in (("prng", 0), ("hash", 1)):
+        regs, ctas = ctypes.c_int(), ctypes.c_int()
+        err = lib.heston_qe_occupancy(7, sampler, 0, ctypes.byref(regs), ctypes.byref(ctas))
+        check(err == 0, f"heston_qe_occupancy returned {err}")
+        log("qe ladder", f"heston_qe_ladder_kernel {name}: {regs.value} registers, "
+                         f"{ctas.value} CUDA blocks of 224 threads per SM")
+    log("qe ladder", f"prng {H_QE[0]}x{H_QE[1]}: {t['ms']:.4f} ms against a bound of "
+                     f"{t['bound_ms']:.4f} ms: issue share {t['bound_ms'] / t['ms']:.3f}")
+    for parts, (n_pin, pin) in QE_SASS_PINS.items():
+        n, got = sass_bound.digest(funcs, *parts)
+        log("sass", f"{' '.join(parts)}: {n} functions, digest {got[:16]}; pinned {n_pin}, "
+                    f"{pin[:16]}: {'the same code' if (n, got) == (n_pin, pin) else 'DIFFERENT'}")
 
 
 def h_timing(h_t: dict, prefix: str) -> dict:
@@ -2421,7 +2496,8 @@ def main() -> None:
     for tag, t in h_t.items():
         sass = HESTON_SASS[heston_sass_key(tag)]
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, sass[0], t["trips"], t["bytes"], tag,
-                                                    rsq_per_trip=sass[1])
+                                                    rsq_per_trip=sass[1], n_steps=t["steps"])
+    qe_ladder_report(funcs, h_timing(h_t, "heston_qe_ladder prng"))
     hx_t = hx_timing(dev)
     for tag, t in hx_t.items():
         (key,) = [k_ for k_ in HX_SASS if tag.startswith(k_)]
@@ -2439,7 +2515,8 @@ def main() -> None:
     for tag, t in ma_t.items():
         key = next(k_ for k_ in sorted(MA_SASS, key=len, reverse=True) if tag.startswith(k_))
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, MA_SASS[key][0], t["trips"], t["bytes"],
-                                                    tag, rsq_per_trip=MA_SASS[key][1])
+                                                    tag, rsq_per_trip=MA_SASS[key][1],
+                                                    n_steps=t["steps"])
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):

@@ -4,8 +4,10 @@
 // A CUDA block sums one row over one chunk of path blocks. Its threads'
 // register sums are reduced by warp shuffles and shared memory into
 // partials[m][row][chunk]; a second kernel sums each row's chunks in chunk
-// order. No float atomics: a result depends only on the seed and the
-// geometry, never on the scheduling.
+// order, in float64, so that a launch of many chunks (the QE ladder runs up
+// to 1024 a row) adds no float32 rounding of its own. No float atomics: a
+// result depends only on the seed and the geometry, never on the
+// scheduling.
 #pragma once
 
 #include <cstddef>
@@ -41,15 +43,15 @@ __device__ __forceinline__ void store_block_moments(const float* acc, float* par
 }
 
 namespace {
-// out[m, r] = Σ_chunk partials[m, r, chunk], in chunk order.
+// out[m, r] = Σ_chunk partials[m, r, chunk], in chunk order, in float64.
 __global__ void reduce_rows_kernel(const float* __restrict__ partials, float* __restrict__ out,
                                    int n_mom, int rows, int n_chunks) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_mom * rows) return;
   const float* src = partials + static_cast<size_t>(i) * n_chunks;
-  float t = 0.0f;
+  double t = 0.0;
   for (int c = 0; c < n_chunks; ++c) t += src[c];
-  out[i] = t;
+  out[i] = static_cast<float>(t);
 }
 }  // namespace
 

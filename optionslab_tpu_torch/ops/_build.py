@@ -139,12 +139,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.heston_mc_moments.restype = _I
     lib.heston_qe_moments.argtypes = [
         _P, _U, _U,                  # params, seed, block0
-        _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
+        _I, _I, _I,                  # n_blocks, units_per_chunk, n_chunks
         _I, _F, _I, _I,              # n_steps, cp, n_sets, sampler
         _P, _P,                      # partials, out
         _I, _P,                      # device, stream
     ]
     lib.heston_qe_moments.restype = _I
+    lib.heston_qe_occupancy.argtypes = [_I, _I, _I, _P, _P]  # n_sets, sampler, device, out ×2
+    lib.heston_qe_occupancy.restype = _I
     lib.heston_chain_moments.argtypes = [
         _P, _P, _P, _P, _P,          # head, dt, sqrt_dt, strikes, cps
         _P, _P, _I,                  # exp_ptr, exp_quote, n_quotes

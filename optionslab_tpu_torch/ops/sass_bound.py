@@ -21,7 +21,13 @@ hot loop and counts its instructions by pipe:
 * the bridge-QMC (``sobol_bb``) instances of the Heston kernels run two
   loops per bridge segment, a pre-pass (one Box–Muller per trip) and the
   replay of the same steps (the step itself), so one step costs a trip of
-  each: :func:`two_pass_counts` finds both and adds their per-trip counts.
+  each: :func:`two_pass_counts` finds both and adds their per-trip counts;
+* a kernel whose lane-step is spread over a loop nest (the QE ladder: one
+  warp per path system advances in an inner loop what the whole CUDA block
+  drew in the loop around it) weights each loop by its trips per lane-step,
+  and a kernel whose lane ends in a large epilogue (the multi-asset terminal
+  payoffs) adds the region after its step loop once per lane, along its
+  shortest path: :func:`nest_counts`.
 
 Code behind a branch on a runtime argument (a kernel family's mode) is
 counted as if it ran, so a kernel whose step loop holds such code gets a
@@ -38,6 +44,7 @@ count over that pipe's rate, over SMs × SM clock.
 
 from __future__ import annotations
 
+import hashlib
 import re
 import subprocess
 from dataclasses import dataclass
@@ -98,30 +105,36 @@ def _pipe(instr: Instr) -> str | None:
     return None
 
 
+def _loops(instrs: list[Instr]) -> list[tuple[int, int]]:
+    """(lo, hi) of every loop (a backward branch at ``hi`` to ``lo``),
+    innermost (smallest span) first."""
+    loops = {(t, i.addr) for i in instrs if (t := i.branch_target()) is not None and t < i.addr}
+    return sorted(loops, key=lambda ab: ab[1] - ab[0])
+
+
+def _body(instrs: list[Instr], lo: int, hi: int, loops) -> list[Instr]:
+    """The instructions of the loop ``lo..hi`` less the regions inside it that
+    a forward conditional branch jumps over and that hold a call or a nested
+    loop (the slow paths a trip skips)."""
+    calls = [i.addr for i in instrs if i.base == "CALL"]
+    holes = []
+    for i in instrs:
+        t = i.branch_target()
+        if not (i.pred and t is not None and lo <= i.addr < t <= hi):
+            continue
+        if any(i.addr < c < t for c in calls) or any(
+                i.addr < b <= t and a < b for a, b in loops if (a, b) != (lo, hi)):
+            holes.append((i.addr, t))
+    return [i for i in instrs if lo <= i.addr <= hi and not any(a < i.addr < b for a, b in holes)]
+
+
 def _rsq_loops(instrs: list[Instr]) -> list[tuple[int, int, list[Instr]]]:
     """(lo, hi, body) of every loop whose body, its skipped regions left out,
     holds a ``MUFU.RSQ``, innermost (smallest span) first."""
-    loops = [(t, i.addr) for i in instrs if (t := i.branch_target()) is not None and t < i.addr]
-    calls = [i.addr for i in instrs if i.base == "CALL"]
-
-    def skipped(lo: int, hi: int) -> list[tuple[int, int]]:
-        """Regions inside (lo, hi] that a forward conditional branch jumps
-        over and that hold a call or a nested loop."""
-        out = []
-        for i in instrs:
-            t = i.branch_target()
-            if not (i.pred and t is not None and lo <= i.addr < t <= hi):
-                continue
-            if any(i.addr < c < t for c in calls) or any(
-                    i.addr < b <= t and a < b for a, b in loops if (a, b) != (lo, hi)):
-                out.append((i.addr, t))
-        return out
-
+    loops = _loops(instrs)
     found = []
-    for lo, hi in sorted(set(loops), key=lambda ab: ab[1] - ab[0]):
-        holes = skipped(lo, hi)
-        body = [i for i in instrs if lo <= i.addr <= hi
-                and not any(a < i.addr < b for a, b in holes)]
+    for lo, hi in loops:
+        body = _body(instrs, lo, hi, loops)
         if any(i.op.startswith("MUFU.RSQ") for i in body):
             found.append((lo, hi, body))
     if not found:
@@ -131,6 +144,8 @@ def _rsq_loops(instrs: list[Instr]) -> list[tuple[int, int, list[Instr]]]:
 
 def _trip_counts(lo: int, hi: int, body: list[Instr], rsq_per_trip: int) -> dict[str, float]:
     n_rsq = sum(i.op.startswith("MUFU.RSQ") for i in body)
+    if not n_rsq:
+        raise ValueError(f"the loop 0x{lo:x}..0x{hi:x} holds no MUFU.RSQ of its own")
     if n_rsq % rsq_per_trip:
         raise ValueError(f"the hot loop 0x{lo:x}..0x{hi:x} holds {n_rsq} MUFU.RSQ, not a "
                          f"multiple of {rsq_per_trip} per trip")
@@ -172,6 +187,100 @@ def two_pass_counts(instrs: list[Instr], rsq_per_trip=(1, 3)) -> dict[str, float
               for (lo, hi, body), rsq in zip(sorted(inner), rsq_per_trip)]
     out = {k: passes[0][k] + passes[1][k] for k in PIPE_RATE}
     out.update(unroll=tuple(p["unroll"] for p in passes), span=tuple(p["span"] for p in passes))
+    return out
+
+
+def _enclosing(loops, lo: int, hi: int) -> tuple[int, int] | None:
+    """The innermost loop that strictly encloses the loop ``lo..hi``."""
+    outer = [(a, b) for a, b in loops if a <= lo and hi <= b and (a, b) != (lo, hi)]
+    return outer[0] if outer else None
+
+
+def _shortest_path(region: list[Instr]) -> dict[str, int]:
+    """Per-pipe counts of the fewest instructions that a pass from the first
+    to the last instruction of ``region`` (in code order) can issue. A
+    forward branch may be taken or not; a backward branch (a loop inside the
+    region) is never taken, and an unconditional one ends no pass; a branch
+    out of the region is not taken, an unconditional one or an ``EXIT`` ends
+    the pass there."""
+    keys = ("issue", "fp32", "int", "mufu")
+    index = {i.addr: n for n, i in enumerate(region)}
+    end = (0,) * len(keys)
+    dead = (float("inf"),) * len(keys)
+    best: list[tuple] = [end] * (len(region) + 1)
+    for n in range(len(region) - 1, -1, -1):
+        i = region[n]
+        t = i.branch_target()
+        nexts = []
+        if i.base == "BRA":
+            inside = t in index
+            if inside and t > i.addr:  # forward within the region: may be taken
+                nexts.append(best[index[t]])
+            elif not i.pred:  # an unconditional jump back (a loop) or out
+                nexts.append(dead if inside else end)
+            if i.pred:
+                nexts.append(best[n + 1])
+        elif i.base in ("EXIT", "RET") and not i.pred:
+            nexts.append(end)
+        else:
+            nexts.append(best[n + 1])
+        tail = min(nexts)
+        own = (1,) + tuple(int(_pipe(i) == k) for k in keys[1:])
+        best[n] = tuple(a + b for a, b in zip(own, tail))
+    if best[0][0] == float("inf"):
+        raise ValueError("no pass through the region")
+    return dict(zip(keys, best[0]))
+
+
+def nest_counts(instrs: list[Instr], levels, tail: float = 0.0) -> dict[str, float]:
+    """Instructions per lane-step of a kernel whose lane-step is spread over
+    a nest of loops and a region after them.
+
+    ``levels`` = ``((rsq_per_trip, weight), ...)``: level 0 is the innermost
+    ``MUFU.RSQ`` loop, level j + 1 the loop that encloses level j. Each level
+    is counted as its body less the level inside it and its own skipped
+    regions (as :func:`hot_loop_counts` counts a loop), per trip (its
+    ``MUFU.RSQ`` count over ``rsq_per_trip`` is the unroll), times
+    ``weight``, its trips per lane-step. The split QE ladder: the advance
+    loop (6 roots, 7 trips per lane-step: one per path system) and the chunk
+    loop that draws (one Box–Muller, one trip per lane-step).
+
+    ``tail``: passes per lane-step of the region after the outermost level's
+    loop, up to the end of the loop that encloses it (or of the function):
+    the payoff and moments of a lane, ``1/n_steps`` per lane-step for a
+    kernel that carries a lane through its steps. That region is counted
+    along its shortest path (:func:`_shortest_path`), so code behind a
+    runtime argument (a payoff kind) never raises the bound. Returns the
+    per-pipe counts, with ``unroll`` and ``span`` per level and the tail's
+    own ``tail_issue`` per pass."""
+    loops = _loops(instrs)
+    lo, hi, _ = _rsq_loops(instrs)[0]
+    out = {k: 0.0 for k in PIPE_RATE}
+    unrolls, spans = [], []
+    inner = None
+    for j, (rsq, weight) in enumerate(levels):
+        if j:
+            found = _enclosing(loops, lo, hi)
+            if found is None:
+                raise ValueError(f"level {j}: no loop encloses 0x{lo:x}..0x{hi:x}")
+            inner, (lo, hi) = (lo, hi), found
+        body = [i for i in _body(instrs, lo, hi, loops)
+                if inner is None or not inner[0] <= i.addr <= inner[1]]
+        counts = _trip_counts(lo, hi, body, rsq)
+        for k in PIPE_RATE:
+            out[k] += weight * counts[k]
+        unrolls.append(counts["unroll"])
+        spans.append(counts["span"])
+    tail_issue = 0
+    if tail:
+        outer = _enclosing(loops, lo, hi)
+        stop = outer[1] if outer else instrs[-1].addr
+        region = [i for i in instrs if hi < i.addr <= stop]
+        counts = _shortest_path(region)
+        for k in PIPE_RATE:
+            out[k] += tail * counts[k]
+        tail_issue = counts["issue"]
+    out.update(unroll=tuple(unrolls), span=tuple(spans), tail_issue=tail_issue)
     return out
 
 
@@ -223,6 +332,21 @@ def compare(funcs_a: dict[str, list[Instr]], funcs_b: dict[str, list[Instr]],
     return {"functions": [len(a), len(b)],
             "same": sum(n in b and a[n] == b[n] for n in a),
             "instructions": [sum(map(len, f.values())) for f in (a, b)]}
+
+
+def digest(funcs: dict[str, list[Instr]], *parts: str) -> tuple[int, str]:
+    """(count, SHA-256) of the code of the functions whose mangled names
+    contain every string of ``parts``, taken in the order of their names less
+    their anonymous namespace: two builds whose digests agree compiled those
+    functions to the same instructions (:func:`compare` without the second
+    listing at hand)."""
+    picked = sorted((_unit_free(n), v) for n, v in funcs.items() if all(p in n for p in parts))
+    h = hashlib.sha256()
+    for name, instrs in picked:
+        h.update(name.encode())
+        for i in instrs:
+            h.update(f"{i.addr:x} {i.pred} {i.op} {i.args};".encode())
+    return len(picked), h.hexdigest()
 
 
 def main(argv: list[str] | None = None) -> None:

@@ -246,23 +246,32 @@ def test_heston_mc_kernel_matches_plain_on_card(cuda_device, mode, sampler, cp):
     _heston_close(kern, hk._heston_mc_plain(5, 2, params, **kw), 3)
 
 
+# the QE ladder draws in chunks of K = 7 steps: 1, K − 1, K + 1, 12 and 32
+# steps; one path block (8 units of 32 lanes a row) and 70 (several per chunk)
+@pytest.mark.parametrize("cp", [1.0, -1.0])
+@pytest.mark.parametrize("n_blocks", [1, 70])
+@pytest.mark.parametrize("n_steps", [1, 6, 8, 12, 32])
 @pytest.mark.parametrize("ladder", [False, True])
 @pytest.mark.parametrize("sampler", ["prng", "hash"])
-def test_heston_qe_kernels_match_plain_on_card(cuda_device, ladder, sampler):
+def test_heston_qe_kernels_match_plain_on_card(cuda_device, ladder, sampler, n_steps, n_blocks,
+                                               cp):
     from optionslab_tpu_torch.ops import heston_kernel as hk
 
     if ladder:
-        _, p, _ = hk._params_vec_qe_ladder(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0, 12)
+        _, p, _ = hk._params_vec_qe_ladder(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0,
+                                           n_steps)
         kfn, pfn = hk._heston_qe_ladder_cuda, hk._heston_qe_ladder_plain
     else:
-        _, p = hk._params_vec_qe(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0, 12)
+        _, p = hk._params_vec_qe(100.0, 100.0, 1.0, 0.05, _heston_params(), 0.0, n_steps)
         kfn, pfn = hk._heston_qe_cuda, hk._heston_qe_plain
     params = torch.tensor(p, device=cuda_device)
-    kw = dict(n_steps=12, n_blocks=70, cp=-1.0, sampler=sampler)
+    kw = dict(n_steps=n_steps, n_blocks=n_blocks, cp=cp, sampler=sampler)
     before = kfn.launches
-    kern = kfn(5, 2, params, **kw)
+    kern = kfn(5, 3, params, **kw).clone()  # an odd block0
     assert kfn.launches == before + 1
-    _heston_close(kern, pfn(5, 2, params, **kw), 9)
+    _heston_close(kern, pfn(5, 3, params, **kw), 9)
+    # a fixed-order reduction, no atomics: a second launch repeats every bit
+    assert torch.equal(kfn(5, 3, params, **kw), kern)
 
 
 @pytest.mark.parametrize("sampler", ["prng", "hash"])

@@ -189,3 +189,103 @@ def test_compare_counts_same_and_changed_functions(funcs):
              for u in ("_GLOBAL__N__1a2b3c4d_9_x_cu_5e6f", "_GLOBAL__N__0f0f0f0f_9_x_cu_7a7a")]
     assert sb.compare(*units, "step") == {"functions": [1, 1], "same": 1,
                                           "instructions": [12, 12]}
+
+
+NEST_LISTING = """
+        code for sm_90a
+                Function : _ZN10optionslab6ladderILi0EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   IADD3 R1, R1, 0x1, RZ ;                /* 0x0000000101017810 */
+        /*0020*/               @!P0 BRA 0x140 ;                           /* 0x0000000000008947 */
+        /*0030*/                   MUFU.RSQ R2, R3 ;                      /* 0x0000000300027308 */
+        /*0040*/                   I2F.U32 R4, R4 ;                       /* 0x0000000400047306 */
+        /*0050*/               @!P1 BRA 0x80 ;                            /* 0x0000000000009947 */
+        /*0060*/                   CALL.REL.NOINC 0x300 ;                 /* 0x0000000000007944 */
+        /*0070*/                   NOP ;                                  /* 0x0000000000007918 */
+        /*0080*/                   STS [R5], R2 ;                         /* 0x0000000205007388 */
+        /*0090*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000000000007b1d */
+        /*00a0*/               @!P2 BRA 0x120 ;                           /* 0x000000000000a947 */
+        /*00b0*/                   LDS R6, [R5] ;                         /* 0x0000000005067984 */
+        /*00c0*/                   MUFU.RSQ R7, R6 ;                      /* 0x0000000600077308 */
+        /*00d0*/                   FMUL R8, R7, R7 ;                      /* 0x0000000707087220 */
+        /*00e0*/                   MUFU.RSQ R9, R8 ;                      /* 0x0000000800097308 */
+        /*00f0*/                   FADD R10, R10, R9 ;                    /* 0x000000090a0a7221 */
+        /*0100*/                   IADD3 R11, R11, 0x1, RZ ;              /* 0x000000010b0b7810 */
+        /*0110*/                @P3 BRA 0xb0 ;                            /* 0xfffffff000003947 */
+        /*0120*/                   LOP3.LUT R12, R12, 0x1, RZ, 0x3c, !PT ; /* 0x000000010c0c7812 */
+        /*0130*/                @P4 BRA 0x30 ;                            /* 0xfffffef000004947 */
+        /*0140*/                   MUFU.EX2 R13, R13 ;                    /* 0x0000000d000d7308 */
+        /*0150*/               @!P5 BRA 0x180 ;                           /* 0x000000000000d947 */
+        /*0160*/                   FMUL R14, R13, R13 ;                   /* 0x0000000d0d0e7220 */
+        /*0170*/                   FADD R15, R15, R14 ;                   /* 0x0000000e0f0f7221 */
+        /*0180*/                   FADD R16, R16, R13 ;                   /* 0x0000000d10107221 */
+        /*0190*/                @P6 BRA 0x10 ;                            /* 0xfffffe7000006947 */
+        /*01a0*/                   SHFL.DOWN PT, R17, R16, 0x10, 0x1f ;   /* 0x0000001011117f89 */
+        /*01b0*/                   EXIT ;                                 /* 0x000000000000794d */
+
+                Function : _ZN10optionslab4termILi0EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   MUFU.RSQ R1, R2 ;                      /* 0x0000000200017308 */
+        /*0020*/                   FFMA R3, R3, R1, R3 ;                  /* 0x0000000103037223 */
+        /*0030*/                @P0 BRA 0x10 ;                            /* 0xffffffd000000947 */
+        /*0040*/                   MUFU.EX2 R4, R3 ;                      /* 0x0000000300047308 */
+        /*0050*/                @P1 BRA 0x90 ;                            /* 0x0000000000001947 */
+        /*0060*/                   FMUL R5, R4, R4 ;                      /* 0x0000000404057220 */
+        /*0070*/                   FMUL R5, R5, R4 ;                      /* 0x0000000405057220 */
+        /*0080*/                   BRA 0xa0 ;                             /* 0x0000000000007947 */
+        /*0090*/                   FADD R5, R4, R4 ;                      /* 0x0000000404057221 */
+        /*00a0*/                   FMNMX R6, R5, RZ, !PT ;                /* 0x000000ff05067209 */
+        /*00b0*/                   EXIT ;                                 /* 0x000000000000794d */
+        /*00c0*/                   BRA 0xc0;                              /* 0xfffffff000007947 */
+"""
+
+
+@pytest.fixture(scope="module")
+def nest_funcs():
+    return sb.parse_functions(NEST_LISTING)
+
+
+def test_nest_counts_weights_each_loop_and_the_tail(nest_funcs):
+    """A split ladder: per unit (loop 0x10..0x190) a chunk loop 0x30..0x130
+    that draws (one root; its slow-path call 0x50..0x80 and the guarded
+    advance loop 0xa0..0x120 left out) and an advance loop 0xb0..0x110 (two
+    roots a trip), then the payoff. Per lane-step: the advance loop × 7, the
+    chunk loop × 1, and the tail 0x140..0x190 along its shortest path (the
+    warp-uniform branch 0x150 taken: 4 instructions) × 0.25."""
+    fn = sb.find_function(nest_funcs, "ladderILi0E")
+    counts = sb.nest_counts(fn, ((2, 7), (1, 1)), tail=0.25)
+    # advance: LDS, RSQ, FMUL, RSQ, FADD, IADD3, BRA; chunk: RSQ, I2F, BRA,
+    # STS, BAR, BRA, LOP3, BRA; tail: EX2, BRA, FADD, BRA
+    assert counts == {"fp32": 7 * 2 + 0 + 0.25, "int": 7 * 1 + 1, "mufu": 7 * 2 + 2 + 0.25,
+                      "issue": 7 * 7 + 8 + 0.25 * 4, "unroll": (1, 1), "span": (0x60, 0x100),
+                      "tail_issue": 4}
+    # level 0 alone is the hot loop
+    hot = sb.hot_loop_counts(fn, rsq_per_trip=2)
+    assert hot["issue"] == 7 and hot["span"] == 0x60
+    with pytest.raises(ValueError, match="not a multiple of 3"):
+        sb.nest_counts(fn, ((2, 7), (3, 1)))
+    with pytest.raises(ValueError, match="holds no MUFU.RSQ"):  # the unit loop's own code
+        sb.nest_counts(fn, ((2, 7), (1, 1), (1, 1)))
+
+
+def test_nest_counts_tail_takes_the_shortest_kind(nest_funcs):
+    """A terminal kernel: a one-root step loop, then an epilogue whose payoff
+    kind is a runtime branch. The tail runs to the function's end (no loop
+    encloses the step loop) and counts the shorter arm (EX2, BRA, FADD,
+    FMNMX, EXIT), never both."""
+    fn = sb.find_function(nest_funcs, "termILi0E")
+    counts = sb.nest_counts(fn, ((1, 1),), tail=1.0)
+    assert counts == {"fp32": 1 + 2, "int": 0, "mufu": 1 + 1, "issue": 3 + 5, "unroll": (1,),
+                      "span": (0x20,), "tail_issue": 5}
+    assert sb.nest_counts(fn, ((1, 1),)) == {**counts, "fp32": 1, "mufu": 1, "issue": 3,
+                                             "tail_issue": 0}
+    with pytest.raises(ValueError, match="no loop encloses"):
+        sb.nest_counts(fn, ((1, 1), (1, 1)))
+
+
+def test_digest_matches_compare(funcs):
+    changed = sb.parse_functions(LISTING.replace("FMUL R2, R2, R3 ;", "FADD R2, R2, R3 ;"))
+    assert sb.digest(funcs, "step") == sb.digest(changed, "step")
+    assert sb.digest(funcs, "chain") != sb.digest(changed, "chain")
+    assert sb.digest(funcs, "optionslab")[0] == 3
+    assert sb.digest(funcs, "nothing") == (0, sb.digest({}, "x")[1])
