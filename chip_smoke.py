@@ -357,8 +357,9 @@ def phase_timing(dev) -> dict:
         params, kw = moments_inputs(batch, n_paths, "prng", True)
         gk._gbm_moments_cuda(0, 0, params, **kw)
         ms = event_time(lambda: gk._gbm_moments_cuda(0, 0, params, **kw), 10)
+        # terminal: a trip of the lane loop is a whole lane
         out[tag] = {"ms": ms, "trips": kw["n_blocks"] * kw["active_rows"] * kw["lanes"],
-                    "bytes": 4 * (7 + 4) * kw["rows"]}
+                    "bytes": 4 * (7 + 4) * kw["rows"], "steps": 1}
     gk._gbm_moments_plain(0, 0, params, **kw)
     out["1024x1e6"]["plain_ms"] = event_time(lambda: gk._gbm_moments_plain(0, 0, params, **kw), 2)
     return out
@@ -686,22 +687,21 @@ def sm_clock_hz() -> float:
     return float(out.stdout.strip()) * 1e6
 
 
-def kernel_bound(funcs: dict, name_parts: tuple, trips: float, n_bytes: float, tag: str,
-                 rsq_per_trip=1, n_steps: int = 0):
+def nest(*levels, **kw) -> dict:
+    """The keyword arguments of :func:`sass_bound.nest_counts` for a
+    kernel's lane-step: its loop ``levels`` ((roots per trip, trips per
+    lane-step), innermost first), and ``tail`` or ``bookkeeping``."""
+    return {"levels": levels, **kw}
+
+
+def kernel_bound(funcs: dict, name_parts: tuple, spec: dict, t: dict, tag: str):
     """(bound ms, bound_by) of a launch: the larger of its bytes over the HBM
-    rate and its hot loop's busiest pipe (``ops/sass_bound.py``). A pair
-    ``rsq_per_trip`` names a two-pass bridge kernel: its pre-pass and replay
-    loops each run once per step, and their counts add. A dict names a loop
-    nest (``levels``) and the epilogue's passes per lane (``tail``), spread
-    over the lane's ``n_steps``: :func:`sass_bound.nest_counts`."""
+    rate and the busiest pipe of its ``t["trips"]`` lane-steps, each counted
+    from the SASS by :func:`sass_bound.nest_counts` with ``spec``
+    (:func:`nest`) over the lane's ``t["steps"]``."""
     fn = sass_bound.find_function(funcs, *name_parts)
-    if isinstance(rsq_per_trip, dict):
-        counts = sass_bound.nest_counts(fn, rsq_per_trip["levels"],
-                                        rsq_per_trip["tail"] / n_steps)
-    elif isinstance(rsq_per_trip, tuple):
-        counts = sass_bound.two_pass_counts(fn, rsq_per_trip)
-    else:
-        counts = sass_bound.hot_loop_counts(fn, rsq_per_trip)
+    counts = sass_bound.nest_counts(fn, n_steps=t["steps"], **spec)
+    trips, n_bytes = t["trips"], t["bytes"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
     ops_ms, pipe = sass_bound.bound_ms(counts, trips, n_sm, clock)
@@ -731,7 +731,8 @@ def exotic_timing(dev) -> dict:
                                   lambda: ek._exotic_moments_plain(0, 0, params, book, **kw))
         out[tag] = {"ms": ms, "plain_ms": plain_ms,
                     "trips": kw["n_blocks"] * ek.ROWS * ek.LANES * n_steps,
-                    "bytes": 4 * (ek.N_PARAMS + 7 + ek._n_moments(kind, lr) * ek.ROWS)}
+                    "bytes": 4 * (ek.N_PARAMS + 7 + ek._n_moments(kind, lr) * ek.ROWS),
+                    "steps": n_steps}
     params, _ = exotic_inputs("asian_geo", GREEKS[1], dev)
     kw = dict(kind="asian_geo", n_steps=GREEKS[1], cp=1.0, sampler="prng",
               n_blocks=ek._n_blocks(GREEKS[0], ek.PATHS_PER_BLOCK_G))
@@ -739,7 +740,8 @@ def exotic_timing(dev) -> dict:
                               lambda: ek._exotic_greeks_plain(0, 0, params, **kw))
     out["greeks asian_geo 8Mx252"] = {"ms": ms, "plain_ms": plain_ms,
                                       "trips": kw["n_blocks"] * ek.ROWS * ek.LANES_G * GREEKS[1],
-                                      "bytes": 4 * (ek.N_PARAMS + 5 * ek.ROWS)}
+                                      "bytes": 4 * (ek.N_PARAMS + 5 * ek.ROWS),
+                                      "steps": GREEKS[1]}
     return out
 
 
@@ -750,9 +752,11 @@ H_PARAMS = (0.04, 2.0, 0.04, 0.3, -0.7)  # HestonParams.make() of the JAX bench.
 H_EULER = (8_388_608, 252)  # bench.py:138 (price) and :154 (vega ladder)
 H_QE = (8_388_608, 32)
 # the QE ladder kernel draws in chunks of K = 7 steps: 1, K − 1, K + 1 and
-# the path's 32 steps, on one path block and on 70 (several chunks per row)
+# the path's 32 steps. Its work unit is 32 lanes of a path block's row: on 1
+# and 70 path blocks each CUDA block carries one unit, on 257 (2056 units a
+# row: 686 chunks of 3, the last of 1) several, through its double buffer
 H_QE_EDGE_STEPS = (1, 6, 8, 32)
-H_QE_EDGE_BLOCKS = (1, 70)
+H_QE_EDGE_BLOCKS = (1, 70, 257)
 QE_LADDER_RTOL = 1e-6  # per row: the paths are bitwise, the sums' order differs
 H_QMC = (4_194_304, 64)
 H_CHAIN_PATHS, H_CHAIN_DT = 1_048_576, 0.02
@@ -1163,21 +1167,24 @@ def heston_timing(dev) -> dict:
     return out
 
 
-# mangled-name parts and MUFU.RSQ per step trip (the Box–Muller root and one
-# sqrtf(v⁺) per branch; QE: three roots per path system and branch)
-HESTON_SASS = {"heston_mc price": (("heston_mc_kernelILi0ELi0E",), 3),
-               "heston_mc vega": (("heston_mc_kernelILi1ELi0E",), 3),
-               "heston_mc ladder": (("heston_mc_kernelILi2ELi0E",), 3),
+# mangled-name parts and the lane-step's loops: MUFU.RSQ per step trip (the
+# Box–Muller root and one sqrtf(v⁺) per branch; QE: three roots per path
+# system and branch)
+HESTON_SASS = {"heston_mc price": (("heston_mc_kernelILi0ELi0E",), nest((3, 1))),
+               "heston_mc vega": (("heston_mc_kernelILi1ELi0E",), nest((3, 1))),
+               "heston_mc ladder": (("heston_mc_kernelILi2ELi0E",), nest((3, 1))),
                # two passes per bridge segment: a Box–Muller per pre-pass trip, three
                # roots per replay trip
-               "heston_mc price sobol_bb": (("heston_mc_kernelILi0ELi2E",), (1, 3)),
-               "heston_qe prng": (("heston_qe_kernelILi1ELi0E",), 7),
-               # a nest (sass_bound.nest_counts): per lane-step 7 trips of the advance loop
-               # (one system pair, 6 roots), 1 of the chunk loop that draws (1 root), and
-               # per lane 7 payoff epilogues (one per system)
+               "heston_mc price sobol_bb": (("heston_mc_kernelILi0ELi2E",), nest(((1, 3), 1))),
+               "heston_qe prng": (("heston_qe_kernelILi1ELi0E",), nest((7, 1))),
+               # per lane-step 7 trips of the advance loop (one system pair, 6 roots),
+               # 1 of the chunk loop that draws (1 root), and per lane 7 payoff
+               # epilogues (one per system); less the split's own bookkeeping (the
+               # shared-memory moves, the barrier, both loops' addresses and control),
+               # so the bound is the function's, not this layout's
                "heston_qe_ladder": (("heston_qe_ladder_kernelILi0E",),
-                                    {"levels": ((6, 7), (1, 1)), "tail": 7}),
-               "heston_chain": (("heston_chain_kernelILi0E",), 3)}
+                                    nest((6, 7), (1, 1), tail=7, bookkeeping=False)),
+               "heston_chain": (("heston_chain_kernelILi0E",), nest((3, 1)))}
 # SASS digests (sass_bound.digest) of the QE instances that share heston_qe.cu
 # or heston_qe.cuh with the QE ladder, as built from the tree before the
 # ladder was split (nvcc 12.9, sm_90a): (function count, SHA-256)
@@ -1610,15 +1617,17 @@ def hx_timing(dev) -> dict:
                                   lambda: hx._heston_exotic_plain(0, 0, params, book, **kw))
         out[tag] = {"ms": ms, "plain_ms": plain_ms,
                     "trips": kw["n_blocks"] * hx.ROWS * hx.LANES * shape[1],
-                    "bytes": 4 * (params.numel() + 7 + hx._n_moments(kind, lr) * hx.ROWS)}
+                    "bytes": 4 * (params.numel() + 7 + hx._n_moments(kind, lr) * hx.ROWS),
+                    "steps": shape[1]}
     return out
 
 
 # mangled-name parts and MUFU.RSQ per step trip (the Box–Muller root and one
 # sqrtf(v⁺) per branch; the bridge: a pre-pass and a replay loop per step)
-HX_SASS = {"asian_arith 8": (("heston_exotic_kernelILi0ELb0ELi0ELi0E",), 3),
-           "barrier LR": (("heston_exotic_kernelILi3ELb1ELi0ELi0E",), 3),
-           "asian_arith sobol_bb": (("heston_exotic_kernelILi0ELb0ELi0ELi2E",), (1, 3))}
+HX_SASS = {"asian_arith 8": (("heston_exotic_kernelILi0ELb0ELi0ELi0E",), nest((3, 1))),
+           "barrier LR": (("heston_exotic_kernelILi3ELb1ELi0ELi0E",), nest((3, 1))),
+           "asian_arith sobol_bb": (("heston_exotic_kernelILi0ELb0ELi0ELi2E",),
+                                    nest(((1, 3), 1)))}
 
 
 # ---------------------------------------------------------------------------
@@ -2057,7 +2066,8 @@ def smile_timing(dev) -> dict:
                                   lambda: lk._lv_plain(0, 0, p, **kw))
         out[tag] = {"ms": ms, "plain_ms": plain_ms,
                     "trips": kw["n_blocks"] * lk.ROWS * lk.LANES * m,
-                    "bytes": 4 * (p.numel() + lk._n_moments(payoff, greeks) * lk.ROWS)}
+                    "bytes": 4 * (p.numel() + lk._n_moments(payoff, greeks) * lk.ROWS),
+                    "steps": m}
     n, m = SLV_MAIN
     spr = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev), T, n_steps=m,
                              n_cal_paths=65_536)
@@ -2069,16 +2079,17 @@ def smile_timing(dev) -> dict:
                                   lambda: sk._slv_plain(0, 0, p, **kw))
         out[tag] = {"ms": ms, "plain_ms": plain_ms,
                     "trips": kw["n_blocks"] * sk.ROWS * sk.LANES * m,
-                    "bytes": 4 * (p.numel() + sk._n_moments("barrier_up-and-out", lr) * sk.ROWS)}
+                    "bytes": 4 * (p.numel() + sk._n_moments("barrier_up-and-out", lr) * sk.ROWS),
+                    "steps": m}
     return out
 
 
 # mangled-name parts and MUFU.RSQ per step trip: the Box–Muller root (local
 # vol: σ has no root); SLV: and one sqrtf(v⁺) per branch
-SMILE_SASS = {"local_vol european": (("local_vol_kernelILi0ELb0ELi0E",), 1),
-              "local_vol barrier greeks": (("local_vol_kernelILi4ELb1ELi0E",), 1),
-              "slv barrier LR": (("slv_kernelILi3ELb1ELi0E",), 3),
-              "slv barrier": (("slv_kernelILi3ELb0ELi0E",), 3)}
+SMILE_SASS = {"local_vol european": (("local_vol_kernelILi0ELb0ELi0E",), nest((1, 1))),
+              "local_vol barrier greeks": (("local_vol_kernelILi4ELb1ELi0E",), nest((1, 1))),
+              "slv barrier LR": (("slv_kernelILi3ELb1ELi0E",), nest((3, 1))),
+              "slv barrier": (("slv_kernelILi3ELb0ELi0E",), nest((3, 1)))}
 
 
 # ---------------------------------------------------------------------------
@@ -2354,7 +2365,7 @@ def ma_timing(dev) -> dict:
 # Box–Mullers (3 MUFU.RSQ) a trip, and once per lane the epilogue after it
 # (payoff and moments, counted along its shortest path over the payoff
 # kinds): at n_steps = 1 it is as large as the one step
-_MA_NEST = {"levels": ((3, 1),), "tail": 1}
+_MA_NEST = nest((3, 1), tail=1)
 MA_SASS = {"multi_asset basket_asian LR": (("multi_asset_kernelILi3ELb1ELb1ELi0E",), _MA_NEST),
            "multi_asset basket_asian": (("multi_asset_kernelILi3ELb1ELb0ELi0E",), _MA_NEST),
            "multi_asset basket_geo LR": (("multi_asset_kernelILi3ELb0ELb1ELi0E",), _MA_NEST)}
@@ -2370,8 +2381,16 @@ def qe_ladder_report(funcs: dict, t: dict) -> None:
         check(err == 0, f"heston_qe_occupancy returned {err}")
         log("qe ladder", f"heston_qe_ladder_kernel {name}: {regs.value} registers, "
                          f"{ctas.value} CUDA blocks of 224 threads per SM")
-    log("qe ladder", f"prng {H_QE[0]}x{H_QE[1]}: {t['ms']:.4f} ms against a bound of "
-                     f"{t['bound_ms']:.4f} ms: issue share {t['bound_ms'] / t['ms']:.3f}")
+    parts, spec = HESTON_SASS["heston_qe_ladder"]
+    fn = sass_bound.find_function(funcs, *parts)
+    own = sass_bound.nest_counts(fn, n_steps=t["steps"], **{**spec, "bookkeeping": True})
+    fun = sass_bound.nest_counts(fn, n_steps=t["steps"], **spec)
+    share = t["bound_ms"] / t["ms"]
+    log("qe ladder", f"prng {H_QE[0]}x{H_QE[1]}: {fun['issue']:.4f} instructions per lane-step "
+                     f"for the function ({own['issue']:.4f} with the split's bookkeeping); "
+                     f"{t['ms']:.4f} ms against a bound of {t['bound_ms']:.4f} ms: issue share "
+                     f"{share:.3f} ({share * own['issue'] / fun['issue']:.3f} against the "
+                     f"kernel's own count)")
     for parts, (n_pin, pin) in QE_SASS_PINS.items():
         n, got = sass_bound.digest(funcs, *parts)
         log("sass", f"{' '.join(parts)}: {n} functions, digest {got[:16]}; pinned {n_pin}, "
@@ -2485,38 +2504,32 @@ def main() -> None:
     gbm_t = phase_timing(dev)
     for tag, t in gbm_t.items():
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, ("gbm_mc_kernelILi0ELb1E",),
-                                                    t["trips"], t["bytes"], f"gbm_mc {tag}")
+                                                    nest((1, 1)), t, f"gbm_mc {tag}")
     ex_t = exotic_timing(dev)
     names = {"asian_arith 4Mx252": ("exotic_mc_kernelILi0ELb0ELi0E",),
              "barrier LR 16Mx64": ("exotic_mc_kernelILi4ELb1ELi0E",),
              "greeks asian_geo 8Mx252": ("exotic_greeks_kernelILi1ELi0E",)}
     for tag, t in ex_t.items():
-        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, names[tag], t["trips"], t["bytes"], tag)
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, names[tag], nest((1, 1)), t, tag)
     h_t = heston_timing(dev)
     for tag, t in h_t.items():
-        sass = HESTON_SASS[heston_sass_key(tag)]
-        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, sass[0], t["trips"], t["bytes"], tag,
-                                                    rsq_per_trip=sass[1], n_steps=t["steps"])
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, *HESTON_SASS[heston_sass_key(tag)], t,
+                                                    tag)
     qe_ladder_report(funcs, h_timing(h_t, "heston_qe_ladder prng"))
     hx_t = hx_timing(dev)
     for tag, t in hx_t.items():
         (key,) = [k_ for k_ in HX_SASS if tag.startswith(k_)]
-        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, HX_SASS[key][0], t["trips"], t["bytes"],
-                                                    f"heston_exotic {tag}",
-                                                    rsq_per_trip=HX_SASS[key][1])
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, *HX_SASS[key], t,
+                                                    f"heston_exotic {tag}")
     smile_t = smile_timing(dev)
     for tag, t in smile_t.items():
         key = next(k_ for k_ in sorted(SMILE_SASS, key=len, reverse=True)
                    if tag.startswith(k_))
-        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, SMILE_SASS[key][0], t["trips"],
-                                                    t["bytes"], tag,
-                                                    rsq_per_trip=SMILE_SASS[key][1])
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, *SMILE_SASS[key], t, tag)
     ma_t = ma_timing(dev)
     for tag, t in ma_t.items():
         key = next(k_ for k_ in sorted(MA_SASS, key=len, reverse=True) if tag.startswith(k_))
-        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, MA_SASS[key][0], t["trips"], t["bytes"],
-                                                    tag, rsq_per_trip=MA_SASS[key][1],
-                                                    n_steps=t["steps"])
+        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, *MA_SASS[key], t, tag)
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):

@@ -16,11 +16,12 @@
 // sqrtf, a logf, five divides and ~40 FP32 operations, twice (the pair); per
 // lane and step one Box–Muller and one uniform (a second Philox or hash
 // draw). With `prng`, ops/sass_bound.py counts 519 instructions per
-// lane-step for the price; for the ladder 2705 (sass_bound.nest_counts: 7
-// trips of the advance loop at 356 — one system pair, its 3 shared loads
-// and the loop — plus one of the drawing chunk loop at 204, plus 7 payoff
-// epilogues of 43 per lane). Device memory is idle: 2 + 11·sets floats in,
-// (2 + sets) · 128 · chunks out.
+// lane-step for the price; for the ladder 2572 of the function
+// (sass_bound.nest_counts: 7 trips of the advance loop — one system pair —
+// plus one of the drawing chunk loop, plus 7 payoff epilogues per lane),
+// 2696 with the split's own bookkeeping (its shared loads and stores, the
+// barrier, both loops' addresses and control). Device memory is idle:
+// 2 + 11·sets floats in, (2 + sets) · 128 · chunks out.
 //
 // What the designs do about it:
 //  * the price kernel: one thread owns one lane's pair in registers through
@@ -28,21 +29,22 @@
 //    the constants sit in shared memory, loaded once per CUDA block;
 //  * the ladder kernel: one thread carrying all seven systems of a lane
 //    (28 floats through the loop) needed 158 registers, one CUDA block per
-//    SM, two warps per scheduler to hide the divides' and roots' latency,
-//    and reached 0.44 of its bound. Here the systems are split over warps:
-//    warp s of a 224-thread CUDA block carries system s (one pair, its 11
-//    constants in registers) on 32 lanes of a row: 54 registers, five CUDA
-//    blocks (35 warps) per SM. Every K = 7 steps the block's threads draw
-//    the (z_v, z_x, u) of its 32 lanes × 7 steps — one draw each, warp s
-//    step i0 + s — into a double buffer in shared memory, meet at one
-//    barrier, and each warp advances its system 7 steps reading them (the
-//    mate branch negates the normals and takes 1 − u: exact). The draws are
-//    done once per lane-step, as before; the tail chunk draws past the last
-//    step and leaves those draws unused. A work unit is one 32-lane slice
-//    of a path block's row; a CUDA block sums one row over a chunk of units
-//    (ops/heston_kernel.py::_qe_plan: one unit each at the path's shape, so
-//    the ≈200 waves end together), each warp its own system's moments (set 0
-//    three, the others one), with no cross-warp step and no float atomics;
+//    SM, two warps per scheduler to hide the divides' and roots' latency
+//    (each behind its own guarded slow path, across which nothing is
+//    scheduled), and reached 0.44 of its bound. Here the systems are split
+//    over warps: warp s of a 224-thread CUDA block carries system s (one
+//    pair, its 11 constants in registers) on 32 lanes of a row: 54–56
+//    registers, five CUDA blocks (35 warps) per SM, ≈0.83 of the bound.
+//    Every K = 7 steps the block's threads draw the (z_v, z_x, u) of its 32
+//    lanes × 7 steps — one draw each, warp s step i0 + s; in the tail chunk
+//    the warps past the last step draw nothing — into a double buffer in
+//    shared memory, meet at one barrier, and each warp advances its system
+//    7 steps reading them (the mate branch negates the normals and takes
+//    1 − u: exact). A work unit is one 32-lane slice of a path block's row;
+//    a CUDA block sums one row over a chunk of units (ladder_plan: one unit
+//    each at the path's shape, so the ≈200 waves end together), each warp
+//    its own system's moments (set 0 three, the others one), with no
+//    cross-warp step and no float atomics;
 //  * the counter space is the reference's (`hash` reproduces the JAX path
 //    set; `prng` is Philox stream 0 for the normals and stream 1 for the
 //    uniform); fixed-order reductions (reduce.cuh); precise libm and no FMA
@@ -72,7 +74,7 @@ struct QeArgs {
   uint32_t seed;
   uint32_t block0;
   int n_blocks;
-  int units_per_chunk;  // path blocks (price) or 32-lane units (ladder) per chunk
+  int units_per_chunk;  // path blocks (price) or 32-lane units (ladder, ladder_plan) per chunk
   int n_chunks;
   int n_steps;
   float cp;
@@ -161,6 +163,20 @@ constexpr int kGroup = 32;         // lanes of a row per work unit: one warp's w
 constexpr int kGroups = kLadderLanes / kGroup;
 constexpr int kLadderThreads = 32 * kLadderSets;  // warp s carries path system s
 constexpr int kChunk = kLadderSets;               // steps per barrier: one draw per thread
+// chunks of a row at most: at the path's 128 path blocks one unit per CUDA
+// block, ≈200 waves of five blocks per SM that end together (4096 blocks,
+// 6.2 waves, idled ≈10% of the card in the last one)
+constexpr int kLadderChunks = 1024;
+
+// (n_chunks, units_per_chunk) of a ladder launch over n_blocks path blocks:
+// n_blocks · kGroups units spread evenly over at most kLadderChunks chunks.
+void ladder_plan(int n_blocks, int* n_chunks, int* units_per_chunk) {
+  const long long n_units = static_cast<long long>(n_blocks) * kGroups;
+  const long long chunks = n_units < kLadderChunks ? n_units : kLadderChunks;
+  const long long per = (n_units + chunks - 1) / chunks;
+  *units_per_chunk = static_cast<int>(per);
+  *n_chunks = static_cast<int>((n_units + per - 1) / per);
+}
 
 // The ladder kernel. grid.x = 128 rows × n_chunks; one CUDA block sums one
 // row over a chunk of work units (unit = block·8 + g: lanes 32g..32g+31 of
@@ -190,22 +206,25 @@ __global__ void __launch_bounds__(kLadderThreads) heston_qe_ladder_kernel(QeArgs
     float xa = 0.0f, xb = 0.0f, va = c[10], vb = c[10];
 #pragma unroll 1
     for (int i0 = 0; i0 < a.n_steps; i0 += kChunk) {
-      // this thread's draw: step i0 + set of lane col (past the last step in
-      // the tail chunk, where nobody reads it)
-      const uint32_t ui = static_cast<uint32_t>(i0 + set);
-      float zv, zx, u;
-      if (kS == kPrng) {
-        draw_normals_philox(a.seed, block, ui, urow, col, &zv, &zx);
-        u = draw_uniform_philox(a.seed, block, ui, urow, col);
-      } else {
-        draw_normals_hash(a.seed, block, ui, n, urow, col, kRows, kLadderLanes, &zv, &zx);
-        u = draw_uniform_hash(a.seed, block, ui, n, urow, col, kRows, kLadderLanes);
+      // this thread's draw: step i0 + set of lane col; in the tail chunk the
+      // warps past the last step draw nothing (`set` is warp-uniform)
+      if (i0 + set < a.n_steps) {
+        const uint32_t ui = static_cast<uint32_t>(i0 + set);
+        float zv, zx, u;
+        if (kS == kPrng) {
+          draw_normals_philox(a.seed, block, ui, urow, col, &zv, &zx);
+          u = draw_uniform_philox(a.seed, block, ui, urow, col);
+        } else {
+          draw_normals_hash(a.seed, block, ui, n, urow, col, kRows, kLadderLanes, &zv, &zx);
+          u = draw_uniform_hash(a.seed, block, ui, n, urow, col, kRows, kLadderLanes);
+        }
+        draws[buf][0][set][lane] = zv;
+        draws[buf][1][set][lane] = zx;
+        draws[buf][2][set][lane] = u;
       }
-      draws[buf][0][set][lane] = zv;
-      draws[buf][1][set][lane] = zx;
-      draws[buf][2][set][lane] = u;
-      // one barrier per chunk: with two buffers, a warp that writes buffer b
-      // again has passed the next barrier, so every warp is done reading it
+      // one barrier per chunk, reached by every thread: with two buffers, a
+      // warp that writes buffer b again has passed the next barrier, so
+      // every warp is done reading it
       __syncthreads();
       const int n_k = min(kChunk, a.n_steps - i0);
 #pragma unroll 1  // one step of this warp's system pair per trip
@@ -268,11 +287,18 @@ void launch(const QeArgs& a, int n_sets, int sampler, cudaStream_t stream) {
 }  // namespace
 }  // namespace optionslab
 
+// The QE ladder's launch plan for n_blocks path blocks: the n_chunks and
+// units_per_chunk that heston_qe_moments takes with n_sets = 7.
+extern "C" int heston_qe_ladder_plan(int n_blocks, int* n_chunks, int* units_per_chunk) {
+  if (n_blocks < 1) return static_cast<int>(cudaErrorInvalidValue);
+  optionslab::ladder_plan(n_blocks, n_chunks, units_per_chunk);
+  return 0;
+}
+
 // Per-row moment sums into `out` (2 + n_sets, 128) float32, with `partials`
 // (2 + n_sets, 128, n_chunks) as scratch. n_sets = 1: the QE price kernel,
 // n_chunks chunks of units_per_chunk path blocks; n_sets = 7: the QE ladder
-// kernel, n_chunks chunks of units_per_chunk 32-lane units (8 per path
-// block).
+// kernel, on the plan of heston_qe_ladder_plan.
 extern "C" int heston_qe_moments(const void* params, uint32_t seed, uint32_t block0,
                                  int n_blocks, int units_per_chunk, int n_chunks, int n_steps,
                                  float cp, int n_sets, int sampler, void* partials, void* out,

@@ -147,6 +147,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.heston_qe_moments.restype = _I
     lib.heston_qe_occupancy.argtypes = [_I, _I, _I, _P, _P]  # n_sets, sampler, device, out ×2
     lib.heston_qe_occupancy.restype = _I
+    lib.heston_qe_ladder_plan.argtypes = [_I, _P, _P]  # n_blocks, out n_chunks, units_per_chunk
+    lib.heston_qe_ladder_plan.restype = _I
     lib.heston_chain_moments.argtypes = [
         _P, _P, _P, _P, _P,          # head, dt, sqrt_dt, strikes, cps
         _P, _P, _I,                  # exp_ptr, exp_quote, n_quotes

@@ -110,10 +110,9 @@ def _n_moments(kind: str, lr: bool) -> int:
     return 7 if (kind == "autocall" or kind.endswith("_hit")) else 6
 
 
-def _chunking(n_blocks: int, target_ctas: int = _TARGET_CTAS) -> tuple[int, int]:
-    """(n_chunks, blocks_per_chunk) of a kernel's launch grid: at most
-    ``target_ctas`` CUDA blocks of one row and one chunk each."""
-    n_chunks = max(1, min(n_blocks, -(-target_ctas // ROWS)))
+def _chunking(n_blocks: int) -> tuple[int, int]:
+    """(n_chunks, blocks_per_chunk) of a kernel's launch grid."""
+    n_chunks = max(1, min(n_blocks, -(-_TARGET_CTAS // ROWS)))
     per_chunk = -(-n_blocks // n_chunks)
     return -(-n_blocks // per_chunk), per_chunk
 

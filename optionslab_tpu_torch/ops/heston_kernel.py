@@ -11,8 +11,8 @@ Three CUDA sources, four kernels:
   ``hash`` and ``sobol_bb`` (bridge QMC over both Brownian streams);
 * ``csrc/heston_qe.cu``: ``_heston_qe_kernel`` (Andersen QE price) and
   ``_heston_qe_ladder_kernel`` (the base QE path system plus six bumped
-  systems on common draws, one warp per system on shared draws; its launch
-  plan is :func:`_qe_plan`);
+  systems on common draws, one warp per system on shared draws, on the
+  launch plan of the source's ``heston_qe_ladder_plan``);
 * ``csrc/heston_chain.cu`` (the port of ``_heston_chain_kernel``): a whole
   option chain on one variable-dt grid, per quote pay, pay² and the five
   pathwise-gradient moments, folded in at the quote's expiry step.
@@ -38,6 +38,7 @@ the Lewis pricer of ``models/heston.py``), ``pallas_heston_chain_ladder`` →
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import math
 
@@ -73,11 +74,6 @@ LANES = 512
 PATHS_PER_BLOCK = 2 * ROWS * LANES  # one antithetic pair per lane
 LADDER_LANES = 256  # the ladder kernels' narrower counter space
 LADDER_PATHS_PER_BLOCK = 2 * ROWS * LADDER_LANES
-QE_LADDER_UNIT = 32  # lanes of a row per work unit of the QE ladder kernel (one warp's)
-# CUDA blocks of a QE ladder launch: up to 1024 chunks per row, one 32-lane
-# unit each at 8,388,608 paths (≈199 waves of its 5 blocks per SM), so the
-# SMs run out of work together; 4096 blocks (6.2 waves) idled ≈10% of the card
-_QE_LADDER_TARGET_CTAS = 131072
 
 SAMPLERS = ("prng", "hash", "sobol_bb")
 MODES = ("price", "vega", "ladder")
@@ -557,17 +553,6 @@ def _heston_mc_cuda(seed: int, block0: int, params: torch.Tensor, *, n_steps: in
 _heston_mc_cuda.launches = 0
 
 
-def _qe_plan(n_blocks: int, n_sets: int) -> tuple[int, int]:
-    """(n_chunks, units_per_chunk) of a QE launch: each CUDA block sums one
-    row over a chunk of units, a unit being a path block for the price kernel
-    and a ``QE_LADDER_UNIT``-lane slice of one path block's row for the ladder
-    (unit ``u`` = lanes ``QE_LADDER_UNIT·(u % 8)`` onward of block ``u // 8``),
-    whose seven warps carry one path system each."""
-    if n_sets == 1:
-        return _chunking(n_blocks)
-    return _chunking(n_blocks * (LADDER_LANES // QE_LADDER_UNIT), _QE_LADDER_TARGET_CTAS)
-
-
 def _qe_cuda(fn, seed, block0, params, *, n_steps, n_blocks, cp, sampler, n_sets):
     _check_launch(sampler, n_steps, qe=True)
     dev = params.device
@@ -575,8 +560,14 @@ def _qe_cuda(fn, seed, block0, params, *, n_steps, n_blocks, cp, sampler, n_sets
     _check_tensor("params", params, dev, (2 + 11 * n_sets,))
     if n_blocks < 1:
         raise ValueError(f"n_blocks must be positive, got {n_blocks}")
-    n_chunks, per_chunk = _qe_plan(n_blocks, n_sets)
     lib = _build.load_library()
+    if n_sets == 1:
+        n_chunks, per_chunk = _chunking(n_blocks)
+    else:  # the ladder's work units are the kernel's own: its source plans them
+        c_chunks, c_per = ctypes.c_int(), ctypes.c_int()
+        _launch_checked("heston_qe_ladder_plan", lib.heston_qe_ladder_plan(
+            n_blocks, ctypes.byref(c_chunks), ctypes.byref(c_per)))
+        n_chunks, per_chunk = c_chunks.value, c_per.value
     n_mom = 2 + n_sets
     partials = torch.empty((n_mom, ROWS, n_chunks), dtype=torch.float32, device=dev)
     out = torch.empty((n_mom, ROWS), dtype=torch.float32, device=dev)

@@ -247,9 +247,13 @@ def test_heston_mc_kernel_matches_plain_on_card(cuda_device, mode, sampler, cp):
 
 
 # the QE ladder draws in chunks of K = 7 steps: 1, K − 1, K + 1, 12 and 32
-# steps; one path block (8 units of 32 lanes a row) and 70 (several per chunk)
+# steps. Its work unit is 32 lanes of a path block's row: 1 and 70 path
+# blocks (8 and 560 units a row) give one unit to each CUDA block, 257 (2056
+# units) gives 686 chunks of 3 and a last one of 1, so a CUDA block carries
+# several units through its double buffer. The price kernel: 70 path blocks
+# are 24 chunks of 3, 257 are 29 chunks of 9 and a last one of 5.
 @pytest.mark.parametrize("cp", [1.0, -1.0])
-@pytest.mark.parametrize("n_blocks", [1, 70])
+@pytest.mark.parametrize("n_blocks", [1, 70, 257])
 @pytest.mark.parametrize("n_steps", [1, 6, 8, 12, 32])
 @pytest.mark.parametrize("ladder", [False, True])
 @pytest.mark.parametrize("sampler", ["prng", "hash"])
@@ -272,6 +276,36 @@ def test_heston_qe_kernels_match_plain_on_card(cuda_device, ladder, sampler, n_s
     _heston_close(kern, pfn(5, 3, params, **kw), 9)
     # a fixed-order reduction, no atomics: a second launch repeats every bit
     assert torch.equal(kfn(5, 3, params, **kw), kern)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 3, 70, 128, 257, 4099])
+def test_qe_ladder_plan_covers_every_lane_once(cuda_device, n_blocks):
+    """The QE ladder kernel's launch plan (``heston_qe_ladder_plan``): CUDA
+    block (row, chunk), for every row, takes units chunk·per .. min(n_units,
+    (chunk + 1)·per) − 1, unit u being lanes 32·(u % 8) .. 32·(u % 8) + 31
+    of path block u // 8, and its seven warps carry the seven path systems
+    of each. So every (block, row, lane, set) is carried exactly once when
+    every (block, lane) is."""
+    import ctypes
+
+    import numpy as np
+
+    from optionslab_tpu_torch.ops import _build
+    from optionslab_tpu_torch.ops import heston_kernel as hk
+
+    n_chunks, per = ctypes.c_int(), ctypes.c_int()
+    lib = _build.load_library()
+    assert lib.heston_qe_ladder_plan(n_blocks, ctypes.byref(n_chunks), ctypes.byref(per)) == 0
+    n_chunks, per, n_units = n_chunks.value, per.value, n_blocks * 8
+    assert 1 <= n_chunks <= 1024 and per * (n_chunks - 1) < n_units <= per * n_chunks
+    seen = np.zeros((n_blocks, hk.LADDER_LANES), np.int32)
+    for chunk in range(n_chunks):
+        for unit in range(chunk * per, min(n_units, (chunk + 1) * per)):
+            block, g = divmod(unit, 8)
+            seen[block, 32 * g:32 * (g + 1)] += 1
+    assert (seen == 1).all()
+    assert lib.heston_qe_ladder_plan(0, ctypes.byref(ctypes.c_int()),
+                                     ctypes.byref(ctypes.c_int())) != 0
 
 
 @pytest.mark.parametrize("sampler", ["prng", "hash"])

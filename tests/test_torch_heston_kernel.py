@@ -374,28 +374,6 @@ def test_geometry_and_dispatch():
                      torch.tensor(p), **kw)
 
 
-@pytest.mark.parametrize("n_blocks", [1, 3, 70, 128, 4099])
-def test_qe_ladder_plan_covers_every_lane_once(n_blocks):
-    """The QE ladder kernel's launch plan: CUDA block (row, chunk), for every
-    row, takes units chunk·per .. min(n_units, (chunk + 1)·per) − 1, unit u
-    being lanes 32·(u % 8) .. 32·(u % 8) + 31 of path block u // 8, and its
-    seven warps carry the seven path systems of each. So every (block, row,
-    lane, set) is carried exactly once when every (block, lane) is."""
-    n_chunks, per = hk._qe_plan(n_blocks, hk.QE_SETS)
-    groups = hk.LADDER_LANES // hk.QE_LADDER_UNIT
-    n_units = n_blocks * groups
-    assert groups == 8 and hk.QE_LADDER_UNIT == 32  # one warp's width
-    assert 1 <= n_chunks <= 1024 and per * (n_chunks - 1) < n_units <= per * n_chunks
-    seen = np.zeros((n_blocks, hk.LADDER_LANES), np.int32)
-    for chunk in range(n_chunks):
-        for unit in range(chunk * per, min(n_units, (chunk + 1) * per)):
-            block, g = divmod(unit, groups)
-            seen[block, g * hk.QE_LADDER_UNIT:(g + 1) * hk.QE_LADDER_UNIT] += 1
-    assert (seen == 1).all()
-    # the price kernel's units are whole path blocks
-    assert hk._qe_plan(n_blocks, 1) == hk._chunking(n_blocks)
-
-
 # ---------------------------------------------------------------------------
 # the statistical and oracle checks of tests/test_heston_pallas.py
 # ---------------------------------------------------------------------------

@@ -59,6 +59,14 @@ def funcs():
     return sb.parse_functions(LISTING)
 
 
+def hot(fn, rsq_per_trip=1):
+    """:func:`sb.nest_counts` of a kernel whose lane-step is one trip of its
+    step loop, with that loop's ``unroll`` and ``span``."""
+    counts = sb.nest_counts(fn, ((rsq_per_trip, 1),))
+    assert counts.pop("tail_issue") == 0
+    return {**counts, "unroll": counts["unroll"][0], "span": counts["span"][0]}
+
+
 def test_parse_functions(funcs):
     assert sorted(funcs) == ["_ZN10optionslab4laneILi1EEEvNS_4ArgsE",
                              "_ZN10optionslab4stepILi0EEEvNS_4ArgsE",
@@ -73,14 +81,14 @@ def test_parse_functions(funcs):
 
 def test_hot_loop_skips_slow_path(funcs):
     """The loop 0x10..0xa0 minus the call region 0x40..0x60 its branch jumps over."""
-    counts = sb.hot_loop_counts(sb.find_function(funcs, "stepILi0E"))
+    counts = hot(sb.find_function(funcs, "stepILi0E"))
     assert counts == {"fp32": 2, "int": 1, "mufu": 2, "issue": 7, "unroll": 1, "span": 0x90}
 
 
 def test_hot_loop_unroll_and_nested_loop(funcs):
     """Two MUFU.RSQ in the trip: an unroll of 2; the region holding the inner
     loop 0x40..0x50 is skipped."""
-    counts = sb.hot_loop_counts(sb.find_function(funcs, "laneILi1E"))
+    counts = hot(sb.find_function(funcs, "laneILi1E"))
     # kept: 0x10 RSQ, 0x20 LOP3, 0x30 BRA, 0x70 RSQ, 0x80 I2F, 0x90 BRA
     assert counts["unroll"] == 2
     assert counts["issue"] == 3.0 and counts["mufu"] == 1.5 and counts["int"] == 0.5
@@ -94,13 +102,13 @@ def test_step_loop_with_several_roots_and_an_expiry_loop(funcs):
     the step loop is picked, the expiry region 0x60..0x90 is left out, and
     with ``rsq_per_trip=3`` one trip is one step, not a third of one."""
     chain = sb.find_function(funcs, "chainILi0E")
-    counts = sb.hot_loop_counts(chain, rsq_per_trip=3)
+    counts = hot(chain, rsq_per_trip=3)
     # kept: 0x10 RSQ, 0x20 FMUL, 0x30 RSQ, 0x40 RSQ, 0x50 BRA, 0xa0 FADD, 0xb0 BRA
     assert counts == {"fp32": 2, "int": 0, "mufu": 3, "issue": 7, "unroll": 1, "span": 0xA0}
     # the old rule (one RSQ per trip) reads the three roots as an unroll of 3
-    assert sb.hot_loop_counts(chain)["unroll"] == 3
+    assert hot(chain)["unroll"] == 3
     with pytest.raises(ValueError, match="not a multiple of 2"):
-        sb.hot_loop_counts(chain, rsq_per_trip=2)
+        hot(chain, rsq_per_trip=2)
 
 
 BRIDGE_LISTING = """
@@ -133,20 +141,20 @@ def test_two_pass_bridge_counts_both_loops():
     is not a hot loop, and the single-loop rule alone reads only the
     pre-pass."""
     fn = sb.find_function(sb.parse_functions(BRIDGE_LISTING), "bridgeILi2E")
-    counts = sb.two_pass_counts(fn, rsq_per_trip=(1, 3))
+    counts = sb.nest_counts(fn, (((1, 3), 1),))
     # pre-pass: RSQ, FADD, IADD3, BRA; replay: 3 RSQ, FFMA, BRA
     assert counts == {"fp32": 2, "int": 1, "mufu": 4, "issue": 9, "unroll": (1, 1),
-                      "span": (0x30, 0x40)}
-    assert sb.hot_loop_counts(fn)["span"] == 0x30
+                      "span": (0x30, 0x40), "tail_issue": 0}
+    assert hot(fn)["span"] == 0x30
     with pytest.raises(ValueError, match="not a multiple of 3"):
-        sb.hot_loop_counts(fn, rsq_per_trip=3)
+        hot(fn, rsq_per_trip=3)
     with pytest.raises(ValueError, match="not a multiple of 2"):
-        sb.two_pass_counts(fn, rsq_per_trip=(1, 2))
+        sb.nest_counts(fn, (((1, 2), 1),))
 
 
 def test_two_pass_needs_two_inner_loops(funcs):
     with pytest.raises(ValueError, match="found 1"):
-        sb.two_pass_counts(sb.find_function(funcs, "stepILi0E"))
+        sb.nest_counts(sb.find_function(funcs, "stepILi0E"), (((1, 3), 1),))
 
 
 def test_bound_ms_picks_busiest_pipe():
@@ -167,8 +175,8 @@ def test_errors(funcs):
     with pytest.raises(KeyError):
         sb.find_function(funcs, "nothing")
     with pytest.raises(ValueError, match="MUFU.RSQ"):
-        sb.hot_loop_counts([i for i in sb.find_function(funcs, "stepILi0E")
-                            if not i.op.startswith("MUFU.RSQ")])
+        hot([i for i in sb.find_function(funcs, "stepILi0E")
+             if not i.op.startswith("MUFU.RSQ")])
 
 
 def test_compare_counts_same_and_changed_functions(funcs):
@@ -251,17 +259,18 @@ def test_nest_counts_weights_each_loop_and_the_tail(nest_funcs):
     advance loop 0xa0..0x120 left out) and an advance loop 0xb0..0x110 (two
     roots a trip), then the payoff. Per lane-step: the advance loop × 7, the
     chunk loop × 1, and the tail 0x140..0x190 along its shortest path (the
-    warp-uniform branch 0x150 taken: 4 instructions) × 0.25."""
+    warp-uniform branch 0x150 taken: 4 instructions) once per lane of 4
+    steps."""
     fn = sb.find_function(nest_funcs, "ladderILi0E")
-    counts = sb.nest_counts(fn, ((2, 7), (1, 1)), tail=0.25)
+    counts = sb.nest_counts(fn, ((2, 7), (1, 1)), tail=1, n_steps=4)
     # advance: LDS, RSQ, FMUL, RSQ, FADD, IADD3, BRA; chunk: RSQ, I2F, BRA,
     # STS, BAR, BRA, LOP3, BRA; tail: EX2, BRA, FADD, BRA
     assert counts == {"fp32": 7 * 2 + 0 + 0.25, "int": 7 * 1 + 1, "mufu": 7 * 2 + 2 + 0.25,
                       "issue": 7 * 7 + 8 + 0.25 * 4, "unroll": (1, 1), "span": (0x60, 0x100),
                       "tail_issue": 4}
     # level 0 alone is the hot loop
-    hot = sb.hot_loop_counts(fn, rsq_per_trip=2)
-    assert hot["issue"] == 7 and hot["span"] == 0x60
+    inner = hot(fn, rsq_per_trip=2)
+    assert inner["issue"] == 7 and inner["span"] == 0x60
     with pytest.raises(ValueError, match="not a multiple of 3"):
         sb.nest_counts(fn, ((2, 7), (3, 1)))
     with pytest.raises(ValueError, match="holds no MUFU.RSQ"):  # the unit loop's own code
@@ -289,3 +298,106 @@ def test_digest_matches_compare(funcs):
     assert sb.digest(funcs, "chain") != sb.digest(changed, "chain")
     assert sb.digest(funcs, "optionslab")[0] == 3
     assert sb.digest(funcs, "nothing") == (0, sb.digest({}, "x")[1])
+
+
+SPLIT_LISTING = """
+        code for sm_90a
+                Function : _ZN10optionslab5splitILi0EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   UMOV UR4, URZ ;                        /* 0x0000003f00047882 */
+        /*0020*/                   I2FP.F32.S32 R3, R10 ;                 /* 0x0000000a00037245 */
+        /*0030*/                   MUFU.RSQ R2, R3 ;                      /* 0x0000000300027308 */
+        /*0040*/                   FMUL R4, R2, R2 ;                      /* 0x0000000202047220 */
+        /*0050*/                   SHF.L.U32 R5, R0, 0x2, RZ ;            /* 0x0000000200057819 */
+        /*0060*/                   UIMAD UR5, UR4, 0x80, URZ ;            /* 0x00000080040578a4 */
+        /*0070*/                   STS [R5+UR5], R4 ;                     /* 0x0000000405007988 */
+        /*0080*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;          /* 0x0000000000007b1d */
+        /*0090*/                   ISETP.GE.AND P0, PT, R6, 0x1, PT ;     /* 0x000000010600780c */
+        /*00a0*/               @!P0 BRA 0x140 ;                           /* 0x0000000000248947 */
+        /*00b0*/                   UMOV UR6, URZ ;                        /* 0x0000003f00067882 */
+        /*00c0*/                   ULEA UR7, UR6, UR5, 0x7 ;              /* 0x0000000506077291 */
+        /*00d0*/                   LDS R7, [R5+UR7] ;                     /* 0x0000000705077984 */
+        /*00e0*/                   MUFU.RSQ R8, R7 ;                      /* 0x0000000700087308 */
+        /*00f0*/                   FADD R9, R9, R8 ;                      /* 0x0000000809097221 */
+        /*0100*/                   UIADD3 UR6, UR6, 0x1, URZ ;            /* 0x0000000106067890 */
+        /*0110*/                   UISETP.GE.AND UP0, UPT, UR6, UR8, UPT ; /* 0x000000080600728c */
+        /*0120*/                   PLOP3.LUT P1, PT, PT, PT, UP0, 0x80, 0x0 ; /* 0x000000000000781c */
+        /*0130*/               @!P1 BRA 0xc0 ;                            /* 0xffffff8000009947 */
+        /*0140*/                   ULOP3.LUT UR4, UR4, 0x1, URZ, 0x3c, !UPT ; /* 0x0000000104047892 */
+        /*0150*/                   IADD3 R10, R10, 0x7, RZ ;              /* 0x000000070a0a7810 */
+        /*0160*/                   ISETP.LT.AND P2, PT, R10, R11, PT ;    /* 0x0000000b0a00720c */
+        /*0170*/                @P2 BRA 0x20 ;                            /* 0xfffffea000002947 */
+        /*0180*/                   FADD R12, R9, R9 ;                     /* 0x000000090c0c7221 */
+        /*0190*/                   EXIT ;                                 /* 0x000000000000794d */
+
+                Function : _ZN10optionslab5guardILi0EEEvNS_4ArgsE
+        /*0000*/                   S2R R0, SR_TID.X ;                     /* 0x0000000000007919 */
+        /*0010*/                   ISETP.GE.AND P0, PT, R1, R2, PT ;      /* 0x000000020100720c */
+        /*0020*/                @P0 BRA 0x80 ;                            /* 0x0000000000140947 */
+        /*0030*/                   MUFU.RSQ R3, R4 ;                      /* 0x0000000400037308 */
+        /*0040*/               @!P1 BRA 0x70 ;                            /* 0x0000000000089947 */
+        /*0050*/                   CALL.REL.NOINC 0x200 ;                 /* 0x0000000000007944 */
+        /*0060*/                   NOP ;                                  /* 0x0000000000007918 */
+        /*0070*/                   FMUL R5, R3, R3 ;                      /* 0x0000000303057220 */
+        /*0080*/                   FADD R6, R6, R5 ;                      /* 0x0000000506067221 */
+        /*0090*/                @P2 BRA 0x10 ;                            /* 0xffffff7000002947 */
+        /*00a0*/                   EXIT ;                                 /* 0x000000000000794d */
+"""
+
+
+@pytest.fixture(scope="module")
+def split_funcs():
+    return sb.parse_functions(SPLIT_LISTING)
+
+
+def test_nest_counts_leaves_out_the_layouts_bookkeeping(split_funcs):
+    """A split kernel: each trip of the chunk loop 0x20..0x170 draws one
+    value (a root) into shared memory behind a barrier, and the advance loop
+    0xc0..0x130 (4 trips a lane-step) reads it back. With
+    ``bookkeeping=False`` what only the layout needs goes: the store, the
+    barrier and the load, their addresses (lane·4, the buffer, the step),
+    both loops' counters and branches, the buffer's toggle and the advance
+    loop's zero-trip test. The draw's step counter 0x150 stays (the draw
+    reads it), and so does the advance's sum 0xf0, which only its own next
+    trip reads in the loop. The region the zero-trip test 0xa0 jumps over
+    holds the advance loop, so, as a slow path would, its own code 0xb0
+    counts with neither level."""
+    fn = sb.find_function(split_funcs, "splitILi0E")
+    kept = sb.nest_counts(fn, ((1, 4), (1, 1)), tail=1, n_steps=4)
+    # advance: ULEA, LDS, RSQ, FADD, UIADD3, UISETP, PLOP3, BRA; chunk: I2FP,
+    # RSQ, FMUL, SHF, UIMAD, STS, BAR, ISETP, BRA, ULOP3, IADD3, ISETP, BRA;
+    # tail: FADD, EXIT
+    assert kept == {"fp32": 4 * 1 + 1 + 0.25, "int": 4 * 1 + 5, "mufu": 4 * 1 + 1,
+                    "issue": 4 * 8 + 13 + 0.25 * 2, "unroll": (1, 1), "span": (0x70, 0x150),
+                    "tail_issue": 2}
+    # left: advance RSQ, FADD; chunk I2FP, RSQ, FMUL, IADD3
+    assert sb.nest_counts(fn, ((1, 4), (1, 1)), tail=1, n_steps=4, bookkeeping=False) == {
+        **kept, "int": 2, "issue": 4 * 2 + 4 + 0.25 * 2}
+
+
+def test_a_branch_around_a_root_skips_no_slow_path(split_funcs):
+    """A guarded draw: the branch 0x20 jumps over the draw, whose root
+    0x30 is the trip's own work, so only the slow-path call 0x40..0x70 is
+    left out; a skipped root would leave the loop without its MUFU.RSQ."""
+    counts = sb.nest_counts(sb.find_function(split_funcs, "guardILi0E"), ((1, 1),))
+    # ISETP, BRA, RSQ, BRA, FMUL, FADD, BRA
+    assert counts == {"fp32": 2, "int": 1, "mufu": 1, "issue": 7, "unroll": (1,),
+                      "span": (0x80,), "tail_issue": 0}
+
+
+@pytest.mark.parametrize("line,dests,reads", [
+    ("ISETP.GE.AND P0, PT, R5, R7, PT", ["P0"], [("R5", False), ("R7", False)]),
+    ("IMAD.WIDE.U32 R2, R3, -0x326172a9, RZ", ["R2", "R3"], [("R3", False)]),
+    ("IADD3 R4, P1, R5, 0x1, RZ", ["R4", "P1"], [("R5", False)]),
+    ("STS [R6+0x380], R3", [], [("R6", True), ("R3", False)]),
+    ("LDS R13, [R11+UR14+0x380]", ["R13"], [("R11", True), ("UR14", True)]),
+    ("@!P0 BRA 0x70", [], [("P0", False)]),
+    ("PLOP3.LUT P0, PT, PT, PT, UP0, 0x80, 0x0", ["P0"], [("UP0", False)]),
+    ("ULDC.64 UR14, c[0x0][0x218]", ["UR14", "UR15"], []),
+    ("@P3 LDG.E.64 R2, desc[UR4][R6.64]", ["R2", "R3"],
+     [("P3", False), ("UR4", True), ("R6", True), ("R7", True)]),
+])
+def test_defs_reads(line, dests, reads):
+    """What an instruction writes and reads, and which reads are addresses."""
+    (fn,) = sb.parse_functions(f"Function : f\n        /*0000*/ {line} ;\n").values()
+    assert sb._defs_reads(fn[0]) == (dests, reads)
