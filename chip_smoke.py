@@ -69,8 +69,9 @@ is printed):
               slv over a socket;
 11. multi-asset — the multi-asset kernel (every kind × lr × d = 2, 3, 4 ×
               hash/prng × cp, sobol on the terminal kinds, basket_cv) against
-              its plain version per row within 1e-6 at 2 blocks and at the
-              path's shapes; then the path at the JAX package's bench shapes
+              its plain version per row within 1e-6 and bitwise equal over
+              two launches, at 2 blocks, at the edges of its launch plan and
+              at the path's shapes; then the path at the JAX package's bench shapes
               (3 assets: the basket Asian 4,063,232 x 252 against the scan
               engine, its LR ladder at x 64 against CRN finite differences of
               the kernel price, the geometric basket's price and ladder at
@@ -82,9 +83,13 @@ is printed):
 13. timing  — device ms by CUDA events of each kernel and its plain
               version at its path's shapes, beside the least time the card
               could take (from the kernel's SASS, ``ops/sass_bound.py``);
-              the QE ladder's registers, CUDA blocks per SM and issue share,
-              and the SASS digests of the QE instances it shares a source
-              or a header with, beside the ones it was split from.
+              the multi-asset one-step launches (4,063,232 x 1 LR, price
+              and sobol, /basket's default 524,288 x 1) on the device alone
+              by a CUDA graph of calls, beside an empty launch; the QE
+              ladder's and every multi-asset instance's registers and CUDA
+              blocks per SM and their issue shares; and the SASS digests
+              of the QE instances it shares a source or a header with,
+              beside the ones it was split from.
 
 The last three lines are a JSON object of kernel measurements, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports
@@ -161,6 +166,30 @@ def event_time(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_time(fn, iters: int = 20, reps: int = 5) -> list[float]:
+    """Device ms per call of ``fn()``, for each of ``reps`` replays of a CUDA
+    graph of ``iters`` calls between two CUDA events: the host issues
+    nothing between the events, so a launch shorter than the host's issue
+    time (tens of µs a call) is read on the device alone."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return out
 
 
 def book_batch(n: int, device) -> ContractBatch:
@@ -2107,6 +2136,10 @@ MA_TERMINAL = (4_000_000, 1)
 MA_SCAN = 1_048_576  # the scan engine's paths
 MA_REF_PATHS = mk.PATHS_PER_BLOCK  # the reference tests' one block (n_paths=4)
 MA_RTOL = 1e-6  # kernel vs plain per row: the paths are bitwise, the sums' order differs
+# the launch plan's edges (path blocks, steps): 1, 8 and 9 chunks of one path
+# block a row (the most a short launch leaves at one a thread), 8 of 4, 9 of
+# 4 with a last chunk of 1, 65 of 4
+MA_PLAN_EDGES = ((1, 1), (8, 2), (9, 1), (31, 6), (33, 1), (257, 2))
 MA_ARGS = (MA_SPOTS, STRIKE, T, RATE, MA_VOLS, MA_CORR)
 MA_D4 = ([100.0, 95.0, 105.0, 98.0], [0.2, 0.25, 0.3, 0.22],
          [[1.0, 0.5, 0.3, 0.2], [0.5, 1.0, 0.4, 0.1], [0.3, 0.4, 1.0, 0.25],
@@ -2126,7 +2159,8 @@ def ma_vector(d, kind, n_steps, lr, dev, strike=STRIKE):
 def ma_parity_cases(dev) -> list:
     """(tag, params, kwargs) of the multi-asset parity phase: every kind ×
     lr × d ∈ {2, 3, 4} × hash/prng × cp ±1 at 2 blocks (the Asian at 6
-    steps), sobol on the terminal kinds, basket_cv, and the path's shapes."""
+    steps), sobol on the terminal kinds, basket_cv, the launch plan's edges
+    and the path's shapes."""
     cases = []
     for d in (2, 3, 4):
         for kind in mk.KINDS:
@@ -2141,6 +2175,11 @@ def ma_parity_cases(dev) -> list:
                         cases.append((f"{kind} d={d} {sampler} lr={lr} cp={cp:+.0f} 2x{n_steps}",
                                       p, dict(d=d, kind=kind, n_steps=n_steps, n_blocks=2,
                                               cp=cp, sampler=sampler, lr=lr)))
+    for nb, m in MA_PLAN_EDGES:
+        p = ma_vector(3, "basket_geo", m, True, dev)
+        cases.append((f"basket_geo d=3 prng lr=True {nb} blocks x{m}", p,
+                      dict(d=3, kind="basket_geo", n_steps=m, n_blocks=nb, cp=1.0,
+                           sampler="prng", lr=True)))
     for kind, (n, m), lr, sampler in (("basket_asian", MA_PRICE, False, "prng"),
                                       ("basket_asian", MA_LADDER, True, "prng"),
                                       ("basket_geo", MA_TERMINAL, True, "prng"),
@@ -2157,9 +2196,11 @@ def phase_ma_parity(dev) -> float:
     MA_RTOL; returns the largest absolute difference."""
     worst = 0.0
     for tag, p, kw in ma_parity_cases(dev):
-        kern, plain = mk._ma_cuda(7, 1, p, **kw), mk._ma_plain(7, 1, p, **kw)
+        kern, plain = mk._ma_cuda(7, 1, p, **kw).clone(), mk._ma_plain(7, 1, p, **kw)
         torch.cuda.synchronize()
         worst = max(worst, compare_sums(kern, plain, f"multi_asset {tag}", rtol=MA_RTOL))
+        check(torch.equal(mk._ma_cuda(7, 1, p, **kw), kern),
+              f"multi_asset {tag}: two launches differ")
     return worst
 
 
@@ -2340,35 +2381,92 @@ def phase_ma_server(dev) -> int:
     return routed
 
 
+# the short launches, timed on the device alone (graph_time): the terminal
+# LR ladder, the price-only basket and sobol at 4,063,232 x 1, and /basket's
+# default request (500,000 paths: 4 path blocks, 524,288 paths)
+MA_BASKET_DEFAULT = 500_000
+# the x 1 LR launch's bound before its epilogue's lane invariants were staged: 876
+# issued per lane, 549 in the step and 327 on the epilogue's shortest path
+MA_876_BOUND_MS = 0.0266
+
+
 def ma_timing(dev) -> dict:
     """Device ms of the multi-asset kernel and its plain version at the
-    path's three shapes (prng). Not counted as main path."""
+    path's shapes (prng unless named): the 252- and 64-step launches by
+    CUDA events, the one-step launches by the graph timer (also logged back
+    to back). Not counted as main path."""
     out = {}
-    for tag, kind, (n, m), lr in ((f"multi_asset basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}",
-                                   "basket_asian", MA_PRICE, False),
-                                  (f"multi_asset basket_asian LR {MA_LADDER[0]}x{MA_LADDER[1]}",
-                                   "basket_asian", MA_LADDER, True),
-                                  (f"multi_asset basket_geo LR {MA_TERMINAL[0]}x1", "basket_geo",
-                                   MA_TERMINAL, True)):
+    # tag, kind, (paths, steps), lr, sampler, mangled-name part (D, Asian, lr, sampler) of
+    # the instance whose bound is counted: the sobol instance draws before its step loop,
+    # which then holds no Box–Muller for sass_bound to find, so its bound is not counted
+    for tag, kind, (n, m), lr, sampler, name in (
+            (f"basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}", "basket_asian", MA_PRICE, False, "prng",
+             "ILi3ELb1ELb0ELi0E"),
+            (f"basket_asian LR {MA_LADDER[0]}x{MA_LADDER[1]}", "basket_asian", MA_LADDER, True,
+             "prng", "ILi3ELb1ELb1ELi0E"),
+            (f"basket_geo LR {MA_TERMINAL[0]}x1", "basket_geo", MA_TERMINAL, True, "prng",
+             "ILi3ELb0ELb1ELi0E"),
+            (f"basket {MA_TERMINAL[0]}x1", "basket", MA_TERMINAL, False, "prng",
+             "ILi3ELb0ELb0ELi0E"),
+            (f"basket_geo sobol {MA_TERMINAL[0]}x1", "basket_geo", MA_TERMINAL, False, "sobol",
+             None),
+            (f"basket_geo LR {MA_BASKET_DEFAULT}x1", "basket_geo", (MA_BASKET_DEFAULT, 1), True,
+             "prng", "ILi3ELb0ELb1ELi0E"),
+            (f"basket {MA_BASKET_DEFAULT}x1", "basket", (MA_BASKET_DEFAULT, 1), False, "prng",
+             "ILi3ELb0ELb0ELi0E")):
         p = ma_vector(3, kind, m, lr, dev)
         kw = dict(d=3, kind=kind, n_steps=m, n_blocks=mk._n_blocks(n, mk.PATHS_PER_BLOCK),
-                  cp=1.0, sampler="prng", lr=lr)
-        ms, plain_ms = event_pair(lambda: mk._ma_cuda(0, 0, p, **kw),
-                                  lambda: mk._ma_plain(0, 0, p, **kw))
-        out[tag] = {"ms": ms, "plain_ms": plain_ms,
-                    "trips": kw["n_blocks"] * mk.ROWS * mk.LANES * m,
-                    "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS), "steps": m}
+                  cp=1.0, sampler=sampler, lr=lr)
+        kernel = lambda: mk._ma_cuda(0, 0, p, **kw)  # noqa: E731
+        ms, plain_ms = event_pair(kernel, lambda: mk._ma_plain(0, 0, p, **kw))
+        t = {"ms": ms, "plain_ms": plain_ms, "trips": kw["n_blocks"] * mk.ROWS * mk.LANES * m,
+             "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS), "steps": m,
+             "sass": name and (f"multi_asset_kernel{name}",)}
+        if m == 1:
+            reads = graph_time(kernel)
+            t.update(ms=sum(reads) / len(reads), back_to_back_ms=ms)
+            log("timing", f"multi_asset {tag} {sampler}: device-only (a CUDA graph of 20 calls, "
+                          f"5 replays) {' '.join(f'{x:.5f}' for x in reads)} ms; back to back "
+                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) "
+                          f"{mk._plan(kw['n_blocks'], m)}")
+        out[f"multi_asset {tag}"] = t
+    empty = graph_time(lambda: torch.cuda._sleep(0), 40)
+    log("timing", f"an empty launch on the same stream, device-only: "
+                  f"{' '.join(f'{x:.5f}' for x in empty)} ms")
     return out
 
 
-# mangled-name parts (D, basket Asian, lr, sampler); the step loop with d = 3
-# Box–Mullers (3 MUFU.RSQ) a trip, and once per lane the epilogue after it
-# (payoff and moments, counted along its shortest path over the payoff
-# kinds): at n_steps = 1 it is as large as the one step
+def ma_report(funcs: dict, ma_t: dict) -> None:
+    """Registers, local memory and CUDA blocks per SM of every multi-asset
+    instance; the x 1 LR launch's issue count and share against this
+    build's count and the earlier one's."""
+    lib = _build.load_library()
+    for d in (2, 3, 4):
+        for asian, family in ((0, "terminal"), (1, "basket_asian")):
+            for lr in (0, 1):
+                for sampler in range(2 if asian else 3):
+                    regs, local, ctas = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+                    err = lib.multi_asset_occupancy(d, asian, lr, sampler, 0, ctypes.byref(regs),
+                                                    ctypes.byref(local), ctypes.byref(ctas))
+                    check(err == 0, f"multi_asset_occupancy returned {err}")
+                    log("multi_asset", f"d={d} {family} lr={bool(lr)} {mk.SAMPLERS[sampler]}: "
+                                       f"{regs.value} registers, {local.value} local bytes, "
+                                       f"{ctas.value} CUDA blocks of 256 threads per SM")
+    t = ma_t[f"multi_asset basket_geo LR {MA_TERMINAL[0]}x1"]
+    fn = sass_bound.find_function(funcs, *t["sass"])
+    lane = sass_bound.nest_counts(fn, n_steps=1, **_MA_NEST)
+    log("multi_asset", f"basket_geo LR {MA_TERMINAL[0]}x1: {lane['issue']:.1f} issued per lane "
+                       f"({lane['issue'] - lane['tail_issue']:.1f} in the step, "
+                       f"{lane['tail_issue']} on the epilogue's shortest path); device-only "
+                       f"{t['ms']:.5f} ms: share {t['bound_ms'] / t['ms']:.3f} of this count's "
+                       f"{t['bound_ms']:.5f} ms bound, {MA_876_BOUND_MS / t['ms']:.3f} of the "
+                       f"earlier count's {MA_876_BOUND_MS} ms (876 per lane)")
+
+
+# the step loop with d = 3 Box–Mullers (3 MUFU.RSQ) a trip, and once per
+# lane the epilogue after it (payoff and moments, counted along its shortest
+# path over the payoff kinds): at n_steps = 1 it is as large as the one step
 _MA_NEST = nest((3, 1), tail=1)
-MA_SASS = {"multi_asset basket_asian LR": (("multi_asset_kernelILi3ELb1ELb1ELi0E",), _MA_NEST),
-           "multi_asset basket_asian": (("multi_asset_kernelILi3ELb1ELb0ELi0E",), _MA_NEST),
-           "multi_asset basket_geo LR": (("multi_asset_kernelILi3ELb0ELb1ELi0E",), _MA_NEST)}
 
 
 def qe_ladder_report(funcs: dict, t: dict) -> None:
@@ -2528,13 +2626,15 @@ def main() -> None:
         t["bound_ms"], t["bound_by"] = kernel_bound(funcs, *SMILE_SASS[key], t, tag)
     ma_t = ma_timing(dev)
     for tag, t in ma_t.items():
-        key = next(k_ for k_ in sorted(MA_SASS, key=len, reverse=True) if tag.startswith(k_))
-        t["bound_ms"], t["bound_by"] = kernel_bound(funcs, *MA_SASS[key], t, tag)
+        t["bound_ms"], t["bound_by"] = (kernel_bound(funcs, t["sass"], _MA_NEST, t, tag)
+                                        if t["sass"] else (float("nan"), "not counted"))
+    ma_report(funcs, ma_t)
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):
-        sampler = "hash residuals" if "sobol_bb" in tag else "prng"
-        log("timing", f"{tag} {sampler}, device ms by CUDA events [{card}]: kernel {t['ms']:.4f}, "
+        sampler = "hash residuals" if "sobol_bb" in tag else "sobol" if "sobol" in tag else "prng"
+        how = "a CUDA graph of calls" if "back_to_back_ms" in t else "CUDA events"
+        log("timing", f"{tag} {sampler}, device ms by {how} [{card}]: kernel {t['ms']:.4f}, "
                       f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
                       f"{t['bound_ms']:.4f} ({t['bound_by']})")
 

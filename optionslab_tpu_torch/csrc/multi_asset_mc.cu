@@ -26,20 +26,37 @@
 // What the design does about it:
 //  * The parameter vector (S0, drift·dt, σ√dt, w per asset; L; K; g0; L⁻¹,
 //    1/σ, √dt, 1/(2T), c1) is staged in shared memory once per CUDA block;
-//    every read is a warp-wide broadcast and loop-invariant.
+//    every read is a warp-wide broadcast and loop-invariant. The terminal
+//    instances also stage the epilogue's lane invariants w_i·S0_i and
+//    log S0_i there (the same rounded product and libm call a lane would
+//    take), which spares the geometric basket 12 logf a lane.
 //  * One thread owns one (block, row, col) lane at a time and keeps its four
-//    path systems, LR carries and moment sums in registers.
+//    path systems, LR carries and moment sums in registers; it carries the
+//    same lane of each path block of its chunk in turn, one at a time.
+//  * Occupancy is set per instance (kBlocksPerSm, __launch_bounds__).
+//  * The launch plan (ma_plan, a function of n_blocks and n_steps only, so a
+//    sum's order depends on the geometry alone): a launch of many steps
+//    takes the other path kernels' plan (≤ 32 chunks a row, ≥ 4096 CUDA
+//    blocks once there are 32 path blocks); a short launch, whose lane work
+//    is about as small as a CUDA block's fixed costs (the parameter load
+//    and its barrier, the block reduction: ≈ 22 % of a one-step lane),
+//    gives each thread up to kShortLanes path blocks while ≥ 5 chunks a row
+//    (640 CUDA blocks, more than a wave of the card) are left, so those
+//    costs are paid once for several lanes. Each row's chunks are summed in
+//    chunk order, in float64, by a second kernel (reduce.cuh): no float
+//    atomics. (Summing them in the same launch, each row's CUDA blocks one
+//    thread block cluster, measured 22 % slower at one step: a cluster's
+//    blocks hold their slots until the slowest is done.)
 //  * The counter space is the reference's, so the `hash` path set and the
 //    `sobol` point set are the JAX kernel's own; `prng` is Philox keyed by
 //    (seed, salt ^ block) at counter (row, col, k·d + i, 0).
-//  * Fixed-order reduction (reduce.cuh): no float atomics.
 //  * Precise libm, every product that feeds a path value rounded on its own
 //    (fp.cuh, never an FMA) in the reference's association order, so each
 //    path is bitwise the plain torch version's.
 //  * Templates: d (3) × family (terminal, basket Asian) × lr × sampler
 //    (prng, hash, and sobol for the terminal family): 30 instances. The
-//    terminal payoff kind (a switch after the step loop), cp, n_steps and
-//    every market scalar are runtime arguments.
+//    terminal payoff kind (a switch after the step loop), cp, n_steps, the
+//    plan and every market scalar are runtime arguments.
 //
 // C interface for ctypes, as exotic_mc.cu.
 
@@ -59,6 +76,10 @@ constexpr int kRows = 128;
 constexpr uint32_t kLanes = 256;
 constexpr int kThreads = 256;  // one thread per lane of a row
 constexpr int kMaxParams = 64;
+constexpr int kInvariants = kMaxParams;  // w_i·S0_i at +i, log S0_i at +4 + i
+constexpr int kLongChunks = 32;          // ops/exotic_kernel.py::_chunking's chunks a row
+constexpr int kShortSteps = 8;           // launches of at most this many steps are short
+constexpr int kShortLanes = 4;           // path blocks a thread carries in a short launch
 
 // ops/multi_asset_kernel.py::KINDS
 enum Kind : int {
@@ -79,6 +100,23 @@ struct MaArgs {
   float cp;
   float* partials;  // (n_mom, 128, n_chunks)
 };
+
+// CUDA blocks of kThreads per SM each instance is compiled for
+// (__launch_bounds__), by [d - 2][basket Asian][lr][sampler: prng, hash,
+// sobol]. Without a bound the allocation drifts by up to ±40 registers with
+// small changes around the step and can lose a block per SM; with one that
+// is too tight it spills. The entries hold every instance at the blocks per
+// SM the kernel reached when it compiled without bounds, and depart from it
+// in four, each measured in turns on the H100: the d = 3 terminal `hash`
+// price and the d = 2 basket Asian `prng` price run one block fewer, where
+// the old count spills (no slower); the d = 3 basket Asian ladders run 3
+// (80 registers, 40–60 bytes spilled in the epilogue only, once per lane),
+// 3.5 % faster at 64 steps than at 2. The basket Asian has no sobol
+// instance.
+constexpr int kBlocksPerSm[3][2][2][3] = {
+    {{{6, 6, 6}, {3, 3, 3}}, {{5, 5, 1}, {3, 3, 1}}},
+    {{{4, 4, 5}, {2, 2, 2}}, {{4, 4, 1}, {3, 3, 1}}},
+    {{{2, 4, 4}, {1, 1, 1}}, {{3, 3, 1}, {1, 1, 1}}}};
 
 template <int D, bool kLr>
 __host__ __device__ constexpr int n_moments() {
@@ -103,14 +141,21 @@ struct Param {
   __device__ float sqdt() const { return p[4 * D + 2 * D * D + 1 + D]; }
   __device__ float c0() const { return p[4 * D + 2 * D * D + 2 + D]; }
   __device__ float c1(int i) const { return p[4 * D + 2 * D * D + 3 + D + i]; }
+  __device__ float ws0(int i) const { return p[kInvariants + i]; }       // w_i·S0_i
+  __device__ float log_s0(int i) const { return p[kInvariants + 4 + i]; }  // log S0_i
 };
 
-// Σ_i (w_i·S0_i)·e^{x_i}, left to right
-template <int D>
+// Σ_i (w_i·S0_i)·e^{x_i}, left to right: after the terminal step loop with
+// the block's staged invariant, in the basket Asian's step loop with the
+// product formed in place (the same bits; 0.6 % faster at 252 steps than
+// the staged one, measured in turns on the H100)
+template <int D, bool kStep>
 __device__ __forceinline__ float basket_level(const Param<D>& q, const float* x) {
-  float lvl = mul(mul(q.w(0), q.s0(0)), expf(x[0]));
+  float lvl = mul(kStep ? mul(q.w(0), q.s0(0)) : q.ws0(0), expf(x[0]));
 #pragma unroll
-  for (int i = 1; i < D; ++i) lvl = add(lvl, mul(mul(q.w(i), q.s0(i)), expf(x[i])));
+  for (int i = 1; i < D; ++i) {
+    lvl = add(lvl, mul(kStep ? mul(q.w(i), q.s0(i)) : q.ws0(i), expf(x[i])));
+  }
   return lvl;
 }
 
@@ -121,9 +166,9 @@ __device__ __forceinline__ float terminal_payoff(const Param<D>& q, int kind, fl
                                                  const float* x) {
   float lvl;
   if (kind == kBasketGeo) {
-    float lg = mul(q.w(0), add(logf(q.s0(0)), x[0]));
+    float lg = mul(q.w(0), add(q.log_s0(0), x[0]));
 #pragma unroll
-    for (int i = 1; i < D; ++i) lg = add(lg, mul(q.w(i), add(logf(q.s0(i)), x[i])));
+    for (int i = 1; i < D; ++i) lg = add(lg, mul(q.w(i), add(q.log_s0(i), x[i])));
     lvl = expf(lg);
   } else if (kind == kRainbowBest || kind == kRainbowWorst) {
     lvl = mul(q.s0(0), expf(x[0]));
@@ -135,7 +180,7 @@ __device__ __forceinline__ float terminal_payoff(const Param<D>& q, int kind, fl
   } else if (kind == kSpread) {
     lvl = sub(mul(q.s0(0), expf(x[0])), mul(q.s0(1), expf(x[1])));
   } else {  // basket, basket_cv
-    lvl = basket_level<D>(q, x);
+    lvl = basket_level<D, false>(q, x);
   }
   float pay = fmaxf(mul(cp, sub(lvl, q.strike())), 0.0f);
   if (kind == kBasketCv) {  // minus the geometric basket on the same path
@@ -231,7 +276,7 @@ __device__ __forceinline__ void simulate_lane(const Param<D>& q, const MaArgs& a
     }
     if constexpr (kAsian) {
 #pragma unroll
-      for (int b = 0; b < 4; ++b) asian[b] = add(asian[b], basket_level<D>(q, x[b]));
+      for (int b = 0; b < 4; ++b) asian[b] = add(asian[b], basket_level<D, true>(q, x[b]));
     }
   }
 
@@ -278,11 +323,17 @@ __device__ __forceinline__ void simulate_lane(const Param<D>& q, const MaArgs& a
 }
 
 // grid.x = 128 rows × n_chunks; one CUDA block sums one row over one chunk of
-// path blocks, thread c owning lane c of the row.
+// path blocks, thread c carrying lane c of each.
 template <int D, bool kAsian, bool kLr, int kS>
-__global__ void __launch_bounds__(kThreads) multi_asset_kernel(MaArgs a) {
-  __shared__ float sp[kMaxParams];
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm[D - 2][kAsian][kLr][kS])
+    multi_asset_kernel(MaArgs a) {
+  __shared__ float sp[kMaxParams + 8];
   for (int j = threadIdx.x; j < a.n_params; j += kThreads) sp[j] = a.params[j];
+  if (!kAsian && threadIdx.x < D) {  // the terminal epilogue's invariants, as a lane forms them
+    const float s0 = a.params[4 * threadIdx.x], w = a.params[4 * threadIdx.x + 3];
+    sp[kInvariants + threadIdx.x] = mul(w, s0);
+    sp[kInvariants + 4 + threadIdx.x] = logf(s0);
+  }
   __syncthreads();
   constexpr int kMom = n_moments<D, kLr>();
   const int row = blockIdx.x / a.n_chunks;
@@ -294,6 +345,7 @@ __global__ void __launch_bounds__(kThreads) multi_asset_kernel(MaArgs a) {
   float acc[kMom];
 #pragma unroll
   for (int m = 0; m < kMom; ++m) acc[m] = 0.0f;
+#pragma unroll 1  // one lane at a time: no second lane's state in registers
   for (int b = b_begin; b < b_end; ++b) {
     simulate_lane<D, kAsian, kLr, kS>(q, a, a.block0 + static_cast<uint32_t>(b),
                                       static_cast<uint32_t>(row), threadIdx.x, acc);
@@ -301,37 +353,64 @@ __global__ void __launch_bounds__(kThreads) multi_asset_kernel(MaArgs a) {
   store_block_moments<kMom, kThreads>(acc, a.partials, kRows, row, a.n_chunks, chunk);
 }
 
-template <int D, bool kAsian, bool kLr, int kS>
-cudaError_t go(const MaArgs& a, cudaStream_t stream) {
-  const unsigned grid = static_cast<unsigned>(kRows) * static_cast<unsigned>(a.n_chunks);
-  multi_asset_kernel<D, kAsian, kLr, kS><<<grid, kThreads, 0, stream>>>(a);
-  return cudaGetLastError();
+// (n_chunks, blocks_per_chunk) of a launch over n_blocks path blocks of
+// n_steps steps.
+void ma_plan(int n_blocks, int n_steps, int* n_chunks, int* blocks_per_chunk) {
+  int chunks = n_blocks < kLongChunks ? n_blocks : kLongChunks;
+  if (n_steps <= kShortSteps) {  // up to kShortLanes path blocks a thread, ≥ 5 chunks a row
+    int lanes = n_blocks / 5;
+    lanes = lanes < 1 ? 1 : lanes < kShortLanes ? lanes : kShortLanes;
+    chunks = (n_blocks + lanes - 1) / lanes;
+  }
+  const int per = (n_blocks + chunks - 1) / chunks;
+  *blocks_per_chunk = per;
+  *n_chunks = (n_blocks + per - 1) / per;
 }
 
 template <int D, bool kAsian, bool kLr>
-cudaError_t by_sampler(const MaArgs& a, int sampler, cudaStream_t st) {
-  if (sampler == kPrng) return go<D, kAsian, kLr, kPrng>(a, st);
-  if (sampler == kHash) return go<D, kAsian, kLr, kHash>(a, st);
-  if constexpr (!kAsian) return go<D, false, kLr, kSobol>(a, st);
-  return cudaErrorInvalidValue;  // sobol is terminal-only
+const void* pick(int sampler) {
+  if (sampler == kPrng) return reinterpret_cast<const void*>(multi_asset_kernel<D, kAsian, kLr, kPrng>);
+  if (sampler == kHash) return reinterpret_cast<const void*>(multi_asset_kernel<D, kAsian, kLr, kHash>);
+  if constexpr (!kAsian) return reinterpret_cast<const void*>(multi_asset_kernel<D, false, kLr, kSobol>);
+  return nullptr;  // sobol is terminal-only
 }
 
-template <int D>
-cudaError_t by_family(const MaArgs& a, int sampler, bool lr, cudaStream_t st) {
-  if (a.kind == kBasketAsian) {
-    return lr ? by_sampler<D, true, true>(a, sampler, st) : by_sampler<D, true, false>(a, sampler, st);
+// The instance for (d, basket Asian or terminal family, lr, sampler), or null.
+const void* instance(int d, bool asian, bool lr, int sampler) {
+  if (sampler < kPrng || sampler > kSobol) return nullptr;
+  switch (d) {
+    case 2:
+      if (asian) return lr ? pick<2, true, true>(sampler) : pick<2, true, false>(sampler);
+      return lr ? pick<2, false, true>(sampler) : pick<2, false, false>(sampler);
+    case 3:
+      if (asian) return lr ? pick<3, true, true>(sampler) : pick<3, true, false>(sampler);
+      return lr ? pick<3, false, true>(sampler) : pick<3, false, false>(sampler);
+    case 4:
+      if (asian) return lr ? pick<4, true, true>(sampler) : pick<4, true, false>(sampler);
+      return lr ? pick<4, false, true>(sampler) : pick<4, false, false>(sampler);
+    default:
+      return nullptr;
   }
-  return lr ? by_sampler<D, false, true>(a, sampler, st)
-            : by_sampler<D, false, false>(a, sampler, st);
 }
 
 }  // namespace
 }  // namespace optionslab
 
-// Per-row moment sums into `out` (n_mom, 128) float32, with `partials`
-// (n_mom, 128, n_chunks) float32 as scratch; n_mom is 2 without lr and
-// 2 + 2d + d(d+1)/2 + 2 with it. `params` holds n_params floats in the
-// layout of ops/multi_asset_kernel.py::_params_vec.
+// The launch plan of n_blocks path blocks of n_steps steps: the n_chunks and
+// blocks_per_chunk that multi_asset_moments takes.
+extern "C" int multi_asset_plan(int n_blocks, int n_steps, int* n_chunks, int* blocks_per_chunk) {
+  using namespace optionslab;
+  if (n_blocks < 1 || n_steps < 1) return static_cast<int>(cudaErrorInvalidValue);
+  ma_plan(n_blocks, n_steps, n_chunks, blocks_per_chunk);
+  return 0;
+}
+
+// Per-row moment sums into `out` (n_mom, 128) float32 of n_blocks path
+// blocks from block0, n_chunks chunks of blocks_per_chunk a row (the plan of
+// multi_asset_plan, or any that covers every path block once), with
+// `partials` (n_mom, 128, n_chunks) float32 as scratch; n_mom is 2 without
+// lr and 2 + 2d + d(d+1)/2 + 2 with it. `params` holds n_params floats in
+// the layout of ops/multi_asset_kernel.py::_params_vec.
 extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t seed,
                                    uint32_t block0, int n_blocks, int blocks_per_chunk,
                                    int n_chunks, int d, int kind, int n_steps, float cp,
@@ -342,11 +421,14 @@ extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t se
   if (err != cudaSuccess) return static_cast<int>(err);
   const int expected_params = 4 * d + d * d + 1 + (kind == kBasketCv) + (lr ? d * d + 2 * d + 2 : 0);
   const int expected_mom = lr ? 2 + 2 * d + d * (d + 1) / 2 + 2 : 2;
-  if (n_blocks < 1 || blocks_per_chunk < 1 || n_chunks < 1 || n_steps < 1 || d < 2 || d > 4 ||
-      kind < kBasket || kind > kBasketCv || sampler < kPrng || sampler > kSobol ||
-      (sampler == kSobol && (n_steps != 1 || kind == kBasketAsian)) ||
-      (kind == kSpread && d != 2) || (kind == kBasketCv && lr) || n_params != expected_params ||
-      n_params > kMaxParams || n_mom != expected_mom) {
+  const void* fn = instance(d, kind == kBasketAsian, lr != 0, sampler);
+  if (fn == nullptr || n_blocks < 1 || blocks_per_chunk < 1 || n_chunks < 1 || n_steps < 1 ||
+      // every chunk holds a path block and every path block is in a chunk
+      static_cast<long long>(blocks_per_chunk) * (n_chunks - 1) >= n_blocks ||
+      static_cast<long long>(blocks_per_chunk) * n_chunks < n_blocks || kind < kBasket ||
+      kind > kBasketCv || (sampler == kSobol && n_steps != 1) || (kind == kSpread && d != 2) ||
+      (kind == kBasketCv && lr) || n_params != expected_params || n_params > kMaxParams ||
+      n_mom != expected_mom) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   MaArgs a;
@@ -362,15 +444,31 @@ extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t se
   a.cp = cp;
   a.partials = static_cast<float*>(partials);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool with_lr = lr != 0;
-  switch (d) {
-    case 2: err = by_family<2>(a, sampler, with_lr, st); break;
-    case 3: err = by_family<3>(a, sampler, with_lr, st); break;
-    default: err = by_family<4>(a, sampler, with_lr, st); break;
-  }
+  void* args[] = {&a};
+  err = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(kRows) * static_cast<unsigned>(n_chunks)),
+                         dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int total = n_mom * kRows;
   reduce_rows_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
       a.partials, static_cast<float*>(out), n_mom, kRows, n_chunks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Registers per thread, local memory bytes per thread (spills and stack) and
+// resident CUDA blocks per SM of the instance for (d, basket Asian or
+// terminal family, lr, sampler), as the card schedules it.
+extern "C" int multi_asset_occupancy(int d, int asian, int lr, int sampler, int device,
+                                     int* registers, int* local_bytes, int* blocks_per_sm) {
+  using namespace optionslab;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const void* fn = instance(d, asian != 0, lr != 0, sampler);
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  cudaFuncAttributes attr;
+  err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *registers = attr.numRegs;
+  *local_bytes = static_cast<int>(attr.localSizeBytes);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, fn, kThreads, 0));
 }

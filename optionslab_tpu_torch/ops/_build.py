@@ -199,6 +199,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.multi_asset_moments.restype = _I
+    lib.multi_asset_plan.argtypes = [_I, _I, _P, _P]  # n_blocks, n_steps, out n_chunks, per
+    lib.multi_asset_plan.restype = _I
+    lib.multi_asset_occupancy.argtypes = [_I, _I, _I, _I, _I,  # d, asian, lr, sampler, device
+                                          _P, _P, _P]  # out registers, local bytes, blocks/SM
+    lib.multi_asset_occupancy.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

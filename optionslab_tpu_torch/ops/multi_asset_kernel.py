@@ -38,6 +38,8 @@ Names. ``pallas_multi_asset_price`` → :func:`multi_asset_kernel_price`,
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
 
 import numpy as np
@@ -48,7 +50,6 @@ from ..utils.exceptions import ValidationError
 from . import _build
 from .exotic_kernel import (
     _check_tensor,
-    _chunking,
     _launch_checked,
     _mean_stderr,
     _n_blocks,
@@ -246,6 +247,16 @@ _KIND_ID = {k: i for i, k in enumerate(KINDS)}
 _SAMPLER_ID = {s: i for i, s in enumerate(SAMPLERS)}
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(n_blocks: int, n_steps: int) -> tuple[int, int]:
+    """(n_chunks, blocks_per_chunk) of a launch: the kernel source's plan
+    (``multi_asset_plan``), a function of the geometry alone."""
+    n_chunks, per = ctypes.c_int(), ctypes.c_int()
+    _launch_checked("multi_asset_plan", _build.load_library().multi_asset_plan(
+        n_blocks, n_steps, ctypes.byref(n_chunks), ctypes.byref(per)))
+    return n_chunks.value, per.value
+
+
 def _ma_cuda(seed: int, block0: int, params: torch.Tensor, *, d: int, kind: str, n_steps: int,
              n_blocks: int, cp: float, sampler: str = "prng", lr: bool = False) -> torch.Tensor:
     """The kernel: per-row sums ``(n_out, ROWS)`` float32 on the card.
@@ -258,7 +269,7 @@ def _ma_cuda(seed: int, block0: int, params: torch.Tensor, *, d: int, kind: str,
     _check_tensor("params", params, dev, (n_params,))
     if n_blocks < 1:
         raise ValueError(f"n_blocks must be positive, got {n_blocks}")
-    n_chunks, per_chunk = _chunking(n_blocks)
+    n_chunks, per_chunk = _plan(n_blocks, n_steps)
     lib = _build.load_library()
     n_out = _n_out(d, lr)
     partials = torch.empty((n_out, ROWS, n_chunks), dtype=torch.float32, device=dev)

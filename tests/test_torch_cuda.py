@@ -119,14 +119,14 @@ def _exotic_params(kind, n_steps, device, strike=100.0):
     return params, params[list(ek._BOOK_SLOTS)].reshape(1, 7).contiguous()
 
 
-def _assert_sums_close(kern, plain):
-    """Row sums within rtol 1e-5; the signed moments (index 2 on) against
+def _assert_sums_close(kern, plain, rtol=MOMENT_RTOL):
+    """Row sums within ``rtol``; the signed moments (index 2 on) against
     their largest row, since they cancel inside a row."""
     assert kern.shape == plain.shape and torch.isfinite(kern).all()
     k64, p64 = kern.double(), plain.double()
     scale = p64.abs()
     scale[2:] = torch.maximum(scale[2:], scale[2:].amax(dim=1, keepdim=True))
-    assert torch.all((k64 - p64).abs() <= MOMENT_RTOL * scale)
+    assert torch.all((k64 - p64).abs() <= rtol * scale)
 
 
 # 70 path blocks: 24 chunks of 3, so each CUDA block sums several path blocks
@@ -604,6 +604,7 @@ def test_local_vol_and_slv_wrappers_reject_cpu_tensors(cuda_device, slv_pricer):
 # ---------------------------------------------------------------------------
 # The multi-asset kernel (csrc/multi_asset_mc.cu)
 # ---------------------------------------------------------------------------
+MA_RTOL = 1e-6  # per row: the paths are bitwise, the sums' order differs
 MA_SPOTS = [100.0, 95.0, 105.0, 98.0]
 MA_VOLS = [0.2, 0.25, 0.3, 0.22]
 MA_CORR = [[1.0, 0.5, 0.3, 0.2], [0.5, 1.0, 0.4, 0.1], [0.3, 0.4, 1.0, 0.25],
@@ -636,9 +637,66 @@ def test_multi_asset_kernel_matches_plain_on_card(cuda_device, d, kind, n_steps,
     kw = dict(d=d, kind=kind, n_steps=n_steps, n_blocks=3, cp=-1.0 if d == 4 else 1.0,
               sampler=sampler, lr=lr)
     before = mk._ma_cuda.launches
-    kern = mk._ma_cuda(5, 2, params, **kw)
+    kern = mk._ma_cuda(5, 2, params, **kw).clone()
     assert mk._ma_cuda.launches == before + 1
-    _assert_sums_close(kern, mk._ma_plain(5, 2, params, **kw))
+    _assert_sums_close(kern, mk._ma_plain(5, 2, params, **kw), MA_RTOL)
+    assert torch.equal(mk._ma_cuda(5, 2, params, **kw), kern)
+
+
+# the launch plan's edges: one to nine path blocks (one a thread: 640 CUDA
+# blocks need five chunks a row), 31 and 32 (several a thread), 33 and 257;
+# 1, 2 and 6 steps (short launches), each on three instances (d = 2, 3, 4;
+# lr and price-only; prng and hash) and, at one step, sobol
+MA_PLAN_BLOCKS = (1, 2, 4, 8, 9, 31, 32, 33, 257)
+MA_PLAN_KERNELS = [(3, "basket_geo", "prng", True), (2, "basket", "hash", False),
+                   (4, "rainbow_best", "prng", True), (3, "basket_geo", "sobol", False)]
+MA_PLAN_CASES = [(nb, m, *k) for nb in MA_PLAN_BLOCKS for m in (1, 2, 6) for k in MA_PLAN_KERNELS
+                 if k[2] != "sobol" or m == 1]
+
+
+@pytest.mark.parametrize("n_blocks,n_steps,d,kind,sampler,lr", MA_PLAN_CASES)
+def test_multi_asset_plan_edges_match_plain_on_card(cuda_device, n_blocks, n_steps, d, kind,
+                                                    sampler, lr):
+    """Per row within MA_RTOL of the plain version, and two launches
+    bitwise equal."""
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    params = _ma_vec(d, kind, n_steps, lr, cuda_device)
+    kw = dict(d=d, kind=kind, n_steps=n_steps, n_blocks=n_blocks, cp=1.0, sampler=sampler, lr=lr)
+    kern = mk._ma_cuda(5, 2, params, **kw).clone()
+    _assert_sums_close(kern, mk._ma_plain(5, 2, params, **kw), MA_RTOL)
+    assert torch.equal(mk._ma_cuda(5, 2, params, **kw), kern)
+
+
+@pytest.mark.parametrize("n_steps", [1, 2, 6, 8, 9, 64, 252])
+@pytest.mark.parametrize("n_blocks", MA_PLAN_BLOCKS + (3, 5, 10, 16, 17, 4099))
+def test_multi_asset_plan_covers_every_block_once(cuda_device, n_blocks, n_steps):
+    """The kernel source's launch plan (``multi_asset_plan``): CUDA block
+    (row, chunk) carries path blocks chunk·per .. min(n_blocks, (chunk + 1)·
+    per) − 1 of its row, so every path block is summed once when each chunk
+    is non-empty and the chunks reach n_blocks. A short launch (≤ 8 steps)
+    gives a thread several path blocks only while ≥ 5 chunks a row (640
+    CUDA blocks) are left; a long one takes the other path kernels' plan."""
+    import ctypes
+
+    import numpy as np
+
+    from optionslab_tpu_torch.ops import _build
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    n_chunks, per = mk._plan(n_blocks, n_steps)
+    assert 1 <= per and per * (n_chunks - 1) < n_blocks <= per * n_chunks
+    seen = np.zeros(n_blocks, np.int32)
+    for chunk in range(n_chunks):
+        seen[chunk * per:min(n_blocks, (chunk + 1) * per)] += 1
+    assert (seen == 1).all()
+    if n_steps <= 8:
+        assert per == 1 or n_chunks >= 5
+        assert (per == 1) == (n_blocks < 10)
+    else:
+        assert (n_chunks, per) == ek._chunking(n_blocks)
+    assert _build.load_library().multi_asset_plan(0, 1, ctypes.byref(ctypes.c_int()),
+                                                  ctypes.byref(ctypes.c_int())) != 0
 
 
 def test_multi_asset_entry_points_on_card(cuda_device):
