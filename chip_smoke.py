@@ -727,9 +727,19 @@ def kernel_bound(funcs: dict, name_parts: tuple, spec: dict, t: dict, tag: str):
     """(bound ms, bound_by) of a launch: the larger of its bytes over the HBM
     rate and the busiest pipe of its ``t["trips"]`` lane-steps, each counted
     from the SASS by :func:`sass_bound.nest_counts` with ``spec``
-    (:func:`nest`) over the lane's ``t["steps"]``."""
+    (:func:`nest`) over the lane's ``t["steps"]``. Where ``t["pin"]``
+    gives (issued in the step, issued on the epilogue per lane) of an
+    earlier build of the same function, the issue count is the smaller of
+    the two: what a build issues above it is its own code, not the
+    function's."""
     fn = sass_bound.find_function(funcs, *name_parts)
     counts = sass_bound.nest_counts(fn, n_steps=t["steps"], **spec)
+    if t.get("pin"):
+        step, tail = t["pin"]
+        pinned = step + tail / t["steps"]
+        log("bound", f"{tag}: this build issues {counts['issue']:.2f} per trip, the pinned count "
+                     f"of the function {pinned:.2f}; the bound takes {min(pinned, counts['issue']):.2f}")
+        counts = {**counts, "issue": min(pinned, counts["issue"])}
     trips, n_bytes = t["trips"], t["bytes"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
@@ -2136,10 +2146,10 @@ MA_TERMINAL = (4_000_000, 1)
 MA_SCAN = 1_048_576  # the scan engine's paths
 MA_REF_PATHS = mk.PATHS_PER_BLOCK  # the reference tests' one block (n_paths=4)
 MA_RTOL = 1e-6  # kernel vs plain per row: the paths are bitwise, the sums' order differs
-# the launch plan's edges (path blocks, steps): 1, 8 and 9 chunks of one path
-# block a row (the most a short launch leaves at one a thread), 8 of 4, 9 of
-# 4 with a last chunk of 1, 65 of 4
-MA_PLAN_EDGES = ((1, 1), (8, 2), (9, 1), (31, 6), (33, 1), (257, 2))
+# the launch plan's edges (path blocks, steps): 1, 8 and 13 chunks of one
+# path block a row (the most a short launch leaves at one a thread), 7 of 2,
+# 8 of 4, 9 of 4 with a last chunk of 1, 65 of 4
+MA_PLAN_EDGES = ((1, 1), (8, 2), (13, 1), (14, 1), (31, 6), (33, 1), (257, 2))
 MA_ARGS = (MA_SPOTS, STRIKE, T, RATE, MA_VOLS, MA_CORR)
 MA_D4 = ([100.0, 95.0, 105.0, 98.0], [0.2, 0.25, 0.3, 0.22],
          [[1.0, 0.5, 0.3, 0.2], [0.5, 1.0, 0.4, 0.1], [0.3, 0.4, 1.0, 0.25],
@@ -2201,6 +2211,10 @@ def phase_ma_parity(dev) -> float:
         worst = max(worst, compare_sums(kern, plain, f"multi_asset {tag}", rtol=MA_RTOL))
         check(torch.equal(mk._ma_cuda(7, 1, p, **kw), kern),
               f"multi_asset {tag}: two launches differ")
+        if mk._plan(kw["n_blocks"], kw["n_steps"])[0] <= 8:  # the row sum both ways
+            check(torch.equal(mk._ma_cuda(7, 1, p, **kw, row_sum="cluster"),
+                              mk._ma_cuda(7, 1, p, **kw, row_sum="two_pass")),
+                  f"multi_asset {tag}: the cluster and two-pass row sums differ")
     return worst
 
 
@@ -2388,14 +2402,68 @@ MA_BASKET_DEFAULT = 500_000
 # the x 1 LR launch's bound before its epilogue's lane invariants were staged: 876
 # issued per lane, 549 in the step and 327 on the epilogue's shortest path
 MA_876_BOUND_MS = 0.0266
+# the basket Asian instances' issue (in the step, on the epilogue per lane) as
+# the build of the QE ladder redesign counted it (its bounds 4.2477 ms x 252,
+# 1.2950 ms for the ladder x 64; 4.2467 and 1.2884 without the epilogue): the
+# same function; the d = 3 ladders' occupancy cap (3 CUDA blocks per SM) adds
+# spill and address code above it, which the bound does not count
+MA_ASIAN_PINS = {"ILi3ELb1ELb0ELi0E": (555, 32), "ILi3ELb1ELb1ELi0E": (663, 218)}
+# d = 2 basket price (prng) at path blocks where a short launch coarsens: the
+# plan against one path block a thread
+MA_PLAN_SWEEP = (16, 24)
+
+
+def ma_launch(p, kw: dict, plan: tuple, row_sum: str = "two_pass") -> torch.Tensor:
+    """One launch of the multi-asset kernel with an explicit (n_chunks,
+    blocks_per_chunk) plan, as ``mk._ma_cuda`` makes it."""
+    n_chunks, per = plan
+    n_out = mk._n_out(kw["d"], kw["lr"])
+    partials = torch.empty((n_out, mk.ROWS, n_chunks), dtype=torch.float32, device=p.device)
+    out = torch.empty((n_out, mk.ROWS), dtype=torch.float32, device=p.device)
+    err = _build.load_library().multi_asset_moments(
+        p.data_ptr(), p.numel(), 0, 0, kw["n_blocks"], per, n_chunks, kw["d"],
+        mk._KIND_ID[kw["kind"]], kw["n_steps"], 1.0, mk._SAMPLER_ID[kw["sampler"]], int(kw["lr"]),
+        n_out, mk._ROW_SUM_ID[row_sum], partials.data_ptr(), out.data_ptr(), p.device.index,
+        mk._stream(p.device))
+    check(err == 0, f"multi_asset_moments returned {err}")
+    return out
+
+
+def in_turns(fns: dict) -> dict:
+    """Device-only ms (graph_time means) of each of ``fns``, timed in turns
+    a, b, b, a (…): {name: [ms, ms]}."""
+    order = list(fns) + list(fns)[::-1]
+    out = {name: [] for name in fns}
+    for name in order:
+        reads = graph_time(fns[name])
+        out[name].append(sum(reads) / len(reads))
+    return out
+
+
+def kernel_launches(fn, calls: int) -> dict:
+    """CUDA kernels the profiler sees in ``calls`` calls of ``fn``, by name."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {"multi_asset_kernel": 0, "reduce_rows_kernel": 0}
+    for e in prof.key_averages():
+        for name in out:
+            if name in e.key:
+                out[name] += e.count
+    return out
 
 
 def ma_timing(dev) -> dict:
     """Device ms of the multi-asset kernel and its plain version at the
     path's shapes (prng unless named): the 252- and 64-step launches by
     CUDA events, the one-step launches by the graph timer (also logged back
-    to back). Not counted as main path."""
+    to back), their row sum in the launch against a second kernel in turns,
+    and the profiler's count of their CUDA launches. Not counted as main
+    path."""
     out = {}
+    lib = _build.load_library()
     # tag, kind, (paths, steps), lr, sampler, mangled-name part (D, Asian, lr, sampler) of
     # the instance whose bound is counted: the sobol instance draws before its step loop,
     # which then holds no Box–Muller for sass_bound to find, so its bound is not counted
@@ -2421,15 +2489,43 @@ def ma_timing(dev) -> dict:
         ms, plain_ms = event_pair(kernel, lambda: mk._ma_plain(0, 0, p, **kw))
         t = {"ms": ms, "plain_ms": plain_ms, "trips": kw["n_blocks"] * mk.ROWS * mk.LANES * m,
              "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS), "steps": m,
-             "sass": name and (f"multi_asset_kernel{name}",)}
+             "sass": name and (f"multi_asset_kernel{name}",), "pin": MA_ASIAN_PINS.get(name)}
         if m == 1:
+            plan = mk._plan(kw["n_blocks"], m)
+            fused = ctypes.c_int()
+            err = lib.multi_asset_row_sum(3, 0, int(lr), mk._SAMPLER_ID[sampler], plan[0], 0,
+                                          ctypes.byref(fused))
+            check(err == 0, f"multi_asset_row_sum returned {err}")
+            seen = kernel_launches(kernel, 5)
+            want = {"multi_asset_kernel": 5, "reduce_rows_kernel": 0 if fused.value else 5}
+            check(seen == want, f"multi_asset {tag}: 5 calls ran {seen}, want {want}")
             reads = graph_time(kernel)
             t.update(ms=sum(reads) / len(reads), back_to_back_ms=ms)
             log("timing", f"multi_asset {tag} {sampler}: device-only (a CUDA graph of 20 calls, "
                           f"5 replays) {' '.join(f'{x:.5f}' for x in reads)} ms; back to back "
-                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) "
-                          f"{mk._plan(kw['n_blocks'], m)}")
+                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) {plan}; row sum "
+                          f"{'in the launch' if fused.value else 'by a second kernel'}: 5 calls "
+                          f"ran {seen} (profiler)")
+            if plan[0] <= 8:  # the row sum both ways, in turns
+                ways = {w: (lambda w=w: mk._ma_cuda(0, 0, p, **kw, row_sum=w))
+                        for w in ("two_pass", "cluster")}
+                check(torch.equal(ways["two_pass"](), ways["cluster"]()),
+                      f"multi_asset {tag}: the cluster and two-pass row sums differ")
+                turns = in_turns(ways)
+                log("timing", f"multi_asset {tag} {sampler}: row sum in turns, device-only ms: "
+                              + "; ".join(f"{w} {' '.join(f'{x:.5f}' for x in v)}"
+                                          for w, v in turns.items()))
         out[f"multi_asset {tag}"] = t
+    for nb in MA_PLAN_SWEEP:
+        p = ma_vector(2, "basket", 1, False, dev)
+        kw = dict(d=2, kind="basket", n_steps=1, n_blocks=nb, lr=False, sampler="prng")
+        plan = mk._plan(nb, 1)
+        turns = in_turns({"plan": lambda: ma_launch(p, kw, plan),
+                          "one a thread": lambda: ma_launch(p, kw, (nb, 1))})
+        log("timing", f"multi_asset basket d=2 prng {nb} blocks x1: the plan {plan} against one "
+                      f"path block a thread ({nb}, 1), in turns, device-only ms: "
+                      + "; ".join(f"{w} {' '.join(f'{x:.5f}' for x in v)}"
+                                  for w, v in turns.items()))
     empty = graph_time(lambda: torch.cuda._sleep(0), 40)
     log("timing", f"an empty launch on the same stream, device-only: "
                   f"{' '.join(f'{x:.5f}' for x in empty)} ms")
@@ -2439,7 +2535,8 @@ def ma_timing(dev) -> dict:
 def ma_report(funcs: dict, ma_t: dict) -> None:
     """Registers, local memory and CUDA blocks per SM of every multi-asset
     instance; the x 1 LR launch's issue count and share against this
-    build's count and the earlier one's."""
+    build's count and the earlier one's; the basket Asian launches' shares
+    against this build's count and the pinned one."""
     lib = _build.load_library()
     for d in (2, 3, 4):
         for asian, family in ((0, "terminal"), (1, "basket_asian")):
@@ -2461,6 +2558,18 @@ def ma_report(funcs: dict, ma_t: dict) -> None:
                        f"{t['ms']:.5f} ms: share {t['bound_ms'] / t['ms']:.3f} of this count's "
                        f"{t['bound_ms']:.5f} ms bound, {MA_876_BOUND_MS / t['ms']:.3f} of the "
                        f"earlier count's {MA_876_BOUND_MS} ms (876 per lane)")
+    for tag in (f"basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}",
+                f"basket_asian LR {MA_LADDER[0]}x{MA_LADDER[1]}"):
+        t = ma_t[f"multi_asset {tag}"]
+        own = sass_bound.nest_counts(sass_bound.find_function(funcs, *t["sass"]),
+                                     n_steps=t["steps"], **_MA_NEST)["issue"]
+        step, tail = t["pin"]
+        pinned = step + tail / t["steps"]
+        log("multi_asset", f"{tag}: {t['ms']:.4f} ms, bound {t['bound_ms']:.4f} ms: share "
+                           f"{t['bound_ms'] / t['ms']:.3f} at the pinned {pinned:.2f} issued per "
+                           f"lane-step ({step} + {tail}/{t['steps']}), "
+                           f"{t['bound_ms'] * own / min(own, pinned) / t['ms']:.3f} at this "
+                           f"build's {own:.2f}")
 
 
 # the step loop with d = 3 Box–Mullers (3 MUFU.RSQ) a trip, and once per

@@ -643,11 +643,12 @@ def test_multi_asset_kernel_matches_plain_on_card(cuda_device, d, kind, n_steps,
     assert torch.equal(mk._ma_cuda(5, 2, params, **kw), kern)
 
 
-# the launch plan's edges: one to nine path blocks (one a thread: 640 CUDA
-# blocks need five chunks a row), 31 and 32 (several a thread), 33 and 257;
-# 1, 2 and 6 steps (short launches), each on three instances (d = 2, 3, 4;
-# lr and price-only; prng and hash) and, at one step, sobol
-MA_PLAN_BLOCKS = (1, 2, 4, 8, 9, 31, 32, 33, 257)
+# the launch plan's edges: one to thirteen path blocks (one a thread: 896
+# CUDA blocks need seven chunks a row), 14 (seven chunks of two), 31 and 32
+# (several a thread), 33 and 257; 1, 2 and 6 steps (short launches), each on
+# three instances (d = 2, 3, 4; lr and price-only; prng and hash) and, at one
+# step, sobol
+MA_PLAN_BLOCKS = (1, 2, 4, 8, 9, 13, 14, 31, 32, 33, 257)
 MA_PLAN_KERNELS = [(3, "basket_geo", "prng", True), (2, "basket", "hash", False),
                    (4, "rainbow_best", "prng", True), (3, "basket_geo", "sobol", False)]
 MA_PLAN_CASES = [(nb, m, *k) for nb in MA_PLAN_BLOCKS for m in (1, 2, 6) for k in MA_PLAN_KERNELS
@@ -668,35 +669,53 @@ def test_multi_asset_plan_edges_match_plain_on_card(cuda_device, n_blocks, n_ste
     assert torch.equal(mk._ma_cuda(5, 2, params, **kw), kern)
 
 
-@pytest.mark.parametrize("n_steps", [1, 2, 6, 8, 9, 64, 252])
-@pytest.mark.parametrize("n_blocks", MA_PLAN_BLOCKS + (3, 5, 10, 16, 17, 4099))
-def test_multi_asset_plan_covers_every_block_once(cuda_device, n_blocks, n_steps):
-    """The kernel source's launch plan (``multi_asset_plan``): CUDA block
-    (row, chunk) carries path blocks chunk·per .. min(n_blocks, (chunk + 1)·
-    per) − 1 of its row, so every path block is summed once when each chunk
-    is non-empty and the chunks reach n_blocks. A short launch (≤ 8 steps)
-    gives a thread several path blocks only while ≥ 5 chunks a row (640
-    CUDA blocks) are left; a long one takes the other path kernels' plan."""
+@pytest.mark.parametrize("n_blocks,n_steps,plan", [
+    (4, 1, (4, 1)), (13, 1, (13, 1)), (14, 1, (7, 2)), (20, 8, (10, 2)), (21, 2, (7, 3)),
+    (31, 1, (8, 4)), (257, 6, (65, 4)), (31, 9, None), (257, 64, None)])
+def test_multi_asset_plan(cuda_device, n_blocks, n_steps, plan):
+    """The kernel source's launch plan (``multi_asset_plan``): a short
+    launch (≤ 8 steps) gives a thread up to 4 path blocks while ≥ 7 chunks a
+    row are left; a long one (``plan`` None) takes the other path kernels'
+    plan."""
     import ctypes
-
-    import numpy as np
 
     from optionslab_tpu_torch.ops import _build
     from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 
-    n_chunks, per = mk._plan(n_blocks, n_steps)
-    assert 1 <= per and per * (n_chunks - 1) < n_blocks <= per * n_chunks
-    seen = np.zeros(n_blocks, np.int32)
-    for chunk in range(n_chunks):
-        seen[chunk * per:min(n_blocks, (chunk + 1) * per)] += 1
-    assert (seen == 1).all()
-    if n_steps <= 8:
-        assert per == 1 or n_chunks >= 5
-        assert (per == 1) == (n_blocks < 10)
-    else:
-        assert (n_chunks, per) == ek._chunking(n_blocks)
+    assert mk._plan(n_blocks, n_steps) == (plan or ek._chunking(n_blocks))
     assert _build.load_library().multi_asset_plan(0, 1, ctypes.byref(ctypes.c_int()),
                                                   ctypes.byref(ctypes.c_int())) != 0
+
+
+# each row's chunks summed in the launch (a thread block cluster a row) and by
+# a second kernel: 1–8 chunks a row, both families, lr and price, three samplers
+MA_ROW_SUM_CASES = [(nb, *k) for nb in (1, 2, 3, 5, 8) for k in (
+    (3, "basket_geo", 1, "prng", True), (2, "basket", 1, "hash", False),
+    (4, "rainbow_worst", 1, "prng", True), (3, "basket_geo", 1, "sobol", False),
+    (3, "basket_asian", 6, "prng", True))]
+
+
+@pytest.mark.parametrize("n_blocks,d,kind,n_steps,sampler,lr", MA_ROW_SUM_CASES)
+def test_multi_asset_cluster_row_sum_is_the_two_pass_sum(cuda_device, n_blocks, d, kind, n_steps,
+                                                         sampler, lr):
+    """The row sum in the launch equals the second kernel's bit for bit, and
+    the plain version's within MA_RTOL per row."""
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    params = _ma_vec(d, kind, n_steps, lr, cuda_device)
+    kw = dict(d=d, kind=kind, n_steps=n_steps, n_blocks=n_blocks, cp=1.0, sampler=sampler, lr=lr)
+    fused = mk._ma_cuda(5, 2, params, **kw, row_sum="cluster").clone()
+    assert torch.equal(mk._ma_cuda(5, 2, params, **kw, row_sum="two_pass"), fused)
+    assert torch.equal(mk._ma_cuda(5, 2, params, **kw), fused)
+    _assert_sums_close(fused, mk._ma_plain(5, 2, params, **kw), MA_RTOL)
+
+
+def test_multi_asset_cluster_row_sum_needs_eight_chunks_or_fewer(cuda_device):
+    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
+
+    kw = dict(d=3, kind="basket", n_steps=1, n_blocks=9, cp=1.0)  # nine chunks of one
+    with pytest.raises(RuntimeError, match="multi_asset_moments"):
+        mk._ma_cuda(0, 0, _ma_vec(3, "basket", 1, False, cuda_device), **kw, row_sum="cluster")
 
 
 def test_multi_asset_entry_points_on_card(cuda_device):
