@@ -2211,10 +2211,6 @@ def phase_ma_parity(dev) -> float:
         worst = max(worst, compare_sums(kern, plain, f"multi_asset {tag}", rtol=MA_RTOL))
         check(torch.equal(mk._ma_cuda(7, 1, p, **kw), kern),
               f"multi_asset {tag}: two launches differ")
-        if mk._plan(kw["n_blocks"], kw["n_steps"])[0] <= 8:  # the row sum both ways
-            check(torch.equal(mk._ma_cuda(7, 1, p, **kw, row_sum="cluster"),
-                              mk._ma_cuda(7, 1, p, **kw, row_sum="two_pass")),
-                  f"multi_asset {tag}: the cluster and two-pass row sums differ")
     return worst
 
 
@@ -2413,9 +2409,10 @@ MA_ASIAN_PINS = {"ILi3ELb1ELb0ELi0E": (555, 32), "ILi3ELb1ELb1ELi0E": (663, 218)
 MA_PLAN_SWEEP = (16, 24)
 
 
-def ma_launch(p, kw: dict, plan: tuple, row_sum: str = "two_pass") -> torch.Tensor:
+def ma_launch(p, kw: dict, plan: tuple, overlap: bool = True) -> torch.Tensor:
     """One launch of the multi-asset kernel with an explicit (n_chunks,
-    blocks_per_chunk) plan, as ``mk._ma_cuda`` makes it."""
+    blocks_per_chunk) plan, as ``mk._ma_cuda`` makes it; without
+    ``overlap`` the row-sum pass is an ordinary launch."""
     n_chunks, per = plan
     n_out = mk._n_out(kw["d"], kw["lr"])
     partials = torch.empty((n_out, mk.ROWS, n_chunks), dtype=torch.float32, device=p.device)
@@ -2423,7 +2420,7 @@ def ma_launch(p, kw: dict, plan: tuple, row_sum: str = "two_pass") -> torch.Tens
     err = _build.load_library().multi_asset_moments(
         p.data_ptr(), p.numel(), 0, 0, kw["n_blocks"], per, n_chunks, kw["d"],
         mk._KIND_ID[kw["kind"]], kw["n_steps"], 1.0, mk._SAMPLER_ID[kw["sampler"]], int(kw["lr"]),
-        n_out, mk._ROW_SUM_ID[row_sum], partials.data_ptr(), out.data_ptr(), p.device.index,
+        n_out, int(overlap), partials.data_ptr(), out.data_ptr(), p.device.index,
         mk._stream(p.device))
     check(err == 0, f"multi_asset_moments returned {err}")
     return out
@@ -2459,11 +2456,10 @@ def ma_timing(dev) -> dict:
     """Device ms of the multi-asset kernel and its plain version at the
     path's shapes (prng unless named): the 252- and 64-step launches by
     CUDA events, the one-step launches by the graph timer (also logged back
-    to back), their row sum in the launch against a second kernel in turns,
-    and the profiler's count of their CUDA launches. Not counted as main
-    path."""
+    to back), their row-sum pass as a programmatic dependent launch against
+    an ordinary one in turns, and the profiler's count of their CUDA
+    launches. Not counted as main path."""
     out = {}
-    lib = _build.load_library()
     # tag, kind, (paths, steps), lr, sampler, mangled-name part (D, Asian, lr, sampler) of
     # the instance whose bound is counted: the sobol instance draws before its step loop,
     # which then holds no Box–Muller for sass_bound to find, so its bound is not counted
@@ -2492,29 +2488,23 @@ def ma_timing(dev) -> dict:
              "sass": name and (f"multi_asset_kernel{name}",), "pin": MA_ASIAN_PINS.get(name)}
         if m == 1:
             plan = mk._plan(kw["n_blocks"], m)
-            fused = ctypes.c_int()
-            err = lib.multi_asset_row_sum(3, 0, int(lr), mk._SAMPLER_ID[sampler], plan[0], 0,
-                                          ctypes.byref(fused))
-            check(err == 0, f"multi_asset_row_sum returned {err}")
             seen = kernel_launches(kernel, 5)
-            want = {"multi_asset_kernel": 5, "reduce_rows_kernel": 0 if fused.value else 5}
+            want = {"multi_asset_kernel": 5, "reduce_rows_kernel": 5}
             check(seen == want, f"multi_asset {tag}: 5 calls ran {seen}, want {want}")
             reads = graph_time(kernel)
             t.update(ms=sum(reads) / len(reads), back_to_back_ms=ms)
             log("timing", f"multi_asset {tag} {sampler}: device-only (a CUDA graph of 20 calls, "
                           f"5 replays) {' '.join(f'{x:.5f}' for x in reads)} ms; back to back "
-                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) {plan}; row sum "
-                          f"{'in the launch' if fused.value else 'by a second kernel'}: 5 calls "
-                          f"ran {seen} (profiler)")
-            if plan[0] <= 8:  # the row sum both ways, in turns
-                ways = {w: (lambda w=w: mk._ma_cuda(0, 0, p, **kw, row_sum=w))
-                        for w in ("two_pass", "cluster")}
-                check(torch.equal(ways["two_pass"](), ways["cluster"]()),
-                      f"multi_asset {tag}: the cluster and two-pass row sums differ")
-                turns = in_turns(ways)
-                log("timing", f"multi_asset {tag} {sampler}: row sum in turns, device-only ms: "
-                              + "; ".join(f"{w} {' '.join(f'{x:.5f}' for x in v)}"
-                                          for w, v in turns.items()))
+                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) {plan}; 5 calls ran {seen} "
+                          f"(profiler)")
+            ways = {"overlapped": lambda: ma_launch(p, kw, plan),
+                    "ordinary": lambda: ma_launch(p, kw, plan, overlap=False)}
+            check(torch.equal(ways["overlapped"](), ways["ordinary"]()),
+                  f"multi_asset {tag}: the row sums differ with the launch's overlap")
+            turns = in_turns(ways)
+            log("timing", f"multi_asset {tag} {sampler}: the row-sum pass, in turns, device-only "
+                          "ms: " + "; ".join(f"{w} {' '.join(f'{x:.5f}' for x in v)}"
+                                            for w, v in turns.items()))
         out[f"multi_asset {tag}"] = t
     for nb in MA_PLAN_SWEEP:
         p = ma_vector(2, "basket", 1, False, dev)

@@ -44,14 +44,15 @@
 //    chunks a row are left (896 CUDA blocks: a full wave at the most blocks
 //    per SM of any instance, 6 on 132 SMs), so those costs are paid once
 //    for several lanes.
-//  * Each row's chunks are summed in chunk order, in float64, never by
-//    float atomics: by a second kernel (reduce.cuh), or, where every row's
-//    CUDA blocks fit on the card at once as one thread block cluster (≤ 8
-//    chunks, a launch of one wave), in the same launch, the row's first
-//    block reading the others' sums from distributed shared memory: the same
-//    bits, one launch fewer. (Clusters over several waves were slower, 22 %
-//    at 31 path blocks × 1 step: a cluster's blocks hold their slots until
-//    its slowest is done.)
+//  * Each row's chunks are summed in chunk order, in float64, by a second
+//    kernel (ma_reduce_rows_kernel, the sum of reduce.cuh's pass): no float
+//    atomics, no state across launches. It is
+//    a programmatic dependent launch: once every CUDA block of the first has
+//    carried its lanes, the second is scheduled and waits in
+//    griddepcontrol.wait for the first to finish, so its launch latency
+//    overlaps the first's block reductions. (Summing the rows in the same
+//    launch, each row's CUDA blocks one thread block cluster, was slower at
+//    every one-step shape: +25 % at 4 path blocks, +23 % at 31.)
 //  * The counter space is the reference's, so the `hash` path set and the
 //    `sobol` point set are the JAX kernel's own; `prng` is Philox keyed by
 //    (seed, salt ^ block) at counter (row, col, k·d + i, 0).
@@ -65,10 +66,8 @@
 //
 // C interface for ctypes, as exotic_mc.cu.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstdint>
 
 #include "bridge.cuh"
@@ -88,17 +87,12 @@ constexpr int kLongChunks = 32;          // ops/exotic_kernel.py::_chunking's ch
 constexpr int kShortSteps = 8;           // launches of at most this many steps are short
 constexpr int kShortLanes = 4;           // path blocks a thread carries in a short launch
 constexpr int kShortChunks = 7;          // chunks a row a short launch keeps while it coarsens
-constexpr int kMaxClusterChunks = 8;     // the portable thread block cluster size
-constexpr int kMaxDevices = 16;          // devices whose row-sum choice is cached
 
 // ops/multi_asset_kernel.py::KINDS
 enum Kind : int {
   kBasket = 0, kBasketGeo, kRainbowBest, kRainbowWorst, kSpread, kBasketAsian, kBasketCv
 };
 enum Sampler : int { kPrng = 0, kHash = 1, kSobol = 2 };
-// multi_asset_moments' row sum: a second kernel, in the launch (≤ 8 chunks),
-// or in the launch when every row's cluster is resident at once
-enum RowSum : int { kTwoPass = 0, kCluster = 1, kAutoRowSum = 2 };
 using fp::add;
 using fp::mul;
 using fp::sub;
@@ -111,9 +105,7 @@ struct MaArgs {
   int n_blocks, blocks_per_chunk, n_chunks;
   int n_steps, kind;
   float cp;
-  int fused;        // each row summed in the launch, its n_chunks CUDA blocks one cluster
-  float* partials;  // (n_mom, 128, n_chunks), when not fused
-  float* out;       // (n_mom, 128), when fused
+  float* partials;  // (n_mom, 128, n_chunks)
 };
 
 // CUDA blocks of kThreads per SM each instance is compiled for
@@ -337,41 +329,6 @@ __device__ __forceinline__ void simulate_lane(const Param<D>& q, const MaArgs& a
   }
 }
 
-// out[m][row] = Σ over the cluster's CUDA blocks (one row; chunk = rank) of
-// their block sums, in chunk order, in float64: the block sum and the row sum
-// of store_block_moments and reduce_rows_kernel, bit for bit.
-template <int kMom>
-__device__ __forceinline__ void cluster_row_sum(const float* acc, float* out, int row) {
-  namespace cg = cooperative_groups;
-  constexpr int kWarps = kThreads / 32;
-  __shared__ float warp_sums[kMom][kWarps];
-  __shared__ float block_sum[kMom];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int m = 0; m < kMom; ++m) {
-    const float v = warp_sum(acc[m]);
-    if (lane == 0) warp_sums[m][warp] = v;
-  }
-  __syncthreads();
-  if (threadIdx.x < kMom) {
-    float t = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += warp_sums[threadIdx.x][w];
-    block_sum[threadIdx.x] = t;
-  }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();  // every block's sums written
-  if (cluster.block_rank() == 0 && threadIdx.x < kMom) {
-    double t = 0.0;
-    for (unsigned c = 0; c < cluster.num_blocks(); ++c) {
-      t += cluster.map_shared_rank(block_sum, c)[threadIdx.x];
-    }
-    out[threadIdx.x * kRows + row] = static_cast<float>(t);
-  }
-  cluster.sync();  // no block leaves while its sums are read
-}
-
 // grid.x = 128 rows × n_chunks; one CUDA block sums one row over one chunk of
 // path blocks, thread c carrying lane c of each.
 template <int D, bool kAsian, bool kLr, int kS>
@@ -400,11 +357,8 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm[D - 2][kAsian][kLr][kS]
     simulate_lane<D, kAsian, kLr, kS>(q, a, a.block0 + static_cast<uint32_t>(b),
                                       static_cast<uint32_t>(row), threadIdx.x, acc);
   }
-  if (a.fused) {
-    cluster_row_sum<kMom>(acc, a.out, row);
-  } else {
-    store_block_moments<kMom, kThreads>(acc, a.partials, kRows, row, a.n_chunks, chunk);
-  }
+  asm volatile("griddepcontrol.launch_dependents;");  // the row-sum pass may be scheduled
+  store_block_moments<kMom, kThreads>(acc, a.partials, kRows, row, a.n_chunks, chunk);
 }
 
 // (n_chunks, blocks_per_chunk) of a launch over n_blocks path blocks of
@@ -419,6 +373,21 @@ void ma_plan(int n_blocks, int n_steps, int* n_chunks, int* blocks_per_chunk) {
   const int per = (n_blocks + chunks - 1) / chunks;
   *blocks_per_chunk = per;
   *n_chunks = (n_blocks + per - 1) / per;
+}
+
+// out[m, r] = Σ_chunk partials[m, r, chunk], in chunk order, in float64 (the
+// sum of reduce_rows_kernel), as a programmatic dependent of the kernel that
+// writes the partials: it waits until that kernel is done and its writes
+// are visible.
+__global__ void ma_reduce_rows_kernel(const float* __restrict__ partials, float* __restrict__ out,
+                                      int n_mom, int n_chunks) {
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_mom * kRows) return;
+  const float* src = partials + static_cast<size_t>(i) * n_chunks;
+  double t = 0.0;
+  for (int c = 0; c < n_chunks; ++c) t += src[c];
+  out[i] = static_cast<float>(t);
 }
 
 template <int D, bool kAsian, bool kLr>
@@ -447,50 +416,6 @@ const void* instance(int d, bool asian, bool lr, int sampler) {
   }
 }
 
-// The launch of 128 clusters, one a row, of n_chunks CUDA blocks.
-cudaLaunchConfig_t cluster_config(int n_chunks, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(n_chunks);
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(kRows) * static_cast<unsigned>(n_chunks));
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
-// 0 unknown, 1 two-pass, 2 in the launch; by [device][d - 2][asian][lr][sampler][n_chunks - 1]
-std::atomic<signed char> g_row_sum[kMaxDevices][3][2][2][3][kMaxClusterChunks];
-
-// Whether a launch of `fn` (the instance for d, asian, lr, sampler) over
-// n_chunks chunks a row sums its rows in the launch under `mode`: always for
-// kCluster, never for kTwoPass, and for kAutoRowSum when all 128 rows'
-// clusters are resident at once, as the card's occupancy says. Either way the
-// sums are the same bits.
-cudaError_t fuse_rows(const void* fn, int mode, int d, bool asian, bool lr, int sampler,
-                      int n_chunks, int device, bool* fused) {
-  *fused = mode == kCluster;
-  if (mode != kAutoRowSum || n_chunks > kMaxClusterChunks) return cudaSuccess;
-  std::atomic<signed char>* known =
-      device < kMaxDevices ? &g_row_sum[device][d - 2][asian][lr][sampler][n_chunks - 1] : nullptr;
-  const signed char k = known ? known->load(std::memory_order_relaxed) : 0;
-  if (k != 0) {
-    *fused = k == 2;
-    return cudaSuccess;
-  }
-  cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = cluster_config(n_chunks, nullptr, &attr);
-  int clusters = 0;
-  const cudaError_t err = cudaOccupancyMaxActiveClusters(&clusters, fn, &cfg);
-  if (err != cudaSuccess) return err;
-  *fused = clusters >= kRows;
-  if (known) known->store(*fused ? 2 : 1, std::memory_order_relaxed);
-  return cudaSuccess;
-}
-
 }  // namespace
 }  // namespace optionslab
 
@@ -506,15 +431,14 @@ extern "C" int multi_asset_plan(int n_blocks, int n_steps, int* n_chunks, int* b
 // Per-row moment sums into `out` (n_mom, 128) float32 of n_blocks path
 // blocks from block0, n_chunks chunks of blocks_per_chunk a row (the plan of
 // multi_asset_plan, or any that covers every path block once), with
-// `partials` (n_mom, 128, n_chunks) float32 as scratch of a two-pass row
-// sum; n_mom is 2 without lr and 2 + 2d + d(d+1)/2 + 2 with it. `params`
-// holds n_params floats in the layout of ops/multi_asset_kernel.py::
-// _params_vec. row_sum: 0 a second kernel, 1 in the launch (n_chunks ≤ 8),
-// 2 in the launch when every row's cluster is resident at once.
+// `partials` (n_mom, 128, n_chunks) float32 as scratch; n_mom is 2 without
+// lr and 2 + 2d + d(d+1)/2 + 2 with it. `params` holds n_params floats in
+// the layout of ops/multi_asset_kernel.py::_params_vec. With `overlap` the
+// row-sum pass is a programmatic dependent launch, else an ordinary one.
 extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t seed,
                                    uint32_t block0, int n_blocks, int blocks_per_chunk,
                                    int n_chunks, int d, int kind, int n_steps, float cp,
-                                   int sampler, int lr, int n_mom, int row_sum, void* partials,
+                                   int sampler, int lr, int n_mom, int overlap, void* partials,
                                    void* out, int device, void* stream) {
   using namespace optionslab;
   cudaError_t err = cudaSetDevice(device);
@@ -528,13 +452,9 @@ extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t se
       static_cast<long long>(blocks_per_chunk) * n_chunks < n_blocks || kind < kBasket ||
       kind > kBasketCv || (sampler == kSobol && n_steps != 1) || (kind == kSpread && d != 2) ||
       (kind == kBasketCv && lr) || n_params != expected_params || n_params > kMaxParams ||
-      n_mom != expected_mom || row_sum < kTwoPass || row_sum > kAutoRowSum ||
-      (row_sum == kCluster && n_chunks > kMaxClusterChunks)) {
+      n_mom != expected_mom) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  bool fused = false;
-  err = fuse_rows(fn, row_sum, d, kind == kBasketAsian, lr != 0, sampler, n_chunks, device, &fused);
-  if (err != cudaSuccess) return static_cast<int>(err);
   MaArgs a;
   a.params = static_cast<const float*>(params);
   a.n_params = n_params;
@@ -546,39 +466,25 @@ extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t se
   a.n_steps = n_steps;
   a.kind = kind;
   a.cp = cp;
-  a.fused = fused;
   a.partials = static_cast<float*>(partials);
-  a.out = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   void* args[] = {&a};
-  if (fused) {
-    cudaLaunchAttribute attr;
-    const cudaLaunchConfig_t cfg = cluster_config(n_chunks, st, &attr);
-    return static_cast<int>(cudaLaunchKernelExC(&cfg, fn, args));
-  }
   err = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(kRows) * static_cast<unsigned>(n_chunks)),
                          dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int total = n_mom * kRows;
-  reduce_rows_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      a.partials, static_cast<float*>(out), n_mom, kRows, n_chunks);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Whether multi_asset_moments with row_sum 2 sums the rows of the instance for
-// (d, basket Asian or terminal family, lr, sampler) over n_chunks chunks a
-// row in the launch (one CUDA launch) on this card.
-extern "C" int multi_asset_row_sum(int d, int asian, int lr, int sampler, int n_chunks,
-                                   int device, int* fused) {
-  using namespace optionslab;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const void* fn = instance(d, asian != 0, lr != 0, sampler);
-  if (fn == nullptr || n_chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  bool f = false;
-  err = fuse_rows(fn, kAutoRowSum, d, asian != 0, lr != 0, sampler, n_chunks, device, &f);
-  *fused = f;
-  return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_mom * kRows + kThreads - 1) / kThreads);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = st;
+  cfg.attrs = &attr;
+  cfg.numAttrs = overlap ? 1 : 0;
+  const float* partials_in = a.partials;
+  float* sums = static_cast<float*>(out);
+  return static_cast<int>(
+      cudaLaunchKernelEx(&cfg, ma_reduce_rows_kernel, partials_in, sums, n_mom, n_chunks));
 }
 
 // Registers per thread, local memory bytes per thread (spills and stack) and

@@ -194,14 +194,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _I, _U, _U,              # params, n_params, seed, block0
         _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
         _I, _I, _I, _F,              # d, kind, n_steps, cp
-        _I, _I, _I, _I,              # sampler, lr, n_mom, row_sum
+        _I, _I, _I, _I,              # sampler, lr, n_mom, overlap
         _P, _P,                      # partials, out
         _I, _P,                      # device, stream
     ]
     lib.multi_asset_moments.restype = _I
-    lib.multi_asset_row_sum.argtypes = [_I, _I, _I, _I, _I, _I,  # d, asian, lr, sampler,
-                                        _P]  # n_chunks, device, out fused
-    lib.multi_asset_row_sum.restype = _I
     lib.multi_asset_plan.argtypes = [_I, _I, _P, _P]  # n_blocks, n_steps, out n_chunks, per
     lib.multi_asset_plan.restype = _I
     lib.multi_asset_occupancy.argtypes = [_I, _I, _I, _I, _I,  # d, asian, lr, sampler, device

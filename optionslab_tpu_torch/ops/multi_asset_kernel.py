@@ -245,7 +245,6 @@ def _ma_plain(seed: int, block0: int, params: torch.Tensor, *, d: int, kind: str
 # ---------------------------------------------------------------------------
 _KIND_ID = {k: i for i, k in enumerate(KINDS)}
 _SAMPLER_ID = {s: i for i, s in enumerate(SAMPLERS)}
-_ROW_SUM_ID = {"two_pass": 0, "cluster": 1, "auto": 2}  # multi_asset_moments' row_sum
 
 
 @functools.lru_cache(maxsize=None)
@@ -259,17 +258,11 @@ def _plan(n_blocks: int, n_steps: int) -> tuple[int, int]:
 
 
 def _ma_cuda(seed: int, block0: int, params: torch.Tensor, *, d: int, kind: str, n_steps: int,
-             n_blocks: int, cp: float, sampler: str = "prng", lr: bool = False,
-             row_sum: str = "auto") -> torch.Tensor:
+             n_blocks: int, cp: float, sampler: str = "prng", lr: bool = False) -> torch.Tensor:
     """The kernel: per-row sums ``(n_out, ROWS)`` float32 on the card.
     Launches on PyTorch's current stream and does not synchronize.
-    ``_ma_cuda.launches`` counts its launches. ``row_sum`` (the same bits
-    every way): ``"two_pass"`` sums each row's chunks by a second kernel,
-    ``"cluster"`` in the launch (at most 8 chunks a row), ``"auto"`` in the
-    launch where every row's cluster is resident on the card at once."""
+    ``_ma_cuda.launches`` counts its launches."""
     _check_launch(d, kind, n_steps, sampler, lr)
-    if row_sum not in _ROW_SUM_ID:
-        raise ValueError(f"row_sum must be one of {sorted(_ROW_SUM_ID)}, got {row_sum!r}")
     dev = params.device
     _require_cuda("_ma_cuda", dev)
     n_params = _n_params(d, kind, lr)
@@ -284,8 +277,8 @@ def _ma_cuda(seed: int, block0: int, params: torch.Tensor, *, d: int, kind: str,
     err = lib.multi_asset_moments(
         params.data_ptr(), n_params, int(seed) & 0xFFFFFFFF, int(block0) & 0xFFFFFFFF,
         n_blocks, per_chunk, n_chunks, d, _KIND_ID[kind], n_steps, float(cp),
-        _SAMPLER_ID[sampler], int(lr), n_out, _ROW_SUM_ID[row_sum], partials.data_ptr(),
-        out.data_ptr(), dev.index, _stream(dev))
+        _SAMPLER_ID[sampler], int(lr), n_out, 1, partials.data_ptr(), out.data_ptr(),
+        dev.index, _stream(dev))
     _launch_checked("multi_asset_moments", err)
     _count(_ma_cuda)
     return out

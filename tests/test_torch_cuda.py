@@ -687,35 +687,35 @@ def test_multi_asset_plan(cuda_device, n_blocks, n_steps, plan):
                                                   ctypes.byref(ctypes.c_int())) != 0
 
 
-# each row's chunks summed in the launch (a thread block cluster a row) and by
-# a second kernel: 1–8 chunks a row, both families, lr and price, three samplers
-MA_ROW_SUM_CASES = [(nb, *k) for nb in (1, 2, 3, 5, 8) for k in (
+# the row-sum pass launched as a programmatic dependent of the kernel and as an
+# ordinary launch: 1–33 path blocks, both families, lr and price, three samplers
+MA_ROW_SUM_CASES = [(nb, *k) for nb in (1, 3, 8, 33) for k in (
     (3, "basket_geo", 1, "prng", True), (2, "basket", 1, "hash", False),
     (4, "rainbow_worst", 1, "prng", True), (3, "basket_geo", 1, "sobol", False),
     (3, "basket_asian", 6, "prng", True))]
 
 
 @pytest.mark.parametrize("n_blocks,d,kind,n_steps,sampler,lr", MA_ROW_SUM_CASES)
-def test_multi_asset_cluster_row_sum_is_the_two_pass_sum(cuda_device, n_blocks, d, kind, n_steps,
-                                                         sampler, lr):
-    """The row sum in the launch equals the second kernel's bit for bit, and
-    the plain version's within MA_RTOL per row."""
+def test_multi_asset_overlapped_row_sum_is_the_ordinary_one(cuda_device, n_blocks, d, kind,
+                                                            n_steps, sampler, lr):
+    """The wrapper's launch (the row-sum pass a programmatic dependent
+    launch) equals the same plan with an ordinary row-sum launch bit for
+    bit."""
+    from optionslab_tpu_torch.ops import _build
     from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 
     params = _ma_vec(d, kind, n_steps, lr, cuda_device)
     kw = dict(d=d, kind=kind, n_steps=n_steps, n_blocks=n_blocks, cp=1.0, sampler=sampler, lr=lr)
-    fused = mk._ma_cuda(5, 2, params, **kw, row_sum="cluster").clone()
-    assert torch.equal(mk._ma_cuda(5, 2, params, **kw, row_sum="two_pass"), fused)
-    assert torch.equal(mk._ma_cuda(5, 2, params, **kw), fused)
-    _assert_sums_close(fused, mk._ma_plain(5, 2, params, **kw), MA_RTOL)
-
-
-def test_multi_asset_cluster_row_sum_needs_eight_chunks_or_fewer(cuda_device):
-    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
-
-    kw = dict(d=3, kind="basket", n_steps=1, n_blocks=9, cp=1.0)  # nine chunks of one
-    with pytest.raises(RuntimeError, match="multi_asset_moments"):
-        mk._ma_cuda(0, 0, _ma_vec(3, "basket", 1, False, cuda_device), **kw, row_sum="cluster")
+    n_chunks, per = mk._plan(n_blocks, n_steps)
+    n_out = mk._n_out(d, lr)
+    partials = torch.empty((n_out, mk.ROWS, n_chunks), dtype=torch.float32, device=cuda_device)
+    ordinary = torch.empty((n_out, mk.ROWS), dtype=torch.float32, device=cuda_device)
+    err = _build.load_library().multi_asset_moments(
+        params.data_ptr(), params.numel(), 5, 2, n_blocks, per, n_chunks, d, mk._KIND_ID[kind],
+        n_steps, 1.0, mk._SAMPLER_ID[sampler], int(lr), n_out, 0, partials.data_ptr(),
+        ordinary.data_ptr(), 0, mk._stream(cuda_device))
+    assert err == 0
+    assert torch.equal(mk._ma_cuda(5, 2, params, **kw), ordinary)
 
 
 def test_multi_asset_entry_points_on_card(cuda_device):

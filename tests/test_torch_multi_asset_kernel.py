@@ -307,10 +307,3 @@ def test_cpu_params_never_reach_the_kernel_wrapper():
     with pytest.raises(ValueError, match="CUDA"):
         mk._ma_cuda(0, 0, torch.tensor(_vec(3, "basket", 1, False)), d=3, kind="basket",
                     n_steps=1, n_blocks=1, cp=1.0)
-
-
-@pytest.mark.parametrize("row_sum", ["fused", "", None])
-def test_kernel_wrapper_rejects_an_unknown_row_sum(row_sum):
-    with pytest.raises(ValueError, match="row_sum"):
-        mk._ma_cuda(0, 0, torch.tensor(_vec(3, "basket", 1, False)), d=3, kind="basket",
-                    n_steps=1, n_blocks=1, cp=1.0, row_sum=row_sum)
