@@ -737,9 +737,10 @@ def kernel_bound(funcs: dict, name_parts: tuple, spec: dict, t: dict, tag: str):
     if t.get("pin"):
         step, tail = t["pin"]
         pinned = step + tail / t["steps"]
+        took = min(pinned, counts["issue"])
         log("bound", f"{tag}: this build issues {counts['issue']:.2f} per trip, the pinned count "
-                     f"of the function {pinned:.2f}; the bound takes {min(pinned, counts['issue']):.2f}")
-        counts = {**counts, "issue": min(pinned, counts["issue"])}
+                     f"of the function {pinned:.2f}; the bound takes {took:.2f}")
+        counts = {**counts, "issue": took}
     trips, n_bytes = t["trips"], t["bytes"]
     n_sm = torch.cuda.get_device_properties(0).multi_processor_count
     clock = sm_clock_hz()
@@ -2409,10 +2410,9 @@ MA_ASIAN_PINS = {"ILi3ELb1ELb0ELi0E": (555, 32), "ILi3ELb1ELb1ELi0E": (663, 218)
 MA_PLAN_SWEEP = (16, 24)
 
 
-def ma_launch(p, kw: dict, plan: tuple, overlap: bool = True) -> torch.Tensor:
+def ma_launch(p, kw: dict, plan: tuple) -> torch.Tensor:
     """One launch of the multi-asset kernel with an explicit (n_chunks,
-    blocks_per_chunk) plan, as ``mk._ma_cuda`` makes it; without
-    ``overlap`` the row-sum pass is an ordinary launch."""
+    blocks_per_chunk) plan, as ``mk._ma_cuda`` makes it."""
     n_chunks, per = plan
     n_out = mk._n_out(kw["d"], kw["lr"])
     partials = torch.empty((n_out, mk.ROWS, n_chunks), dtype=torch.float32, device=p.device)
@@ -2420,8 +2420,7 @@ def ma_launch(p, kw: dict, plan: tuple, overlap: bool = True) -> torch.Tensor:
     err = _build.load_library().multi_asset_moments(
         p.data_ptr(), p.numel(), 0, 0, kw["n_blocks"], per, n_chunks, kw["d"],
         mk._KIND_ID[kw["kind"]], kw["n_steps"], 1.0, mk._SAMPLER_ID[kw["sampler"]], int(kw["lr"]),
-        n_out, int(overlap), partials.data_ptr(), out.data_ptr(), p.device.index,
-        mk._stream(p.device))
+        n_out, partials.data_ptr(), out.data_ptr(), p.device.index, mk._stream(p.device))
     check(err == 0, f"multi_asset_moments returned {err}")
     return out
 
@@ -2456,9 +2455,9 @@ def ma_timing(dev) -> dict:
     """Device ms of the multi-asset kernel and its plain version at the
     path's shapes (prng unless named): the 252- and 64-step launches by
     CUDA events, the one-step launches by the graph timer (also logged back
-    to back), their row-sum pass as a programmatic dependent launch against
-    an ordinary one in turns, and the profiler's count of their CUDA
-    launches. Not counted as main path."""
+    to back) with the profiler's count of their CUDA launches, and the
+    short plan against one path block a thread. Not counted as main
+    path."""
     out = {}
     # tag, kind, (paths, steps), lr, sampler, mangled-name part (D, Asian, lr, sampler) of
     # the instance whose bound is counted: the sobol instance draws before its step loop,
@@ -2497,14 +2496,6 @@ def ma_timing(dev) -> dict:
                           f"5 replays) {' '.join(f'{x:.5f}' for x in reads)} ms; back to back "
                           f"{ms:.5f} ms; plan (chunks, blocks a chunk) {plan}; 5 calls ran {seen} "
                           f"(profiler)")
-            ways = {"overlapped": lambda: ma_launch(p, kw, plan),
-                    "ordinary": lambda: ma_launch(p, kw, plan, overlap=False)}
-            check(torch.equal(ways["overlapped"](), ways["ordinary"]()),
-                  f"multi_asset {tag}: the row sums differ with the launch's overlap")
-            turns = in_turns(ways)
-            log("timing", f"multi_asset {tag} {sampler}: the row-sum pass, in turns, device-only "
-                          "ms: " + "; ".join(f"{w} {' '.join(f'{x:.5f}' for x in v)}"
-                                            for w, v in turns.items()))
         out[f"multi_asset {tag}"] = t
     for nb in MA_PLAN_SWEEP:
         p = ma_vector(2, "basket", 1, False, dev)

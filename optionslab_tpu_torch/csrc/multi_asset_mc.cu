@@ -45,14 +45,11 @@
 //    per SM of any instance, 6 on 132 SMs), so those costs are paid once
 //    for several lanes.
 //  * Each row's chunks are summed in chunk order, in float64, by a second
-//    kernel (ma_reduce_rows_kernel, the sum of reduce.cuh's pass): no float
-//    atomics, no state across launches. It is
-//    a programmatic dependent launch: once every CUDA block of the first has
-//    carried its lanes, the second is scheduled and waits in
-//    griddepcontrol.wait for the first to finish, so its launch latency
-//    overlaps the first's block reductions. (Summing the rows in the same
-//    launch, each row's CUDA blocks one thread block cluster, was slower at
-//    every one-step shape: +25 % at 4 path blocks, +23 % at 31.)
+//    kernel (reduce.cuh): no float atomics, no state across launches.
+//    Measured on the H100 and not taken: the row sum in the same launch,
+//    each row's CUDA blocks one thread block cluster (slower at every
+//    one-step shape, +25 % at 4 path blocks, +23 % at 31), and the pass as
+//    a programmatic dependent launch (within 1 % at 4 and 31 path blocks).
 //  * The counter space is the reference's, so the `hash` path set and the
 //    `sobol` point set are the JAX kernel's own; `prng` is Philox keyed by
 //    (seed, salt ^ block) at counter (row, col, k·d + i, 0).
@@ -357,7 +354,6 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm[D - 2][kAsian][kLr][kS]
     simulate_lane<D, kAsian, kLr, kS>(q, a, a.block0 + static_cast<uint32_t>(b),
                                       static_cast<uint32_t>(row), threadIdx.x, acc);
   }
-  asm volatile("griddepcontrol.launch_dependents;");  // the row-sum pass may be scheduled
   store_block_moments<kMom, kThreads>(acc, a.partials, kRows, row, a.n_chunks, chunk);
 }
 
@@ -373,21 +369,6 @@ void ma_plan(int n_blocks, int n_steps, int* n_chunks, int* blocks_per_chunk) {
   const int per = (n_blocks + chunks - 1) / chunks;
   *blocks_per_chunk = per;
   *n_chunks = (n_blocks + per - 1) / per;
-}
-
-// out[m, r] = Σ_chunk partials[m, r, chunk], in chunk order, in float64 (the
-// sum of reduce_rows_kernel), as a programmatic dependent of the kernel that
-// writes the partials: it waits until that kernel is done and its writes
-// are visible.
-__global__ void ma_reduce_rows_kernel(const float* __restrict__ partials, float* __restrict__ out,
-                                      int n_mom, int n_chunks) {
-  asm volatile("griddepcontrol.wait;" ::: "memory");
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_mom * kRows) return;
-  const float* src = partials + static_cast<size_t>(i) * n_chunks;
-  double t = 0.0;
-  for (int c = 0; c < n_chunks; ++c) t += src[c];
-  out[i] = static_cast<float>(t);
 }
 
 template <int D, bool kAsian, bool kLr>
@@ -433,13 +414,12 @@ extern "C" int multi_asset_plan(int n_blocks, int n_steps, int* n_chunks, int* b
 // multi_asset_plan, or any that covers every path block once), with
 // `partials` (n_mom, 128, n_chunks) float32 as scratch; n_mom is 2 without
 // lr and 2 + 2d + d(d+1)/2 + 2 with it. `params` holds n_params floats in
-// the layout of ops/multi_asset_kernel.py::_params_vec. With `overlap` the
-// row-sum pass is a programmatic dependent launch, else an ordinary one.
+// the layout of ops/multi_asset_kernel.py::_params_vec.
 extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t seed,
                                    uint32_t block0, int n_blocks, int blocks_per_chunk,
                                    int n_chunks, int d, int kind, int n_steps, float cp,
-                                   int sampler, int lr, int n_mom, int overlap, void* partials,
-                                   void* out, int device, void* stream) {
+                                   int sampler, int lr, int n_mom, void* partials, void* out,
+                                   int device, void* stream) {
   using namespace optionslab;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -472,19 +452,10 @@ extern "C" int multi_asset_moments(const void* params, int n_params, uint32_t se
   err = cudaLaunchKernel(fn, dim3(static_cast<unsigned>(kRows) * static_cast<unsigned>(n_chunks)),
                          dim3(kThreads), args, 0, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((n_mom * kRows + kThreads - 1) / kThreads);
-  cfg.blockDim = dim3(kThreads);
-  cfg.stream = st;
-  cfg.attrs = &attr;
-  cfg.numAttrs = overlap ? 1 : 0;
-  const float* partials_in = a.partials;
-  float* sums = static_cast<float*>(out);
-  return static_cast<int>(
-      cudaLaunchKernelEx(&cfg, ma_reduce_rows_kernel, partials_in, sums, n_mom, n_chunks));
+  const int total = n_mom * kRows;
+  reduce_rows_kernel<<<(total + kThreads - 1) / kThreads, kThreads, 0, st>>>(
+      a.partials, static_cast<float*>(out), n_mom, kRows, n_chunks);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // Registers per thread, local memory bytes per thread (spills and stack) and

@@ -194,7 +194,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _I, _U, _U,              # params, n_params, seed, block0
         _I, _I, _I,                  # n_blocks, blocks_per_chunk, n_chunks
         _I, _I, _I, _F,              # d, kind, n_steps, cp
-        _I, _I, _I, _I,              # sampler, lr, n_mom, overlap
+        _I, _I, _I,                  # sampler, lr, n_mom
         _P, _P,                      # partials, out
         _I, _P,                      # device, stream
     ]

@@ -277,8 +277,8 @@ def _ma_cuda(seed: int, block0: int, params: torch.Tensor, *, d: int, kind: str,
     err = lib.multi_asset_moments(
         params.data_ptr(), n_params, int(seed) & 0xFFFFFFFF, int(block0) & 0xFFFFFFFF,
         n_blocks, per_chunk, n_chunks, d, _KIND_ID[kind], n_steps, float(cp),
-        _SAMPLER_ID[sampler], int(lr), n_out, 1, partials.data_ptr(), out.data_ptr(),
-        dev.index, _stream(dev))
+        _SAMPLER_ID[sampler], int(lr), n_out, partials.data_ptr(), out.data_ptr(), dev.index,
+        _stream(dev))
     _launch_checked("multi_asset_moments", err)
     _count(_ma_cuda)
     return out

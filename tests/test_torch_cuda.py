@@ -672,50 +672,21 @@ def test_multi_asset_plan_edges_match_plain_on_card(cuda_device, n_blocks, n_ste
 @pytest.mark.parametrize("n_blocks,n_steps,plan", [
     (4, 1, (4, 1)), (13, 1, (13, 1)), (14, 1, (7, 2)), (20, 8, (10, 2)), (21, 2, (7, 3)),
     (31, 1, (8, 4)), (257, 6, (65, 4)), (31, 9, None), (257, 64, None)])
-def test_multi_asset_plan(cuda_device, n_blocks, n_steps, plan):
-    """The kernel source's launch plan (``multi_asset_plan``): a short
-    launch (≤ 8 steps) gives a thread up to 4 path blocks while ≥ 7 chunks a
-    row are left; a long one (``plan`` None) takes the other path kernels'
-    plan."""
+def test_multi_asset_plan_covers_every_block_once(cuda_device, n_blocks, n_steps, plan):
+    """The kernel source's launch plan (``multi_asset_plan``): every chunk
+    holds a path block and the chunks reach n_blocks; a short launch (≤ 8
+    steps) gives a thread up to 4 path blocks while ≥ 7 chunks a row are
+    left; a long one (``plan`` None) takes the other path kernels' plan."""
     import ctypes
 
     from optionslab_tpu_torch.ops import _build
     from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 
-    assert mk._plan(n_blocks, n_steps) == (plan or ek._chunking(n_blocks))
+    n_chunks, per = mk._plan(n_blocks, n_steps)
+    assert per * (n_chunks - 1) < n_blocks <= per * n_chunks
+    assert (n_chunks, per) == (plan or ek._chunking(n_blocks))
     assert _build.load_library().multi_asset_plan(0, 1, ctypes.byref(ctypes.c_int()),
                                                   ctypes.byref(ctypes.c_int())) != 0
-
-
-# the row-sum pass launched as a programmatic dependent of the kernel and as an
-# ordinary launch: 1–33 path blocks, both families, lr and price, three samplers
-MA_ROW_SUM_CASES = [(nb, *k) for nb in (1, 3, 8, 33) for k in (
-    (3, "basket_geo", 1, "prng", True), (2, "basket", 1, "hash", False),
-    (4, "rainbow_worst", 1, "prng", True), (3, "basket_geo", 1, "sobol", False),
-    (3, "basket_asian", 6, "prng", True))]
-
-
-@pytest.mark.parametrize("n_blocks,d,kind,n_steps,sampler,lr", MA_ROW_SUM_CASES)
-def test_multi_asset_overlapped_row_sum_is_the_ordinary_one(cuda_device, n_blocks, d, kind,
-                                                            n_steps, sampler, lr):
-    """The wrapper's launch (the row-sum pass a programmatic dependent
-    launch) equals the same plan with an ordinary row-sum launch bit for
-    bit."""
-    from optionslab_tpu_torch.ops import _build
-    from optionslab_tpu_torch.ops import multi_asset_kernel as mk
-
-    params = _ma_vec(d, kind, n_steps, lr, cuda_device)
-    kw = dict(d=d, kind=kind, n_steps=n_steps, n_blocks=n_blocks, cp=1.0, sampler=sampler, lr=lr)
-    n_chunks, per = mk._plan(n_blocks, n_steps)
-    n_out = mk._n_out(d, lr)
-    partials = torch.empty((n_out, mk.ROWS, n_chunks), dtype=torch.float32, device=cuda_device)
-    ordinary = torch.empty((n_out, mk.ROWS), dtype=torch.float32, device=cuda_device)
-    err = _build.load_library().multi_asset_moments(
-        params.data_ptr(), params.numel(), 5, 2, n_blocks, per, n_chunks, d, mk._KIND_ID[kind],
-        n_steps, 1.0, mk._SAMPLER_ID[sampler], int(lr), n_out, 0, partials.data_ptr(),
-        ordinary.data_ptr(), 0, mk._stream(cuda_device))
-    assert err == 0
-    assert torch.equal(mk._ma_cuda(5, 2, params, **kw), ordinary)
 
 
 def test_multi_asset_entry_points_on_card(cuda_device):
