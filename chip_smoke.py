@@ -2436,12 +2436,14 @@ def in_turns(fns: dict) -> dict:
     return out
 
 
-def kernel_launches(fn, calls: int) -> dict:
-    """CUDA kernels the profiler sees in ``calls`` calls of ``fn``, by name."""
+def kernel_launches(fns: list, calls: int) -> dict:
+    """CUDA kernels the profiler sees in ``calls`` calls of each of ``fns``
+    (one profiler session), by name."""
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
+        for fn in fns:
+            for _ in range(calls):
+                fn()
         torch.cuda.synchronize()
     out = {"multi_asset_kernel": 0, "reduce_rows_kernel": 0}
     for e in prof.key_averages():
@@ -2458,7 +2460,7 @@ def ma_timing(dev) -> dict:
     to back) with the profiler's count of their CUDA launches, and the
     short plan against one path block a thread. Not counted as main
     path."""
-    out = {}
+    out, one_step = {}, []
     # tag, kind, (paths, steps), lr, sampler, mangled-name part (D, Asian, lr, sampler) of
     # the instance whose bound is counted: the sobol instance draws before its step loop,
     # which then holds no Box–Muller for sass_bound to find, so its bound is not counted
@@ -2480,23 +2482,25 @@ def ma_timing(dev) -> dict:
         p = ma_vector(3, kind, m, lr, dev)
         kw = dict(d=3, kind=kind, n_steps=m, n_blocks=mk._n_blocks(n, mk.PATHS_PER_BLOCK),
                   cp=1.0, sampler=sampler, lr=lr)
-        kernel = lambda: mk._ma_cuda(0, 0, p, **kw)  # noqa: E731
+        kernel = lambda p=p, kw=kw: mk._ma_cuda(0, 0, p, **kw)  # noqa: E731
         ms, plain_ms = event_pair(kernel, lambda: mk._ma_plain(0, 0, p, **kw))
         t = {"ms": ms, "plain_ms": plain_ms, "trips": kw["n_blocks"] * mk.ROWS * mk.LANES * m,
              "bytes": 4 * (p.numel() + mk._n_out(3, lr) * mk.ROWS), "steps": m,
              "sass": name and (f"multi_asset_kernel{name}",), "pin": MA_ASIAN_PINS.get(name)}
         if m == 1:
             plan = mk._plan(kw["n_blocks"], m)
-            seen = kernel_launches(kernel, 5)
-            want = {"multi_asset_kernel": 5, "reduce_rows_kernel": 5}
-            check(seen == want, f"multi_asset {tag}: 5 calls ran {seen}, want {want}")
+            one_step.append(kernel)
             reads = graph_time(kernel)
             t.update(ms=sum(reads) / len(reads), back_to_back_ms=ms)
             log("timing", f"multi_asset {tag} {sampler}: device-only (a CUDA graph of 20 calls, "
                           f"5 replays) {' '.join(f'{x:.5f}' for x in reads)} ms; back to back "
-                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) {plan}; 5 calls ran {seen} "
-                          f"(profiler)")
+                          f"{ms:.5f} ms; plan (chunks, blocks a chunk) {plan}")
         out[f"multi_asset {tag}"] = t
+    seen = kernel_launches(one_step, 5)
+    want = {"multi_asset_kernel": 5 * len(one_step), "reduce_rows_kernel": 5 * len(one_step)}
+    check(seen == want, f"multi_asset one-step rows: 5 calls each ran {seen}, want {want}")
+    log("timing", f"multi_asset one-step rows: 5 calls of each of the {len(one_step)} ran {seen} "
+                  f"(profiler): the kernel and its row-sum pass a call")
     for nb in MA_PLAN_SWEEP:
         p = ma_vector(2, "basket", 1, False, dev)
         kw = dict(d=2, kind="basket", n_steps=1, n_blocks=nb, lr=False, sampler="prng")
