@@ -89,7 +89,22 @@ is printed):
               ladder's and every multi-asset instance's registers and CUDA
               blocks per SM and their issue shares; and the SASS digests
               of the QE instances it shares a source or a header with,
-              beside the ones it was split from.
+              beside the ones it was split from;
+14. pricers — the pricers that have no kernel, once each on the card at the
+              reference's default sizes, against their oracles: the
+              CRR/Leisen–Reimer lattice (1024 contracts x 512 steps,
+              European and American; the Greeks of 64), the Crank–Nicolson
+              PDE (256 contracts at 201 x 200, European and Howard
+              American), implied vol (1024 round trips), Merton/Kou and
+              VG/NIG (1,048,576 paths against the series, parity and the
+              Lewis prices), SABR calibration, the variance-swap closed forms
+              against the CIR Monte Carlo, the bridge-QMC geometric Asian,
+              the certified GBM American brackets (grid, closed form) and
+              grid Greeks against CRR@2001, and the local-vol bracket on the
+              sample smile and a flat surface; each call's warm wall time
+              and CUDA kernel count, and none of the eleven kernels
+              launched; then ``/price`` binomial|vg|nig|merton, ``/iv``,
+              ``/varswap`` and ``/american`` over a socket.
 
 The last three lines are a JSON object of kernel measurements, the card's
 name and power limit, and ``{"ok": true, "device": {...}}``. Imports
@@ -103,6 +118,7 @@ import json
 import math
 import subprocess
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -2601,6 +2617,374 @@ def heston_sass_key(tag: str):
     raise KeyError(tag)
 
 
+# ---------------------------------------------------------------------------
+# The pricers that have no kernel: lattice, PDE, IV, jumps, Lévy, SABR,
+# variance swaps, QMC exotics and the certified American brackets
+# ---------------------------------------------------------------------------
+PR_BOOK = 1024  # binomial_price and implied_volatility_vectorized
+PR_GREEKS_BOOK = 64  # binomial_greeks
+PR_FDM_BOOK = 256  # fdm_price at 201 x 200
+PR_PATHS = 1_048_576  # the jump and Lévy Monte Carlo, the integrated variance
+PR_REPLICATES = 16  # the Monte Carlo prices that return no stderr
+
+
+def pricer_book(n: int, dev, seed: int = 9, dtype=torch.float32) -> ContractBatch:
+    """n contracts drawn from a seeded numpy generator, alternating call/put."""
+    rng = np.random.default_rng(seed)
+    fields = {"spot": rng.uniform(80.0, 120.0, n), "strike": rng.uniform(85.0, 115.0, n),
+              "maturity": rng.uniform(0.25, 2.0, n), "rate": rng.uniform(0.01, 0.06, n),
+              "vol": rng.uniform(0.15, 0.45, n), "dividend": rng.uniform(0.0, 0.03, n),
+              "cp": np.where(np.arange(n) % 2 == 0, 1.0, -1.0)}
+    return ContractBatch(**{k: torch.tensor(v, dtype=dtype, device=dev)
+                            for k, v in fields.items()})
+
+
+def cuda_kernels(fn) -> int:
+    """CUDA kernels the profiler sees in one call of ``fn`` (memcpy and
+    memset not counted); 0 when the profiler sees no device activity."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith(("Memcpy", "Memset")))
+
+
+def linear_kernels(fn_of_steps, full: int, base: int = 1) -> int:
+    """Kernels of ``fn_of_steps(full)`` from calls at ``base`` and ``base +
+    1`` steps: these loops issue the same launches every step (time step,
+    exercise date, Adam step), so the count is a + b·steps; the profiler
+    spends about a millisecond of host time per kernel it reports, minutes
+    at a million."""
+    lo, hi = (cuda_kernels(lambda n=n: fn_of_steps(n)) for n in (base, base + 1))
+    return lo + (full - base) * (hi - lo)
+
+
+def pricer_replicates(fn, dev, seed: int = 100):
+    """(mean, stderr of the mean) of ``fn(generator)`` over PR_REPLICATES
+    independently seeded generators on ``dev``."""
+    runs = torch.stack([fn(torch.Generator(device=dev).manual_seed(seed + i))
+                        for i in range(PR_REPLICATES)])
+    return runs.mean(0), runs.std(0, correction=1) / math.sqrt(PR_REPLICATES)
+
+
+def on_card(*xs) -> None:
+    for x in xs:
+        check(x.device.type == "cuda", f"a pricer answered on {x.device}, not the card")
+
+
+def phase_pricers(dev, card: str) -> dict:
+    """Each pricer without a kernel once on the card at the reference's
+    default sizes, against its oracle; prints each call's warm wall time and
+    CUDA kernel count. Returns {call: (warm ms, kernels)}."""
+    from optionslab_tpu_torch.models import american as am
+    from optionslab_tpu_torch.models import binomial as bn
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.models import iv as ivm
+    from optionslab_tpu_torch.models import jump_diffusion as jd
+    from optionslab_tpu_torch.models import levy
+    from optionslab_tpu_torch.models import local_vol_american as lva
+    from optionslab_tpu_torch.models import qmc_exotics as qmc
+    from optionslab_tpu_torch.models import sabr
+    from optionslab_tpu_torch.models import var_swap as vs
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+
+    check(not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on: the LSM regressions "
+                                                      "need full float32")
+    t_phase = time.perf_counter()
+    log("pricers", f"book sizes {PR_BOOK}, {PR_GREEKS_BOOK}, {PR_FDM_BOOK} contracts: no cut")
+    stats = {}
+
+    def record(name, fn, kernels=None, iters: int = 1, warm=None):
+        """Run ``fn`` once (the result), then ``iters`` warm timed calls;
+        with ``warm`` (a short call of the same loops), run that, then time
+        the one call of ``fn``."""
+        if warm is None:
+            out, ms = timed(fn, iters)
+        else:
+            warm()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        n = cuda_kernels(fn) if kernels is None else kernels()
+        stats[name] = (ms, n)
+        log("pricers", f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels "
+                       f"{'(profiler saw none: not measured) ' if n == 0 else ''}[{card}]")
+        return out
+
+    book = pricer_book(PR_BOOK, dev)
+    s, k, t, r, v, q, cp = (getattr(book, f) for f in ("spot", "strike", "maturity", "rate",
+                                                       "vol", "dividend", "cp"))
+    bs = bs_price(s, k, t, r, v, cp, q)
+
+    # the lattice: 1024 contracts x 512 steps, European and American
+    eu = record("binomial_price european 1024x512", lambda: bn.binomial_price(book), iters=3)
+    amer = record("binomial_price american 1024x512",
+                  lambda: bn.binomial_price(book, american=True), iters=3)
+    on_card(eu, amer)
+    crr_tol = s * v * torch.sqrt(t) / 512  # the CRR oscillation, O(Sσ√T/N)
+    err = (eu - bs).abs()
+    check(bool((err < crr_tol).all()), f"binomial European off Black–Scholes by "
+                                       f"{err.max().item():.2e} > S·σ·√T/N")
+    check(bool((amer >= eu - 1e-4).all()), "binomial American below European")
+    log("pricers", f"binomial: max |CRR − BS| {err.max().item():.2e} (bound S·σ·√T/512); "
+                   f"American − European in [{(amer - eu).min().item():.2e}, "
+                   f"{(amer - eu).max().item():.3f}]")
+
+    # the lattice Greeks: CRR's node Greeks (delta, gamma, theta) and
+    # Leisen–Reimer's autograd Greeks (vega, rho, the strike derivative).
+    # Autograd of the CRR price carries its O(1/N) oscillation in σ (vega 8%
+    # off at 512 steps), and LR's step-2 middle node is not at S0 (its node
+    # theta is not a theta): each method is held on what it gets right.
+    gbook = pricer_book(PR_GREEKS_BOOK, dev, seed=10)
+    ex = bs_greeks(gbook.spot, gbook.strike, gbook.maturity, gbook.rate, gbook.vol, gbook.cp,
+                   gbook.dividend)
+    worst = {}
+    for method, n_steps, tols in (
+            ("crr", 512, (("delta", 2e-3), ("gamma", 2e-4), ("theta", 0.05))),
+            ("leisen-reimer", 513, (("delta", 2e-3), ("gamma", 2e-4), ("vega", 0.05),
+                                    ("rho", 0.05), ("dual_delta", 2e-3)))):
+        g = record(f"binomial_greeks {method} 64x{n_steps}",
+                   lambda: bn.binomial_greeks(gbook, n_steps=n_steps, method=method), iters=3)
+        on_card(g["vega"])
+        for key, tol in tols:
+            worst[f"{method} {key}"] = gap = (g[key] - ex[key]).abs().max().item()
+            check(gap < tol, f"binomial_greeks {method} {key} off bs_greeks by {gap:.3e}")
+    log("pricers", "binomial_greeks vs bs_greeks, max abs: "
+                   + ", ".join(f"{key} {val:.2e}" for key, val in worst.items()))
+
+    # the PDE: 256 contracts at 201 x 200, European, and American (Howard)
+    fbook = pricer_book(PR_FDM_BOOK, dev, seed=11)
+    f_bs = bs_price(fbook.spot, fbook.strike, fbook.maturity, fbook.rate, fbook.vol, fbook.cp,
+                    fbook.dividend)
+    f_eu = record("fdm_price european 256x201x200", lambda: fdm.fdm_price(fbook),
+                  lambda: linear_kernels(lambda n: fdm.fdm_price(fbook, n_time=n), 200),
+                  warm=lambda: fdm.fdm_price(fbook, n_time=2))
+    f_am = record("fdm_price american 256x201x200",
+                  lambda: fdm.fdm_price(fbook, american=True),
+                  lambda: linear_kernels(lambda n: fdm.fdm_price(fbook, n_time=n,
+                                                                 american=True), 200),
+                  warm=lambda: fdm.fdm_price(fbook, n_time=2, american=True))
+    crr_am = bn.binomial_price(fbook, american=True, n_steps=2048)
+    on_card(f_eu, f_am, crr_am)
+    e_eu, e_am = (f_eu - f_bs).abs().max().item(), (f_am - crr_am).abs().max().item()
+    check(e_eu < 0.02, f"fdm European off Black–Scholes by {e_eu:.3e}")
+    check(e_am < 0.03, f"fdm American off the 2048-step binomial American by {e_am:.3e}")
+    log("pricers", f"fdm: max |CN − BS| {e_eu:.2e}; max |CN American − CRR@2048| {e_am:.2e}")
+
+    # implied vol: 1024 Black–Scholes prices round trip
+    ivs = record("implied_volatility_vectorized 1024",
+                 lambda: ivm.implied_volatility_vectorized(bs, s, k, t, r, cp, q), iters=3)
+    on_card(ivs)
+    vega = bs_greeks(s, k, t, r, v, cp, q)["vega"]
+    live = vega > 1.0  # prices that pin the vol in float32
+    iv_err = (ivs - v).abs()[live].max().item()
+    rt_err = (bs_price(s, k, t, r, ivs, cp, q) - bs).abs().max().item()
+    check(bool(torch.isfinite(ivs).all()) and iv_err < 1e-3 and rt_err < 2e-4,
+          f"IV round trip: vol off by {iv_err:.2e}, price by {rt_err:.2e}")
+    log("pricers", f"iv: max |σ̂ − σ| {iv_err:.2e} on {int(live.sum())} quotes with vega > 1, "
+                   f"max price round trip {rt_err:.2e}")
+
+    # jumps: the Merton series at λ = 0 is Black–Scholes; the Monte Carlo
+    # prices at 1,048,576 paths against the series and put–call parity
+    m0 = record("merton_price 1024 lam=0", lambda: jd.merton_price(book, 0.0, -0.1, 0.2), iters=3)
+    rel = ((m0 - bs).abs() / bs.clamp_min(1e-3)).max().item()
+    check(rel < 1e-5, f"merton_price at λ = 0 off Black–Scholes by {rel:.2e} relative")
+    jbook = ContractBatch.make(100.0, torch.tensor([90.0, 100.0, 110.0] * 2), 1.0, 0.03, 0.2,
+                               torch.tensor([1.0] * 3 + [-1.0] * 3), 0.01, device=dev)
+    merton, kou = (0.7, -0.1, 0.25), (0.8, 0.4, 10.0, 5.0)
+    fwd = (100.0 * math.exp(-0.01) - jbook.strike[:3] * math.exp(-0.03))
+    series = jd.merton_price(jbook, *merton)
+    for name, fn, args in (("merton_mc_price", jd.merton_mc_price, merton),
+                           ("kou_mc_price", jd.kou_mc_price, kou)):
+        gen = torch.Generator(device=dev).manual_seed(1)
+        record(f"{name} 6x{PR_PATHS}", lambda: fn(jbook, *args, gen, n_paths=PR_PATHS), iters=3)
+        mean, se = pricer_replicates(lambda g_: fn(jbook, *args, g_, n_paths=PR_PATHS), dev)
+        on_card(mean)
+        parity = (mean[:3] - mean[3:]) - fwd
+        p_se = torch.hypot(se[:3], se[3:])
+        check(bool((parity.abs() < 4 * p_se).all()), f"{name} put–call parity off by "
+                                                     f"{parity.abs().max().item():.2e}")
+        msg = f"{name}: parity gaps / se {(parity / p_se).abs().max().item():.2f}"
+        if name == "merton_mc_price":
+            z = ((mean - series) / se).abs().max().item()
+            check(z < 4.0, f"merton_mc_price off the series by {z:.2f} stderrs")
+            msg += f"; |MC − series| / se at most {z:.2f}"
+        log("pricers", msg + f" ({PR_REPLICATES} replicates of {PR_PATHS} paths)")
+
+    # Lévy: the Lewis prices against their Monte Carlo at 1,048,576 paths
+    lbook = ContractBatch.make(100.0, torch.tensor([80.0, 100.0, 120.0]), 1.0, 0.05, 0.2,
+                               torch.tensor([-1.0, 1.0, 1.0]), device=dev)
+    for name, price_fn, mc_fn, params in (
+            ("vg", levy.vg_price, levy.vg_mc_price, levy.VGParams.make(device=dev)),
+            ("nig", levy.nig_price, levy.nig_mc_price, levy.NIGParams.make(device=dev))):
+        lewis = record(f"{name}_price 3 strikes", lambda: price_fn(lbook, params), iters=3)
+        gen = torch.Generator(device=dev).manual_seed(2)
+        m, se = record(f"{name}_mc_price 3x{PR_PATHS}",
+                       lambda: mc_fn(lbook, params, gen, n_paths=PR_PATHS), iters=3)
+        on_card(lewis, m)
+        z = ((m - lewis).abs() - 1e-3).clamp_min(0.0) / se
+        check(bool((z < 4.0).all()), f"{name} Lewis off its Monte Carlo: {m} vs {lewis}")
+        log("pricers", f"{name}: Lewis {[round(x, 5) for x in lewis.tolist()]}, |MC − Lewis| / "
+                       f"se {((m - lewis).abs() / se).max().item():.2f}")
+
+    # SABR: recover the parameters of a 15-strike smile
+    truth = sabr.SABRParams.make(0.3, 0.5, -0.4, 0.6, device=dev)
+    strikes = torch.linspace(70.0, 130.0, 15, device=dev)
+    vols = sabr.sabr_smile(100.0, strikes, 1.0, truth)
+    fit, loss = record("calibrate_sabr 15 strikes 400 Adam steps",
+                       lambda: sabr.calibrate_sabr(100.0, strikes, 1.0, vols),
+                       lambda: linear_kernels(lambda n: sabr.calibrate_sabr(
+                           100.0, strikes, 1.0, vols, n_steps=n), 400))
+    on_card(fit.alpha)
+    errs = {k_: abs(getattr(fit, k_).item() - getattr(truth, k_).item())
+            for k_ in ("alpha", "rho", "nu")}
+    check(loss < 1e-8 and errs["alpha"] < 2e-3 and errs["rho"] < 0.02 and errs["nu"] < 0.02,
+          f"calibrate_sabr: loss {loss:.2e}, errors {errs}")
+    log("pricers", f"sabr: loss {loss:.2e}, |fit − truth| {errs}")
+
+    # variance swaps: the closed forms against the CIR Monte Carlo
+    hp = hmodel.HestonParams.make(0.04, 2.0, 0.05, 0.3, -0.7, device=dev)
+    kv = record("heston_expected_variance", lambda: vs.heston_expected_variance(hp, 1.0),
+                iters=3)
+    kvol = record("heston_vol_swap_strike", lambda: vs.heston_vol_swap_strike(hp, 1.0), iters=3)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    m, se, rm, rse = record(f"heston_integrated_variance_mc {PR_PATHS}x252",
+                            lambda: vs.heston_integrated_variance_mc(hp, 1.0, gen,
+                                                                     n_paths=PR_PATHS))
+    on_card(kv, kvol, m)
+    # + 5e-5: the Euler scheme's O(Δt) bias at 252 steps
+    check(abs(m.item() - kv.item()) < 4 * se.item() + 5e-5,
+          f"E[I/T]: MC {m.item():.6f} ± {se.item():.1e} vs closed form {kv.item():.6f}")
+    check(abs(rm.item() - kvol.item()) < 4 * rse.item() + 5e-5,
+          f"E[√(I/T)]: MC {rm.item():.6f} ± {rse.item():.1e} vs closed form {kvol.item():.6f}")
+    log("pricers", f"varswap: K_var {kv.item():.6f} (MC {m.item():.6f} ± {se.item():.1e}), "
+                   f"K_vol {kvol.item():.6f} (MC {rm.item():.6f} ± {rse.item():.1e})")
+
+    # QMC: the geometric Asian under bridge Sobol, 65,536 x 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    p, se = record("qmc_asian_price geometric 65536x64",
+                   lambda: qmc.qmc_asian_price(100.0, 100.0, 1.0, 0.05, 0.2, gen,
+                                               averaging="geometric", return_stderr=True),
+                   iters=3)
+    on_card(p)
+    cf = tex.geometric_asian_closed_form(100.0, 100.0, 1.0, 0.05, 0.2, n_steps=64).item()
+    check(abs(p.item() - cf) < min(4 * se.item(), 0.01),
+          f"QMC geometric Asian {p.item():.5f} vs closed form {cf:.5f}")
+    log("pricers", f"qmc geometric Asian {p.item():.6f} vs closed form {cf:.6f} "
+                   f"(plain-MC se {se.item():.1e})")
+
+    # the certified GBM American brackets at the defaults, against CRR@2001
+    put = ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, "put", dtype=torch.float64, device=dev)
+    crr = bn.binomial_price(put, american=True, n_steps=2001).item()
+    for method in ("grid", "closed_form"):
+        out = record(f"american_price_interval {method}",
+                     lambda: am.american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2,
+                                                        method=method, device=dev),
+                     lambda: linear_kernels(lambda n: am.american_price_interval(
+                         100.0, 100.0, 1.0, 0.05, 0.2, method=method, n_dates=n,
+                         device=dev), 50, base=2))
+        on_card(*out.values())
+        lo = out["lower"].item() - 3 * out["lower_se"].item()
+        hi = out["upper"].item() + 3 * out["upper_se"].item()
+        check(lo <= crr <= hi + 0.02 and 5.9 < lo and hi < 6.6,
+              f"american {method} [{lo:.5f}, {hi:.5f}] does not bracket CRR@2001 {crr:.5f}")
+        log("pricers", f"american {method}: [{out['lower'].item():.6f}, "
+                       f"{out['upper'].item():.6f}] ± ({out['lower_se'].item():.1e}, "
+                       f"{out['upper_se'].item():.1e}), CRR@2001 {crr:.6f}")
+    gg = record("american_grid_greeks", lambda: am.american_grid_greeks(
+        100.0, 100.0, 1.0, 0.05, 0.2, device=dev), lambda: linear_kernels(
+            lambda n: am.american_grid_greeks(100.0, 100.0, 1.0, 0.05, 0.2, n_dates=n,
+                                              device=dev), 500, base=2))
+    bg = bn.binomial_greeks(put, american=True, n_steps=2001)
+    gaps = {k_: abs(gg[k_] - bg[k_].item()) for k_ in ("delta", "gamma", "theta", "vega", "rho")}
+    for k_, tol in (("delta", 2e-3), ("gamma", 2e-4), ("theta", 2e-2), ("vega", 0.2),
+                    ("rho", 0.2)):
+        check(gaps[k_] < tol, f"american_grid_greeks {k_} off the lattice by {gaps[k_]:.2e}")
+    check(abs(gg["price"] - (6.09040 - 0.59 / 500)) < 2e-3,
+          f"american_grid_greeks price {gg['price']:.5f}")
+    log("pricers", f"american grid Greeks vs CRR@2001: {gaps}")
+
+    # the local-vol bracket at the defaults, on the sample smile and a flat
+    # surface; the flat bracket overlaps the GBM grid bracket
+    smile, flat = smile_dupire(dev), smile_dupire(dev, flat=True)
+    brackets = {}
+    for name, dup in (("smile", smile), ("flat", flat)):
+        brackets[name] = record(
+            f"local_vol_american_bracket {name}",
+            lambda: lva.local_vol_american_bracket(dup, 100.0, 1.0, device=dev),
+            lambda: linear_kernels(lambda n: lva.local_vol_american_bracket(
+                dup, 100.0, 1.0, steps_per_date=n, device=dev), 8),
+            warm=lambda: lva.local_vol_american_bracket(dup, 100.0, 1.0, n_dates=2,
+                                                        device=dev))
+        b = brackets[name]
+        check(b["width"] < 0.05 and b["lower"] <= b["upper"] + 3 * b["upper_se"],
+              f"local-vol bracket {name}: {b}")
+        log("pricers", f"local-vol {name}: [{b['lower']:.5f}, {b['upper']:.5f}] ± "
+                       f"({b['lower_se']:.1e}, {b['upper_se']:.1e}), PDE {b['lv_bermudan']:.5f}")
+    b = brackets["flat"]
+    g25 = am.american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2, n_dates=25, device=dev)
+    check(g25["lower"].item() - 3 * g25["lower_se"].item() < b["upper"] + 3 * b["upper_se"]
+          and b["lower"] - 3 * b["lower_se"] < g25["upper"].item() + 3 * g25["upper_se"].item(),
+          f"flat local-vol bracket {b} misses the GBM grid bracket {g25}")
+    am_pde = float(smile._solve(100.0, 1.0, -1.0, american=True))
+    b = brackets["smile"]
+    check(b["lower"] - 3 * b["lower_se"] - 0.01 < am_pde
+          < b["continuous_upper"] + 3 * b["upper_se"] + 0.01,
+          f"smile bracket {b} misses the local-vol PDE American {am_pde:.5f}")
+    log("pricers", f"flat bracket overlaps the GBM grid bracket [{g25['lower'].item():.5f}, "
+                   f"{g25['upper'].item():.5f}]; smile holds the LV-PDE American {am_pde:.5f}")
+    log("pricers", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    return stats
+
+
+def phase_pricers_server(dev) -> None:
+    """Each new route once over a socket, against the port's own functions."""
+    from optionslab_tpu_torch.models import binomial as bn
+
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        atm = ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, "put", device=dev)
+        for body in ({"model": "binomial", "american": True, "option_type": "put"},
+                     {"model": "vg"}, {"model": "nig"}, {"model": "merton"}):
+            status, out = _request(base + "/price", body)
+            check(status == 200 and math.isfinite(out["price"]) and out["price"] > 0,
+                  f"/price {body}: {status} {out}")
+            if body["model"] == "binomial":
+                want = bn.binomial_price(atm, american=True).item()
+                check(abs(out["price"] - want) < 1e-6 * want, f"/price binomial {out} vs {want}")
+        status, out = _request(base + "/iv", {"price": BS_ATM_CALL})
+        check(status == 200 and abs(out["implied_vol"] - 0.2) < 1e-4, f"/iv: {status} {out}")
+        try:
+            _request(base + "/iv", {"price": 150.0})
+            check(False, "/iv above the no-arbitrage bound answered 200")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"/iv above the no-arbitrage bound answered {e.code}")
+        for body in ({}, {"model": "slv", "n_paths": 65_536, "n_steps": 64}):
+            status, out = _request(base + "/varswap", body)
+            check(status == 200 and 0.0 < out["variance_strike"] < 0.1
+                  and 0.0 < out["vol_strike"] < 0.4, f"/varswap {body}: {status} {out}")
+        for body in ({"model": "bs", "option_type": "put"},
+                     {"model": "lv", "option_type": "put", "n_dates": 10, "n_outer": 2048,
+                      "n_inner": 512}):
+            status, out = _request(base + "/american", body)
+            check(status == 200 and out["lower"] <= out["upper"] + 3 * out["upper_se"]
+                  and out["width"] < 0.05, f"/american {body}: {status} {out}")
+        try:
+            _request(base + "/american", {"model": "heston", "option_type": "put"})
+            check(False, "/american heston answered 200")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400, f"/american heston answered {e.code}")
+        log("pricers", "/price binomial|vg|nig|merton, /iv, /varswap heston|slv and /american "
+                       "bs|lv answered on the card; /american heston and a bad /iv price: 400")
+    finally:
+        server.stop()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -2723,6 +3107,16 @@ def main() -> None:
         t["bound_ms"], t["bound_by"] = (kernel_bound(funcs, t["sass"], _MA_NEST, t, tag)
                                         if t["sass"] else (float("nan"), "not counted"))
     ma_report(funcs, ma_t)
+    # the pricers without a kernel: they launch none of the eleven kernels
+    kernel_fns = (gk._gbm_moments_cuda, ek._exotic_moments_cuda, ek._exotic_greeks_cuda,
+                  hk._heston_mc_cuda, hk._heston_qe_cuda, hk._heston_qe_ladder_cuda,
+                  hk._heston_chain_cuda, hx._heston_exotic_cuda, lk._lv_cuda, sk._slv_cuda,
+                  mk._ma_cuda)
+    before = [fn.launches for fn in kernel_fns]
+    phase_pricers(dev, card)
+    phase_pricers_server(dev)
+    check([fn.launches for fn in kernel_fns] == before,
+          "the pricers without a kernel launched one of the eleven kernels")
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):

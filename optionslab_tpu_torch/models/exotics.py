@@ -1,8 +1,7 @@
 """Exotic options: closed-form oracles, a scan Monte Carlo engine, and the
 dataclass façade over the scan engine and the fused kernels.
 
-The port of ``optionslab_tpu/models/exotics.py`` without the American LSM
-pricer (it belongs with the American family).
+The port of ``optionslab_tpu/models/exotics.py``.
 
 * Closed forms, in float64 unless given tensors of another dtype: the
   discrete geometric Asian, the discretely monitored range accrual, the
@@ -12,6 +11,9 @@ pricer (it belongs with the American family).
   steps in a Python loop, drawing its normals from an explicit
   ``torch.Generator`` (antithetic halves); it is differentiable, and
   :func:`exotic_greeks` takes its Greeks by ``torch.autograd``.
+* The American Longstaff–Schwartz pricer regresses on the ITM paths with
+  fixed-shape ITM-weighted normal equations, one small solve per date on
+  the device.
 * ``engine="pallas"`` on the dataclasses runs the fused kernels of
   ``ops/exotic_kernel.py`` on the instance's ``device``; ``engine="scan"``
   runs the scan engine there.
@@ -476,6 +478,91 @@ def barrier_rebate_price(spot, strike, barrier, maturity, rate, vol, generator, 
     return _result(pay.mean(), pay.std(correction=0) / math.sqrt(pay.shape[0]), return_stderr)
 
 
+# ---------------------------------------------------------------------------
+# American via Longstaff–Schwartz
+# ---------------------------------------------------------------------------
+def _lsm_paths(generator, spot, maturity, rate, vol, dividend, n_paths, n_dates):
+    """(n_dates, n_paths) float32 GBM spots at the exercise dates, antithetic
+    halves, on the generator's device."""
+    dev = generator.device
+    dt = maturity / n_dates
+    drift = (rate - dividend - 0.5 * vol * vol) * dt
+    sig_dt = vol * math.sqrt(dt)
+    half = n_paths // 2
+    log_s = torch.zeros(2 * half, device=dev)
+    rows = []
+    for _ in range(n_dates):
+        z = torch.randn(half, generator=generator, device=dev)
+        log_s = log_s + drift + sig_dt * torch.cat([z, -z])
+        rows.append(log_s)
+    return spot * torch.exp(torch.stack(rows))
+
+
+def _lsm_backward(s_paths, strike, rate, dt, cp, basis, on_date=None):
+    """The Longstaff–Schwartz backward pass. Each date regresses the
+    discounted cash flow on polynomials in the centred moneyness S/K − 1
+    over the in-the-money paths: ITM-weighted normal equations of fixed
+    shape, solved on the device without a host check. Calls
+    ``on_date(spots, exercise mask)`` from the last date but one down to
+    the first; returns the cash flows discounted to the first date."""
+    n_dates, n_paths = s_paths.shape
+    disc = math.exp(-rate * dt)
+    ridge = 1e-8 * torch.eye(basis + 1, device=s_paths.device)
+    cash = torch.clamp_min(cp * (s_paths[-1] - strike), 0.0)
+    for idx in range(n_dates - 2, -1, -1):
+        s = s_paths[idx]
+        ex = torch.clamp_min(cp * (s - strike), 0.0)
+        itm = ex > 0
+        x = s / strike - 1.0
+        feats = torch.stack([x**p for p in range(basis + 1)])  # (b+1, paths)
+        fw = feats * itm.to(feats.dtype)
+        y = disc * cash
+        a_mat = (fw @ feats.T) / n_paths
+        b_vec = (fw @ y) / n_paths
+        coef = torch.linalg.solve_ex(a_mat + ridge, b_vec[:, None])[0][:, 0]
+        exercise = itm & (ex > coef @ feats)
+        cash = torch.where(exercise, ex, y)
+        if on_date is not None:
+            on_date(s, exercise)
+    return cash
+
+
+def american_lsm_price(spot, strike, maturity, rate, vol, generator: torch.Generator, cp=-1.0,
+                       dividend=0.0, n_paths: int = 100_000, n_dates: int = 50, basis: int = 3,
+                       return_stderr: bool = False):
+    """Longstaff–Schwartz American price (float32, on the generator's
+    device), floored at the intrinsic value; the uncertified lower-bound
+    estimate (``models/american.py`` brackets it)."""
+    maturity, rate, vol = float(maturity), float(rate), float(vol)
+    dt = maturity / n_dates
+    s_paths = _lsm_paths(generator, spot, maturity, rate, vol, dividend, n_paths, n_dates)
+    pay = math.exp(-rate * dt) * _lsm_backward(s_paths, strike, rate, dt, cp, basis)
+    price = torch.clamp_min(pay.mean(), max(cp * (float(spot) - float(strike)), 0.0))
+    stderr = pay.std(correction=1) / math.sqrt(pay.shape[0])
+    return (price, stderr) if return_stderr else price
+
+
+def lsm_exercise_boundary(spot, strike, maturity, rate, vol, generator: torch.Generator,
+                          cp=-1.0, dividend=0.0, n_paths: int = 50_000, n_dates: int = 50):
+    """Early-exercise boundary estimate at each date but the last (n_dates
+    − 1 entries, earliest first): the highest exercised spot of a put, the
+    lowest of a call, NaN where no path exercised."""
+    maturity, rate, vol = float(maturity), float(rate), float(vol)
+    dt = maturity / n_dates
+    s_paths = _lsm_paths(generator, spot, maturity, rate, vol, dividend, n_paths, n_dates)
+    rows = []
+
+    def record(s, exercise):
+        if cp < 0:
+            edge = torch.where(exercise, s, -math.inf).max()
+        else:
+            edge = torch.where(exercise, s, math.inf).min()
+        rows.append(torch.where(exercise.any(), edge, math.nan))
+
+    _lsm_backward(s_paths, strike, rate, dt, cp, 3, record)
+    return torch.stack(rows[::-1])
+
+
 def exotic_greeks(price_fn, spot, vol, rate, maturity, **kwargs) -> dict:
     """delta/vega/rho/theta of a scan-engine price by ``torch.autograd``.
 
@@ -626,6 +713,31 @@ class LookbackOption(_Exotic):
 
 
 @dataclasses.dataclass
+class AmericanOptionLSM(_Exotic):
+    spot: float
+    strike: float
+    maturity: float
+    rate: float
+    vol: float
+    option_type: str = "put"
+    dividend: float = 0.0
+    n_paths: int = 100_000
+    n_dates: int = 50
+    seed: int = 0
+    device: str = "cuda"
+
+    def price(self, return_stderr: bool = False):
+        return american_lsm_price(self.spot, self.strike, self.maturity, self.rate, self.vol,
+                                  self._generator(), _cp(self.option_type), self.dividend,
+                                  self.n_paths, self.n_dates, return_stderr=return_stderr)
+
+    def exercise_boundary(self):
+        return lsm_exercise_boundary(self.spot, self.strike, self.maturity, self.rate, self.vol,
+                                     self._generator(), _cp(self.option_type), self.dividend,
+                                     self.n_paths, self.n_dates)
+
+
+@dataclasses.dataclass
 class AutocallableNote(_Exotic):
     spot: float
     maturity: float
@@ -695,6 +807,10 @@ def price_asian_option(S, K, T, r, sigma, option_type="call", **kw):
 def price_barrier_option(S, K, B, T, r, sigma, option_type="call", barrier_type="up-and-out",
                          **kw):
     return BarrierOption(S, K, B, T, r, sigma, option_type, barrier_type, **kw).price()
+
+
+def price_american_lsm(S, K, T, r, sigma, option_type="put", **kw):
+    return AmericanOptionLSM(S, K, T, r, sigma, option_type, **kw).price()
 
 
 def price_lookback_option(S, K, T, r, sigma, option_type="call", floating=True, **kw):

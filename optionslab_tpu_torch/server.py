@@ -3,13 +3,29 @@
 Endpoints (POST, JSON body, JSON response), with the request bodies of
 ``optionslab_tpu.server``:
 
-  /price        {"model": "bs|heston|bates", contract fields...}; "heston"
-                and "bates" price by the Lewis integral with the optional
-                "heston_params" {v0, kappa, theta, sigma, rho} or
-                "bates_params" (the same plus lam, mu_j, sigma_j) (other
-                models: 400, not yet ported)
+  /price        {"model": "bs|binomial|heston|bates|vg|nig|merton", contract
+                fields...}; "binomial" runs the CRR lattice ("american",
+                "n_steps"); "heston", "bates", "vg" and "nig" price by the
+                Lewis integral with the optional "heston_params" {v0, kappa,
+                theta, sigma, rho}, "bates_params" (the same plus lam, mu_j,
+                sigma_j), "vg_params" {sigma, nu, theta} or "nig_params"
+                {alpha, beta, delta}; "merton" by its Poisson series with
+                "merton_params" {lam, mu_j, sigma_j}
   /batch/price  the same; fields may be lists
   /greeks       {contract fields...}                → full BS Greek ladder
+  /iv           {"price": P, contract fields...}    → the implied vol; a
+                price outside the no-arbitrage bounds answers 400
+  /varswap      {"maturity", "heston_params", "model": "heston|slv"}  → fair
+                variance and volatility swap strikes: the Heston closed forms,
+                or ("slv", with "mixing", "n_paths", "n_steps", "seed") both
+                strikes and their stderrs from one SLV simulation on the
+                sample smile
+  /american     {"model": "bs|lv", "option_type": "put", "n_dates", contract
+                fields, optional n_fit/n_lower/n_outer/n_inner/n_grid}
+                                                    → certified [lower, upper]
+                Bermudan bracket: "bs" the GBM grid engine, "lv" the Dupire
+                local-vol bracket on the sample smile at base vol "vol"
+                (heston|bates|slv|rbergomi: 400, not yet ported)
   /mc           {"n_paths": N, "seed": s, "method": "pallas|xla",
                  contract fields...}                → MC price, stderr and
                 Greeks; "pallas" (the default) runs the fused GBM kernel
@@ -62,17 +78,24 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 import torch
 
+from .models.american import american_price_interval
 from .models.bates import BatesParams, bates_price
+from .models.binomial import binomial_price
 from .models.black_scholes import bs_greeks, bs_price
 from .models.books import exotic_book_quote
 from .models.heston import HestonParams, heston_price
+from .models.iv import implied_volatility
+from .models.jump_diffusion import MertonJumpDiffusion
+from .models.levy import NIGParams, VGParams, nig_price, vg_price
 from .models.local_vol import (
     DupireLocalVol,
     local_vol_autocall_price,
     local_vol_cliquet_price,
     sample_smile_iv_fn,
 )
-from .models.slv import SLVModel
+from .models.local_vol_american import local_vol_american_bracket
+from .models.slv import SLVModel, slv_swap_strikes
+from .models.var_swap import heston_expected_variance, heston_vol_swap_strike
 from .models.exotics import (
     AsianOption,
     BarrierOption,
@@ -129,21 +152,96 @@ def _batch(p: dict, device) -> ContractBatch:
                               p["option_type"], p["dividend"], device=device)
 
 
+PRICE_MODELS = ("bs", "binomial", "heston", "bates", "vg", "nig", "merton")
+
+
 def handle_price(body: dict, device) -> dict:
     p, cp = _contract(body)
     model = body.get("model", "bs")
     if model == "bs":
         out = bs_price(*_bs_args(p, cp, device))
+    elif model == "binomial":
+        out = binomial_price(_batch(p, device), american=bool(body.get("american", False)),
+                             n_steps=int(body.get("n_steps", 512)))
     elif model == "heston":
         params = HestonParams.make(**body.get("heston_params", {}), device=device)
         out = heston_price(_batch(p, device), params)
     elif model == "bates":
         params = BatesParams.make(**body.get("bates_params", {}), device=device)
         out = bates_price(_batch(p, device), params)
+    elif model == "vg":
+        out = vg_price(_batch(p, device), VGParams.make(**body.get("vg_params", {}),
+                                                        device=device))
+    elif model == "nig":
+        out = nig_price(_batch(p, device), NIGParams.make(**body.get("nig_params", {}),
+                                                          device=device))
+    elif model == "merton":
+        jd = MertonJumpDiffusion(**body.get("merton_params", {}), device=device)
+        out = jd.price(p["spot"], p["strike"], p["maturity"], p["rate"], p["vol"],
+                       p["option_type"], p["dividend"])
     else:
-        raise ValidationError(f"model {model!r} is not yet ported; available: "
-                              "['bs', 'heston', 'bates']")
+        raise ValidationError(f"unknown model {model!r}; available: {list(PRICE_MODELS)}")
     return {"model": model, "price": _to_jsonable(out)}
+
+
+def handle_iv(body: dict, device) -> dict:
+    p, _ = _contract(body)
+    iv = implied_volatility(float(body["price"]), p["spot"], p["strike"], p["maturity"],
+                            p["rate"], p["option_type"], p["dividend"], device=device)
+    return {"implied_vol": _to_jsonable(iv)}
+
+
+def handle_varswap(body: dict, device) -> dict:
+    """Fair variance and volatility swap strikes, with the request body and
+    answer keys of the JAX package's ``/varswap``: the Heston closed forms
+    (default), or with ``model`` "slv" both strikes from one SLV simulation
+    on the sample smile at ``mixing``."""
+    params = HestonParams.make(**body.get("heston_params", {}), device=device)
+    t = float(body.get("maturity", 1.0))
+    if str(body.get("model", "heston")).lower() == "slv":
+        dup = DupireLocalVol(sample_smile_iv_fn(base_vol=float(body.get("vol", 0.2)), skew=-0.06,
+                                                smile=0.03),
+                             float(body.get("spot", 100.0)), float(body.get("rate", 0.03)),
+                             k_range=(-2.5, 2.5), n_k=201, device=device)
+        mixing = float(body.get("mixing", 1.0))
+        gen = torch.Generator(device=device).manual_seed(int(body.get("seed", 0)))
+        kv, sv, kvol, svol = slv_swap_strikes(
+            dup.spot, t, dup.rate, params, gen, dup.surface.k_grid, dup.surface.t_grid,
+            dup.surface.grid, mixing=mixing,
+            n_paths=min(int(body.get("n_paths", 65_536)), 1_000_000),
+            n_steps=min(int(body.get("n_steps", 64)), 256))
+        return {"model": "slv", "mixing": mixing, "variance_strike": _to_jsonable(kv),
+                "variance_stderr": _to_jsonable(sv), "vol_strike": _to_jsonable(kvol),
+                "vol_stderr": _to_jsonable(svol)}
+    return {"variance_strike": _to_jsonable(heston_expected_variance(params, t)),
+            "vol_strike": _to_jsonable(heston_vol_swap_strike(params, t))}
+
+
+AMERICAN_MODELS = ("bs", "lv")
+
+
+def handle_american(body: dict, device) -> dict:
+    """The certified Bermudan bracket, with the request body and answer keys
+    of the JAX package's ``/american``: ``model`` "bs" the GBM grid engine,
+    "lv" the local-vol bracket on the sample smile; the MC and grid sizes
+    from the body, each capped at 1,000,000."""
+    model = _check_model({"model": str(body.get("model", "bs")).lower()}, "/american",
+                         AMERICAN_MODELS)
+    p, cp = _contract(body)
+    n_dates = int(body.get("n_dates", 25))
+    sizes = {k: min(int(body[k]), 1_000_000)
+             for k in ("n_fit", "n_lower", "n_outer", "n_inner", "n_grid") if k in body}
+    if model == "lv":
+        dup = DupireLocalVol(sample_smile_iv_fn(base_vol=p["vol"]), p["spot"], p["rate"],
+                             device=device)
+        kw = {k: v for k, v in sizes.items() if k in ("n_outer", "n_inner")}
+        out = local_vol_american_bracket(dup, p["strike"], p["maturity"], cp=cp,
+                                         n_dates=min(n_dates, 50), device=device, **kw)
+    else:
+        out = american_price_interval(p["spot"], p["strike"], p["maturity"], p["rate"],
+                                      p["vol"], cp=cp, n_dates=n_dates, method="grid",
+                                      device=device, **sizes)
+    return {k: _to_jsonable(v) for k, v in out.items()}
 
 
 def handle_greeks(body: dict, device) -> dict:
@@ -604,6 +702,9 @@ ROUTES = {
     "/exotic": handle_exotic,
     "/batch/price": handle_price,  # same handler — fields may be lists
     "/book/exotic": handle_book,
+    "/iv": handle_iv,
+    "/varswap": handle_varswap,
+    "/american": handle_american,
 }
 
 

@@ -717,3 +717,38 @@ def test_multi_asset_wrapper_rejects_bad_tensors(cuda_device):
         mk._ma_cuda(0, 0, _ma_vec(3, "basket", 1, False, "cpu"), **kw)
     with pytest.raises(ValueError, match="contiguous"):  # an lr vector without lr=True
         mk._ma_cuda(0, 0, _ma_vec(3, "basket", 1, True, cuda_device), **kw)
+
+
+# The pricers that have no kernel run their tensor loops on the card.
+def test_fdm_price_runs_on_card(cuda_device):
+    from optionslab_tpu_torch.models.fdm import fdm_price
+
+    book = _book(8, cuda_device)
+    eu = fdm_price(book, 101, 100)
+    am = fdm_price(book, 101, 100, american=True)
+    assert eu.device.type == "cuda" and am.device.type == "cuda"
+    exact = bs_price(book.spot, book.strike, book.maturity, book.rate, book.vol, book.cp,
+                     book.dividend)
+    assert (eu - exact).abs().max().item() < 0.02
+    assert bool((am >= eu - 1e-4).all())
+
+
+def test_american_price_interval_runs_on_card(cuda_device):
+    from optionslab_tpu_torch.models.american import american_price_interval
+
+    out = american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2, -1.0, n_dates=9, n_grid=128,
+                                  n_outer=8192, device="cuda")
+    assert all(v.device.type == "cuda" for v in out.values())
+    assert 5.9 < out["lower"].item() <= out["upper"].item() < 6.2
+    assert out["width"].item() < 0.01
+
+
+def test_local_vol_american_bracket_runs_on_card(cuda_device):
+    from optionslab_tpu_torch.models.local_vol import DupireLocalVol, sample_smile_iv_fn
+    from optionslab_tpu_torch.models.local_vol_american import local_vol_american_bracket
+
+    dup = DupireLocalVol(sample_smile_iv_fn(), 100.0, 0.05, device="cuda")
+    out = local_vol_american_bracket(dup, 100.0, 1.0, n_dates=9, n_sub=4, n_outer=1024,
+                                     n_inner=256, n_space=101, steps_per_date=4, device="cuda")
+    assert all(isinstance(v, (float, int)) for v in out.values())
+    assert out["lower"] > 6.3 and out["width"] < 0.05

@@ -535,3 +535,43 @@ def test_dataclass_engines():
                                                 device="cpu").item())
     assert math.isfinite(tex.price_lookback_option(S, K, T, R, SIG, n_paths=5000,
                                                    device="cpu").item())
+
+
+# The American Longstaff–Schwartz pricer: different generators, so the port
+# and the reference agree within 4 combined standard errors; the lower-bound
+# estimate sits below the CRR American and above the European.
+def test_american_lsm_matches_reference():
+    from optionslab_tpu_torch.models.binomial import binomial_price
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+    from optionslab_tpu_torch.types import ContractBatch
+
+    kw = dict(n_paths=40_000, n_dates=25)
+    p, se = tex.american_lsm_price(S, K, T, R, SIG, torch.Generator().manual_seed(0), -1.0,
+                                   return_stderr=True, **kw)
+    rp, rse = jex.american_lsm_price(S, K, T, R, SIG, jax.random.PRNGKey(0), -1.0,
+                                     return_stderr=True, **kw)
+    assert p.dtype == torch.float32
+    assert abs(_f(p) - _f(rp)) < 4 * math.hypot(_f(se), _f(rse))
+    crr = _f(binomial_price(ContractBatch.make(S, K, T, R, SIG, "put", dtype=torch.float64),
+                            american=True, n_steps=256))
+    assert _f(bs_price(S, K, T, R, SIG, -1.0)) < _f(p) < crr + 4 * _f(se)
+    # a call without dividends is never exercised early: the European price
+    c, se_c = tex.american_lsm_price(S, K, T, R, SIG, torch.Generator().manual_seed(1), 1.0,
+                                     return_stderr=True, **kw)
+    assert abs(_f(c) - _f(bs_price(S, K, T, R, SIG, 1.0))) < 4 * _f(se_c)
+
+
+def test_lsm_exercise_boundary_and_dataclass():
+    b = tex.lsm_exercise_boundary(S, K, T, R, SIG, torch.Generator().manual_seed(2),
+                                  n_paths=20_000, n_dates=10)
+    rb = np.asarray(jex.lsm_exercise_boundary(S, K, T, R, SIG, jax.random.PRNGKey(2),
+                                              n_paths=20_000, n_dates=10))
+    assert b.shape == rb.shape == (9,)
+    live = ~np.isnan(rb) & ~np.isnan(b.numpy())
+    assert live[3:].all() and np.all(np.abs(b.numpy()[live] - rb[live]) < 4.0)
+    assert np.all(b.numpy()[live] < K)  # a put exercises below the strike
+    opt = tex.AmericanOptionLSM(S, K, T, R, SIG, n_paths=20_000, n_dates=10, device="cpu")
+    assert opt.device == "cpu" and tex.AmericanOptionLSM(S, K, T, R, SIG).device == "cuda"
+    assert _f(opt.price()) == pytest.approx(_f(tex.price_american_lsm(
+        S, K, T, R, SIG, n_paths=20_000, n_dates=10, device="cpu")), rel=1e-6)
+    assert opt.exercise_boundary().shape == (9,)

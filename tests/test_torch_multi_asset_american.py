@@ -5,9 +5,9 @@
 Both packages' lower and upper pipelines run on one policy: the JAX fit's
 ``(policy_coefs, surface_coefs)``, passed to the port as numpy arrays. They
 draw from different generators, so each bound agrees within 5 × combined
-stderr. The d = 1 min-put case against the GBM grid certificate
-(``tests/test_multi_asset_american.py:91``) waits for the port of
-``models/american.py``.
+stderr. The d = 1 min-put is the standard Bermudan put: its bracket
+overlaps the port's GBM grid certificate (``models/american.py``), as in
+``tests/test_multi_asset_american.py:91``.
 
 Oracles: the published Broadie–Glasserman / Andersen–Broadie 2-asset value
 (T = 3, 9 dates, r = 5%, q = 10%, σ = 20%, ρ = 0: 13.902 at S0 = 100); d = 1
@@ -144,3 +144,20 @@ def test_unknown_kind_raises():
     with pytest.raises(ValidationError):
         maa.max_call_bracket([100.0], 100.0, maturity=1.0, rate=0.05, vols=[0.2], kind="nope",
                              device=CPU)
+
+
+def test_d1_min_put_overlaps_the_certified_gbm_bermudan():
+    """Cross-machinery oracle: the d = 1 min-put is the standard Bermudan
+    put, so its bracket overlaps the grid engine's certificate on the same
+    date grid."""
+    from optionslab_tpu_torch.models.american import american_price_interval
+
+    b = maa.max_call_bracket([100.0], 100.0, maturity=1.0, rate=0.05, vols=[0.2], dividend=0.0,
+                             n_dates=9, kind="min_put", n_fit=50_000, n_lower=100_000,
+                             n_outer=1024, n_inner=256, seed=5, device="cpu")
+    ref = american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2, cp=-1.0, n_dates=9,
+                                  method="grid", n_grid=512, n_outer=50_000, device="cpu")
+    lo = max(b["lower"] - 3 * b["lower_se"], float(ref["lower"] - 3 * ref["lower_se"]))
+    hi = min(b["upper"] + 3 * b["upper_se"], float(ref["upper"] + 3 * ref["upper_se"]))
+    assert lo <= hi, (b, ref)
+    assert b["width"] < 0.05

@@ -78,8 +78,10 @@ def test_price_heston_is_the_ports_lewis_price(base_url, body):
 
 
 def test_price_unported_model_is_400(base_url):
-    status, out = _call(base_url + "/price", {"model": "vg"})
-    assert status == 400 and "not yet ported" in out["error"]
+    """Every model of the JAX package's /price is ported: an unknown model
+    answers 400 with the list of the models served."""
+    status, out = _call(base_url + "/price", {"model": "sabr"})
+    assert status == 400 and "'merton'" in out["error"] and "'binomial'" in out["error"]
 
 
 @pytest.mark.parametrize("body", [{}, {"bates_params": {"lam": 1.2, "mu_j": -0.2, "v0": 0.06},
@@ -181,12 +183,13 @@ def test_basket_bad_requests_are_400(base_url, body, names):
     assert status == 400 and names in out["error"], out
 
 
-@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/american"),
+@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/calibrate"),
                                          ("POST", "/health")])
 def test_unknown_route_is_404(base_url, method, path):
     status, out = _call(base_url + path, {} if method == "POST" else None)
     assert status == 404
-    assert {"/mc", "/exotic", "/book/exotic", "/basket"} <= set(out["endpoints"])
+    assert {"/mc", "/exotic", "/book/exotic", "/basket", "/iv", "/varswap",
+            "/american"} <= set(out["endpoints"])
 
 
 # /exotic and /book/exotic against the JAX package's handlers. Off the TPU the
@@ -416,6 +419,89 @@ def test_exotic_lv_structured_routes_match_reference(base_url, kind):
 def test_exotic_smile_bad_requests_are_400(base_url, model, body, names):
     status, out = _call(base_url + "/exotic", {"model": model, "n_steps": 4, **body})
     assert status == 400 and names in out["error"]
+
+
+# /price binomial|vg|nig|merton, /iv, /varswap and /american against the JAX
+# package's handlers: the deterministic answers to float32 rounding (rtol
+# 1e-5), the Monte Carlo brackets and SLV strikes within 4 combined stderrs.
+PRICE_BODIES = {
+    "binomial_am_put": {"model": "binomial", "american": True, "option_type": "put",
+                        "n_steps": 64},
+    "binomial_eu": {"model": "binomial", "n_steps": 65, "strike": 110.0},
+    "vg": {"model": "vg", "vg_params": {"nu": 0.3}, "strike": 90.0},
+    "nig_put": {"model": "nig", "option_type": "put", "nig_params": {"beta": -2.0}},
+    "merton": {"model": "merton", "merton_params": {"lam": 0.3, "sigma_j": 0.25}},
+}
+
+
+@pytest.mark.parametrize("case", sorted(PRICE_BODIES))
+def test_price_models_match_reference(base_url, case):
+    from optionslab_tpu.server import handle_price
+
+    body = PRICE_BODIES[case]
+    status, out = _call(base_url + "/price", body)
+    assert status == 200, out
+    _same_answer(out, handle_price(dict(body)))
+
+
+@pytest.mark.parametrize("body", [{"price": 10.0}, {"price": 3.2, "option_type": "put",
+                                                   "strike": 95.0, "dividend": 0.01}])
+def test_iv_matches_reference(base_url, body):
+    from optionslab_tpu.server import handle_iv
+
+    status, out = _call(base_url + "/iv", body)
+    assert status == 200, out
+    assert out["implied_vol"] == pytest.approx(handle_iv(dict(body))["implied_vol"], abs=1e-5)
+
+
+@pytest.mark.parametrize("body", [{"price": 0.0}, {"price": 150.0}, {"price": 5.0,
+                                                                      "maturity": 0.0}, {}])
+def test_iv_bad_price_is_400(base_url, body):
+    status, out = _call(base_url + "/iv", body)
+    assert status == 400 and out["error"]
+
+
+def test_varswap_heston_matches_reference(base_url):
+    from optionslab_tpu.server import handle_varswap
+
+    body = {"maturity": 2.0, "heston_params": {"v0": 0.06, "sigma": 0.5}}
+    status, out = _call(base_url + "/varswap", body)
+    assert status == 200, out
+    _same_answer(out, handle_varswap(dict(body)))
+
+
+def test_varswap_slv_matches_reference(base_url):
+    from optionslab_tpu.server import handle_varswap
+
+    body = {"model": "slv", "n_paths": 8192, "n_steps": 8, "mixing": 0.5}
+    status, out = _call(base_url + "/varswap", body)
+    ref = handle_varswap(dict(body))
+    assert status == 200 and set(out) == set(ref) and out["mixing"] == 0.5
+    for k in ("variance", "vol"):
+        comb = math.hypot(out[f"{k}_stderr"], ref[f"{k}_stderr"])
+        assert abs(out[f"{k}_strike"] - ref[f"{k}_strike"]) < 4 * comb, k
+
+
+@pytest.mark.parametrize("body", [
+    {"model": "bs", "option_type": "put", "n_dates": 9, "n_grid": 128, "n_outer": 8192},
+    {"model": "LV", "option_type": "put", "n_dates": 5, "n_outer": 512, "n_inner": 128},
+])
+def test_american_matches_reference(base_url, body):
+    from optionslab_tpu.server import handle_american
+
+    status, out = _call(base_url + "/american", body)
+    ref = handle_american(dict(body))
+    assert status == 200 and set(out) == set(ref), out
+    for k in ("lower", "upper"):
+        comb = math.hypot(out[f"{k}_se"], ref[f"{k}_se"])
+        assert abs(out[k] - ref[k]) < 4 * comb + 1e-9, (k, out, ref)
+    assert out["lower"] <= out["upper"] + 3 * out["upper_se"]
+
+
+@pytest.mark.parametrize("model", ["heston", "bates", "slv", "rbergomi"])
+def test_american_unported_models_are_400(base_url, model):
+    status, out = _call(base_url + "/american", {"model": model, "option_type": "put"})
+    assert status == 400 and "not yet ported" in out["error"] and "'lv'" in out["error"]
 
 
 def test_port_package_never_imports_jax():
