@@ -5,10 +5,12 @@ Deterministic functions run on the same inputs through both packages:
 float64 to 1e-9 relative, float32 to 1e-5 relative (SABR prices: 1e-6 of the
 forward, a deep out-of-the-money put being a small difference). The
 calibration is held to its generating parameters, the Monte Carlo oracle to
-the closed forms within 4 standard errors; then the oracle checks of
+the closed forms and to the reference's Monte Carlo within 4 standard
+errors; then the oracle checks of
 ``tests/test_advanced_models.py::TestSABR`` and ``tests/test_var_swap.py``.
 """
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -196,6 +198,12 @@ class TestVarSwapOracles:
         assert kq < np.sqrt(ev)  # Jensen
         with pytest.raises(ValidationError):
             tv.heston_integrated_variance_mc(params, 1.0, torch.Generator(), n_paths=3)
+        # and the reference's own Monte Carlo on the same scheme and sizes
+        jp = jh.HestonParams.make(0.04, 2.0, 0.05, 0.3, -0.7, dtype=np.float64)
+        ref = jv.heston_integrated_variance_mc(jp, 1.0, jax.random.PRNGKey(0), n_paths=100_000,
+                                               n_steps=100)
+        for ours, se_o, theirs, se_t in ((m, se, ref[0], ref[1]), (rm, rse, ref[2], ref[3])):
+            assert abs(float(ours) - float(theirs)) < 4 * np.hypot(float(se_o), float(se_t))
 
     def test_bates_lam_zero_is_heston(self, params):
         b = tbates.BatesParams.make(0.04, 2.0, 0.05, 0.3, -0.7, lam=0.0, dtype=torch.float64)
