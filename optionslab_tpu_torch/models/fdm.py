@@ -87,8 +87,8 @@ def _howard_lcp_solve(lo, di, up, rhs, psi, n_iter: int = 8):
 
 def _cn_book(spot, strike, maturity, rate, vol, dividend, cp, n_space: int, n_time: int,
              theta_scheme: float, american: bool, width: float = 6.0, lcp: bool = False):
-    """The θ-scheme (θ = 0.5 Crank–Nicolson, θ = 1 implicit) for a book of
-    (B,) contracts at once; returns (B,) prices."""
+    """The θ-scheme (θ = 0.5 Crank–Nicolson, θ = 1 implicit): the reference's
+    ``_cn_single`` for a book of (B,) contracts at once; returns (B,) prices."""
     col = lambda z: z[:, None]  # noqa: E731
     t = torch.clamp_min(maturity, EPS_TIME)
     x, dx = _grid(spot, vol, maturity, n_space, width, strike)
