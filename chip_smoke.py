@@ -2661,6 +2661,17 @@ def linear_kernels(fn_of_steps, full: int, base: int = 1) -> int:
     return lo + (full - base) * (hi - lo)
 
 
+def date_step_kernels(fn, n_dates: int, steps: int) -> int:
+    """Kernels of ``fn(n_dates, steps)``, a date loop that runs ``steps``
+    solver steps a date, from calls at (2, 1), (2, 2) and (3, 1) dates and
+    steps: the count is c0 + dates·(m + steps·s)."""
+    c21, c22, c31 = (cuda_kernels(lambda a=a, b=b: fn(a, b))
+                     for a, b in ((2, 1), (2, 2), (3, 1)))
+    s = (c22 - c21) // 2
+    m = c31 - c21 - s
+    return c21 + (n_dates - 2) * m + (n_dates * steps - 2) * s
+
+
 def pricer_replicates(fn, dev, seed: int = 100):
     """(mean, stderr of the mean) of ``fn(generator)`` over PR_REPLICATES
     independently seeded generators on ``dev``."""
@@ -2695,21 +2706,27 @@ def phase_pricers(dev, card: str) -> dict:
     t_phase = time.perf_counter()
     log("pricers", f"book sizes {PR_BOOK}, {PR_GREEKS_BOOK}, {PR_FDM_BOOK} contracts: no cut")
     stats = {}
+    spent = {"timed calls": 0.0, "first calls and warm-ups": 0.0, "kernel counts": 0.0}
 
     def record(name, fn, kernels=None, iters: int = 1, warm=None):
         """Run ``fn`` once (the result), then ``iters`` warm timed calls;
         with ``warm`` (a short call of the same loops), run that, then time
-        the one call of ``fn``."""
+        the one call of ``fn``. Adds the wall of each part to ``spent``."""
+        t0 = time.perf_counter()
         if warm is None:
             out, ms = timed(fn, iters)
         else:
             warm()
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            t1 = time.perf_counter()
             out = fn()
             torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
+            ms = (time.perf_counter() - t1) * 1e3
+        t2 = time.perf_counter()
         n = cuda_kernels(fn) if kernels is None else kernels()
+        spent["kernel counts"] += time.perf_counter() - t2
+        spent["timed calls"] += ms * iters / 1e3
+        spent["first calls and warm-ups"] += t2 - t0 - ms * iters / 1e3
         stats[name] = (ms, n)
         log("pricers", f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels "
                        f"{'(profiler saw none: not measured) ' if n == 0 else ''}[{card}]")
@@ -2734,19 +2751,19 @@ def phase_pricers(dev, card: str) -> dict:
                    f"American − European in [{(amer - eu).min().item():.2e}, "
                    f"{(amer - eu).max().item():.3f}]")
 
-    # the lattice Greeks: CRR's node Greeks (delta, gamma, theta) and
+    # the lattice Greeks: both methods' node Greeks (delta, gamma, theta;
+    # Leisen–Reimer's theta read at S0, off its middle node) and
     # Leisen–Reimer's autograd Greeks (vega, rho, the strike derivative).
     # Autograd of the CRR price carries its O(1/N) oscillation in σ (vega 8%
-    # off at 512 steps), and LR's step-2 middle node is not at S0 (its node
-    # theta is not a theta): each method is held on what it gets right.
+    # off at 512 steps), so CRR is not held on those.
     gbook = pricer_book(PR_GREEKS_BOOK, dev, seed=10)
     ex = bs_greeks(gbook.spot, gbook.strike, gbook.maturity, gbook.rate, gbook.vol, gbook.cp,
                    gbook.dividend)
     worst = {}
     for method, n_steps, tols in (
             ("crr", 512, (("delta", 2e-3), ("gamma", 2e-4), ("theta", 0.05))),
-            ("leisen-reimer", 513, (("delta", 2e-3), ("gamma", 2e-4), ("vega", 0.05),
-                                    ("rho", 0.05), ("dual_delta", 2e-3)))):
+            ("leisen-reimer", 513, (("delta", 2e-3), ("gamma", 2e-4), ("theta", 0.05),
+                                    ("vega", 0.05), ("rho", 0.05), ("dual_delta", 2e-3)))):
         g = record(f"binomial_greeks {method} 64x{n_steps}",
                    lambda: bn.binomial_greeks(gbook, n_steps=n_steps, method=method), iters=3)
         on_card(g["vega"])
@@ -2877,10 +2894,12 @@ def phase_pricers(dev, card: str) -> dict:
     log("pricers", f"qmc geometric Asian {p.item():.6f} vs closed form {cf:.6f} "
                    f"(plain-MC se {se.item():.1e})")
 
-    # the certified GBM American brackets at the defaults, against CRR@2001
+    # the certified GBM American brackets at the defaults, against CRR@2001;
+    # widths held at 50x (grid) and 1.45x (closed form) their chip-run
+    # widths, 2.0e-5 and 0.1730 (NVIDIA H100 80GB HBM3, 700.00 W)
     put = ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, "put", dtype=torch.float64, device=dev)
     crr = bn.binomial_price(put, american=True, n_steps=2001).item()
-    for method in ("grid", "closed_form"):
+    for method, max_width in (("grid", 1e-3), ("closed_form", 0.25)):
         out = record(f"american_price_interval {method}",
                      lambda: am.american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2,
                                                         method=method, device=dev),
@@ -2892,9 +2911,12 @@ def phase_pricers(dev, card: str) -> dict:
         hi = out["upper"].item() + 3 * out["upper_se"].item()
         check(lo <= crr <= hi + 0.02 and 5.9 < lo and hi < 6.6,
               f"american {method} [{lo:.5f}, {hi:.5f}] does not bracket CRR@2001 {crr:.5f}")
+        width = out["width"].item()
+        check(width < max_width, f"american {method} width {width:.3e} >= {max_width}")
         log("pricers", f"american {method}: [{out['lower'].item():.6f}, "
                        f"{out['upper'].item():.6f}] ± ({out['lower_se'].item():.1e}, "
-                       f"{out['upper_se'].item():.1e}), CRR@2001 {crr:.6f}")
+                       f"{out['upper_se'].item():.1e}), width {width:.6f} (< {max_width}), "
+                       f"CRR@2001 {crr:.6f}")
     gg = record("american_grid_greeks", lambda: am.american_grid_greeks(
         100.0, 100.0, 1.0, 0.05, 0.2, device=dev), lambda: linear_kernels(
             lambda n: am.american_grid_greeks(100.0, 100.0, 1.0, 0.05, 0.2, n_dates=n,
@@ -2916,8 +2938,8 @@ def phase_pricers(dev, card: str) -> dict:
         brackets[name] = record(
             f"local_vol_american_bracket {name}",
             lambda: lva.local_vol_american_bracket(dup, 100.0, 1.0, device=dev),
-            lambda: linear_kernels(lambda n: lva.local_vol_american_bracket(
-                dup, 100.0, 1.0, steps_per_date=n, device=dev), 8),
+            lambda: date_step_kernels(lambda n, k: lva.local_vol_american_bracket(
+                dup, 100.0, 1.0, n_dates=n, steps_per_date=k, device=dev), 25, 8),
             warm=lambda: lva.local_vol_american_bracket(dup, 100.0, 1.0, n_dates=2,
                                                         device=dev))
         b = brackets[name]
@@ -2937,7 +2959,10 @@ def phase_pricers(dev, card: str) -> dict:
           f"smile bracket {b} misses the local-vol PDE American {am_pde:.5f}")
     log("pricers", f"flat bracket overlaps the GBM grid bracket [{g25['lower'].item():.5f}, "
                    f"{g25['upper'].item():.5f}]; smile holds the LV-PDE American {am_pde:.5f}")
-    log("pricers", f"phase wall {time.perf_counter() - t_phase:.1f} s")
+    wall = time.perf_counter() - t_phase
+    log("pricers", f"phase wall {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in spent.items())
+        + f", oracles and the rest {wall - sum(spent.values()):.1f} s")
     return stats
 
 

@@ -54,22 +54,21 @@ def _features(s, strike, cp, basis: int):
     return torch.stack(polys + [h], dim=0)
 
 
-def _forward_log_paths(generator, n_paths, n_dates, drift, sig_dt, dtype):
-    """(n_dates, n_paths) log-spot increments summed, antithetic halves."""
-    dev = generator.device
-    half = n_paths // 2
-    log_s = torch.zeros(2 * half, dtype=dtype, device=dev)
-    rows = []
-    for _ in range(n_dates):
-        z = torch.randn(half, generator=generator, dtype=dtype, device=dev)
-        log_s = log_s + drift + sig_dt * torch.cat([z, -z])
-        rows.append(log_s)
-    return torch.stack(rows)
-
-
 def _antithetic(generator, half, dtype):
     z = torch.randn(half, generator=generator, dtype=dtype, device=generator.device)
     return torch.cat([z, -z])
+
+
+def _forward_log_paths(generator, n_paths, n_dates, drift, sig_dt, dtype):
+    """(n_dates, n_paths) GBM log-spot moves from 0 at the exercise dates,
+    antithetic halves, on the generator's device (the GBM LSM's paths too)."""
+    half = n_paths // 2
+    log_s = torch.zeros(2 * half, dtype=dtype, device=generator.device)
+    rows = []
+    for _ in range(n_dates):
+        log_s = log_s + drift + sig_dt * _antithetic(generator, half, dtype)
+        rows.append(log_s)
+    return torch.stack(rows)
 
 
 LSM_FIELDS = ("coefs", "vcoefs", "spot", "strike", "maturity", "rate", "vol", "cp", "dividend",

@@ -5,8 +5,9 @@ one ``(book, nodes)`` tensor of fixed width ``n_steps + 1`` (node validity is
 positional, as in the reference), and the induction is a Python loop of
 tensor ops over the steps: every contract steps back together, with no host
 synchronisation. Delta/gamma/theta come from the nodes captured at steps 2,
-1 and 0; vega, rho and the dividend rho by ``torch.autograd`` through the
-induction.
+1 and 0 (Leisen–Reimer's theta read at S0, not at its off-centre middle
+node: a deliberate difference from the reference); vega, rho and the
+dividend rho by ``torch.autograd`` through the induction.
 """
 
 from __future__ import annotations
@@ -99,8 +100,15 @@ def _crr_solve(spot, strike, maturity, rate, vol, dividend, cp, american: bool,
     return v[:, 0], (v1, v2, (lu, ld), dt)
 
 
-def _lattice_greeks(spot, v1, v2, u_log, dt, price):
-    """Delta/gamma/theta from the captured nodes."""
+def _lattice_greeks(spot, v1, v2, u_log, dt, price, centred: bool = True):
+    """Delta/gamma/theta from the captured nodes.
+
+    Theta compares the value at S0 two steps on with the price. CRR's
+    middle node at step 2 sits at S0 (``centred``); Leisen–Reimer's sits at
+    S0·u·d, so there the value at S0 is read off the quadratic through the
+    three step-2 nodes (the reference takes the node's value as is, which
+    puts its Leisen–Reimer theta far off).
+    """
     lu, ld = u_log
     s_u = spot * torch.exp(lu)
     s_d = spot * torch.exp(ld)
@@ -111,7 +119,10 @@ def _lattice_greeks(spot, v1, v2, u_log, dt, price):
     d_up = (v2[:, 2] - v2[:, 1]) / torch.clamp_min(s_uu - s_ud, 1e-12)
     d_dn = (v2[:, 1] - v2[:, 0]) / torch.clamp_min(s_ud - s_dd, 1e-12)
     gamma = (d_up - d_dn) / torch.clamp_min(0.5 * (s_uu - s_dd), 1e-12)
-    theta = (v2[:, 1] - price) / torch.clamp_min(2.0 * dt, 1e-12)
+    v_later = v2[:, 1]
+    if not centred:
+        v_later = v_later + (spot - s_ud) * (d_dn + 0.5 * gamma * (spot - s_dd))
+    theta = (v_later - price) / torch.clamp_min(2.0 * dt, 1e-12)
     return delta, gamma, theta
 
 
@@ -153,7 +164,8 @@ def binomial_greeks(batch: ContractBatch, american: bool = False, n_steps: int =
     price = price.detach()
     v1, v2, dt = v1.detach(), v2.detach(), dt.detach()
     u_log = tuple(x.detach() for x in u_log)
-    delta, gamma, theta = _lattice_greeks(s, v1, v2, u_log, dt, price)
+    delta, gamma, theta = _lattice_greeks(s, v1, v2, u_log, dt, price,
+                                          centred=method != "leisen-reimer")
     out = {"price": price, "delta": delta, "gamma": gamma, "theta": theta, "vega": vega,
            "rho": rho, "dual_delta": dual_delta, "dividend_rho": div_rho}
     return {name: v.reshape(shape) for name, v in out.items()}

@@ -29,6 +29,7 @@ import torch
 from ..ops import exotic_kernel as ek
 from ..ops.math import norm_cdf
 from ..utils.exceptions import ValidationError
+from .american import _forward_log_paths
 
 
 def _f64(x) -> torch.Tensor:
@@ -484,18 +485,10 @@ def barrier_rebate_price(spot, strike, barrier, maturity, rate, vol, generator, 
 def _lsm_paths(generator, spot, maturity, rate, vol, dividend, n_paths, n_dates):
     """(n_dates, n_paths) float32 GBM spots at the exercise dates, antithetic
     halves, on the generator's device."""
-    dev = generator.device
     dt = maturity / n_dates
     drift = (rate - dividend - 0.5 * vol * vol) * dt
-    sig_dt = vol * math.sqrt(dt)
-    half = n_paths // 2
-    log_s = torch.zeros(2 * half, device=dev)
-    rows = []
-    for _ in range(n_dates):
-        z = torch.randn(half, generator=generator, device=dev)
-        log_s = log_s + drift + sig_dt * torch.cat([z, -z])
-        rows.append(log_s)
-    return spot * torch.exp(torch.stack(rows))
+    return spot * torch.exp(_forward_log_paths(generator, n_paths, n_dates, drift,
+                                               vol * math.sqrt(dt), torch.float32))
 
 
 def _lsm_backward(s_paths, strike, rate, dt, cp, basis, on_date=None):

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ..types import ContractBatch
-from ..utils.config import EPS_TIME, as_tensors
+from ..utils.config import EPS_TIME, as_tensors, input_device
 from ..utils.exceptions import ArbitrageViolationError, ValidationError
 from .black_scholes import bs_price, bs_vega
 
@@ -38,10 +38,11 @@ def implied_vol(price, spot, strike, maturity, rate, cp=1.0, dividend=0.0,
     only inside the live bracket and with a healthy vega, else the bracket
     midpoint; the bracket tightens every iteration, so ``n_iter=64`` leaves
     a bracket far below float32 resolution. Follows the inputs' device and
-    dtype (float32 for Python numbers).
+    dtype: numbers, numpy arrays and lists alone give float32 on the card.
     """
+    args = (price, spot, strike, maturity, rate, cp, dividend)
     price, spot, strike, maturity, rate, cp, dividend = torch.broadcast_tensors(
-        *as_tensors(price, spot, strike, maturity, rate, cp, dividend))
+        *as_tensors(*args, device=input_device(*args)))
     lower, upper = _no_arb_bounds(spot, strike, maturity, rate, cp, dividend)
     valid = (price > lower + 1e-12) & (price < upper - 1e-12) & (maturity > EPS_TIME)
 
@@ -87,8 +88,9 @@ implied_volatility_vectorized = implied_vol
 
 
 def iv_surface_from_prices(prices, spot, strikes, maturities, rate, cp=1.0, dividend=0.0):
-    """(n_maturities, n_strikes) price grid → IV grid in one pass."""
-    prices = torch.as_tensor(prices)
+    """(n_maturities, n_strikes) price grid → IV grid in one pass, on the
+    device of ``prices`` (the card for a numpy or list grid)."""
+    prices = torch.as_tensor(prices, device=input_device(prices))
     k = torch.as_tensor(strikes, device=prices.device)[None, :]
     t = torch.as_tensor(maturities, device=prices.device)[:, None]
     return implied_vol(prices, spot, k, t, rate, cp, dividend)

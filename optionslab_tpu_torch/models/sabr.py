@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from ..ops.math import norm_cdf
-from ..utils.config import EPS_TIME, as_tensors
+from ..utils.config import EPS_TIME, as_tensors, input_device
 from ..utils.exceptions import CalibrationError, ValidationError
 from .heston import _softplus
 
@@ -125,11 +125,11 @@ def calibrate_sabr(forward, strikes, maturity, market_vols, beta: float = 0.5,
                    learning_rate: float = 0.05, device=None) -> tuple[SABRParams, float]:
     """Fit (α, ρ, ν) to a smile with β fixed; the loss is the mean squared
     implied-vol error. Runs in float32 on ``device``, by default the device
-    of ``market_vols`` when it is a tensor, else the CPU."""
+    of ``market_vols`` when it is a tensor, else the card."""
     from ..ops.optim import scan_adam_cached
 
     if device is None:
-        device = market_vols.device if isinstance(market_vols, torch.Tensor) else "cpu"
+        device = input_device(market_vols)
     f32 = dict(dtype=torch.float32, device=device)
     vols = torch.as_tensor(market_vols, **f32)
     ks = torch.as_tensor(strikes, **f32)

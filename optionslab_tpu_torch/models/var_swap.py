@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from ..utils.config import as_tensors
+from ..utils.config import as_tensors, input_device
 from ..utils.exceptions import ValidationError
 from .black_scholes import bs_price
 from .heston import HestonParams, _gl_nodes
@@ -47,9 +47,10 @@ def variance_swap_strike_replication(strikes, otm_prices, spot, maturity, rate, 
     ``strikes`` ascending; ``otm_prices[i]`` the OTM option at strike i (put
     below the forward, call above). K0 is the largest strike at or below the
     forward, or the smallest strike when the whole grid sits above it.
+    Follows the tensor arguments' device, else runs on the card.
     """
-    k, q, spot, t, rate, dividend = as_tensors(strikes, otm_prices, spot, maturity, rate,
-                                               dividend)
+    args = (strikes, otm_prices, spot, maturity, rate, dividend)
+    k, q, spot, t, rate, dividend = as_tensors(*args, device=input_device(*args))
     fwd = spot * torch.exp((rate - dividend) * t)
     below = torch.where(k <= fwd, k, -math.inf)
     k0 = torch.where(torch.any(k <= fwd), torch.max(below), torch.min(k))
@@ -61,7 +62,8 @@ def variance_swap_strike_replication(strikes, otm_prices, spot, maturity, rate, 
 def variance_swap_strike_from_iv(spot, strikes, ivs, maturity, rate, dividend=0.0):
     """Fair variance strike from an implied-vol smile: price the OTM strip
     by Black–Scholes at each strike's vol, then replicate."""
-    k, iv, spot, t, rate, dividend = as_tensors(strikes, ivs, spot, maturity, rate, dividend)
+    args = (strikes, ivs, spot, maturity, rate, dividend)
+    k, iv, spot, t, rate, dividend = as_tensors(*args, device=input_device(*args))
     fwd = spot * torch.exp((rate - dividend) * t)
     cp = torch.where(k <= fwd, -1.0, 1.0)  # puts below the forward, calls above
     q = bs_price(spot, k, t, rate, iv, cp, dividend)

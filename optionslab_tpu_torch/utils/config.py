@@ -34,3 +34,9 @@ def as_tensors(*args, dtype=None, device=None) -> list[torch.Tensor]:
     if device is None and tensors:
         device = tensors[0].device
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in args]
+
+
+def input_device(*args, default="cuda"):
+    """The device of the first tensor argument, else ``default``: an entry
+    point given only numbers, numpy arrays or lists runs on the card."""
+    return next((a.device for a in args if isinstance(a, torch.Tensor)), default)

@@ -259,3 +259,33 @@ def test_float_built_entry_points_default_to_cuda(fn):
     import optionslab_tpu_torch.models as models
 
     assert inspect.signature(getattr(models, fn)).parameters["device"].default == "cuda"
+
+
+
+_STRIKES = np.linspace(80.0, 120.0, 5)
+_ARRAY_CALLS = {  # entry points that take arrays, given them through ``a``
+    "implied_volatility_vectorized": lambda m, a: m.implied_volatility_vectorized(
+        a(np.full(5, 10.0)), 100.0, a(_STRIKES), 1.0, 0.05),
+    "iv_surface_from_prices": lambda m, a: m.iv_surface_from_prices(
+        a(np.full((2, 5), 10.0)), 100.0, a(_STRIKES), a(np.array([0.5, 1.0])), 0.05),
+    "calibrate_sabr": lambda m, a: m.calibrate_sabr(100.0, a(_STRIKES), 1.0,
+                                                    a(np.full(5, 0.2)), n_steps=2)[0].alpha,
+    "variance_swap_strike_replication": lambda m, a: m.variance_swap_strike_replication(
+        a(_STRIKES), a(np.full(5, 1.0)), 100.0, 1.0, 0.05),
+    "vix_style_index": lambda m, a: m.vix_style_index(100.0, a(_STRIKES), a(np.full(5, 0.2)),
+                                                      1.0, 0.05),
+}
+
+
+@pytest.mark.parametrize("fn", sorted(_ARRAY_CALLS))
+def test_array_entry_points_default_to_cuda(fn):
+    """Numpy inputs alone go to the card; CPU tensors keep the work there."""
+    import optionslab_tpu_torch.models as models
+
+    call = _ARRAY_CALLS[fn]
+    if torch.cuda.is_available():
+        assert call(models, np.asarray).device.type == "cuda"
+    else:  # this torch has no CUDA: asking for the card is what fails
+        with pytest.raises((AssertionError, RuntimeError), match="CUDA"):
+            call(models, np.asarray)
+    assert call(models, torch.tensor).device.type == "cpu"

@@ -10,10 +10,13 @@ theta are differences of nodes, which magnify float32 rounding: 1.6e-3 on a
 deep in-the-money American put's gamma; a contract exercised at once has a
 vega that is float32 noise around 0). Under the tests' x64 flag the JAX PDE forms its
 grid in float64 even for float32 contracts, so its float32 parity is 1e-4.
-Then the oracle checks of ``tests/test_lattice_fdm.py`` at 64 steps and a
-41 × 40 grid.
+Leisen–Reimer's theta is held to the reference's own nodes read at S0 (the
+reference reads them at its off-centre middle node). Then the oracle checks
+of ``tests/test_lattice_fdm.py`` at 64 steps and a 41 × 40 grid, and
+Leisen–Reimer's theta against Black–Scholes away from the money.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -69,6 +72,22 @@ LATTICE = {  # name: (american, n_steps, method, richardson)
 }
 
 
+def _theta_at_spot(jbatch, american, n_steps, method, gamma, price):
+    """The reference's own step-2 nodes read at S0 through the quadratic
+    that passes through them: the port's theta where the middle node is off
+    S0 (Leisen–Reimer), which the reference reads at the node instead."""
+    b = jbatch.broadcast()
+    solve = jax.vmap(lambda *a: jb._crr_solve(*a, american, n_steps, method))
+    _, (_, v2, (lu, ld), dt) = solve(b.spot, b.strike, b.maturity, b.rate, b.vol, b.dividend,
+                                     b.cp)
+    v2, lu, ld, dt = (np.asarray(x, np.float64) for x in (v2, lu, ld, dt))
+    spot = np.asarray(b.spot, np.float64)
+    s_ud, s_dd = spot * np.exp(lu + ld), spot * np.exp(2 * ld)
+    d_dn = (v2[:, 1] - v2[:, 0]) / (s_ud - s_dd)
+    v_later = v2[:, 1] + (spot - s_ud) * (d_dn + 0.5 * gamma * (spot - s_dd))
+    return (v_later - price) / (2.0 * dt)
+
+
 @pytest.fixture(scope="module")
 def lattice_ref():
     out = {}
@@ -80,6 +99,9 @@ def lattice_ref():
             if dtype == "f64" or name == "lr_am":  # float32 Greeks: one case
                 greeks = {k: np.asarray(v) for k, v in
                           jb.binomial_greeks(jbatch, am, n, method).items()}
+                if method == "leisen-reimer":
+                    greeks["theta"] = _theta_at_spot(jbatch, am, n, method, greeks["gamma"],
+                                                     greeks["price"]).astype(DTYPES[dtype])
             out[dtype, name] = price, greeks
     return out
 
@@ -164,6 +186,15 @@ class TestBinomialOracles:
         for k, tol in (("delta", 1e-3), ("gamma", 1e-3), ("vega", 0.05), ("rho", 0.05),
                        ("theta", 0.05), ("dual_delta", 1e-3)):
             assert abs(float(g[k]) - float(ex[k])) < tol, k
+
+    def test_leisen_reimer_theta_off_the_money(self):
+        """Leisen–Reimer's step-2 middle node is off S0 away from the money;
+        read at the node (the reference) the book's theta is 13.8 off."""
+        book = ContractBatch(**{k: torch.tensor(v) for k, v in BOOK.items()})
+        g = tb.binomial_greeks(book, n_steps=65, method="leisen-reimer")
+        ex = bs_greeks(book.spot, book.strike, book.maturity, book.rate, book.vol, book.cp,
+                       book.dividend)
+        assert float((g["theta"] - ex["theta"]).abs().max()) < 0.1
 
     def test_leisen_reimer_beats_crr(self):
         lr = float(tb.binomial_price(_batch(), n_steps=65, method="leisen-reimer"))
