@@ -104,10 +104,37 @@ is printed):
               sample smile and a flat surface; each call's warm wall time
               and CUDA kernel count, and none of the eleven kernels
               launched; then ``/price`` binomial|vg|nig|merton, ``/iv``,
-              ``/varswap`` and ``/american`` over a socket.
+              ``/varswap`` and ``/american`` over a socket;
+15. tridiag — the batched tridiagonal kernel (``csrc/tridiag.cu``) against
+              its plain version, bitwise, at the slice's shapes (the ADI's
+              101 x 201 row sweep and 201 x 101 column sweep on shared
+              coefficients and a transposed right-hand side, the dividend
+              PDE's 1 x 401, the Crank–Nicolson book's 256 x 201) in float32
+              and float64, one launch a solve; its adjoint backward against
+              autograd of the plain loop; device ms beside
+              ``torch.linalg.solve`` on the dense matrix and beside the
+              bound, the larger of the bytes and the dependent chain timed
+              by the chain probe (run before the pricers; every PDE of the
+              pricers and of the slice then solves through it, one launch a
+              solve: 200 and Howard's 1,600 for ``fdm_price``, 400 for one
+              ADI price);
+16. slice   — the Heston ADI (201 x 101 x 200) against Lewis, the
+              frozen-variance 1-D PDE and autograd of Lewis (the Greek
+              ladder); the ADI-slice American bracket at 50 dates holding its
+              PDE value; Bates at λ = 0 equal to Heston and above it with
+              jumps; SLV at mixing 0 on a flat smile against the GBM
+              certificate; the dividend PDE (401 x 400) against Black–Scholes,
+              parity and its Monte Carlo; forward start against vanilla and
+              its Monte Carlo; rough Bergomi at η → 0 against Black–Scholes,
+              E[v] = ξ0, the GBM closed form and scan, the American against
+              the GBM certificate; each call's warm wall and CUDA kernel
+              count, none of the eleven Monte Carlo kernels launched; then
+              ``/american`` heston|bates|slv|rbergomi and ``/exotic``
+              rbergomi over a socket.
 
-The last three lines are a JSON object of kernel measurements, the card's
-name and power limit, and ``{"ok": true, "device": {...}}``. Imports
+The last three lines are a JSON object of kernel measurements (the eleven
+ported Pallas kernels and the tridiagonal kernel), the card's name and power
+limit, and ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
@@ -141,6 +168,7 @@ from optionslab_tpu_torch.ops import heston_kernel as hk
 from optionslab_tpu_torch.ops import local_vol_kernel as lk
 from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 from optionslab_tpu_torch.ops import slv_kernel as sk
+from optionslab_tpu_torch.ops import tridiag as tri
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
 # absolute Greek bounds of the reference's kernel test (tests/test_gbm_pallas_host.py)
@@ -2692,6 +2720,38 @@ def on_card(*xs) -> None:
         check(x.device.type == "cuda", f"a pricer answered on {x.device}, not the card")
 
 
+def make_recorder(phase: str, card: str, stats: dict, spent: dict):
+    """``record(name, fn, kernels=None, iters=1, warm=None)`` for a phase:
+    runs ``fn`` once (the result), then ``iters`` warm timed calls; with
+    ``warm`` (a short call of the same loops), runs that, then times the one
+    call of ``fn``. Logs the warm wall ms and the CUDA kernel count
+    (``kernels()`` or one profiled call), keeps them in ``stats`` and adds the
+    wall of each part to ``spent``."""
+
+    def record(name, fn, kernels=None, iters: int = 1, warm=None):
+        t0 = time.perf_counter()
+        if warm is None:
+            out, ms = timed(fn, iters)
+        else:
+            warm()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t1) * 1e3
+        t2 = time.perf_counter()
+        n = cuda_kernels(fn) if kernels is None else kernels()
+        spent["kernel counts"] += time.perf_counter() - t2
+        spent["timed calls"] += ms * iters / 1e3
+        spent["first calls and warm-ups"] += t2 - t0 - ms * iters / 1e3
+        stats[name] = (ms, n)
+        log(phase, f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels "
+                   f"{'(profiler saw none: not measured) ' if n == 0 else ''}[{card}]")
+        return out
+
+    return record
+
+
 def phase_pricers(dev, card: str) -> dict:
     """Each pricer without a kernel once on the card at the reference's
     default sizes, against its oracle; prints each call's warm wall time and
@@ -2715,29 +2775,7 @@ def phase_pricers(dev, card: str) -> dict:
     stats = {}
     spent = {"timed calls": 0.0, "first calls and warm-ups": 0.0, "kernel counts": 0.0}
 
-    def record(name, fn, kernels=None, iters: int = 1, warm=None):
-        """Run ``fn`` once (the result), then ``iters`` warm timed calls;
-        with ``warm`` (a short call of the same loops), run that, then time
-        the one call of ``fn``. Adds the wall of each part to ``spent``."""
-        t0 = time.perf_counter()
-        if warm is None:
-            out, ms = timed(fn, iters)
-        else:
-            warm()
-            torch.cuda.synchronize()
-            t1 = time.perf_counter()
-            out = fn()
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t1) * 1e3
-        t2 = time.perf_counter()
-        n = cuda_kernels(fn) if kernels is None else kernels()
-        spent["kernel counts"] += time.perf_counter() - t2
-        spent["timed calls"] += ms * iters / 1e3
-        spent["first calls and warm-ups"] += t2 - t0 - ms * iters / 1e3
-        stats[name] = (ms, n)
-        log("pricers", f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels "
-                       f"{'(profiler saw none: not measured) ' if n == 0 else ''}[{card}]")
-        return out
+    record = make_recorder("pricers", card, stats, spent)
 
     book = pricer_book(PR_BOOK, dev)
     s, k, t, r, v, q, cp = (getattr(book, f) for f in ("spot", "strike", "maturity", "rate",
@@ -2792,6 +2830,11 @@ def phase_pricers(dev, card: str) -> dict:
                   lambda: linear_kernels(lambda n: fdm.fdm_price(fbook, n_time=n,
                                                                  american=True), 200),
                   warm=lambda: fdm.fdm_price(fbook, n_time=2, american=True))
+    # one solve a step, Howard's eight a step: one launch each
+    for american, per_step in ((False, 1), (True, 8)):
+        got = tri_solves(lambda a=american: fdm.fdm_price(fbook, american=a))
+        check(got == per_step * 200, f"fdm_price american={american}: {got} tridiag launches, "
+                                     f"not {per_step * 200}")
     crr_am = bn.binomial_price(fbook, american=True, n_steps=2048)
     on_card(f_eu, f_am, crr_am)
     e_eu, e_am = (f_eu - f_bs).abs().max().item(), (f_am - crr_am).abs().max().item()
@@ -3007,12 +3050,467 @@ def phase_pricers_server(dev) -> None:
             check(status == 200 and out["lower"] <= out["upper"] + 3 * out["upper_se"]
                   and out["width"] < 0.05, f"/american {body}: {status} {out}")
         try:
-            _request(base + "/american", {"model": "heston", "option_type": "put"})
-            check(False, "/american heston answered 200")
+            _request(base + "/american", {"model": "vg", "option_type": "put"})
+            check(False, "/american vg answered 200")
         except urllib.error.HTTPError as e:
-            check(e.code == 400, f"/american heston answered {e.code}")
+            check(e.code == 400, f"/american vg answered {e.code}")
         log("pricers", "/price binomial|vg|nig|merton, /iv, /varswap heston|slv and /american "
-                       "bs|lv answered on the card; /american heston and a bad /iv price: 400")
+                       "bs|lv answered on the card; /american vg and a bad /iv price: 400")
+    finally:
+        server.stop()
+
+
+# ---------------------------------------------------------------------------
+# The tridiagonal kernel (csrc/tridiag.cu) and the slice that runs on it: the
+# Heston/SLV ADI, discrete dividends, forward-start, rough Bergomi and the
+# stochastic-vol American brackets
+# ---------------------------------------------------------------------------
+# (batch, n, column sweep): the ADI's row sweep (n_v rows of n_x) and column
+# sweep (n_x columns of n_v: the coefficients one (1, n_v) row read with batch
+# stride 0, the right-hand side a transposed view), the dividend PDE, the
+# Crank–Nicolson book of phase_pricers
+TRI_SHAPES = ((101, 201, False), (201, 101, True), (1, 401, False), (256, 201, False))
+TRI_ADJOINT_RTOL = 1e-10  # float64: the adjoint solve against autograd of the loop
+# torch.linalg.solve (LU with partial pivoting) on the dense matrix against the
+# kernel, relative to max |x|: a few hundred roundings on well-conditioned systems
+TRI_LIBRARY_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+TRI_CHAIN_NODES = 1 << 16  # the chain probe's length; timed at this and twice it
+FP64_FLOPS = 34e12  # H100 SXM data sheet, float64 outside the tensor cores
+FP32_FLOPS = 67e12  # the same, float32
+SL_HESTON = (0.04, 2.0, 0.05, 0.3, -0.7)  # tests/test_heston_fdm.py:19
+SL_ADI = (201, 101, 200)  # heston_fdm_price's defaults
+SL_BATES_KW = dict(n_dates=12, n_sub=2, n_fit=30_000, n_lower=40_000, n_outer=192, n_inner=384,
+                   use_cv=True)  # tests/test_heston_american.py:191
+SL_DIVS = [(0.3, 2.0), (0.8, 2.5)]  # tests/test_dividends.py:19
+SL_DIV_MC = 524_288
+SL_FS_MC = (200_000, 300)  # tests/test_forward_start.py:48
+SL_RB = (100_000, 256)  # rbergomi_price's defaults
+SL_RB_EV = (250_000, 128)  # tests/test_rbergomi.py:38, antithetic pairs
+SL_RB_EXOTIC = (60_000, 16)  # tests/test_rbergomi.py:257
+
+
+def tri_system(batch: int, n: int, dtype, dev, seed: int = 0, column: bool = False):
+    """A seeded diagonally dominant batch of systems, (batch, n) each; with
+    ``column`` the ADI's column-sweep layout: the coefficients one (1, n)
+    row shared by every system, the right-hand side a transposed view."""
+    rng = np.random.default_rng(seed)
+    lo, up = rng.uniform(-1.0, 1.0, (2, batch, n))
+    di = 2.5 + rng.uniform(0.0, 1.0, (batch, n))
+    rhs = rng.normal(size=(batch, n))
+    ops = [torch.tensor(a, dtype=dtype, device=dev) for a in (lo, di, up, rhs)]
+    if column:
+        ops = [o[:1] for o in ops[:3]] + [ops[3].T.contiguous().T]
+    return ops
+
+
+def tri_chain_node_ms(dtype, dev) -> float:
+    """Device ms of one node of a system's dependent chain (a forward and a
+    back node of the solve's own arithmetic, operands in registers), from the
+    chain probe of ``csrc/tridiag.cu`` by CUDA events: the difference of
+    runs of TRI_CHAIN_NODES and twice as many nodes, so the launch drops
+    out."""
+    abcd = torch.tensor([0.5, 3.0, -0.5, 1.0], dtype=dtype, device=dev)
+    out = torch.empty(1, dtype=dtype, device=dev)
+    lib = _build.load_library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def run(n_nodes):
+        err = lib.tridiag_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes,
+                                       0 if dtype == torch.float32 else 1, dev.index or 0,
+                                       stream)
+        check(err == 0, f"tridiag_chain_launch failed: {_build.error_string(err)}")
+
+    run(TRI_CHAIN_NODES)
+    one, two = (min(event_time(lambda k=k: run(k), 1) for _ in range(3))
+                for k in (TRI_CHAIN_NODES, 2 * TRI_CHAIN_NODES))
+    check(bool(torch.isfinite(out).all()), "the tridiag chain probe gave a non-finite value")
+    return (two - one) / TRI_CHAIN_NODES
+
+
+def tri_bound(ops, dtype, node_ms: float) -> tuple[float, str, float, float]:
+    """(bound ms, what binds, flops, chain ms): the largest of each operand
+    read once and the solution written once at the card's memory rate; 8
+    float operations a node (forward: two products, two differences, two
+    quotients; back: one product, one difference) at its peak rate for the
+    dtype; and a system's 2n-long dependent chain, n nodes at ``node_ms``
+    each (the systems run side by side). The chain and the throughput count
+    are both the solve's operations: ``bound_by`` is "operations" where
+    either binds."""
+    size = torch.finfo(dtype).bits // 8
+    batch, n = torch.broadcast_shapes(*(o.shape for o in ops))
+    nbytes = (sum(o.numel() for o in ops) + batch * n) * size
+    flops = 8.0 * batch * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS) * 1e3
+    chain = n * node_ms
+    bound = max(t_bytes, t_ops, chain)
+    return bound, "bytes" if t_bytes >= bound else "operations", flops, chain
+
+
+def tri_dense(ops) -> torch.Tensor:
+    """The (.., n, n) matrix of the diagonals (lower, diag, upper)."""
+    lo, di, up = ops[:3]
+    return (torch.diag_embed(di) + torch.diag_embed(lo[..., 1:], offset=-1)
+            + torch.diag_embed(up[..., :-1], offset=1))
+
+
+def tri_solves(fn) -> int:
+    """Launches of the tridiagonal kernel in one call of ``fn``."""
+    before = tri._tridiag_cuda.launches
+    fn()
+    torch.cuda.synchronize()
+    return tri._tridiag_cuda.launches - before
+
+
+def phase_tridiag(dev, card: str) -> tuple[float, dict]:
+    """The tridiagonal kernel against its plain version at the slice's
+    shapes, float32 and float64: bitwise equal, one launch a solve; its
+    adjoint against autograd through the plain loop; device ms of kernel
+    and plain version by CUDA events (the kernel inside a CUDA graph of 20
+    calls, the host's issue left out) beside the bound and beside
+    ``torch.linalg.solve`` on the dense matrix (built outside the timed
+    region; the library call that computes the same x). Returns (largest
+    absolute difference, {shape tag: timing})."""
+    worst, timing = 0.0, {}
+    clock = sm_clock_hz()
+    node_ms = {}
+    for dtype in (torch.float32, torch.float64):
+        node_ms[dtype] = tri_chain_node_ms(dtype, dev)
+        log("tridiag", f"dependent chain, {str(dtype)[6:]}: {node_ms[dtype] * 1e6:.2f} ns a "
+                       f"node (a forward and a back node; {node_ms[dtype] * 1e-3 * clock:.1f} "
+                       f"cycles at the {clock / 1e9:.3f} GHz maximum SM clock), by the chain "
+                       f"probe [{card}]")
+    for batch, n, column in TRI_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            ops = tri_system(batch, n, dtype, dev, seed=batch + n, column=column)
+            before = tri._tridiag_cuda.launches
+            kern = tri.tridiag_solve(*ops)
+            check(tri._tridiag_cuda.launches == before + 1,
+                  f"tridiag {batch}x{n}: {tri._tridiag_cuda.launches - before} launches")
+            plain = tri._tridiag_plain(*ops)
+            torch.cuda.synchronize()
+            diff = (kern - plain).abs().max().item()
+            worst = max(worst, diff)
+            check(torch.equal(kern, plain), f"tridiag {batch}x{n} {dtype}: kernel differs from "
+                                            f"the plain version by {diff:.3e}")
+            tag = f"{batch}x{n}{' column' if column else ''} {str(dtype)[6:]}"
+            ms = min(graph_time(lambda: tri.tridiag_solve(*ops)))
+            plain_ms = event_time(lambda: tri._tridiag_plain(*ops), 3)
+            dense, rhs = tri_dense(ops), ops[3][..., None]
+            lib_x = torch.linalg.solve(dense, rhs)[..., 0]
+            lib_ms = event_time(lambda: torch.linalg.solve(dense, rhs), 3)
+            lib_gap = ((lib_x - kern).abs().max() / kern.abs().max()).item()
+            check(lib_gap < TRI_LIBRARY_RTOL[dtype], f"tridiag {tag}: torch.linalg.solve off "
+                                                     f"the kernel by {lib_gap:.2e} relative")
+            bound, by, _, chain = tri_bound(ops, dtype, node_ms[dtype])
+            timing[tag] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                           "bound_ms": bound, "bound_by": by, "chain_ms": chain,
+                           "launches_per_call": 1}
+            log("tridiag", f"{tag}: bitwise equal; device ms by CUDA events [{card}]: kernel "
+                           f"{ms:.4f} (a graph of 20 calls), plain torch {plain_ms:.3f}, "
+                           f"torch.linalg.solve on the dense matrix {lib_ms:.4f} ({lib_gap:.1e} "
+                           f"off the kernel), bound {bound:.5f} ({by}; the dependent chain "
+                           f"{chain:.5f})")
+    ops = [o.requires_grad_(True) for o in tri_system(101, 201, torch.float64, dev, seed=7)]
+    before = tri._tridiag_cuda.launches
+    got = torch.autograd.grad((tri.tridiag_solve(*ops) ** 2).sum(), ops)
+    check(tri._tridiag_cuda.launches == before + 2, "tridiag backward: not one adjoint launch")
+    want = torch.autograd.grad((tri._tridiag_plain(*ops) ** 2).sum(), ops)
+    rel = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+    check(rel < TRI_ADJOINT_RTOL, f"tridiag adjoint off autograd of the loop by {rel:.2e}")
+    log("tridiag", f"adjoint (101x201 float64): one launch forward, one back; max relative "
+                   f"difference to autograd of the plain loop {rel:.2e} (< {TRI_ADJOINT_RTOL})")
+    return worst, timing
+
+
+def lewis_greeks_put(dev) -> dict:
+    """Autograd of the port's Lewis price of the ATM put under
+    HestonParams.make(): the European oracle of ``heston_fdm_greeks``
+    (tests/test_heston_fdm.py:169)."""
+    names = ("spot", "v0", "kappa", "theta", "sigma", "rho", "rate", "maturity")
+    x = {k: torch.tensor(v, device=dev, requires_grad=True)
+         for k, v in zip(names, (100.0, 0.04, 2.0, 0.04, 0.3, -0.7, 0.05, 1.0))}
+    one = torch.ones((), device=dev)
+    batch = ContractBatch(spot=x["spot"], strike=100.0 * one, maturity=x["maturity"],
+                          rate=x["rate"], vol=0.2 * one, dividend=0.0 * one, cp=-one)
+    price = hmodel.heston_price(batch, hmodel.HestonParams(x["v0"], x["kappa"], x["theta"],
+                                                           x["sigma"], x["rho"]))
+    grads = torch.autograd.grad(price, list(x.values()), create_graph=True)
+    (gamma,) = torch.autograd.grad(grads[0], x["spot"])
+    keys = ("delta", "vega_v0", "d_kappa", "d_theta", "d_sigma", "d_rho", "rho_rate", "theta_cal")
+    out = {k: g.item() for k, g in zip(keys, grads)}
+    out["theta_cal"] = -out["theta_cal"]
+    out["gamma"] = gamma.item()
+    return out
+
+
+def phase_slice(dev, card: str) -> dict:
+    """The slice once on the card at the reference's defaults, against the
+    reference tests' oracles; prints each call's warm wall ms and CUDA
+    kernel count. Returns {call: (warm ms, kernels)}."""
+    from optionslab_tpu_torch.models import american as am
+    from optionslab_tpu_torch.models import dividends as dv
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.models import forward_start as fs
+    from optionslab_tpu_torch.models import heston_american as ha
+    from optionslab_tpu_torch.models import heston_fdm as hf
+    from optionslab_tpu_torch.models import rbergomi as rb
+    from optionslab_tpu_torch.models import rbergomi_american as rba
+    from optionslab_tpu_torch.models import slv_american as sa
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+
+    t_phase = time.perf_counter()
+    stats = {}
+    spent = {"timed calls": 0.0, "first calls and warm-ups": 0.0, "kernel counts": 0.0}
+    record = make_recorder("slice", card, stats, spent)
+    n_x, n_v, n_t = SL_ADI
+    hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
+
+    def adi(cp, strike, american=False, params=hp, steps=n_t):
+        return hf.heston_fdm_price(100.0, strike, 1.0, 0.05, params, option_type=cp,
+                                   american=american, n_x=n_x, n_v=n_v, n_t=steps, device=dev)
+
+    # the Heston ADI at 201 x 101 x 200: the European against Lewis (2e-3
+    # relative, tests/test_heston_fdm.py:25), the American above it
+    gaps = {}
+    for cp, strike in (("call", 90.0), ("call", 110.0), ("put", 100.0), ("call", 100.0)):
+        if (cp, strike) == ("call", 100.0):
+            pde = record(f"heston_fdm_price european {n_x}x{n_v}x{n_t}", lambda: adi("call", 100.0),
+                         lambda: linear_kernels(lambda k: adi("call", 100.0, steps=k), n_t))
+        else:
+            pde = adi(cp, strike)
+        on_card(pde)
+        lw = hmodel.heston_price(ContractBatch.make(100.0, strike, 1.0, 0.05, 0.2, cp,
+                                                    device=dev), hp)
+        gaps[f"{cp} {strike:g}"] = gap = abs(pde.item() / lw.item() - 1.0)
+        check(gap < 2e-3, f"heston_fdm_price {cp} K={strike} off Lewis by {gap:.2e} relative")
+    # the Douglas step: one row sweep and one column sweep, one launch each
+    got = tri_solves(lambda: adi("put", 100.0, american=True))
+    check(got == 2 * n_t, f"heston_fdm_price: {got} tridiag launches, not {2 * n_t}")
+    am_put = record(f"heston_fdm_price american {n_x}x{n_v}x{n_t}",
+                    lambda: adi("put", 100.0, american=True),
+                    lambda: linear_kernels(lambda k: adi("put", 100.0, True, steps=k), n_t))
+    eu_put = adi("put", 100.0)
+    check(am_put.item() >= eu_put.item() - 1e-4, "Heston ADI American below European")
+    frozen = hmodel.HestonParams.make(0.04, 2.0, 0.04, 1e-3, 0.0, device=dev)
+    put = ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, "put", device=dev)
+    fz = {}
+    for american in (False, True):
+        fz[american] = (adi("put", 100.0, american, frozen).item(),
+                        fdm.fdm_price(put, american=american).item())
+        check(abs(fz[american][0] - fz[american][1]) < 0.02,
+              f"frozen-variance ADI {fz[american]} off the 1-D PDE (american={american})")
+    log("slice", f"heston ADI vs Lewis, relative: {gaps}; American put {am_put.item():.5f} >= "
+                 f"European {eu_put.item():.5f}; frozen variance vs 1-D PDE (ADI, 1-D): "
+                 f"European {fz[False]}, American {fz[True]}")
+
+    # the Greek ladder at the defaults against autograd of Lewis (1.5% of
+    # max(|ref|, 1), gamma 5%: tests/test_heston_fdm.py:169-196)
+    hp0 = hmodel.HestonParams.make(device=dev)
+    g = record(f"heston_fdm_greeks european {n_x}x{n_v}x{n_t}",
+               lambda: hf.heston_fdm_greeks(100.0, 100.0, 1.0, 0.05, hp0, option_type="put",
+                                            device=dev),
+               lambda: linear_kernels(lambda k: hf.heston_fdm_greeks(
+                   100.0, 100.0, 1.0, 0.05, hp0, option_type="put", n_t=k, device=dev), n_t))
+    ref = lewis_greeks_put(dev)
+    for k, rv in ref.items():
+        tol = 0.05 * abs(rv) if k == "gamma" else 0.015 * max(abs(rv), 1.0)
+        check(abs(g[k] - rv) < tol, f"heston_fdm_greeks {k} {g[k]:.5f} vs Lewis {rv:.5f}")
+    log("slice", "heston_fdm_greeks vs autograd of Lewis: " + ", ".join(
+        f"{k} {g[k]:.4f}/{rv:.4f}" for k, rv in ref.items()))
+
+    # the ADI-slice bracket at 50 dates: it holds its own PDE value within
+    # 3 stderr and the PDE's grid error (tests/test_heston_american.py:128)
+    def adi_bracket(n_dates=50, spd=8):
+        return ha.heston_american_bracket(100.0, 100.0, 1.0, 0.05, hp0, n_dates=n_dates,
+                                          steps_per_date=spd, method="adi", device=dev)
+
+    b = record("heston_american_bracket adi 50 dates", adi_bracket,
+               lambda: date_step_kernels(adi_bracket, 50, 8), warm=lambda: adi_bracket(2))
+    lo, hi = b["lower"] - 3 * b["lower_se"], b["upper"] + 3 * b["upper_se"]
+    inside = lo <= b["adi_bermudan"] <= hi
+    check(lo - 0.03 <= b["adi_bermudan"] <= hi + 0.03 and b["width"] < 0.01,
+          f"ADI bracket {b} does not hold its PDE value")
+    log("slice", f"heston ADI bracket 50 dates: [{b['lower']:.5f}, {b['upper']:.5f}] ± "
+                 f"({b['lower_se']:.1e}, {b['upper_se']:.1e}), width {b['width']:.2e}; PDE "
+                 f"{b['adi_bermudan']:.5f} {'inside' if inside else 'outside'} ±3 se")
+
+    # Bates LSM: at lam = 0 Heston's bracket to the digit; jumps add value
+    bates = lambda lam: BatesParams.make(0.04, 2.0, 0.04, 0.3, -0.7, lam=lam,  # noqa: E731
+                                         device=dev)
+    rh = ha.heston_american_bracket(100.0, 100.0, 1.0, 0.05, hp0, device=dev, **SL_BATES_KW)
+    r0 = ha.heston_american_bracket(100.0, 100.0, 1.0, 0.05, bates(0.0), device=dev,
+                                    **SL_BATES_KW)
+    rj = record("heston_american_bracket bates lsm 12 dates",
+                lambda: ha.heston_american_bracket(100.0, 100.0, 1.0, 0.05, bates(0.5),
+                                                   device=dev, **SL_BATES_KW),
+                lambda: linear_kernels(lambda k: ha.heston_american_bracket(
+                    100.0, 100.0, 1.0, 0.05, bates(0.5), device=dev,
+                    **{**SL_BATES_KW, "n_dates": k}), 12, base=2))
+    d0 = max(abs(rh[k] - r0[k]) for k in ("lower", "upper"))
+    check(d0 <= 1e-6, f"Bates at lam = 0 off Heston by {d0:.2e}")
+    check(rj["lower"] > rh["upper"], f"Bates bracket {rj} not above Heston's {rh}")
+    log("slice", f"bates lam=0 - heston: {d0:.1e}; with jumps [{rj['lower']:.4f}, "
+                 f"{rj['upper']:.4f}] above heston [{rh['lower']:.4f}, {rh['upper']:.4f}]")
+
+    # SLV on a flat smile at mixing 0 (exact constant-vol law) overlaps the
+    # GBM grid certificate at 25 dates (tests/test_slv_american.py:141)
+    flat = smile_dupire(dev, flat=True)
+    slvp = hmodel.HestonParams.make(0.04, 2.0, 0.04, 0.5, -0.7, device=dev)
+
+    def slv_bracket(n_dates=25, spd=8):
+        return sa.slv_american_bracket(flat, slvp, 100.0, 1.0, mixing=0.0, n_dates=n_dates,
+                                       steps_per_date=spd)
+
+    bs_ = record("slv_american_bracket flat mixing 0", slv_bracket,
+                 lambda: date_step_kernels(slv_bracket, 25, 8), warm=lambda: slv_bracket(2))
+    gb = am.american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2, n_dates=25, device=dev)
+    tol = 4 * (bs_["lower_se"] + bs_["upper_se"] + gb["lower_se"].item()
+               + gb["upper_se"].item()) + 2e-3
+    check(bs_["lower"] - tol < gb["upper"].item() and gb["lower"].item() < bs_["upper"] + tol,
+          f"SLV flat bracket {bs_} misses the GBM certificate {gb}")
+    log("slice", f"slv flat mixing 0: [{bs_['lower']:.5f}, {bs_['upper']:.5f}] vs GBM grid "
+                 f"[{gb['lower'].item():.5f}, {gb['upper'].item():.5f}], overlap within "
+                 f"{tol:.1e}")
+
+    # cash dividends at 401 x 400 (tests/test_dividends.py)
+    def div_pde(cp, divs=SL_DIVS, american=False, n_time=400):
+        return dv.fdm_price_discrete_dividends(100.0, 100.0, 1.0, 0.05, 0.2, divs, cp=cp,
+                                               american=american, n_time=n_time, device=dev)
+
+    bs_c = bs_price(torch.tensor(100.0, device=dev), 100.0, 1.0, 0.05, 0.2, 1.0).item()
+    c0 = record("fdm_price_discrete_dividends european 401x400", lambda: div_pde(1.0, []),
+                lambda: linear_kernels(lambda k: div_pde(1.0, [], n_time=k), 400, base=10))
+    check(abs(c0 - bs_c) < 0.01, f"dividend PDE without dividends {c0:.5f} vs BS {bs_c:.5f}")
+    c, p = div_pde(1.0), div_pde(-1.0)
+    gap = dv.dividend_parity_gap(c, p, 100.0, 100.0, 1.0, 0.05, SL_DIVS)
+    check(gap < 0.02, f"dividend PDE parity gap {gap:.2e}")
+    def div_mc(cp):
+        return dv.mc_price_discrete_dividends(100.0, 100.0, 1.0, 0.05, 0.2, SL_DIVS, cp=cp,
+                                              n_paths=SL_DIV_MC, seed=2, device=dev)
+
+    mcs = {1.0: record(f"mc_price_discrete_dividends {SL_DIV_MC}", lambda: div_mc(1.0)),
+           -1.0: div_mc(-1.0)}
+    z = {}
+    for cp, pde in ((1.0, c), (-1.0, p)):
+        mc, se = mcs[cp]
+        z[cp] = (pde - mc) / se
+        check(abs(pde - mc) < 3 * se + 0.03, f"dividend PDE {pde:.5f} vs MC {mc:.5f} ± {se:.1e}")
+    am_p = record("fdm_price_discrete_dividends american put 401x400",
+                  lambda: div_pde(-1.0, american=True),
+                  lambda: linear_kernels(lambda k: div_pde(-1.0, american=True, n_time=k), 400,
+                                         base=10))
+    check(am_p > p, f"American put {am_p:.5f} not above the European {p:.5f}")
+    log("slice", f"dividends: no-div {c0:.5f} vs BS {bs_c:.5f}; parity gap {gap:.1e}; (PDE − "
+                 f"MC)/se call {z[1.0]:.2f}, put {z[-1.0]:.2f}; American put {am_p:.5f} > "
+                 f"{p:.5f}")
+
+    # forward start: t1 -> 0 is vanilla (1e-4); against its Monte Carlo with
+    # correlation (3.5 se + 0.01, tests/test_forward_start.py:48)
+    hp64 = hmodel.HestonParams.make(*SL_HESTON, dtype=torch.float64, device=dev)
+    v0 = fs.forward_start_price(100.0, 1.0, 1e-6, 1.0, 0.05, hp64, device=dev).item()
+    van = hmodel.heston_price(ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2,
+                                                 dtype=torch.float64, device=dev), hp64).item()
+    check(abs(v0 - van) < 1e-4, f"forward start at t1 -> 0 {v0:.6f} vs vanilla {van:.6f}")
+    record("forward_start_price 3 strikes", lambda: fs.forward_start_price(
+        100.0, [0.9, 1.0, 1.1], 0.5, 1.5, 0.05, hp64, device=dev), iters=3)
+
+    def fs_mc(k, n_steps=SL_FS_MC[1]):
+        gen = torch.Generator(device=dev).manual_seed(0)
+        return fs.forward_start_mc_price(100.0, k, 0.5, 1.5, 0.05, hp64, gen,
+                                         n_paths=SL_FS_MC[0], n_steps=n_steps)
+
+    record(f"forward_start_mc_price {SL_FS_MC[0]}x{SL_FS_MC[1]}", lambda: fs_mc(1.0),
+           lambda: linear_kernels(lambda n: fs_mc(1.0, n), SL_FS_MC[1], base=2))
+    zs = []
+    for k in (0.9, 1.0, 1.1):
+        sa_ = fs.forward_start_price(100.0, k, 0.5, 1.5, 0.05, hp64, device=dev).item()
+        mc, se = (x.item() for x in fs_mc(k))
+        zs.append((sa_ - mc) / se)
+        check(abs(sa_ - mc) < 3.5 * se + 0.01,
+              f"forward start k={k}: {sa_:.5f} vs MC {mc:.5f} ± {se:.1e}")
+    log("slice", f"forward start: t1->0 {v0:.6f} vs vanilla {van:.6f}; (CF − MC)/se "
+                 + ", ".join(f"{x:.2f}" for x in zs))
+
+    # rough Bergomi at eta -> 0: Black–Scholes (3 se + 0.01), E[v] = xi0
+    # (4%), the discrete geometric Asian's closed form and the GBM barrier
+    # scan (5 combined se), the American against the GBM certificate
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p0 = rb.RBergomiParams(hurst=0.1, eta=1e-6, rho=-0.9, xi0=0.04)
+    ks = torch.tensor([90.0, 100.0, 110.0], device=dev)
+    pr, se = record(f"rbergomi_price 3 strikes {SL_RB[0]}x{SL_RB[1]}", lambda: rb.rbergomi_price(
+        100.0, ks, 1.0, 0.05, p0, gen, n_paths=SL_RB[0], n_steps=SL_RB[1]), iters=3)
+    on_card(pr)
+    bsv = bs_price(torch.tensor(100.0, device=dev), ks, 1.0, 0.05, 0.2, 1.0)
+    check(bool(((pr - bsv).abs() < 3 * se + 0.01).all()), f"rbergomi at eta->0 {pr} vs BS {bsv}")
+    rp = rb.RBergomiParams(0.1, 1.9, -0.9, 0.04)
+    n_ev = SL_RB_EV[1]
+    z_, _ = rb._draw(gen, 2 * SL_RB_EV[0], n_ev)
+    vt = rb._matmul_t(z_, rb._factor(n_ev, rp.hurst, 1.0, dev))[:, :n_ev]
+    ev = rb.rbergomi_variance_grid(rp, vt, rb._t_grid(1.0, n_ev, dev)[None, :]).mean(0)
+    ev_err = (ev / rp.xi0 - 1.0).abs().max().item()
+    check(ev_err < 0.04, f"E[v_t]/xi0 − 1 up to {ev_err:.3f}")
+    pe = rb.RBergomiParams(hurst=0.1, eta=0.0, rho=-0.9, xi0=0.04)
+    n_p, n_s = SL_RB_EXOTIC
+    ga, gsa = record(f"rbergomi_exotic_price asian_geo {n_p}x{n_s}", lambda: rb.
+                     rbergomi_exotic_price("asian_geo", 100.0, 100.0, 1.0, 0.05, pe, gen,
+                                           n_paths=n_p, n_steps=n_s, return_stderr=True),
+                     iters=3)
+    cf = tex.geometric_asian_closed_form(100.0, 100.0, 1.0, 0.05, 0.2, n_steps=n_s).item()
+    check(abs(ga.item() - cf) < 5 * gsa.item(), f"rbergomi asian_geo {ga.item():.5f} vs {cf:.5f}")
+    pb, sb = rb.rbergomi_exotic_price("barrier_up-and-out", 100.0, 100.0, 1.0, 0.05, pe, gen,
+                                      barrier=120.0, n_paths=n_p, n_steps=n_s, return_stderr=True)
+    pgb, sgb = tex.barrier_price(100.0, 100.0, 120.0, 1.0, 0.05, 0.2, gen, n_paths=n_p,
+                                 n_steps=n_s, return_stderr=True)
+    check(abs(pb.item() - pgb.item()) < 5 * math.hypot(sb.item(), sgb.item()),
+          f"rbergomi barrier {pb.item():.5f} vs GBM scan {pgb.item():.5f}")
+    pa = rb.RBergomiParams(hurst=0.3, eta=1e-6, rho=-0.5, xi0=0.04)
+
+    def rb_bracket(n_dates=25):
+        return rba.rbergomi_american_bracket(100.0, 105.0, 0.5, 0.06, pa, n_dates=n_dates,
+                                             device=dev)
+
+    br = record("rbergomi_american_bracket eta->0 25 dates", rb_bracket,
+                lambda: linear_kernels(rb_bracket, 25, base=2))
+    gr = am.american_price_interval(100.0, 105.0, 0.5, 0.06, 0.2, n_dates=25, device=dev)
+    check(br["lower"] - 3 * br["lower_se"] <= gr["upper"].item() + 3 * gr["upper_se"].item() + 1e-3
+          and br["upper"] + 3 * br["upper_se"] >= gr["lower"].item() - 3 * gr["lower_se"].item()
+          - 1e-3 and br["width"] < 0.12, f"rbergomi eta->0 bracket {br} vs GBM {gr}")
+    rr = record("rbergomi_american_bracket rough 25 dates", lambda: rba.rbergomi_american_bracket(
+        100.0, 105.0, 0.5, 0.06, rp, device=dev))
+    check(rr["lower"] <= rr["upper"] + 3 * (rr["lower_se"] + rr["upper_se"])
+          and rr["upper"] + 3 * rr["upper_se"] >= 5.0, f"rough bracket {rr}")
+    log("slice", f"rbergomi eta->0 vs BS: {((pr - bsv) / se).abs().max().item():.2f} se; "
+                 f"max |E[v]/xi0 − 1| {ev_err:.4f}; asian_geo {ga.item():.5f} vs closed form "
+                 f"{cf:.5f}; barrier {pb.item():.5f} vs GBM scan {pgb.item():.5f}; American "
+                 f"eta->0 [{br['lower']:.4f}, {br['upper']:.4f}] vs GBM [{gr['lower'].item():.4f},"
+                 f" {gr['upper'].item():.4f}]; rough [{rr['lower']:.4f}, {rr['upper']:.4f}]")
+    wall = time.perf_counter() - t_phase
+    log("slice", f"phase wall {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in spent.items())
+        + f", oracles and the rest {wall - sum(spent.values()):.1f} s")
+    return stats
+
+
+def phase_slice_server(dev) -> None:
+    """The slice's routes once over a socket at the server's defaults."""
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        for model in ("heston", "bates", "slv", "rbergomi"):
+            t0 = time.perf_counter()
+            status, out = _request(base + "/american", {"model": model, "option_type": "put"})
+            check(status == 200 and out["lower"] <= out["upper"] + 3 * (
+                out["upper_se"] + out["lower_se"]) and 4.0 < out["lower"] < 8.0,
+                f"/american {model}: {status} {out}")
+            log("slice", f"/american {model}: [{out['lower']:.4f}, {out['upper']:.4f}] in "
+                         f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+        for body in ({"kind": "asian"}, {"kind": "cliquet"}):
+            status, out = _request(base + "/exotic", {"model": "rbergomi", **body})
+            check(status == 200 and out["dynamics"] == "rough-bergomi"
+                  and math.isfinite(out["price"]), f"/exotic rbergomi {body}: {status} {out}")
+        log("slice", "/american heston|bates|slv|rbergomi and /exotic rbergomi answered on the "
+                     "card")
     finally:
         server.stop()
 
@@ -3036,6 +3534,7 @@ def main() -> None:
     hx_err = phase_hx_parity(dev)
     lv_err, slv_err = phase_smile_parity(dev)
     ma_err = phase_ma_parity(dev)
+    tri_err, tri_t = phase_tridiag(dev, card)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -3145,10 +3644,20 @@ def main() -> None:
                   hk._heston_chain_cuda, hx._heston_exotic_cuda, lk._lv_cuda, sk._slv_cuda,
                   mk._ma_cuda)
     before = [fn.launches for fn in kernel_fns]
+    # the PDE path: every solve of the pricers and of the slice is one launch
+    # of the tridiagonal kernel
+    tri._tridiag_cuda.launches = 0
     phase_pricers(dev, card)
     phase_pricers_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
           "the pricers without a kernel launched one of the eleven kernels")
+    phase_slice(dev, card)
+    phase_slice_server(dev)
+    check([fn.launches for fn in kernel_fns] == before,
+          "the slice launched one of the eleven Monte Carlo kernels")
+    tri_launches = tri._tridiag_cuda.launches
+    log("launches", f"tridiag launched {tri_launches} times over the pricers and the slice")
+    check(tri_launches > 0, "the PDE path never launched the tridiagonal kernel")
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):
@@ -3192,6 +3701,11 @@ def main() -> None:
         entry("multi_asset_mc_kernel", "multi_asset_mc.cu",
               "optionslab_tpu/ops/multi_asset_pallas.py:58", ma_launches, ma_err,
               ma_t[f"multi_asset basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}"]),
+        {**entry("tridiag_kernel", "tridiag.cu",
+                 "optionslab_tpu/ops/tridiag.py:15 (lax.scan, no Pallas kernel)", tri_launches,
+                 tri_err, tri_t["101x201 float32"]),
+         "library_ms": tri_t["101x201 float32"]["library_ms"],
+         "chain_ms": tri_t["101x201 float32"]["chain_ms"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,0 +1,176 @@
+"""Discrete cash dividends: PDE jump conditions and exact between-date Monte
+Carlo.
+
+The port of ``optionslab_tpu/models/dividends.py``. GBM between ex-dates; at
+each ex-date the spot drops S -> max(S - D, 0).
+
+* :func:`fdm_price_discrete_dividends` — the θ = 1/2 scheme on the log-spot
+  grid of ``models/fdm.py`` (one tridiagonal launch a step, or Howard's
+  policy iteration for the American) with the jump condition
+  V(S, t_d^-) = V(S - D, t_d^+) applied by interpolation at the step whose
+  time level crosses t_d. European and American, float32, on ``device``.
+* :func:`mc_price_discrete_dividends` — exact simulation, one lognormal
+  factor per inter-dividend interval, antithetic, from one
+  ``torch.Generator`` on ``device``; simulated in float32, reduced in
+  float64.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..ops.tridiag import tridiag_solve
+from ..utils.config import EPS_TIME
+from ..utils.exceptions import ValidationError
+from .fdm import _grid, _howard_lcp_solve, _read_price
+from .slv import _interp
+
+__all__ = ["fdm_price_discrete_dividends", "mc_price_discrete_dividends",
+           "dividend_parity_gap"]
+
+
+def _check_divs(dividends, maturity):
+    if not dividends:
+        return np.zeros(0), np.zeros(0)
+    t = np.asarray([d[0] for d in dividends], np.float64)
+    a = np.asarray([d[1] for d in dividends], np.float64)
+    if np.any(a < 0):
+        raise ValidationError("dividend amounts must be non-negative")
+    if np.any(t <= 0) or np.any(t >= maturity):
+        raise ValidationError("dividend dates must lie strictly inside (0, maturity)")
+    order = np.argsort(t)
+    return t[order], a[order]
+
+
+def _fdm_div_single(spot, strike, maturity, rate, vol, div_amounts, *, cp: float, n_space: int,
+                    n_time: int, american: bool, div_steps: tuple, device):
+    """Backward θ = 1/2 scheme with the dividend shifts at fixed steps
+    (``div_steps``: the step after which the new time level has crossed that
+    dividend's date, backward from T)."""
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).reshape(1)  # noqa: E731
+    spot, strike, maturity, rate, vol = map(f32, (spot, strike, maturity, rate, vol))
+    t = torch.clamp_min(maturity, EPS_TIME)
+    # widen the grid down: the pre-dividend region needs S - sum(D)
+    x, dx = _grid(spot, vol, maturity, n_space, 7.0, strike)
+    s_nodes = torch.exp(x)  # (1, n)
+    dt = t / n_time
+    sig2 = vol * vol
+    mu = rate - 0.5 * sig2
+    theta_s = 0.5
+    a = 0.5 * sig2 / dx**2 - 0.5 * mu / dx
+    b = -sig2 / dx**2 - rate
+    c = 0.5 * sig2 / dx**2 + 0.5 * mu / dx
+    intrinsic = torch.clamp_min(cp * (s_nodes - strike), 0.0)
+    ones = torch.ones_like(s_nodes)
+    edge = torch.zeros_like(s_nodes, dtype=torch.bool)
+    edge[:, 0] = edge[:, -1] = True
+    lo = torch.where(edge, 0.0, -theta_s * dt * a * ones)
+    di = torch.where(edge, 1.0, 1.0 - theta_s * dt * b * ones)
+    up = torch.where(edge, 0.0, -theta_s * dt * c * ones)
+    amounts = [float(d) for d in div_amounts]
+    div_at = dict(zip(div_steps, amounts))
+    # forward times of the dividends, for the PV of those still to come
+    div_t = [t - dt * (k + 1.0) for k in div_steps]
+    w = (1.0 - theta_s) * dt
+    v = intrinsic
+    for k in range(n_time):
+        tau = (k + 1.0) * dt
+        rhs = v + w * (a * torch.roll(v, 1, dims=1) + b * v + c * torch.roll(v, -1, dims=1))
+        t_now = t - tau
+        rem = 0.0
+        for td, amt in zip(div_t, amounts):
+            rem = rem + torch.where(td > t_now, amt * torch.exp(-rate * (td - t_now)), 0.0)
+        low = (0.0 if cp > 0 else strike * torch.exp(-rate * tau) - (s_nodes[:, 0] - rem)) + \
+            torch.zeros_like(tau)
+        high = (s_nodes[:, -1] - rem - strike * torch.exp(-rate * tau) if cp > 0 else 0.0) + \
+            torch.zeros_like(tau)
+        if american:
+            low = torch.maximum(low, intrinsic[:, 0])
+            high = torch.maximum(high, intrinsic[:, -1])
+        rhs = torch.cat([torch.clamp_min(low, 0.0)[:, None], rhs[:, 1:-1],
+                         torch.clamp_min(high, 0.0)[:, None]], dim=1)
+        if american:
+            v = _howard_lcp_solve(lo, di, up, rhs, intrinsic)
+        else:
+            v = tridiag_solve(lo, di, up, rhs)
+        d = div_at.get(k, 0.0)
+        if d > 0.0:  # the jump condition V(S, t_d^-) = V(max(S - D, S_min), t_d^+)
+            s_shift = torch.clamp_min(s_nodes[0] - d, s_nodes[0, 0])
+            v = _interp(s_shift, s_nodes[0], v[0])[None, :]
+            if american:  # exercise allowed the instant before the drop
+                v = torch.maximum(v, intrinsic)
+    return _read_price(v, x, spot)[0]
+
+
+def fdm_price_discrete_dividends(spot, strike, maturity, rate, vol, dividends, cp: float = 1.0,
+                                 american: bool = False, n_space: int = 401,
+                                 n_time: int = 400, device="cuda") -> float:
+    """PDE price with discrete cash dividends [(t_i, D_i), ...] on
+    ``device``. European or American; the American call captures exercise
+    just before each ex-date."""
+    td, da = _check_divs(dividends, float(maturity))
+    if n_space % 2 == 0:
+        raise ValidationError("n_space must be odd")
+    dt = float(maturity) / n_time
+    # the step whose new time level sits just past the ex-date (backward):
+    # tau crosses T - t_d at k = round((T - t_d)/dt) - 1
+    steps = tuple(int(np.clip(np.round((float(maturity) - tdi) / dt) - 1, 0, n_time - 1))
+                  for tdi in td)
+    if len(set(steps)) != len(steps):
+        raise ValidationError("dividend dates too close for the time grid; raise n_time")
+    return float(_fdm_div_single(
+        float(spot), float(strike), float(maturity), float(rate), float(vol),
+        np.asarray(da, np.float32), cp=float(cp), n_space=n_space, n_time=n_time,
+        american=american, div_steps=steps, device=torch.device(device)))
+
+
+def _mc_div_core(spot, strike, maturity, rate, vol, div_t, div_a, generator, *, cp: float,
+                 n_paths: int, device):
+    f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device)  # noqa: E731
+    spot, strike, maturity, rate, vol = map(f32, (spot, strike, maturity, rate, vol))
+    div_t, div_a = f32(div_t), f32(div_a)
+    m = div_t.shape[0]
+    bounds = torch.cat([torch.zeros(1, dtype=torch.float32, device=device), div_t,
+                        maturity.reshape(1)])
+    dts = torch.diff(bounds)  # (m+1,)
+    half = n_paths // 2
+    z = torch.randn((half, m + 1), generator=generator, dtype=torch.float32, device=device)
+    z = torch.cat([z, -z])
+    growth = torch.exp((rate - 0.5 * vol * vol) * dts[None, :]
+                       + vol * torch.sqrt(dts)[None, :] * z)
+    s = torch.full((n_paths,), float(spot), dtype=torch.float32, device=device)
+    for i in range(m + 1):
+        s = s * growth[:, i]
+        if i < m:
+            s = torch.clamp_min(s - div_a[i], 0.0)
+    # simulated in float32, reduced in float64: the parity identity
+    # C - P = S0 - PV(divs) - K df then holds to ~1e-4
+    pay = torch.clamp_min(cp * (s - strike), 0.0).to(torch.float64)
+    disc = torch.exp(-rate.to(torch.float64) * maturity)
+    return disc * pay.mean(), disc * pay.std(correction=0) / math.sqrt(n_paths)
+
+
+def mc_price_discrete_dividends(spot, strike, maturity, rate, vol, dividends, cp: float = 1.0,
+                                n_paths: int = 262_144, seed: int = 0, device="cuda"):
+    """Exact Monte Carlo with cash dividends, European: (price, stderr) as
+    Python floats, the paths drawn on ``device`` from a generator seeded with
+    ``seed``."""
+    td, da = _check_divs(dividends, float(maturity))
+    if n_paths % 2:
+        raise ValidationError("n_paths must be even (antithetic)")
+    dev = torch.device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    return tuple(float(x) for x in _mc_div_core(
+        float(spot), float(strike), float(maturity), float(rate), float(vol),
+        np.asarray(td, np.float32), np.asarray(da, np.float32), gen, cp=float(cp),
+        n_paths=n_paths, device=dev))
+
+
+def dividend_parity_gap(call, put, spot, strike, maturity, rate, dividends):
+    """|C - P - (S0 - PV(divs) - K e^{-rT})|, the exact European identity with
+    deterministic cash dividends (absorption aside)."""
+    pv = sum(d * np.exp(-rate * t) for t, d in dividends)
+    return abs(call - put - (spot - pv - strike * np.exp(-rate * maturity)))

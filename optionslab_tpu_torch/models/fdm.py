@@ -7,9 +7,9 @@ batched Thomas solve (``ops/tridiag.py``) per step serves the whole book.
 American contracts solve the per-step obstacle problem by Howard policy
 iteration (default) or by the first-order projection ``V = max(V, ψ)``.
 
-The Thomas solve is a Python loop over the nodes: about 14 small launches
-per node, so a call issues O(n_time · n_space) launches whatever the book
-size; ``PERF.md`` records the count and the time it costs on the card.
+On the card each Thomas solve is one launch of the tridiagonal kernel
+(``csrc/tridiag.cu``), so a call issues O(n_time) launches whatever the
+book or grid size; ``PERF.md`` records the count and the time it costs.
 """
 
 from __future__ import annotations
@@ -19,7 +19,7 @@ import math
 import numpy as np
 import torch
 
-from ..ops.tridiag import tridiag_solve
+from ..ops.tridiag import tridiag_apply, tridiag_solve
 from ..types import ContractBatch
 from ..utils.config import EPS_TIME
 from ..utils.exceptions import ValidationError
@@ -66,13 +66,6 @@ def _howard_lcp_solve(lo, di, up, rhs, psi, n_iter: int = 8):
     iteration: each sweep solves the tridiagonal system with the exercise
     rows replaced by v = ψ, then re-selects them from the complementarity
     residuals; the end rows stay Dirichlet. All (B, n)."""
-    zero = torch.zeros_like(rhs[:, :1])
-
-    def bv(v):
-        vm = torch.cat([zero, v[:, :-1]], dim=1)
-        vp = torch.cat([v[:, 1:], zero], dim=1)
-        return lo * vm + di * v + up * vp
-
     interior = torch.ones_like(rhs, dtype=torch.bool)
     interior[:, 0] = False
     interior[:, -1] = False
@@ -81,7 +74,7 @@ def _howard_lcp_solve(lo, di, up, rhs, psi, n_iter: int = 8):
     for _ in range(n_iter):
         v = tridiag_solve(torch.where(m, 0.0, lo), torch.where(m, 1.0, di),
                           torch.where(m, 0.0, up), torch.where(m, psi, rhs))
-        m = ((bv(v) - rhs) > (v - psi)) & interior
+        m = ((tridiag_apply(lo, di, up, v) - rhs) > (v - psi)) & interior
     return torch.maximum(v, psi)
 
 

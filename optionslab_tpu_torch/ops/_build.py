@@ -204,6 +204,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.multi_asset_occupancy.argtypes = [_I, _I, _I, _I, _I,  # d, asian, lr, sampler, device
                                           _P, _P, _P]  # out registers, local bytes, blocks/SM
     lib.multi_asset_occupancy.restype = _I
+    lib.tridiag_solve_launch.argtypes = [
+        _P, _P, _P, _P, _P,          # lower, diag, upper, rhs, x
+        _P,                          # strides (host int64[10])
+        _P, _P,                      # scratch c', d'
+        _I, _I, _I,                  # batch, n, dtype
+        _I, _P,                      # device, stream
+    ]
+    lib.tridiag_solve_launch.restype = _I
+    lib.tridiag_chain_launch.argtypes = [_P, _P, _I, _I, _I, _P]  # abcd, out, n, dtype, dev, st
+    lib.tridiag_chain_launch.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

@@ -20,12 +20,16 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
                 or ("slv", with "mixing", "n_paths", "n_steps", "seed") both
                 strikes and their stderrs from one SLV simulation on the
                 sample smile
-  /american     {"model": "bs|lv", "option_type": "put", "n_dates", contract
-                fields, optional n_fit/n_lower/n_outer/n_inner/n_grid}
-                                                    → certified [lower, upper]
-                Bermudan bracket: "bs" the GBM grid engine, "lv" the Dupire
-                local-vol bracket on the sample smile at base vol "vol"
-                (heston|bates|slv|rbergomi: 400, not yet ported)
+  /american     {"model": "bs|heston|bates|lv|slv|rbergomi", "option_type":
+                "put", "n_dates", contract fields, optional n_fit/n_lower/
+                n_outer/n_inner/n_grid}             → certified [lower, upper]
+                Bermudan bracket: "bs" the GBM grid engine; "heston" the ADI
+                slices' bracket ("heston_params"), "bates" the LSM bracket
+                with the European control variate ("bates_params"); "lv" the
+                Dupire local-vol bracket and "slv" the SLV bracket ("mixing",
+                "heston_params") on the sample smile at base vol "vol";
+                "rbergomi" the rough-Bergomi bracket ("rbergomi_params");
+                n_dates capped at 50 but for "bs"
   /mc           {"n_paths": N, "seed": s, "method": "pallas|xla",
                  contract fields...}                → MC price, stderr and
                 Greeks; "pallas" (the default) runs the fused GBM kernel
@@ -84,6 +88,7 @@ from .models.binomial import binomial_price
 from .models.black_scholes import bs_greeks, bs_price
 from .models.books import exotic_book_quote
 from .models.heston import HestonParams, heston_price
+from .models.heston_american import heston_american_bracket
 from .models.iv import implied_volatility
 from .models.jump_diffusion import MertonJumpDiffusion
 from .models.levy import NIGParams, VGParams, nig_price, vg_price
@@ -94,7 +99,15 @@ from .models.local_vol import (
     sample_smile_iv_fn,
 )
 from .models.local_vol_american import local_vol_american_bracket
+from .models.rbergomi import (
+    RBergomiParams,
+    rbergomi_autocall_price,
+    rbergomi_cliquet_price,
+    rbergomi_exotic_price,
+)
+from .models.rbergomi_american import rbergomi_american_bracket
 from .models.slv import SLVModel, slv_swap_strikes
+from .models.slv_american import slv_american_bracket
 from .models.var_swap import heston_expected_variance, heston_vol_swap_strike
 from .models.exotics import (
     AsianOption,
@@ -217,26 +230,50 @@ def handle_varswap(body: dict, device) -> dict:
             "vol_strike": _to_jsonable(heston_vol_swap_strike(params, t))}
 
 
-AMERICAN_MODELS = ("bs", "lv")
+AMERICAN_MODELS = ("bs", "heston", "bates", "lv", "slv", "rbergomi")
 
 
 def handle_american(body: dict, device) -> dict:
-    """The certified Bermudan bracket, with the request body and answer keys
-    of the JAX package's ``/american``: ``model`` "bs" the GBM grid engine,
-    "lv" the local-vol bracket on the sample smile; the MC and grid sizes
-    from the body, each capped at 1,000,000."""
+    """The certified Bermudan bracket, with the request body, defaults, caps
+    and answer keys of the JAX package's ``/american``: ``model`` "bs" the
+    GBM grid engine, "heston" the ADI slices' bracket, "bates" the LSM
+    bracket with the European control variate, "lv" and "slv" the smile
+    brackets on the sample smile, "rbergomi" the rough-Bergomi bracket; the
+    MC and grid sizes from the body, each capped at 1,000,000, and n_dates
+    at 50 but for "bs"."""
     model = _check_model({"model": str(body.get("model", "bs")).lower()}, "/american",
                          AMERICAN_MODELS)
     p, cp = _contract(body)
     n_dates = int(body.get("n_dates", 25))
     sizes = {k: min(int(body[k]), 1_000_000)
              for k in ("n_fit", "n_lower", "n_outer", "n_inner", "n_grid") if k in body}
-    if model == "lv":
+    kw = {k: v for k, v in sizes.items() if k != "n_grid"}
+    if model in ("heston", "bates"):
+        if model == "bates":
+            par = BatesParams.make(**body.get("bates_params", {}), device=device)
+            # the ADI grid is diffusion-only: jumps certify by LSM and the dual
+            kw.update(method="lsm", use_cv=True)
+        else:
+            par = HestonParams.make(**body.get("heston_params", {}), device=device)
+            kw.update(method="adi")
+        out = heston_american_bracket(p["spot"], p["strike"], p["maturity"], p["rate"], par,
+                                      cp=cp, n_dates=min(n_dates, 50), device=device, **kw)
+    elif model in ("lv", "slv"):
         dup = DupireLocalVol(sample_smile_iv_fn(base_vol=p["vol"]), p["spot"], p["rate"],
                              device=device)
-        kw = {k: v for k, v in sizes.items() if k in ("n_outer", "n_inner")}
-        out = local_vol_american_bracket(dup, p["strike"], p["maturity"], cp=cp,
-                                         n_dates=min(n_dates, 50), device=device, **kw)
+        if model == "lv":
+            kw = {k: v for k, v in sizes.items() if k in ("n_outer", "n_inner")}
+            out = local_vol_american_bracket(dup, p["strike"], p["maturity"], cp=cp,
+                                             n_dates=min(n_dates, 50), device=device, **kw)
+        else:
+            par = HestonParams.make(**body.get("heston_params", {}), device=device)
+            out = slv_american_bracket(dup, par, p["strike"], p["maturity"], cp=cp,
+                                       mixing=float(body.get("mixing", 1.0)),
+                                       n_dates=min(n_dates, 50), **kw)
+    elif model == "rbergomi":
+        par = RBergomiParams(**body.get("rbergomi_params", {}))
+        out = rbergomi_american_bracket(p["spot"], p["strike"], p["maturity"], p["rate"], par,
+                                        cp=cp, n_dates=min(n_dates, 50), device=device, **kw)
     else:
         out = american_price_interval(p["spot"], p["strike"], p["maturity"], p["rate"],
                                       p["vol"], cp=cp, n_dates=n_dates, method="grid",
@@ -272,7 +309,7 @@ EXOTIC_KINDS = ("asian", "barrier", "lookback", "cliquet", "one-touch", "no-touc
                 "double-barrier", "double-touch", "autocallable")
 
 
-EXOTIC_MODELS = ("bs", "heston", "heston-qe", "bates", "bates-qe", "lv", "slv")
+EXOTIC_MODELS = ("bs", "heston", "heston-qe", "bates", "bates-qe", "lv", "slv", "rbergomi")
 
 
 def _check_model(body: dict, route: str, models) -> str:
@@ -305,6 +342,8 @@ def handle_exotic(body: dict, device) -> dict:
         return _exotic_lv(body, p, cp, device)
     if model == "slv":
         return _exotic_slv(body, p, cp, device)
+    if model == "rbergomi":
+        return _exotic_rbergomi(body, p, cp, device)
     if model != "bs":
         return _exotic_heston(body, p, cp, model, device)
     kind = body.get("kind", "asian")
@@ -495,10 +534,43 @@ def _exotic_heston(body: dict, p: dict, cp: float, model: str, device) -> dict:
             "paths": int(n)}
 
 
+def _exotic_rbergomi(body: dict, p: dict, cp: float, device) -> dict:
+    """``model`` rbergomi: exotics under rough volatility on the exact
+    Volterra law, with the body and answer keys of the JAX package's
+    ``_exotic_rbergomi`` (hurst, eta, rho_sv, xi0; "seed", "n_steps")."""
+    kind = body.get("kind", "asian")
+    n_paths = int(body.get("n_paths", 100_000))
+    n_steps = int(body.get("n_steps", 64))
+    par = RBergomiParams(hurst=float(body.get("hurst", 0.1)), eta=float(body.get("eta", 1.9)),
+                         rho=float(body.get("rho_sv", -0.9)), xi0=float(body.get("xi0", 0.04)))
+    gen = torch.Generator(device=device).manual_seed(int(body.get("seed", 0)))
+    base = {"model": "rbergomi", "dynamics": "rough-bergomi"}
+    if kind in ("autocallable", "cliquet"):
+        if kind == "autocallable":
+            pr, se = rbergomi_autocall_price(p["spot"], p["maturity"], p["rate"], par, gen,
+                                             n_obs=int(body.get("n_obs", 4)), n_paths=n_paths,
+                                             n_steps=n_steps, return_stderr=True)
+        else:
+            pr, se = rbergomi_cliquet_price(p["spot"], p["maturity"], p["rate"], par, gen,
+                                            n_periods=int(body.get("n_periods", 8)),
+                                            n_paths=n_paths, n_steps=n_steps,
+                                            return_stderr=True)
+        return {**base, "kind": kind, "price": _to_jsonable(pr), "std_error": _to_jsonable(se)}
+    kind_map = {"asian": "asian_arith", "lookback": "lookback_float",
+                "barrier": f"barrier_{body.get('barrier_type', 'up-and-out')}"}
+    kname, barrier, band = _smile_kind(body, p, kind, "rbergomi", kind_map)
+    if band is not None:  # the double kinds take (lower, upper)
+        barrier = band
+    pr, se = rbergomi_exotic_price(kname, p["spot"], p["strike"], p["maturity"], p["rate"], par,
+                                   gen, cp, barrier=barrier, n_paths=n_paths, n_steps=n_steps,
+                                   return_stderr=True)
+    return {**base, "kind": kname, "price": _to_jsonable(pr), "std_error": _to_jsonable(se)}
+
+
 def _smile_kind(body: dict, p: dict, kind: str, model: str, kind_map: dict):
-    """(kernel kind name, barrier, band) of a non-structured ``/exotic`` kind
-    of the lv and slv models; the band (lower, upper) of the double kinds and
-    the range accrual, else None."""
+    """(kind name, barrier, band) of a non-structured ``/exotic`` kind of the
+    lv, slv and rbergomi models; the band (lower, upper) of the double kinds
+    and the range accrual (lv only), else None."""
     barrier = float(body.get("barrier", 120.0))
     pay = str(body.get("pay", "expiry"))
     band = (float(body.get("lower", 90.0)), float(body.get("upper", 110.0)))

@@ -752,3 +752,34 @@ def test_local_vol_american_bracket_runs_on_card(cuda_device):
                                      n_inner=256, n_space=101, steps_per_date=4, device="cuda")
     assert all(isinstance(v, (float, int)) for v in out.values())
     assert out["lower"] > 6.3 and out["width"] < 0.05
+
+
+def test_heston_adi_runs_on_card_through_the_tridiagonal_kernel(cuda_device):
+    from optionslab_tpu_torch.models.heston import HestonParams, heston_price
+    from optionslab_tpu_torch.models.heston_fdm import heston_fdm_price
+    from optionslab_tpu_torch.ops import tridiag
+
+    par = HestonParams.make(0.04, 2.0, 0.05, 0.3, -0.7)  # on the CPU: moved to the card
+    before = tridiag._tridiag_cuda.launches
+    pde = heston_fdm_price(100.0, 100.0, 1.0, 0.05, par, n_x=101, n_v=51, n_t=50)
+    assert tridiag._tridiag_cuda.launches == before + 2 * 50  # one launch a sweep
+    assert pde.device.type == "cuda"
+    lw = heston_price(ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, device=cuda_device),
+                      par.to(device=cuda_device))
+    assert abs(pde.item() / lw.item() - 1.0) < 5e-3
+
+
+def test_slice_brackets_run_on_card(cuda_device):
+    from optionslab_tpu_torch.models.heston import HestonParams
+    from optionslab_tpu_torch.models.heston_american import heston_american_bracket
+    from optionslab_tpu_torch.models.rbergomi import RBergomiParams
+    from optionslab_tpu_torch.models.rbergomi_american import rbergomi_american_bracket
+
+    b = heston_american_bracket(100.0, 100.0, 1.0, 0.05, HestonParams.make(), n_dates=8,
+                                method="adi", n_x=101, n_v=51, steps_per_date=4,
+                                n_outer=1024, n_inner=512)
+    assert b["method"] == "adi" and abs(b["adi_bermudan"] - b["lower"]) < 0.05
+    assert b["width"] < 0.02
+    r = rbergomi_american_bracket(100.0, 105.0, 0.5, 0.06, RBergomiParams(), n_dates=6,
+                                  n_fit=16_384, n_lower=32_768, n_outer=256, n_inner=256)
+    assert r["lower"] <= r["upper"] + 3 * (r["lower_se"] + r["upper_se"])

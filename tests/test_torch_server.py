@@ -264,8 +264,8 @@ def test_book_exotic_matches_reference(base_url, greeks):
 
 @pytest.mark.parametrize("path,body,names", [
     ("/exotic", {"kind": "american"}, "autocallable"),
-    ("/exotic", {"kind": "asian", "model": "rbergomi"}, "'bates-qe'"),
-    ("/exotic", {"kind": "barrier", "model": "rbergomi"}, "not yet ported"),
+    ("/exotic", {"kind": "asian", "model": "sabr"}, "'rbergomi'"),
+    ("/exotic", {"kind": "range-accrual", "model": "rbergomi"}, "supports"),
     ("/book/exotic", {"kind": "asian", "model": "slv"}, "'bates'"),
     ("/exotic", {"kind": "no-touch", "pay": "hit"}, "no-touch"),
     ("/exotic", {"kind": "asian", "model": "heston-qe", "greeks": True}, "drop -qe"),
@@ -498,10 +498,74 @@ def test_american_matches_reference(base_url, body):
     assert out["lower"] <= out["upper"] + 3 * out["upper_se"]
 
 
-@pytest.mark.parametrize("model", ["heston", "bates", "slv", "rbergomi"])
-def test_american_unported_models_are_400(base_url, model):
-    status, out = _call(base_url + "/american", {"model": model, "option_type": "put"})
-    assert status == 400 and "not yet ported" in out["error"] and "'lv'" in out["error"]
+# The stochastic-vol brackets against the JAX package's /american handler at
+# small sizes (its defaults otherwise: heston runs the ADI slices at 201 x 101,
+# slv the SLV ADI at 161 x 81 on 131,072 calibration particles): the answer
+# keys equal, each bound within 4 combined stderrs plus 1% of the price (the
+# two draw different paths, and each bracket's own bias differs at 3 dates).
+AMERICAN_BODIES = {
+    "heston": {"n_dates": 3, "n_outer": 256, "n_inner": 64},
+    "bates": {"n_dates": 3, "n_fit": 8_000, "n_lower": 16_000, "n_outer": 128, "n_inner": 64},
+    "slv": {"n_dates": 3, "n_outer": 256, "n_inner": 64, "mixing": 0.5},
+    "rbergomi": {"n_dates": 3, "n_fit": 8_192, "n_lower": 16_384, "n_outer": 128,
+                 "n_inner": 64},
+}
+
+
+@pytest.mark.parametrize("model", sorted(AMERICAN_BODIES))
+def test_american_stochastic_vol_matches_reference(base_url, model):
+    from optionslab_tpu.server import handle_american
+
+    body = {"model": model, "option_type": "put", **AMERICAN_BODIES[model]}
+    status, out = _call(base_url + "/american", body)
+    ref = handle_american(dict(body))
+    assert status == 200 and set(out) == set(ref), out
+    for k in ("n_dates", "pad", "method", "mixing"):
+        if k in ref:
+            assert out[k] == pytest.approx(ref[k]), k
+    for k in ("lower", "upper"):
+        comb = math.hypot(out[f"{k}_se"], ref[f"{k}_se"])
+        assert abs(out[k] - ref[k]) < 4 * comb + 0.01 * ref[k], (k, out, ref)
+    assert out["lower"] <= out["upper"] + 3 * (out["upper_se"] + out["lower_se"])
+
+
+@pytest.mark.parametrize("body", [
+    {"model": "vg", "option_type": "put"},
+    {"model": "heston", "option_type": "call", "n_dates": 2},
+])
+def test_american_bad_requests_are_400(base_url, body):
+    """An unknown model names the six served; a call bracket is refused."""
+    status, out = _call(base_url + "/american", body)
+    assert status == 400
+    if body["model"] == "vg":
+        assert all(f"'{m}'" in out["error"] for m in ("bs", "heston", "bates", "lv", "slv",
+                                                        "rbergomi"))
+
+
+# /exotic rbergomi against the JAX package's handler: different generators,
+# so each price within 5 combined stderrs plus 1%.
+RBERGOMI_BODIES = {
+    "asian": {"kind": "asian"},
+    "barrier": {"kind": "barrier", "barrier_type": "down-and-in", "barrier": 90.0},
+    "touch_hit": {"kind": "one-touch", "pay": "hit", "barrier": 110.0},
+    "double_touch": {"kind": "double-touch", "touch": "no", "lower": 85.0, "upper": 120.0},
+    "cliquet": {"kind": "cliquet", "n_periods": 4},
+    "autocallable": {"kind": "autocallable"},
+}
+
+
+@pytest.mark.parametrize("case", sorted(RBERGOMI_BODIES))
+def test_exotic_rbergomi_matches_reference(base_url, case):
+    from optionslab_tpu.server import handle_exotic
+
+    body = {"model": "rbergomi", "n_paths": 8_192, "n_steps": 8, "seed": 3,
+            **RBERGOMI_BODIES[case]}
+    status, out = _call(base_url + "/exotic", body)
+    ref = handle_exotic(dict(body))
+    assert status == 200 and set(out) == set(ref), out
+    assert out["kind"] == ref["kind"] and out["dynamics"] == "rough-bergomi"
+    tol = 5 * math.hypot(out["std_error"], ref["std_error"]) + 0.01 * abs(ref["price"])
+    assert abs(out["price"] - ref["price"]) < tol, (out, ref)
 
 
 def test_port_package_never_imports_jax():
