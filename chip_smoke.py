@@ -95,7 +95,8 @@ is printed):
               CRR/Leisen–Reimer lattice (1024 contracts x 512 steps,
               European and American; the Greeks of 64), the Crank–Nicolson
               PDE (256 contracts at 201 x 200, European and Howard
-              American), implied vol (1024 round trips), Merton/Kou and
+              American, one θ-scheme launch a call, and one gradient),
+              implied vol (1024 round trips), Merton/Kou and
               VG/NIG (1,048,576 paths against the series, parity and the
               Lewis prices), SABR calibration, the variance-swap closed forms
               against the CIR Monte Carlo, the bridge-QMC geometric Asian,
@@ -115,9 +116,8 @@ is printed):
               ``torch.linalg.solve`` on the dense matrix and beside the
               bound, the larger of the bytes and the dependent chain timed
               by the chain probe (run before the pricers; every PDE of the
-              pricers and of the slice then solves through it, one launch a
-              solve: 200 and Howard's 1,600 for ``fdm_price``, 400 for one
-              ADI price);
+              pricers and of the slice that steps on the host then solves
+              through it, one launch a solve: 400 for one ADI price);
 16. slice   — the Heston ADI (201 x 101 x 200) against Lewis, the
               frozen-variance 1-D PDE and autograd of Lewis (the Greek
               ladder); the ADI-slice American bracket at 50 dates holding its
@@ -130,11 +130,20 @@ is printed):
               the GBM certificate; each call's warm wall and CUDA kernel
               count, none of the eleven Monte Carlo kernels launched; then
               ``/american`` heston|bates|slv|rbergomi and ``/exotic``
-              rbergomi over a socket.
+              rbergomi over a socket;
+17. theta   — the θ-scheme time-loop kernel (``csrc/theta_pde.cu``) against
+              the plain loop of ``fdm_price`` on the card at its defaults
+              (256 contracts x 201 nodes x 200 steps): European, projection
+              and Howard, θ = 0.5 and 1, float32 and float64, bitwise, one
+              launch; the gradient of its ``autograd.Function`` against
+              autograd through the plain loop; device ms beside the bound,
+              the longest chain of solves that ran (run before the pricers,
+              after the tridiagonal phase; ``fdm_price`` then prices through
+              it, one launch a call and no tridiagonal launch).
 
 The last three lines are a JSON object of kernel measurements (the eleven
-ported Pallas kernels and the tridiagonal kernel), the card's name and power
-limit, and ``{"ok": true, "device": {...}}``. Imports
+ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
+card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
 
@@ -168,6 +177,7 @@ from optionslab_tpu_torch.ops import heston_kernel as hk
 from optionslab_tpu_torch.ops import local_vol_kernel as lk
 from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 from optionslab_tpu_torch.ops import slv_kernel as sk
+from optionslab_tpu_torch.ops import theta_pde as tp
 from optionslab_tpu_torch.ops import tridiag as tri
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
@@ -2818,23 +2828,29 @@ def phase_pricers(dev, card: str) -> dict:
     log("pricers", "binomial_greeks vs bs_greeks, max abs: "
                    + ", ".join(f"{key} {val:.2e}" for key, val in worst.items()))
 
-    # the PDE: 256 contracts at 201 x 200, European, and American (Howard)
+    # the PDE: 256 contracts at 201 x 200, European, and American (Howard);
+    # the whole time loop is one launch of the θ-scheme kernel
     fbook = pricer_book(PR_FDM_BOOK, dev, seed=11)
     f_bs = bs_price(fbook.spot, fbook.strike, fbook.maturity, fbook.rate, fbook.vol, fbook.cp,
                     fbook.dividend)
-    f_eu = record("fdm_price european 256x201x200", lambda: fdm.fdm_price(fbook),
-                  lambda: linear_kernels(lambda n: fdm.fdm_price(fbook, n_time=n), 200),
-                  warm=lambda: fdm.fdm_price(fbook, n_time=2))
+    f_eu = record("fdm_price european 256x201x200", lambda: fdm.fdm_price(fbook), iters=3)
     f_am = record("fdm_price american 256x201x200",
-                  lambda: fdm.fdm_price(fbook, american=True),
-                  lambda: linear_kernels(lambda n: fdm.fdm_price(fbook, n_time=n,
-                                                                 american=True), 200),
-                  warm=lambda: fdm.fdm_price(fbook, n_time=2, american=True))
-    # one solve a step, Howard's eight a step: one launch each
-    for american, per_step in ((False, 1), (True, 8)):
-        got = tri_solves(lambda a=american: fdm.fdm_price(fbook, american=a))
-        check(got == per_step * 200, f"fdm_price american={american}: {got} tridiag launches, "
-                                     f"not {per_step * 200}")
+                  lambda: fdm.fdm_price(fbook, american=True), iters=3)
+    for american in (False, True):
+        got = loop_launches(lambda a=american: fdm.fdm_price(fbook, american=a))
+        check(got == (1, 0), f"fdm_price american={american}: {got} (θ-scheme, tridiag) "
+                             f"launches, not (1, 0)")
+    # one gradient: the backward runs the plain loop on the card under
+    # autograd, one tridiagonal launch a solve each way
+    def fdm_grad(n_time=200):
+        leaves = [getattr(fbook, f).detach().requires_grad_(True) for f in FDM_FIELDS[:6]]
+        price = fdm.fdm_price(ContractBatch(*leaves, fbook.cp), n_time=n_time)
+        return torch.autograd.grad(price.sum(), leaves)
+
+    grads = record("fdm_price european gradient 256x201x200", fdm_grad,
+                   lambda: linear_kernels(fdm_grad, 200), warm=lambda: fdm_grad(2))
+    check(all(bool(torch.isfinite(g).all()) for g in grads), "fdm_price gradient not finite")
+    check(bool(((grads[0] * fbook.cp) > 0).all()), "fdm_price delta has the wrong sign")
     crr_am = bn.binomial_price(fbook, american=True, n_steps=2048)
     on_card(f_eu, f_am, crr_am)
     e_eu, e_am = (f_eu - f_bs).abs().max().item(), (f_am - crr_am).abs().max().item()
@@ -3162,7 +3178,14 @@ def tri_solves(fn) -> int:
     return tri._tridiag_cuda.launches - before
 
 
-def phase_tridiag(dev, card: str) -> tuple[float, dict]:
+def loop_launches(fn) -> tuple[int, int]:
+    """(θ-scheme, tridiagonal) kernel launches in one call of ``fn``."""
+    before = tp._theta_cuda.launches
+    solves = tri_solves(fn)
+    return tp._theta_cuda.launches - before, solves
+
+
+def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
     """The tridiagonal kernel against its plain version at the slice's
     shapes, float32 and float64: bitwise equal, one launch a solve; its
     adjoint against autograd through the plain loop; device ms of kernel
@@ -3170,7 +3193,7 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict]:
     calls, the host's issue left out) beside the bound and beside
     ``torch.linalg.solve`` on the dense matrix (built outside the timed
     region; the library call that computes the same x). Returns (largest
-    absolute difference, {shape tag: timing})."""
+    absolute difference, {shape tag: timing}, {dtype: chain ms a node})."""
     worst, timing = 0.0, {}
     clock = sm_clock_hz()
     node_ms = {}
@@ -3220,6 +3243,101 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict]:
     check(rel < TRI_ADJOINT_RTOL, f"tridiag adjoint off autograd of the loop by {rel:.2e}")
     log("tridiag", f"adjoint (101x201 float64): one launch forward, one back; max relative "
                    f"difference to autograd of the plain loop {rel:.2e} (< {TRI_ADJOINT_RTOL})")
+    return worst, timing, node_ms
+
+
+# the θ-scheme kernel (csrc/theta_pde.cu) at fdm_price's defaults on
+# phase_pricers' book: contracts, nodes, steps
+THETA_SHAPE = (PR_FDM_BOOK, 201, 200)
+THETA_MODES = {"european": tp.EUROPEAN, "projection": tp.PROJECTION, "howard": tp.HOWARD}
+THETA_GRAD_RTOL = 1e-10  # float64: the Function's gradient against autograd of the loop
+FDM_FIELDS = ("spot", "strike", "maturity", "rate", "vol", "dividend", "cp")
+
+
+def theta_bound(ops, dtype, node_ms: float, solves: torch.Tensor) -> tuple[float, str, float]:
+    """(bound ms, what binds, chain ms) of one θ-scheme launch: each input
+    read once and the values written once at the card's memory rate; the
+    float operations of the solves that ran (8 a node), the explicit step
+    (7 a node a step) and Howard's residuals (7 a node, at least one solve a
+    step without one) at the card's peak rate for the dtype; and the longest
+    dependent chain, the most solves a CUDA block ran × n nodes ×
+    ``node_ms`` (the contracts run side by side)."""
+    size = torch.finfo(dtype).bits // 8
+    batch, n = ops[-2].shape
+    n_time = ops[-1].shape[1]
+    nbytes = (sum(o.numel() for o in ops) + batch * n) * size
+    systems = tri.plan_systems(batch, tri.sm_count(ops[-2].device.index),
+                               lambda k: tp.tile_bytes(n, k, size))
+    rows = torch.full_like(solves, systems)
+    rows[-1] = batch - systems * (solves.numel() - 1)
+    contract_solves = int((solves * rows).sum().item())
+    flops = 8.0 * n * contract_solves + 7.0 * n * (contract_solves - batch * n_time)
+    flops += 7.0 * n * batch * n_time
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS) * 1e3
+    chain = int(solves.max().item()) * n * node_ms
+    bound = max(t_bytes, t_ops, chain)
+    return bound, "bytes" if t_bytes >= bound else "operations", chain
+
+
+def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
+    """The θ-scheme kernel against the plain loop of ``fdm._cn_book`` on the
+    card at fdm_price's defaults: European, projection and Howard, θ = 0.5
+    and 1, float32 and float64, bitwise, one launch; the Function's gradient
+    against autograd through the plain loop (European and Howard, float64);
+    device ms of kernel and plain loop by CUDA events beside the bound, the
+    longest chain of solves that ran (``node_ms`` from the chain probe).
+    Returns (largest absolute difference, {tag: timing})."""
+    from optionslab_tpu_torch.models import fdm
+
+    book = pricer_book(THETA_SHAPE[0], dev, seed=11)
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        args = [getattr(book, f).to(dtype) for f in FDM_FIELDS]
+        for theta in (0.5, 1.0):
+            for name, mode in THETA_MODES.items():
+                _, ops = fdm._cn_operands(*args, *THETA_SHAPE[1:], theta, mode != tp.EUROPEAN)
+                before = tp._theta_cuda.launches
+                kern, solves = tp._theta_cuda(*ops, mode, count_solves=True)
+                check(tp._theta_cuda.launches == before + 1, "θ-scheme: not one launch")
+                plain = tp._theta_plain(*ops, mode)
+                torch.cuda.synchronize()
+                diff = (kern - plain).abs().max().item()
+                worst = max(worst, diff)
+                tag = f"{name} θ={theta} {str(dtype)[6:]}"
+                check(torch.equal(kern, plain), f"θ-scheme {tag}: kernel differs from the plain "
+                                                f"loop by {diff:.3e}")
+                if theta != 0.5:
+                    continue
+                ms = event_time(lambda: tp._theta_cuda(*ops, mode), 3)
+                plain_ms = event_time(lambda: tp._theta_plain(*ops, mode), 1)
+                bound, by, chain = theta_bound(ops, dtype, node_ms[dtype], solves)
+                timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                               "bound_by": by, "chain_ms": chain,
+                               "max_solves": int(solves.max().item())}
+                log("theta", f"{tag} {'x'.join(map(str, THETA_SHAPE))}: bitwise equal; device "
+                             f"ms by CUDA events [{card}]: kernel {ms:.4f}, plain loop "
+                             f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the longest chain "
+                             f"{int(solves.max().item())} solves of {THETA_SHAPE[1]} nodes "
+                             f"{chain:.4f}; mean solves a contract "
+                             f"{solves.float().mean().item():.1f})")
+    log("theta", "every mode, θ and dtype bitwise equal to the plain loop")
+    names = FDM_FIELDS[:6]
+    for american in (False, True):
+        grads = []
+        for loop in (tp.theta_loop, tp._theta_plain):
+            leaves = [getattr(book, f).double().requires_grad_(True) for f in names]
+            x, ops = fdm._cn_operands(*leaves, book.cp.double(), *THETA_SHAPE[1:], 0.5,
+                                      american)
+            mode = tp.HOWARD if american else tp.EUROPEAN
+            price = fdm._read_price(loop(*ops, mode), x, leaves[0])
+            grads.append(torch.autograd.grad(price.sum(), leaves))
+        rel = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+                  for g, w in zip(*grads))
+        check(rel < THETA_GRAD_RTOL, f"θ-scheme gradient (american={american}) off autograd "
+                                     f"of the plain loop by {rel:.2e}")
+        log("theta", f"gradient in S, K, T, r, σ, q (american={american}, float64): max "
+                     f"relative difference to autograd of the plain loop {rel:.2e}")
     return worst, timing
 
 
@@ -3534,7 +3652,8 @@ def main() -> None:
     hx_err = phase_hx_parity(dev)
     lv_err, slv_err = phase_smile_parity(dev)
     ma_err = phase_ma_parity(dev)
-    tri_err, tri_t = phase_tridiag(dev, card)
+    tri_err, tri_t, node_ms = phase_tridiag(dev, card)
+    theta_err, theta_t = phase_theta(dev, card, node_ms)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -3647,6 +3766,7 @@ def main() -> None:
     # the PDE path: every solve of the pricers and of the slice is one launch
     # of the tridiagonal kernel
     tri._tridiag_cuda.launches = 0
+    tp._theta_cuda.launches = 0
     phase_pricers(dev, card)
     phase_pricers_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
@@ -3658,6 +3778,9 @@ def main() -> None:
     tri_launches = tri._tridiag_cuda.launches
     log("launches", f"tridiag launched {tri_launches} times over the pricers and the slice")
     check(tri_launches > 0, "the PDE path never launched the tridiagonal kernel")
+    theta_launches = tp._theta_cuda.launches
+    log("launches", f"theta_pde launched {theta_launches} times over the pricers and the slice")
+    check(theta_launches > 0, "the PDE path never launched the θ-scheme kernel")
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):
@@ -3706,6 +3829,10 @@ def main() -> None:
                  tri_err, tri_t["101x201 float32"]),
          "library_ms": tri_t["101x201 float32"]["library_ms"],
          "chain_ms": tri_t["101x201 float32"]["chain_ms"]},
+        {**entry("theta_pde_kernel", "theta_pde.cu",
+                 "optionslab_tpu/models/fdm.py:162 (lax.scan) and :101 (fori_loop), no Pallas "
+                 "kernel", theta_launches, theta_err, theta_t["howard θ=0.5 float32"]),
+         "chain_ms": theta_t["howard θ=0.5 float32"]["chain_ms"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -48,15 +48,20 @@ Subpackages
 from .models import (
     BatesParams,
     BatesPricer,
+    BinomialTree,
     BlackScholesPricer,
+    CrankNicolsonSolver,
     DupireLocalVol,
+    KouJumpDiffusion,
     LocalVolSurface,
     MCConfig,
     MCMethod,
     HestonParams,
     HestonPricer,
     MCResult,
+    MertonJumpDiffusion,
     MonteCarloPricer,
+    SABRModel,
     SLVModel,
     bs_greeks,
     bs_greeks_ad,
@@ -67,6 +72,7 @@ from .models import (
     calibrate_heston,
     calibrate_heston_mc,
     heston_price,
+    implied_volatility,
     mc_greeks,
     mc_price,
     mc_price_control_variate,
@@ -100,18 +106,23 @@ from .utils import ValidationError
 __all__ = [
     "BatesParams",
     "BatesPricer",
+    "BinomialTree",
     "BlackScholesPricer",
+    "CrankNicolsonSolver",
     "ContractBatch",
     "DupireLocalVol",
     "LocalVolKernelPricer",
     "LocalVolSurface",
     "HestonParams",
     "HestonPricer",
+    "KouJumpDiffusion",
     "MCConfig",
     "MCMethod",
     "MCResult",
+    "MertonJumpDiffusion",
     "MonteCarloPricer",
     "PricingServer",
+    "SABRModel",
     "SLVKernelPricer",
     "SLVModel",
     "ValidationError",
@@ -138,6 +149,7 @@ __all__ = [
     "heston_kernel_greeks",
     "heston_kernel_price",
     "heston_price",
+    "implied_volatility",
     "make_chain_pricer",
     "multi_asset_kernel_greeks",
     "multi_asset_kernel_price",

@@ -1,58 +1,54 @@
-// Batched tridiagonal solve (the Thomas algorithm), one thread per system.
+// Batched tridiagonal solve (the Thomas algorithm), each system staged in
+// shared memory.
 //
 // Replaces optionslab_tpu/ops/tridiag.py:15 tridiag_solve, a lax.scan that
 // XLA compiles into one loop on the device (no Pallas kernel). Every PDE of
-// the port runs on it: the Crank–Nicolson book, the Howard American sweeps,
-// the local-vol PDEs, the Heston and SLV ADI sweeps and the dividend PDE.
+// the port that steps on the host runs on it: the Howard sweeps of the
+// dividend PDE, the local-vol PDEs, the Heston and SLV ADI sweeps, and the
+// reverse pass of the θ-scheme time loop (theta_pde.cu solves through the
+// same functions, tridiag.cuh).
 //
-// What bounds it. A system of n unknowns is a 2n-long chain of dependent
-// steps (forward elimination, then back substitution); the batch is at most
-// a few hundred systems, far too few threads to fill the card, and the
-// bytes (each input read once, the solution written once) are a few hundred
-// kilobytes. So the kernel is bound by the latency of its chain, and its
-// design only makes each step cheap: one thread walks one system, loading
-// the operands of kChunk steps together before it computes them (one
-// memory latency a chunk, not a step: the chain would otherwise wait on
-// every load); the scratch c' and d' (allocated by the wrapper) is laid out
-// [step][system] so a warp's stores coalesce, and is read back in chunks
-// the same way; each input is read through its own batch and element
-// strides, so a broadcast coefficient (stride 0) or the ADI v-sweep's
-// transposed right-hand side needs no copy.
-//
-// Arithmetic. Each product, difference and quotient is rounded on its own
-// (the __*_rn intrinsics are never contracted into an FMA), in the plain
-// torch version's order, with its pivot guard: a pivot below 1e-30 in
-// magnitude becomes sign·1e-30 + 1e-30. So the kernel equals the plain
-// version bit for bit, in float32 and in float64.
+// What bounds it. A system of n unknowns is a chain of n dependent pivots
+// (den_j = b_j − a_j·c'_{j−1}, c'_j = c_j / den_j, each precise quotient a
+// multi-instruction sequence) and then n back-substitution nodes; the
+// right-hand side's quotients d'_j form a second chain of the same length
+// that can run beside the first. The chain probe below times a pivot and a
+// back node at ≈85 cycles in float32 (≈165 in float64). The bytes (each
+// input read once, the solution written once) are a few hundred kilobytes,
+// ≈100× less time. So the least time is one system's chain, and the design
+// keeps everything else off it:
+// - one warp per CUDA block owns a tile of `systems` systems (a power of
+//   two up to 16, picked by the wrapper so that a batch of ~100–256 systems
+//   spreads over as many SMs); lane s runs system s's pivots and lane
+//   s + 16 its right-hand side a node behind (tri::forward_split), so a
+//   node's two quotients, one after the other in the plain loop, overlap;
+// - the warp stages node-chunks of all four operands into shared memory by
+//   cp.async copies of 4 or 8 bytes, neighbouring lanes on neighbouring
+//   addresses along whichever axis of the operand has stride 1 (TMA does
+//   not fit: a 2-D tensor map needs global strides that are multiples of
+//   16 bytes, and a 201-node float32 row is 804); kStages chunks are in
+//   flight (commit_group / wait_group) while the chain runs on an earlier
+//   one;
+// - an operand with batch stride 0 (the ADI column sweep's shared
+//   coefficient row) is staged once per block, not once per system; each
+//   operand is read through its own strides, so a transposed right-hand
+//   side needs no copy;
+// - c' and d' stay in shared memory (over the staged upper diagonal and
+//   right-hand side where those are per-system), so the back substitution
+//   reads no global memory, and the solution goes out through shared
+//   memory in coalesced stores;
+// - the chain takes no branch but the quotient's own: the ends of a system
+//   fall on padding rows, the pivot's guard is taken only where a warp vote
+//   finds a pivot below 1e-30, and a zero numerator skips the quotient's
+//   slow path (tri::quotient).
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "tridiag.cuh"
+
 namespace optionslab {
 namespace {
-
-template <typename T>
-struct Arith;
-
-template <>
-struct Arith<float> {
-  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-  static __device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
-  static __device__ __forceinline__ float mag(float a) { return fabsf(a); }
-  static constexpr float kTiny = 1e-30f;
-};
-
-template <>
-struct Arith<double> {
-  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-  static __device__ __forceinline__ double quo(double a, double b) { return __ddiv_rn(a, b); }
-  static __device__ __forceinline__ double mag(double a) { return fabs(a); }
-  static constexpr double kTiny = 1e-30;
-};
 
 // An operand: base pointer and its strides, in elements, along the batch
 // axis and the system axis.
@@ -62,140 +58,222 @@ struct Operand {
   int64_t se;
 };
 
-// One node of the forward elimination: the pivot with its guard, then c'
-// and d'. The solve and the chain probe below share it.
+constexpr int kWarp = 32;
+// Nodes per staged chunk, and the chunks in flight ahead of the chain.
+constexpr int kChunk = 32;
+constexpr int kStages = 2;
+
 template <typename T>
-__device__ __forceinline__ void forward_node(T a, T b, T c, T d, T& c_prev, T& d_prev) {
-  using A = Arith<T>;
-  T den = A::sub(b, A::mul(a, c_prev));
-  if (A::mag(den) < A::kTiny) {
-    const T sign = den > T(0) ? T(1) : (den < T(0) ? T(-1) : T(0));
-    den = A::add(A::mul(sign, A::kTiny), A::kTiny);
-  }
-  c_prev = A::quo(c, den);
-  d_prev = A::quo(A::sub(d, A::mul(a, d_prev)), den);
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(saddr), "l"(src),
+               "n"(sizeof(T))
+               : "memory");
 }
 
-// One node of the back substitution.
-template <typename T>
-__device__ __forceinline__ T back_node(T c, T d, T x_next) {
-  return Arith<T>::sub(d, Arith<T>::mul(c, x_next));
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-constexpr int kThreads = 128;
-// Steps whose operands are loaded together before any of them is computed:
-// one memory latency is paid per chunk, not per step.
-constexpr int kChunk = 8;
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The shared-memory tile of one block: a plane per operand, node-major
+// (node j of system s at [j * pitch + s], a broadcast operand's one row at
+// [j]), each with tri::kPad rows of padding at both ends, then c' and d'
+// where they cannot take the upper diagonal's and the right-hand side's
+// planes, then the dump slots (tri::kDumpBytes). Host and device carve it
+// alike.
+struct Tile {
+  int pitch;         // systems | 1: an odd pitch, so a node-major copy has no bank conflict
+  int64_t node0[6];  // element offsets of node 0: lower, diag, upper, rhs, c', d'
+  int step[4];       // row pitch of each operand (1 for a broadcast row)
+  int64_t elements;  // the planes, before the dump slots
+
+  __host__ __device__ Tile(const Operand* ops, int n, int systems) {
+    pitch = systems | 1;
+    const int64_t rows = n + 2 * tri::kPad;
+    int64_t at = 0;
+    for (int o = 0; o < 4; ++o) {
+      step[o] = ops[o].sb == 0 ? 1 : pitch;
+      node0[o] = at + tri::kPad * step[o];
+      at += rows * step[o];
+    }
+    for (int o = 4; o < 6; ++o) {
+      if (step[o - 2] == pitch) {
+        node0[o] = node0[o - 2];
+      } else {
+        node0[o] = at + tri::kPad * pitch;
+        at += rows * pitch;
+      }
+    }
+    elements = at;
+  }
+};
+
+// Copies nodes [j0, j0 + len) (len ≤ kChunk = the warp's width) of `rows`
+// systems from global memory (system s at g + s·sb + j·se) into the tile
+// (at t + j·step + s), neighbouring lanes on neighbouring global addresses:
+// a lane a node, system after system, or a lane a system, node after node,
+// where the batch axis is the one of stride 1.
+template <typename T>
+__device__ __forceinline__ void stage(const T* g, int64_t sb, int64_t se, T* t, int step,
+                                      int rows, int j0, int len, int lane) {
+  if (se != 1 && sb == 1) {
+    if (lane < rows) {
+      for (int j = j0; j < j0 + len; ++j) cp_async(t + j * step + lane, g + lane + j * se);
+    }
+  } else if (lane < len) {
+    const int j = j0 + lane;
+    for (int s = 0; s < rows; ++s) cp_async(t + j * step + s, g + s * sb + j * se);
+  }
+}
 
 template <typename T>
-__global__ void tridiag_kernel(Operand lo, Operand di, Operand up, Operand rhs,
-                               T* __restrict__ x, int64_t xsb, int64_t xse,
-                               T* __restrict__ cs, T* __restrict__ ds, int batch, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  const T* __restrict__ lo_p = static_cast<const T*>(lo.ptr) + b * lo.sb;
-  const T* __restrict__ di_p = static_cast<const T*>(di.ptr) + b * di.sb;
-  const T* __restrict__ up_p = static_cast<const T*>(up.ptr) + b * up.sb;
-  const T* __restrict__ rhs_p = static_cast<const T*>(rhs.ptr) + b * rhs.sb;
-  T c_prev = T(0);
-  T d_prev = T(0);
-  for (int i0 = 0; i0 < n; i0 += kChunk) {
-    T ra[kChunk], rb[kChunk], rc[kChunk], rd[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int i = i0 + j;
-      if (i < n) {
-        ra[j] = __ldg(lo_p + i * lo.se);
-        rb[j] = __ldg(di_p + i * di.se);
-        rc[j] = __ldg(up_p + i * up.se);
-        rd[j] = __ldg(rhs_p + i * rhs.se);
+__global__ void __launch_bounds__(kWarp) tridiag_kernel(Operand lo, Operand di, Operand up,
+                                                        Operand rhs, T* __restrict__ x,
+                                                        int64_t xsb, int64_t xse, int batch,
+                                                        int n, int systems) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const Operand ops[4] = {lo, di, up, rhs};
+  const Tile tile(ops, n, systems);
+  const int lane = threadIdx.x;
+  const int b0 = blockIdx.x * systems;
+  const int rows = min(systems, batch - b0);
+  const T* base[4];
+  for (int o = 0; o < 4; ++o) {
+    base[o] = static_cast<const T*>(ops[o].ptr) + b0 * ops[o].sb;
+  }
+
+  const int n_chunks = (n + kChunk - 1) / kChunk;
+  auto stage_chunk = [&](int k) {
+    if (k < n_chunks) {
+      const int j0 = k * kChunk;
+      const int len = min(kChunk, n - j0);
+      for (int o = 0; o < 4; ++o) {
+        stage(base[o], ops[o].sb, ops[o].se, smem + tile.node0[o], tile.step[o],
+              ops[o].sb == 0 ? 1 : rows, j0, len, lane);
       }
     }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int i = i0 + j;
-      if (i < n) {
-        forward_node(ra[j], rb[j], rc[j], rd[j], c_prev, d_prev);
-        const int64_t at = static_cast<int64_t>(i) * batch + b;
-        cs[at] = c_prev;
-        ds[at] = d_prev;
-      }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+  for (int k = 0; k < kStages; ++k) stage_chunk(k);
+  for (int o = 0; o < 4; ++o) {  // the padding, seen after the first wait's __syncwarp
+    T* node0 = smem + tile.node0[o];
+    const int width = tri::kPad * tile.step[o];
+    for (int e = lane; e < width; e += kWarp) {
+      node0[e - width] = tri::pad_value<T>(o, false);
+      node0[n * tile.step[o] + e] = tri::pad_value<T>(o, true);
     }
   }
-  T* __restrict__ x_p = x + b * xsb;
-  T x_next = T(0);
-  for (int i1 = n - 1; i1 >= 0; i1 -= kChunk) {
-    T rc[kChunk], rd[kChunk];
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int i = i1 - j;
-      if (i >= 0) {
-        const int64_t at = static_cast<int64_t>(i) * batch + b;
-        rc[j] = cs[at];
-        rd[j] = ds[at];
-      }
+
+  // this lane's system (pivot lanes and partners); a lane without one reads
+  // system 0's column and writes to its dump slot
+  const bool live = lane % tri::kPair < rows;
+  const int sys = live ? lane % tri::kPair : 0;
+  tri::Row<T> row;
+  for (int o = 0; o < 4; ++o) {
+    row.col[o] = tri::col<T>(smem + tile.node0[o], tile.step[o] == 1 ? 0 : sys, tile.step[o]);
+  }
+  const tri::Col<T> cs = tri::col<T>(smem + tile.node0[4], sys, tile.pitch);
+  const tri::Col<T> ds = tri::col<T>(smem + tile.node0[5], sys, tile.pitch);
+  const tri::Col<T> quotients =
+      live ? (lane < tri::kPair ? cs : ds) : tri::dump_col<T>(smem + tile.elements);
+  T x_last = T(0);
+  T den = T(1);
+  for (int k = 0; k < n_chunks; ++k) {
+    stage_chunk(k + kStages);
+    cp_async_wait<kStages>();  // chunk k has landed (this lane's copies)
+    __syncwarp();              // and every lane's
+    // the partners' last node a step after the pivots'
+    const int j1 = k + 1 == n_chunks ? n + 1 : (k + 1) * kChunk;
+    tri::forward_split(k * kChunk, j1, row, quotients, x_last, den);
+  }
+  __syncwarp();
+  if (lane < tri::kPair && live) tri::back_sweep(n, cs, ds, ds);  // the solution over d'
+  __syncwarp();
+
+  const T* xs = smem + tile.node0[5];
+  T* x0 = x + b0 * xsb;
+  if (xse != 1 && xsb == 1) {
+    if (lane < rows) {
+      for (int j = 0; j < n; ++j) x0[lane + j * xse] = xs[j * tile.pitch + lane];
     }
-#pragma unroll
-    for (int j = 0; j < kChunk; ++j) {
-      const int i = i1 - j;
-      if (i >= 0) {
-        x_next = back_node(rc[j], rd[j], x_next);
-        x_p[i * xse] = x_next;
-      }
+  } else {
+    for (int s = 0; s < rows; ++s) {
+      for (int j = lane; j < n; j += kWarp) x0[s * xsb + j * xse] = xs[j * tile.pitch + s];
     }
   }
 }
 
 // The dependent chain alone, for the solve's latency bound: one thread runs
-// n_nodes forward and n_nodes back nodes of the solve's own arithmetic on
-// operands held in registers, with no memory access inside either loop. Its
-// time over n_nodes is what one node of a system's chain costs on the card
-// however fast the memory is (each precise quotient is a multi-instruction
-// sequence, so a flat count per operation would undercount it).
+// n_nodes pivots (den_j = b − a·c'_{j−1}, c'_j = c / den_j, the guard only
+// where a pivot needs it, as in forward_split) and n_nodes back nodes of the
+// solve's own arithmetic on operands held in registers, with no memory
+// access inside either loop. The right-hand side's quotients form a chain
+// of the same length beside the pivots' (forward_split runs the two at
+// once), so its time over n_nodes is the least a node of one system can
+// cost on the card however fast the memory is (each precise quotient is a
+// multi-instruction sequence, so a flat count per operation would
+// undercount it).
 template <typename T>
 __global__ void tridiag_chain_kernel(const T* __restrict__ abcd, T* __restrict__ out,
                                      int n_nodes) {
+  using A = tri::Arith<T>;
   const T a = abcd[0], b = abcd[1], c = abcd[2], d = abcd[3];
   T c_prev = T(0);
-  T d_prev = T(0);
-  for (int i = 0; i < n_nodes; ++i) forward_node(a, b, c, d, c_prev, d_prev);
+  for (int i = 0; i < n_nodes; ++i) {
+    const T den = A::sub(b, A::mul(a, c_prev));
+    c_prev = A::quo(c, den);
+    if (A::mag(den) < A::kTiny) c_prev = A::quo(c, tri::guard_pivot(den));
+  }
   T x = T(0);
-  for (int i = 0; i < n_nodes; ++i) x = back_node(c_prev, d_prev, x);
+  for (int i = 0; i < n_nodes; ++i) x = tri::back_node(c_prev, d, x);
   out[0] = x;
+}
+
+template <typename T>
+cudaError_t launch_solve(const Operand* ops, void* x, const int64_t* strides, int batch, int n,
+                         int systems, cudaStream_t st) {
+  const Tile tile(ops, n, systems);
+  const int64_t bytes = tile.elements * static_cast<int64_t>(sizeof(T)) + tri::kDumpBytes;
+  if (bytes > tri::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err = tri::allow_smem(tridiag_kernel<T>, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + systems - 1) / systems;
+  tridiag_kernel<T><<<blocks, kWarp, static_cast<size_t>(bytes), st>>>(
+      ops[0], ops[1], ops[2], ops[3], static_cast<T*>(x), strides[8], strides[9], batch, n,
+      systems);
+  return cudaGetLastError();
 }
 
 }  // namespace
 }  // namespace optionslab
 
 // dtype: 0 float32, 1 float64. strides: 10 int64 values, (batch, element)
-// for lower, diag, upper, rhs and the solution x. cs/ds: scratch of batch·n
-// elements each. Returns a cudaError_t code (0 on success).
+// for lower, diag, upper, rhs and the solution x. systems: systems per CUDA
+// block, 1 to 16 (the wrapper's plan; the tile must fit in 227 KB of
+// shared memory). Returns a cudaError_t code (0 on success).
 extern "C" int tridiag_solve_launch(const void* lo, const void* di, const void* up,
-                                    const void* rhs, void* x, const int64_t* strides,
-                                    void* cs, void* ds, int batch, int n, int dtype,
-                                    int device, void* stream) {
+                                    const void* rhs, void* x, const int64_t* strides, int batch,
+                                    int n, int systems, int dtype, int device, void* stream) {
   using namespace optionslab;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (batch < 1 || n < 1 || (dtype != 0 && dtype != 1)) {
+  if (batch < 1 || n < 1 || systems < 1 || systems > tri::kPair || (dtype != 0 && dtype != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Operand o_lo{lo, strides[0], strides[1]};
-  const Operand o_di{di, strides[2], strides[3]};
-  const Operand o_up{up, strides[4], strides[5]};
-  const Operand o_rhs{rhs, strides[6], strides[7]};
-  const int blocks = (batch + kThreads - 1) / kThreads;
+  const Operand ops[4] = {{lo, strides[0], strides[1]},
+                          {di, strides[2], strides[3]},
+                          {up, strides[4], strides[5]},
+                          {rhs, strides[6], strides[7]}};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    tridiag_kernel<float><<<blocks, kThreads, 0, st>>>(
-        o_lo, o_di, o_up, o_rhs, static_cast<float*>(x), strides[8], strides[9],
-        static_cast<float*>(cs), static_cast<float*>(ds), batch, n);
-  } else {
-    tridiag_kernel<double><<<blocks, kThreads, 0, st>>>(
-        o_lo, o_di, o_up, o_rhs, static_cast<double*>(x), strides[8], strides[9],
-        static_cast<double*>(cs), static_cast<double*>(ds), batch, n);
-  }
-  return static_cast<int>(cudaGetLastError());
+  err = dtype == 0 ? launch_solve<float>(ops, x, strides, batch, n, systems, st)
+                   : launch_solve<double>(ops, x, strides, batch, n, systems, st);
+  return static_cast<int>(err);
 }
 
 // The chain probe: one block of one thread. abcd: the four operands (lower,

@@ -22,10 +22,11 @@ import math
 import numpy as np
 import torch
 
+from ..ops.theta_pde import howard_lcp_solve
 from ..ops.tridiag import tridiag_solve
 from ..utils.config import EPS_TIME
 from ..utils.exceptions import ValidationError
-from .fdm import _grid, _howard_lcp_solve, _read_price
+from .fdm import _grid, _read_price
 from .slv import _interp
 
 __all__ = ["fdm_price_discrete_dividends", "mc_price_discrete_dividends",
@@ -93,7 +94,7 @@ def _fdm_div_single(spot, strike, maturity, rate, vol, div_amounts, *, cp: float
         rhs = torch.cat([torch.clamp_min(low, 0.0)[:, None], rhs[:, 1:-1],
                          torch.clamp_min(high, 0.0)[:, None]], dim=1)
         if american:
-            v = _howard_lcp_solve(lo, di, up, rhs, intrinsic)
+            v = howard_lcp_solve(lo, di, up, rhs, intrinsic)
         else:
             v = tridiag_solve(lo, di, up, rhs)
         d = div_at.get(k, 0.0)

@@ -2,14 +2,15 @@
 
 The port of ``optionslab_tpu/models/fdm.py``. Each contract gets a uniform
 log-spot grid of its own; the book is the leading axis of every
-``(book, n_space)`` tensor, so one time loop steps every contract and one
-batched Thomas solve (``ops/tridiag.py``) per step serves the whole book.
+``(book, n_space)`` tensor, so one time loop steps every contract.
 American contracts solve the per-step obstacle problem by Howard policy
 iteration (default) or by the first-order projection ``V = max(V, ψ)``.
 
-On the card each Thomas solve is one launch of the tridiagonal kernel
-(``csrc/tridiag.cu``), so a call issues O(n_time) launches whatever the
-book or grid size; ``PERF.md`` records the count and the time it costs.
+On the card the whole θ-scheme time loop is one launch of
+``csrc/theta_pde.cu`` (``ops/theta_pde.py``), which keeps every contract's
+grid in shared memory from the first step to the last; on the CPU it is the
+plain loop of one batched Thomas solve (``ops/tridiag.py``) a step or a
+Howard sweep. ``PERF.md`` records the count and the time it costs.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ import math
 import numpy as np
 import torch
 
-from ..ops.tridiag import tridiag_apply, tridiag_solve
+from ..ops.theta_pde import EUROPEAN, HOWARD, PROJECTION, theta_loop
+from ..ops.theta_pde import set_ends as _set_ends
 from ..types import ContractBatch
 from ..utils.config import EPS_TIME
 from ..utils.exceptions import ValidationError
@@ -56,32 +58,10 @@ def _read_price(v, x, spot):
     return l0 * v[:, mid - 1] + l1 * v[:, mid] + l2 * v[:, mid + 1]
 
 
-def _set_ends(v, first, last):
-    """``v`` with column 0 replaced by ``first`` and column -1 by ``last``."""
-    return torch.cat([first[:, None], v[:, 1:-1], last[:, None]], dim=1)
-
-
-def _howard_lcp_solve(lo, di, up, rhs, psi, n_iter: int = 8):
-    """Obstacle problem min(B·v − rhs, v − ψ) = 0 by policy (Howard)
-    iteration: each sweep solves the tridiagonal system with the exercise
-    rows replaced by v = ψ, then re-selects them from the complementarity
-    residuals; the end rows stay Dirichlet. All (B, n)."""
-    interior = torch.ones_like(rhs, dtype=torch.bool)
-    interior[:, 0] = False
-    interior[:, -1] = False
-    m = torch.zeros_like(rhs, dtype=torch.bool)
-    v = torch.maximum(rhs, psi)
-    for _ in range(n_iter):
-        v = tridiag_solve(torch.where(m, 0.0, lo), torch.where(m, 1.0, di),
-                          torch.where(m, 0.0, up), torch.where(m, psi, rhs))
-        m = ((tridiag_apply(lo, di, up, v) - rhs) > (v - psi)) & interior
-    return torch.maximum(v, psi)
-
-
-def _cn_book(spot, strike, maturity, rate, vol, dividend, cp, n_space: int, n_time: int,
-             theta_scheme: float, american: bool, width: float = 6.0, lcp: bool = False):
-    """The θ-scheme (θ = 0.5 Crank–Nicolson, θ = 1 implicit): the reference's
-    ``_cn_single`` for a book of (B,) contracts at once; returns (B,) prices."""
+def _cn_operands(spot, strike, maturity, rate, vol, dividend, cp, n_space: int, n_time: int,
+                 theta_scheme: float, american: bool, width: float = 6.0):
+    """The grids and the θ-scheme's operands for a book of (B,) contracts:
+    (x, the arguments of :func:`theta_loop` but the mode)."""
     col = lambda z: z[:, None]  # noqa: E731
     t = torch.clamp_min(maturity, EPS_TIME)
     x, dx = _grid(spot, vol, maturity, n_space, width, strike)
@@ -99,33 +79,32 @@ def _cn_book(spot, strike, maturity, rate, vol, dividend, cp, n_space: int, n_ti
     lo = _set_ends(col(-theta_scheme * dt * a) * ones, zeros, zeros)
     di = _set_ends(1.0 - col(theta_scheme * dt * b) * ones, zeros + 1.0, zeros + 1.0)
     up = _set_ends(col(-theta_scheme * dt * c) * ones, zeros, zeros)
-    a, b, c, w_explicit = col(a), col(b), col(c), col((1.0 - theta_scheme) * dt)
 
-    def boundary(tau):
-        """Asymptotic values at the grid ends, time to expiry ``tau``;
-        American deep-ITM ends sit in the exercise region."""
-        low = torch.where(cp > 0, 0.0, strike * torch.exp(-rate * tau)
-                          - s_nodes[:, 0] * torch.exp(-dividend * tau))
-        high = torch.where(cp > 0, s_nodes[:, -1] * torch.exp(-dividend * tau)
-                           - strike * torch.exp(-rate * tau), 0.0)
-        if american:
-            low = torch.maximum(low, intrinsic[:, 0])
-            high = torch.maximum(high, intrinsic[:, -1])
-        return torch.clamp_min(low, 0.0), torch.clamp_min(high, 0.0)
+    # the asymptotic values at the grid ends after each step, times to
+    # expiry (k + 1)·dt (the integer k + 1 is exact, so each is the product a
+    # step-by-step loop forms); American deep-ITM ends sit in the exercise
+    # region
+    tau = torch.arange(1, n_time + 1, dtype=dt.dtype, device=dt.device) * col(dt)
+    call = col(cp) > 0
+    k_disc = col(strike) * torch.exp(-col(rate) * tau)
+    low = torch.where(call, 0.0, k_disc - s_nodes[:, :1] * torch.exp(-col(dividend) * tau))
+    high = torch.where(call, s_nodes[:, -1:] * torch.exp(-col(dividend) * tau) - k_disc, 0.0)
+    if american:
+        low = torch.maximum(low, intrinsic[:, :1])
+        high = torch.maximum(high, intrinsic[:, -1:])
+    ends = torch.stack([torch.clamp_min(low, 0.0), torch.clamp_min(high, 0.0)], dim=-1)
+    return x, (lo, di, up, col(a), col(b), col(c), col((1.0 - theta_scheme) * dt), intrinsic,
+               intrinsic, ends)
 
-    v = intrinsic
-    for k in range(n_time):
-        tau = (k + 1.0) * dt
-        rhs = v + w_explicit * (a * torch.roll(v, 1, dims=1) + b * v
-                                + c * torch.roll(v, -1, dims=1))
-        rhs = _set_ends(rhs, *boundary(tau))
-        if american and lcp:
-            v = _howard_lcp_solve(lo, di, up, rhs, intrinsic)
-        else:
-            v = tridiag_solve(lo, di, up, rhs)
-            if american:
-                v = torch.maximum(v, intrinsic)
-    return _read_price(v, x, spot)
+
+def _cn_book(spot, strike, maturity, rate, vol, dividend, cp, n_space: int, n_time: int,
+             theta_scheme: float, american: bool, width: float = 6.0, lcp: bool = False):
+    """The θ-scheme (θ = 0.5 Crank–Nicolson, θ = 1 implicit): the reference's
+    ``_cn_single`` for a book of (B,) contracts at once; returns (B,) prices."""
+    x, ops = _cn_operands(spot, strike, maturity, rate, vol, dividend, cp, n_space, n_time,
+                          theta_scheme, american, width)
+    mode = (HOWARD if lcp else PROJECTION) if american else EUROPEAN
+    return _read_price(theta_loop(*ops, mode), x, spot)
 
 
 def fdm_price(batch: ContractBatch, n_space: int = 201, n_time: int = 200,

@@ -207,13 +207,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tridiag_solve_launch.argtypes = [
         _P, _P, _P, _P, _P,          # lower, diag, upper, rhs, x
         _P,                          # strides (host int64[10])
-        _P, _P,                      # scratch c', d'
-        _I, _I, _I,                  # batch, n, dtype
+        _I, _I, _I, _I,              # batch, n, systems per block, dtype
         _I, _P,                      # device, stream
     ]
     lib.tridiag_solve_launch.restype = _I
     lib.tridiag_chain_launch.argtypes = [_P, _P, _I, _I, _I, _P]  # abcd, out, n, dtype, dev, st
     lib.tridiag_chain_launch.restype = _I
+    lib.theta_pde_launch.argtypes = [
+        _P, _P, _P, _P,              # lower, diag, upper, coef (a, b, c, w)
+        _P, _P, _P,                  # psi, v0, ends
+        _P, _P,                      # out, solves per block
+        _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, systems per block, dtype
+        _I, _P,                      # device, stream
+    ]
+    lib.theta_pde_launch.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

@@ -2,9 +2,10 @@
 
 The port of ``optionslab_tpu/ops/tridiag.py``, whose ``lax.scan`` XLA runs
 as one loop on the device. Here a solve is one launch of the CUDA kernel
-``csrc/tridiag.cu`` (one thread per system) on CUDA tensors, and the plain
-torch loop along the system axis on CPU tensors: :func:`tridiag_solve`
-dispatches by device and never falls back.
+``csrc/tridiag.cu`` (two lanes a system, each system staged in shared
+memory) on CUDA tensors, and the plain torch loop along the system axis on
+CPU tensors: :func:`tridiag_solve` dispatches by device and never falls
+back.
 
 :func:`tridiag_solve` is a ``torch.autograd.Function``: its backward is the
 adjoint solve Tᵀλ = g on the transposed diagonals (lowerᵀᵢ = upperᵢ₋₁,
@@ -17,6 +18,7 @@ the same Function, so higher derivatives take one launch a solve too.
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -26,6 +28,45 @@ from . import _build
 
 _DTYPE_ID = {torch.float32: 0, torch.float64: 1}
 _LAUNCH_LOCK = threading.Lock()  # the server solves from several threads
+SMEM_LIMIT = 232_448  # bytes of shared memory a CUDA block can use on sm_90 (227 KB)
+MAX_SYSTEMS = 16  # one warp a CUDA block, two lanes a system
+PAD_ROWS = 8  # rows of padding at each end of a tile's planes (tri::kPad)
+DUMP_BYTES = 256  # the lanes' dump slots at the end of a tile (tri::kDumpBytes)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_systems(batch: int, n_sms: int, tile_bytes) -> int:
+    """Systems per CUDA block: the least power of two (at most
+    :data:`MAX_SYSTEMS`) that puts ``batch`` systems in one wave of one block
+    an SM, halved while its tile, ``tile_bytes(systems)``, exceeds
+    :data:`SMEM_LIMIT`. Raises ``ValueError`` where one system alone does not
+    fit: no other kernel takes over."""
+    systems = 1
+    while systems < MAX_SYSTEMS and systems * n_sms < batch:
+        systems *= 2
+    while tile_bytes(systems) > SMEM_LIMIT:
+        if systems == 1:
+            raise ValueError(f"a system needs {tile_bytes(1)} bytes of shared memory, more "
+                             f"than the {SMEM_LIMIT} a CUDA block has")
+        systems //= 2
+    return systems
+
+
+def tile_bytes(n: int, systems: int, broadcast, itemsize: int) -> int:
+    """Shared memory of one block of the tridiagonal kernel (``Tile`` in
+    ``csrc/tridiag.cu``): each operand n × pitch values (n for a broadcast
+    row), c' and d' over the upper diagonal and the right-hand side where
+    those hold a row a system, else n × pitch more each, every plane with
+    PAD_ROWS rows of padding at both ends; then the lanes' dump slots."""
+    pitch = systems | 1
+    steps = [1 if b else pitch for b in broadcast]
+    own = sum(step != pitch for step in steps[2:])
+    return (n + 2 * PAD_ROWS) * (sum(steps) + own * pitch) * itemsize + DUMP_BYTES
 
 
 def _tridiag_plain(lower, diag, upper, rhs) -> torch.Tensor:
@@ -57,8 +98,9 @@ def _tridiag_cuda(lower, diag, upper, rhs) -> torch.Tensor:
 
     The four operands broadcast; each is read through its own strides (a
     broadcast or transposed operand is not copied; one whose leading axes do
-    not collapse to one batch axis is). ``_tridiag_cuda.launches`` counts the
-    launches."""
+    not collapse to one batch axis is). A system too long for one CUDA
+    block's shared memory raises ``ValueError`` (:func:`plan_systems`).
+    ``_tridiag_cuda.launches`` counts the launches."""
     dev = rhs.device
     if dev.type != "cuda" or any(t.device != dev for t in (lower, diag, upper)):
         raise ValueError(f"_tridiag_cuda needs CUDA tensors on one device, got "
@@ -77,14 +119,15 @@ def _tridiag_cuda(lower, diag, upper, rhs) -> torch.Tensor:
         raise ValueError(f"batch of {batch} systems is too large for one launch")
     flat = [t.reshape(batch, n) for t in ops]
     x = torch.empty_like(flat[3])  # the rhs's layout where it is dense, else row-major
-    scratch = torch.empty((2, n, batch), dtype=dtype, device=dev)
+    broadcast = [t.stride(0) == 0 for t in flat]
+    systems = plan_systems(batch, sm_count(dev.index),
+                           lambda k: tile_bytes(n, k, broadcast, x.element_size()))
     strides = np.array([s for t in (*flat, x) for s in t.stride()], dtype=np.int64)
     lib = _build.load_library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.tridiag_solve_launch(
-        *(t.data_ptr() for t in flat), x.data_ptr(), strides.ctypes.data,
-        scratch[0].data_ptr(), scratch[1].data_ptr(), batch, n, _DTYPE_ID[dtype],
-        dev.index, stream)
+        *(t.data_ptr() for t in flat), x.data_ptr(), strides.ctypes.data, batch, n, systems,
+        _DTYPE_ID[dtype], dev.index, stream)
     if err:
         raise RuntimeError(f"tridiag_solve_launch failed: {_build.error_string(err)} ({err})")
     with _LAUNCH_LOCK:

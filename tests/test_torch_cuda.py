@@ -733,6 +733,66 @@ def test_fdm_price_runs_on_card(cuda_device):
     assert bool((am >= eu - 1e-4).all())
 
 
+def _book_fields(n, device):
+    """The fields of ``_book(n)`` as (n,) tensors: spot, strike, maturity,
+    rate, vol, dividend, cp."""
+    book = _book(n, device)
+    return torch.broadcast_tensors(*(getattr(book, f) for f in (
+        "spot", "strike", "maturity", "rate", "vol", "dividend", "cp")))
+
+
+THETA_CASES = [(mode, theta, dtype) for mode in ("european", "projection", "howard")
+               for theta in (0.5, 1.0) for dtype in (torch.float32, torch.float64)]
+
+
+@pytest.mark.parametrize("mode,theta,dtype", THETA_CASES)
+def test_theta_kernel_equals_plain_loop_on_card(cuda_device, mode, theta, dtype):
+    """300 contracts (4 to a CUDA block, the last block ragged) at 41 x 20."""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+
+    args = [t.to(dtype) for t in _book_fields(300, cuda_device)]
+    _, ops = fdm._cn_operands(*args, 41, 20, theta, mode != "european")
+    code = {"european": tp.EUROPEAN, "projection": tp.PROJECTION, "howard": tp.HOWARD}[mode]
+    before = tp._theta_cuda.launches
+    got = tp._theta_cuda(*ops, code)
+    assert tp._theta_cuda.launches == before + 1
+    want = tp._theta_plain(*ops, code)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and torch.equal(got, want)
+
+
+def test_fdm_price_is_one_time_loop_launch_on_card(cuda_device):
+    from optionslab_tpu_torch.models.fdm import fdm_price
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    book = _book(16, cuda_device)
+    for kw in ({}, {"american": True}, {"american": True, "american_method": "projection"}):
+        before = tp._theta_cuda.launches, tridiag._tridiag_cuda.launches
+        fdm_price(book, 101, 50, **kw)
+        torch.cuda.synchronize()
+        assert (tp._theta_cuda.launches, tridiag._tridiag_cuda.launches) == (before[0] + 1,
+                                                                             before[1])
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_fdm_gradient_on_card_equals_autograd_of_the_plain_loop(cuda_device, american):
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+
+    fields = [t.double() for t in _book_fields(4, cuda_device)]
+    grads = []
+    for loop in (tp.theta_loop, tp._theta_plain):
+        leaves = [t.clone().requires_grad_(True) for t in fields[:6]]
+        args = leaves + fields[6:]
+        x, ops = fdm._cn_operands(*args, 41, 20, 0.5, american)
+        price = fdm._read_price(loop(*ops, tp.HOWARD if american else tp.EUROPEAN), x, leaves[0])
+        grads.append(torch.autograd.grad(price.sum(), leaves))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
+
+
 def test_american_price_interval_runs_on_card(cuda_device):
     from optionslab_tpu_torch.models.american import american_price_interval
 

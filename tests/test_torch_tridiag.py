@@ -14,8 +14,10 @@
   plain version bit for bit on the card, float32 and float64, at the PDE
   shapes of the port (the ADI's row and column sweeps, the column sweep's
   shared coefficients and transposed right-hand side read through the
-  kernel's strides; the dividend PDE; the Crank–Nicolson book),
-  one launch per solve and one per backward solve; other dtypes raise. On
+  kernel's strides; the dividend PDE; the Crank–Nicolson book) and at
+  5,000 systems (full 16-system tiles, a ragged last one), one launch per
+  solve and one per backward solve; other dtypes and a system beyond a CUDA
+  block's shared memory raise. On
   the card this file runs without JAX (``--noconftest``): the reference
   tests then skip.
 """
@@ -197,6 +199,28 @@ def test_kernel_bitwise_equals_plain_on_card(cuda_device, batch, n, transposed, 
     torch.cuda.synchronize()
     assert got.dtype == dtype and got.device == cuda_device
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_kernel_bitwise_at_full_tiles_on_card(cuda_device, dtype):
+    """5,000 systems: 16 to a CUDA block (a full warp, two lanes a system), the
+    last block ragged;
+    a transposed right-hand side with shared coefficients the same way."""
+    ops = [torch.tensor(a, dtype=dtype, device=cuda_device)
+           for a in _system(((5000,),) * 4, 37, seed=12)]
+    col = [o[:1] for o in ops[:3]] + [ops[3].T.contiguous().T]
+    for case in (ops, col):
+        assert torch.equal(tt.tridiag_solve(*case), tt._tridiag_plain(*case))
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_system_beyond_shared_memory_on_card(cuda_device):
+    ops = [torch.ones(8000, dtype=torch.float64, device=cuda_device) for _ in range(4)]
+    before = tt._tridiag_cuda.launches
+    with pytest.raises(ValueError, match="shared memory"):
+        tt.tridiag_solve(*ops)
+    assert tt._tridiag_cuda.launches == before
 
 
 @pytest.mark.cuda
