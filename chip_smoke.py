@@ -141,6 +141,26 @@ is printed):
               after the tridiagonal phase; ``fdm_price`` then prices through
               it, one launch a call and no tridiagonal launch).
 
+18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
+              handler at its defaults (65,536 paths x 24 dates, 8 substeps a
+              date on AMC) for bs, heston, bates, slv and rbergomi, and at its
+              caps: the closed-form engine at 1,048,576 x 120 on 16 trades
+              over two correlated underlyings with a collateral threshold and
+              a margin period of risk (and the route on one underlying), the
+              Heston AMC engine at 524,288 x 120 x 8 on a vanilla, an Asian
+              and a barrier; the long call's EE* flat at Black–Scholes and
+              its flat-hazard CVA within 4 stderr, perfect netting, the Euler
+              allocations summing to the CVA, the CVA Greeks, wrong-way risk,
+              the AMC in + out barriers against the vanilla; ``greeks_fdm``
+              on 256 contracts (201 x 100, European against Black–Scholes,
+              American against the 2048-step lattice), which launches the
+              θ-scheme and tridiagonal kernels; VaR/ES, component ES, option
+              VaR, stress and sensitivity on a frame without pandas, the
+              portfolio's Greeks against the sum of ``bs_greeks``; each call's
+              warm wall ms and CUDA kernel count, none of the eleven Monte
+              Carlo kernels launched; then ``/xva`` for every model over a
+              socket and two 400s.
+
 The last three lines are a JSON object of kernel measurements (the eleven
 ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports
@@ -3633,6 +3653,285 @@ def phase_slice_server(dev) -> None:
         server.stop()
 
 
+# ---------------------------------------------------------------------------
+# The risk engine: the autograd Greeks, VaR/ES, stress, the portfolio, the
+# exposure engines and CVA/DVA/FVA, and /xva
+# ---------------------------------------------------------------------------
+RK_XVA = (65_536, 24, 8)  # /xva's defaults: paths, dates, AMC substeps a date
+RK_BS_CAP = (1_048_576, 120)  # /xva's caps on the closed-form engine
+RK_AMC_CAP = (524_288, 120, 8)  # and on the AMC engine
+RK_FDM_BOOK = 256  # greeks_fdm at fdm_price_fn's defaults, 201 x 100
+RK_HAZARD, RK_RECOVERY = 0.02, 0.4
+RK_MPOR = 10.0 / 252.0
+RK_CORR = [[1.0, 0.5], [0.5, 1.0]]
+# the capped netting set: (quantity, strike, maturity, type) per underlying,
+# underlying A at 100 (vol 0.2) and B at 50 (vol 0.3)
+RK_BOOK = {"A": (100.0, 0.2, [(2.0, 100.0, 1.0, "call"), (-1.0, 95.0, 0.5, "put"),
+                              (-1.5, 110.0, 0.75, "call"), (1.0, 90.0, 1.0, "put"),
+                              (1.0, 105.0, 0.25, "call"), (-0.5, 100.0, 0.75, "put"),
+                              (-0.8, 100.0, 1.0, "forward"), (3.0, 120.0, 1.0, "call")]),
+           "B": (50.0, 0.3, [(2.0, 50.0, 1.0, "call"), (1.0, 45.0, 0.5, "put"),
+                             (-1.0, 55.0, 0.75, "call"), (-2.0, 50.0, 1.0, "put"),
+                             (1.0, 60.0, 0.25, "call"), (1.5, 40.0, 1.0, "put"),
+                             (1.0, 50.0, 0.5, "forward"), (-1.0, 48.0, 0.9, "call")])}
+RK_AMC_BOOK = [{"kind": "vanilla"}, {"kind": "asian_arith", "quantity": 2.0},
+               {"kind": "barrier_up-and-out", "barrier": 130.0, "quantity": -1.0}]
+XVA_MODELS = ("bs", "heston", "bates", "slv", "rbergomi")
+
+
+def rk_book():
+    from optionslab_tpu_torch.risk import Position
+
+    return [Position(q, s0, k, t, RATE, vol, kind, underlying=u)
+            for u, (s0, vol, legs) in RK_BOOK.items() for q, k, t, kind in legs]
+
+
+def rk_xva_body(model: str) -> dict:
+    """/xva at its defaults for ``model`` (RK_XVA's paths and dates, the
+    route's own defaults): the default position, a long 1-year ATM call;
+    "bs" runs the closed-form engine, the others AMC."""
+    return {"paths": RK_XVA[0], "dates": RK_XVA[1], **({} if model == "bs" else {"model": model})}
+
+
+class RiskFrame(dict):
+    """A market frame without pandas: columns, copy, item get/set."""
+
+    @property
+    def columns(self):
+        return list(self)
+
+    def copy(self):
+        return RiskFrame(self)
+
+
+def within_se(got, want, se, k: float = 4.0, extra: float = 0.0) -> float:
+    """The largest |got − want| in standard errors; fails above ``k`` (plus
+    ``extra`` absolute)."""
+    got, want, se = (np.asarray(x, np.float64) for x in (got, want, se))
+    gap = np.abs(got - want)
+    check(bool(np.all(gap <= k * se + extra)), f"{gap} vs {k} x {se} + {extra}")
+    return float(np.max(gap / np.maximum(se, 1e-30)))
+
+
+def phase_risk(dev, card: str) -> dict:
+    """The risk engine on the card: /xva's calls at its defaults for every
+    model and at its two caps, ``greeks_fdm`` on 256 contracts (European and
+    American), VaR/ES, stress, sensitivity and the portfolio, against the
+    reference tests' oracles; prints each call's warm wall ms and CUDA
+    kernel count. Returns {call: (warm ms, kernels)}."""
+    from optionslab_tpu_torch import greeks as gr
+    from optionslab_tpu_torch import risk as rk
+    from optionslab_tpu_torch.models import binomial as bn
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+    from optionslab_tpu_torch.server import handle_xva
+
+    t_phase = time.perf_counter()
+    stats = {}
+    spent = {"timed calls": 0.0, "first calls and warm-ups": 0.0, "kernel counts": 0.0}
+    record = make_recorder("risk", card, stats, spent)
+    v0 = bs_price(100.0, 100.0, 1.0, RATE, 0.2, 1.0, 0.0).item()
+    paths, n_dates, n_sub = RK_XVA
+
+    # /xva at its defaults, every model (the handler the route calls)
+    for model in XVA_MODELS:
+        body = rk_xva_body(model)
+        out = record(f"/xva {model} {paths}x{n_dates}" + (f"x{n_sub}" if model != "bs" else ""),
+                     lambda body=body: handle_xva(body, dev),
+                     None if model == "bs" else lambda model=model: linear_kernels(
+                         lambda k: rk.amc_exposure_profile(
+                             [rk.ExoticPosition()], n_dates=n_dates, n_sub=k, n_paths=paths,
+                             device=dev, **rk.amc_dynamics_kwargs(model, spot=100.0, rate=RATE,
+                                                                  vol=0.2, device=dev)), n_sub))
+        check(len(out["ee"]) == n_dates and all(math.isfinite(x) for x in out["ee"] + out["pfe"])
+              and out["cva"] > 0, f"/xva {model}: {out}")
+        if model == "bs":
+            ee_d = np.asarray(out["ee_discounted"])
+            check(bool(np.all(np.abs(ee_d - v0) < 0.05 * v0)), f"/xva bs EE* {ee_d} vs {v0}")
+
+    # the closed-form engine: the long call's EE* flat at Black–Scholes and
+    # its flat-hazard CVA, perfect netting, the Euler allocations
+    call = rk.Position(1.0, 100.0, 100.0, 1.0, RATE, 0.2, "call")
+    prof = rk.exposure_profile([call], n_paths=paths, n_dates=n_dates, device=dev)
+    df = np.exp(-RATE * prof.dates)
+    z_ee = within_se(prof.ee_discounted, v0, df * prof.ee_stderr)
+    scale = (1.0 - RK_RECOVERY) * (1.0 - math.exp(-RK_HAZARD))
+    cva = rk.cva_dva(prof, RK_HAZARD, RK_RECOVERY)["cva"]
+    z_cva = within_se(cva, scale * v0, scale * float(np.max(df * prof.ee_stderr)))
+    netted = rk.exposure_profile([call, rk.Position(-1.0, 100.0, 100.0, 1.0, RATE, 0.2)],
+                                 n_paths=paths, n_dates=n_dates, device=dev)
+    check(float(np.max(netted.ee)) == 0.0, f"perfect netting left EE {netted.ee}")
+    book = rk_book()
+    alloc = record(f"cva_allocation euler 16 trades {paths}x{n_dates}",
+                   lambda: rk.cva_allocation(book, RK_HAZARD, RK_RECOVERY, corr=RK_CORR,
+                                             n_paths=paths, n_dates=n_dates, device=dev))
+    gap = abs(sum(alloc["allocations"]) - alloc["total_cva"])
+    check(gap <= 1e-9 * abs(alloc["total_cva"]), f"Euler allocations off the CVA by {gap}")
+    g = record(f"cva_greeks long call {paths}x{n_dates}",
+               lambda: rk.cva_greeks([call], RK_HAZARD, RK_RECOVERY, n_paths=paths,
+                                     n_dates=n_dates, device=dev))
+    bsg = bs_greeks(100.0, 100.0, 1.0, RATE, 0.2, 1.0, 0.0)
+    check(abs(g["cva_delta"]["UND"] / (scale * bsg["delta"].item()) - 1.0) < 0.03
+          and abs(g["cva_vega"]["UND"] / (scale * bsg["vega"].item()) - 1.0) < 0.05,
+          f"cva_greeks {g} vs the scaled Black–Scholes Greeks")
+    wwr = rk.cva_wwr([rk.Position(1.0, 100.0, 100.0, 1.0, RATE, 0.2, "put")], RK_HAZARD,
+                     wwr_beta=3.0, n_paths=paths, n_dates=n_dates, device=dev)
+    check(wwr["wwr_ratio"] > 1.1, f"the put book is not wrong-way: {wwr}")
+    log("risk", f"long call EE* vs BS within {z_ee:.2f} se, CVA {cva:.5f} vs "
+                f"{scale * v0:.5f} within {z_cva:.2f} se; netting EE 0; 16-trade Euler "
+                f"allocations sum to {alloc['total_cva']:.6f} (gap {gap:.1e}); CVA delta "
+                f"{g['cva_delta']['UND']:.5f}, vega {g['cva_vega']['UND']:.5f}; WWR put ratio "
+                f"{wwr['wwr_ratio']:.3f}")
+
+    # the closed-form engine at the caps: two correlated underlyings, calls,
+    # puts and forwards, a collateral threshold and a margin period of risk
+    bp, bd = RK_BS_CAP
+    rep = record(f"xva_report 16 trades 2 underlyings {bp}x{bd}",
+                 lambda: rk.xva_report(book, hazard_rate=RK_HAZARD, own_hazard_rate=0.01,
+                                       funding_spread=0.01, n_paths=bp, n_dates=bd,
+                                       corr=RK_CORR, collateral_threshold=1.0, mpor=RK_MPOR,
+                                       device=dev))
+    check(rep["n_paths"] == bp and len(rep["ee"]) == bd
+          and all(math.isfinite(x) for x in rep["ee"] + rep["pfe"] + [rep["cva"], rep["fva"]]),
+          f"xva_report at the cap: {rep['epe']}, {rep['cva']}")
+    cap_body = {"positions": [{"quantity": q, "strike": k, "maturity": t, "option_type": kind}
+                              for q, k, t, kind in RK_BOOK["A"][2] * 2],
+                "dates": bd, "paths": bp, "collateral_threshold": 1.0, "mpor": RK_MPOR}
+    out = record(f"/xva bs 16 trades {bp}x{bd}", lambda: handle_xva(cap_body, dev))
+    check(out["n_paths"] == bp and len(out["ee"]) == bd and out["cva"] >= 0.0,
+          f"/xva bs at the cap: {out['epe']}")
+
+    # AMC: in + out barrier profiles add up to the vanilla's (GBM), and the
+    # Heston engine at the caps
+    pair = [rk.ExoticPosition(kind=f"barrier_up-and-{k}", barrier=120.0) for k in ("in", "out")]
+    amc = rk.amc_exposure_profile(pair, n_paths=paths, n_dates=n_dates, n_sub=n_sub, device=dev)
+    z_bar = within_se(amc.ee, prof.ee, np.hypot(amc.ee_stderr, prof.ee_stderr))
+    ap, ad, asub = RK_AMC_CAP
+    amc_body = {"positions": RK_AMC_BOOK, "model": "heston", "dates": ad, "paths": ap}
+    amc_book = [rk.ExoticPosition(**{**p}) for p in RK_AMC_BOOK]
+    out = record(f"/xva heston AMC 3 trades {ap}x{ad}x{asub}", lambda: handle_xva(amc_body, dev),
+                 lambda: linear_kernels(lambda k: rk.amc_exposure_profile(
+                     amc_book, n_dates=ad, n_sub=k, n_paths=ap, device=dev,
+                     heston_params=hmodel.HestonParams.make(device=dev)), asub))
+    check(len(out["ee"]) == ad and all(math.isfinite(x) and x >= 0 for x in out["ee"])
+          and out["epe"] > 0, f"/xva heston AMC at the cap: {out['epe']}")
+    log("risk", f"AMC barrier in + out vs the vanilla's EE within {z_bar:.2f} se; capped "
+                f"closed-form EPE {rep['epe']:.4f} CVA {rep['cva']:.5f} FVA {rep['fva']:.5f}; "
+                f"capped Heston AMC EPE {out['epe']:.4f} CVA {out['cva']:.5f}")
+
+    # greeks_fdm on 256 contracts at 201 x 100: the European within the
+    # reference test's bounds of Black–Scholes, the American against the
+    # 2048-step lattice
+    book256 = pricer_book(RK_FDM_BOOK, dev, seed=21)
+    args = (book256.spot, book256.strike, book256.maturity, book256.rate, book256.vol)
+    n_call = int((book256.cp > 0).sum())
+    calls = [x[book256.cp > 0] for x in args + (book256.dividend,)]
+    puts = [x[book256.cp < 0] for x in args + (book256.dividend,)]
+    gf = record(f"greeks_fdm european {n_call} calls 201x100",
+                lambda: gr.greeks_fdm(*calls[:5], "call", calls[5]),
+                lambda: linear_kernels(lambda k: gr.greeks_from_fn(
+                    gr.fdm_price_fn(1.0, n_time=k), *calls, second_order=False), 100))
+    ex = bs_greeks(*calls[:5], 1.0, calls[5])
+    d_err = (gf["delta"] - ex["delta"]).abs().max().item()
+    v_err = (gf["vega"] - ex["vega"]).abs().max().item()
+    check(d_err < 5e-3 and v_err < 0.5, f"greeks_fdm vs BS: delta {d_err}, vega {v_err}")
+    ga = record(f"greeks_fdm american {RK_FDM_BOOK - n_call} puts 201x100",
+                lambda: gr.greeks_fdm(*puts[:5], "put", puts[5], american=True),
+                lambda: linear_kernels(lambda k: gr.greeks_from_fn(
+                    gr.fdm_price_fn(-1.0, n_time=k, american=True), *puts,
+                    second_order=False), 100))
+    lat = bn.binomial_greeks(ContractBatch(*puts[:5], puts[5], -torch.ones_like(puts[0])),
+                             american=True, n_steps=2048)
+    a_err = (ga["delta"] - lat["delta"]).abs().max().item()
+    check(a_err < 1e-2 and bool((ga["price"] >= bs_price(*puts[:5], -1.0, puts[5]) - 1e-3).all()),
+          f"American greeks_fdm delta off the lattice by {a_err}")
+    on_card(gf["delta"], ga["delta"])
+    log("risk", f"greeks_fdm vs BS: max |delta| {d_err:.2e}, |vega| {v_err:.3f}; American "
+                f"delta vs CRR@2048 {a_err:.2e}")
+
+    # VaR/ES, stress, sensitivity and the portfolio, on the card
+    gen = torch.Generator(device=dev).manual_seed(5)
+    pnl = torch.randn(1_048_576, generator=gen, device=dev, dtype=torch.float64)
+    var, es = rk.historical_var(pnl, 0.99).item(), rk.historical_es(pnl, 0.99).item()
+    check(abs(var - 2.3263) < 0.01 and abs(es - 2.6652) < 0.01, f"VaR {var}, ES {es}")
+    comp = rk.component_es(torch.randn((1_048_576, 4), generator=gen, device=dev), 0.975)
+    check(abs(comp["components"].sum().item() - comp["total_es"].item()) < 1e-4,
+          f"component ES {comp}")
+    opt_var = rk.option_var(lambda s: bs_price(s, 100.0, 0.5, 0.03, 0.25, 1.0, 0.0), 100.0, 0.05,
+                            0.25, torch.Generator(device=dev).manual_seed(6), 0.99,
+                            n_paths=1_048_576)
+    on_card(pnl, opt_var)
+    market = RiskFrame(underlying_price=book256.spot, strike=book256.strike,
+                       maturity=book256.maturity, historical_volatility=book256.vol)
+
+    def price_frame(f):
+        return bs_price(f["underlying_price"], f["strike"], f["maturity"], RATE,
+                        f["historical_volatility"], book256.cp, 0.0)
+
+    rows = rk.StressTester(price_frame).run_scenarios(
+        market, [rk.StressScenario("crash", "underlying_price", -0.2),
+                 rk.StressScenario("vol", "historical_volatility", 0.1, relative=False)])
+    rows = rows if isinstance(rows, list) else rows.to_dict("records")
+    check(len(rows) == 2 and all(math.isfinite(r["es95"]) for r in rows), f"stress {rows}")
+    sens = rk.SensitivityAnalysis(price_frame).compute_all(market)
+    cf = bs_greeks(book256.spot, book256.strike, book256.maturity, RATE, book256.vol,
+                   book256.cp, 0.0)
+    s_err = float(np.max(np.abs(sens["delta"] - cf["delta"].cpu().numpy())))
+    check(s_err < 2e-3, f"FD delta off the closed form by {s_err}")
+    pf = rk.OptionsPortfolio(device=dev)
+    qty = np.where(np.arange(RK_FDM_BOOK) % 3 == 0, -1.0, 2.0)
+    for i in range(RK_FDM_BOOK):
+        pf.add_position(rk.Position(qty[i], *(float(x[i]) for x in args),
+                                    "call" if book256.cp[i] > 0 else "put",
+                                    float(book256.dividend[i])))
+    agg = record(f"portfolio aggregate_greeks {RK_FDM_BOOK} positions", pf.aggregate_greeks)
+    cfq = bs_greeks(*args, book256.cp, book256.dividend)
+    worst = 0.0
+    for k in ("price", "delta", "gamma", "vega", "theta", "rho", "vanna", "vomma", "charm"):
+        want = float((torch.as_tensor(qty, device=dev, dtype=torch.float32) * cfq[k]).sum())
+        rel = abs(agg[k] - want) / max(abs(want), 1.0)
+        worst = max(worst, rel)
+        check(rel < 1e-4, f"portfolio {k} {agg[k]} vs the sum of bs_greeks {want}")
+    log("risk", f"historical VaR/ES 99% of N(0,1) {var:.4f}/{es:.4f}; option VaR "
+                f"{opt_var.item():.4f}; stress worst {min(r['worst_pnl'] for r in rows):.3f}; "
+                f"FD delta vs closed form {s_err:.1e}; portfolio Greeks vs the sum of "
+                f"bs_greeks {worst:.1e} relative")
+    wall = time.perf_counter() - t_phase
+    log("risk", f"phase wall {wall:.1f} s: " + ", ".join(
+        f"{k} {v:.1f} s" for k, v in spent.items())
+        + f", oracles and the rest {wall - sum(spent.values()):.1f} s")
+    return stats
+
+
+def phase_risk_server(dev) -> None:
+    """/xva over a socket at its defaults for every model, two 400s, and the
+    404's list of routes."""
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        for model in XVA_MODELS:
+            t0 = time.perf_counter()
+            status, out = _request(base + "/xva", rk_xva_body(model))
+            check(status == 200 and len(out["ee"]) == RK_XVA[1] and out["cva"] > 0,
+                  f"/xva {model}: {status} {out}")
+            log("risk", f"/xva {model}: {out.get('engine', 'closed form')} EPE "
+                        f"{out['epe']:.4f} CVA {out['cva']:.5f} in "
+                        f"{(time.perf_counter() - t0) * 1e3:.0f} ms")
+        for body in ({"model": "garch"}, {"model": "bates", "heston_params": {"v0": 0.05}}):
+            try:
+                _request(base + "/xva", body)
+                check(False, f"/xva {body} answered 200")
+            except urllib.error.HTTPError as e:
+                check(e.code == 400, f"/xva {body} answered {e.code}")
+        try:
+            _request(base + "/nope")
+            check(False, "an unknown route answered 200")
+        except urllib.error.HTTPError as e:
+            check(e.code == 404 and "/xva" in json.loads(e.read())["endpoints"],
+                  f"the 404 does not list /xva: {e.code}")
+    finally:
+        server.stop()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -3775,11 +4074,22 @@ def main() -> None:
     phase_slice_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
           "the slice launched one of the eleven Monte Carlo kernels")
+    pde_before = (tri._tridiag_cuda.launches, tp._theta_cuda.launches)
+    phase_risk(dev, card)
+    phase_risk_server(dev)
+    check([fn.launches for fn in kernel_fns] == before,
+          "the risk engine launched one of the eleven Monte Carlo kernels")
+    risk_tri = tri._tridiag_cuda.launches - pde_before[0]
+    risk_theta = tp._theta_cuda.launches - pde_before[1]
+    log("launches", f"the risk engine's share: tridiag {risk_tri}, theta_pde {risk_theta}")
+    check(risk_theta > 0, "greeks_fdm never launched the θ-scheme kernel")
     tri_launches = tri._tridiag_cuda.launches
-    log("launches", f"tridiag launched {tri_launches} times over the pricers and the slice")
+    log("launches", f"tridiag launched {tri_launches} times over the pricers, the slice and "
+                    "the risk engine")
     check(tri_launches > 0, "the PDE path never launched the tridiagonal kernel")
     theta_launches = tp._theta_cuda.launches
-    log("launches", f"theta_pde launched {theta_launches} times over the pricers and the slice")
+    log("launches", f"theta_pde launched {theta_launches} times over the pricers, the slice and "
+                    "the risk engine")
     check(theta_launches > 0, "the PDE path never launched the θ-scheme kernel")
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]

@@ -42,9 +42,16 @@ Subpackages
             Heston/Bates exotics' scan engine, local vol and SLV, the
             multi-asset engines and the multi-asset Bermudan bracket
 ``ops``     the kernels' wrappers and plain versions, samplers, QMC, math
-``utils``   dtype policy, exceptions, validation, logging, timing
+``greeks``  the autograd Greeks engine: the model adapters, the
+            finite-difference oracle and the lattice Greeks
+``risk``    VaR/ES, stress, sensitivity, portfolio Greeks, counterparty
+            exposure (GBM, Heston, AMC under GBM/Heston/Bates/SLV/rough
+            Bergomi) and CVA/DVA/FVA, served by the server's ``/xva``
+``utils``   dtype policy, exceptions, validation, logging, timing,
+            profiling, checkpoints
 """
 
+from . import greeks, models, ops, risk, utils
 from .models import (
     BatesParams,
     BatesPricer,
@@ -101,9 +108,14 @@ from .ops import (
 )
 from .server import PricingServer
 from .types import ContractBatch
-from .utils import ValidationError
+from .utils import ValidationError, setup_logging
 
 __all__ = [
+    "greeks",
+    "models",
+    "ops",
+    "risk",
+    "utils",
     "BatesParams",
     "BatesPricer",
     "BinomialTree",
@@ -157,4 +169,5 @@ __all__ = [
     "mc_price",
     "mc_price_control_variate",
     "mc_price_result",
+    "setup_logging",
 ]

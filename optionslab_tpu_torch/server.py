@@ -65,6 +65,16 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
                 variate to an arithmetic basket) or, with ``greeks``, the
                 per-asset LR ladder; "sampler" prng (default), hash or sobol
                 (terminal kinds, the error bar labelled by "stderr_note")
+  /xva          {"positions": [{quantity, strike, maturity, option_type,
+                 optional kind/barrier/vol}, ...], "spot", "rate", "vol",
+                 "hazard", "recovery", optional own_hazard/funding_spread/
+                 quantile/dates/paths/collateral_threshold/mpor/seed}
+                                                    → the exposure profile
+                (EE, PFE, EPE, ...) and CVA (+ DVA, FVA) of a netting set:
+                the closed-form GBM engine, or with any position "kind" or a
+                "model" heston|bates|slv|rbergomi the AMC regression engine
+                ("heston_params"/"bates_params"/"rbergomi_params"/"mixing");
+                dates capped at 120, paths at 1,048,576 (AMC 524,288)
   /health  (GET) → status, device name and device count
   /metrics (GET) → per-endpoint request-latency count/p50/p95/max (ms)
 
@@ -132,6 +142,8 @@ from .ops.heston_exotic_kernel import (
     heston_kernel_exotic_lr_greeks,
     heston_kernel_exotic_price,
 )
+from .risk import (ExoticPosition, Position, amc_dynamics_kwargs, amc_exposure_profile,
+                   cva_dva, xva_report)
 from .types import ContractBatch
 from .utils.config import DEFAULT_DTYPE, as_tensors
 from .utils.exceptions import ValidationError
@@ -766,6 +778,73 @@ def handle_basket(body: dict, device) -> dict:
     return out
 
 
+def handle_xva(body: dict, device) -> dict:
+    """Counterparty exposure + CVA for a netting set, with the request body,
+    caps and answer keys of the JAX package's ``/xva``: {"positions":
+    [{quantity, strike, maturity, option_type}, ...], "spot", "rate",
+    "vol", optional hazard/recovery/own_hazard/funding_spread/quantile/
+    dates/paths/collateral_threshold/mpor/seed}; dates capped at 120, paths
+    at 1,048,576 on the closed-form engine.
+
+    Any position with a "kind", or any "model" but "bs", routes the whole
+    set through the AMC engine (paths capped at 524,288): "model"
+    bs|heston|bates|slv|rbergomi picks the exposure dynamics, with
+    "heston_params"/"bates_params"/"rbergomi_params"/"mixing" overriding the
+    defaults (an override the model cannot consume is a 400). Vol
+    precedence there: a position's own "vol" wins; a top-level "vol" sets
+    the GBM dynamics only when no position carries one."""
+    spot = float(body.get("spot", 100.0))
+    rate = float(body.get("rate", 0.05))
+    vol = float(body.get("vol", 0.2))
+    specs = body.get("positions") or [{}]
+    model = str(body.get("model", "bs")).lower()
+    if any("kind" in s_ for s_ in specs) or model != "bs":
+        book = [ExoticPosition(kind=str(s_.get("kind", "vanilla")),
+                               quantity=float(s_.get("quantity", 1.0)),
+                               strike=float(s_.get("strike", 100.0)),
+                               maturity=float(s_.get("maturity", 1.0)),
+                               option_type=str(s_.get("option_type", "call")),
+                               barrier=float(s_.get("barrier", 0.0)),
+                               vol=float(s_.get("vol", vol)))
+                for s_ in specs]
+        dyn = amc_dynamics_kwargs(model, spot=spot, rate=rate, vol=vol,
+                                  heston_params=body.get("heston_params"),
+                                  bates_params=body.get("bates_params"),
+                                  rbergomi_params=body.get("rbergomi_params"),
+                                  mixing=body.get("mixing", 1.0), device=device)
+        prof = amc_exposure_profile(
+            book, spot=spot, rate=rate,
+            vol=(float(body["vol"]) if "vol" in body and not any("vol" in s_ for s_ in specs)
+                 else None),
+            n_dates=min(int(body.get("dates", 24)), 120),
+            n_paths=min(int(body.get("paths", 65536)), 524_288),
+            quantile=float(body.get("quantile", 0.95)), seed=int(body.get("seed", 0)),
+            device=device, **dyn)
+        out = cva_dva(prof, hazard_rate=float(body.get("hazard", 0.02)),
+                      recovery=float(body.get("recovery", 0.4)))
+        return {"engine": "amc", "model": model, "dates": [float(t) for t in prof.dates],
+                "ee": [float(x) for x in prof.ee], "pfe": [float(x) for x in prof.pfe],
+                "epe": prof.epe, "max_pfe": prof.max_pfe,
+                **{k: _to_jsonable(v) for k, v in out.items()}}
+    book = [Position(quantity=float(s.get("quantity", 1.0)), spot=spot,
+                     strike=float(s.get("strike", 100.0)),
+                     maturity=float(s.get("maturity", 1.0)), rate=rate,
+                     vol=float(s.get("vol", vol)), option_type=str(s.get("option_type", "call")))
+            for s in specs]
+    thr = body.get("collateral_threshold")
+    out = xva_report(
+        book, hazard_rate=float(body.get("hazard", 0.02)),
+        recovery=float(body.get("recovery", 0.4)),
+        funding_spread=float(body["funding_spread"]) if "funding_spread" in body else None,
+        own_hazard_rate=float(body["own_hazard"]) if "own_hazard" in body else None,
+        n_dates=min(int(body.get("dates", 24)), 120),
+        n_paths=min(int(body.get("paths", 65536)), 1_048_576),
+        quantile=float(body.get("quantile", 0.95)),
+        collateral_threshold=None if thr is None else float(thr),
+        mpor=float(body.get("mpor", 0.0)), seed=int(body.get("seed", 0)), device=device)
+    return {k: _to_jsonable(v) for k, v in out.items()}
+
+
 ROUTES = {
     "/basket": handle_basket,
     "/price": handle_price,
@@ -777,6 +856,7 @@ ROUTES = {
     "/iv": handle_iv,
     "/varswap": handle_varswap,
     "/american": handle_american,
+    "/xva": handle_xva,
 }
 
 

@@ -3,6 +3,21 @@
 from __future__ import annotations
 
 import logging
+import sys
+
+_FORMAT = "%(asctime)s %(levelname)s %(name)s: %(message)s"
+
+
+def setup_logging(level: int | str = logging.INFO, stream=None) -> None:
+    """One-liner root logging config, idempotent."""
+    root = logging.getLogger()
+    if root.handlers:
+        root.setLevel(level)
+        return
+    handler = logging.StreamHandler(stream or sys.stderr)
+    handler.setFormatter(logging.Formatter(_FORMAT))
+    root.addHandler(handler)
+    root.setLevel(level)
 
 
 def get_logger(name: str) -> logging.Logger:

@@ -2,16 +2,26 @@
 
 from __future__ import annotations
 
+from typing import Iterable
+
 import numpy as np
 import torch
 
-from .exceptions import ValidationError
+from .exceptions import DataError, ValidationError
 
 
 def _numpy(value) -> np.ndarray:
     if isinstance(value, torch.Tensor):
         return value.detach().cpu().numpy()
     return np.asarray(value)
+
+
+def check_required_columns(df, required: Iterable[str]) -> None:
+    """Raise DataError if any required column is missing from a frame: any
+    object with a ``columns`` collection (a pandas DataFrame among them)."""
+    missing = [c for c in required if c not in df.columns]
+    if missing:
+        raise DataError(f"missing required columns: {missing}")
 
 
 def check_positive(name: str, value) -> None:

@@ -1,8 +1,9 @@
 """The port's export lists against the reference's.
 
-Every name of each reference ``__all__`` (the top level, ``models``, ``ops``
-and ``utils``) is on the port, except the names below, which belong to
-modules not yet ported (ROADMAP Queue 1) or which the port does not need.
+Every name of each reference ``__all__`` (the top level, ``models``, ``ops``,
+``utils``, ``greeks`` and ``risk``) is on the port, except the names below,
+which belong to modules not yet ported (ROADMAP Queue 1) or which the port
+does not need.
 Each later slice removes from these lists what it ports.
 """
 
@@ -12,10 +13,8 @@ import pytest
 
 NOT_YET = {
     "": {
-        # subpackages not yet ported (ROADMAP Queue 1 items 2-8)
-        "greeks", "surface", "risk", "backtest", "optimize", "data", "benchmarks",
-        "parallel",
-        "setup_logging",  # utils/logging.py:11, Queue 1 item 2
+        # subpackages not yet ported (ROADMAP Queue 1 items 4-8)
+        "surface", "backtest", "optimize", "data", "benchmarks", "parallel",
         "MonteCarloMLSurrogate",  # models/surrogate, Queue 1 item 5
     },
     "models": {
@@ -26,13 +25,11 @@ NOT_YET = {
     },
     "ops": set(),
     "utils": {
-        # Queue 1 item 2
-        "DEFAULT_SEED", "resolve_dtype", "setup_logging", "save_pytree", "restore_pytree",
-        "trace", "annotate", "device_memory_stats", "timed", "benchmark_fn",
-        "check_required_columns",
         # TPU-only: the port has no TPU probe and no XLA compilation cache
         "tpu_available", "enable_compilation_cache",
     },
+    "greeks": set(),
+    "risk": set(),
 }
 
 

@@ -189,7 +189,7 @@ def test_unknown_route_is_404(base_url, method, path):
     status, out = _call(base_url + path, {} if method == "POST" else None)
     assert status == 404
     assert {"/mc", "/exotic", "/book/exotic", "/basket", "/iv", "/varswap",
-            "/american"} <= set(out["endpoints"])
+            "/american", "/xva"} <= set(out["endpoints"])
 
 
 # /exotic and /book/exotic against the JAX package's handlers. Off the TPU the
@@ -566,6 +566,72 @@ def test_exotic_rbergomi_matches_reference(base_url, case):
     assert out["kind"] == ref["kind"] and out["dynamics"] == "rough-bergomi"
     tol = 5 * math.hypot(out["std_error"], ref["std_error"]) + 0.01 * abs(ref["price"])
     assert abs(out["price"] - ref["price"]) < tol, (out, ref)
+
+
+# /xva against the JAX package's handler (tests/test_server.py's XVA cases):
+# the same answer keys, the exact oracles, and each profile's EPE and CVA
+# within 5% of the reference's (the two draw different paths).
+XVA_BODIES = {
+    "bs": {"positions": [{"quantity": 1.0, "strike": 100.0, "maturity": 1.0,
+                          "option_type": "call"}], "hazard": 0.03, "recovery": 0.4,
+           "dates": 8, "paths": 16384, "own_hazard": 0.01, "funding_spread": 0.01},
+    "amc_barrier": {"positions": [{"kind": "barrier_up-and-out", "barrier": 120.0},
+                                  {"kind": "vanilla", "quantity": -0.2}],
+                    "paths": 16384, "dates": 8},
+    "heston_no_kind": {"positions": [{"option_type": "put"}], "model": "heston",
+                       "paths": 16384, "dates": 4},
+    "rbergomi": {"positions": [{"kind": "vanilla", "option_type": "put"}], "model": "rbergomi",
+                 "rbergomi_params": {"hurst": 0.1, "eta": 1.9, "rho": -0.9, "xi0": 0.04},
+                 "paths": 16384, "dates": 6},
+}
+
+
+@pytest.mark.parametrize("case", sorted(XVA_BODIES))
+def test_xva_matches_reference(base_url, case):
+    from optionslab_tpu.server import handle_xva
+
+    body = XVA_BODIES[case]
+    status, out = _call(base_url + "/xva", body)
+    ref = handle_xva(dict(body))
+    assert status == 200 and set(out) == set(ref), (out, ref)
+    assert out.get("engine") == ref.get("engine") and len(out["ee"]) == len(ref["ee"])
+    for k in ("epe", "cva"):
+        assert out[k] == pytest.approx(ref[k], rel=0.05), (k, out[k], ref[k])
+    if case == "bs":  # the martingale oracle and the flat-hazard CVA
+        v0 = 10.450583572185565
+        assert np.all(np.abs(np.asarray(out["ee_discounted"]) - v0) < 0.05 * v0)
+        assert out["cva"] == pytest.approx(0.6 * v0 * (1.0 - np.exp(-0.03)), rel=0.1)
+
+
+def test_xva_collateral_caps_and_vol_precedence(base_url):
+    base = {"positions": [{"quantity": 1.0}], "dates": 6, "paths": 8192}
+    _, un = _call(base_url + "/xva", base)
+    _, coll = _call(base_url + "/xva", {**base, "collateral_threshold": 0.0, "mpor": 0.0})
+    assert coll["epe"] < 1e-5 < un["epe"]
+    status, capped = _call(base_url + "/xva", {"positions": [{"quantity": 1.0}], "dates": 500,
+                                               "paths": 256})
+    assert status == 200 and len(capped["dates"]) == 120
+    status, capped = _call(base_url + "/xva", {"positions": [{"quantity": 1.0}], "dates": 1,
+                                               "paths": 10**9})
+    assert status == 200 and capped["n_paths"] == 1_048_576
+    lo = _call(base_url + "/xva", {"positions": [{"kind": "vanilla", "vol": 0.1}],
+                                   "paths": 8192, "dates": 4})[1]
+    hi = _call(base_url + "/xva", {"positions": [{"kind": "vanilla", "vol": 0.4}],
+                                   "paths": 8192, "dates": 4})[1]
+    assert hi["epe"] > 1.5 * lo["epe"]
+
+
+@pytest.mark.parametrize("body", [
+    {"positions": [{"kind": "vanilla"}], "model": "garch"},
+    {"positions": [{"option_type": "put"}], "model": "garch"},
+    {"positions": [{"kind": "vanilla"}], "model": "bates", "heston_params": {"v0": 0.05}},
+    {"positions": [{"kind": "vanilla"}], "model": "heston", "mixing": 0.5},
+])
+def test_xva_bad_requests_are_400(base_url, body):
+    """An unknown model never falls through to the closed-form engine, and
+    an override the model cannot consume is refused."""
+    status, out = _call(base_url + "/xva", body)
+    assert status == 400 and "error" in out
 
 
 def test_port_package_never_imports_jax():
