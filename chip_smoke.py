@@ -160,6 +160,21 @@ is printed):
               warm wall ms and CUDA kernel count, none of the eleven Monte
               Carlo kernels launched; then ``/xva`` for every model over a
               socket and two 400s.
+19. surface — the chain-to-surface slice with ``pandas`` unimportable: the
+              CBOE file whole, filtered, every 7th quote held out, through
+              ``calibrate_chain`` from the mids (6 bins, 400 steps, eSSVI)
+              against the reference tests' oracles (SSVI rmse, arbitrage,
+              held-out vols); an 8,192-quote synthetic chain at the defaults;
+              the Dupire surface of that fit (121 x 60): its PDE against
+              Black–Scholes at the surface's vol (200 tridiagonal launches a
+              price) and the local-vol kernel 8,126,464 x 100 on it (one
+              launch a call); ``calibrate_model_to_chain`` heston, bates,
+              heston-mc (exactly 202 chain launches) and rbergomi at their
+              defaults; ``mc_convergence_study`` and ``validate_pricer``;
+              each call's warm wall and CUDA kernels (the Adam loops counted
+              from one- and two-step loops); then ``/calibrate`` through its
+              handler and over a socket, and a 400; no other Monte Carlo
+              kernel launched.
 
 The last three lines are a JSON object of kernel measurements (the eleven
 ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
@@ -172,7 +187,9 @@ from __future__ import annotations
 import ctypes
 import json
 import math
+import pathlib
 import subprocess
+import sys
 import time
 import urllib.error
 import urllib.request
@@ -3932,6 +3949,300 @@ def phase_risk_server(dev) -> None:
         server.stop()
 
 
+
+# ---------------------------------------------------------------------------
+# the chain-to-surface slice: the SVI/SSVI/eSSVI surfaces, the chain data
+# layer without pandas, chain calibration and /calibrate
+# ---------------------------------------------------------------------------
+SF_CBOE = pathlib.Path(__file__).resolve().parent / "tests" / "data" / "cboe_spx_quotedata.csv"
+SF_SPOT, SF_RATE = 5123.41, 0.043  # the CBOE file's header and the reference tests' rate
+SF_SYNTH = 8192  # quotes of the SPX-sized synthetic chain
+SF_SYNTH_NOISE = 0.004  # its vol noise (generate_synthetic_chain's default)
+SF_PDE = ((100.0, 1.0), (90.0, 0.5), (110.0, 1.5))  # tests/test_chain_calibration.py:103
+SF_PDE_TOL = 4e-3
+SF_LV_MC = LV_MAIN  # the local-vol kernel's bench shape: 31 blocks, 8,126,464 paths x 100
+# iv_rmse bounds: tests/test_chain_calibration.py:201, :211 and :228; rough
+# Bergomi has no reference test, so its bound is this slice's own
+SF_MODEL_BOUNDS = {"heston": 0.012, "bates": 0.015, "heston-mc": 0.2, "rbergomi": 0.04}
+SF_KERNELS = {"gbm_mc": gk._gbm_moments_cuda, "exotic_mc": ek._exotic_moments_cuda,
+              "exotic_greeks": ek._exotic_greeks_cuda, "heston_mc": hk._heston_mc_cuda,
+              "heston_qe": hk._heston_qe_cuda, "heston_qe_ladder": hk._heston_qe_ladder_cuda,
+              "heston_chain": hk._heston_chain_cuda, "heston_exotic": hx._heston_exotic_cuda,
+              "local_vol_mc": lk._lv_cuda, "slv_mc": sk._slv_cuda,
+              "multi_asset_mc": mk._ma_cuda, "tridiag": tri._tridiag_cuda,
+              "theta_pde": tp._theta_cuda}
+
+
+def launch_counts() -> dict:
+    """Every kernel wrapper's launch count, by kernel name."""
+    return {name: fn.launches for name, fn in SF_KERNELS.items()}
+
+
+def _loss_key(fn):
+    """The user loss inside the Adam loop's wrappers (their closures): its
+    code, which a closure made anew each call shares, and whether it is a
+    module-level function."""
+    while getattr(fn, "__closure__", None):
+        inner = [c.cell_contents for c in fn.__closure__ if callable(c.cell_contents)]
+        if not inner:
+            break
+        fn = inner[0]
+    return getattr(fn, "__code__", fn), "<locals>" not in getattr(fn, "__qualname__", "<locals>")
+
+
+SF_STEP_KERNELS: dict = {}  # kernels an Adam step, by the code of a module-level loss
+
+
+def adam_kernels(fn) -> int:
+    """CUDA kernels of ``fn()``, a call made of Adam loops
+    (``ops/optim._adam_loop``) and the work around them: profiled with every
+    loop cut to one step, then with the loops of one loss at two steps, for
+    each loss; the count is the first profile plus, per loop, its steps less
+    one times its loss's kernels a step (each profile the most of two
+    sessions). A module-level loss (the SVI, SSVI and eSSVI losses) keeps
+    its kernels a step for later calls: they do not depend on the quotes."""
+    from optionslab_tpu_torch.ops import optim
+
+    real = optim._adam_loop
+    state = {"twice": None, "loops": []}
+
+    def cut(loss_fn, x0, n_steps, learning_rate, clip, project=None):
+        key = _loss_key(loss_fn)
+        state["loops"].append((key, int(n_steps)))
+        return real(loss_fn, x0, 2 if key == state["twice"] else 1, learning_rate, clip,
+                    project)
+
+    def run():
+        state["loops"] = []
+        fn()
+
+    optim._adam_loop = cut
+    try:
+        base = cuda_kernels(run, 2)
+        loops = list(state["loops"])
+        total = base
+        for key in {k for k, _ in loops}:
+            mine = [n for k, n in loops if k == key]
+            per_step = SF_STEP_KERNELS.get(key)
+            if per_step is None:
+                state["twice"] = key
+                per_step = (cuda_kernels(run, 2) - base) / len(mine)
+                if key[1]:
+                    SF_STEP_KERNELS[key] = per_step
+            total += sum(n - 1 for n in mine) * per_step
+    finally:
+        optim._adam_loop = real
+    return int(round(total))
+
+
+def warm_call(name: str, fn, warm, kernels, stats: dict, card: str):
+    """``warm()``, then one timed call of ``fn`` (its result), then its CUDA
+    kernel count; returns (result, the kernels' launches in that call)."""
+    warm()
+    torch.cuda.synchronize()
+    before = launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    n = kernels()
+    stats[name] = (ms, n)
+    log("surface", f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels"
+                   f"{' (profiler saw none: not measured)' if n == 0 else ''}, kernel launches "
+                   f"{launched or 'none'} [{card}]")
+    return out, launched
+
+
+def vendor_chain(dev):
+    """The CBOE file whole, filtered as ``tests/test_real_chain_workflow.py:
+    122-130``, every 7th quote held out: (held table, used dataset)."""
+    from optionslab_tpu_torch.data import OptionChainDataset, OptionChainLoader
+
+    ch = (OptionChainLoader.from_cboe(SF_CBOE, rate=SF_RATE, device=dev)
+          .filter_liquidity(max_spread_pct=0.5).filter_moneyness(0.85, 1.2))
+    rows = np.arange(len(ch))
+    return ch.table.take(rows % 7 == 0), OptionChainDataset(ch.table.take(rows % 7 != 0), dev)
+
+
+def phase_surface(dev, card: str) -> dict:
+    """The chain-to-surface slice on the card at full width, with no pandas:
+    the vendor chain's eSSVI calibration and its held-out vols, an SPX-sized
+    synthetic chain through ``calibrate_chain`` at its defaults, the Dupire
+    surface of that fit (its PDE and the local-vol kernel against
+    Black–Scholes), the four dynamic-model fits at their defaults,
+    ``mc_convergence_study`` and ``validate_pricer``. Returns
+    {"stats": {call: (ms, kernels)}, "chain": heston_chain launches,
+    "lv": local-vol kernel calls}."""
+    from optionslab_tpu_torch.data import ColumnTable, generate_synthetic_chain
+    from optionslab_tpu_torch.models import validation as mval
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+    from optionslab_tpu_torch.surface import chain_calibration as cc
+
+    t_phase = time.perf_counter()
+    stats, lv_calls = {}, 0
+
+    # the vendor chain: tests/test_real_chain_workflow.py:122-157
+    held, used = vendor_chain(dev)
+    check(isinstance(used.df, ColumnTable), "without pandas .df must be the column table")
+    kw = dict(n_expiry_bins=6, from_prices=True, n_steps=400, essvi=True)
+    res, _ = warm_call(
+        f"calibrate_chain CBOE {len(used)} quotes, 6 bins, 400 steps, eSSVI",
+        lambda: cc.calibrate_chain(used, **kw),
+        lambda: cc.calibrate_chain(used, **{**kw, "n_steps": 5, "essvi": False}),
+        lambda: adam_kernels(lambda: cc.calibrate_chain(used, **kw)), stats, card)
+    t = np.asarray(held["time_to_maturity"], np.float64)
+    k = np.log(np.asarray(held["strike_price"], np.float64) / (SF_SPOT * np.exp(SF_RATE * t)))
+    iv_fn = cc.svi_surface_iv_fn(res)
+    fitted = iv_fn(torch.tensor(k, dtype=torch.float32, device=dev),
+                   torch.tensor(t, dtype=torch.float32, device=dev))
+    on_card(fitted, res.svi_params[0].a, res.essvi.theta)
+    err = np.abs(fitted.cpu().numpy() - np.asarray(held["implied_volatility"], np.float64))
+    rep = res.report
+    check(res.ssvi_rmse_vol < 0.01, f"vendor SSVI rmse {res.ssvi_rmse_vol}")
+    check(rep["arbitrage_free"] and rep["ssvi_butterfly_free"]
+          and rep["calendar_violation_rate"] == 0.0, f"vendor report {rep}")
+    check(res.essvi_rmse_vol <= res.ssvi_rmse_vol + 1e-4 and rep["essvi_arbitrage_free"],
+          f"vendor eSSVI {res.essvi_rmse_vol} vs SSVI {res.ssvi_rmse_vol}, {rep}")
+    check(np.median(err) < 0.008 and np.quantile(err, 0.9) < 0.02,
+          f"held-out IV error median {np.median(err)}, p90 {np.quantile(err, 0.9)}")
+    log("surface", f"CBOE: {len(used)} quotes used, {len(held)} held out; slice rmse "
+                   f"{np.array2string(res.svi_rmse_vol, precision=5)}, SSVI "
+                   f"{res.ssvi_rmse_vol:.5f}, eSSVI {res.essvi_rmse_vol:.5f}; held-out IV "
+                   f"error median {np.median(err):.5f}, p90 {np.quantile(err, 0.9):.5f}")
+
+    # an SPX-sized synthetic chain through calibrate_chain at its defaults
+    chain = generate_synthetic_chain(n_rows=SF_SYNTH, seed=0, noise=SF_SYNTH_NOISE, device=dev)
+    check(isinstance(chain, ColumnTable), "without pandas the synthetic chain is a table")
+    synth, _ = warm_call(
+        f"calibrate_chain synthetic {SF_SYNTH} quotes, defaults (6 bins, 600 steps)",
+        lambda: cc.calibrate_chain(chain, device=dev),
+        lambda: cc.calibrate_chain(chain, n_steps=5, device=dev),
+        lambda: adam_kernels(lambda: cc.calibrate_chain(chain, device=dev)), stats, card)
+    check(len(synth.svi_params) == 6 and bool(np.all(synth.svi_rmse_vol < 2.5 * SF_SYNTH_NOISE)),
+          f"synthetic slice rmse {synth.svi_rmse_vol}")
+    check(bool(np.all(np.diff(synth.thetas) > 0)) and synth.report["arbitrage_free"],
+          f"synthetic thetas {synth.thetas}, report {synth.report}")
+    log("surface", f"synthetic: slice rmse {np.array2string(synth.svi_rmse_vol, precision=5)} "
+                   f"(noise {SF_SYNTH_NOISE}), SSVI {synth.ssvi_rmse_vol:.5f}, thetas "
+                   f"{np.array2string(synth.thetas, precision=5)}")
+
+    # the Dupire surface of that fit at local_vol_from_chain's defaults
+    (lv, _), _ = warm_call("local_vol_from_chain 121 x 60",
+                           lambda: cc.local_vol_from_chain(None, result=synth),
+                           lambda: cc.local_vol_from_chain(None, result=synth, n_k=11, n_t=6),
+                           lambda: cuda_kernels(lambda: cc.local_vol_from_chain(
+                               None, result=synth)), stats, card)
+    on_card(lv.surface.grid)
+    check(bool(torch.isfinite(lv.surface.grid).all()), "non-finite local vol")
+    surf_iv = cc.svi_surface_iv_fn(synth)
+    bs_at = {}
+    for strike, mat in SF_PDE:
+        kf = math.log(strike / (synth.spot * math.exp(synth.rate * mat)))
+        vol = float(surf_iv(kf, mat))
+        bs_at[(strike, mat)] = float(bs_price(synth.spot, strike, mat, synth.rate, vol, 1.0))
+        pde, launched = warm_call(f"DupireLocalVol.price K={strike} T={mat} (201 x 200)",
+                                  lambda s=strike, m=mat: lv.price(synth.spot, s, m),
+                                  lambda: None, lambda s=strike, m=mat: linear_kernels(
+                                      lambda n: lv._solve(s, m, 1.0, n_time=n), 200),
+                                  stats, card)
+        check(launched.get("tridiag", 0) == 200, f"the PDE made {launched} launches, not 200 "
+                                                 "tridiagonal solves")
+        gap = abs(float(pde) / bs_at[(strike, mat)] - 1.0)
+        check(gap < SF_PDE_TOL, f"PDE K={strike} T={mat}: {float(pde)} vs BS "
+                                f"{bs_at[(strike, mat)]} ({gap})")
+    pricer = lk.LocalVolKernelPricer(lv, 1.0, n_steps=SF_LV_MC[1])
+    (p, se, paths), launched = warm_call(
+        f"LocalVolKernelPricer.price on the chain's surface {SF_LV_MC[0]} x {SF_LV_MC[1]}",
+        lambda: pricer.price(100.0, n_paths=SF_LV_MC[0]),
+        lambda: pricer.price(100.0, n_paths=SF_LV_MC[0], seed=1),
+        lambda: cuda_kernels(lambda: pricer.price(100.0, n_paths=SF_LV_MC[0])), stats, card)
+    lv_calls += 3  # the warm-up, the timed call and the profiled one
+    check(launched == {"local_vol_mc": 1}, f"the LV price made launches {launched}")
+    want = bs_at[(100.0, 1.0)]
+    check(abs(float(p) - want) < 4 * float(se) + SF_PDE_TOL * want,
+          f"LV kernel {float(p)} ± {float(se)} vs BS at the surface vol {want}")
+    log("surface", f"LV kernel on the chain's surface: {float(p):.5f} ± {float(se):.5f} "
+                   f"({paths} paths) vs BS at the surface vol {want:.5f}")
+
+    # the dynamic-model fits at their defaults
+    for model, bound in SF_MODEL_BOUNDS.items():
+        out, launched = warm_call(
+            f"calibrate_model_to_chain {model} (defaults)",
+            lambda m=model: cc.calibrate_model_to_chain(chain, m, device=dev),
+            lambda m=model: cc.calibrate_model_to_chain(chain, m, n_steps=2, device=dev),
+            lambda m=model: adam_kernels(lambda: cc.calibrate_model_to_chain(chain, m,
+                                                                             device=dev)),
+            stats, card)
+        if model == "heston-mc":
+            check(launched == {"heston_chain": 202},
+                  f"heston-mc fit made launches {launched}, not 202 chain launches")
+        else:
+            check("heston_chain" not in launched, f"{model} launched the chain kernel")
+        check(math.isfinite(out["loss"]) and out["iv_rmse"] < bound,
+              f"{model}: iv_rmse {out['iv_rmse']} (bound {bound}), {out}")
+        log("surface", f"{model}: {out['n_quotes']} quotes, iv_rmse {out['iv_rmse']:.5f} "
+                       f"(bound {bound}), params {out['params']}")
+
+    # models/validation at their defaults
+    mc, _ = warm_call("mc_convergence_study (defaults)",
+                      lambda: mval.mc_convergence_study(device=dev),
+                      lambda: mval.mc_convergence_study(path_counts=(1000, 2000), device=dev),
+                      lambda: cuda_kernels(lambda: mval.mc_convergence_study(device=dev)),
+                      stats, card)
+    check(mc["converged"] and abs(mc["stderr_slope"] + 0.5) < 0.15, f"MC study {mc}")
+
+    def bs_fn(s, k_, t_, r, sig, cp, q):
+        return bs_price(*(torch.tensor(x, dtype=torch.float64, device=dev)
+                          for x in (s, k_, t_, r, sig)), cp, q)
+
+    audit, _ = warm_call("validate_pricer(bs_price) (defaults)",
+                         lambda: mval.validate_pricer(bs_fn), lambda: None,
+                         lambda: cuda_kernels(lambda: mval.validate_pricer(bs_fn)), stats, card)
+    check(audit["passed"], f"validate_pricer {audit}")
+    log("surface", f"MC study slope {mc['stderr_slope']:.4f}; validate_pricer parity max "
+                   f"error {audit['parity']['max_error']:.3e}; phase "
+                   f"{time.perf_counter() - t_phase:.1f} s")
+    return {"stats": stats, "lv": lv_calls,
+            "body": {c: np.asarray(chain[c], np.float64).tolist() for c in
+                     ("underlying_price", "strike_price", "time_to_maturity",
+                      "implied_volatility")} | {"risk_free_rate": float(synth.rate)}}
+
+
+def phase_surface_server(dev, body: dict, card: str) -> None:
+    """/calibrate at its defaults on the synthetic chain's columns: through
+    the handler, then over a socket; a 400 for a bad body."""
+    from optionslab_tpu_torch.server import handle_calibrate
+
+    stats = {}
+    out, _ = warm_call(f"/calibrate handler {len(body['strike_price'])} quotes (defaults: 4 "
+                       "bins, 400 steps)", lambda: handle_calibrate(body, dev),
+                       lambda: handle_calibrate({**body, "n_steps": 5}, dev),
+                       lambda: adam_kernels(lambda: handle_calibrate(body, dev)), stats, card)
+    check(len(out["svi_params"]) == 4 and max(out["svi_rmse_vol"]) < 2.5 * SF_SYNTH_NOISE
+          and out["report"]["arbitrage_free"], f"/calibrate handler: {out}")
+    server = PricingServer(port=0, device=dev).start()
+    base = f"http://127.0.0.1:{server.port}"
+    try:
+        t0 = time.perf_counter()
+        status, got = _request(base + "/calibrate", body)
+        ms = (time.perf_counter() - t0) * 1e3
+        check(status == 200 and got["n_quotes"] == out["n_quotes"]
+              and got["report"]["arbitrage_free"], f"/calibrate: {status} {got}")
+        log("surface", f"/calibrate over a socket: {ms:.0f} ms, slice rmse "
+                       f"{got['svi_rmse_vol']} [{card}]")
+        bad = {k: v for k, v in body.items() if k != "implied_volatility"}
+        try:
+            _request(base + "/calibrate", bad)
+            check(False, "/calibrate without implied_volatility answered 200")
+        except urllib.error.HTTPError as e:
+            check(e.code == 400 and "ValidationError" in json.loads(e.read())["error"],
+                  f"/calibrate bad body answered {e.code}")
+    finally:
+        server.stop()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4083,6 +4394,30 @@ def main() -> None:
     risk_theta = tp._theta_cuda.launches - pde_before[1]
     log("launches", f"the risk engine's share: tridiag {risk_tri}, theta_pde {risk_theta}")
     check(risk_theta > 0, "greeks_fdm never launched the θ-scheme kernel")
+    # the chain-to-surface slice, with pandas unimportable (the card's machine
+    # has none): heston_chain, local_vol_mc and tridiag launch, nothing else
+    # of the Monte Carlo kernels
+    had_pandas = sys.modules.get("pandas", False)
+    sys.modules["pandas"] = None
+    try:
+        sf_before = launch_counts()
+        surf = phase_surface(dev, card)
+        phase_surface_server(dev, surf["body"], card)
+    finally:
+        if had_pandas is False:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = had_pandas
+    sf_after = launch_counts()
+    sf_launches = {k: sf_after[k] - sf_before[k] for k in sf_after}
+    log("launches", f"the surface slice's share: {sf_launches}")
+    check(sf_launches["heston_chain"] >= 202, "the heston-mc fit never ran its 202 launches")
+    check(sf_launches["local_vol_mc"] == surf["lv"],
+          f"local_vol_mc launched {sf_launches['local_vol_mc']} times for {surf['lv']} calls")
+    check(sf_launches["tridiag"] > 0, "the chain's Dupire PDE never launched tridiag")
+    check(all(n == 0 for k, n in sf_launches.items()
+              if k not in ("heston_chain", "local_vol_mc", "tridiag")),
+          f"the surface slice launched another kernel: {sf_launches}")
     tri_launches = tri._tridiag_cuda.launches
     log("launches", f"tridiag launched {tri_launches} times over the pricers, the slice and "
                     "the risk engine")
@@ -4122,12 +4457,14 @@ def main() -> None:
               "optionslab_tpu/ops/heston_pallas.py:365", h_launches["qe_ladder"],
               h_err["qe_ladder"], h_timing(h_t, "heston_qe_ladder prng")),
         entry("heston_chain_kernel", "heston_chain.cu", "optionslab_tpu/ops/heston_pallas.py:469",
-              h_launches["chain"], h_err["chain"], h_timing(h_t, "heston_chain prng 40")),
+              h_launches["chain"] + sf_launches["heston_chain"], h_err["chain"],
+              h_timing(h_t, "heston_chain prng 40")),
         entry("heston_exotic_kernel", "heston_exotic.cu",
               "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches, hx_err,
               hx_t[f"asian_arith {HX_MAIN[0]}x{HX_MAIN[1]}"]),
         entry("local_vol_mc_kernel", "local_vol_mc.cu",
-              "optionslab_tpu/ops/local_vol_pallas.py:64", lv_launches, lv_err,
+              "optionslab_tpu/ops/local_vol_pallas.py:64",
+              lv_launches + sf_launches["local_vol_mc"], lv_err,
               smile_t[f"local_vol european {LV_MAIN[0]}x{LV_MAIN[1]}"]),
         entry("slv_mc_kernel", "slv_mc.cu", "optionslab_tpu/ops/slv_pallas.py:106", slv_launches,
               slv_err, smile_t[f"slv barrier {SLV_MAIN[0]}x{SLV_MAIN[1]}"]),

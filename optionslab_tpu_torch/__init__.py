@@ -47,11 +47,16 @@ Subpackages
 ``risk``    VaR/ES, stress, sensitivity, portfolio Greeks, counterparty
             exposure (GBM, Heston, AMC under GBM/Heston/Bates/SLV/rough
             Bergomi) and CVA/DVA/FVA, served by the server's ``/xva``
+``surface`` SVI/SSVI/eSSVI surfaces and their arbitrage checks, the chain
+            calibration (to a surface, to Heston/Bates/rough Bergomi, to a
+            Dupire surface), served by the server's ``/calibrate``
+``data``    chain loading without pandas (CBOE, OptionMetrics, csv,
+            synthetic), the market-data client
 ``utils``   dtype policy, exceptions, validation, logging, timing,
             profiling, checkpoints
 """
 
-from . import greeks, models, ops, risk, utils
+from . import data, greeks, models, ops, risk, surface, utils
 from .models import (
     BatesParams,
     BatesPricer,
@@ -111,10 +116,12 @@ from .types import ContractBatch
 from .utils import ValidationError, setup_logging
 
 __all__ = [
+    "data",
     "greeks",
     "models",
     "ops",
     "risk",
+    "surface",
     "utils",
     "BatesParams",
     "BatesPricer",

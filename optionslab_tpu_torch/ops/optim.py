@@ -25,9 +25,10 @@ _B1, _B2, _EPS = 0.9, 0.999, 1e-8
 
 
 def _adam_loop(loss_fn, x0: torch.Tensor, n_steps: int, learning_rate: float,
-               clip: float | None):
+               clip: float | None, project=None):
     """The batched core: ``x0`` is (B, ...), ``loss_fn`` maps it to (B,)
-    losses of B independent problems."""
+    losses of B independent problems; ``project``, when given, maps each
+    updated iterate back into the feasible set."""
     x = x0.detach().clone()
     red = tuple(range(1, x.dim()))
     mu = torch.zeros_like(x)
@@ -53,6 +54,8 @@ def _adam_loop(loss_fn, x0: torch.Tensor, n_steps: int, learning_rate: float,
         best_x = torch.where(better.reshape(view), x, best_x)
         best_loss = torch.where(better, loss, best_loss)
         x = x + (-learning_rate) * (mu_hat / (torch.sqrt(nu_hat) + _EPS))
+        if project is not None:
+            x = project(x)
         last = loss
     with torch.no_grad():
         final = loss_fn(best_x).detach()

@@ -75,6 +75,12 @@ Endpoints (POST, JSON body, JSON response), with the request bodies of
                 "model" heston|bates|slv|rbergomi the AMC regression engine
                 ("heston_params"/"bates_params"/"rbergomi_params"/"mixing");
                 dates capped at 120, paths at 1,048,576 (AMC 524,288)
+  /calibrate    {"underlying_price", "strike_price", "time_to_maturity",
+                 "implied_volatility": [...], optional "risk_free_rate",
+                 "n_expiry_bins" (4), "n_steps" (400)}
+                                                    → per-expiry SVI slices,
+                SSVI and the no-arbitrage report of the quote snapshot
+                (``surface.calibrate_chain``)
   /health  (GET) → status, device name and device count
   /metrics (GET) → per-endpoint request-latency count/p50/p95/max (ms)
 
@@ -144,6 +150,7 @@ from .ops.heston_exotic_kernel import (
 )
 from .risk import (ExoticPosition, Position, amc_dynamics_kwargs, amc_exposure_profile,
                    cva_dva, xva_report)
+from .surface.chain_calibration import calibrate_chain
 from .types import ContractBatch
 from .utils.config import DEFAULT_DTYPE, as_tensors
 from .utils.exceptions import ValidationError
@@ -845,6 +852,40 @@ def handle_xva(body: dict, device) -> dict:
     return {k: _to_jsonable(v) for k, v in out.items()}
 
 
+QUOTE_COLUMNS = ("underlying_price", "strike_price", "time_to_maturity", "implied_volatility")
+
+
+def handle_calibrate(body: dict, device) -> dict:
+    """SVI slices, SSVI and the arbitrage report of a quote snapshot passed
+    inline as columns (``calibrate_chain``): the four quote columns as lists
+    of one length, an optional ``risk_free_rate`` (a number or a list),
+    ``n_expiry_bins`` (4) and ``n_steps`` (400). The chain is a column table:
+    no pandas."""
+    cols = {}
+    for name in QUOTE_COLUMNS:
+        if name not in body:
+            raise ValidationError(f"/calibrate needs the column {name!r}")
+        try:
+            col = np.asarray(body[name], np.float64)
+        except (TypeError, ValueError):
+            raise ValidationError(f"/calibrate column {name!r} is not numeric") from None
+        if col.ndim != 1:
+            raise ValidationError(f"/calibrate column {name!r} must be a list of numbers")
+        cols[name] = col
+    if len({len(c) for c in cols.values()}) != 1:
+        raise ValidationError("/calibrate columns differ in length: "
+                              f"{ {k: len(c) for k, c in cols.items()} }")
+    if "risk_free_rate" in body:
+        try:
+            rate = np.asarray(body["risk_free_rate"], np.float64)
+        except (TypeError, ValueError):
+            raise ValidationError("/calibrate risk_free_rate is not numeric") from None
+        cols["risk_free_rate"] = np.broadcast_to(rate, cols["strike_price"].shape).copy()
+    res = calibrate_chain(cols, n_expiry_bins=int(body.get("n_expiry_bins", 4)),
+                          n_steps=int(body.get("n_steps", 400)), device=device)
+    return res.to_dict()
+
+
 ROUTES = {
     "/basket": handle_basket,
     "/price": handle_price,
@@ -857,6 +898,7 @@ ROUTES = {
     "/varswap": handle_varswap,
     "/american": handle_american,
     "/xva": handle_xva,
+    "/calibrate": handle_calibrate,
 }
 
 

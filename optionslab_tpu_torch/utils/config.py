@@ -72,6 +72,14 @@ def as_tensors(*args, dtype=None, device=None) -> list[torch.Tensor]:
     return [torch.as_tensor(a, dtype=dtype, device=device) for a in args]
 
 
+def input_tensors(*args, device=None) -> list[torch.Tensor]:
+    """The arguments as tensors of their promoted floating dtype
+    (:func:`resolve_dtype`: numpy float64 stays float64) on ``device``, by
+    default the first tensor argument's, else the card."""
+    dev = device if device is not None else input_device(*args)
+    return as_tensors(*args, dtype=resolve_dtype(*args), device=dev)
+
+
 def input_device(*args, default="cuda"):
     """The device of the first tensor argument, else ``default``: an entry
     point given only numbers, numpy arrays or lists runs on the card."""

@@ -183,13 +183,18 @@ def test_basket_bad_requests_are_400(base_url, body, names):
     assert status == 400 and names in out["error"], out
 
 
-@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/calibrate"),
+@pytest.mark.parametrize("method,path", [("GET", "/nope"), ("POST", "/teleport"),
                                          ("POST", "/health")])
 def test_unknown_route_is_404(base_url, method, path):
     status, out = _call(base_url + path, {} if method == "POST" else None)
     assert status == 404
     assert {"/mc", "/exotic", "/book/exotic", "/basket", "/iv", "/varswap",
-            "/american", "/xva"} <= set(out["endpoints"])
+            "/american", "/xva", "/calibrate"} <= set(out["endpoints"])
+
+
+def test_calibrate_bad_body_is_400(base_url):
+    status, out = _call(base_url + "/calibrate", {})
+    assert status == 400 and "ValidationError" in out["error"], out
 
 
 # /exotic and /book/exotic against the JAX package's handlers. Off the TPU the
