@@ -175,6 +175,27 @@ is printed):
               from one- and two-step loops); then ``/calibrate`` through its
               handler and over a socket, and a 400; no other Monte Carlo
               kernel launched.
+20. learned — the learned surfaces, the pricing surrogate and ``optimize/``
+              at the models' defaults, with ``pandas`` unimportable: on the
+              CBOE chain (every 7th quote held out) ``MLPModel`` (held-out
+              IV rmse below the constant predictor's, MC-dropout bands,
+              input gradients), ``PINNVolatilityModel`` (the reference
+              tests' fit and audit bounds) and a 4-member ensemble with its
+              member selection, ``KernelRidgeModel``, the quote
+              interpolator (rbf exact at the OTM smile's quotes, its
+              ModelError on duplicate quotes; idw, nearest), the forests'
+              DependencyError without scikit-learn, ``torch.export`` (loaded
+              on the card and on the host) and ``.onnx`` exports held to the
+              live MLP over batch sizes; ``MonteCarloMLSurrogate`` at its
+              defaults (the reference's R² envelope, conformal coverage, its
+              ``.onnx`` parity) and ``fit_to_pricer`` on one GBM kernel
+              book launch of labels, each label within its error bound of
+              ``bs_greeks``; a TPE study with a resume against Sobol, a
+              surrogate study, and ``make_calibration_objective`` around
+              ``calibrate_heston_mc`` (exactly Σ(n_steps + 2) chain
+              launches); each fit's warm wall and CUDA kernels (counted
+              from one- and two-epoch loops, ``cut_kernels``); gbm_mc and
+              heston_chain launch, nothing else.
 
 The last three lines are a JSON object of kernel measurements (the eleven
 ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
@@ -4035,7 +4056,7 @@ def adam_kernels(fn) -> int:
     return int(round(total))
 
 
-def warm_call(name: str, fn, warm, kernels, stats: dict, card: str):
+def warm_call(name: str, fn, warm, kernels, stats: dict, card: str, phase: str = "surface"):
     """``warm()``, then one timed call of ``fn`` (its result), then its CUDA
     kernel count; returns (result, the kernels' launches in that call)."""
     warm()
@@ -4049,7 +4070,7 @@ def warm_call(name: str, fn, warm, kernels, stats: dict, card: str):
     launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     n = kernels()
     stats[name] = (ms, n)
-    log("surface", f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels"
+    log(phase, f"{name}: warm wall {ms:.1f} ms, {n} CUDA kernels"
                    f"{' (profiler saw none: not measured)' if n == 0 else ''}, kernel launches "
                    f"{launched or 'none'} [{card}]")
     return out, launched
@@ -4243,6 +4264,488 @@ def phase_surface_server(dev, body: dict, card: str) -> None:
         server.stop()
 
 
+# ---------------------------------------------------------------------------
+# the learned surfaces, the pricing surrogate and optimize/
+# ---------------------------------------------------------------------------
+LN_HV = 0.2  # the CBOE file carries no historical vol: one number for the underlying,
+# so that no quote's own implied vol leaks into its features
+LN_ENSEMBLE = 4
+LN_SURROGATE_N = 50_000  # MonteCarloMLSurrogate.fit's default
+LN_PRICER_N = 20_000  # fit_to_pricer's default
+LN_LABEL_PATHS = 1_048_576  # the label launch's paths a contract
+LN_LABEL_FLOOR = 1e-6  # float32 resolution of the O(1) labels (price/K, delta, gamma·K)
+LN_POISSON = 25.0  # expected in-the-money paths below which a label is a Poisson count
+LN_QUAD = (10.0, 20_001)  # the error model's range and nodes in the Box–Muller normal
+LN_R2 = {"r2_delta": 0.99, "r2_price": 0.95}  # tests/test_ml_vs_mc.py:138
+LN_COVERAGE = 0.85  # tests/test_ml_vs_mc.py:60
+LN_STUDY_TRIALS = 40
+LN_FIT_TRIALS = 3
+LN_BATCHES = (1, 7, 64, 1000)  # the exports' validation batch sizes
+LN_ONNX_ATOL = 2e-5  # onnx_emit.export_surface_model_onnx's parity bound
+LN_SURROGATE_ONNX_ATOL = 2e-4  # MonteCarloMLSurrogate.export_onnx's
+
+
+def learned_frame(table):
+    """The 7 engineered features of a chain table, its historical vol set to
+    ``LN_HV``."""
+    from optionslab_tpu_torch.surface import engineer_features
+
+    t = table.copy()
+    t["historical_volatility"] = LN_HV
+    return engineer_features(t)
+
+
+def cut_kernels(fn, owner, attr: str, tracked: bool = False) -> int:
+    """CUDA kernels of ``fn()``, a call made of training loops
+    ``owner.attr(..., epochs=E, ...)`` and the work around them: profiled
+    with every loop cut to one epoch, then with each loop in turn at two;
+    each loop adds (E − 1) times its epoch's kernels. With ``tracked`` (the
+    PINN's loop, which tracks its best iterate from ``track_from`` on) the
+    cut epochs are untracked, and one more profile with one tracked epoch
+    gives the tracking's kernels, added (E − track_from) times. Each profile
+    the most of two sessions."""
+    real = getattr(owner, attr)
+    state = {"mode": None, "loops": []}
+
+    def cut(*args, **kw):
+        i = len(state["loops"])
+        state["loops"].append((kw["epochs"], kw.get("track_from")))
+        mode = state["mode"][1] if state["mode"] and state["mode"][0] == i else None
+        epochs = 2 if mode else 1
+        if tracked:
+            kw["track_from"] = 1 if mode == "tracked" else epochs
+        return real(*args, **{**kw, "epochs": epochs})
+
+    def run():
+        state["loops"] = []
+        fn()
+
+    setattr(owner, attr, cut)
+    try:
+        base = cuda_kernels(run, 2)
+        total = base
+        for i, (epochs, track_from) in enumerate(list(state["loops"])):
+            state["mode"] = (i, "untracked")
+            per_epoch = cuda_kernels(run, 2) - base
+            total += (epochs - 1) * per_epoch
+            if tracked:
+                state["mode"] = (i, "tracked")
+                total += (epochs - track_from) * (cuda_kernels(run, 2) - base - per_epoch)
+    finally:
+        setattr(owner, attr, real)
+    return total
+
+
+def label_error_model(b: ContractBatch, n_paths: int, chunk: int = 256):
+    """The GBM kernel's label estimators (price/K, delta, gamma·K, each a mean
+    over ``n_paths`` branches of one Box–Muller normal z, in antithetic
+    pairs z, −z) at each contract of ``b``: (3, n) exact standard errors, the
+    expected number of in-the-money branches (n,) and the mean |term| a
+    branch adds given in the money (3, n), divided by ``n_paths``. The
+    moments are Gaussian integrals, by the trapezoid rule on the card in
+    float64."""
+    lim, nodes = LN_QUAD
+    z = torch.linspace(-lim, lim, nodes, dtype=torch.float64, device=b.spot.device)
+    w = torch.exp(-0.5 * z * z) / math.sqrt(2.0 * math.pi) * (2.0 * lim / (nodes - 1))
+    w[0] *= 0.5
+    w[-1] *= 0.5
+    se, lam, per = [], [], []
+    for lo in range(0, len(b.spot), chunk):
+        s0, k, t, r, v, q, cp = (getattr(b, f)[lo:lo + chunk].double()[:, None]
+                                 for f in FDM_FIELDS)
+        drift, sd, df = (r - q - 0.5 * v * v) * t, v * torch.sqrt(t), torch.exp(-r * t)
+
+        def terms(zz):
+            st = s0 * torch.exp(drift + sd * zz)
+            x = cp * (st - k)
+            ind = torch.where(x > 0, st, 0.0)
+            return torch.stack([df * torch.clamp_min(x, 0.0) / k, df * cp * ind / s0,
+                                df * cp * (ind * zz / sd - ind) / s0**2 * k]), x > 0
+
+        g, itm = terms(z)
+        g_anti, _ = terms(-z)
+        mean = (g * w).sum(-1)
+        var_pair = 0.5 * ((g * g * w).sum(-1) + (g * g_anti * w).sum(-1)) - mean**2
+        p_itm = (itm * w).sum(-1)
+        se.append(torch.sqrt(torch.clamp_min(var_pair, 0.0) / (n_paths / 2)))
+        lam.append(n_paths * p_itm)
+        per.append((g.abs() * w).sum(-1) / torch.clamp_min(p_itm, 1e-300) / n_paths)
+    return torch.cat(se, 1), torch.cat(lam), torch.cat(per, 1)
+
+
+class FixedTrial:
+    """A study trial whose suggestions are given: one objective call again."""
+
+    def __init__(self, params: dict):
+        self.params = params
+
+    def suggest_float(self, name, *args, **kwargs):
+        return self.params[name]
+
+    suggest_int = suggest_categorical = suggest_float
+
+    def report(self, value, step):
+        pass
+
+    def should_prune(self) -> bool:
+        return False
+
+
+def fitted(model, method: str, *args, **kwargs):
+    getattr(model, method)(*args, **kwargs)
+    return model
+
+
+def phase_learned(dev, card: str) -> dict:
+    """The learned surfaces, the pricing surrogate and ``optimize/`` at their
+    defaults: MLP, PINN (one fit and a 4-member ensemble), kernel ridge and
+    the quote interpolator on the CBOE chain (every 7th quote held out), the
+    forests' missing-dependency error, ``torch.export`` and ``.onnx`` exports
+    held to the live MLP; the surrogate on closed-form labels and on one GBM
+    kernel book launch of labels; a TPE study with a resume, a surrogate
+    study and a study around ``calibrate_heston_mc``. Returns {"stats":
+    {fit: (ms, kernels)}, "gbm": GBM kernel calls, "chain": the calibration
+    study's chain launches}."""
+    import tempfile
+
+    from optionslab_tpu_torch import optimize as opt
+    from optionslab_tpu_torch.models import surrogate as sg
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+    from optionslab_tpu_torch.surface import (
+        GradientBoostingVolatilityModel,
+        KernelRidgeModel,
+        MLPModel,
+        PINNVolatilityModel,
+        RandomForestVolatilityModel,
+        VolatilitySurfaceGenerator,
+        XGBVolatilityModel,
+    )
+    from optionslab_tpu_torch.surface import mlp as smlp
+    from optionslab_tpu_torch.surface import pinn as spinn
+    from optionslab_tpu_torch.surface.base import TARGET_COLUMN
+    from optionslab_tpu_torch.utils.exceptions import DependencyError, ModelError
+
+    t_phase = time.perf_counter()
+    stats, calls = {}, {"gbm": 0}
+    check(torch.get_float32_matmul_precision() == "highest"
+          and not torch.backends.cuda.matmul.allow_tf32, "TF32 matrix products are on")
+    held, used = vendor_chain(dev)
+    train, test = learned_frame(used.table), learned_frame(held)
+    y_test = np.asarray(test[TARGET_COLUMN], np.float64)
+    const_rmse = float(np.sqrt(np.mean((y_test - np.mean(train[TARGET_COLUMN])) ** 2)))
+    n_q = f"CBOE {len(train)} quotes"
+
+    def record(name, fn, warm, kernels):
+        return warm_call(name, fn, warm, kernels, stats, card, phase="learned")[0]
+
+    # the MLP at its defaults: (64, 32), 300 epochs, batch 64
+    mlp = record(f"MLPModel.train {n_q}, (64, 32), 300 epochs, batch 64",
+                 lambda: fitted(MLPModel(device=dev), "train", train),
+                 lambda: MLPModel(epochs=2, device=dev).train(train),
+                 lambda: cut_kernels(lambda: MLPModel(device=dev).train(train), smlp,
+                                     "train_mlp"))
+    mlp_rmse = mlp.evaluate(test)["rmse"]
+    check(mlp_rmse < const_rmse, f"MLP held-out rmse {mlp_rmse} vs the constant's {const_rmse}")
+    mean, std = mlp.predict_with_uncertainty(test, mc_samples=32)
+    check(mean.shape == (len(test),) and bool(np.all(std >= 0)) and std.max() > 0,
+          f"MC dropout: mean {mean.shape}, std max {std.max()}")
+    grads = mlp.input_gradients(test)
+    check(grads.shape == (len(test), 7) and bool(np.all(np.isfinite(grads))),
+          f"input gradients {grads.shape}")
+    log("learned", f"MLP held-out IV rmse {mlp_rmse:.5f} (the constant predictor's "
+                   f"{const_rmse:.5f}); MC-dropout std median {np.median(std):.5f}")
+
+    # the PINN at its defaults: (64, 64), 1200 epochs, 512 collocation points, medium
+    pinn = record(f"PINNVolatilityModel.train {n_q}, (64, 64), 1200 epochs, 512 collocation",
+                  lambda: fitted(PINNVolatilityModel(device=dev), "train", train),
+                  lambda: PINNVolatilityModel(epochs=3, device=dev).train(train),
+                  lambda: cut_kernels(lambda: PINNVolatilityModel(device=dev).train(train),
+                                      spinn, "_train_pinn_core", tracked=True))
+    fit_rmse, pinn_held = pinn.evaluate(train)["rmse"], pinn.evaluate(test)["rmse"]
+    audit = pinn.check_arbitrage(n_k=41, n_t=9)
+    check(fit_rmse < 0.012, f"PINN rmse {fit_rmse} (tests/test_surface_models.py:163)")
+    check(audit["calendar_violation_rate"] <= 0.05 and audit["butterfly_violation_rate"] <= 0.10,
+          f"PINN audit {audit}")
+    ens = record(f"PINNVolatilityModel.train {n_q}, {LN_ENSEMBLE}-member ensemble",
+                 lambda: fitted(PINNVolatilityModel(device=dev), "train", train,
+                                n_seeds=LN_ENSEMBLE),
+                 lambda: PINNVolatilityModel(epochs=3, device=dev).train(train,
+                                                                         n_seeds=LN_ENSEMBLE),
+                 lambda: cut_kernels(lambda: PINNVolatilityModel(device=dev).train(
+                     train, n_seeds=LN_ENSEMBLE), spinn, "_train_pinn_core", tracked=True))
+    sel = ens.ensemble_selection
+    i = sel["index"]
+    check(ens.ensemble_best_losses.shape == (LN_ENSEMBLE,)
+          and i == spinn.select_ensemble_member(sel["rmse"], sel["max_violation"]),
+          f"ensemble selection {sel}")
+    check(all(torch.equal(v, ens.ensemble_params[j][k][i]) for j, layer in enumerate(ens.params)
+              for k, v in layer.items()), "the kept params are not the selected member's")
+    band = ens.iv_band(np.asarray(test["log_moneyness"]), np.asarray(test["time_to_maturity"]))
+    check(bool(np.all(band["lo"] <= band["mean"] + 1e-7) and np.all(band["mean"] <= band["hi"] + 1e-7))
+          and band["std"].max() > 0 and bool(np.all(band["hi"] - band["lo"] < 0.2)),
+          f"ensemble band: spread max {np.max(band['hi'] - band['lo'])}")
+    ens_audit = ens.check_arbitrage(n_k=41, n_t=9)
+    log("learned", f"PINN rmse {fit_rmse:.5f} (held out {pinn_held:.5f}), audit {audit}; "
+                   f"ensemble member {i} of rmse {np.array2string(sel['rmse'], precision=5)}, "
+                   f"worst violation {np.array2string(sel['max_violation'], precision=3)}, "
+                   f"loss argmin {sel['loss_argmin']}, audit {ens_audit}")
+
+    # kernel ridge at its defaults, with a save/load round trip
+    kr = record(f"KernelRidgeModel.train {n_q} (gamma 1, alpha 1e-3)",
+                lambda: fitted(KernelRidgeModel(device=dev), "train", train),
+                lambda: KernelRidgeModel(device=dev).train(train),
+                lambda: cuda_kernels(lambda: KernelRidgeModel(device=dev).train(train)))
+    kr_held = kr.evaluate(test)["rmse"]
+    with tempfile.TemporaryDirectory() as tmp:
+        kr.save_model(f"{tmp}/kr")
+        again = KernelRidgeModel(device=dev).load_model(f"{tmp}/kr")
+        check(np.allclose(again.predict_volatility(test), kr.predict_volatility(test), rtol=1e-5),
+              "kernel ridge save/load changed its predictions")
+    kr_r2 = kr.evaluate(train)["r2"]
+    check(kr_r2 > 0.5 and kr_held < const_rmse,  # tests/test_surface_models.py:275
+          f"kernel ridge r2 {kr_r2}, held-out rmse {kr_held}")
+    log("learned", f"kernel ridge r2 {kr_r2:.5f}, held-out rmse {kr_held:.5f}")
+
+    # the quote interpolator: rbf, idw, nearest
+    k_, t_, v_ = (np.asarray(used.table[c], np.float64)
+                  for c in ("strike_price", "time_to_maturity", "implied_volatility"))
+    fwd = np.asarray(used.table["underlying_price"], np.float64) * np.exp(SF_RATE * t_)
+    call = np.asarray(used.table["option_type"]) == "call"
+    otm = np.where(call, k_ >= fwd, k_ < fwd)  # one quote a (strike, expiry): the OTM smile
+    hk_, ht_, hv_ = (np.asarray(held[c], np.float64)
+                     for c in ("strike_price", "time_to_maturity", "implied_volatility"))
+    try:
+        VolatilitySurfaceGenerator(k_, t_, v_, method="rbf", device=dev)
+        check(False, "the rbf fit on duplicate (strike, expiry) quotes did not raise")
+    except ModelError as e:
+        log("learned", f"rbf on all {len(k_)} quotes (a call and a put at each strike): {e}")
+    t0 = time.perf_counter()
+    rbf = VolatilitySurfaceGenerator(k_[otm], t_[otm], v_[otm], method="rbf", device=dev)
+    at_quotes = np.abs(rbf.get_surface_batch(k_[otm], t_[otm]) - v_[otm]).max()
+    torch.cuda.synchronize()
+    rbf_ms = (time.perf_counter() - t0) * 1e3
+    check(at_quotes <= 1e-3, f"rbf off the quotes by {at_quotes} (tests/test_surface_models.py:287)")
+    gen_rmse = {"rbf": float(np.sqrt(np.mean((rbf.get_surface_batch(hk_, ht_) - hv_) ** 2)))}
+    for method in ("idw", "nearest"):
+        gen = VolatilitySurfaceGenerator(k_, t_, v_, method=method, device=dev)
+        out = gen.get_surface_batch(hk_, ht_)
+        check(bool(np.all((out >= v_.min() - 1e-6) & (out <= v_.max() + 1e-6))),
+              f"{method} left the quotes' range")
+        gen_rmse[method] = float(np.sqrt(np.mean((out - hv_) ** 2)))
+        grid = gen.generate_surface(np.linspace(k_.min(), k_.max(), 41),
+                                    np.linspace(t_.min(), t_.max(), 9))
+        check(grid is gen.generate_surface(np.linspace(k_.min(), k_.max(), 41),
+                                           np.linspace(t_.min(), t_.max(), 9))
+              and grid.shape == (9, 41), f"{method} grid cache")
+    log("learned", f"rbf on the {int(otm.sum())}-quote OTM smile: fit and evaluation "
+                   f"{rbf_ms:.1f} ms, max error at the quotes {at_quotes:.2e}; held-out rmse "
+                   f"{gen_rmse} [{card}]")
+
+    # the forests: scikit-learn is no dependency of the port
+    had = sys.modules.get("sklearn", False)
+    sys.modules["sklearn"] = None
+    try:
+        for cls in (RandomForestVolatilityModel, GradientBoostingVolatilityModel,
+                    XGBVolatilityModel):
+            try:
+                cls().train(train)
+                check(False, f"{cls.__name__} trained without scikit-learn")
+            except DependencyError:
+                pass
+    finally:
+        if had is False:
+            del sys.modules["sklearn"]
+        else:
+            sys.modules["sklearn"] = had
+
+    # the exports, held to the live MLP across batch sizes
+    raw = np.concatenate([mlp.scaler.inverse_transform(mlp._features_matrix(f))
+                          for f in (train, test)]).astype(np.float32)
+    rng = np.random.default_rng(0)
+    batches = [raw[rng.integers(0, len(raw), b)] for b in LN_BATCHES]
+    fn = opt.export.surface_forward(mlp)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = opt.export_surface_model(mlp, f"{tmp}/mlp.pt2")
+        export_ms = (time.perf_counter() - t0) * 1e3
+        for where in (dev, torch.device("cpu")):
+            engine = opt.InferenceEngine(res.path, device=where)
+            rep = opt.ExportValidator().validate_batch_sizes(fn, engine, batches, device=dev)
+            check(rep.passed, f"torch.export artifact on {where}: {rep.summary()}")
+            log("learned", f"torch.export (exported on the card) loaded on {where}: "
+                           f"{rep.summary()}")
+        bench = opt.InferenceEngine(res.path, device=dev).benchmark(batches[-1], iters=50)
+        t0 = time.perf_counter()
+        manifest = opt.export_surface_model_onnx(mlp, f"{tmp}/mlp.onnx")
+        onnx_ms = (time.perf_counter() - t0) * 1e3
+        runtime = opt.OnnxLiteRuntime(f"{tmp}/mlp.onnx")
+        with torch.no_grad():
+            onnx_err = max(float(np.abs(runtime.predict(x) - fn(torch.as_tensor(
+                x, device=dev)).cpu().numpy()).max()) for x in batches)
+        check(manifest["roundtrip_max_abs_err"] <= LN_ONNX_ATOL and onnx_err <= LN_ONNX_ATOL,
+              f".onnx parity {manifest['roundtrip_max_abs_err']}, {onnx_err}")
+    log("learned", f"export_surface_model {export_ms:.0f} ms ({res.n_bytes} bytes), its "
+                   f"program on the card {len(batches[-1])} rows p50 {bench['p50_ms']:.3f} ms, "
+                   f"p95 {bench['p95_ms']:.3f} ms; export_surface_model_onnx {onnx_ms:.0f} ms, "
+                   f"max error {onnx_err:.2e} over batches {LN_BATCHES} [{card}]")
+
+    # the surrogate on closed-form labels at its defaults
+    sur = record(f"MonteCarloMLSurrogate.fit {LN_SURROGATE_N} samples, (128, 128), 300 epochs, "
+                 "batch 1024",
+                 lambda: fitted(sg.MonteCarloMLSurrogate(device=dev), "fit", LN_SURROGATE_N),
+                 lambda: sg.MonteCarloMLSurrogate(epochs=2, device=dev).fit(LN_SURROGATE_N),
+                 lambda: cut_kernels(lambda: sg.MonteCarloMLSurrogate(device=dev).fit(
+                     LN_SURROGATE_N), sg, "_train_multi"))
+    score = sur.score()
+    check(all(score[k] > v for k, v in LN_R2.items()), f"surrogate scores {score}")
+    p = sg.sample_contracts(4_000, seed=77)
+    band = sur.predict(p["spot"], p["strike"], p["maturity"], p["rate"], p["vol"], "call", 0.0,
+                       return_uncertainty=True)
+    truth = bs_price(*(torch.as_tensor(p[k], device=dev)
+                       for k in ("spot", "strike", "maturity", "rate", "vol")), 1.0, 0.0)
+    truth = truth.cpu().numpy()
+    coverage = float(np.mean((band["price_lo"] <= truth) & (truth <= band["price_hi"])))
+    check(coverage >= LN_COVERAGE, f"conformal coverage {coverage}")
+    with tempfile.TemporaryDirectory() as tmp:
+        sur_onnx = sur.export_onnx(f"{tmp}/surrogate.onnx")
+    check(sur_onnx["roundtrip_max_abs_err"] <= LN_SURROGATE_ONNX_ATOL, f"surrogate .onnx {sur_onnx}")
+    log("learned", f"surrogate R² {score}, conformal coverage {coverage:.4f} (≥ {LN_COVERAGE}), "
+                   f".onnx max error {sur_onnx['roundtrip_max_abs_err']:.2e}")
+
+    # the surrogate on the GBM kernel's book Greeks: one launch of labels
+    last = {}
+
+    def book(p):
+        return ContractBatch(**{k: torch.as_tensor(p[k], device=dev) for k in FDM_FIELDS})
+
+    def gbm_labels(p):
+        b = book(p)
+        out = gk.gbm_mc_price_greeks(b, n_paths=LN_LABEL_PATHS, seed=0)
+        calls["gbm"] += 1
+        last.update(p=p, out=out)
+        return torch.stack([out["price"] / b.strike, out["delta"], out["gamma"] * b.strike], 1)
+
+    sur2 = record(f"MonteCarloMLSurrogate.fit_to_pricer {LN_PRICER_N} contracts, GBM kernel "
+                  f"labels at {LN_LABEL_PATHS} paths a contract",
+                  lambda: fitted(sg.MonteCarloMLSurrogate(device=dev), "fit_to_pricer",
+                                 gbm_labels, LN_PRICER_N),
+                  lambda: sg.MonteCarloMLSurrogate(epochs=2, device=dev).fit_to_pricer(
+                      gbm_labels, LN_PRICER_N),
+                  lambda: cut_kernels(lambda: sg.MonteCarloMLSurrogate(device=dev).fit_to_pricer(
+                      gbm_labels, LN_PRICER_N), sg, "_train_multi"))
+    b = book(last["p"])
+    ref = bs_greeks(*(getattr(b, k).double() for k in FDM_FIELDS[:5]), b.cp.double(),
+                    b.dividend.double())
+    strike = b.strike.double()
+    out = last["out"]
+    label = torch.stack([out["price"].double() / strike, out["delta"].double(),
+                         out["gamma"].double() * strike])
+    want = torch.stack([ref["price"] / strike, ref["delta"], ref["gamma"] * strike])
+    n_branch = gk.gbm_paths_per_launch(b, LN_LABEL_PATHS)
+    se, lam, per_branch = label_error_model(b, n_branch)
+    normal = lam >= LN_POISSON
+    bound = torch.where(normal, 5.0 * se,
+                        (lam + 5.0 * torch.sqrt(lam) + 5.0) * per_branch) + LN_LABEL_FLOOR
+    z = (label - want).abs() / bound
+    check(bool((z <= 1.0).all()), f"labels off bs_greeks by up to {z.amax(1).tolist()} of "
+                                  "their bounds")
+    se_ratio = (out["std_error"].double() / strike / se[0])[normal]
+    score2 = sur2.score()
+    check(all(score2[k] > v for k, v in LN_R2.items()), f"surrogate on GBM labels: {score2}")
+    log("learned", f"GBM labels: {len(strike)} contracts x {n_branch} paths; |label - "
+                   f"bs_greeks| / bound at most {np.array2string(z.amax(1).cpu().numpy(), precision=3)}"
+                   f" (price/K, delta, gamma·K; bound 5 stderr + {LN_LABEL_FLOOR} where "
+                   f"{LN_POISSON:.0f}+ in-the-money paths are expected, for "
+                   f"{float(normal.double().mean()):.4f} of them, else a Poisson count's); the "
+                   "kernel's price stderr over the exact one: "
+                   f"median {float(se_ratio.median()):.4f}, range {float(se_ratio.min()):.4f}-"
+                   f"{float(se_ratio.max()):.4f}; R² on BS labels {score2}")
+
+    # the studies: TPE with a resume, the surrogate's, and one around calibrate_heston_mc
+    def basin(trial, seed):  # tests/test_optimization.py:166
+        x = trial.suggest_float("x", 0.0, 1.0)
+        y = trial.suggest_float("y", 0.0, 1.0)
+        return (x - 0.73) ** 2 + (y - 0.31) ** 2
+
+    with tempfile.TemporaryDirectory() as tmp:
+        url = f"sqlite:///{tmp}/studies.db"
+        t0 = time.perf_counter()
+        whole = opt.StudyManager("tpe", url, sampler="tpe").optimize(
+            basin, n_trials=LN_STUDY_TRIALS, catch_exceptions=False)
+        study_ms = (time.perf_counter() - t0) * 1e3
+        half = opt.StudyManager("tpe_resumed", url, sampler="tpe")
+        half.optimize(basin, n_trials=LN_STUDY_TRIALS // 2, catch_exceptions=False)
+        resumed = opt.StudyManager("tpe_resumed", url, sampler="tpe")
+        check(resumed.resumed and len(resumed.trials) == LN_STUDY_TRIALS // 2, "no resume")
+        resumed.optimize(basin, n_trials=LN_STUDY_TRIALS // 2, catch_exceptions=False)
+        check([t.params for t in resumed.trials]
+              == [t.params for t in opt.StudyManager("tpe", url, sampler="tpe").trials],
+              "the resumed TPE study drew other trials than the whole one")
+        sobol = opt.StudyManager("sobol", url, sampler="sobol").optimize(
+            basin, n_trials=LN_STUDY_TRIALS, catch_exceptions=False)
+        tail = resumed.trials[-10:]
+        near = sum(abs(t.params["x"] - 0.73) < 0.2 and abs(t.params["y"] - 0.31) < 0.2
+                   for t in tail)
+        check(whole.n_complete == LN_STUDY_TRIALS and whole.best_value <= sobol.best_value
+              and near >= 5, f"TPE best {whole.best_value} vs Sobol {sobol.best_value}, "
+                             f"{near} of the last 10 near the basin")
+        log("learned", f"TPE study {LN_STUDY_TRIALS} trials {study_ms:.0f} ms, best "
+                       f"{whole.best_value:.2e} (Sobol {sobol.best_value:.2e}), resumed at "
+                       f"{LN_STUDY_TRIALS // 2} with the same trials")
+
+        mgr, objective = opt.create_surrogate_optimizer("surrogate", url, device=dev)
+        t0 = time.perf_counter()
+        res = mgr.optimize(objective, n_trials=LN_FIT_TRIALS, catch_exceptions=False)
+        torch.cuda.synchronize()
+        sur_ms = (time.perf_counter() - t0) * 1e3
+        check(res.n_complete == LN_FIT_TRIALS and math.isfinite(res.best_value),
+              f"surrogate study {res}")
+        n_sur = sum(cut_kernels(lambda t=t: objective(FixedTrial(t.params), t.seed), sg,
+                                "_train_multi") for t in mgr.trials)
+        stats[f"surrogate study, {LN_FIT_TRIALS} trials"] = (sur_ms, n_sur)
+        log("learned", f"create_surrogate_optimizer {LN_FIT_TRIALS} trials "
+                       f"{[t.params for t in mgr.trials]}: warm wall {sur_ms:.1f} ms, {n_sur} "
+                       f"CUDA kernels, best price-head rmse {res.best_value:.5f} [{card}]")
+
+        strikes, mats, cps = heston_chain_quotes()
+        gen_p = hmodel.HestonParams.make(*H_CALIB_GEN, dtype=torch.float64, device=dev)
+        market = hmodel.heston_price(ContractBatch.make(
+            S0, torch.tensor(strikes, dtype=torch.float64), torch.tensor(mats, dtype=torch.float64),
+            RATE, 0.2, torch.tensor(cps, dtype=torch.float64), device=dev, dtype=torch.float64),
+            gen_p).float()
+
+        def calibrate(market_prices, quotes, learning_rate, n_steps):
+            return hmodel.calibrate_heston_mc(
+                market_prices, *quotes, S0, RATE,
+                init=hmodel.HestonParams.make(*H_CALIB_INIT, device=dev), n_steps=n_steps,
+                learning_rate=learning_rate, n_paths=H_CHAIN_PATHS, max_dt=H_CALIB_DT,
+                device=dev)
+
+        objective = opt.make_calibration_objective(calibrate, market, (strikes, mats, cps))
+        mgr = opt.StudyManager("heston_calibration", url)
+        before = hk._heston_chain_cuda.launches
+        t0 = time.perf_counter()
+        res = mgr.optimize(objective, n_trials=LN_FIT_TRIALS, catch_exceptions=False)
+        torch.cuda.synchronize()
+        cal_ms = (time.perf_counter() - t0) * 1e3
+        chain = hk._heston_chain_cuda.launches - before
+        want = sum(t.params["n_steps"] + 2 for t in mgr.trials)
+        check(chain == want, f"the calibration study made {chain} chain launches, not {want}")
+        check(res.n_complete == LN_FIT_TRIALS and math.isfinite(res.best_value),
+              f"calibration study {res}")
+        n_cal = sum(adam_kernels(lambda t=t: objective(FixedTrial(t.params), t.seed))
+                    for t in mgr.trials)
+        stats[f"calibration study, {LN_FIT_TRIALS} trials"] = (cal_ms, n_cal)
+        log("learned", f"make_calibration_objective around calibrate_heston_mc (40 quotes, "
+                       f"{H_CHAIN_PATHS} paths, dt {H_CALIB_DT}), {LN_FIT_TRIALS} trials "
+                       f"{[t.params for t in mgr.trials]}: warm wall {cal_ms:.1f} ms, {n_cal} "
+                       f"CUDA kernels, {chain} chain launches (Σ(n_steps + 2) = {want}), best "
+                       f"loss {res.best_value:.3e} [{card}]")
+    log("learned", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"stats": stats, "gbm": calls["gbm"], "chain": chain}
+
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4410,6 +4913,26 @@ def main() -> None:
             sys.modules["pandas"] = had_pandas
     sf_after = launch_counts()
     sf_launches = {k: sf_after[k] - sf_before[k] for k in sf_after}
+    # the learned surfaces, the surrogate and optimize/, with pandas and
+    # scikit-learn unimportable: gbm_mc (the surrogate's labels) and
+    # heston_chain (the calibration study) launch, nothing else
+    sys.modules["pandas"] = None
+    try:
+        ln = phase_learned(dev, card)
+    finally:
+        if had_pandas is False:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = had_pandas
+    ln_after = launch_counts()
+    ln_launches = {k: ln_after[k] - sf_after[k] for k in ln_after}
+    log("launches", f"the learned slice's share: {ln_launches}")
+    check(ln_launches["gbm_mc"] == ln["gbm"],
+          f"gbm_mc launched {ln_launches['gbm_mc']} times for {ln['gbm']} label calls")
+    check(ln_launches["heston_chain"] >= ln["chain"] > 0,
+          "the calibration study never launched the chain kernel")
+    check(all(n == 0 for k, n in ln_launches.items() if k not in ("gbm_mc", "heston_chain")),
+          f"the learned slice launched another kernel: {ln_launches}")
     log("launches", f"the surface slice's share: {sf_launches}")
     check(sf_launches["heston_chain"] >= 202, "the heston-mc fit never ran its 202 launches")
     check(sf_launches["local_vol_mc"] == surf["lv"],
@@ -4443,7 +4966,7 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("gbm_mc_kernel", "gbm_mc.cu", "optionslab_tpu/ops/gbm_pallas.py:104",
-              gbm_launches, gbm_err, gbm_t["1024x1e6"]),
+              gbm_launches + ln_launches["gbm_mc"], gbm_err, gbm_t["1024x1e6"]),
         entry("exotic_mc_kernel", "exotic_mc.cu", "optionslab_tpu/ops/exotic_pallas.py:150",
               mc_launches, mc_err, ex_t["asian_arith 4Mx252"]),
         entry("exotic_greeks_kernel", "exotic_greeks.cu",
@@ -4457,7 +4980,8 @@ def main() -> None:
               "optionslab_tpu/ops/heston_pallas.py:365", h_launches["qe_ladder"],
               h_err["qe_ladder"], h_timing(h_t, "heston_qe_ladder prng")),
         entry("heston_chain_kernel", "heston_chain.cu", "optionslab_tpu/ops/heston_pallas.py:469",
-              h_launches["chain"] + sf_launches["heston_chain"], h_err["chain"],
+              h_launches["chain"] + sf_launches["heston_chain"] + ln_launches["heston_chain"],
+              h_err["chain"],
               h_timing(h_t, "heston_chain prng 40")),
         entry("heston_exotic_kernel", "heston_exotic.cu",
               "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches, hx_err,

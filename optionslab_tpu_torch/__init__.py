@@ -49,14 +49,19 @@ Subpackages
             Bergomi) and CVA/DVA/FVA, served by the server's ``/xva``
 ``surface`` SVI/SSVI/eSSVI surfaces and their arbitrage checks, the chain
             calibration (to a surface, to Heston/Bates/rough Bergomi, to a
-            Dupire surface), served by the server's ``/calibrate``
+            Dupire surface), served by the server's ``/calibrate``; the
+            learned surfaces (MLP, PINN, kernel ridge, forests, the quote
+            interpolator) and grid search
+``optimize`` hyperparameter studies (TPE/Sobol/random, pruning, SQLite),
+            search spaces and objectives, ``torch.export`` and ``.onnx``
+            artifacts, reproducibility
 ``data``    chain loading without pandas (CBOE, OptionMetrics, csv,
             synthetic), the market-data client
 ``utils``   dtype policy, exceptions, validation, logging, timing,
             profiling, checkpoints
 """
 
-from . import data, greeks, models, ops, risk, surface, utils
+from . import data, greeks, models, ops, optimize, risk, surface, utils
 from .models import (
     BatesParams,
     BatesPricer,
@@ -71,6 +76,7 @@ from .models import (
     HestonParams,
     HestonPricer,
     MCResult,
+    MonteCarloMLSurrogate,
     MertonJumpDiffusion,
     MonteCarloPricer,
     SABRModel,
@@ -120,6 +126,7 @@ __all__ = [
     "greeks",
     "models",
     "ops",
+    "optimize",
     "risk",
     "surface",
     "utils",
@@ -139,6 +146,7 @@ __all__ = [
     "MCMethod",
     "MCResult",
     "MertonJumpDiffusion",
+    "MonteCarloMLSurrogate",
     "MonteCarloPricer",
     "PricingServer",
     "SABRModel",

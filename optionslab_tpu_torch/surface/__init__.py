@@ -1,7 +1,9 @@
-"""Parametric volatility surfaces: SVI, SSVI and eSSVI with their static
-no-arbitrage checks and repairs, the chain-to-surface calibration, the
-Dupire surface from a chain and the dynamic-model fits to a chain, and the
-surface-model base (scaler, feature checks, metrics, persistence)."""
+"""Volatility surfaces: SVI, SSVI and eSSVI with their static no-arbitrage
+checks and repairs, the chain-to-surface calibration, the Dupire surface
+from a chain and the dynamic-model fits to a chain; the learned surfaces
+(MLP, arbitrage-penalised PINN, kernel ridge, tree ensembles, the scattered
+quote interpolator) with grid search; and the surface-model base (scaler,
+feature checks, metrics, persistence)."""
 
 from .arbitrage import (
     butterfly_check,
@@ -29,6 +31,16 @@ from .chain_calibration import (ChainCalibrationResult, calibrate_chain,
 from .essvi import (ESSVIParams, calibrate_essvi, essvi_g,
                     essvi_surface_iv_fn, essvi_total_variance)
 from .features import engineer_features
+from .forest import (
+    GradientBoostingVolatilityModel,
+    RandomForestVolatilityModel,
+    XGBVolatilityModel,
+)
+from .generator import VolatilitySurfaceGenerator
+from .grid_search import nested_cross_validate, tune_model
+from .kernel_ridge import KernelRidgeModel, SVRModel
+from .mlp import MLPModel
+from .pinn import PINNVolatilityModel
 from .svi import (
     SSVIModel,
     SSVIParams,
@@ -55,6 +67,10 @@ __all__ = [
     "svi_surface_iv_fn", "local_vol_from_chain", "calibrate_model_to_chain",
     "ESSVIParams", "calibrate_essvi", "essvi_total_variance", "essvi_g",
     "essvi_surface_iv_fn",
+    "MLPModel", "PINNVolatilityModel", "KernelRidgeModel", "SVRModel",
+    "RandomForestVolatilityModel", "GradientBoostingVolatilityModel",
+    "XGBVolatilityModel", "VolatilitySurfaceGenerator",
+    "tune_model", "nested_cross_validate",
     "butterfly_check", "calendar_check", "surface_arbitrage_report",
     "validate_domain", "isotonic_pava", "enforce_calendar",
     "enforce_convexity", "detect_arbitrage_violations", "correct_arbitrage",

@@ -1,7 +1,7 @@
 """The port's export lists against the reference's.
 
 Every name of each reference ``__all__`` (the top level, ``models``, ``ops``,
-``utils``, ``greeks``, ``risk``, ``surface`` and ``data``) is on the port, except the names below,
+``utils``, ``greeks``, ``risk``, ``surface``, ``data`` and ``optimize``) is on the port, except the names below,
 which belong to modules not yet ported (ROADMAP Queue 1) or which the port
 does not need.
 Each later slice removes from these lists what it ports.
@@ -13,20 +13,12 @@ import pytest
 
 NOT_YET = {
     "": {
-        # subpackages not yet ported (ROADMAP Queue 1 items 6-8)
-        "backtest", "optimize", "benchmarks", "parallel",
-        "MonteCarloMLSurrogate",  # models/surrogate, Queue 1 item 5
+        # subpackages not yet ported (ROADMAP Queue 1)
+        "backtest", "benchmarks", "parallel",
     },
-    "models": {
-        "MonteCarloMLSurrogate", "generate_training_data",  # models/surrogate
-    },
-    "surface": {
-        # the learned surfaces, Queue 1 item 5
-        "MLPModel", "PINNVolatilityModel", "KernelRidgeModel", "SVRModel",
-        "RandomForestVolatilityModel", "GradientBoostingVolatilityModel",
-        "XGBVolatilityModel", "VolatilitySurfaceGenerator", "tune_model",
-        "nested_cross_validate",
-    },
+    "models": set(),
+    "surface": set(),
+    "optimize": set(),
     "data": set(),
     "ops": set(),
     "utils": {
