@@ -196,6 +196,28 @@ is printed):
               launches); each fit's warm wall and CUDA kernels (counted
               from one- and two-epoch loops, ``cut_kernels``); gbm_mc and
               heston_chain launch, nothing else.
+21. cli     — the command line: every subcommand through
+              ``optionslab_tpu_torch.cli.main`` in process at the reference's
+              defaults on the card, with ``pandas`` unimportable: ``price``
+              bs against Black–Scholes, fdm (one θ-scheme launch), the
+              American put above the European, heston against Lewis;
+              ``greeks --model heston|heston-qe`` against Lewis and ``mc
+              --method pallas`` at 100,000 and 1e9 paths against
+              Black–Scholes within 4 stderr; the ``iv`` round trip; ``exotic
+              --cv`` against the plain Asian, the double kinds against their
+              BGK-shifted closed forms, the pathwise ladder, the heston, lv
+              and slv kernels; ``basket --engine kernel --kind geometric``
+              against its closed form; ``varswap``'s LV and SLV strikes
+              against the replication; ``var``; ``calibrate`` svi and
+              heston-mc, ``surface``, ``bench-harness``; ``export`` (the
+              ``.pt2`` reloaded on the card against the live model); the
+              backtest's CUDA kernels equal at 253 and 1,009 prices;
+              ``american`` bs and heston; ``xva``; ``book --model heston
+              --greeks``; ``plot`` and ``report`` (a ``DependencyError``
+              naming matplotlib in under a second where it is missing);
+              ``info``; ``serve`` as a process answering ``/health`` and
+              ``/price``. Each call's warm wall ms (a fit's first call) and
+              CUDA kernels, and each kernel's launches.
 
 The last three lines are a JSON object of kernel measurements (the eleven
 ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
@@ -209,6 +231,7 @@ import ctypes
 import json
 import math
 import pathlib
+import socket
 import subprocess
 import sys
 import time
@@ -2752,6 +2775,15 @@ def cuda_kernels(fn, sessions: int = 1) -> int:
     return max(counts)
 
 
+def aten_ops(fn) -> int:
+    """aten operators one call of ``fn`` dispatches, from the profiler's host
+    records: an exact count, where the CUDA records of ``cuda_kernels`` gain
+    or lose a few dozen a session."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        fn()
+    return sum(e.count for e in prof.key_averages() if e.key.startswith("aten::"))
+
+
 def linear_kernels(fn_of_steps, full: int, base: int = 1) -> int:
     """Kernels of ``fn_of_steps(full)`` from calls at ``base`` and ``base +
     1`` steps: these loops issue the same launches every step (time step,
@@ -4746,6 +4778,291 @@ def phase_learned(dev, card: str) -> dict:
 
 
 
+CLI_BGK = 0.5826  # Broadie–Glasserman–Kou: a discretely monitored barrier ≈ the continuous one
+#                   shifted outward by e^{0.5826·σ·√(T/m)}
+CLI_BACKTEST_LENGTHS = (253, 1009)  # the price series the no-loop check runs at
+CLI_PROFILER_NOISE = 128  # CUDA records a profiler session gains or loses, at most (+17 and
+#                           −16 seen); a loop over the 756 extra days would add ≥ 756 kernels
+
+
+def cli_json(argv) -> dict:
+    """One in-process run of the port's command line: its printed JSON."""
+    import contextlib
+    import io
+
+    from optionslab_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(argv) == 0, f"cli {' '.join(argv)} did not return 0")
+    return json.loads(buf.getvalue())
+
+
+def phase_cli(dev, card: str) -> dict:
+    """Every subcommand of the port's command line in process through
+    ``optionslab_tpu_torch.cli.main`` at the reference's defaults, on the
+    card, against its oracles: BS, the kernels' Monte Carlo against their
+    closed forms within 4 stderr, the BGK-shifted double-barrier closed
+    forms, the geometric basket, the IV round trip, the variance-swap
+    replications, VaR, the calibrations, the harness, the ``.pt2``
+    artifact reloaded against the live model, the backtest's aten ops and
+    CUDA kernels at two series lengths, the American brackets, XVA, a Heston book, the
+    plot and report guards and a served ``/price``. Each call's warm wall
+    ms (a fit's first-call wall) and CUDA kernels (calls under ≈2 s), and
+    the launches of each kernel. Returns {"stats": {name: (ms, kernels)},
+    "launched": {kernel: launches}}."""
+    import tempfile
+
+    from optionslab_tpu_torch import optimize as topt
+    from optionslab_tpu_torch.backtest import BacktestEngine
+    from optionslab_tpu_torch.models.exotics import (
+        double_barrier_closed_form,
+        double_no_touch_closed_form,
+    )
+    from optionslab_tpu_torch.models.heston import HestonParams, heston_price
+    from optionslab_tpu_torch.models.multi_asset import geometric_basket_closed_form
+    from optionslab_tpu_torch.optimize.export import InferenceEngine, surface_forward
+    from optionslab_tpu_torch.utils.exceptions import DependencyError
+
+    d = ["--device", str(dev)]
+    stats, before = {}, launch_counts()
+    out_dir = pathlib.Path(tempfile.mkdtemp(prefix="cli_"))
+
+    def run(name, argv, warm: bool = True, kernels: bool = True):
+        """The JSON of ``argv``: with ``warm``, after one untimed call; its
+        wall ms and kernel launches logged, and its CUDA kernels for a
+        short call."""
+        if warm:
+            cli_json(d + argv)
+        torch.cuda.synchronize()
+        b = launch_counts()
+        t0 = time.perf_counter()
+        res = cli_json(d + argv)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        a = launch_counts()
+        launched = {k: a[k] - b[k] for k in a if a[k] != b[k]}
+        n = cuda_kernels(lambda: cli_json(d + argv)) if kernels and ms < 2000 else None
+        stats[name] = (ms, n)
+        log("cli", f"{name}: {'warm' if warm else 'first-call'} wall {ms:.1f} ms, "
+                   f"{'not profiled' if n is None else f'{n} CUDA kernels'}, kernel launches "
+                   f"{launched or 'none'} [{card}]")
+        return res, launched
+
+    info, _ = run("info", ["info"], kernels=False)
+    check(info["backend"] == "cuda" and info["device_kind"] == torch.cuda.get_device_name(0)
+          and info["cuda"] == torch.version.cuda, f"info names another device: {info}")
+
+    # price, greeks, mc, iv
+    bs, _ = run("price bs", ["price", "--model", "bs"])
+    check(abs(bs["price"] - BS_ATM_CALL) < 1e-5 * BS_ATM_CALL, f"cli price bs {bs['price']}")
+    fdm, launched = run("price fdm", ["price", "--model", "fdm"])
+    check(abs(fdm["price"] - BS_ATM_CALL) < 2e-3 and launched.get("theta_pde") == 1,
+          f"cli price fdm {fdm['price']}, launches {launched}")
+    fdm_am, _ = run("price fdm --american --type put", ["price", "--model", "fdm", "--american",
+                                                        "--type", "put"])
+    check(fdm_am["price"] > cli_json(d + ["price", "--type", "put"])["price"],
+          "the American put is not above the European")
+    hp, _ = run("price heston", ["price", "--model", "heston"])
+    lewis = float(heston_price(ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, device=dev),
+                               HestonParams.make(device=dev)))
+    check(abs(hp["price"] - lewis) < 1e-4 * lewis, "cli price heston is not Lewis")
+    for model, key in (("heston", "heston_mc"), ("heston-qe", "heston_qe_ladder")):
+        g, launched = run(f"greeks {model}", ["greeks", "--model", model])
+        check(abs(g["price"] - lewis) < 4.0 * g["std_error"] and launched.get(key, 0) >= 1,
+              f"cli greeks {model}: {g['price']} ± {g['std_error']} vs Lewis {lewis}, "
+              f"launches {launched}")
+    for paths in ("100000", "1000000000"):
+        m, launched = run(f"mc pallas {paths}", ["mc", "--method", "pallas", "--n-paths", paths])
+        check(abs(m["price"] - BS_ATM_CALL) < 4.0 * m["std_error"]
+              and launched.get("gbm_mc", 0) >= 1,
+              f"cli mc pallas {paths}: {m['price']} ± {m['std_error']}, launches {launched}")
+    m, _ = run("mc xla", ["mc"])
+    check(abs(m["price"] - BS_ATM_CALL) < 4.0 * m["std_error"], f"cli mc xla {m}")
+    iv, _ = run("iv", ["iv", "--price", repr(bs["price"])])
+    check(abs(iv["implied_vol"] - 0.2) < 1e-4, f"cli iv round trip {iv}")
+
+    # exotic: the Asian control variate against plain, the double kinds
+    # against their BGK-shifted closed forms, the kernel ladders, the models
+    cv, launched = run("exotic --cv", ["exotic", "--cv"])
+    plain, _ = run("exotic asian (scan)", ["exotic", "--kind", "asian"])
+    check(abs(cv["price"] - plain["price"]) < 4.0 * math.hypot(cv["std_error"],
+                                                               plain["std_error"])
+          and launched.get("exotic_mc", 0) >= 1, f"cli exotic --cv {cv} vs plain {plain}")
+    shift = math.exp(CLI_BGK * 0.2 * math.sqrt(1.0 / 64))
+    for argv in (["--kind", "double-barrier"], ["--kind", "double-barrier", "--knock", "in"],
+                 ["--kind", "double-touch"], ["--kind", "double-touch", "--touch", "one"]):
+        o, _ = run(f"exotic {' '.join(argv)}", ["exotic", *argv])
+        lo, hi = o["band"][0] / shift, o["band"][1] * shift
+        if o["kind"].startswith("barrier"):
+            cf = float(double_barrier_closed_form(100.0, 100.0, lo, hi, 1.0, 0.05, 0.2, 1.0,
+                                                  knock=o["kind"].rsplit("-", 1)[1]))
+        else:
+            dnt = float(double_no_touch_closed_form(100.0, lo, hi, 1.0, 0.05, 0.2))
+            cf = dnt if o["kind"].startswith("no") else math.exp(-0.05) - dnt
+        # BGK's own error is O(1/m): 1% of the price on top of 4 stderr
+        check(abs(o["price"] - cf) < 4.0 * o["std_error"] + 0.01 * abs(cf),
+              f"cli exotic {o['kind']}: {o['price']} ± {o['std_error']} vs BGK {cf}")
+    g, launched = run("exotic asian --greeks", ["exotic", "--kind", "asian", "--greeks"])
+    check(launched.get("exotic_greeks", 0) >= 1 and 0.0 < g["delta"] < 1.0,
+          f"cli exotic asian --greeks {g}, launches {launched}")
+    for model, key in (("heston", "heston_exotic"), ("lv", "local_vol_mc"),
+                       ("slv", "slv_mc")):
+        argv = ["exotic", "--model", model, "--kind", "autocallable" if model == "slv"
+                else "barrier"]
+        o, launched = run(f"exotic --model {model}", argv)
+        check(launched.get(key, 0) >= 1 and math.isfinite(o["price"]) and o["price"] > 0,
+              f"cli exotic --model {model}: {o}, launches {launched}")
+
+    # basket: the geometric basket on the multi-asset kernel against its closed form
+    gb, launched = run("basket kernel geometric", ["basket", "--engine", "kernel", "--kind",
+                                                   "geometric"])
+    cf = float(geometric_basket_closed_form([100.0, 95.0, 105.0], [1 / 3] * 3, 100.0, 1.0, 0.05,
+                                            [0.2, 0.25, 0.3], [[1.0, 0.4, 0.4], [0.4, 1.0, 0.4],
+                                                               [0.4, 0.4, 1.0]]))
+    check(abs(gb["price"] - cf) < 4.0 * gb["std_error"] and abs(gb["closed_form"] - cf) < 1e-4
+          and launched.get("multi_asset_mc", 0) >= 1, f"cli basket geometric {gb} vs {cf}")
+    run("basket xla", ["basket"])
+
+    # the variance swap, VaR
+    vs, _ = run("varswap", ["varswap"])
+    # the LV Monte Carlo strike against the replication of its smile: the
+    # Dupire grid and 64 Euler steps leave 0.29% on the CPU, 11 stderr
+    check(abs(vs["local_vol_variance_strike"] / vs["smile_replication_variance_strike"] - 1.0)
+          < 0.01 and abs(vs["slv_variance_strike_mixing1"] / vs["local_vol_variance_strike"]
+                         - 1.0) < 0.01
+          and abs(vs["flat_smile_variance_strike"] - vs["flat_smile_vol_check"]) < 1e-3,
+          f"cli varswap replications disagree: {vs}")
+    var, _ = run("var", ["var"])
+    check(abs(var["parametric_var"] - (1.6448536269514722 * 0.2e6 - 0.05)) < 1.0,
+          f"cli var parametric {var}")
+
+    # the fits: first-call walls
+    cal, _ = run("calibrate svi", ["calibrate"], warm=False, kernels=False)
+    check(max(cal["svi_rmse_vol"]) < 0.009, f"cli calibrate svi rmse {cal['svi_rmse_vol']}")
+    hmc, launched = run("calibrate heston-mc", ["calibrate", "--model", "heston-mc"], warm=False,
+                        kernels=False)
+    check(launched.get("heston_chain", 0) >= 3 and hmc["iv_rmse"] < 0.05,
+          f"cli calibrate heston-mc {hmc}, launches {launched}")
+    srf, _ = run("surface", ["surface"], warm=False, kernels=False)
+    check(srf["rmse_bps"] < 50.0 and srf["butterfly_free"], f"cli surface {srf}")
+    bh, _ = run("bench-harness", ["bench-harness"], warm=False, kernels=False)
+    check({r["model"] for r in bh["table"]} == {"svi", "sabr", "kernel_ridge"}
+          and all(r["convergence_pct"] == 100.0 for r in bh["table"]), f"cli bench-harness {bh}")
+
+    # export: the .pt2 reloaded on the card against the live model's forward
+    live = {}
+    real_export = topt.export_surface_model
+
+    def keep(model, path, *a, **k):
+        live["model"] = model
+        return real_export(model, path, *a, **k)
+
+    topt.export_surface_model = keep
+    try:
+        pt2 = out_dir / "surface_mlp.pt2"
+        ex, _ = run("export", ["export", "--out", str(pt2)], warm=False, kernels=False)
+    finally:
+        topt.export_surface_model = real_export
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(64, 7)), dtype=torch.float32,
+                        device=dev)
+    want = surface_forward(live["model"])(x).detach().cpu().numpy().ravel()
+    got = np.asarray(InferenceEngine(pt2, device=dev).predict(x)).ravel()
+    check(ex["export"]["path"] == str(pt2) and np.max(np.abs(got - want)) < 1e-5,
+          f"cli export: the .pt2 on the card differs from the live model by "
+          f"{np.max(np.abs(got - want))}")
+
+    # backtest: one chain of kernels whatever the series' length
+    bt, _ = run("backtest", ["backtest"])
+    check(bt["n_rebalances"] == 252 and all(math.isfinite(v) for v in bt.values()),
+          f"cli backtest {bt}")
+    eng, rng = BacktestEngine(device=dev), np.random.default_rng(0)
+    ops, counts = [], []
+    for n in CLI_BACKTEST_LENGTHS:
+        prices = 100.0 * np.exp(np.cumsum(0.2 * np.sqrt(1 / 252) * rng.standard_normal(n)))
+
+        def call(p=prices):
+            return eng.run_delta_hedge(p, strike=100.0, maturity=1.0, sigma=0.2)
+
+        call()
+        ops.append(aten_ops(call))
+        counts.append(cuda_kernels(call, 3))
+    log("cli", f"backtest at {CLI_BACKTEST_LENGTHS} prices: {ops} aten ops, {counts} CUDA "
+               f"kernels [{card}]")
+    check(ops[0] == ops[1] > 0, f"the backtest's aten ops grow with the series: {ops}")
+    check(min(counts) > 0 and abs(counts[1] - counts[0]) <= CLI_PROFILER_NOISE,
+          f"the backtest's CUDA kernels grow with the series: {counts}")
+
+    # the American brackets
+    am, _ = run("american bs", ["american"], warm=False, kernels=False)
+    check(abs(am["lower"] - BS_ATM_CALL) < 0.02 and am["lower"] <= am["upper"] + 1e-6,
+          f"cli american bs (a call: no early exercise) {am}")
+    ah, launched = run("american heston", ["american", "--type", "put", "--model", "heston"],
+                       warm=False, kernels=False)
+    check(ah["lower"] - 3 * ah["lower_se"] <= ah["upper"] + 3 * ah["upper_se"]
+          and ah["width"] < 0.05 and launched.get("tridiag", 0) > 0,
+          f"cli american heston {ah}, launches {launched}")
+
+    # XVA and a Heston book
+    xva, _ = run("xva", ["xva"])
+    check(xva["cva"] > 0.0 and abs(xva["ee"][0] - BS_ATM_CALL) < 0.5, f"cli xva {xva}")
+    book, launched = run("book heston --greeks", ["book", "--model", "heston", "--greeks"])
+    check(book["n_contracts"] == 3 and book["price"][0] > book["price"][1] > book["price"][2] > 0
+          and launched.get("heston_exotic") == 1, f"cli book {book}, launches {launched}")
+
+    # plot and report: DependencyError at once without matplotlib
+    for name, argv in (("plot", ["plot", "--what", "smiles", "--out", str(out_dir / "s.png")]),
+                       ("report", ["report", "--out", str(out_dir / "r.html")])):
+        t0 = time.perf_counter()
+        try:
+            cli_json(d + argv)
+            written = pathlib.Path(argv[-1]).exists()
+            log("cli", f"{name}: matplotlib present, wrote {argv[-1]} ({written}) [{card}]")
+            check(written, f"cli {name} wrote nothing")
+        except DependencyError as e:
+            s = time.perf_counter() - t0
+            log("cli", f"{name}: DependencyError in {s * 1e3:.1f} ms: {e} [{card}]")
+            check("matplotlib" in str(e) and s < 1.0, f"cli {name} raised late or wrongly: {e}")
+
+    # serve: a real process on the card
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    proc = subprocess.Popen([sys.executable, "-m", "optionslab_tpu_torch.cli", *d, "serve",
+                             "--port", str(port)], stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE)
+    try:
+        t0, url = time.perf_counter(), f"http://127.0.0.1:{port}"
+        while True:
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    health = json.loads(r.read())
+                break
+            except OSError:
+                if proc.poll() is not None:
+                    raise AssertionError("cli serve died: " + proc.stderr.read().decode()[-2000:])
+                check(time.perf_counter() - t0 < 120, "cli serve never answered /health")
+                time.sleep(0.2)
+        up = time.perf_counter() - t0
+        req = urllib.request.Request(url + "/price", data=json.dumps({"model": "bs"}).encode(),
+                                     headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=60) as r:
+            served = json.loads(r.read())
+    finally:
+        proc.terminate()
+        proc.wait(timeout=30)
+        proc.stderr.close()
+    log("cli", f"serve: /health after {up:.1f} s ({health['device_name']}), /price "
+               f"{served['price']} [{card}]")
+    check(health["device"] == str(dev) and abs(served["price"] - BS_ATM_CALL) < 1e-4,
+          f"cli serve: {health}, {served}")
+
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in after}
+    log("launches", f"the command line's share: {launched}")
+    return {"stats": stats, "launched": launched}
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -4926,6 +5243,17 @@ def main() -> None:
             sys.modules["pandas"] = had_pandas
     ln_after = launch_counts()
     ln_launches = {k: ln_after[k] - sf_after[k] for k in ln_after}
+    # the command line: every subcommand through cli.main, pandas unimportable
+    sys.modules["pandas"] = None
+    try:
+        cl = phase_cli(dev, card)["launched"]
+    finally:
+        if had_pandas is False:
+            del sys.modules["pandas"]
+        else:
+            sys.modules["pandas"] = had_pandas
+    check(all(cl[k] > 0 for k in cl if k != "heston_qe"),
+          f"the command line never launched a kernel of its path: {cl}")
     log("launches", f"the learned slice's share: {ln_launches}")
     check(ln_launches["gbm_mc"] == ln["gbm"],
           f"gbm_mc launched {ln_launches['gbm_mc']} times for {ln['gbm']} label calls")
@@ -4942,12 +5270,12 @@ def main() -> None:
               if k not in ("heston_chain", "local_vol_mc", "tridiag")),
           f"the surface slice launched another kernel: {sf_launches}")
     tri_launches = tri._tridiag_cuda.launches
-    log("launches", f"tridiag launched {tri_launches} times over the pricers, the slice and "
-                    "the risk engine")
+    log("launches", f"tridiag launched {tri_launches} times over the pricers, the slice, "
+                    "the risk engine, the surface slice and the command line")
     check(tri_launches > 0, "the PDE path never launched the tridiagonal kernel")
     theta_launches = tp._theta_cuda.launches
-    log("launches", f"theta_pde launched {theta_launches} times over the pricers, the slice and "
-                    "the risk engine")
+    log("launches", f"theta_pde launched {theta_launches} times over the pricers, the slice, "
+                    "the risk engine and the command line")
     check(theta_launches > 0, "the PDE path never launched the θ-scheme kernel")
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
@@ -4966,34 +5294,40 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("gbm_mc_kernel", "gbm_mc.cu", "optionslab_tpu/ops/gbm_pallas.py:104",
-              gbm_launches + ln_launches["gbm_mc"], gbm_err, gbm_t["1024x1e6"]),
+              gbm_launches + ln_launches["gbm_mc"] + cl["gbm_mc"], gbm_err, gbm_t["1024x1e6"]),
         entry("exotic_mc_kernel", "exotic_mc.cu", "optionslab_tpu/ops/exotic_pallas.py:150",
-              mc_launches, mc_err, ex_t["asian_arith 4Mx252"]),
+              mc_launches + cl["exotic_mc"], mc_err, ex_t["asian_arith 4Mx252"]),
         entry("exotic_greeks_kernel", "exotic_greeks.cu",
-              "optionslab_tpu/ops/exotic_pallas.py:1315", greeks_launches, greeks_err,
+              "optionslab_tpu/ops/exotic_pallas.py:1315", greeks_launches + cl["exotic_greeks"],
+              greeks_err,
               ex_t["greeks asian_geo 8Mx252"]),
         entry("heston_mc_kernel", "heston_mc.cu", "optionslab_tpu/ops/heston_pallas.py:59",
-              h_launches["mc"], h_err["mc"], h_timing(h_t, "heston_mc price prng")),
+              h_launches["mc"] + cl["heston_mc"], h_err["mc"],
+              h_timing(h_t, "heston_mc price prng")),
         entry("heston_qe_kernel", "heston_qe.cu", "optionslab_tpu/ops/heston_pallas.py:280",
-              h_launches["qe"], h_err["qe"], h_timing(h_t, "heston_qe prng")),
+              h_launches["qe"] + cl["heston_qe"], h_err["qe"], h_timing(h_t, "heston_qe prng")),
         entry("heston_qe_ladder_kernel", "heston_qe.cu",
-              "optionslab_tpu/ops/heston_pallas.py:365", h_launches["qe_ladder"],
+              "optionslab_tpu/ops/heston_pallas.py:365", h_launches["qe_ladder"]
+              + cl["heston_qe_ladder"],
               h_err["qe_ladder"], h_timing(h_t, "heston_qe_ladder prng")),
         entry("heston_chain_kernel", "heston_chain.cu", "optionslab_tpu/ops/heston_pallas.py:469",
-              h_launches["chain"] + sf_launches["heston_chain"] + ln_launches["heston_chain"],
+              h_launches["chain"] + sf_launches["heston_chain"] + ln_launches["heston_chain"]
+              + cl["heston_chain"],
               h_err["chain"],
               h_timing(h_t, "heston_chain prng 40")),
         entry("heston_exotic_kernel", "heston_exotic.cu",
-              "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches, hx_err,
+              "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches + cl["heston_exotic"], hx_err,
               hx_t[f"asian_arith {HX_MAIN[0]}x{HX_MAIN[1]}"]),
         entry("local_vol_mc_kernel", "local_vol_mc.cu",
               "optionslab_tpu/ops/local_vol_pallas.py:64",
-              lv_launches + sf_launches["local_vol_mc"], lv_err,
+              lv_launches + sf_launches["local_vol_mc"] + cl["local_vol_mc"], lv_err,
               smile_t[f"local_vol european {LV_MAIN[0]}x{LV_MAIN[1]}"]),
-        entry("slv_mc_kernel", "slv_mc.cu", "optionslab_tpu/ops/slv_pallas.py:106", slv_launches,
-              slv_err, smile_t[f"slv barrier {SLV_MAIN[0]}x{SLV_MAIN[1]}"]),
+        entry("slv_mc_kernel", "slv_mc.cu", "optionslab_tpu/ops/slv_pallas.py:106",
+              slv_launches + cl["slv_mc"], slv_err,
+              smile_t[f"slv barrier {SLV_MAIN[0]}x{SLV_MAIN[1]}"]),
         entry("multi_asset_mc_kernel", "multi_asset_mc.cu",
-              "optionslab_tpu/ops/multi_asset_pallas.py:58", ma_launches, ma_err,
+              "optionslab_tpu/ops/multi_asset_pallas.py:58", ma_launches + cl["multi_asset_mc"],
+              ma_err,
               ma_t[f"multi_asset basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}"]),
         {**entry("tridiag_kernel", "tridiag.cu",
                  "optionslab_tpu/ops/tridiag.py:15 (lax.scan, no Pallas kernel)", tri_launches,

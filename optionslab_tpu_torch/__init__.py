@@ -57,11 +57,19 @@ Subpackages
             artifacts, reproducibility
 ``data``    chain loading without pandas (CBOE, OptionMetrics, csv,
             synthetic), the market-data client
+``backtest`` the delta-hedge backtest and its strike × sigma sweep, with
+            no loop over days
+``benchmarks`` the vol-surface benchmark harness (error, speed,
+            stability, EPP across the surface models)
 ``utils``   dtype policy, exceptions, validation, logging, timing,
-            profiling, checkpoints
+            profiling, checkpoints, the plots and the HTML desk report
+
+``python -m optionslab_tpu_torch.cli <command>`` (``cli.py``) is the
+command line: every subcommand of the JAX package's, on ``--device``
+(``cuda`` unless ``cpu`` is asked for).
 """
 
-from . import data, greeks, models, ops, optimize, risk, surface, utils
+from . import backtest, benchmarks, data, greeks, models, ops, optimize, risk, surface, utils
 from .models import (
     BatesParams,
     BatesPricer,
@@ -122,6 +130,8 @@ from .types import ContractBatch
 from .utils import ValidationError, setup_logging
 
 __all__ = [
+    "backtest",
+    "benchmarks",
     "data",
     "greeks",
     "models",

@@ -14,7 +14,7 @@ import pytest
 NOT_YET = {
     "": {
         # subpackages not yet ported (ROADMAP Queue 1)
-        "backtest", "benchmarks", "parallel",
+        "parallel",
     },
     "models": set(),
     "surface": set(),
