@@ -139,7 +139,11 @@ is printed):
               autograd through the plain loop; device ms beside the bound,
               the longest chain of solves that ran (run before the pricers,
               after the tridiagonal phase; ``fdm_price`` then prices through
-              it, one launch a call and no tridiagonal launch).
+              it, one launch a call and no tridiagonal launch); then
+              ``fdm_price``'s grid built on the card against the CPU's, bit
+              for bit, at S0 = K (41, 81 and 201 nodes, float32 and
+              float64), and the 41 x 40 American put on the card against
+              the CPU's plain loop;
 
 18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
               handler at its defaults (65,536 paths x 24 dates, 8 substeps a
@@ -218,6 +222,21 @@ is printed):
               ``info``; ``serve`` as a process answering ``/health`` and
               ``/price``. Each call's warm wall ms (a fit's first call) and
               CUDA kernels, and each kernel's launches.
+22. parallel — ``parallel/`` on meshes of this card repeated 1, 2 and 4
+              times (one card: the walls are the shard loop's host cost and
+              the kernels, not an interconnect): every kernel route at its
+              path's shape (GBM 1 x 1e9 and the 1024 x 1e6 book on a 2 x 2
+              mesh, the exotic Asian and pathwise Greeks, the basket Asian
+              and its ladder, Heston Euler, QE and the QE ladder, the Heston
+              exotic Asian and barrier LR, local vol and SLV price and
+              Greeks), one shard bit for bit the unsharded call, 2 and 4
+              within the reference's sharded bounds, one launch a shard;
+              ``sharded_mc_price`` 16 x 1e7 bit-identical on 1, 2 and 4
+              shards; ``sharded_book_greeks`` 256 x 1e6 on 2 x 2 against
+              ``mc_greeks`` on the same normals; VaR/ES of 8,388,608 samples
+              equal to a global sort, Monte Carlo VaR against the closed
+              form; the data-parallel PINN step on 4 shards against 1; each
+              route's warm wall beside the unsharded call.
 
 The last three lines are a JSON object of kernel measurements (the eleven
 ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
@@ -5063,6 +5082,370 @@ def phase_cli(dev, card: str) -> dict:
     return {"stats": stats, "launched": launched}
 
 
+def fdm_grid_check(dev) -> None:
+    """``fdm_price``'s grid built on the card against the one built on the
+    CPU, bit for bit, at S0 = K for 41, 81 and 201 nodes in float32 and
+    float64 (the mid-cell shift's tie, broken as the reference breaks it;
+    ``tests/test_torch_fdm_grid.py`` holds the CPU grid to the reference's),
+    and the 41 x 40 American put at S0 = K priced by the θ-scheme kernel
+    against the CPU's plain loop on the same grid (rtol 1e-5)."""
+    from optionslab_tpu_torch.models import fdm as fdm_mod
+
+    for dtype in (torch.float32, torch.float64):
+        for n in (41, 81, 201):
+            args = [torch.tensor([v], dtype=dtype) for v in (S0, VOL, T, STRIKE)]
+            x_cpu, dx_cpu = fdm_mod._grid(args[0], args[1], args[2], n, 6.0, args[3])
+            x_dev, dx_dev = fdm_mod._grid(*(a.to(dev) for a in args[:3]), n, 6.0,
+                                          args[3].to(dev))
+            check(torch.equal(x_dev.cpu(), x_cpu) and torch.equal(dx_dev.cpu(), dx_cpu),
+                  f"fdm grid {n} {dtype}: the card's differs from the CPU's")
+    put = lambda d: ContractBatch.make(S0, STRIKE, T, RATE, VOL, "put", device=d)  # noqa: E731
+    on_card = fdm_mod.fdm_price(put(dev), n_space=41, n_time=40, american=True).item()
+    on_cpu = fdm_mod.fdm_price(put("cpu"), n_space=41, n_time=40, american=True).item()
+    check(abs(on_card - on_cpu) <= 1e-5 * on_cpu,
+          f"fdm 41 x 40 American put: card {on_card} vs CPU {on_cpu}")
+    log("theta", f"fdm grid at S0 = K equal on the card and the CPU (41/81/201 nodes, float32 "
+                 f"and float64); 41 x 40 American put {on_card:.6f} on the card, {on_cpu:.6f} "
+                 "on the CPU")
+
+
+# ---------------------------------------------------------------------------
+# parallel/: every sharded route on meshes of this card repeated 1, 2 and 4
+# times (one card: the numbers are the shard loop's host cost and the
+# kernels' own time, not an interconnect's)
+# ---------------------------------------------------------------------------
+PL_SHARDS = (1, 2, 4)
+PL_GBM_PATHS = 1_000_000_000
+PL_BOOK = (1024, 1_000_000)
+PL_MC = (16, 10_000_000)  # sharded_mc_price: contracts x paths
+PL_MC_GREEKS = (256, 1_000_000)  # sharded_book_greeks on a 2 x 2 mesh
+PL_VAR_SAMPLES = 8_388_608
+PL_MC_VAR_PATHS = 10_000_000
+PL_MC_VAR_TOL = 0.5  # tests/test_parallel.py: |VaR − closed form| < 0.5
+# the reference's sharded-vs-unsharded bounds, (rtol, atol) per key
+# (tests/test_sharded_pallas.py, test_heston_pallas.py, test_local_vol_pallas.py,
+# test_multi_asset_pallas.py, test_slv_pallas.py)
+PL_GBM_TOLS = {"price": (2e-5, 0.0), "delta": (2e-4, 0.0), "vega": (2e-3, 0.0)}
+# tests/test_parallel.py:103: sharded_book_greeks vs the unsharded mc_greeks
+PL_BOOK_GREEK_TOLS = {"delta": 0.02, "gamma": 0.004, "vega": 1.2, "rho": 1.2, "theta": 0.6,
+                      "dual_delta": 0.02}
+PL_PINN_TOL = 1e-6
+
+
+def pl_flat(out) -> dict:
+    """A route's result as {key: float64 CPU tensor}: the (price, stderr,
+    paths) tuples and the ladder dicts alike (strings dropped)."""
+    items = dict(zip(("price", "std_error", "paths"), out)) if isinstance(out, tuple) else out
+    flat = {}
+    for key, v in items.items():
+        if isinstance(v, torch.Tensor):
+            flat[key] = v.detach().to("cpu", torch.float64).reshape(-1)
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            flat[key] = torch.tensor([float(v)], dtype=torch.float64)
+    return flat
+
+
+def pl_paths(n_paths: int, per_block: int) -> int:
+    """``n_paths`` rounded up to whole blocks of ``per_block`` paths, a
+    multiple of 4 of them: every mesh of 1, 2 or 4 shards then integrates
+    the same path set as the unsharded call."""
+    return -(-math.ceil(n_paths / per_block) // 4) * 4 * per_block
+
+
+def pl_price_se(out: dict) -> tuple:
+    return out["price"], out["std_error"]
+
+
+def pl_mesh(dev, n: int, book: int = 1):
+    from optionslab_tpu_torch.parallel import make_mesh
+
+    return make_mesh(n, book=book, devices=[dev] * n)
+
+
+def pl_route(tag: str, kernel, unsharded, sharded, tols: dict, dev) -> dict:
+    """One sharded route at its main path's shape on meshes of 1, 2 and 4
+    shards of the card: each call launches ``kernel`` once a shard; one
+    shard equals ``unsharded()`` bit for bit; 2 and 4 shards within
+    ``tols``. Returns {label: warm wall ms}."""
+    want, ms_u = timed(unsharded, iters=1)
+    want = pl_flat(want)
+    walls = {"unsharded": ms_u}
+    for n in PL_SHARDS:
+        mesh = pl_mesh(dev, n)
+        before = kernel.launches
+        got, walls[f"{n} shards"] = timed(lambda mesh=mesh: sharded(mesh), iters=1)
+        got = pl_flat(got)
+        check(kernel.launches - before == 2 * n,  # two calls
+              f"{tag}: {n} shards launched the kernel {kernel.launches - before} times in "
+              "two calls")
+        check(set(want) <= set(got), f"{tag}: keys {sorted(got)} lack some of {sorted(want)}")
+        if n == 1:
+            diff = [key for key in want if not torch.equal(got[key], want[key])]
+            check(not diff, f"{tag}: one shard differs from the unsharded call in {diff}")
+            continue
+        worst = []
+        for key, w in want.items():
+            rel = float(((got[key] - w).abs() / w.abs().clamp_min(1e-30)).max())
+            worst.append(f"{key} {rel:.2e}")
+            if key in tols:
+                rtol, atol = tols[key]
+                ok = bool(torch.all((got[key] - w).abs() <= rtol * w.abs() + atol))
+                check(ok, f"{tag}: {n} shards' {key} {got[key].tolist()[:4]} vs unsharded "
+                          f"{w.tolist()[:4]} outside rtol {rtol}, atol {atol}")
+        log("parallel", f"{tag} {n} shards vs unsharded, relative: {', '.join(worst)}")
+    return walls
+
+
+def phase_parallel(dev, card: str) -> dict:
+    """``parallel/`` on the card: every kernel route sharded over meshes of
+    cuda:0 repeated 1, 2 and 4 times at its main path's shape (1 shard bit
+    for bit the unsharded call, 2 and 4 within the reference's bounds, one
+    launch a shard), the GBM 1024-contract book on a 2 x 2 mesh, the tensor
+    engine bit-identical on 1, 2 and 4 shards at 16 x 1e7 and its Greeks on
+    256 x 1e6 against ``mc_greeks`` on the same normals, VaR/ES against a
+    global sort and the closed form, and the data-parallel PINN step on 4
+    shards against 1. Returns {route: walls}."""
+    from optionslab_tpu_torch import parallel as par
+    from optionslab_tpu_torch.models import monte_carlo as mcm
+    from optionslab_tpu_torch.parallel import sharded_mc as psm
+    from optionslab_tpu_torch.risk import lognormal_var
+    from optionslab_tpu_torch.surface import dryrun_train_step_sharded
+
+    t_phase = time.perf_counter()
+    walls = {}
+    one = ContractBatch.make(S0, STRIKE, T, RATE, VOL, "call", device=dev)
+    gbm = lambda b, n: lambda: gk.gbm_mc_price_greeks(b, n_paths=n)  # noqa: E731
+    n_gbm = pl_paths(PL_GBM_PATHS, gk.gbm_paths_per_launch(one, 1))
+    walls["gbm 1x1e9"] = pl_route(
+        f"gbm_mc 1x{n_gbm}", gk._gbm_moments_cuda, gbm(one, n_gbm),
+        lambda mesh: par.sharded_pallas_greeks(one, mesh, n_paths=n_gbm), PL_GBM_TOLS, dev)
+    out = par.sharded_pallas_greeks(one, pl_mesh(dev, 4), n_paths=n_gbm)
+    err = abs(out["price"].item() - BS_ATM_CALL)
+    log("parallel", f"gbm 4 shards {out['price'].item():.6f}±{out['std_error'].item():.2e} "
+                    f"({out['n_paths']} paths) vs Black–Scholes {BS_ATM_CALL} (|err| {err:.2e})")
+    check(err < 4 * out["std_error"].item(), "sharded GBM price vs Black–Scholes")
+    # the 1024-contract book on a (book 2, paths 2) mesh
+    c, n = PL_BOOK
+    book = book_batch(c, dev)
+    n = pl_paths(n, gk.gbm_paths_per_launch(book, 1))
+    flat = gk.gbm_mc_price_greeks(book, n_paths=n)
+    before = gk._gbm_moments_cuda.launches
+    (bk, ms) = timed(lambda: par.sharded_pallas_greeks(book, pl_mesh(dev, 4, book=2),
+                                                       n_paths=n), iters=1)
+    # two calls of 4 shards
+    check(gk._gbm_moments_cuda.launches - before == 8, "the 2 x 2 book launched != 4 a call")
+    for key, (rtol, atol) in PL_GBM_TOLS.items():
+        check(bool(torch.all((bk[key] - flat[key]).abs() <= rtol * flat[key].abs() + atol)),
+              f"2 x 2 book {key} outside rtol {rtol} of the unsharded call")
+    bs = bs_greeks(book.spot, book.strike, book.maturity, book.rate, book.vol, book.cp,
+                   book.dividend)["price"]
+    z = ((bk["price"] - bs).abs() / bk["std_error"]).max().item()
+    check(z < 5.0, f"2 x 2 book: worst |price − BS| = {z:.2f} stderr")
+    walls["gbm book 2x2"] = {"2x2": ms}
+    log("parallel", f"gbm book {c}x{bk['n_paths']} on 2 x 2: {ms:.2f} ms warm, worst "
+                    f"|price − BS| {z:.2f} stderr")
+
+    # the exotic kernels at the exotic path's shapes
+    n, m = ASIAN
+    ex_args = ("asian_arith", S0, STRIKE, T, RATE, VOL)
+    n_ex = pl_paths(n, ek.PATHS_PER_BLOCK)
+    walls["exotic asian"] = pl_route(
+        f"exotic_mc asian_arith {n_ex}x{m}", ek._exotic_moments_cuda,
+        lambda: ek.exotic_price(*ex_args, n_paths=n_ex, n_steps=m, device=dev),
+        lambda mesh: par.sharded_exotic_price(*ex_args, mesh, n_paths=n_ex, n_steps=m),
+        {"price": (2e-5, 0.0), "std_error": (1e-4, 0.0)}, dev)
+    n, m = GREEKS
+    n_g = pl_paths(n, ek.PATHS_PER_BLOCK_G)
+    g_args = ("asian_geo", S0, STRIKE, T, RATE, VOL)
+    walls["exotic greeks"] = pl_route(
+        f"exotic_greeks asian_geo {n_g}x{m}", ek._exotic_greeks_cuda,
+        lambda: ek.exotic_greeks(*g_args, n_paths=n_g, n_steps=m, device=dev),
+        lambda mesh: par.sharded_exotic_greeks(*g_args, mesh, n_paths=n_g, n_steps=m),
+        {key: (3e-5, 0.0) for key in ("price", "delta", "vega", "rho", "theta")}, dev)
+
+    # multi-asset: the basket Asian and its ladder
+    n, m = MA_PRICE
+    n_ma = pl_paths(n, mk.PATHS_PER_BLOCK)
+    walls["multi_asset basket_asian"] = pl_route(
+        f"multi_asset_mc basket_asian {n_ma}x{m}", mk._ma_cuda,
+        lambda: mk.multi_asset_kernel_price("basket_asian", *MA_ARGS, weights=MA_W,
+                                            n_paths=n_ma, n_steps=m, device=dev),
+        lambda mesh: par.sharded_multi_asset_price("basket_asian", *MA_ARGS, mesh,
+                                                   weights=MA_W, n_paths=n_ma, n_steps=m),
+        {"price": (3e-5, 0.0)}, dev)
+    n, m = MA_LADDER
+    n_ml = pl_paths(n, mk.PATHS_PER_BLOCK)
+    walls["multi_asset ladder"] = pl_route(
+        f"multi_asset_mc basket_asian LR {n_ml}x{m}", mk._ma_cuda,
+        lambda: mk.multi_asset_kernel_greeks("basket_asian", *MA_ARGS, weights=MA_W,
+                                             n_paths=n_ml, n_steps=m, device=dev),
+        lambda mesh: par.sharded_multi_asset_greeks("basket_asian", *MA_ARGS, mesh,
+                                                    weights=MA_W, n_paths=n_ml, n_steps=m),
+        {**{key: (5e-5, 0.0) for key in ("price", "theta", "rho")},
+         **{key: (5e-4, 0.0) for key in ("delta", "vega", "gamma")}}, dev)
+
+    # Heston: Euler price + v0-vega, QE price, QE ladder
+    hp = hx_params(dev=dev)
+    n, m = H_EULER
+    n_h = pl_paths(n, hk.PATHS_PER_BLOCK)
+    walls["heston euler"] = pl_route(
+        f"heston_mc vega {n_h}x{m}", hk._heston_mc_cuda,
+        lambda: hk.heston_kernel_greeks(S0, STRIKE, T, RATE, hp, n_paths=n_h, n_steps=m,
+                                        device=dev),
+        lambda mesh: par.sharded_heston_greeks(S0, STRIKE, T, RATE, hp, mesh, n_paths=n_h,
+                                               n_steps=m),
+        {key: (3e-5, 0.0) for key in ("price", "delta", "rho", "vega_v0")}, dev)
+    n, m = H_QE
+    walls["heston qe"] = pl_route(
+        f"heston_qe {n_h}x{m}", hk._heston_qe_cuda,
+        lambda: hk.heston_kernel_price(S0, STRIKE, T, RATE, hp, n_paths=n_h, n_steps=m,
+                                       scheme="qe", device=dev)[:2],
+        lambda mesh: pl_price_se(par.sharded_heston_greeks(
+            S0, STRIKE, T, RATE, hp, mesh, n_paths=n_h, n_steps=m, scheme="qe", vega=False)),
+        {"price": (3e-5, 0.0)}, dev)
+    n_hl = pl_paths(n, hk.LADDER_PATHS_PER_BLOCK)
+    walls["heston qe ladder"] = pl_route(
+        f"heston_qe_ladder {n_hl}x{m}", hk._heston_qe_ladder_cuda,
+        lambda: hk.heston_kernel_greeks(S0, STRIKE, T, RATE, hp, n_paths=n_hl, n_steps=m,
+                                        scheme="qe", ladder=True, device=dev),
+        lambda mesh: par.sharded_heston_greeks(S0, STRIKE, T, RATE, hp, mesh, n_paths=n_hl,
+                                               n_steps=m, scheme="qe", ladder=True),
+        {"price": (3e-4, 0.0), "delta": (3e-4, 0.0),
+         **{key: (0.0, 0.1) for key in ("d_theta", "d_sigma", "theta")}}, dev)
+
+    # the Heston exotic kernel: the Asian price and the barrier LR ladder
+    n, m = HX_MAIN
+    n_hx = pl_paths(n, hx.PATHS_PER_BLOCK)
+    hx_args = ("asian_arith", S0, STRIKE, T, RATE, hp)
+    walls["heston_exotic asian"] = pl_route(
+        f"heston_exotic asian_arith {n_hx}x{m}", hx._heston_exotic_cuda,
+        lambda: hx.heston_kernel_exotic_price(*hx_args, n_paths=n_hx, n_steps=m, device=dev),
+        lambda mesh: par.sharded_heston_exotic_price(*hx_args, mesh, n_paths=n_hx, n_steps=m),
+        {"price": (2e-5, 0.0), "std_error": (1e-4, 0.0)}, dev)
+    bar_args = ("barrier_up-and-out", S0, STRIKE, T, RATE, hp)
+    walls["heston_exotic barrier LR"] = pl_route(
+        f"heston_exotic barrier LR {n_hx}x{m}", hx._heston_exotic_cuda,
+        lambda: hx.heston_kernel_exotic_lr_greeks(*bar_args, barrier=130.0, n_paths=n_hx,
+                                                  n_steps=m, device=dev),
+        lambda mesh: par.sharded_heston_exotic_greeks(*bar_args, mesh, barrier=130.0,
+                                                      n_paths=n_hx, n_steps=m),
+        {key: (5e-5, 1e-7) for key in ("price", "delta", "gamma", "vega_v0", "rho")}, dev)
+
+    # the smile kernels on the sample smile
+    n, m = LV_MAIN
+    lv = lk.LocalVolKernelPricer(smile_dupire(dev), T, n_steps=m)
+    n_lv = pl_paths(n, lk.PATHS_PER_BLOCK)
+    walls["local_vol price"] = pl_route(
+        f"local_vol_mc european {n_lv}x{m}", lk._lv_cuda,
+        lambda: lv.price(STRIKE, n_paths=n_lv),
+        lambda mesh: par.sharded_local_vol_price(lv, STRIKE, mesh, n_paths=n_lv),
+        {"price": (3e-5, 0.0)}, dev)
+    walls["local_vol greeks"] = pl_route(
+        f"local_vol_mc european greeks {n_lv}x{m}", lk._lv_cuda,
+        lambda: lv.greeks(STRIKE, n_paths=n_lv),
+        lambda mesh: par.sharded_local_vol_greeks(lv, STRIKE, mesh, n_paths=n_lv),
+        {key: (5e-4, 0.0) for key in ("price", "delta", "gamma", "vega")}, dev)
+    n, m = SLV_MAIN
+    slv = sk.SLVKernelPricer(smile_dupire(dev), slv_params(dev), T, n_steps=m,
+                             n_cal_paths=65_536)
+    n_slv = pl_paths(n, sk.PATHS_PER_BLOCK)
+    walls["slv price"] = pl_route(
+        f"slv_mc barrier {n_slv}x{m}", sk._slv_cuda,
+        lambda: slv.price("barrier_up-and-out", STRIKE, barrier=120.0, n_paths=n_slv),
+        lambda mesh: par.sharded_slv_price(slv, "barrier_up-and-out", STRIKE, mesh,
+                                           barrier=120.0, n_paths=n_slv),
+        {"price": (2e-5, 0.0)}, dev)
+    walls["slv greeks"] = pl_route(
+        f"slv_mc barrier LR {n_slv}x{m}", sk._slv_cuda,
+        lambda: slv.greeks("barrier_up-and-out", STRIKE, barrier=120.0, n_paths=n_slv),
+        lambda mesh: par.sharded_slv_greeks(slv, "barrier_up-and-out", STRIKE, mesh,
+                                            barrier=120.0, n_paths=n_slv),
+        {key: (5e-5, 1e-7) for key in ("price", "delta", "gamma", "vega_v0", "rho")}, dev)
+
+    # the tensor engine: bit-identical on 1, 2 and 4 shards
+    c, n = PL_MC
+    mc_book = ContractBatch.make(torch.linspace(80.0, 120.0, c), STRIKE, T, RATE, VOL,
+                                 torch.where(torch.arange(c) % 2 == 0, 1.0, -1.0), device=dev)
+    cfg = mcm.MCConfig(n_paths=n)
+    res, mc_walls = {}, {}
+    for shards in PL_SHARDS:
+        res[shards], mc_walls[f"{shards} shards"] = timed(
+            lambda s=shards: par.sharded_mc_price(mc_book, 7, cfg, pl_mesh(dev, s)), iters=1)
+    for shards in PL_SHARDS[1:]:
+        check(torch.equal(res[shards].price, res[1].price)
+              and torch.equal(res[shards].std_error, res[1].std_error),
+              f"sharded_mc_price on {shards} shards is not bit-identical to 1 shard")
+    bs = bs_greeks(mc_book.spot, mc_book.strike, mc_book.maturity, mc_book.rate, mc_book.vol,
+                   mc_book.cp, mc_book.dividend)["price"]
+    z = ((res[1].price - bs).abs() / res[1].std_error).max().item()
+    check(z < 5.0, f"sharded_mc_price: worst |price − BS| = {z:.2f} stderr")
+    walls[f"sharded_mc_price {c}x{n}"] = mc_walls
+    log("parallel", f"sharded_mc_price {c} x {n}: bit-identical on {PL_SHARDS} shards, worst "
+                    f"|price − BS| {z:.2f} stderr")
+    # its Greeks on a 2 x 2 mesh against mc_greeks on the same normals
+    c, n = PL_MC_GREEKS
+    g_book = book_batch(c, dev)
+    cfg = mcm.MCConfig(n_paths=n)
+    g_s, ms_s = timed(lambda: par.sharded_book_greeks(g_book, 11, cfg, pl_mesh(dev, 4, 2)),
+                      iters=1)
+    half = psm._block_normals(11, torch.arange(n // psm.PATH_BLOCK), 1, True, cfg.dtype, dev)
+    z_all = half.reshape(-1, 1)
+    real = mcm.draw_normals
+    mcm.draw_normals = lambda gen, cfg_: torch.cat([z_all, -z_all])
+    try:
+        g_u, ms_u = timed(lambda: mcm.mc_greeks(g_book, torch.Generator(device=dev), cfg),
+                          iters=1)
+    finally:
+        mcm.draw_normals = real
+    worst = {}
+    for key, tol in PL_BOOK_GREEK_TOLS.items():
+        worst[key] = (g_s[key] - g_u[key]).abs().max().item()
+        check(worst[key] < tol, f"sharded_book_greeks {key} off mc_greeks by {worst[key]:.3e}")
+    dp = (g_s["price"] - g_u["price"]).abs().max().item()
+    check(dp < 5 * g_s["std_error"].max().item(), "sharded_book_greeks price vs mc_greeks")
+    walls[f"sharded_book_greeks {c}x{n}"] = {"2x2": ms_s, "mc_greeks": ms_u}
+    log("parallel", f"sharded_book_greeks {c} x {n} on 2 x 2 vs mc_greeks on the same normals: "
+                    + ", ".join(f"{k_} {v:.2e}" for k_, v in worst.items()) + f", price {dp:.2e}")
+
+    # VaR/ES: exact against a global sort; Monte Carlo VaR against the closed form
+    gen = torch.Generator(device=dev).manual_seed(3)
+    pnl = torch.randn(PL_VAR_SAMPLES, generator=gen, device=dev) * 2.0
+    (var, es), ms_v = timed(lambda: par.sharded_historical_var_es(pnl, 0.95, pl_mesh(dev, 4)),
+                            iters=1)
+    m_tail = -(-PL_VAR_SAMPLES * 5 // 100)
+    tail = torch.sort(pnl).values[:m_tail]
+    check(var.item() == -tail[-1].item() and es.item() == -tail.mean().item(),
+          f"sharded VaR/ES {var.item()}, {es.item()} != the global sort's "
+          f"{-tail[-1].item()}, {-tail.mean().item()}")
+    (mvar, mes), ms_mv = timed(lambda: par.sharded_mc_var(100.0, 0.05, 0.2, 0, pl_mesh(dev, 4),
+                                                          n_paths=PL_MC_VAR_PATHS), iters=1)
+    cf = float(lognormal_var(torch.tensor(100.0, device=dev), 0.05, 0.2))
+    check(abs(mvar.item() - cf) < PL_MC_VAR_TOL and mes.item() > mvar.item(),
+          f"sharded_mc_var {mvar.item():.4f} vs closed form {cf:.4f}")
+    walls["var/es"] = {"historical 4 shards": ms_v, "mc_var 4 shards": ms_mv}
+    log("parallel", f"VaR/ES of {PL_VAR_SAMPLES} samples on 4 shards = the global sort "
+                    f"({var.item():.6f}, {es.item():.6f}); MC VaR {PL_MC_VAR_PATHS} paths "
+                    f"{mvar.item():.4f} vs closed form {cf:.4f}, ES {mes.item():.4f}")
+
+    # the data-parallel PINN step: 4 shards against 1 on the same 64 quotes
+    (loss4, p4), ms_p = timed(lambda: dryrun_train_step_sharded(4, devices=[dev] * 4), iters=1)
+    loss1, p1 = dryrun_train_step_sharded(1, devices=[dev], n_quotes=64)
+    d_par = max((a[k_] - b[k_]).abs().max().item() for a, b in zip(p4, p1) for k_ in a)
+    check(math.isfinite(loss4.item()) and abs(loss4.item() - loss1.item()) <= PL_PINN_TOL
+          and d_par <= PL_PINN_TOL, f"PINN step: 4 shards {loss4.item()} vs 1 {loss1.item()}, "
+                                    f"params {d_par:.2e}")
+    walls["pinn step"] = {"4 shards": ms_p}
+    log("parallel", f"PINN step on 4 shards: loss {loss4.item():.8f} (1 shard "
+                    f"{loss1.item():.8f}), params within {d_par:.2e}")
+    for route, w in walls.items():
+        log("parallel", f"wall ms [{card}] {route}: "
+                        + ", ".join(f"{k_} {v:.2f}" for k_, v in w.items()))
+    log("parallel", f"phase {time.perf_counter() - t_phase:.1f} s (one card: the shards "
+                    "share it, so the walls measure the shard loop's host cost and the kernels, "
+                    "not an interconnect)")
+    return walls
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -5084,6 +5467,7 @@ def main() -> None:
     ma_err = phase_ma_parity(dev)
     tri_err, tri_t, node_ms = phase_tridiag(dev, card)
     theta_err, theta_t = phase_theta(dev, card, node_ms)
+    fdm_grid_check(dev)
 
     # the GBM path: counts set to 0 just before it, read just after it
     gk._gbm_moments_cuda.launches = 0
@@ -5254,6 +5638,16 @@ def main() -> None:
             sys.modules["pandas"] = had_pandas
     check(all(cl[k] > 0 for k in cl if k != "heston_qe"),
           f"the command line never launched a kernel of its path: {cl}")
+    # parallel/: every kernel route sharded over meshes of this card
+    pl_before = launch_counts()
+    phase_parallel(dev, card)
+    pl_after = launch_counts()
+    pl = {k: pl_after[k] - pl_before[k] for k in pl_after}
+    log("launches", f"the parallel slice's share: {pl}")
+    check(all(pl[k] > 0 for k in pl if k not in ("heston_chain", "tridiag", "theta_pde")),
+          f"the parallel slice never launched a kernel of its path: {pl}")
+    check(all(pl[k] == 0 for k in ("heston_chain", "tridiag", "theta_pde")),
+          f"the parallel slice launched a kernel off its path: {pl}")
     log("launches", f"the learned slice's share: {ln_launches}")
     check(ln_launches["gbm_mc"] == ln["gbm"],
           f"gbm_mc launched {ln_launches['gbm_mc']} times for {ln['gbm']} label calls")
@@ -5294,21 +5688,25 @@ def main() -> None:
 
     print(json.dumps({"kernels": [
         entry("gbm_mc_kernel", "gbm_mc.cu", "optionslab_tpu/ops/gbm_pallas.py:104",
-              gbm_launches + ln_launches["gbm_mc"] + cl["gbm_mc"], gbm_err, gbm_t["1024x1e6"]),
+              gbm_launches + ln_launches["gbm_mc"] + cl["gbm_mc"] + pl["gbm_mc"], gbm_err,
+              gbm_t["1024x1e6"]),
         entry("exotic_mc_kernel", "exotic_mc.cu", "optionslab_tpu/ops/exotic_pallas.py:150",
-              mc_launches + cl["exotic_mc"], mc_err, ex_t["asian_arith 4Mx252"]),
+              mc_launches + cl["exotic_mc"] + pl["exotic_mc"], mc_err,
+              ex_t["asian_arith 4Mx252"]),
         entry("exotic_greeks_kernel", "exotic_greeks.cu",
-              "optionslab_tpu/ops/exotic_pallas.py:1315", greeks_launches + cl["exotic_greeks"],
+              "optionslab_tpu/ops/exotic_pallas.py:1315",
+              greeks_launches + cl["exotic_greeks"] + pl["exotic_greeks"],
               greeks_err,
               ex_t["greeks asian_geo 8Mx252"]),
         entry("heston_mc_kernel", "heston_mc.cu", "optionslab_tpu/ops/heston_pallas.py:59",
-              h_launches["mc"] + cl["heston_mc"], h_err["mc"],
+              h_launches["mc"] + cl["heston_mc"] + pl["heston_mc"], h_err["mc"],
               h_timing(h_t, "heston_mc price prng")),
         entry("heston_qe_kernel", "heston_qe.cu", "optionslab_tpu/ops/heston_pallas.py:280",
-              h_launches["qe"] + cl["heston_qe"], h_err["qe"], h_timing(h_t, "heston_qe prng")),
+              h_launches["qe"] + cl["heston_qe"] + pl["heston_qe"], h_err["qe"],
+              h_timing(h_t, "heston_qe prng")),
         entry("heston_qe_ladder_kernel", "heston_qe.cu",
               "optionslab_tpu/ops/heston_pallas.py:365", h_launches["qe_ladder"]
-              + cl["heston_qe_ladder"],
+              + cl["heston_qe_ladder"] + pl["heston_qe_ladder"],
               h_err["qe_ladder"], h_timing(h_t, "heston_qe_ladder prng")),
         entry("heston_chain_kernel", "heston_chain.cu", "optionslab_tpu/ops/heston_pallas.py:469",
               h_launches["chain"] + sf_launches["heston_chain"] + ln_launches["heston_chain"]
@@ -5316,17 +5714,20 @@ def main() -> None:
               h_err["chain"],
               h_timing(h_t, "heston_chain prng 40")),
         entry("heston_exotic_kernel", "heston_exotic.cu",
-              "optionslab_tpu/ops/heston_pallas.py:1079", hx_launches + cl["heston_exotic"], hx_err,
+              "optionslab_tpu/ops/heston_pallas.py:1079",
+              hx_launches + cl["heston_exotic"] + pl["heston_exotic"], hx_err,
               hx_t[f"asian_arith {HX_MAIN[0]}x{HX_MAIN[1]}"]),
         entry("local_vol_mc_kernel", "local_vol_mc.cu",
               "optionslab_tpu/ops/local_vol_pallas.py:64",
-              lv_launches + sf_launches["local_vol_mc"] + cl["local_vol_mc"], lv_err,
+              lv_launches + sf_launches["local_vol_mc"] + cl["local_vol_mc"]
+              + pl["local_vol_mc"], lv_err,
               smile_t[f"local_vol european {LV_MAIN[0]}x{LV_MAIN[1]}"]),
         entry("slv_mc_kernel", "slv_mc.cu", "optionslab_tpu/ops/slv_pallas.py:106",
-              slv_launches + cl["slv_mc"], slv_err,
+              slv_launches + cl["slv_mc"] + pl["slv_mc"], slv_err,
               smile_t[f"slv barrier {SLV_MAIN[0]}x{SLV_MAIN[1]}"]),
         entry("multi_asset_mc_kernel", "multi_asset_mc.cu",
-              "optionslab_tpu/ops/multi_asset_pallas.py:58", ma_launches + cl["multi_asset_mc"],
+              "optionslab_tpu/ops/multi_asset_pallas.py:58",
+              ma_launches + cl["multi_asset_mc"] + pl["multi_asset_mc"],
               ma_err,
               ma_t[f"multi_asset basket_asian {MA_PRICE[0]}x{MA_PRICE[1]}"]),
         {**entry("tridiag_kernel", "tridiag.cu",

@@ -61,6 +61,9 @@ Subpackages
             no loop over days
 ``benchmarks`` the vol-surface benchmark harness (error, speed,
             stability, EPP across the surface models)
+``parallel`` device meshes from one controller: the topology-invariant
+            sharded Monte Carlo, every kernel route sharded by global path
+            block, VaR/ES from per-shard tails
 ``utils``   dtype policy, exceptions, validation, logging, timing,
             profiling, checkpoints, the plots and the HTML desk report
 
@@ -69,7 +72,8 @@ command line: every subcommand of the JAX package's, on ``--device``
 (``cuda`` unless ``cpu`` is asked for).
 """
 
-from . import backtest, benchmarks, data, greeks, models, ops, optimize, risk, surface, utils
+from . import (backtest, benchmarks, data, greeks, models, ops, optimize, parallel, risk, surface,
+               utils)
 from .models import (
     BatesParams,
     BatesPricer,
@@ -137,6 +141,7 @@ __all__ = [
     "models",
     "ops",
     "optimize",
+    "parallel",
     "risk",
     "surface",
     "utils",

@@ -28,17 +28,61 @@ from ..utils.exceptions import ValidationError
 from .binomial import _flat_args
 
 
+def _fma(a, b, c):
+    """a·b + c rounded once, as XLA's fused CPU loops evaluate the
+    reference's grid (torch's eager ops round the product and the sum
+    apart). float32 goes through float64, where the product is exact;
+    float64 adds the product's exact error (Veltkamp–Dekker) to the sum's
+    (Knuth's two-sum). Elementwise IEEE operations only, so the card and the
+    CPU give the same bits."""
+    if a.dtype != torch.float64:
+        return (a.double() * b.double() + c.double()).to(a.dtype)
+    split = 134217729.0  # 2**27 + 1
+    p = a * b
+    ca, cb = split * a, split * b
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    e = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    s = p + c
+    bv = s - p
+    t = (p - (s - bv)) + (c - bv)
+    return s + (t + e)
+
+
+def _unit_linspace(n: int, dtype, device) -> torch.Tensor:
+    """``jnp.linspace(-1, 1, n)`` as XLA computes it: step i·(1/(n−1)), the
+    reciprocal rounded once, then −1·(1 − step) + 1·step; ``torch.linspace``
+    rounds the inner nodes differently."""
+    div = n - 1
+    if div < 1:
+        return torch.full((n,), -1.0, dtype=dtype, device=device)
+    recip = torch.tensor(1.0, dtype=dtype) / torch.tensor(float(div), dtype=dtype)
+    step = torch.arange(div, dtype=dtype, device=device) * recip.to(device)
+    ones = torch.ones(1, dtype=dtype, device=device)
+    return torch.cat([step - (1.0 - step), ones])
+
+
 def _grid(spot, vol, maturity, n_space, width, strike=None):
     """(B, n_space) uniform log-spot grids centred on log(S0), wide enough for
     the diffusion cone and the strike; log(K) sits mid-cell. Detached: the
     mesh must not move under a derivative in S, σ or T (the price is read
-    off by interpolation at log S instead)."""
+    off by interpolation at log S instead).
+
+    At S0 = K the shift that puts log(K) mid-cell is a tie: ``frac`` is an
+    integer in exact arithmetic, so rounding picks −dx/2 or +dx/2. The
+    nodes are therefore built with the reference's own roundings (its
+    linspace, one rounding for each ``a·b + c``, a correctly rounded root),
+    so both packages take the same side of the tie."""
     t = torch.clamp_min(maturity, EPS_TIME)
-    half = width * torch.clamp_min(vol, 0.05) * torch.sqrt(t)
+    root = torch.sqrt(t.to(torch.float64)).to(t.dtype)
+    spread = width * torch.clamp_min(vol, 0.05)
     if strike is not None:
-        half = half + torch.abs(torch.log(spot / strike))
-    lin = torch.linspace(-1.0, 1.0, n_space, dtype=spot.dtype, device=spot.device)
-    x = torch.log(spot)[:, None] + lin[None, :] * half[:, None]
+        half = _fma(spread, root, torch.abs(torch.log(spot / strike)))
+    else:
+        half = spread * root
+    lin = _unit_linspace(n_space, spot.dtype, spot.device)
+    shape = (spot.shape[0], n_space)
+    x = _fma(lin.expand(shape), half[:, None].expand(shape), torch.log(spot)[:, None].expand(shape))
     if strike is not None:
         dx = x[:, 1] - x[:, 0]
         frac = torch.remainder((torch.log(strike) - x[:, 0]) / dx, 1.0)

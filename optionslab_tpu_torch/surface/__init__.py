@@ -40,7 +40,7 @@ from .generator import VolatilitySurfaceGenerator
 from .grid_search import nested_cross_validate, tune_model
 from .kernel_ridge import KernelRidgeModel, SVRModel
 from .mlp import MLPModel
-from .pinn import PINNVolatilityModel
+from .pinn import PINNVolatilityModel, dryrun_train_step_sharded
 from .svi import (
     SSVIModel,
     SSVIParams,
@@ -69,7 +69,7 @@ __all__ = [
     "essvi_surface_iv_fn",
     "MLPModel", "PINNVolatilityModel", "KernelRidgeModel", "SVRModel",
     "RandomForestVolatilityModel", "GradientBoostingVolatilityModel",
-    "XGBVolatilityModel", "VolatilitySurfaceGenerator",
+    "XGBVolatilityModel", "VolatilitySurfaceGenerator", "dryrun_train_step_sharded",
     "tune_model", "nested_cross_validate",
     "butterfly_check", "calendar_check", "surface_arbitrage_report",
     "validate_domain", "isotonic_pava", "enforce_calendar",

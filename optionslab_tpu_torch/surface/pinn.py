@@ -394,3 +394,61 @@ class PINNVolatilityModel(VolatilityModelBase):
         self._k_range = tuple(meta["k_range"])
         self._t_range = tuple(meta["t_range"])
         self.params = unflatten_params(arrays, self.device)
+
+
+def dryrun_train_step_sharded(n_devices: int, devices=None, params=None,
+                              n_quotes: int | None = None):
+    """One data-parallel PINN train step on an ``n_devices`` mesh (the
+    reference's layer sizes [2, 16, 16, 1] and penalties): the quotes are
+    split over the shards, each shard takes the gradient of its share of the
+    mean-squared fit on its own device, the collocation penalties' gradient
+    is taken once on the first device, the gradients are summed there in
+    shard order, and one Adam step (lr 1e-3) updates the parameters.
+
+    ``devices`` defaults to the visible CUDA devices (``parallel.make_mesh``),
+    ``params`` to a seed-0 initialisation on the first device, ``n_quotes``
+    to 16 a device. Returns (loss, params after the step); raises if the
+    loss is not finite."""
+    from ..parallel.mesh import make_mesh
+
+    devs = make_mesh(n_devices, devices=devices).device_list()
+    home = devs[0]
+    if params is None:
+        params = init_mlp(make_generator(0, home), [2, 16, 16, 1])
+    params = [{k: v.detach().to(home).clone() for k, v in layer.items()} for layer in params]
+    n = n_quotes or 16 * n_devices
+    k_obs = torch.linspace(-0.5, 0.5, n, dtype=torch.float32, device=home)
+    t_obs = torch.full((n,), 0.5, dtype=torch.float32, device=home)
+    w_obs = torch.full((n,), 0.02, dtype=torch.float32, device=home)
+    kk = torch.linspace(-0.5, 0.5, 32, dtype=torch.float32, device=home)
+    tt = torch.full((32,), 0.5, dtype=torch.float32, device=home)
+
+    def grads_on(dev, loss_fn):
+        live = [{k: v.detach().to(dev).requires_grad_(True) for k, v in layer.items()}
+                for layer in params]
+        with torch.enable_grad():
+            loss = loss_fn(live)
+            g = torch.autograd.grad(loss, leaves(live), allow_unused=True,
+                                    materialize_grads=True)
+        return loss.detach(), g
+
+    pieces = [torch.tensor_split(x, len(devs)) for x in (k_obs, t_obs, w_obs)]
+    shards = []
+    for j, dev in enumerate(devs):
+        k, t, w = (piece[j].to(dev) for piece in pieces)
+        shards.append(grads_on(dev, lambda p, k=k, t=t, w=w:
+                               torch.sum((_w_fn(p, k, t) - w) ** 2) / n))
+    pen_loss, pen_grads = grads_on(home, lambda p: calendar_penalty(p, kk, tt)
+                                   + butterfly_penalty(p, kk, tt) + wing_penalty(p, kk, tt))
+    loss = shards[0][0].to(home)
+    grads = [g.to(home) for g in shards[0][1]]
+    for s_loss, s_grads in shards[1:]:
+        loss = loss + s_loss.to(home)
+        grads = [a + b.to(home) for a, b in zip(grads, s_grads)]
+    loss = loss + pen_loss
+    grads = [a + b for a, b in zip(grads, pen_grads)]
+    opt = ClippedAdamW(params, 1e-3, weight_decay=0.0, max_norm=math.inf)
+    opt.step(grads)
+    if not math.isfinite(float(loss)):
+        raise ModelError("PINN sharded train step produced a non-finite loss")
+    return loss, params

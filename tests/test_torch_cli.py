@@ -379,12 +379,13 @@ def test_xva_against_reference(argv):
 
 def test_price_fdm_american_against_reference(monkeypatch):
     """``price --model fdm --american``: both packages' ``fdm_price`` cut to
-    an 81 x 80 grid (the port's plain Howard loop takes ≈20 s at the default
-    201 x 200 on one CPU thread); the American put to 1e-4."""
+    a 41 x 40 grid (the port's plain Howard loop takes ≈20 s at the default
+    201 x 200 on one CPU thread); the American put to 1e-4. At S0 = K the
+    grid's mid-cell shift is a tie, which both packages break the same way."""
     for mod in (jmodels, tmodels):
         real = mod.fdm_price
         monkeypatch.setattr(mod, "fdm_price", lambda b, american, real=real: real(
-            b, n_space=81, n_time=80, american=american))
+            b, n_space=41, n_time=40, american=american))
     ref, port = run_both(["price", "--model", "fdm", "--american", "--type", "put"])
     same_keys(ref, port)
     assert port["price"] == pytest.approx(ref["price"], rel=1e-4)

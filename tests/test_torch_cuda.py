@@ -843,3 +843,42 @@ def test_slice_brackets_run_on_card(cuda_device):
     r = rbergomi_american_bracket(100.0, 105.0, 0.5, 0.06, RBergomiParams(), n_dates=6,
                                   n_fit=16_384, n_lower=32_768, n_outer=256, n_inner=256)
     assert r["lower"] <= r["upper"] + 3 * (r["lower_se"] + r["upper_se"])
+
+
+def test_one_shard_mesh_equals_the_unsharded_kernel_on_card(cuda_device):
+    """A one-device mesh launches the GBM kernel once at block offset 0: the
+    unsharded call's bits. Two shards of the same card launch it twice, at
+    offsets 0 and n/2, and agree within the association tolerances."""
+    from optionslab_tpu_torch.parallel import make_mesh, sharded_pallas_greeks
+
+    book = _book(4, cuda_device)
+    flat = gk.gbm_mc_price_greeks(book, n_paths=2_000_000, seed=5)
+    before = gk._gbm_moments_cuda.launches
+    one = sharded_pallas_greeks(book, make_mesh(1, devices=[cuda_device]), n_paths=2_000_000,
+                                seed=5)
+    assert gk._gbm_moments_cuda.launches == before + 1
+    for k, v in flat.items():
+        assert torch.equal(one[k], v), k
+    two = sharded_pallas_greeks(book, make_mesh(2, devices=[cuda_device] * 2),
+                                n_paths=one["n_paths"], seed=5)
+    assert gk._gbm_moments_cuda.launches == before + 3
+    assert two["price"].device == cuda_device
+    torch.testing.assert_close(two["price"], flat["price"], rtol=2e-5, atol=0)
+    torch.testing.assert_close(two["delta"], flat["delta"], rtol=2e-4, atol=0)
+
+
+def test_sharded_mc_price_two_shards_bit_identical_on_card(cuda_device):
+    """The tensor engine on a 2-shard mesh of one card: the same bits as one
+    shard, on the card."""
+    from optionslab_tpu_torch.models.monte_carlo import MCConfig
+    from optionslab_tpu_torch.parallel import make_mesh, sharded_mc_price
+
+    book = _book(8, cuda_device)
+    cfg = MCConfig(n_paths=200_000)
+    one = sharded_mc_price(book, 1, cfg, make_mesh(1, devices=[cuda_device]))
+    two = sharded_mc_price(book, 1, cfg, make_mesh(2, devices=[cuda_device] * 2))
+    assert one.price.device == cuda_device
+    assert torch.equal(one.price, two.price) and torch.equal(one.std_error, two.std_error)
+    bs = bs_price(book.spot, book.strike, book.maturity, book.rate, book.vol, book.cp,
+                  book.dividend)
+    assert torch.all((one.price - bs).abs() < 5 * one.std_error)

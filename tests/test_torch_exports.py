@@ -12,10 +12,7 @@ import importlib
 import pytest
 
 NOT_YET = {
-    "": {
-        # subpackages not yet ported (ROADMAP Queue 1)
-        "parallel",
-    },
+    "": set(),
     "models": set(),
     "surface": set(),
     "optimize": set(),
