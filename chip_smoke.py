@@ -117,8 +117,10 @@ is printed):
               bound, the larger of the bytes and the dependent chain timed
               by the chain probe (run before the pricers; every PDE of the
               pricers and of the slice that steps on the host then solves
-              through it, one launch a solve: 400 for one ADI price);
-16. slice   — the Heston ADI (201 x 101 x 200) against Lewis, the
+              through it, one launch a solve);
+16. slice   — the Heston ADI (201 x 101 x 200, one launch of the ADI kernel
+              a price and no tridiagonal launch; the Greeks two and one
+              launch of its reverse kernel) against Lewis, the
               frozen-variance 1-D PDE and autograd of Lewis (the Greek
               ladder); the ADI-slice American bracket at 50 dates holding its
               PDE value; Bates at λ = 0 equal to Heston and above it with
@@ -144,6 +146,16 @@ is printed):
               for bit, at S0 = K (41, 81 and 201 nodes, float32 and
               float64), and the 41 x 40 American put on the card against
               the CPU's plain loop;
+17a. adi    — the Douglas ADI kernel (``csrc/heston_adi.cu``) bit for bit
+              against its plain loop (``ops/heston_adi.py``) in its four
+              modes: European and American at 41 x 21 x 16 and 201 x 101 x
+              200 (the grid and the history its reverse reads), Bermudan at
+              50 and 25 dates x 8 steps (the continuation slices), SLV
+              161 x 81 at 25 x 8 on seeded leverage rows; its reverse
+              kernel's gradients of every input of ``_AdiLoop`` against the
+              plain reverse and autograd through the plain loop; device ms
+              of each kernel and its plain version beside the chain bound
+              (run after the θ-scheme phase, before the pricers);
 
 18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
               handler at its defaults (65,536 paths x 24 dates, 8 substeps a
@@ -272,6 +284,7 @@ from optionslab_tpu_torch.models.black_scholes import bs_greeks
 from optionslab_tpu_torch.ops import _build, sass_bound
 from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
+from optionslab_tpu_torch.ops import heston_adi as ha
 from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
 from optionslab_tpu_torch.ops import heston_kernel as hk
 from optionslab_tpu_torch.ops import local_vol_kernel as lk
@@ -3294,6 +3307,14 @@ def loop_launches(fn) -> tuple[int, int]:
     return tp._theta_cuda.launches - before, solves
 
 
+def adi_launches(fn) -> tuple[int, int, int]:
+    """(ADI forward, ADI reverse, tridiagonal) kernel launches in one call
+    of ``fn``."""
+    before = ha._adi_cuda.launches, ha._adi_adjoint_cuda.launches
+    solves = tri_solves(fn)
+    return ha._adi_cuda.launches - before[0], ha._adi_adjoint_cuda.launches - before[1], solves
+
+
 def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
     """The tridiagonal kernel against its plain version at the slice's
     shapes, float32 and float64: bitwise equal, one launch a solve; its
@@ -3450,6 +3471,205 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
     return worst, timing
 
 
+# the Douglas ADI kernels (csrc/heston_adi.cu): the CPU tests' grid, then
+# the defaults of heston_fdm_price/_greeks, of the ADI bracket
+# (heston_american_bracket: 50 dates x 8 steps), of /american heston (25 x
+# 8) and of slv_american_bracket (161 x 81, 25 dates x 8 steps, 25 x 4
+# leverage rows of 31 bins)
+ADI_SMALL = (41, 21, 16)
+ADI_BERMUDAN = ((50, 8), (25, 8))
+ADI_SLV = (161, 81, 25, 8, 100, 31)
+# the reverse kernel against the plain reverse and autograd of the plain
+# loop, relative to each gradient's largest entry: the same float32 terms
+# summed in other orders (warp trees and per-slot sums over 200 steps
+# against torch's reductions)
+ADI_GRAD_RTOL = 1e-4
+ADI_NAMES = ha._INPUTS
+
+
+def adi_leverage(n_rows: int, n_bins: int, seed: int = 5):
+    """Smooth positive leverage rows by relative log-spot from a numpy seed."""
+    rng = np.random.default_rng(seed)
+    x_rows = np.sort(rng.uniform(-1.5, 1.5, (n_rows, n_bins)), axis=1).astype(np.float32)
+    l_rows = 1.0 + 0.3 * np.sin(2.0 * x_rows + rng.uniform(0, 3, (n_rows, 1)))
+    return torch.tensor(x_rows), torch.tensor(l_rows.astype(np.float32))
+
+
+def adi_cases(dev):
+    """(tag, ops, slv, mode, steps a date) of the forward kernel's checks."""
+    from optionslab_tpu_torch.models import heston_fdm as hf
+
+    hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
+    cases = []
+    for n_x, n_v, n_t in (ADI_SMALL, SL_ADI):
+        for cp, mode in ((1.0, ha.EUROPEAN), (-1.0, ha.AMERICAN)):
+            ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, cp, hp, n_x, n_v, n_t,
+                                   mode == ha.AMERICAN, dev)
+            cases.append((f"{'european' if cp > 0 else 'american'} {n_x}x{n_v}x{n_t}", ops,
+                          None, mode, 1))
+    for n_x, n_v, (n_dates, spd) in ((41, 21, (4, 4)), *((201, 101, b) for b in ADI_BERMUDAN)):
+        ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, -1.0, hp, n_x, n_v, n_dates * spd,
+                               True, dev)
+        cases.append((f"bermudan {n_x}x{n_v} {n_dates}x{spd}", ops, None, ha.BERMUDAN, spd))
+    slvp = hmodel.HestonParams.make(0.04, 2.0, 0.04, 0.5, -0.7, device=dev)
+    n_x, n_v, n_dates, spd, n_rows, n_bins = ADI_SLV
+    for nx_, nv_, nd_, sp_, rows_ in ((41, 21, 4, 4, 8), (n_x, n_v, n_dates, spd, n_rows)):
+        x_rows, l_rows = adi_leverage(rows_, n_bins)
+        ops, slv, _, _ = hf._slv_setup(100.0, 100.0, 1.0, 0.03, 0.0, -1.0, slvp, 0.7, x_rows,
+                                       l_rows, nx_, nv_, nd_, sp_, dev)
+        cases.append((f"slv {nx_}x{nv_} {nd_}x{sp_}", ops, slv, ha.BERMUDAN, sp_))
+    return cases
+
+
+def adi_bound(n_x: int, n_v: int, n_t: int, node_ms: float, reverse: bool = False):
+    """(bound ms, what binds, chain ms) of one loop: the bytes (the operands
+    and the start read once, the grid written once; the reverse also reads
+    the three grids a step it kept and writes a gradient of each operand) at
+    the card's memory rate; the float operations (≈40 a node a step forward,
+    the stencils, the predictor and two solves of 8; ≈70 in reverse) at its
+    float32 peak; and the dependent chain, a step's x-sweep and v-sweep one
+    after the other: (n_x + n_v) nodes at ``node_ms`` each, n_t times."""
+    cells = n_x * n_v
+    nbytes = 4 * (cells * (10 + 3 * n_t if reverse else 9) + n_t * 2 + 6 * n_v)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (70.0 if reverse else 40.0) * cells * n_t / FP32_FLOPS * 1e3
+    chain = n_t * (n_x + n_v) * node_ms
+    bound = max(t_bytes, t_ops, chain)
+    return bound, "bytes" if t_bytes >= bound else "operations", chain
+
+
+# grids (n_x, n_v) of the step-cost fit, ADI_FIT_STEPS European steps each
+ADI_FIT_GRIDS = ((201, 101), (101, 101), (201, 51), (401, 101), (201, 201), (301, 61))
+ADI_FIT_STEPS = 50
+
+
+def adi_step_fit(dev, card: str, node_ms: float) -> dict:
+    """Where a forward step's time goes: device µs a step (CUDA events) of
+    the European loop on ADI_FIT_GRIDS, fitted by least squares to
+    t = c0 + cx·n_x + cv·n_v. cx and cv are a node's cost in the x- and
+    v-sweep phases (the solve and the node-parallel work around it), c0 the
+    rest (the two grid barriers, a phase's fixed staging); set beside the
+    chain probe's node. Returns {c0, cx, cv} in µs."""
+    from optionslab_tpu_torch.models import heston_fdm as hf
+
+    hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
+    rows, times = [], []
+    for n_x, n_v in ADI_FIT_GRIDS:
+        ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, 1.0, hp, n_x, n_v, ADI_FIT_STEPS,
+                               False, dev)
+        ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN)
+        ms = event_time(lambda: ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN), 5)
+        rows.append((1.0, n_x, n_v))
+        times.append(ms / ADI_FIT_STEPS * 1e3)
+    (c0, cx, cv), *_ = np.linalg.lstsq(np.array(rows), np.array(times), rcond=None)
+    worst = max(abs(c0 + cx * r[1] + cv * r[2] - t) for r, t in zip(rows, times))
+    clock = sm_clock_hz()
+    log("adi", f"a forward step, µs by CUDA events on (n_x, n_v) = {ADI_FIT_GRIDS} [{card}]: "
+               + ", ".join(f"{t:.2f}" for t in times) + f"; fit {c0:.2f} + {cx:.4f}·n_x + "
+               f"{cv:.4f}·n_v (largest residual {worst:.2f}): a node {cx * 1e-6 * clock:.0f} "
+               f"cycles in the x phase, {cv * 1e-6 * clock:.0f} in the v phase, against the "
+               f"chain probe's {node_ms * 1e-3 * clock:.1f}")
+    return {"c0": float(c0), "cx": float(cx), "cv": float(cv)}
+
+
+def adi_grad_gap(got, want) -> float:
+    """The largest difference of two lists of gradients, each relative to
+    the largest entry of its reference gradient."""
+    return max(((g - w).abs().max() / w.abs().max().clamp_min(1e-30)).item()
+               for g, w in zip(got, want))
+
+
+def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
+    """The ADI kernels against their plain versions on the card: the forward
+    kernel bit for bit against the plain loop (the grid, the continuation
+    slices and the history the reverse reads) in its four modes at the CPU
+    tests' grid and at the defaults, one launch a loop; the reverse kernel's
+    gradients of every input of ``_AdiLoop`` against the plain reverse and
+    autograd through the plain loop (European and American, small and
+    default grids, one launch); device ms by CUDA events of each kernel and
+    its plain version beside the chain bound. Returns (largest forward
+    difference, {tag: timing}, {"rel": largest relative gradient gap, "abs":
+    largest absolute difference to the plain reverse})."""
+    worst, timing = 0.0, {}
+    chain_node = node_ms[torch.float32]
+    for tag, ops, slv, mode, spd in adi_cases(dev):
+        start = ops.intrinsic
+        history = slv is None and mode != ha.BERMUDAN
+        before = ha._adi_cuda.launches
+        kern = ha._adi_cuda(ops, start, mode, spd, slv, history)
+        check(ha._adi_cuda.launches == before + 1, f"heston_adi {tag}: not one launch")
+        plain = ha._adi_plain(ops, start, mode, spd, slv, history)
+        torch.cuda.synchronize()
+        pairs = [(kern[0], plain[0])] + ([(kern[1], plain[1])] if mode == ha.BERMUDAN else [])
+        if history:
+            pairs += list(zip(kern[2], plain[2]))
+        for k_, p_ in pairs:
+            diff = (k_ - p_).abs().max().item()
+            worst = max(worst, diff)
+            check(torch.equal(k_, p_), f"heston_adi {tag}: the kernel differs from the plain "
+                                       f"loop by {diff:.3e}")
+        n_t, (n_v, n_x) = ops.bounds.shape[0], start.shape
+        if n_x == 41:
+            continue
+        ms = event_time(lambda: ha._adi_cuda(ops, start, mode, spd, slv), 5)
+        plain_ms = event_time(lambda: ha._adi_plain(ops, start, mode, spd, slv), 1)
+        bound, by, chain = adi_bound(n_x, n_v, n_t, chain_node)
+        timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "chain_ms": chain}
+        log("adi", f"{tag}: bitwise equal ({len(pairs)} arrays); device ms by CUDA events "
+                   f"[{card}]: kernel {ms:.4f}, plain loop {plain_ms:.3f}, bound {bound:.4f} "
+                   f"({by}; the chain {n_t} x ({n_x} + {n_v}) nodes {chain:.4f}); "
+                   f"{ms / n_t * 1e3:.2f} us a step, {chain / ms:.2f} of the chain")
+    log("adi", "every mode bitwise equal to the plain loop")
+    timing["fit"] = adi_step_fit(dev, card, chain_node)
+
+    gap = {"rel": 0.0, "abs": 0.0}
+    for tag, ops, slv, mode, spd in adi_cases(dev):
+        if mode == ha.BERMUDAN:
+            continue
+        start, american = ops.intrinsic, mode == ha.AMERICAN
+        n_t, (n_v, n_x) = ops.bounds.shape[0], start.shape
+        weight = torch.tensor(np.random.default_rng(n_x).normal(size=(n_v, n_x)),
+                              dtype=torch.float32, device=dev)
+        _, _, hist = ha._adi_cuda(ops, start, mode, history=True)
+        before = ha._adi_adjoint_cuda.launches
+        got = ha._adi_adjoint_cuda(ops, start, hist, weight, american)
+        check(ha._adi_adjoint_cuda.launches == before + 1, f"heston_adi adjoint {tag}: not one "
+                                                           "launch")
+        plain = []  # timed on its one call: host-issued, ≈10 s at the defaults
+        plain_ms = event_time(lambda: plain.append(
+            ha._adi_reverse_plain(ops, start, hist, weight, american)), 1)
+        plain = plain[0]
+        leaves = [x.detach().clone().requires_grad_(True) for x in (
+            *ops.x_stencil, *ops.x_sweep, *ops.v_stencil, *ops.v_sweep, ops.mixed, ops.dt,
+            ops.bounds, ops.intrinsic, start)]
+        grid = ha._adi_plain(*ha._ops_of(ops.den, leaves), mode)[0]
+        auto = torch.autograd.grad((grid * weight).sum(), leaves, allow_unused=True)
+        auto = [torch.zeros_like(x) if g_ is None else g_ for g_, x in zip(auto, leaves)]
+        g_plain, g_auto = adi_grad_gap(got, plain), adi_grad_gap(got, auto)
+        gap["rel"] = max(gap["rel"], g_plain, g_auto)
+        gap["abs"] = max([gap["abs"]] + [(g_ - w_).abs().max().item()
+                                         for g_, w_ in zip(got, plain)])
+        each = {k_: adi_grad_gap([g_], [w_]) for k_, g_, w_ in zip(ADI_NAMES, got, auto)}
+        check(g_plain < ADI_GRAD_RTOL and g_auto < ADI_GRAD_RTOL,
+              f"heston_adi adjoint {tag}: {g_plain:.2e} off the plain reverse, {g_auto:.2e} off "
+              f"autograd of the plain loop ({each})")
+        log("adi", f"adjoint {tag}: one launch; largest relative gap to the plain reverse "
+                   f"{g_plain:.2e}, to autograd of the plain loop {g_auto:.2e} (< "
+                   f"{ADI_GRAD_RTOL}); by input vs autograd: "
+                   + ", ".join(f"{k_} {v_:.1e}" for k_, v_ in each.items()))
+        if n_x == 41:
+            continue
+        ms = event_time(lambda: ha._adi_adjoint_cuda(ops, start, hist, weight, american), 5)
+        bound, by, chain = adi_bound(n_x, n_v, n_t, chain_node, reverse=True)
+        timing[f"adjoint {tag}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                                    "bound_by": by, "chain_ms": chain}
+        log("adi", f"adjoint {tag}: device ms by CUDA events [{card}]: kernel {ms:.4f}, plain "
+                   f"reverse {plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}); "
+                   f"{ms / n_t * 1e3:.2f} us a step, {chain / ms:.2f} of the chain")
+    return worst, timing, gap
+
+
 def lewis_greeks_put(dev) -> dict:
     """Autograd of the port's Lewis price of the ATM put under
     HestonParams.make(): the European oracle of ``heston_fdm_greeks``
@@ -3511,9 +3731,10 @@ def phase_slice(dev, card: str) -> dict:
                                                     device=dev), hp)
         gaps[f"{cp} {strike:g}"] = gap = abs(pde.item() / lw.item() - 1.0)
         check(gap < 2e-3, f"heston_fdm_price {cp} K={strike} off Lewis by {gap:.2e} relative")
-    # the Douglas step: one row sweep and one column sweep, one launch each
-    got = tri_solves(lambda: adi("put", 100.0, american=True))
-    check(got == 2 * n_t, f"heston_fdm_price: {got} tridiag launches, not {2 * n_t}")
+    # the Douglas loop: one launch of the ADI kernel a solve, no tridiagonal one
+    got = adi_launches(lambda: adi("put", 100.0, american=True))
+    check(got == (1, 0, 0), f"heston_fdm_price: (ADI, adjoint, tridiag) launches {got}, not "
+                            f"(1, 0, 0)")
     am_put = record(f"heston_fdm_price american {n_x}x{n_v}x{n_t}",
                     lambda: adi("put", 100.0, american=True),
                     lambda: linear_kernels(lambda k: adi("put", 100.0, True, steps=k), n_t))
@@ -3539,6 +3760,10 @@ def phase_slice(dev, card: str) -> dict:
                                             device=dev),
                lambda: linear_kernels(lambda k: hf.heston_fdm_greeks(
                    100.0, 100.0, 1.0, 0.05, hp0, option_type="put", n_t=k, device=dev), n_t))
+    got = adi_launches(lambda: hf.heston_fdm_greeks(100.0, 100.0, 1.0, 0.05, hp0,
+                                                    option_type="put", device=dev))
+    check(got == (2, 1, 0), f"heston_fdm_greeks: (ADI, adjoint, tridiag) launches {got}, not "
+                            f"(2, 1, 0)")
     ref = lewis_greeks_put(dev)
     for k, rv in ref.items():
         tol = 0.05 * abs(rv) if k == "gamma" else 0.015 * max(abs(rv), 1.0)
@@ -3554,6 +3779,8 @@ def phase_slice(dev, card: str) -> dict:
 
     b = record("heston_american_bracket adi 50 dates", adi_bracket,
                lambda: date_step_kernels(adi_bracket, 50, 8), warm=lambda: adi_bracket(2))
+    got = adi_launches(lambda: adi_bracket(2))
+    check(got == (1, 0, 0), f"the ADI bracket: (ADI, adjoint, tridiag) launches {got}")
     lo, hi = b["lower"] - 3 * b["lower_se"], b["upper"] + 3 * b["upper_se"]
     inside = lo <= b["adi_bermudan"] <= hi
     check(lo - 0.03 <= b["adi_bermudan"] <= hi + 0.03 and b["width"] < 0.01,
@@ -3591,6 +3818,8 @@ def phase_slice(dev, card: str) -> dict:
 
     bs_ = record("slv_american_bracket flat mixing 0", slv_bracket,
                  lambda: date_step_kernels(slv_bracket, 25, 8), warm=lambda: slv_bracket(2))
+    got = adi_launches(lambda: slv_bracket(2))
+    check(got == (1, 0, 0), f"the SLV bracket: (ADI, adjoint, tridiag) launches {got}")
     gb = am.american_price_interval(100.0, 100.0, 1.0, 0.05, 0.2, n_dates=25, device=dev)
     tol = 4 * (bs_["lower_se"] + bs_["upper_se"] + gb["lower_se"].item()
                + gb["upper_se"].item()) + 2e-3
@@ -4042,7 +4271,8 @@ SF_KERNELS = {"gbm_mc": gk._gbm_moments_cuda, "exotic_mc": ek._exotic_moments_cu
               "heston_chain": hk._heston_chain_cuda, "heston_exotic": hx._heston_exotic_cuda,
               "local_vol_mc": lk._lv_cuda, "slv_mc": sk._slv_cuda,
               "multi_asset_mc": mk._ma_cuda, "tridiag": tri._tridiag_cuda,
-              "theta_pde": tp._theta_cuda}
+              "theta_pde": tp._theta_cuda, "heston_adi": ha._adi_cuda,
+              "heston_adi_adjoint": ha._adi_adjoint_cuda}
 
 
 def launch_counts() -> dict:
@@ -5019,8 +5249,8 @@ def phase_cli(dev, card: str) -> dict:
     ah, launched = run("american heston", ["american", "--type", "put", "--model", "heston"],
                        warm=False, kernels=False)
     check(ah["lower"] - 3 * ah["lower_se"] <= ah["upper"] + 3 * ah["upper_se"]
-          and ah["width"] < 0.05 and launched.get("tridiag", 0) > 0,
-          f"cli american heston {ah}, launches {launched}")
+          and ah["width"] < 0.05 and launched.get("heston_adi", 0) == 1
+          and "tridiag" not in launched, f"cli american heston {ah}, launches {launched}")
 
     # XVA and a Heston book
     xva, _ = run("xva", ["xva"])
@@ -5467,6 +5697,7 @@ def main() -> None:
     ma_err = phase_ma_parity(dev)
     tri_err, tri_t, node_ms = phase_tridiag(dev, card)
     theta_err, theta_t = phase_theta(dev, card, node_ms)
+    adi_err, adi_t, adi_grad = phase_heston_adi(dev, card, node_ms)
     fdm_grid_check(dev)
 
     # the GBM path: counts set to 0 just before it, read just after it
@@ -5581,6 +5812,8 @@ def main() -> None:
     # of the tridiagonal kernel
     tri._tridiag_cuda.launches = 0
     tp._theta_cuda.launches = 0
+    ha._adi_cuda.launches = 0
+    ha._adi_adjoint_cuda.launches = 0
     phase_pricers(dev, card)
     phase_pricers_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
@@ -5636,7 +5869,7 @@ def main() -> None:
             del sys.modules["pandas"]
         else:
             sys.modules["pandas"] = had_pandas
-    check(all(cl[k] > 0 for k in cl if k != "heston_qe"),
+    check(all(cl[k] > 0 for k in cl if k not in ("heston_qe", "tridiag", "heston_adi_adjoint")),
           f"the command line never launched a kernel of its path: {cl}")
     # parallel/: every kernel route sharded over meshes of this card
     pl_before = launch_counts()
@@ -5644,9 +5877,10 @@ def main() -> None:
     pl_after = launch_counts()
     pl = {k: pl_after[k] - pl_before[k] for k in pl_after}
     log("launches", f"the parallel slice's share: {pl}")
-    check(all(pl[k] > 0 for k in pl if k not in ("heston_chain", "tridiag", "theta_pde")),
+    off_path = ("heston_chain", "tridiag", "theta_pde", "heston_adi", "heston_adi_adjoint")
+    check(all(pl[k] > 0 for k in pl if k not in off_path),
           f"the parallel slice never launched a kernel of its path: {pl}")
-    check(all(pl[k] == 0 for k in ("heston_chain", "tridiag", "theta_pde")),
+    check(all(pl[k] == 0 for k in off_path),
           f"the parallel slice launched a kernel off its path: {pl}")
     log("launches", f"the learned slice's share: {ln_launches}")
     check(ln_launches["gbm_mc"] == ln["gbm"],
@@ -5671,6 +5905,11 @@ def main() -> None:
     log("launches", f"theta_pde launched {theta_launches} times over the pricers, the slice, "
                     "the risk engine and the command line")
     check(theta_launches > 0, "the PDE path never launched the θ-scheme kernel")
+    adi_launched = (ha._adi_cuda.launches, ha._adi_adjoint_cuda.launches)
+    log("launches", f"heston_adi launched {adi_launched[0]} times, heston_adi_adjoint "
+                    f"{adi_launched[1]}, over the slice, its routes and the command line")
+    check(min(adi_launched) > 0, f"the Heston PDE path never launched an ADI kernel: "
+                                 f"{adi_launched}")
     for tag, t in (list(gbm_t.items()) + list(ex_t.items()) + list(h_t.items())
                    + [(f"heston_exotic {k_}", v) for k_, v in hx_t.items()]
                    + list(smile_t.items()) + list(ma_t.items())):
@@ -5679,6 +5918,8 @@ def main() -> None:
         log("timing", f"{tag} {sampler}, device ms by {how} [{card}]: kernel {t['ms']:.4f}, "
                       f"plain torch {t.get('plain_ms', float('nan')):.3f}, bound "
                       f"{t['bound_ms']:.4f} ({t['bound_by']})")
+
+    adi_tag = "european {}x{}x{}".format(*SL_ADI)
 
     def entry(name, source, replaces, launches, err, t):
         return {"name": name, "route": "cuda", "source": f"optionslab_tpu_torch/csrc/{source}",
@@ -5739,6 +5980,14 @@ def main() -> None:
                  "optionslab_tpu/models/fdm.py:162 (lax.scan) and :101 (fori_loop), no Pallas "
                  "kernel", theta_launches, theta_err, theta_t["howard θ=0.5 float32"]),
          "chain_ms": theta_t["howard θ=0.5 float32"]["chain_ms"]},
+        {**entry("heston_adi_kernel", "heston_adi.cu",
+                 "optionslab_tpu/models/heston_fdm.py:200, :219, :331, :403 (lax.scan over the "
+                 "step at :160-177), no Pallas kernel", adi_launched[0], adi_err,
+                 adi_t[adi_tag]), "chain_ms": adi_t[adi_tag]["chain_ms"]},
+        {**entry("heston_adi_adjoint_kernel", "heston_adi.cu",
+                 "optionslab_tpu/models/heston_fdm.py:219 (reverse mode of the "
+                 "jax.checkpoint scan), no Pallas kernel", adi_launched[1], adi_grad["abs"],
+                 adi_t["adjoint " + adi_tag]), "chain_ms": adi_t["adjoint " + adi_tag]["chain_ms"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

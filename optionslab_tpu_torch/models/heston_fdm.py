@@ -8,19 +8,20 @@ options on the full 2-D Heston PDE
 
 in float32 on the device of the call (``device``, the card by default).
 
-* Each Douglas step is one tridiagonal solve along x (all variance rows in
-  one launch) and one along v (all spot columns in one launch, read through
-  the kernel's strides, no transpose copy) of ``ops/tridiag.py``; the mixed
-  term is an explicit stencil. The sinh-stretched variance grid and the
-  frozen (detached) mesh are the reference's.
+* This module builds the grids, the Douglas operators, the boundary table
+  and the exercise value with torch; the time loop is ``ops/heston_adi.py``:
+  one launch of its forward kernel a solve on the card (a tridiagonal solve
+  along x and one along v each step, the mixed term an explicit stencil).
+  The sinh-stretched variance grid and the frozen (detached) mesh are the
+  reference's.
 * :func:`heston_fdm_greeks` reads the spot/v0 ladder off a biquadratic
   readout of one solve (autograd with ``create_graph``), and the
   kappa/theta/sigma/rho/rate/maturity sensitivities from one reverse pass
-  through a second solve: the tridiagonal solve's backward is its adjoint
-  solve, one launch per step.
+  through a second solve: one launch of the reverse kernel, whose
+  gradients torch chains through the operators' construction.
 * :func:`_heston_adi_bermudan` and :func:`_slv_adi_bermudan` record the
   continuation slices at the exercise dates for the certified brackets
-  (``heston_american``, ``slv_american``); the SLV engine rebuilds its
+  (``heston_american``, ``slv_american``); the SLV loop rebuilds its
   x-operator every step from the frozen leverage rows.
 """
 
@@ -28,16 +29,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
-from ..ops.tridiag import tridiag_apply, tridiag_solve
+from ..ops.heston_adi import (THETA_S, AdiOps, SlvLeverage, _ends, adi_bermudan, adi_loop,
+                              x_operator)
 from ..utils.exceptions import ValidationError
 from .heston import HestonParams
 from .slv import _interp
 
 __all__ = ["heston_fdm_price", "heston_fdm_greeks"]
-
-THETA_S = 0.5  # Douglas implicitness
 
 
 def _linspace(a, b, n: int) -> torch.Tensor:
@@ -45,16 +44,6 @@ def _linspace(a, b, n: int) -> torch.Tensor:
     s = k/(n−1), the end point exact."""
     s = torch.arange(n - 1, dtype=torch.float32, device=a.device) / (n - 1)
     return torch.cat([a * (1.0 - s) + b * s, b.reshape(1)])
-
-
-def _ends(mid, first, last):
-    """``mid`` (.., m−2) with ``first`` and ``last`` columns added on the last
-    axis (scalars or columns)."""
-    shape = mid.shape[:-1] + (1,)
-    return torch.cat([torch.as_tensor(first, dtype=mid.dtype, device=mid.device).expand(shape),
-                      mid,
-                      torch.as_tensor(last, dtype=mid.dtype, device=mid.device).expand(shape)],
-                     dim=-1)
 
 
 def _f32(device):
@@ -102,67 +91,26 @@ def _v_operator(v, gp, dxi, c_v, kap, th, sig, rate, dt):
     return (a2, b2, c2), i2
 
 
-def _x_operator(vj, l2, rate, dividend, dx, dt, n_x: int):
-    """The x-direction stencil (a1, b1, c1), (n_v, n_x), with identity rows
-    at the pinned x-boundaries, and its implicit sweep matrix. ``vj`` is
-    v[:, None], ``l2`` the squared leverage row (1, n_x) or 1."""
-    conv_x = (rate - dividend - 0.5 * l2 * vj) / (2.0 * dx)
-    diff_x = 0.5 * l2 * vj / (dx * dx)
-    a1 = diff_x - conv_x
-    c1 = diff_x + conv_x
-    b1 = -2.0 * diff_x - 0.5 * rate
-    a1, b1, c1 = (z.expand(vj.shape[0], n_x) for z in (a1, b1, c1))
-    a1 = _ends(a1[:, 1:-1], 0.0, 0.0)
-    c1 = _ends(c1[:, 1:-1], 0.0, 0.0)
-    b1 = _ends(b1[:, 1:-1], 0.0, 0.0)
-    i1_di = _ends((1.0 - THETA_S * dt * b1)[:, 1:-1], 1.0, 1.0)
-    return (a1, b1, c1), (-THETA_S * dt * a1, i1_di, -THETA_S * dt * c1)
-
-
-def _mixed(vgrid, coef, dx, dxi):
-    """ρσ·v·V_xv = (ρσ·v/g')·V_xξ by central differences (zero at the edges);
-    ``coef`` is ρσ(·L)·(v/g') on the interior, broadcastable to (n_v−2, n_x−2)."""
-    core = (vgrid[2:, 2:] - vgrid[2:, :-2] - vgrid[:-2, 2:] + vgrid[:-2, :-2]) / (4.0 * dx * dxi)
-    return F.pad(coef * core, (1, 1, 1, 1))
-
-
-def _douglas(vg, tau, ops, bounds, dt):
-    """One Douglas step from ``vg`` (n_v, n_x): explicit predictor, x-sweep,
-    v-sweep, Dirichlet x-boundaries pinned."""
-    (a1, b1, c1), (i1_lo, i1_di, i1_up), (a2, b2, c2), (i2_lo, i2_di, i2_up), a0v = ops
-    blo, bhi = bounds(tau)
-    a1v = tridiag_apply(a1, b1, c1, vg)
-    a2v = tridiag_apply(a2, b2, c2, vg.T).T
-    y0 = vg + dt * (a0v + a1v + a2v)
-    # x-sweep: (I - th dt A1) Y1 = Y0 - th dt A1 V
-    rhs1 = _ends((y0 - THETA_S * dt * a1v)[:, 1:-1], blo, bhi)
-    y1 = tridiag_solve(i1_lo, i1_di, i1_up, rhs1)
-    # v-sweep: (I - th dt A2) Y2 = Y1 - th dt A2 V, the columns as systems
-    rhs2 = (y1 - THETA_S * dt * a2v).T
-    y2 = tridiag_solve(i2_lo, i2_di, i2_up, rhs2).T
-    return _ends(y2[:, 1:-1], blo, bhi)
-
-
-def _boundary(s_grid, intrinsic, strike, rate, dividend, cp, american: bool):
-    def x_boundary(tau):
-        """Dirichlet values at x_lo / x_hi for time-to-maturity tau."""
-        df_r = torch.exp(-rate * tau)
-        df_q = torch.exp(-dividend * tau)
-        lo_eu = torch.clamp_min(cp * (s_grid[0] * df_q - strike * df_r), 0.0)
-        hi_eu = torch.clamp_min(cp * (s_grid[-1] * df_q - strike * df_r), 0.0)
-        if american:
-            lo_eu = torch.maximum(lo_eu, intrinsic[0, 0])
-            hi_eu = torch.maximum(hi_eu, intrinsic[0, -1])
-        return lo_eu.reshape(1, 1), hi_eu.reshape(1, 1)
-
-    return x_boundary
+def _boundary_table(s_grid, intrinsic, strike, rate, dividend, cp, dt, n_t: int,
+                    american: bool):
+    """(n_t, 2) Dirichlet values at x_lo / x_hi after each backward step,
+    tau = (k + 1)·dt."""
+    tau = (torch.arange(n_t, device=dt.device) + 1.0) * dt
+    df_r = torch.exp(-rate * tau)
+    df_q = torch.exp(-dividend * tau)
+    lo_eu = torch.clamp_min(cp * (s_grid[0] * df_q - strike * df_r), 0.0)
+    hi_eu = torch.clamp_min(cp * (s_grid[-1] * df_q - strike * df_r), 0.0)
+    if american:
+        lo_eu = torch.maximum(lo_eu, intrinsic[0, 0])
+        hi_eu = torch.maximum(hi_eu, intrinsic[0, -1])
+    return torch.stack([lo_eu, hi_eu], dim=1)
 
 
 def _adi_setup(spot, strike, maturity, rate, dividend, cp, params: HestonParams, n_x: int,
                n_v: int, n_t: int, american: bool, device):
-    """Grids, Douglas stencils and the (projection-free) step closure.
-    Returns ``(step, intrinsic, meta)`` with ``meta = (x_lo, dx, dxi, c_v)``
-    (v maps through ξ = asinh(v/c_v))."""
+    """Grids, Douglas operators and the boundary table of the loop.
+    Returns ``(ops, meta)`` with ``meta = (x_lo, dx, dxi, c_v)`` (v maps
+    through ξ = asinh(v/c_v)); ``ops.intrinsic`` is the loop's start."""
     f32 = _f32(device)
     spot, strike, maturity, rate, dividend, cp = map(f32, (spot, strike, maturity, rate,
                                                            dividend, cp))
@@ -172,17 +120,13 @@ def _adi_setup(spot, strike, maturity, rate, dividend, cp, params: HestonParams,
     dt = maturity / n_t
     s_grid = torch.exp(x)
     intrinsic = torch.clamp_min(cp * (s_grid[None, :] - strike), 0.0).expand(n_v, n_x)
-    x_ops = _x_operator(v[:, None], 1.0, rate, dividend, dx, dt, n_x)
-    v_stencil, i2 = _v_operator(v, gp, dxi, c_v, kap, th, sig, rate, dt)
+    x_stencil, x_sweep = x_operator(v[:, None], 1.0, rate, dividend, dx, dt, n_x)
+    v_stencil, v_sweep = _v_operator(v, gp, dxi, c_v, kap, th, sig, rate, dt)
     mixed_coef = rho * sig * (v[1:-1] / gp[1:-1])[:, None]
-    bounds = _boundary(s_grid, intrinsic, strike, rate, dividend, cp, american)
-
-    def step(vg, i: int):
-        tau = (i + 1.0) * dt
-        a0v = _mixed(vg, mixed_coef, dx, dxi)
-        return _douglas(vg, tau, (*x_ops, v_stencil, i2, a0v), bounds, dt)
-
-    return step, intrinsic, (x_lo, dx, dxi, c_v)
+    bounds = _boundary_table(s_grid, intrinsic, strike, rate, dividend, cp, dt, n_t, american)
+    ops = AdiOps(x_stencil, x_sweep, v_stencil, v_sweep, mixed_coef, dt, 4.0 * dx * dxi, bounds,
+                 intrinsic)
+    return ops, (x_lo, dx, dxi, c_v)
 
 
 def _bilinear_at(grid, xq, vq, x_lo, dx, dxi, c_v):
@@ -205,15 +149,11 @@ def _bilinear_at(grid, xq, vq, x_lo, dx, dxi, c_v):
 
 def _solve_grid(spot, strike, maturity, rate, dividend, cp, params, n_x, n_v, n_t,
                 american, device):
-    """The backward solve to t = 0: (grid, meta)."""
-    step, intrinsic, meta = _adi_setup(spot, strike, maturity, rate, dividend, cp, params,
-                                       n_x, n_v, n_t, american, device)
-    vg = intrinsic
-    for i in range(n_t):
-        vg = step(vg, i)
-        if american:
-            vg = torch.maximum(vg, intrinsic)
-    return vg, meta
+    """The backward solve to t = 0, one loop of ``ops/heston_adi.py``:
+    (grid, meta)."""
+    ops, meta = _adi_setup(spot, strike, maturity, rate, dividend, cp, params, n_x, n_v, n_t,
+                           american, device)
+    return adi_loop(ops, ops.intrinsic, american), meta
 
 
 def _heston_adi(spot, strike, maturity, rate, dividend, cp, params: HestonParams, n_x: int,
@@ -262,7 +202,7 @@ def _fdm_greeks_pipeline(spot, strike, maturity, rate, dividend, cp, params: Hes
     zero = torch.zeros((), device=device)
 
     # kappa/theta/sigma/rho/rate/maturity: one reverse pass through a second
-    # solve (each tridiagonal solve's backward is one adjoint solve)
+    # solve (the loop's backward is one launch of the reverse kernel)
     pk = torch.stack([frozen.kappa, frozen.theta, frozen.sigma, frozen.rho, f32(rate),
                       f32(maturity)]).requires_grad_(True)
     pp = HestonParams(v0=frozen.v0, kappa=pk[0], theta=pk[1], sigma=pk[2], rho=pk[3])
@@ -298,34 +238,15 @@ def heston_fdm_greeks(spot, strike, maturity, rate, params: HestonParams, divide
     return {k: float(v.detach()) for k, v in out.items()}
 
 
-def _bermudan_dates(step, intrinsic, n_dates: int, spd: int):
-    """Run ``n_dates`` blocks of ``spd`` steps, projecting on the exercise
-    value after each block but the last; returns (grid at t = 0, cont_all)
-    with cont_all (n_dates+1, n_v, n_x) by forward date index (entry 0
-    unused, entry n_dates zero)."""
-    vg = intrinsic
-    conts = []
-    for b in range(n_dates):
-        for j in range(spd):
-            vg = step(vg, b * spd + j)
-        if b < n_dates - 1:
-            conts.append(vg)
-            vg = torch.maximum(vg, intrinsic)
-    zero = torch.zeros((1,) + intrinsic.shape, dtype=intrinsic.dtype, device=intrinsic.device)
-    cont_all = torch.cat([zero, torch.stack(conts[::-1]), zero]) if conts else \
-        torch.cat([zero, zero])
-    return vg, cont_all
-
-
 def _heston_adi_bermudan(spot, strike, maturity, rate, dividend, cp, params: HestonParams,
                          n_x: int, n_v: int, n_dates: int, steps_per_date: int, device):
     """Bermudan ADI: projection only at the ``n_dates`` exercise dates,
     recording the continuation slice at each just before it. Returns
     ``(price0, cont_all, x_lo, dx, dxi, c_v)``."""
-    step, intrinsic, (x_lo, dx, dxi, c_v) = _adi_setup(
+    ops, (x_lo, dx, dxi, c_v) = _adi_setup(
         spot, strike, maturity, rate, dividend, cp, params, n_x, n_v, n_dates * steps_per_date,
         True, device)
-    vg, cont_all = _bermudan_dates(step, intrinsic, n_dates, steps_per_date)
+    vg, cont_all = adi_bermudan(ops, ops.intrinsic, steps_per_date)
     f32 = _f32(device)
     price0 = _bilinear_at(vg, torch.log(f32(spot)), f32(params.v0), x_lo, dx, dxi, c_v)
     return price0, cont_all, x_lo, dx, dxi, c_v
@@ -361,14 +282,10 @@ def _slv_rows(maturity: float, n_dates: int, spd: int, n_rows: int) -> list[int]
     return rows
 
 
-def _slv_adi_bermudan(spot, strike, maturity, rate, dividend, cp, params: HestonParams,
-                      mixing, x_rows, l_rows, n_x: int, n_v: int, n_dates: int,
-                      steps_per_date: int, device):
-    """Bermudan ADI under the frozen-leverage SLV law: the x-diffusion is
-    L(x, t)²·v and the mixed term ρσ·L·v, with L read from the same
-    per-substep leverage rows the Monte Carlo replays (piecewise constant in
-    time); the x-operator is rebuilt every step, the v-operator is static.
-    Returns ``(price0, cont_all, x_lo, dx, dxi, c_v)``."""
+def _slv_setup(spot, strike, maturity, rate, dividend, cp, params: HestonParams, mixing, x_rows,
+               l_rows, n_x: int, n_v: int, n_dates: int, steps_per_date: int, device):
+    """The SLV loop's operands: ``(ops, slv, meta, v0)`` (the x-side built
+    every step from ``slv``'s leverage rows; ``meta = (x_lo, dx, dxi, c_v)``)."""
     f32 = _f32(device)
     spot_f, strike, rate, dividend, cp = map(f32, (spot, strike, rate, dividend, cp))
     mat = f32(maturity)
@@ -385,18 +302,25 @@ def _slv_adi_bermudan(spot, strike, maturity, rate, dividend, cp, params: Heston
     x_rel = x - torch.log(spot_f)
     lev_tab = torch.stack([_interp(x_rel, xr, lr) for xr, lr in zip(x_rows, l_rows)])
     rows = _slv_rows(float(maturity), n_dates, steps_per_date, x_rows.shape[0])
-    v_stencil, i2 = _v_operator(v, gp, dxi, c_v, kap, th, sig, rate, dt)
-    vj = v[:, None]
-    w_mixed = (v[1:-1] / gp[1:-1])[:, None]
-    bounds = _boundary(s_grid, intrinsic, strike, rate, dividend, cp, True)
+    v_stencil, v_sweep = _v_operator(v, gp, dxi, c_v, kap, th, sig, rate, dt)
+    bounds = _boundary_table(s_grid, intrinsic, strike, rate, dividend, cp, dt, n_t, True)
+    ops = AdiOps(None, None, v_stencil, v_sweep, None, dt, 4.0 * dx * dxi, bounds, intrinsic)
+    slv = SlvLeverage(lev_tab, tuple(rows), v[:, None], (v[1:-1] / gp[1:-1])[:, None],
+                      rho * sig, rate, dividend, dx)
+    return ops, slv, (x_lo, dx, dxi, c_v), v0
 
-    def step(vg, i: int):
-        tau = (i + 1.0) * dt
-        lev = lev_tab[rows[i]]
-        x_ops = _x_operator(vj, (lev * lev)[None, :], rate, dividend, dx, dt, n_x)
-        a0v = _mixed(vg, rho * sig * lev[None, 1:-1] * w_mixed, dx, dxi)
-        return _douglas(vg, tau, (*x_ops, v_stencil, i2, a0v), bounds, dt)
 
-    vg, cont_all = _bermudan_dates(step, intrinsic, n_dates, steps_per_date)
-    price0 = _bilinear_at(vg, torch.log(spot_f), v0, x_lo, dx, dxi, c_v)
+def _slv_adi_bermudan(spot, strike, maturity, rate, dividend, cp, params: HestonParams,
+                      mixing, x_rows, l_rows, n_x: int, n_v: int, n_dates: int,
+                      steps_per_date: int, device):
+    """Bermudan ADI under the frozen-leverage SLV law: the x-diffusion is
+    L(x, t)²·v and the mixed term ρσ·L·v, with L read from the same
+    per-substep leverage rows the Monte Carlo replays (piecewise constant in
+    time); the x-operator is rebuilt every step, the v-operator is static.
+    Returns ``(price0, cont_all, x_lo, dx, dxi, c_v)``."""
+    ops, slv, (x_lo, dx, dxi, c_v), v0 = _slv_setup(
+        spot, strike, maturity, rate, dividend, cp, params, mixing, x_rows, l_rows, n_x, n_v,
+        n_dates, steps_per_date, device)
+    vg, cont_all = adi_bermudan(ops, ops.intrinsic, steps_per_date, slv)
+    price0 = _bilinear_at(vg, torch.log(_f32(device)(spot)), v0, x_lo, dx, dxi, c_v)
     return price0, cont_all, x_lo, dx, dxi, c_v

@@ -221,6 +221,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _I, _P,                      # device, stream
     ]
     lib.theta_pde_launch.restype = _I
+    for name in ("heston_adi_launch", "heston_adi_adjoint_launch"):
+        fn = getattr(lib, name)
+        fn.argtypes = [_P, _P, _I, _P]  # pointers (host int64[]), dims (host int32[]), dev, st
+        fn.restype = _I
     lib.gbm_mc_error_string.argtypes = [_I]
     lib.gbm_mc_error_string.restype = ctypes.c_char_p
     return lib

@@ -815,14 +815,18 @@ def test_local_vol_american_bracket_runs_on_card(cuda_device):
 
 
 def test_heston_adi_runs_on_card_through_the_tridiagonal_kernel(cuda_device):
+    """The whole Douglas loop is one launch of the ADI kernel, whose sweeps
+    run the tridiagonal kernel's device functions (``tridiag.cuh``): no
+    launch of the tridiagonal kernel itself."""
     from optionslab_tpu_torch.models.heston import HestonParams, heston_price
     from optionslab_tpu_torch.models.heston_fdm import heston_fdm_price
-    from optionslab_tpu_torch.ops import tridiag
+    from optionslab_tpu_torch.ops import heston_adi, tridiag
 
     par = HestonParams.make(0.04, 2.0, 0.05, 0.3, -0.7)  # on the CPU: moved to the card
-    before = tridiag._tridiag_cuda.launches
+    before = tridiag._tridiag_cuda.launches, heston_adi._adi_cuda.launches
     pde = heston_fdm_price(100.0, 100.0, 1.0, 0.05, par, n_x=101, n_v=51, n_t=50)
-    assert tridiag._tridiag_cuda.launches == before + 2 * 50  # one launch a sweep
+    assert (tridiag._tridiag_cuda.launches, heston_adi._adi_cuda.launches) == (before[0],
+                                                                               before[1] + 1)
     assert pde.device.type == "cuda"
     lw = heston_price(ContractBatch.make(100.0, 100.0, 1.0, 0.05, 0.2, device=cuda_device),
                       par.to(device=cuda_device))
@@ -882,3 +886,90 @@ def test_sharded_mc_price_two_shards_bit_identical_on_card(cuda_device):
     bs = bs_price(book.spot, book.strike, book.maturity, book.rate, book.vol, book.cp,
                   book.dividend)
     assert torch.all((one.price - bs).abs() < 5 * one.std_error)
+
+
+def _adi_case(kind, device):
+    """(ops, slv, mode, steps a date) of the ADI loop at the CPU tests' grid."""
+    import numpy as np
+
+    from optionslab_tpu_torch.models import heston_fdm as hf
+    from optionslab_tpu_torch.models.heston import HestonParams
+    from optionslab_tpu_torch.ops import heston_adi as ha
+
+    par = HestonParams.make(0.04, 2.0, 0.05, 0.3, -0.7, device=device)
+    if kind == "slv":
+        rng = np.random.default_rng(3)
+        x_rows = torch.tensor(np.sort(rng.uniform(-1, 1, (8, 9)), axis=1), dtype=torch.float32)
+        l_rows = 1.0 + 0.3 * torch.sin(2.0 * x_rows)
+        ops, slv, _, _ = hf._slv_setup(100.0, 100.0, 1.0, 0.03, 0.0, -1.0, par, 0.7, x_rows,
+                                       l_rows, 41, 21, 4, 4, device)
+        return ops, slv, ha.BERMUDAN, 4
+    american = kind != "european"
+    ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, -1.0 if american else 1.0, par, 41, 21,
+                           16, american, device)
+    mode = {"european": ha.EUROPEAN, "american": ha.AMERICAN, "bermudan": ha.BERMUDAN}[kind]
+    return ops, None, mode, 4 if kind == "bermudan" else 1
+
+
+@pytest.mark.parametrize("kind", ["european", "american", "bermudan", "slv"])
+def test_heston_adi_kernel_equals_plain_loop_on_card(cuda_device, kind):
+    from optionslab_tpu_torch.ops import heston_adi as ha
+
+    ops, slv, mode, spd = _adi_case(kind, cuda_device)
+    history = kind in ("european", "american")
+    before = ha._adi_cuda.launches
+    got = ha._adi_cuda(ops, ops.intrinsic, mode, spd, slv, history)
+    assert ha._adi_cuda.launches == before + 1
+    want = ha._adi_plain(ops, ops.intrinsic, mode, spd, slv, history)
+    assert torch.equal(got[0], want[0])
+    if mode == ha.BERMUDAN:
+        assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2] or (), want[2] or ()):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("kind", ["european", "american"])
+def test_heston_adi_adjoint_matches_plain_reverse_on_card(cuda_device, kind):
+    from optionslab_tpu_torch.ops import heston_adi as ha
+
+    ops, _, mode, _ = _adi_case(kind, cuda_device)
+    g = torch.linspace(-1.0, 1.0, ops.intrinsic.numel(), device=cuda_device).view(21, 41)
+    _, _, hist = ha._adi_cuda(ops, ops.intrinsic, mode, history=True)
+    before = ha._adi_adjoint_cuda.launches
+    got = ha._adi_adjoint_cuda(ops, ops.intrinsic, hist, g, kind == "american")
+    assert ha._adi_adjoint_cuda.launches == before + 1
+    want = ha._adi_reverse_plain(ops, ops.intrinsic, hist, g, kind == "american")
+    for name, a, b in zip(ha._INPUTS, got, want):
+        assert a.shape == b.shape, name
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max().clamp_min(1e-30), name
+
+
+def test_heston_fdm_greeks_on_card_one_reverse_launch(cuda_device):
+    from optionslab_tpu_torch.models.heston import HestonParams
+    from optionslab_tpu_torch.models.heston_fdm import heston_fdm_greeks
+    from optionslab_tpu_torch.ops import heston_adi as ha
+    from optionslab_tpu_torch.ops import tridiag
+
+    args = (100.0, 105.0, 0.7, 0.03, HestonParams.make(), 0.01, "put", True, 41, 21, 16)
+    before = (ha._adi_cuda.launches, ha._adi_adjoint_cuda.launches,
+              tridiag._tridiag_cuda.launches)
+    card = heston_fdm_greeks(*args, device="cuda")
+    assert (ha._adi_cuda.launches, ha._adi_adjoint_cuda.launches,
+            tridiag._tridiag_cuda.launches) == (before[0] + 2, before[1] + 1, before[2])
+    cpu = heston_fdm_greeks(*args, device="cpu")  # the plain loop and reverse, float32
+    for k, v in cpu.items():
+        rel = 1e-3 if k == "vomma_v0" else 1e-4  # tests/test_torch_heston_fdm.py's bounds
+        assert card[k] == pytest.approx(v, rel=rel, abs=1e-5), k
+
+
+def test_heston_adi_wrappers_reject_bad_inputs_on_card(cuda_device):
+    from optionslab_tpu_torch.ops import heston_adi as ha
+
+    ops, _, _, _ = _adi_case("european", cuda_device)
+    with pytest.raises(ValueError, match="float32 tensors"):
+        ha._adi_cuda(ops, ops.intrinsic.double(), ha.EUROPEAN)
+    with pytest.raises(ValueError, match="float32 tensors"):
+        ha._adi_cuda(ops._replace(bounds=ops.bounds.cpu()), ops.intrinsic, ha.EUROPEAN)
+    with pytest.raises(ValueError, match="Bermudan mode only"):
+        slv_ops, slv, _, _ = _adi_case("slv", cuda_device)
+        ha._adi_cuda(slv_ops, slv_ops.intrinsic, ha.AMERICAN, 1, slv)
