@@ -106,7 +106,17 @@ is printed):
               and CUDA kernel count, and none of the eleven kernels
               launched; then ``/price`` binomial|vg|nig|merton, ``/iv``,
               ``/varswap`` and ``/american`` over a socket;
-15. tridiag — the batched tridiagonal kernel (``csrc/tridiag.cu``) against
+15. tridiag — the two chain probes of ``csrc/tridiag.cu`` (a node of the
+              pivots' chain; a node of the right-hand side's chain on a
+              reciprocal formed once; the second probe with no forward node,
+              a back node alone), each bitwise its plain loop; the
+              division check: the fast quotient of ``tridiag.cuh`` against
+              the division intrinsic and torch's division on 2^24 seeded
+              pairs a dtype over the exponent range and every pair of an
+              edge list (zeros, subnormal quotients, the ends of the range,
+              infinities, NaN, the pivot guard's 2e-30 and 1e-30, all-ones
+              significands), bitwise; then
+              the batched tridiagonal kernel (``csrc/tridiag.cu``) against
               its plain version, bitwise, at the slice's shapes (the ADI's
               101 x 201 row sweep and 201 x 101 column sweep on shared
               coefficients and a transposed right-hand side, the dividend
@@ -139,7 +149,10 @@ is printed):
               and Howard, θ = 0.5 and 1, float32 and float64, bitwise, one
               launch; the gradient of its ``autograd.Function`` against
               autograd through the plain loop; device ms beside the bound,
-              the longest chain of solves that ran (run before the pricers,
+              the longest chain of a CUDA block (its pivot nodes at the pivot
+              probe's node, its solves on the tables at the right-hand-side
+              probe's, the rows a restarted Howard sweep keeps at a back
+              node's), beside the old count (run before the pricers,
               after the tridiagonal phase; ``fdm_price`` then prices through
               it, one launch a call and no tridiagonal launch); then
               ``fdm_price``'s grid built on the card against the CPU's, bit
@@ -151,11 +164,15 @@ is printed):
               modes: European and American at 41 x 21 x 16 and 201 x 101 x
               200 (the grid and the history its reverse reads), Bermudan at
               50 and 25 dates x 8 steps (the continuation slices), SLV
-              161 x 81 at 25 x 8 on seeded leverage rows; its reverse
-              kernel's gradients of every input of ``_AdiLoop`` against the
-              plain reverse and autograd through the plain loop; device ms
-              of each kernel and its plain version beside the chain bound
-              (run after the θ-scheme phase, before the pricers);
+              161 x 81 at 25 x 8 on seeded leverage rows, each on the
+              thread-block cluster the plan takes there, and the four modes
+              at 1001 x 201 x 16, where the plan takes the cooperative
+              kernel; its reverse kernel's gradients of every input of
+              ``_AdiLoop`` against the plain reverse and autograd through the
+              plain loop; device ms of each kernel and plain version beside
+              the chain bound, recounted and old; the step fit on the
+              cluster route (run after the θ-scheme phase, before the
+              pricers);
 
 18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
               handler at its defaults (65,536 paths x 24 dates, 8 substeps a
@@ -251,7 +268,8 @@ is printed):
               route's warm wall beside the unsharded call.
 
 The last three lines are a JSON object of kernel measurements (the eleven
-ported Pallas kernels, the tridiagonal kernel and the θ-scheme kernel), the
+ported Pallas kernels, the tridiagonal, θ-scheme and ADI kernels, and the
+chain probes and division check of ``csrc/tridiag.cu``), the
 card's name and power limit, and ``{"ok": true, "device": {...}}``. Imports
 nothing of JAX.
 """
@@ -3241,28 +3259,195 @@ def tri_system(batch: int, n: int, dtype, dev, seed: int = 0, column: bool = Fal
     return ops
 
 
-def tri_chain_node_ms(dtype, dev) -> float:
-    """Device ms of one node of a system's dependent chain (a forward and a
-    back node of the solve's own arithmetic, operands in registers), from the
-    chain probe of ``csrc/tridiag.cu`` by CUDA events: the difference of
-    runs of TRI_CHAIN_NODES and twice as many nodes, so the launch drops
-    out."""
-    abcd = torch.tensor([0.5, 3.0, -0.5, 1.0], dtype=dtype, device=dev)
-    out = torch.empty(1, dtype=dtype, device=dev)
+PROBE_CHECK_NODES = 512  # the probes against their plain loops (≈3,000 torch launches each)
+PROBE_ABCD = (0.5, 3.0, -0.5, 1.0)  # lower, diagonal (the rhs probe's den), upper, rhs
+DIV_PAIRS = 1 << 24  # the division check's seeded pairs a dtype
+
+
+def probe_run(kind: str, dtype, dev, n_nodes: int, out: torch.Tensor) -> None:
+    """One launch of a chain probe of ``csrc/tridiag.cu`` over ``n_nodes``
+    nodes and as many back nodes: "pivot" the pivots' chain, "rhs" the
+    right-hand side's chain on a reciprocal formed once; "back" the
+    right-hand side's probe with no forward node, ``n_nodes`` back nodes."""
+    key = (dtype, dev)
+    if key not in probe_run.abcd:  # made once: a graph capture copies nothing
+        probe_run.abcd[key] = torch.tensor(PROBE_ABCD, dtype=dtype, device=dev)
+    abcd = probe_run.abcd[key]
     lib = _build.load_library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    tail = (0 if dtype == torch.float32 else 1, dev.index or 0,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if kind == "pivot":
+        name = "tridiag_chain_launch"
+        err = lib.tridiag_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes, *tail)
+    else:
+        name = "tridiag_rhs_chain_launch"
+        err = lib.tridiag_rhs_chain_launch(abcd.data_ptr(), out.data_ptr(),
+                                           0 if kind == "back" else n_nodes, n_nodes, *tail)
+    check(err == 0, f"{name} ({kind}) failed: {_build.error_string(err)}")
+    probe_run.launches["pivot" if kind == "pivot" else "rhs"] += 1
 
-    def run(n_nodes):
-        err = lib.tridiag_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes,
-                                       0 if dtype == torch.float32 else 1, dev.index or 0,
-                                       stream)
-        check(err == 0, f"tridiag_chain_launch failed: {_build.error_string(err)}")
 
-    run(TRI_CHAIN_NODES)
-    one, two = (min(event_time(lambda k=k: run(k), 1) for _ in range(3))
+probe_run.launches = {"pivot": 0, "rhs": 0}
+probe_run.abcd = {}
+
+
+def probe_plain(kind: str, dtype, dev, n_nodes: int) -> torch.Tensor:
+    """The probe's chain as a plain torch loop on the card: the same
+    roundings one torch op at a time (the pivot's guard as the solve's)."""
+    a, b, c, d = (torch.tensor(v, dtype=dtype, device=dev) for v in PROBE_ABCD)
+    prev = torch.zeros((), dtype=dtype, device=dev)
+    for _ in range(n_nodes):
+        if kind == "pivot":
+            den = b - a * prev
+            den = torch.where(den.abs() < 1e-30, torch.sign(den) * 1e-30 + 1e-30, den)
+            prev = c / den
+        else:
+            prev = (d - a * prev) / b
+    x = torch.zeros((), dtype=dtype, device=dev)
+    for _ in range(n_nodes):
+        x = (d - prev * x) if kind == "pivot" else (prev - c * x)
+    return x
+
+
+def tri_chain_node_ms(kind: str, dtype, dev) -> float:
+    """Device ms of one node of a dependent chain (a forward and a back node,
+    operands in registers; "back": a back node alone), from chain probe
+    ``kind`` by CUDA events: the difference of runs of TRI_CHAIN_NODES and
+    twice as many nodes, so the launch drops out."""
+    out = torch.empty(1, dtype=dtype, device=dev)
+    probe_run(kind, dtype, dev, TRI_CHAIN_NODES, out)
+    one, two = (min(event_time(lambda k=k: probe_run(kind, dtype, dev, k, out), 1)
+                    for _ in range(3))
                 for k in (TRI_CHAIN_NODES, 2 * TRI_CHAIN_NODES))
-    check(bool(torch.isfinite(out).all()), "the tridiag chain probe gave a non-finite value")
+    check(bool(torch.isfinite(out).all()), f"the {kind} chain probe gave a non-finite value")
     return (two - one) / TRI_CHAIN_NODES
+
+
+def probe_check(kind: str, dtype, dev) -> dict:
+    """The probe at PROBE_CHECK_NODES nodes against its plain loop, bitwise;
+    device ms of both by CUDA events, and the bound of that work: 8 float
+    operations a node at the card's peak rate (its bytes: five values)."""
+    out = torch.empty(1, dtype=dtype, device=dev)
+    probe_run(kind, dtype, dev, PROBE_CHECK_NODES, out)
+    plain = probe_plain(kind, dtype, dev, PROBE_CHECK_NODES)
+    torch.cuda.synchronize()
+    check(torch.equal(out[0], plain), f"the {kind} probe ({str(dtype)[6:]}) {out.item()!r} != "
+                                      f"its plain loop {plain.item()!r}")
+    ms = min(graph_time(lambda: probe_run(kind, dtype, dev, PROBE_CHECK_NODES, out)))
+    plain_ms = event_time(lambda: probe_plain(kind, dtype, dev, PROBE_CHECK_NODES), 1)
+    peak = FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
+    t_ops = 8.0 * PROBE_CHECK_NODES / peak * 1e3
+    t_bytes = 5 * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S * 1e3
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
+            "err": (out[0] - plain).abs().item()}
+
+
+def float_bits(sign, exp, mant, dtype) -> torch.Tensor:
+    """Floats of ``dtype`` from int64 sign (0/1), biased exponent and
+    significand fields."""
+    if dtype == torch.float32:
+        bits = sign * (1 << 31) + exp * (1 << 23) + mant
+        return torch.where(bits >= 1 << 31, bits - (1 << 32), bits).to(torch.int32).view(dtype)
+    return (sign * -(1 << 63) + exp * (1 << 52) + mant).view(dtype)
+
+
+def div_edges(dtype) -> list[float]:
+    """The division check's edge values: zeros, the subnormal and normal
+    ends, infinities, NaN, the pivot guard's 2e-30 and 1e-30, ones and
+    all-ones significands."""
+    fi = torch.finfo(dtype)
+    p, emin = (23, -126) if dtype == torch.float32 else (52, -1022)
+    ones = [(2.0 - 2.0 ** -p) * 2.0 ** e for e in (emin + 2, -40, -1, 0, 1, 40)]
+    vals = [0.0, fi.smallest_normal * 2.0 ** -p, fi.smallest_normal * (1 - 2.0 ** -p),
+            fi.smallest_normal, fi.max, fi.max / 2, math.inf, math.nan, 2e-30, 1e-30, 1.0, 3.0,
+            *ones]
+    return vals + [-v for v in vals]
+
+
+def div_pairs(dtype, dev, seed: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """DIV_PAIRS seeded (numerator, divisor) pairs over the exponent range, a
+    quarter each: every bit pattern (zeros, subnormals, infinities and NaNs
+    among them); divisors of moderate size; divisors with an all-ones
+    significand; quotients at the top of the range and below its bottom;
+    then every pair of ``div_edges``."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    mant_bits, ebits = (23, 8) if dtype == torch.float32 else (52, 11)
+    bias, top = (1 << (ebits - 1)) - 1, (1 << ebits) - 1
+    q = DIV_PAIRS // 4
+
+    def ints(lo, hi, n=q):
+        return torch.randint(lo, hi, (n,), generator=gen, device=dev, dtype=torch.int64)
+
+    def rand(exp):
+        return float_bits(ints(0, 2), exp, ints(0, 1 << mant_bits), dtype)
+
+    nums, dens = [rand(ints(0, top + 1))], [rand(ints(0, top + 1))]
+    nums.append(rand(ints(0, top + 1)))
+    dens.append(rand(ints(bias - 20, bias + 21)))
+    nums.append(rand(ints(bias - 40, bias + 41)))
+    dens.append(float_bits(ints(0, 2), ints(1, top), torch.full((q,), (1 << mant_bits) - 1,
+                                                                device=dev), dtype))
+    e_den = ints(bias - 60, bias + 61)
+    offsets = torch.tensor([bias - 1, bias, bias + 1] + list(range(-bias - mant_bits - 2,
+                                                                   -bias + 3)), device=dev)
+    off = offsets[ints(0, len(offsets))]
+    nums.append(rand((e_den + off).clamp(1, top - 1)))
+    dens.append(rand(e_den))
+    edges = torch.tensor(div_edges(dtype), dtype=dtype, device=dev)
+    nums.append(edges.repeat_interleave(len(edges)))
+    dens.append(edges.repeat(len(edges)))
+    return torch.cat(nums), torch.cat(dens)
+
+
+def div_check(dtype, dev, card: str) -> dict:
+    """The fast quotient of ``tridiag.cuh`` (fast_quotient on table_rcp, a
+    flagged pair through tri::quotient) against the division intrinsic on
+    the card over ``div_pairs``: every pair bitwise (two NaNs agree), and
+    against torch's division (the plain version and the library call);
+    device ms of the check kernel and of torch's division beside the bytes'
+    bound."""
+    num, den = div_pairs(dtype, dev)
+    n = num.numel()
+    out = torch.empty_like(num)
+    counts = torch.tensor([0, 0, -1], dtype=torch.int64, device=dev)
+    lib = _build.load_library()
+    code = 0 if dtype == torch.float32 else 1
+
+    def run():
+        counts.copy_(torch.tensor([0, 0, -1], dtype=torch.int64, device=dev))
+        err = lib.tridiag_div_check_launch(num.data_ptr(), den.data_ptr(), out.data_ptr(),
+                                           counts.data_ptr(), n, code, dev.index or 0,
+                                           torch.cuda.current_stream(dev).cuda_stream)
+        check(err == 0, f"tridiag_div_check_launch failed: {_build.error_string(err)}")
+        div_check.launches += 1
+
+    run()
+    plain = num / den
+    torch.cuda.synchronize()
+    bad, fast, first = counts.tolist()
+    check(bad == 0, f"the fast quotient ({str(dtype)[6:]}) differs from the division "
+                    f"intrinsic on {bad} of {n} pairs, first {num[first].item()!r} / "
+                    f"{den[first].item()!r}" if bad else "")
+    agree = (out.view(torch.int32 if dtype == torch.float32 else torch.int64)
+             == plain.view(torch.int32 if dtype == torch.float32 else torch.int64)) | (
+        torch.isnan(out) & torch.isnan(plain))
+    check(bool(agree.all()), f"the fast quotient ({str(dtype)[6:]}) differs from torch's "
+                             f"division on {int((~agree).sum())} pairs")
+    ms = event_time(run, 3)
+    plain_ms = event_time(lambda: num / den, 3)
+    size = torch.finfo(dtype).bits // 8
+    bound = 3 * n * size / HBM_BYTES_PER_S * 1e3
+    log("tridiag", f"division check {str(dtype)[6:]}: {n} pairs ({DIV_PAIRS} seeded over the "
+                   f"exponent range and {len(div_edges(dtype)) ** 2} of the edge list), every "
+                   f"one bitwise the division intrinsic's and torch's; {fast} ({fast / n:.3f}) "
+                   f"on the fast path; device ms by CUDA events [{card}]: check kernel "
+                   f"{ms:.4f}, torch division {plain_ms:.4f}, bound {bound:.4f} (bytes)")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "err": 0.0, "pairs": n, "fast": fast}
+
+
+div_check.launches = 0
 
 
 def tri_bound(ops, dtype, node_ms: float) -> tuple[float, str, float, float]:
@@ -3322,17 +3507,28 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
     and plain version by CUDA events (the kernel inside a CUDA graph of 20
     calls, the host's issue left out) beside the bound and beside
     ``torch.linalg.solve`` on the dense matrix (built outside the timed
-    region; the library call that computes the same x). Returns (largest
-    absolute difference, {shape tag: timing}, {dtype: chain ms a node})."""
+    region; the library call that computes the same x). Before them the two
+    chain probes (each bitwise its plain loop) and the division check.
+    Returns (largest absolute difference, {tag: timing}, {"pivot" | "rhs":
+    {dtype: chain ms a node}})."""
     worst, timing = 0.0, {}
     clock = sm_clock_hz()
-    node_ms = {}
+    node_ms = {"pivot": {}, "rhs": {}, "back": {}}
     for dtype in (torch.float32, torch.float64):
-        node_ms[dtype] = tri_chain_node_ms(dtype, dev)
-        log("tridiag", f"dependent chain, {str(dtype)[6:]}: {node_ms[dtype] * 1e6:.2f} ns a "
-                       f"node (a forward and a back node; {node_ms[dtype] * 1e-3 * clock:.1f} "
-                       f"cycles at the {clock / 1e9:.3f} GHz maximum SM clock), by the chain "
-                       f"probe [{card}]")
+        for kind in ("pivot", "rhs"):
+            node_ms[kind][dtype] = tri_chain_node_ms(kind, dtype, dev)
+            timing[f"probe {kind} {str(dtype)[6:]}"] = probe_check(kind, dtype, dev)
+        node_ms["back"][dtype] = tri_chain_node_ms("back", dtype, dev)
+        log("tridiag", f"dependent chain, {str(dtype)[6:]}, a forward and a back node, by the "
+                       f"chain probes [{card}]: pivot {node_ms['pivot'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['pivot'][dtype] * 1e-3 * clock:.1f} cycles at the "
+                       f"{clock / 1e9:.3f} GHz maximum SM clock), right-hand side "
+                       f"{node_ms['rhs'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['rhs'][dtype] * 1e-3 * clock:.1f} cycles); a back node alone "
+                       f"{node_ms['back'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['back'][dtype] * 1e-3 * clock:.1f} cycles); each probe "
+                       f"bitwise its plain loop at {PROBE_CHECK_NODES} nodes")
+        timing[f"division {str(dtype)[6:]}"] = div_check(dtype, dev, card)
     for batch, n, column in TRI_SHAPES:
         for dtype in (torch.float32, torch.float64):
             ops = tri_system(batch, n, dtype, dev, seed=batch + n, column=column)
@@ -3355,7 +3551,7 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
             lib_gap = ((lib_x - kern).abs().max() / kern.abs().max()).item()
             check(lib_gap < TRI_LIBRARY_RTOL[dtype], f"tridiag {tag}: torch.linalg.solve off "
                                                      f"the kernel by {lib_gap:.2e} relative")
-            bound, by, _, chain = tri_bound(ops, dtype, node_ms[dtype])
+            bound, by, _, chain = tri_bound(ops, dtype, node_ms["pivot"][dtype])
             timing[tag] = {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
                            "bound_ms": bound, "bound_by": by, "chain_ms": chain,
                            "launches_per_call": 1}
@@ -3384,14 +3580,24 @@ THETA_GRAD_RTOL = 1e-10  # float64: the Function's gradient against autograd of 
 FDM_FIELDS = ("spot", "strike", "maturity", "rate", "vol", "dividend", "cp")
 
 
-def theta_bound(ops, dtype, node_ms: float, solves: torch.Tensor) -> tuple[float, str, float]:
-    """(bound ms, what binds, chain ms) of one θ-scheme launch: each input
-    read once and the values written once at the card's memory rate; the
-    float operations of the solves that ran (8 a node), the explicit step
-    (7 a node a step) and Howard's residuals (7 a node, at least one solve a
-    step without one) at the card's peak rate for the dtype; and the longest
-    dependent chain, the most solves a CUDA block ran × n nodes ×
-    ``node_ms`` (the contracts run side by side)."""
+def theta_bound(ops, dtype, node_ms: dict, solves: torch.Tensor,
+                pivots: torch.Tensor) -> tuple[float, str, float, float, int]:
+    """(bound ms, what binds, chain ms, the old count of the chain, the block
+    whose chain is longest) of one θ-scheme launch: each input read once and
+    the values written once at the card's memory rate; the float operations
+    of the solves that ran (8 a node), the explicit step (7 a node a step)
+    and Howard's residuals (7 a node, at least one solve a step without one)
+    at the card's peak rate for the dtype; and the longest dependent chain
+    of a CUDA block (the contracts run side by side). A block's chain: the
+    tables' n pivots, formed once with no back node (the pivot probe's node
+    less a back node each); each step's first solve on them, n nodes at the
+    right-hand-side probe's node; and each later Howard sweep restarted at
+    row j0, its n − j0 re-formed rows at the pivot probe's node (the
+    right-hand side's chain runs beside the pivots on the partner lane) and
+    its j0 rows before at a back node alone. The kernel counts the solves
+    and the pivot nodes (the tables' n and each later sweep's n − j0), and
+    the first n_time solves are the tables'. The old count charged every
+    solve n nodes at the pivot probe's node."""
     size = torch.finfo(dtype).bits // 8
     batch, n = ops[-2].shape
     n_time = ops[-1].shape[1]
@@ -3405,9 +3611,15 @@ def theta_bound(ops, dtype, node_ms: float, solves: torch.Tensor) -> tuple[float
     flops += 7.0 * n * batch * n_time
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS) * 1e3
-    chain = int(solves.max().item()) * n * node_ms
+    pivot, rhs, back = (node_ms[k][dtype] for k in ("pivot", "rhs", "back"))
+    restarted = pivots.double() - n  # the later sweeps' re-formed rows
+    kept = (solves.double() - n_time) * n - restarted  # their rows before j0
+    blocks = n * (pivot - back) + n_time * n * rhs + restarted * pivot + kept * back
+    longest = int(torch.argmax(blocks).item())
+    chain = blocks[longest].item()
+    old = int(solves.max().item()) * n * pivot
     bound = max(t_bytes, t_ops, chain)
-    return bound, "bytes" if t_bytes >= bound else "operations", chain
+    return bound, "bytes" if t_bytes >= bound else "operations", chain, old, longest
 
 
 def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
@@ -3416,10 +3628,13 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
     and 1, float32 and float64, bitwise, one launch; the Function's gradient
     against autograd through the plain loop (European and Howard, float64);
     device ms of kernel and plain loop by CUDA events beside the bound, the
-    longest chain of solves that ran (``node_ms`` from the chain probe).
+    longest chain of a block (:func:`theta_bound`, ``node_ms`` from the chain
+    probes) and the old count (every solve n nodes at the pivot probe's
+    node).
     Returns (largest absolute difference, {tag: timing})."""
     from optionslab_tpu_torch.models import fdm
 
+    t_phase = time.perf_counter()
     book = pricer_book(THETA_SHAPE[0], dev, seed=11)
     worst, timing = 0.0, {}
     for dtype in (torch.float32, torch.float64):
@@ -3428,7 +3643,7 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
             for name, mode in THETA_MODES.items():
                 _, ops = fdm._cn_operands(*args, *THETA_SHAPE[1:], theta, mode != tp.EUROPEAN)
                 before = tp._theta_cuda.launches
-                kern, solves = tp._theta_cuda(*ops, mode, count_solves=True)
+                kern, solves, pivots = tp._theta_cuda(*ops, mode, count_solves=True)
                 check(tp._theta_cuda.launches == before + 1, "θ-scheme: not one launch")
                 plain = tp._theta_plain(*ops, mode)
                 torch.cuda.synchronize()
@@ -3441,16 +3656,24 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
                     continue
                 ms = event_time(lambda: tp._theta_cuda(*ops, mode), 3)
                 plain_ms = event_time(lambda: tp._theta_plain(*ops, mode), 1)
-                bound, by, chain = theta_bound(ops, dtype, node_ms[dtype], solves)
+                bound, by, chain, old, longest = theta_bound(ops, dtype, node_ms, solves,
+                                                             pivots)
                 timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                               "bound_by": by, "chain_ms": chain,
-                               "max_solves": int(solves.max().item())}
+                               "bound_by": by, "chain_ms": chain, "old_chain_ms": old,
+                               "max_solves": int(solves.max().item()),
+                               "max_pivots": int(pivots.max().item())}
                 log("theta", f"{tag} {'x'.join(map(str, THETA_SHAPE))}: bitwise equal; device "
                              f"ms by CUDA events [{card}]: kernel {ms:.4f}, plain loop "
-                             f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the longest chain "
-                             f"{int(solves.max().item())} solves of {THETA_SHAPE[1]} nodes "
-                             f"{chain:.4f}; mean solves a contract "
-                             f"{solves.float().mean().item():.1f})")
+                             f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the longest chain, "
+                             f"block {longest}: {int(pivots[longest].item())} pivot nodes, "
+                             f"{THETA_SHAPE[1]} of them the tables', and "
+                             f"{int(solves[longest].item())} solves, {THETA_SHAPE[2]} of them "
+                             f"on the tables, {THETA_SHAPE[1]} nodes each, "
+                             f"{chain:.4f}, {chain / ms:.2f} of the kernel; the old count, "
+                             f"{int(solves.max().item())} solves at the pivot node, {old:.4f}); "
+                             f"mean solves a block {solves.float().mean().item():.1f}, mean "
+                             f"pivot nodes re-formed a block "
+                             f"{(pivots - THETA_SHAPE[1]).float().mean().item():.1f}")
     log("theta", "every mode, θ and dtype bitwise equal to the plain loop")
     names = FDM_FIELDS[:6]
     for american in (False, True):
@@ -3468,6 +3691,7 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
                                      f"of the plain loop by {rel:.2e}")
         log("theta", f"gradient in S, K, T, r, σ, q (american={american}, float64): max "
                      f"relative difference to autograd of the plain loop {rel:.2e}")
+    log("theta", f"phase {time.perf_counter() - t_phase:.1f} s")
     return worst, timing
 
 
@@ -3521,35 +3745,48 @@ def adi_cases(dev):
     return cases
 
 
-def adi_bound(n_x: int, n_v: int, n_t: int, node_ms: float, reverse: bool = False):
-    """(bound ms, what binds, chain ms) of one loop: the bytes (the operands
-    and the start read once, the grid written once; the reverse also reads
-    the three grids a step it kept and writes a gradient of each operand) at
-    the card's memory rate; the float operations (≈40 a node a step forward,
-    the stencils, the predictor and two solves of 8; ≈70 in reverse) at its
-    float32 peak; and the dependent chain, a step's x-sweep and v-sweep one
-    after the other: (n_x + n_v) nodes at ``node_ms`` each, n_t times."""
+def adi_bound(n_x: int, n_v: int, n_t: int, node_ms: dict, slv: bool = False,
+              reverse: bool = False):
+    """(bound ms, what binds, chain ms, the old count of the chain) of one
+    loop: the bytes (the operands and the start read once, the grid written
+    once; the reverse also reads the three grids a step it kept and writes a
+    gradient of each operand) at the card's memory rate; the float
+    operations (≈40 a node a step forward, the stencils, the predictor and
+    two solves of 8; ≈70 in reverse) at its float32 peak; and the dependent
+    chain, a step's x-sweep and v-sweep one after the other: (n_x + n_v)
+    nodes a step at the right-hand-side probe's node (every sweep on tables
+    formed once; the SLV x-sweep's n_x at the pivot probe's), and the tables'
+    one-time formation, n_x + n_v pivots (n_v under SLV) with no back node:
+    the pivot probe's node less a back node alone. The old count charged
+    every node of every step the pivot probe's node."""
+    pivot, rhs, back = (node_ms[k][torch.float32] for k in ("pivot", "rhs", "back"))
     cells = n_x * n_v
     nbytes = 4 * (cells * (10 + 3 * n_t if reverse else 9) + n_t * 2 + 6 * n_v)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = (70.0 if reverse else 40.0) * cells * n_t / FP32_FLOPS * 1e3
-    chain = n_t * (n_x + n_v) * node_ms
+    if slv:
+        chain = n_t * (n_x * pivot + n_v * rhs) + n_v * (pivot - back)
+    else:
+        chain = n_t * (n_x + n_v) * rhs + (n_x + n_v) * (pivot - back)
+    old = n_t * (n_x + n_v) * pivot
     bound = max(t_bytes, t_ops, chain)
-    return bound, "bytes" if t_bytes >= bound else "operations", chain
+    return bound, "bytes" if t_bytes >= bound else "operations", chain, old
 
 
 # grids (n_x, n_v) of the step-cost fit, ADI_FIT_STEPS European steps each
 ADI_FIT_GRIDS = ((201, 101), (101, 101), (201, 51), (401, 101), (201, 201), (301, 61))
 ADI_FIT_STEPS = 50
+# a grid (n_x, n_v, steps) that no cluster holds: the cooperative route
+ADI_COOP = (1001, 201, 16)
 
 
-def adi_step_fit(dev, card: str, node_ms: float) -> dict:
+def adi_step_fit(dev, card: str, node_ms: dict) -> dict:
     """Where a forward step's time goes: device µs a step (CUDA events) of
-    the European loop on ADI_FIT_GRIDS, fitted by least squares to
-    t = c0 + cx·n_x + cv·n_v. cx and cv are a node's cost in the x- and
-    v-sweep phases (the solve and the node-parallel work around it), c0 the
-    rest (the two grid barriers, a phase's fixed staging); set beside the
-    chain probe's node. Returns {c0, cx, cv} in µs."""
+    the European loop on ADI_FIT_GRIDS (each a cluster by the plan), fitted
+    by least squares to t = c0 + cx·n_x + cv·n_v. cx and cv are a node's
+    cost in the x- and v-sweep phases (the solve and the node-parallel work
+    around it), c0 the rest (the barriers, a phase's fixed staging); set
+    beside the chain probes' nodes. Returns {c0, cx, cv} in µs."""
     from optionslab_tpu_torch.models import heston_fdm as hf
 
     hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
@@ -3557,6 +3794,7 @@ def adi_step_fit(dev, card: str, node_ms: float) -> dict:
     for n_x, n_v in ADI_FIT_GRIDS:
         ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, 1.0, hp, n_x, n_v, ADI_FIT_STEPS,
                                False, dev)
+        check(ha.cluster_plan(n_v, n_x) > 0, f"the plan puts {n_x} x {n_v} in no cluster")
         ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN)
         ms = event_time(lambda: ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN), 5)
         rows.append((1.0, n_x, n_v))
@@ -3564,11 +3802,13 @@ def adi_step_fit(dev, card: str, node_ms: float) -> dict:
     (c0, cx, cv), *_ = np.linalg.lstsq(np.array(rows), np.array(times), rcond=None)
     worst = max(abs(c0 + cx * r[1] + cv * r[2] - t) for r, t in zip(rows, times))
     clock = sm_clock_hz()
-    log("adi", f"a forward step, µs by CUDA events on (n_x, n_v) = {ADI_FIT_GRIDS} [{card}]: "
-               + ", ".join(f"{t:.2f}" for t in times) + f"; fit {c0:.2f} + {cx:.4f}·n_x + "
-               f"{cv:.4f}·n_v (largest residual {worst:.2f}): a node {cx * 1e-6 * clock:.0f} "
-               f"cycles in the x phase, {cv * 1e-6 * clock:.0f} in the v phase, against the "
-               f"chain probe's {node_ms * 1e-3 * clock:.1f}")
+    log("adi", f"a forward step on the cluster route, µs by CUDA events on (n_x, n_v) = "
+               f"{ADI_FIT_GRIDS} [{card}]: " + ", ".join(f"{t:.2f}" for t in times)
+               + f"; fit {c0:.2f} + {cx:.4f}·n_x + {cv:.4f}·n_v (largest residual "
+               f"{worst:.2f}): a node {cx * 1e-6 * clock:.0f} cycles in the x phase, "
+               f"{cv * 1e-6 * clock:.0f} in the v phase, against the chain probes' "
+               f"{node_ms['rhs'][torch.float32] * 1e-3 * clock:.1f} (right-hand side) and "
+               f"{node_ms['pivot'][torch.float32] * 1e-3 * clock:.1f} (pivot)")
     return {"c0": float(c0), "cx": float(cx), "cv": float(cv)}
 
 
@@ -3579,49 +3819,79 @@ def adi_grad_gap(got, want) -> float:
                for g, w in zip(got, want))
 
 
+def adi_coop_cases(dev):
+    """(tag, ops, slv, mode, steps a date) of the forward kernel's four modes
+    at ADI_COOP's grid, which takes the cooperative route by the plan."""
+    from optionslab_tpu_torch.models import heston_fdm as hf
+
+    hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
+    n_x, n_v, n_t = ADI_COOP
+    cases = []
+    for cp, mode in ((1.0, ha.EUROPEAN), (-1.0, ha.AMERICAN)):
+        ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, cp, hp, n_x, n_v, n_t,
+                               mode == ha.AMERICAN, dev)
+        cases.append((f"{'european' if cp > 0 else 'american'} {n_x}x{n_v}x{n_t}", ops, None,
+                      mode, 1))
+    ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, -1.0, hp, n_x, n_v, n_t, True, dev)
+    cases.append((f"bermudan {n_x}x{n_v} 4x4", ops, None, ha.BERMUDAN, 4))
+    x_rows, l_rows = adi_leverage(8, ADI_SLV[5])
+    slvp = hmodel.HestonParams.make(0.04, 2.0, 0.04, 0.5, -0.7, device=dev)
+    ops, slv, _, _ = hf._slv_setup(100.0, 100.0, 1.0, 0.03, 0.0, -1.0, slvp, 0.7, x_rows,
+                                   l_rows, n_x, n_v, 4, 4, dev)
+    cases.append((f"slv {n_x}x{n_v} 4x4", ops, slv, ha.BERMUDAN, 4))
+    return cases
+
+
 def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
     """The ADI kernels against their plain versions on the card: the forward
     kernel bit for bit against the plain loop (the grid, the continuation
     slices and the history the reverse reads) in its four modes at the CPU
-    tests' grid and at the defaults, one launch a loop; the reverse kernel's
-    gradients of every input of ``_AdiLoop`` against the plain reverse and
-    autograd through the plain loop (European and American, small and
-    default grids, one launch); device ms by CUDA events of each kernel and
-    its plain version beside the chain bound. Returns (largest forward
-    difference, {tag: timing}, {"rel": largest relative gradient gap, "abs":
-    largest absolute difference to the plain reverse})."""
+    tests' grid and at the defaults, where the plan takes a cluster, and at
+    ADI_COOP, where it takes the cooperative kernel; one launch a loop; the
+    reverse kernel's gradients of every input of ``_AdiLoop`` against the plain
+    reverse and autograd through the plain loop (European and American,
+    small and default grids, one launch); device ms by CUDA events of each
+    kernel, route and plain version beside the chain bound (recounted, and
+    the old count). Returns (largest forward difference, {tag: timing},
+    {"rel": largest relative gradient gap, "abs": largest absolute
+    difference to the plain reverse})."""
+    t_phase = time.perf_counter()
     worst, timing = 0.0, {}
-    chain_node = node_ms[torch.float32]
-    for tag, ops, slv, mode, spd in adi_cases(dev):
+    for tag, ops, slv, mode, spd in adi_cases(dev) + adi_coop_cases(dev):
         start = ops.intrinsic
         history = slv is None and mode != ha.BERMUDAN
+        n_t, (n_v, n_x) = ops.bounds.shape[0], start.shape
+        plan = ha.cluster_plan(n_v, n_x)
+        check((plan == 0) == (n_x == ADI_COOP[0]),
+              f"heston_adi {tag}: the plan is {plan} CTAs")
+        plain = ha._adi_plain(ops, start, mode, spd, slv, history)
         before = ha._adi_cuda.launches
         kern = ha._adi_cuda(ops, start, mode, spd, slv, history)
         check(ha._adi_cuda.launches == before + 1, f"heston_adi {tag}: not one launch")
-        plain = ha._adi_plain(ops, start, mode, spd, slv, history)
         torch.cuda.synchronize()
         pairs = [(kern[0], plain[0])] + ([(kern[1], plain[1])] if mode == ha.BERMUDAN else [])
         if history:
             pairs += list(zip(kern[2], plain[2]))
+        name = f"a cluster of {plan}" if plan else "the cooperative kernel"
         for k_, p_ in pairs:
             diff = (k_ - p_).abs().max().item()
             worst = max(worst, diff)
-            check(torch.equal(k_, p_), f"heston_adi {tag}: the kernel differs from the plain "
-                                       f"loop by {diff:.3e}")
-        n_t, (n_v, n_x) = ops.bounds.shape[0], start.shape
+            check(torch.equal(k_, p_), f"heston_adi {tag} ({name}): the kernel differs from "
+                                       f"the plain loop by {diff:.3e}")
+        log("adi", f"{tag} ({name} by the plan): bitwise equal ({len(pairs)} arrays)")
         if n_x == 41:
             continue
-        ms = event_time(lambda: ha._adi_cuda(ops, start, mode, spd, slv), 5)
         plain_ms = event_time(lambda: ha._adi_plain(ops, start, mode, spd, slv), 1)
-        bound, by, chain = adi_bound(n_x, n_v, n_t, chain_node)
+        bound, by, chain, old = adi_bound(n_x, n_v, n_t, node_ms, slv=slv is not None)
+        ms = event_time(lambda: ha._adi_cuda(ops, start, mode, spd, slv), 5)
         timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                       "chain_ms": chain}
-        log("adi", f"{tag}: bitwise equal ({len(pairs)} arrays); device ms by CUDA events "
-                   f"[{card}]: kernel {ms:.4f}, plain loop {plain_ms:.3f}, bound {bound:.4f} "
-                   f"({by}; the chain {n_t} x ({n_x} + {n_v}) nodes {chain:.4f}); "
-                   f"{ms / n_t * 1e3:.2f} us a step, {chain / ms:.2f} of the chain")
-    log("adi", "every mode bitwise equal to the plain loop")
-    timing["fit"] = adi_step_fit(dev, card, chain_node)
+                       "chain_ms": chain, "old_chain_ms": old, "ctas": plan}
+        log("adi", f"{tag} ({name}): device ms by CUDA events [{card}]: kernel {ms:.4f}, plain "
+                   f"loop {plain_ms:.3f}; bound {bound:.4f} ({by}; the chain {chain:.4f}, "
+                   f"{chain / ms:.2f} of the kernel; the old count {n_t} x ({n_x} + {n_v}) "
+                   f"pivot nodes {old:.4f}); {ms / n_t * 1e3:.2f} us a step")
+    log("adi", "every mode bitwise equal to the plain loop on the route of its plan")
+    timing["fit"] = adi_step_fit(dev, card, node_ms)
 
     gap = {"rel": 0.0, "abs": 0.0}
     for tag, ops, slv, mode, spd in adi_cases(dev):
@@ -3661,12 +3931,14 @@ def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
         if n_x == 41:
             continue
         ms = event_time(lambda: ha._adi_adjoint_cuda(ops, start, hist, weight, american), 5)
-        bound, by, chain = adi_bound(n_x, n_v, n_t, chain_node, reverse=True)
+        bound, by, chain, old = adi_bound(n_x, n_v, n_t, node_ms, reverse=True)
         timing[f"adjoint {tag}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                    "bound_by": by, "chain_ms": chain}
+                                    "bound_by": by, "chain_ms": chain, "old_chain_ms": old}
         log("adi", f"adjoint {tag}: device ms by CUDA events [{card}]: kernel {ms:.4f}, plain "
-                   f"reverse {plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}); "
-                   f"{ms / n_t * 1e3:.2f} us a step, {chain / ms:.2f} of the chain")
+                   f"reverse {plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}, "
+                   f"{chain / ms:.2f} of the kernel; the old count {old:.4f}, "
+                   f"{old / ms:.2f}); {ms / n_t * 1e3:.2f} us a step")
+    log("adi", f"phase {time.perf_counter() - t_phase:.1f} s")
     return worst, timing, gap
 
 
@@ -5988,6 +6260,17 @@ def main() -> None:
                  "optionslab_tpu/models/heston_fdm.py:219 (reverse mode of the "
                  "jax.checkpoint scan), no Pallas kernel", adi_launched[1], adi_grad["abs"],
                  adi_t["adjoint " + adi_tag]), "chain_ms": adi_t["adjoint " + adi_tag]["chain_ms"]},
+        # the measurement kernels of tridiag.cu: on no path, so their launches
+        # are the run's (all in the tridiagonal phase)
+        *(entry(name, "tridiag.cu", "none: a chain probe of the PDE kernels' bound, no TPU "
+                "kernel", probe_run.launches[kind], tri_t[f"probe {kind} float32"]["err"],
+                tri_t[f"probe {kind} float32"])
+          for name, kind in (("tridiag_chain_kernel", "pivot"),
+                             ("tridiag_rhs_chain_kernel", "rhs"))),
+        {**entry("tridiag_div_check_kernel", "tridiag.cu", "none: the check of the PDE kernels' "
+                 "quotient on reciprocals, no TPU kernel", div_check.launches,
+                 tri_t["division float32"]["err"], tri_t["division float32"]),
+         "library_ms": tri_t["division float32"]["library_ms"]},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,33 +20,38 @@
 //
 // What bounds them. The dependent chain: a step is an x-sweep (n_v systems
 // of n_x nodes) and then a v-sweep (n_x systems of n_v nodes), each a chain
-// of pivots and back substitution (≈87 cycles a node in float32 by
-// tridiag.cu's chain probe), so a step takes at least (n_x + n_v) nodes of
-// that chain however many systems run beside each other; the reverse step
-// runs the two adjoint sweeps, the same chain. The bytes (three 81 KB grids
-// a step at 101 × 201) stay in L2.
+// of n nodes however many systems run beside each other. Where a sweep's
+// matrix never changes (the v-sweep, the Heston x-sweeps, every adjoint
+// sweep) its pivots are formed once and a solve is the right-hand side's
+// chain and the back substitution (tridiag.cu's right-hand-side probe); the
+// SLV x-sweep re-forms its pivots every step (the pivot probe). The bytes
+// (three 81 KB grids a step at 101 × 201) stay on chip.
 //
-// What the design does about it. One cooperative launch, the grid in global
-// memory (L2), two grid-wide barriers a step:
-// - phase X: a warp a variance row forms that row's right-hand side from
-//   three rows of V (the stencils, the mixed term, the predictor, the
-//   Dirichlet ends from the wrapper's table), stages the row's sweep
-//   beside it in shared memory and solves; y1 goes to global memory;
-// - phase V: a warp a spot column forms y1 − θ·dt·A2·V from its column and
-//   solves against the v-sweep matrix; it writes the new grid, pinned,
-//   projected and recorded as the mode asks;
-// - a sweep whose matrix is the same every step (the v-sweep always, the
-//   Heston x-sweeps, every adjoint sweep) has its pivots formed once, at the
-//   start of the launch; each step then runs only the right-hand side's
-//   chain and the back substitution on one lane (solve_on_pivots). The SLV
-//   x-sweep changes with the leverage row, and runs tridiag.cuh's two-lane
-//   solve (the pivots and the right-hand side a node behind) each step;
-// - the reverse: phase V' splits the gradient at the projection and solves
-//   each column's adjoint system, phase X' each row's, and forms the row-local
-//   part of the previous grid's gradient; the next phase V' adds the
-//   v-stencil's and the mixed stencil's transposes from its column. Every
-//   accumulator belongs to one warp (a row's, a column's or a step's slot), so
-//   the sums run in a fixed order and the wrapper sums the slots.
+// What the design does about it. Two routes of the forward loop, chosen by
+// the wrapper from the grid's shape (ops/heston_adi.py cluster_plan):
+// - heston_adi_cluster_kernel, where one thread-block cluster of 2–16 CTAs
+//   holds the grid: V, y1, the stencils and the Heston x-sweeps' tables live
+//   in the CTAs' shared memory in bands (a CTA's rows for the x-sweeps, its
+//   columns for the v-sweeps); each phase writes its output straight into
+//   the shared memory of the CTA that reads it next (st.shared::cluster):
+//   y1 to its columns' owners, the new grid to its rows' owners and their
+//   halo rows; one cluster barrier ends each phase; every sweep on fixed
+//   tables runs tri::rhs_chain, one lane a system, each quotient three
+//   dependent operations on a reciprocal formed once; the SLV x-sweep runs
+//   tridiag.cuh's two-lane solve;
+// - heston_adi_kernel, for a grid no cluster can hold: one cooperative
+//   launch, the grid in global memory (L2), two grid-wide barriers a step;
+//   phase X a warp a variance row (its right-hand side from three rows of
+//   V, then its sweep), phase V a warp a spot column; the pivots of every
+//   fixed sweep formed once (solve_on_pivots: the right-hand side's chain
+//   on one lane);
+// - the reverse (heston_adi_adjoint_kernel, one cooperative launch): phase
+//   V' splits the gradient at the projection and solves each column's
+//   adjoint system, phase X' each row's, and forms the row-local part of the
+//   previous grid's gradient; the next phase V' adds the v-stencil's and the
+//   mixed stencil's transposes from its column. Every accumulator belongs to
+//   one warp (a row's, a column's or a step's slot), so the sums run in a
+//   fixed order and the wrapper sums the slots.
 //
 // Bit for bit with the plain loop (ops/heston_adi.py _adi_plain): every
 // product, sum and quotient is rounded on its own (tri::Arith, never an
@@ -289,18 +294,31 @@ __device__ __forceinline__ bool projects(int mode, int k, int spd, int n_t) {
   return mode == kAmerican || (mode == kBermudan && (k + 1) % spd == 0 && k + 1 < n_t);
 }
 
+// num / den for a den fixed for the launch, y = RN(1/den) formed once
+// (tri::table_rcp): tri::fast_quotient where its check allows, else
+// tri::flagged_quotient; the division's bits either way.
+__device__ __forceinline__ float quo_fixed(float num, float den, float y) {
+  bool bad = false;
+  const float q = tri::fast_quotient(num, den, y, bad);
+  return bad ? tri::flagged_quotient(num, den, y) : q;
+}
+
 // Node (r, c)'s x-stencil and x-sweep coefficients under frozen leverage, in
 // ops/heston_adi.py x_operator's order: conv = ((r − q) − (L²/2)·v)/(2·dx),
-// diff = (L²/2)·v/(dx·dx), identity rows at the pinned ends.
+// diff = (L²/2)·v/(dx·dx), identity rows at the pinned ends. With kFixed the
+// two quotients go by quo_fixed on the reciprocals y4 of 2·dx and y5 of
+// dx·dx.
+template <bool kFixed = false>
 __device__ __forceinline__ void slv_x(const float* sc, float lev_c, float v_r, bool edge,
                                       float dt, float& a1, float& b1, float& c1, float& lo,
-                                      float& di, float& up) {
+                                      float& di, float& up, float y4 = 0.0f, float y5 = 0.0f) {
   if (edge) {
     a1 = b1 = c1 = 0.0f;
   } else {
     const float hv = A::mul(A::mul(0.5f, A::mul(lev_c, lev_c)), v_r);
-    const float conv = A::quo(A::sub(sc[3], hv), sc[4]);
-    const float diff = A::quo(hv, sc[5]);
+    const float conv = kFixed ? quo_fixed(A::sub(sc[3], hv), sc[4], y4)
+                              : A::quo(A::sub(sc[3], hv), sc[4]);
+    const float diff = kFixed ? quo_fixed(hv, sc[5], y5) : A::quo(hv, sc[5]);
     a1 = A::sub(diff, conv);
     c1 = A::add(diff, conv);
     b1 = A::sub(A::mul(-2.0f, diff), sc[6]);
@@ -476,6 +494,399 @@ __global__ void __launch_bounds__(kThreads) heston_adi_kernel(AdiArgs a) {
     float* g_out = grid_out(a, k);
     for (int c = gw; c < a.n_x; c += nw) forward_col(a, t, vs, k, c, g, y1, g_out);
     grid.sync();
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The forward loop in one thread-block cluster
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterWarps = 16;
+constexpr int kClusterThreads = 32 * kClusterWarps;
+constexpr int kMaxCluster = 16;
+// The solves run on one warp of each of the SM's four schedulers (a second
+// warp on a scheduler would share its issue with the first chain's); the
+// other warps only form right-hand sides and move results.
+constexpr int kChainWarps = 4;
+// systems a phase of one CTA may hold: one lane each over the chain warps
+// (two under SLV's x-sweep)
+constexpr int kMaxBand = 32 * kChainWarps;
+constexpr int kMaxSlvBand = tri::kPair * kChainWarps;
+
+// The bands of a cluster of `ctas` CTAs: CTA k owns variance rows
+// [k·rows, (k + 1)·rows) for the x-sweeps and spot columns
+// [k·cols, (k + 1)·cols) for the v-sweeps (cols a multiple of 4), clipped to
+// the grid, and holds in its shared memory, in floats (ops/heston_adi.py
+// cluster_bytes):
+//   vrow   (rows + 2) × wx, wx = ctas·cols + 4: V on its rows and a halo row
+//          on each side (zero beyond the grid), node c at c + 4 (zeros
+//          before, and room after for the last band's columns past the
+//          grid), so each band's columns start on 16 bytes;
+//   vcol   cols × (n_v + 2): V on its columns, node r at r + 1;
+//   y1col  n_v × cols: y1 on its columns, row r at r·cols, written there by
+//          each row's owner;
+//   icol   cols × n_v: the exercise value on its columns;
+//   x      seven node-major planes of the x-sweeps (node c of row i at
+//          c·px + i, px = rows | 1, tri::kPad rows of padding at both ends):
+//          the Heston stencil a1, b1, c1, the sweep's lower diagonal and its
+//          tables den, c', RN(1/den); under SLV planes 3–6 are the step's
+//          lower, diagonal, upper and c';
+//   xs     the x-sweeps' right-hand side and d' (the solution over it);
+//   v      the v-sweep's lower diagonal and its tables den, c', RN(1/den)
+//          (n_v + 2·kPad each), then its stencil a2, b2, c2 (n_v each);
+//   vs     the v-sweeps' right-hand side and d', node-major (pc = cols | 1);
+//   peers  each CTA's shared memory in the cluster's window (mapa, once);
+//   dump   the lanes' dump slots.
+// The moves between CTAs are 16-byte stores, four columns a lane.
+struct ClusterLayout {
+  int rows, cols, px, pc, wx;
+  int64_t xplane, vplane, vtab, vrow, vcol, y1col, icol, x, xs, v, vs, peers, dump, floats;
+
+  __host__ __device__ ClusterLayout(int n_v, int n_x, int ctas) {
+    rows = (n_v + ctas - 1) / ctas;
+    cols = ((n_x + ctas - 1) / ctas + 3) / 4 * 4;
+    px = rows | 1;
+    pc = cols | 1;
+    wx = ctas * cols + 4;
+    xplane = static_cast<int64_t>(n_x + 2 * tri::kPad) * px;
+    vplane = static_cast<int64_t>(n_v + 2 * tri::kPad) * pc;
+    vtab = n_v + 2 * tri::kPad;
+    vrow = 0;
+    vcol = vrow + (rows + 2LL) * wx;
+    y1col = vcol + static_cast<int64_t>(cols) * (n_v + 2);
+    icol = y1col + static_cast<int64_t>(cols) * n_v;
+    x = icol + static_cast<int64_t>(cols) * n_v;
+    xs = x + 7 * xplane;
+    v = xs + 2 * xplane;
+    vs = v + 4 * vtab + 3LL * n_v;
+    peers = vs + 2 * vplane;
+    dump = (peers + kMaxCluster + 1) / 2 * 2;
+    floats = dump + kDumpFloats;
+  }
+};
+
+__device__ __forceinline__ unsigned cluster_rank() {
+  unsigned r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+  return r;
+}
+
+// One barrier of every thread of the cluster: the shared-memory stores
+// before it (local and remote) are seen by every CTA after it.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The address of this CTA's shared memory byte 0 in CTA `rank`'s window.
+__device__ __forceinline__ unsigned map_peer(const void* smem0, unsigned rank) {
+  unsigned addr;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(addr)
+               : "r"(static_cast<unsigned>(__cvta_generic_to_shared(smem0))), "r"(rank));
+  return addr;
+}
+
+// The four floats at `offset` floats (a multiple of 4) into the shared memory
+// of the CTA whose window starts at `peer` = v.
+__device__ __forceinline__ void st_remote4(unsigned peer, int64_t offset, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(
+                   peer + static_cast<unsigned>(offset) * 4u),
+               "f"(v.x), "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+// The whole loop in one cluster of `ctas` CTAs, the grid in their shared
+// memory: each step, phase X (the CTA's rows: their right-hand sides, then
+// their x-sweeps, one lane a row on the tables, or two under SLV), y1 sent
+// to the columns' owners; one cluster barrier; phase V (the CTA's columns:
+// their right-hand sides, their v-sweeps on the tables, one lane a column),
+// the new grid pinned, recorded, projected and sent to the rows' owners and
+// their halos; one cluster barrier. The history and the continuation slices
+// go to global memory beside the chain.
+__global__ void __launch_bounds__(kClusterThreads)
+    heston_adi_cluster_kernel(AdiArgs a, int ctas) {
+  extern __shared__ __align__(16) float smem[];
+  const int n_v = a.n_v, n_x = a.n_x;
+  const int64_t n = cells(a);
+  const ClusterLayout L(n_v, n_x, ctas);
+  const int rank = static_cast<int>(cluster_rank());
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int r0 = rank * L.rows;
+  const int nr = max(0, min(L.rows, n_v - r0));
+  const int c0 = rank * L.cols;
+  const int nc = max(0, min(L.cols, n_x - c0));
+  const int wx = L.wx;  // a vrow row
+  const int hv = n_v + 2;  // a vcol column
+  const int px = L.px, pc = L.pc;
+  float* vrow = smem + L.vrow;
+  float* vcol = smem + L.vcol;
+  float* y1col = smem + L.y1col;
+  float* icol = smem + L.icol;
+  float* xp[7];
+  for (int o = 0; o < 7; ++o) xp[o] = smem + L.x + o * L.xplane + tri::kPad * px;
+  float* xrhs = smem + L.xs + tri::kPad * px;
+  float* xds = xrhs + L.xplane;
+  float* vlo = smem + L.v + tri::kPad;
+  float* vden = vlo + L.vtab;
+  float* vcs = vden + L.vtab;
+  float* vrcp = vcs + L.vtab;
+  float* va2 = smem + L.v + 4 * L.vtab;
+  float* vb2 = va2 + n_v;
+  float* vc2 = vb2 + n_v;
+  float* vrhs = smem + L.vs + tri::kPad * pc;
+  float* vds = vrhs + L.vplane;
+  const void* dump = smem + L.dump;
+  unsigned* peers = reinterpret_cast<unsigned*>(smem + L.peers);
+  if (tid < ctas) peers[tid] = map_peer(smem, tid);
+
+  // the grid at t = 0, the exercise value, the stencils; the Heston
+  // x-sweep's diagonal and upper diagonal and the v-sweep's wait in the
+  // solve planes until their tables are formed
+  for (int e = tid; e < (L.rows + 2) * wx; e += kClusterThreads) {
+    const int i = e / wx;
+    const int r = r0 - 1 + i;
+    const int c = e - i * wx - 4;
+    const bool in = i <= nr + 1 && r >= 0 && r < n_v && c >= 0 && c < n_x;
+    vrow[e] = in ? a.start[static_cast<int64_t>(r) * n_x + c] : 0.0f;
+  }
+  for (int e = tid; e < L.cols * hv; e += kClusterThreads) {
+    const int jc = e / hv;
+    const int r = e - jc * hv - 1;
+    const bool in = jc < nc && r >= 0 && r < n_v;
+    vcol[e] = in ? a.start[static_cast<int64_t>(r) * n_x + c0 + jc] : 0.0f;
+  }
+  for (int e = tid; e < nc * n_v; e += kClusterThreads) {
+    const int jc = e / n_v;
+    const int64_t g = static_cast<int64_t>(e - jc * n_v) * n_x + c0 + jc;
+    icol[e] = a.intr[g];
+    if (a.history) st(a.vbuf + g, a.start[g]);  // V_0 beside the other steps' inputs
+  }
+  if (!a.slv) {
+    for (int e = tid; e < nr * n_x; e += kClusterThreads) {
+      const int i = e / n_x;
+      const int c = e - i * n_x;
+      const int64_t g = static_cast<int64_t>(r0 + i) * n_x + c;
+      const int t = c * px + i;
+      xp[0][t] = a.a1[g];
+      xp[1][t] = a.b1[g];
+      xp[2][t] = a.c1[g];
+      xp[3][t] = a.lo1[g];
+      xrhs[t] = a.di1[g];
+      xds[t] = a.up1[g];
+    }
+  }
+  for (int r = tid; r < n_v; r += kClusterThreads) {
+    vlo[r] = a.lo2[r];
+    vrhs[r * pc] = a.di2[r];
+    vds[r * pc] = a.up2[r];
+    va2[r] = a.a2[r];
+    vb2[r] = a.b2[r];
+    vc2[r] = a.c2[r];
+  }
+  // the padding (tri::kPad): the x-sweeps' lower 0, diagonal and upper 1
+  // (SLV), right-hand sides 0 before and 1 after; the v-sweep's lower 0
+  for (int e = tid; e < tri::kPad * px; e += kClusterThreads) {
+    const int after = n_x * px + e;
+    const int before = e - tri::kPad * px;
+    xp[3][before] = xp[3][after] = 0.0f;
+    xp[4][before] = xp[4][after] = xp[5][before] = xp[5][after] = 1.0f;
+    xrhs[before] = 0.0f;
+    xrhs[after] = 1.0f;
+  }
+  for (int e = tid; e < tri::kPad * pc; e += kClusterThreads) {
+    vrhs[e - tri::kPad * pc] = 0.0f;
+    vrhs[n_v * pc + e] = 1.0f;
+  }
+  if (tid < tri::kPad) vlo[tid - tri::kPad] = vlo[n_v + tid] = 0.0f;
+  __syncthreads();
+  // the tables of the sweeps whose matrix is the same every step: the
+  // Heston x-sweeps, one lane a row; the v-sweep, the block's last lane
+  const int sys = warp < kChainWarps ? tri::spread_system(kChainWarps) : kMaxBand;
+  if (!a.slv && sys < nr) {
+    tri::form_tables(n_x, tri::col<float>(xp[3], sys, px), tri::col<float>(xrhs, sys, px),
+                     tri::col<float>(xds, sys, px), tri::col<float>(xp[4], sys, px),
+                     tri::col<float>(xp[5], sys, px), tri::col<float>(xp[6], sys, px));
+  }
+  if (tid == kClusterThreads - 1) {
+    tri::form_tables(n_v, tri::col<float>(vlo, 0, 1), tri::col<float>(vrhs, 0, pc),
+                     tri::col<float>(vds, 0, pc), tri::col<float>(vden, 0, 1),
+                     tri::col<float>(vcs, 0, 1), tri::col<float>(vrcp, 0, 1));
+  }
+  __syncthreads();
+  cluster_barrier();  // every CTA's memory is set before any CTA writes to it
+
+  // the lanes of the solves: one a system over the chain warps on the
+  // tables; a warp with a system runs whole, its lanes without one on the
+  // warp's first system, writing to their dump slots. SLV's x-sweep: pivot
+  // lane l < 16 and its partner l + 16 on system (l % 16)·kChainWarps + warp
+  const bool x_warp = warp < kChainWarps && warp < nr;
+  const int xs_ = sys < nr ? sys : (x_warp ? warp : 0);
+  const bool v_warp = warp < kChainWarps && warp < nc;
+  const int vs_ = sys < nc ? sys : (v_warp ? warp : 0);
+  const int lane = tid & 31;
+  const bool pivot = lane < tri::kPair;
+  const int pair = warp < kChainWarps ? (lane % tri::kPair) * kChainWarps + warp : kMaxBand;
+  const bool pair_live = pair < nr;
+  const int ps = pair_live ? pair : (x_warp ? warp : 0);
+  const tri::Col<float> x_out = sys < nr ? tri::col<float>(xds, xs_, px)
+                                         : tri::dump_col<float>(dump);
+  const tri::Col<float> v_out = sys < nc ? tri::col<float>(vds, vs_, pc)
+                                         : tri::dump_col<float>(dump);
+  tri::Row<float> slv_row;
+  slv_row.col[0] = tri::col<float>(xp[3], ps, px);
+  slv_row.col[1] = tri::col<float>(xp[4], ps, px);
+  slv_row.col[2] = tri::col<float>(xp[5], ps, px);
+  slv_row.col[3] = tri::col<float>(xrhs, ps, px);
+  const tri::Col<float> slv_out =
+      pair_live ? tri::col<float>(pivot ? xp[6] : xds, ps, px) : tri::dump_col<float>(dump);
+
+  const float* sc = a.scal;
+  const float dt = sc[0], den = sc[1];
+  const float td = A::mul(0.5f, dt);
+  // the reciprocals of the formation's fixed divisors
+  const float y_den = tri::table_rcp(den, false);
+  const float y4 = a.slv ? tri::table_rcp(sc[4], false) : 0.0f;
+  const float y5 = a.slv ? tri::table_rcp(sc[5], false) : 0.0f;
+  for (int k = 0; k < a.n_t; ++k) {
+    // phase X: the rows' right-hand sides (and under SLV their matrices)
+    const float blo = a.bounds[2 * k], bhi = a.bounds[2 * k + 1];
+    const float* lev = a.slv ? a.lev + static_cast<int64_t>(a.rows[k]) * n_x : nullptr;
+    const int x_chunks = (n_x + 31) / 32;
+    for (int e = warp; e < nr * x_chunks; e += kClusterWarps) {  // a warp 32 nodes of a row
+      const int i = e / x_chunks;
+      const int c = (e - i * x_chunks) * 32 + lane;
+      if (c < n_x) {
+        const int r = r0 + i;
+        const int t = c * px + i;
+        const float* v0 = vrow + i * wx;
+        const float* v1 = v0 + wx;
+        const float* v2 = v1 + wx;
+        const bool edge = c == 0 || c == n_x - 1;
+        const bool mid_row = r >= 1 && r <= n_v - 2;
+        float a1, b1, c1;
+        if (a.slv) {
+          slv_x<true>(sc, lev[c], a.v[r], edge, dt, a1, b1, c1, xp[3][t], xp[4][t], xp[5][t],
+                      y4, y5);
+        } else {
+          a1 = xp[0][t];
+          b1 = xp[1][t];
+          c1 = xp[2][t];
+        }
+        float rhs = c == 0 ? blo : bhi;
+        if (!edge) {
+          const float vc = v1[c + 4];
+          const float a1v =
+              A::add(A::add(A::mul(a1, v1[c + 3]), A::mul(b1, vc)), A::mul(c1, v1[c + 5]));
+          const float a2v = A::add(A::add(A::mul(va2[r], v0[c + 4]), A::mul(vb2[r], vc)),
+                                   A::mul(vc2[r], v2[c + 4]));
+          float a0v = 0.0f;
+          if (mid_row) {
+            const float num = A::add(A::sub(A::sub(v2[c + 5], v2[c + 3]), v0[c + 5]), v0[c + 3]);
+            const float coef_r = a.slv ? a.w[r - 1] : a.mc[r - 1];
+            const float coef = a.slv ? A::mul(A::mul(sc[2], lev[c]), coef_r) : coef_r;
+            a0v = A::mul(coef, quo_fixed(num, den, y_den));
+          }
+          const float y0 = A::add(vc, A::mul(dt, A::add(A::add(a0v, a1v), a2v)));
+          rhs = A::sub(y0, A::mul(td, a1v));
+        }
+        xrhs[t] = rhs;
+      }
+    }
+    __syncthreads();
+    // the x-sweeps
+    if (a.slv) {
+      if (x_warp) {
+        float x_last = 0.0f;
+        float d_prev = 1.0f;
+        tri::forward_split(0, n_x + 1, slv_row, slv_out, x_last, d_prev);
+        __syncwarp();
+        if (pivot && pair_live) {
+          tri::back_sweep(n_x, tri::col<float>(xp[6], ps, px), tri::col<float>(xds, ps, px),
+                          tri::col<float>(xds, ps, px));
+        }
+      }
+    } else if (x_warp) {
+      tri::rhs_chain(n_x, tri::col<float>(xp[3], xs_, px), tri::col<float>(xrhs, xs_, px),
+                     tri::col<float>(xp[4], xs_, px), tri::col<float>(xp[6], xs_, px), x_out);
+      if (sys < nr) tri::back_sweep(n_x, tri::col<float>(xp[5], xs_, px), x_out, x_out);
+    }
+    __syncthreads();
+    // y1 to the owners of its columns, four columns a lane: item
+    // (row i, owner d, columns 4q..4q + 3 of d's band)
+    const int quads = L.cols / 4;
+    for (int e = tid; e < nr * ctas * quads; e += kClusterThreads) {
+      const int id = e / quads;
+      const int jc = (e - id * quads) * 4;
+      const int d = id / nr;
+      const int i = id - d * nr;
+      float y[4];
+      for (int q = 0; q < 4; ++q) {
+        const int c = d * L.cols + jc + q;
+        y[q] = c < n_x ? xds[c * px + i] : 0.0f;
+        if (a.history && c < n_x) {
+          st(a.y1buf + k * n + static_cast<int64_t>(r0 + i) * n_x + c, y[q]);
+        }
+      }
+      st_remote4(peers[d], L.y1col + static_cast<int64_t>(r0 + i) * L.cols + jc,
+                 make_float4(y[0], y[1], y[2], y[3]));
+    }
+    cluster_barrier();
+
+    // phase V: the columns' right-hand sides
+    for (int e = tid; e < n_v * nc; e += kClusterThreads) {
+      const int r = e / nc;
+      const int jc = e - r * nc;
+      const float* vc = vcol + jc * hv;
+      const float a2v = A::add(A::add(A::mul(va2[r], vc[r]), A::mul(vb2[r], vc[r + 1])),
+                               A::mul(vc2[r], vc[r + 2]));
+      vrhs[r * pc + jc] = A::sub(y1col[r * L.cols + jc], A::mul(td, a2v));
+    }
+    __syncthreads();
+    // the v-sweeps (the pinned columns' too: their values are not kept)
+    if (v_warp) {
+      tri::rhs_chain(n_v, tri::col<float>(vlo, 0, 1), tri::col<float>(vrhs, vs_, pc),
+                     tri::col<float>(vden, 0, 1), tri::col<float>(vrcp, 0, 1), v_out);
+      if (sys < nc) tri::back_sweep(n_v, tri::col<float>(vcs, 0, 1), v_out, v_out);
+    }
+    __syncthreads();
+    // the new grid, pinned, recorded and projected
+    const bool proj = projects(a.mode, k, a.spd, a.n_t);
+    const bool record = proj && a.mode == kBermudan;
+    for (int e = tid; e < n_v * nc; e += kClusterThreads) {
+      const int r = e / nc;
+      const int jc = e - r * nc;
+      const int c = c0 + jc;
+      const int64_t g = static_cast<int64_t>(r) * n_x + c;
+      float vp = c == 0 ? blo : (c == n_x - 1 ? bhi : vds[r * pc + jc]);
+      if (a.history) st(a.y2buf + k * n + g, vp);
+      if (record) st(a.cont + (a.n_dates - 1 - k / a.spd) * n + g, vp);
+      if (proj) vp = A::max(vp, icol[jc * n_v + r]);
+      vcol[jc * hv + r + 1] = vp;
+      if (k + 1 == a.n_t) {
+        st(a.out + g, vp);
+      } else if (a.history) {
+        st(a.vbuf + (k + 1) * n + g, vp);
+      }
+    }
+    __syncthreads();
+    // its columns of each CTA's rows and halo rows to that CTA, four columns
+    // a lane (the band's columns past the grid are vcol's zeros)
+    if (k + 1 < a.n_t) {
+      for (int e = tid; e < ctas * (L.rows + 2) * quads; e += kClusterThreads) {
+        const int dl = e / quads;
+        const int jc = (e - dl * quads) * 4;
+        const int d = dl / (L.rows + 2);
+        const int li = dl - d * (L.rows + 2);
+        const int r = d * L.rows - 1 + li;
+        if (r < 0 || r >= n_v) continue;
+        const float* vc = vcol + jc * hv + r + 1;
+        st_remote4(peers[d], L.vrow + static_cast<int64_t>(li) * wx + c0 + jc + 4,
+                   make_float4(vc[0], vc[hv], vc[2 * hv], vc[3 * hv]));
+      }
+    }
+    cluster_barrier();  // also: no CTA exits while another may write to it
   }
 }
 
@@ -738,6 +1149,43 @@ __global__ void __launch_bounds__(kThreads) heston_adi_adjoint_kernel(AdjointArg
   }
 }
 
+// One launch of the cluster kernel: one cluster of `ctas` CTAs (the
+// wrapper's plan, cluster_plan), refused unless the card can hold it.
+cudaError_t launch_cluster(const AdiArgs& args, int ctas, cudaStream_t st) {
+  const ClusterLayout L(args.n_v, args.n_x, ctas);
+  const int64_t bytes = L.floats * static_cast<int64_t>(sizeof(float));
+  if (ctas < 2 || ctas > kMaxCluster || bytes > tri::kMaxSmem || L.rows > kMaxBand ||
+      L.cols > kMaxBand || (args.slv && L.rows > kMaxSlvBand)) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = tri::allow_smem(heston_adi_cluster_kernel, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  if (ctas > 8) {
+    err = cudaFuncSetAttribute(heston_adi_cluster_kernel,
+                               cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas);
+  cfg.blockDim = dim3(kClusterThreads);
+  cfg.dynamicSmemBytes = static_cast<size_t>(bytes);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, heston_adi_cluster_kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  err = cudaLaunchKernelEx(&cfg, heston_adi_cluster_kernel, args, ctas);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
 // One cooperative launch of `kernel`: a warp a system, as many CUDA blocks
 // as the larger sweep has systems over kWarps, capped at what fits on the
 // card at once (the grid barriers need every block resident).
@@ -778,8 +1226,9 @@ T* ptr(const int64_t* ptrs, int i) {
 
 // ptrs: 27 device pointers in AdiArgs' order (0 where unused); dims: n_v,
 // n_x, n_t, mode (0 European, 1 American, 2 Bermudan), steps a date, SLV
-// (0/1), history (0/1). Every array float32 and contiguous. Returns a
-// cudaError_t code (0 on success).
+// (0/1), history (0/1), the route: the CTAs of one cluster (2 to 16, the
+// wrapper's plan) or 0 for the cooperative kernel. Every array float32 and
+// contiguous. Returns a cudaError_t code (0 on success).
 extern "C" int heston_adi_launch(const int64_t* ptrs, const int* dims, int device,
                                  void* stream) {
   using namespace optionslab;
@@ -815,6 +1264,10 @@ extern "C" int heston_adi_launch(const int64_t* ptrs, const int* dims, int devic
                   a.bounds && a.scal && a.lo2;
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   a.n_dates = a.n_t / a.spd;
+  const int ctas = dims[7];
+  if (ctas != 0) {
+    return static_cast<int>(launch_cluster(a, ctas, static_cast<cudaStream_t>(stream)));
+  }
   return static_cast<int>(launch(heston_adi_kernel, a, a.n_v, a.n_x, device,
                                  static_cast<cudaStream_t>(stream)));
 }

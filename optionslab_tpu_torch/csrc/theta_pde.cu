@@ -8,24 +8,36 @@
 // host: ≈20–55 small torch launches a step around each tridiagonal solve.
 //
 // What bounds it. The dependent chain: each step solves each contract's
-// system once (European, projection) or once a Howard sweep, a chain of n
-// pivots and n back-substitution nodes (≈85 cycles a node in float32 by
-// tridiag.cu's chain probe), so a contract takes n × its solves of those,
-// while the contracts' chains run side by side. The node-parallel work
-// around each solve (the explicit step, the exercise residual, the
+// system once (European, projection) or once a Howard sweep. The matrix of
+// every European and projection solve, and of the first Howard sweep of
+// every step, never changes, so its pivots are formed once a launch and
+// such a solve is the right-hand side's chain on reciprocals and the back
+// substitution (tridiag.cu's right-hand-side probe times a node of the
+// two); a later Howard sweep re-forms the pivots from the first row whose
+// exercise flag changed (the pivot probe's node) and substitutes back over
+// all n nodes. The contracts' chains run side by side; the node-parallel
+// work around each solve (the explicit step, the exercise residual, the
 // projection) is a few operations a node spread over the block's threads.
 //
 // What the design does about it. It takes the host's issue out and keeps
 // every contract on chip for the whole loop:
 // - one CUDA block owns a tile of `systems` contracts (a power of two up to
 //   16, picked by the wrapper so that the book's chains all run at once);
-//   v, the right-hand side, the exercise set, c' and d' live in shared
-//   memory from the first step to the last;
+//   v, the right-hand side, the exercise set, the working c', d' and pivots
+//   and the tables of the unexercised matrix (den, c', RN(1/den)) live in
+//   shared memory from the first step to the last;
+// - the tables are formed once (tri::form_tables); a solve on them is
+//   tri::rhs_chain, one lane a contract over as many of the block's warps
+//   as the tile has contracts, each quotient three dependent operations on
+//   the table's reciprocal where they round as the division does;
+// - a later Howard sweep is tridiag.cuh's two-lane solve (warp 0) restarted
+//   at the first row whose exercise flag changed since the sweep before (at
+//   the group of tri::kUnroll rows that holds the tile's first): Thomas's
+//   forward values at a row depend only on the rows above it, so the rows
+//   before keep the sweep before's c', den and d' (the first later sweep
+//   takes the tables'); the back substitution runs over all n nodes;
 // - each step the block's threads form the explicit right-hand side in
-//   parallel over the nodes, two lanes of warp 0 a contract run the
-//   shared-memory Thomas solve of tridiag.cuh (the functions the
-//   tridiagonal kernel runs), then the threads re-select Howard's exercise
-//   rows;
+//   parallel over the nodes and re-select Howard's exercise rows;
 // - a Howard step stops sweeping once no contract of the block changes its
 //   exercise set: every later sweep would solve the same system again and
 //   give the same values, so the result is the 8-sweep loop's bit for bit.
@@ -34,9 +46,11 @@
 // models/fdm.py _cn_book runs on the CPU and differentiates on the card):
 // the explicit step is v + w·((a·v₋ + b·v) + c·v₊) and the residual
 // ((lo·v₋ + di·v) + up·v₊) − rhs, each operation rounded on its own in that
-// order; the masked operands are selections; the end values come from the
-// wrapper's table, computed by torch, so no exp here can differ from
-// torch's.
+// order; the masked operands are selections; every quotient is the
+// division's own (tri::fast_quotient, tri::flagged_quotient or
+// tri::quotient); the end values come
+// from the wrapper's table, computed by torch, so no exp here can differ
+// from torch's.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -47,27 +61,52 @@ namespace optionslab {
 namespace {
 
 constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
 constexpr int kHowardSweeps = 8;
 enum Mode { kEuropean = 0, kProjection = 1, kHoward = 2 };
 
 // The shared-memory tile of one block: twelve node-major planes (node j of
 // contract s at [j * pitch + s]): the implicit side's lower, diagonal and
-// upper, the right-hand side, v, ψ, c', d', and the system the solve sees
-// (lower, diagonal, upper and right-hand side with Howard's exercise rows
-// replaced by v = ψ), each with tri::kPad rows of padding at both ends;
-// the contracts' a, b, c and w; the exercise set, one byte a node; then
-// (8-byte aligned) the dump slots.
+// upper, the right-hand side, v, ψ, the working c', d' and pivots, and the
+// tables of the unexercised matrix (den, c', RN(1/den)), each with
+// tri::kPad rows of padding at both ends; the contracts' a, b, c and w; the
+// exercise set, one byte a node (padded alike); then (8-byte aligned) each
+// contract's first changed row, and the dump slots.
 struct ThetaTile {
   int pitch;
   int64_t plane;  // (n + 2·kPad) × pitch
+  int64_t first;  // byte offset of the first changed rows
   int64_t dump;   // byte offset of the dump slots
   int64_t bytes;
 
   __host__ __device__ ThetaTile(int n, int systems, int size) {
     pitch = systems | 1;
     plane = static_cast<int64_t>(n + 2 * tri::kPad) * pitch;
-    dump = ((12 * plane + 4 * systems) * size + plane + 7) / 8 * 8;
+    first = ((12 * plane + 4 * systems) * size + plane + 7) / 8 * 8;
+    dump = first + (4 * systems + 7) / 8 * 8;
     bytes = dump + tri::kDumpBytes;
+  }
+};
+
+inline __device__ unsigned char ld_shared_u8(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.u8 %0, [%1];" : "=r"(v) : "r"(addr) : "memory");
+  return static_cast<unsigned char>(v);
+}
+
+// Node j of the system a Howard sweep solves (tri::forward_split's load):
+// the unexercised row, or v = ψ where the row is exercised.
+template <typename T>
+struct HowardRow {
+  tri::Col<T> lo, di, up, rhs, psi;
+  unsigned mask, mask_stride;  // the exercise set's column: byte address, pitch
+  __device__ __forceinline__ void operator()(int j, T& a, T& b, T& c, T& d) const {
+    const bool ex = ld_shared_u8(mask + j * mask_stride) != 0;
+    const T l = lo[j], g = di[j], u = up[j], r = rhs[j], p = psi[j];
+    a = ex ? T(0) : l;
+    b = ex ? T(1) : g;
+    c = ex ? T(0) : u;
+    d = ex ? p : r;
   }
 };
 
@@ -76,7 +115,7 @@ __global__ void __launch_bounds__(kThreads)
     theta_pde_kernel(const T* __restrict__ lo, const T* __restrict__ di,
                      const T* __restrict__ up, const T* __restrict__ coef,
                      const T* __restrict__ psi, const T* __restrict__ v0,
-                     const T* __restrict__ ends, T* __restrict__ out, int* __restrict__ solves,
+                     const T* __restrict__ ends, T* __restrict__ out, int* __restrict__ counts,
                      int batch, int n, int n_time, int mode, int systems) {
   using A = tri::Arith<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -89,12 +128,16 @@ __global__ void __launch_bounds__(kThreads)
   T* s_rhs = s_up + tile.plane;
   T* s_v = s_rhs + tile.plane;
   T* s_psi = s_v + tile.plane;
-  T* s_cs = s_psi + tile.plane;
+  T* s_cs = s_psi + tile.plane;  // the working c', d' and pivots
   T* s_ds = s_cs + tile.plane;
-  T* const solve[4] = {s_ds + tile.plane, s_ds + 2 * tile.plane, s_ds + 3 * tile.plane,
-                       s_ds + 4 * tile.plane};  // the system the solve sees
-  T* s_coef = solve[3] + tile.plane - pad;     // a, b, c, w: `systems` each
+  T* s_dn = s_ds + tile.plane;
+  T* t_den = s_dn + tile.plane;  // the tables of the unexercised matrix
+  T* t_cs = t_den + tile.plane;
+  T* t_rcp = t_cs + tile.plane;
+  T* s_coef = t_rcp + tile.plane - pad;  // a, b, c, w: `systems` each
   unsigned char* s_m = reinterpret_cast<unsigned char*>(s_coef + 4 * systems) + pad;
+  int* s_first = reinterpret_cast<int*>(smem_raw + tile.first);
+  const void* dump = smem_raw + tile.dump;
 
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * systems;
@@ -105,9 +148,9 @@ __global__ void __launch_bounds__(kThreads)
     const int j = e - s * n;
     const int64_t g = static_cast<int64_t>(b0 + s) * n + j;
     const int t = j * p + s;
-    s_lo[t] = solve[0][t] = lo[g];
-    s_di[t] = solve[1][t] = di[g];
-    s_up[t] = solve[2][t] = up[g];
+    s_lo[t] = lo[g];
+    s_di[t] = di[g];
+    s_up[t] = up[g];
     s_v[t] = v0[g];
     s_psi[t] = psi[g];
   }
@@ -116,32 +159,63 @@ __global__ void __launch_bounds__(kThreads)
     const int s = e - q * rows;
     s_coef[q * systems + s] = coef[static_cast<int64_t>(q) * batch + b0 + s];
   }
+  T* const operands[4] = {s_lo, s_di, s_up, s_rhs};
   for (int e = tid; e < pad; e += kThreads) {  // the padding: see tri::kPad
     for (int o = 0; o < 4; ++o) {
-      solve[o][e - pad] = tri::pad_value<T>(o, false);
-      solve[o][n * p + e] = tri::pad_value<T>(o, true);
+      operands[o][e - pad] = tri::pad_value<T>(o, false);
+      operands[o][n * p + e] = tri::pad_value<T>(o, true);
     }
+    s_m[e - pad] = 0;
+    s_m[n * p + e] = 0;
   }
+  if (tid < systems) s_first[tid] = n;
   __syncthreads();
 
   const T* s_a = s_coef;
   const T* s_b = s_coef + systems;
   const T* s_c = s_coef + 2 * systems;
   const T* s_w = s_coef + 3 * systems;
-  // the solve: warp 0, pivot lane s and its partner s + 16 on contract s; a
-  // lane without a contract reads contract 0's column and writes to its dump
-  // slot
+  // the solves on the tables: one lane a contract over the warps; a warp
+  // with a contract runs whole (the chain's vote), its lanes without one on
+  // the warp's first contract, writing to their dump slots
+  const int warp = tid >> 5;
+  const int t_sys = tri::spread_system(kWarps);
+  const bool t_live = t_sys < rows;
+  const bool t_warp = warp < rows;
+  const int ts = t_live ? t_sys : (t_warp ? warp : 0);
+  const tri::Col<T> t_lo = tri::col<T>(s_lo, ts, p);
+  const tri::Col<T> t_rhs = tri::col<T>(s_rhs, ts, p);
+  const tri::Col<T> t_dn = tri::col<T>(t_den, ts, p);
+  const tri::Col<T> t_c = tri::col<T>(t_cs, ts, p);
+  const tri::Col<T> t_y = tri::col<T>(t_rcp, ts, p);
+  const tri::Col<T> t_x = tri::col<T>(s_v, ts, p);
+  const tri::Col<T> t_ds = t_live ? tri::col<T>(s_ds, ts, p) : tri::dump_col<T>(dump);
+  if (t_live) {
+    tri::form_tables(n, t_lo, tri::col<T>(s_di, ts, p), tri::col<T>(s_up, ts, p), t_dn, t_c,
+                     t_y);
+  }
+  // Howard's later sweeps: warp 0, pivot lane s and its partner s + 16 on
+  // contract s; a lane without a contract reads contract 0's column and
+  // writes to its dump slot
   const bool live = tid < 32 && tid % tri::kPair < rows;
   const int sys = live ? tid % tri::kPair : 0;
-  tri::Row<T> row;
-  for (int o = 0; o < 4; ++o) row.col[o] = tri::col<T>(solve[o], sys, p);
+  HowardRow<T> row{tri::col<T>(s_lo, sys, p),
+                   tri::col<T>(s_di, sys, p),
+                   tri::col<T>(s_up, sys, p),
+                   tri::col<T>(s_rhs, sys, p),
+                   tri::col<T>(s_psi, sys, p),
+                   static_cast<unsigned>(__cvta_generic_to_shared(s_m + sys)),
+                   static_cast<unsigned>(p)};
   const tri::Col<T> cs = tri::col<T>(s_cs, sys, p);
   const tri::Col<T> ds = tri::col<T>(s_ds, sys, p);
+  const tri::Col<T> dn = tri::col<T>(s_dn, sys, p);
   const tri::Col<T> vs = tri::col<T>(s_v, sys, p);
-  const tri::Col<T> quotients =
-      live ? (tid < tri::kPair ? cs : ds) : tri::dump_col<T>(smem_raw + tile.dump);
+  const bool pivot_lane = tid < tri::kPair;
+  const tri::Col<T> quotients = live ? (pivot_lane ? cs : ds) : tri::dump_col<T>(dump);
+  const tri::Col<T> dens = live && pivot_lane ? dn : tri::dump_col<T>(dump);
   const int sweeps = mode == kHoward ? kHowardSweeps : 1;
   int n_solves = 0;
+  int n_pivots = n;  // the tables' chain
   for (int k = 0; k < n_time; ++k) {
     // the explicit step, the ends from the table
     for (int e = tid; e < cells; e += kThreads) {
@@ -157,45 +231,58 @@ __global__ void __launch_bounds__(kThreads)
                              A::mul(s_c[s], s_v[t + p]));
         r = A::add(vc, A::mul(s_w[s], lap));
       }
-      s_rhs[t] = solve[3][t] = r;
-      if (mode == kHoward) {  // no exercise row yet this step
-        s_m[t] = 0;
-        solve[0][t] = s_lo[t];
-        solve[1][t] = s_di[t];
-        solve[2][t] = s_up[t];
-      }
+      s_rhs[t] = r;
+      if (mode == kHoward) s_m[t] = 0;  // no exercise row yet this step
     }
     __syncthreads();
-    for (int sweep = 0; sweep < sweeps; ++sweep) {
-      if (tid < 32) {
-        T x_last = T(0);
-        T den = T(1);
-        tri::forward_split(0, n + 1, row, quotients, x_last, den);
-        __syncwarp();
-        if (tid < tri::kPair && live) tri::back_sweep(n, cs, ds, vs);
-      }
-      ++n_solves;
-      __syncthreads();
-      if (sweep + 1 == sweeps) break;
-      // Howard: the rows where exercising beats continuing
+    // the unexercised matrix: its tables
+    if (t_warp) {
+      tri::rhs_chain(n, t_lo, t_rhs, t_dn, t_y, t_ds);
+      if (t_live) tri::back_sweep(n, t_c, t_ds, t_x);
+    }
+    ++n_solves;
+    __syncthreads();
+    for (int sweep = 1; sweep < sweeps; ++sweep) {
+      // Howard: the rows where exercising beats continuing, and each
+      // contract's first row that changed
       int changed = 0;
       for (int e = tid; e < cells; e += kThreads) {
         const int j = e / rows;
+        const int s = e - j * rows;
+        const int t = j * p + s;
+        if (sweep == 1) {  // the sweep before ran on the tables
+          s_cs[t] = t_cs[t];
+          s_dn[t] = t_den[t];
+        }
         if (j == 0 || j == n - 1) continue;
-        const int t = j * p + (e - j * rows);
         const T vc = s_v[t];
         const T res = A::sub(A::add(A::add(A::mul(s_lo[t], s_v[t - p]), A::mul(s_di[t], vc)),
                                     A::mul(s_up[t], s_v[t + p])),
                              s_rhs[t]);
         const unsigned char m = res > A::sub(vc, s_psi[t]);
-        changed |= m != s_m[t];
+        if (m != s_m[t]) {
+          changed = 1;
+          atomicMin(s_first + s, j);
+        }
         s_m[t] = m;
-        solve[0][t] = m ? T(0) : s_lo[t];
-        solve[1][t] = m ? T(1) : s_di[t];
-        solve[2][t] = m ? T(0) : s_up[t];
-        solve[3][t] = m ? s_psi[t] : s_rhs[t];
       }
       if (!__syncthreads_or(changed)) break;  // a fixed point: the rest repeat this sweep
+      if (tid < 32) {
+        int j0 = n;
+        for (int s = 0; s < rows; ++s) j0 = min(j0, s_first[s]);
+        __syncwarp();
+        if (tid < rows) s_first[tid] = n;
+        j0 &= ~(tri::kUnroll - 1);  // forward_split starts at a group
+        // the carries at row j0 − 1 from the sweep before (start values at 0)
+        T x = j0 == 0 ? T(0) : (pivot_lane ? cs[j0 - 1] : ds[j0 - 2]);
+        T den = j0 == 0 ? T(1) : dn[j0 - 1];
+        tri::forward_split<T, HowardRow<T>, true>(j0, n + 1, row, quotients, x, den, dens);
+        __syncwarp();
+        if (pivot_lane && live) tri::back_sweep(n, cs, ds, vs);
+        n_pivots += n - j0;
+      }
+      ++n_solves;
+      __syncthreads();
     }
     if (mode != kEuropean) {
       for (int e = tid; e < cells; e += kThreads) {
@@ -211,12 +298,15 @@ __global__ void __launch_bounds__(kThreads)
     const int j = e - s * n;
     out[static_cast<int64_t>(b0 + s) * n + j] = s_v[j * p + s];
   }
-  if (tid == 0) solves[blockIdx.x] = n_solves;
+  if (tid == 0) {
+    counts[blockIdx.x] = n_solves;
+    counts[gridDim.x + blockIdx.x] = n_pivots;
+  }
 }
 
 template <typename T>
 cudaError_t launch(const void* lo, const void* di, const void* up, const void* coef,
-                   const void* psi, const void* v0, const void* ends, void* out, int* solves,
+                   const void* psi, const void* v0, const void* ends, void* out, int* counts,
                    int batch, int n, int n_time, int mode, int systems, cudaStream_t st) {
   const ThetaTile tile(n, systems, sizeof(T));
   if (tile.bytes > tri::kMaxSmem) return cudaErrorInvalidValue;
@@ -226,7 +316,7 @@ cudaError_t launch(const void* lo, const void* di, const void* up, const void* c
   theta_pde_kernel<T><<<blocks, kThreads, static_cast<size_t>(tile.bytes), st>>>(
       static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
       static_cast<const T*>(coef), static_cast<const T*>(psi), static_cast<const T*>(v0),
-      static_cast<const T*>(ends), static_cast<T*>(out), solves, batch, n, n_time, mode,
+      static_cast<const T*>(ends), static_cast<T*>(out), counts, batch, n, n_time, mode,
       systems);
   return cudaGetLastError();
 }
@@ -239,12 +329,14 @@ cudaError_t launch(const void* lo, const void* di, const void* up, const void* c
 // c and the explicit weight w = (1 − θ)·dt; ends (batch, n_time, 2): the
 // right-hand side's first and last value at each step. mode: 0 European,
 // 1 projection, 2 Howard. systems: contracts per CUDA block, 1 to 16 (the
-// wrapper's plan; the tile must fit in 227 KB of shared memory). solves:
-// one int a block, the solves each of its contracts ran. Returns a
-// cudaError_t code (0 on success).
+// wrapper's plan; the tile must fit in 227 KB of shared memory). counts:
+// two ints a block, (2, blocks): the solves each of its contracts ran, then
+// the pivot nodes its chains formed (the tables' n and, for each later
+// Howard sweep, the rows from its restart on). Returns a cudaError_t code
+// (0 on success).
 extern "C" int theta_pde_launch(const void* lo, const void* di, const void* up,
                                 const void* coef, const void* psi, const void* v0,
-                                const void* ends, void* out, void* solves, int batch, int n,
+                                const void* ends, void* out, void* counts, int batch, int n,
                                 int n_time, int mode, int systems, int dtype, int device,
                                 void* stream) {
   using namespace optionslab;
@@ -255,7 +347,7 @@ extern "C" int theta_pde_launch(const void* lo, const void* di, const void* up,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int* s = static_cast<int*>(solves);
+  int* s = static_cast<int*>(counts);
   err = dtype == 0 ? launch<float>(lo, di, up, coef, psi, v0, ends, out, s, batch, n, n_time,
                                    mode, systems, st)
                    : launch<double>(lo, di, up, coef, psi, v0, ends, out, s, batch, n, n_time,

@@ -8,6 +8,11 @@
 // reverse pass of the θ-scheme time loop (theta_pde.cu solves through the
 // same functions, tridiag.cuh).
 //
+// Beside the solve: the two chain probes that time a node of the PDE
+// kernels' chains (the pivots' here, the right-hand side's on tables formed
+// once in tridiag_rhs_chain_kernel) and the division check that holds the
+// fast quotient of tridiag.cuh to the division intrinsic.
+//
 // What bounds it. A system of n unknowns is a chain of n dependent pivots
 // (den_j = b_j − a_j·c'_{j−1}, c'_j = c_j / den_j, each precise quotient a
 // multi-instruction sequence) and then n back-substitution nodes; the
@@ -235,6 +240,74 @@ __global__ void tridiag_chain_kernel(const T* __restrict__ abcd, T* __restrict__
   out[0] = x;
 }
 
+// The right-hand side's chain alone, for the bound of a solve on tables
+// formed once (rhs_chain: theta_pde.cu, heston_adi.cu): a lane runs
+// n_nodes nodes of d'_j = (d − a·d'_{j−1}) / den on the table's reciprocal
+// (tri::rhs_group in the solve's groups, its range check and vote
+// included; n_nodes a multiple of 16) and n_back back nodes, operands in
+// registers. Its time over n_nodes = n_back is a node's least cost on a
+// matrix whose pivots are formed once, as the pivot probe's is on one whose
+// pivots are not; with n_nodes = 0 it times the back node alone, the cost
+// of a row that a restarted Howard sweep only substitutes back. One warp,
+// every lane on the same operands (the group's vote needs the warp whole);
+// lane 0 writes.
+template <typename T>
+__global__ void tridiag_rhs_chain_kernel(const T* __restrict__ abcd, T* __restrict__ out,
+                                         int n_nodes, int n_back) {
+  constexpr int kGroup = tri::kRhsGroup<T>;
+  const T a = abcd[0], b = abcd[1], c = abcd[2], d = abcd[3];
+  T ra[kGroup], rd[kGroup], rb[kGroup], ry[kGroup], rq[kGroup];
+#pragma unroll
+  for (int q = 0; q < kGroup; ++q) {
+    ra[q] = a;
+    rd[q] = d;
+    rb[q] = b;
+    ry[q] = tri::table_rcp(b, false);
+  }
+  T prev = T(0);
+  for (int i = 0; i < n_nodes; i += kGroup) {
+    prev = tri::rhs_group<T, kGroup>(ra, rd, rb, ry, prev, rq);
+  }
+  T x = T(0);
+  for (int i = 0; i < n_back; ++i) x = tri::back_node(c, prev, x);
+  if (threadIdx.x == 0) out[0] = x;
+}
+
+__device__ __forceinline__ unsigned long long bits(float x) { return __float_as_uint(x); }
+__device__ __forceinline__ unsigned long long bits(double x) {
+  return static_cast<unsigned long long>(__double_as_longlong(x));
+}
+
+// The division check: out[i] = num[i] / den[i] by the route rhs_chain takes
+// (fast_quotient on table_rcp(den); a pair it flags by flagged_quotient; one
+// pair a thread, no vote). Every pair whose quotient differs in its bits from
+// the division intrinsic's (two NaNs agree) adds one to counts[0] and puts
+// its index in counts[2] if lower; counts[1] counts the pairs on the fast
+// path.
+template <typename T>
+__global__ void tridiag_div_check_kernel(const T* __restrict__ num, const T* __restrict__ den,
+                                         T* __restrict__ out, unsigned long long* counts,
+                                         int64_t n) {
+  using A = tri::Arith<T>;
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
+    const T a = num[i], b = den[i];
+    bool bad = false;
+    const T y = tri::table_rcp(b, false);
+    const T ieee = A::quo(a, b);
+    T q = tri::fast_quotient(a, b, y, bad);
+    if (bad) q = tri::flagged_quotient(a, b, y);
+    out[i] = q;
+    const bool same = (q != q && ieee != ieee) || bits(q) == bits(ieee);
+    if (!same) {
+      atomicAdd(counts, 1ULL);
+      atomicMin(counts + 2, static_cast<unsigned long long>(i));
+    }
+    const unsigned fast = __ballot_sync(__activemask(), !bad);
+    if ((threadIdx.x & 31) == __ffs(__activemask()) - 1) atomicAdd(counts + 1, __popc(fast));
+  }
+}
+
 template <typename T>
 cudaError_t launch_solve(const Operand* ops, void* x, const int64_t* strides, int batch, int n,
                          int systems, cudaStream_t st) {
@@ -293,6 +366,57 @@ extern "C" int tridiag_chain_launch(const void* abcd, void* out, int n_nodes, in
   } else {
     tridiag_chain_kernel<double><<<1, 1, 0, st>>>(static_cast<const double*>(abcd),
                                                   static_cast<double*>(out), n_nodes);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The right-hand side's chain probe: one block of one warp, n_nodes forward
+// nodes (a multiple of 16, or 0) and n_back back nodes. abcd: lower, den,
+// upper, rhs. Returns a cudaError_t.
+extern "C" int tridiag_rhs_chain_launch(const void* abcd, void* out, int n_nodes, int n_back,
+                                        int dtype, int device, void* stream) {
+  using namespace optionslab;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_nodes < 0 || n_nodes % 16 != 0 || n_back < 1 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    tridiag_rhs_chain_kernel<float><<<1, 32, 0, st>>>(static_cast<const float*>(abcd),
+                                                     static_cast<float*>(out), n_nodes,
+                                                     n_back);
+  } else {
+    tridiag_rhs_chain_kernel<double><<<1, 32, 0, st>>>(static_cast<const double*>(abcd),
+                                                      static_cast<double*>(out), n_nodes,
+                                                      n_back);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The division check over n pairs (num, den) of one dtype: out the routine's
+// quotients; counts three uint64 (mismatches, fast-path pairs, first
+// mismatch), set by the caller to 0, 0 and 2^64 − 1. Returns a cudaError_t.
+extern "C" int tridiag_div_check_launch(const void* num, const void* den, void* out,
+                                        void* counts, int64_t n, int dtype, int device,
+                                        void* stream) {
+  using namespace optionslab;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || (dtype != 0 && dtype != 1)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int threads = 256;
+  const int64_t want = (n + threads - 1) / threads;
+  const int blocks = static_cast<int>(want < 4096 ? want : 4096);
+  auto* c = static_cast<unsigned long long*>(counts);
+  if (dtype == 0) {
+    tridiag_div_check_kernel<float><<<blocks, threads, 0, st>>>(
+        static_cast<const float*>(num), static_cast<const float*>(den), static_cast<float*>(out),
+        c, n);
+  } else {
+    tridiag_div_check_kernel<double><<<blocks, threads, 0, st>>>(
+        static_cast<const double*>(num), static_cast<const double*>(den),
+        static_cast<double*>(out), c, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

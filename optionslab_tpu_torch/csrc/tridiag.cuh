@@ -1,6 +1,14 @@
 // The Thomas algorithm on systems held in shared memory, shared by the
-// batched tridiagonal solve (tridiag.cu) and the θ-scheme time loop
-// (theta_pde.cu).
+// batched tridiagonal solve (tridiag.cu), the θ-scheme time loop
+// (theta_pde.cu) and the Douglas ADI loops (heston_adi.cu).
+//
+// Two solves. Where a system's matrix changes from one solve to the next,
+// two lanes walk it (forward_split): the pivots' chain and the right-hand
+// side's a node behind. Where it does not, its pivots are formed once into
+// tables (form_tables: den_j, c'_j and the reciprocal RN(1/den_j)) and each
+// solve runs only the right-hand side's chain, one lane a system
+// (rhs_chain), each quotient by den_j as three dependent operations on the
+// reciprocal (fast_quotient) where they round as the division does.
 //
 // Arithmetic. Each product, difference and quotient is rounded on its own
 // (the __*_rn intrinsics are never contracted into an FMA), in the plain
@@ -32,10 +40,21 @@ struct Arith<float> {
   static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
   static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
   static __device__ __forceinline__ float quo(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) {
+    return __fmaf_rn(a, b, c);
+  }
+  static __device__ __forceinline__ float rcp(float a) { return __frcp_rn(a); }
+  static __device__ __forceinline__ float nan() { return __int_as_float(0x7fc00000); }
   static __device__ __forceinline__ float mag(float a) { return fabsf(a); }
   // torch.maximum on the card (::max of two floats) without NaNs
   static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
   static constexpr float kTiny = 1e-30f;
+  // fast_quotient's range (powers of two): see there
+  static constexpr float kDenLo = 0x1p-125f, kDenHi = 0x1p125f;
+  static constexpr float kNumLo = 0x1p-100f, kNumHi = 0x1p126f;
+  static constexpr float kQuoLo = 0x1p-124f, kQuoHi = 0x1p125f;
+  // flagged_quotient's scaling, and its least scaled q0
+  static constexpr float kScale = 0x1p64f, kUnscale = 0x1p-64f, kScaledLo = 0x1p-61f;
 };
 
 template <>
@@ -44,9 +63,20 @@ struct Arith<double> {
   static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
   static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   static __device__ __forceinline__ double quo(double a, double b) { return __ddiv_rn(a, b); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) {
+    return __fma_rn(a, b, c);
+  }
+  static __device__ __forceinline__ double rcp(double a) { return __drcp_rn(a); }
+  static __device__ __forceinline__ double nan() {
+    return __longlong_as_double(0x7ff8000000000000LL);
+  }
   static __device__ __forceinline__ double mag(double a) { return fabs(a); }
   static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
   static constexpr double kTiny = 1e-30;
+  static constexpr double kDenLo = 0x1p-1021, kDenHi = 0x1p1021;
+  static constexpr double kNumLo = 0x1p-960, kNumHi = 0x1p1022;
+  static constexpr double kQuoLo = 0x1p-1020, kQuoHi = 0x1p1021;
+  static constexpr double kScale = 0x1p512, kUnscale = 0x1p-512, kScaledLo = 0x1p-509;
 };
 
 // The pivot's guard: a pivot below 1e-30 in magnitude becomes
@@ -69,6 +99,61 @@ __device__ __forceinline__ T quotient(T num, T den) {
   using A = Arith<T>;
   const bool zero = num == T(0);
   return A::mul(A::quo(zero ? T(1) : num, den), zero ? num : T(1));
+}
+
+// The reciprocal table's entry for a pivot den: RN(1/den) where
+// fast_quotient may divide by den, else NaN, which sends every quotient by
+// den down tri::quotient: a pivot the guard replaced (by 2e-30, 1e-30 or 0)
+// and one outside [kDenLo, kDenHi], whose reciprocal could leave the normal
+// range.
+template <typename T>
+__device__ __forceinline__ T table_rcp(T den, bool guarded) {
+  using A = Arith<T>;
+  const T m = A::mag(den);
+  return !guarded && m >= A::kDenLo && m <= A::kDenHi ? A::rcp(den) : A::nan();
+}
+
+// num / den by its table's reciprocal y = RN(1/den) in three dependent
+// operations: q0 = RN(num·y), the residual num − den·q0 (exact, one FMA) and
+// Markstein's correction RN(q0 + residual·y) (one FMA): the correctly rounded
+// quotient, the division's own bits, wherever nothing leaves the normal
+// range. The range check runs beside the chain and sets `bad` where num lies
+// outside [kNumLo, kNumHi] or q0 outside [kQuoLo, kQuoHi], NaN and infinity
+// included (a NaN reciprocal makes q0 NaN); the caller sends such a node back
+// through flagged_quotient (not tri::quotient, whose zero trick holds only
+// for a guarded pivot: 0·(1/den) is NaN where 1/den overflows, as for a
+// subnormal den, and the card's division check found it). A zero numerator
+// stays on the fast path: q0 is then the zero of the quotient's sign, which
+// the correction would lose (+0 plus −0 is +0). (Flagging −0 by its bits in
+// place of this selection measured 1.8× slower on the card.)
+template <typename T>
+__device__ __forceinline__ T fast_quotient(T num, T den, T y, bool& bad) {
+  using A = Arith<T>;
+  const T q0 = A::mul(num, y);
+  const T q = A::fma(A::fma(-den, q0, num), y, q0);
+  const T an = A::mag(num);
+  const T aq = A::mag(q0);
+  const bool zero = num == T(0);
+  bad |= !(an <= A::kNumHi && aq <= A::kQuoHi && (zero || (an >= A::kNumLo && aq >= A::kQuoLo)));
+  return zero ? q0 : q;
+}
+
+// num / den for a node fast_quotient flagged. Where num is small (a wing of
+// the grid decaying to zero) but the quotient normal, the same three
+// operations on num·kScale (exact: a power of two) give the correctly rounded
+// quotient of that, and times kUnscale (exact, the quotient being normal)
+// num/den's; a zero, subnormal, infinite or NaN quotient, a divisor without a
+// reciprocal and a numerator too large to scale take the division itself.
+template <typename T>
+__device__ __forceinline__ T flagged_quotient(T num, T den, T y) {
+  using A = Arith<T>;
+  const T ns = A::mul(num, A::kScale);
+  const T q0 = A::mul(ns, y);
+  const T q = A::fma(A::fma(-den, q0, ns), y, q0);
+  const T an = A::mag(ns);
+  const T aq = A::mag(q0);
+  const bool ok = an >= A::kNumLo && an <= A::kNumHi && aq >= A::kScaledLo && aq <= A::kQuoHi;
+  return ok ? A::mul(q, A::kUnscale) : A::quo(num, den);
 }
 
 // One node of the back substitution.
@@ -166,13 +251,18 @@ constexpr int kPair = 16;
 // quotient) and den (the pivot from the step before) carry over between
 // calls: start them at 0 and 1. All 32 lanes of the warp call it.
 //
-// The guard is taken only where a pivot is below 1e-30: the quotient goes
-// ahead on the unguarded pivot (the same value wherever the guard does
-// nothing) and a warp-wide vote, off the chain, sends the rare step back
-// to be done again with it.
-template <typename T, typename Load>
+// The guard is taken only where a pivot is below 1e-30: the group's
+// quotients go ahead on the unguarded pivots (the same values wherever the
+// guard does nothing) and one warp-wide vote a group, off the chain, sends a
+// rare group back to be done again with the guard on every pivot (the
+// identity but where a pivot is tiny).
+//
+// With kKeepDen the pivot lane also puts its (guarded) pivot den_j at
+// dens[node]: a later solve that restarts at a node (theta_pde.cu's Howard
+// sweeps) reads its carries there.
+template <typename T, typename Load, bool kKeepDen = false>
 __device__ __forceinline__ void forward_split(int j0, int j1, const Load& load, Col<T> out,
-                                              T& x, T& den) {
+                                              T& x, T& den, Col<T> dens = Col<T>{0u, 0u}) {
   using A = Arith<T>;
   const bool pivot = (threadIdx.x & 31) < kPair;
   const int lag = pivot ? 0 : 1;
@@ -186,20 +276,37 @@ __device__ __forceinline__ void forward_split(int j0, int j1, const Load& load, 
       rb[q] = pivot ? b : d;
       rc[q] = c;
     }
+    const T x0 = x, den0 = den;
+    T rr[kUnroll], ru[kUnroll];
+    bool tiny = false;
 #pragma unroll
     for (int q = 0; q < kUnroll; ++q) {
-      T u = A::sub(rb[q], A::mul(ra[q], x));  // the pivot, or d'_j's numerator
-      const bool tiny = __any_sync(0xffffffffu, pivot && A::mag(u) < A::kTiny);
-      T next = __shfl_up_sync(0xffffffffu, u, kPair);
-      T r = quotient(pivot ? rc[q] : u, pivot ? u : den);
-      if (tiny) {
-        u = pivot ? guard_pivot(u) : u;
-        next = __shfl_up_sync(0xffffffffu, u, kPair);
-        r = quotient(pivot ? rc[q] : u, pivot ? u : den);
-      }
+      const T u = A::sub(rb[q], A::mul(ra[q], x));  // the pivot, or d'_j's numerator
+      tiny |= pivot && A::mag(u) < A::kTiny;
+      const T next = __shfl_up_sync(0xffffffffu, u, kPair);
+      x = quotient(pivot ? rc[q] : u, pivot ? u : den);
       den = next;
-      x = r;
-      out.put(i0 + q - lag, r);
+      rr[q] = x;
+      ru[q] = u;
+    }
+    if (__any_sync(0xffffffffu, tiny)) {
+      x = x0;
+      den = den0;
+#pragma unroll
+      for (int q = 0; q < kUnroll; ++q) {
+        T u = A::sub(rb[q], A::mul(ra[q], x));
+        u = pivot ? guard_pivot(u) : u;
+        const T next = __shfl_up_sync(0xffffffffu, u, kPair);
+        x = quotient(pivot ? rc[q] : u, pivot ? u : den);
+        den = next;
+        rr[q] = x;
+        ru[q] = u;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kUnroll; ++q) {
+      if (kKeepDen && pivot) dens.put(i0 + q, ru[q]);
+      out.put(i0 + q - lag, rr[q]);
     }
   }
 }
@@ -222,6 +329,107 @@ __device__ __forceinline__ void back_sweep(int n, Col<T> cs, Col<T> ds, Col<T> x
       x.put(i1 - q, x_next);
     }
   }
+}
+
+// The tables of a matrix that does not change, one lane a system:
+// den_j = guard(b_j − a_j·c'_{j−1}) and c'_j = c_j / den_j (forward_split's
+// pivot chain, bit for bit) and rcp_j = table_rcp(den_j); then the padding
+// after node n − 1 that rhs_chain reads (den 1, reciprocal 1).
+template <typename T>
+__device__ void form_tables(int n, Col<T> lo, Col<T> di, Col<T> up, Col<T> den, Col<T> cs,
+                            Col<T> rcp) {
+  using A = Arith<T>;
+  T c = T(0);
+  for (int j = 0; j < n; ++j) {
+    const T u = A::sub(di[j], A::mul(lo[j], c));
+    const T g = guard_pivot(u);
+    c = quotient(up[j], g);
+    den.put(j, g);
+    cs.put(j, c);
+    rcp.put(j, table_rcp(g, A::mag(u) < A::kTiny));
+  }
+  for (int j = n; j < n + kPad; ++j) {
+    den.put(j, T(1));
+    rcp.put(j, T(1));
+  }
+}
+
+// Nodes of the right-hand side's chain a group holds, one vote each: 16 in
+// float32 (a vote every 8 nodes cost ≈10 cycles a node on the card), 8 in
+// float64, whose registers hold half as many.
+template <typename T>
+constexpr int kRhsGroup = sizeof(T) == 4 ? 16 : kUnroll;
+
+// U nodes of the right-hand side's chain on a matrix's tables, from
+// prev = d'_{j−1}: d'_j = (d_j − a_j·d'_{j−1}) / den_j by fast_quotient;
+// where a lane of the warp needs it (one vote for the group, off the chain),
+// the whole group again by flagged_quotient. All 32 lanes call it. Returns
+// the group's last d'.
+template <typename T, int U>
+__device__ __forceinline__ T rhs_group(const T (&a)[U], const T (&d)[U], const T (&den)[U],
+                                       const T (&y)[U], T prev, T (&out)[U]) {
+  using A = Arith<T>;
+  const T start = prev;
+  bool bad = false;
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    prev = fast_quotient(A::sub(d[q], A::mul(a[q], prev)), den[q], y[q], bad);
+    out[q] = prev;
+  }
+  if (__any_sync(0xffffffffu, bad)) {
+    prev = start;
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      prev = flagged_quotient(A::sub(d[q], A::mul(a[q], prev)), den[q], y[q]);
+      out[q] = prev;
+    }
+  }
+  return prev;
+}
+
+// Nodes [i0, i0 + U) of rhs_chain: the group's operands, its chain, its d'.
+template <typename T, int U>
+__device__ __forceinline__ T rhs_nodes(int i0, T prev, Col<T> lo, Col<T> rhs, Col<T> den,
+                                       Col<T> rcp, Col<T> out) {
+  T ra[U], rd[U], rn[U], ry[U], rq[U];
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    ra[q] = lo[i0 + q];
+    rd[q] = rhs[i0 + q];
+    rn[q] = den[i0 + q];
+    ry[q] = rcp[i0 + q];
+  }
+  prev = rhs_group<T, U>(ra, rd, rn, ry, prev, rq);
+#pragma unroll
+  for (int q = 0; q < U; ++q) out.put(i0 + q, rq[q]);
+  return prev;
+}
+
+// The solve's forward half on tables formed once (form_tables): the
+// right-hand side's chain alone, d'_j for nodes [0, n) of the lane's system
+// into out, in groups of kRhsGroup while a group's steps past n − 1 stay
+// on the padding, then in groups of kUnroll (those steps read lower 0,
+// right-hand side 1, den 1 and reciprocal 1 there, and write there). lo, den
+// and rcp may be one column that every lane reads. All 32 lanes of the warp
+// call it; a lane without a system reads another's columns and writes to a
+// dump column.
+template <typename T>
+__device__ __forceinline__ void rhs_chain(int n, Col<T> lo, Col<T> rhs, Col<T> den, Col<T> rcp,
+                                          Col<T> out) {
+  constexpr int kGroup = kRhsGroup<T>;
+  T prev = T(0);
+  int i0 = 0;
+  for (; i0 + kGroup <= n + kPad; i0 += kGroup) {
+    prev = rhs_nodes<T, kGroup>(i0, prev, lo, rhs, den, rcp, out);
+  }
+  for (; i0 < n; i0 += kUnroll) prev = rhs_nodes<T, kUnroll>(i0, prev, lo, rhs, den, rcp, out);
+}
+
+// One lane a system over a block's warps: system s runs on warp
+// s % warps, lane s / warps, so a tile of a few systems spreads over the
+// warps. The lane's system (it may be past the tile's last).
+__device__ __forceinline__ int spread_system(int warps) {
+  return (threadIdx.x & 31) * warps + (threadIdx.x >> 5);
 }
 
 // The padding's values of the operands (lower, diagonal, upper, right-hand

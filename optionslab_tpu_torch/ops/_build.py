@@ -213,10 +213,18 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tridiag_solve_launch.restype = _I
     lib.tridiag_chain_launch.argtypes = [_P, _P, _I, _I, _I, _P]  # abcd, out, n, dtype, dev, st
     lib.tridiag_chain_launch.restype = _I
+    lib.tridiag_rhs_chain_launch.argtypes = [  # abcd, out, n, back nodes, dtype, dev, st
+        _P, _P, _I, _I, _I, _I, _P]
+    lib.tridiag_rhs_chain_launch.restype = _I
+    lib.tridiag_div_check_launch.argtypes = [
+        _P, _P, _P, _P,              # num, den, out, counts (uint64[3])
+        ctypes.c_int64, _I, _I, _P,  # n, dtype, device, stream
+    ]
+    lib.tridiag_div_check_launch.restype = _I
     lib.theta_pde_launch.argtypes = [
         _P, _P, _P, _P,              # lower, diag, upper, coef (a, b, c, w)
         _P, _P, _P,                  # psi, v0, ends
-        _P, _P,                      # out, solves per block
+        _P, _P,                      # out, counts (2, blocks): solves, pivot nodes
         _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, systems per block, dtype
         _I, _P,                      # device, stream
     ]

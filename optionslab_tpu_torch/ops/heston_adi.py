@@ -211,6 +211,49 @@ def smem_bytes(n_v: int, n_x: int) -> int:
     return 4 * (3 * vplane + KWARPS * per_warp)
 
 
+MAX_CLUSTER = 16  # CTAs of the largest cluster an H100 runs (non-portable above 8)
+BAND_ROWS = 8  # a cluster's first plan: about this many variance rows a CTA
+
+
+def _bands(n_v: int, n_x: int, ctas: int) -> tuple[int, int]:
+    """(rows, columns) of a CTA's bands on a cluster of ``ctas``: the columns
+    a multiple of 4, so that a band starts on 16 bytes."""
+    return -(-n_v // ctas), -(-(-(-n_x // ctas)) // 4) * 4
+
+
+def cluster_bytes(n_v: int, n_x: int, ctas: int) -> int:
+    """Shared memory of one CTA of the cluster kernel (``ClusterLayout`` in
+    ``csrc/heston_adi.cu``) on a cluster of ``ctas`` CTAs, a band of rows and
+    of columns (a multiple of 4) each: V on its rows with a halo row each
+    side ((rows + 2) × (ctas·cols + 4)), V, y1 and the exercise value on its
+    columns (cols × (n_v + 2), cols × n_v twice), nine node-major x-sweep
+    planes of n_x + 2·8 nodes × (rows | 1) (the stencil, the lower diagonal,
+    the tables, the right-hand side and d'), the v-sweep's lower diagonal and
+    tables (4 × (n_v + 2·8)) and stencil (3 × n_v), two v-sweep planes of
+    n_v + 2·8 nodes × (cols | 1), the 16 CTAs' window addresses and the dump
+    slots."""
+    rows, cols = _bands(n_v, n_x, ctas)
+    xplane = (n_x + 2 * PAD_ROWS) * (rows | 1)
+    vplane = (n_v + 2 * PAD_ROWS) * (cols | 1)
+    floats = ((rows + 2) * (ctas * cols + 4) + cols * (n_v + 2) + 2 * cols * n_v + 9 * xplane
+              + 4 * (n_v + 2 * PAD_ROWS) + 3 * n_v + 2 * vplane + MAX_CLUSTER)
+    return 4 * (-(-floats // 2) * 2 + DUMP_BYTES // 4)
+
+
+def cluster_plan(n_v: int, n_x: int) -> int:
+    """The forward kernel's route for an (n_v, n_x) grid, from its shape
+    alone: the CTAs of the one thread-block cluster that holds it (about
+    :data:`BAND_ROWS` rows a CTA, 2 to :data:`MAX_CLUSTER`, more where a
+    CTA's bands do not fit in :data:`SMEM_LIMIT`; a band of at most 64 rows,
+    two lanes each, and 128 columns, a lane each, on the CTA's four chain
+    warps), or 0 where no cluster of 16 holds it: the cooperative kernel."""
+    for ctas in range(min(MAX_CLUSTER, max(2, -(-n_v // BAND_ROWS))), MAX_CLUSTER + 1):
+        rows, cols = _bands(n_v, n_x, ctas)
+        if cluster_bytes(n_v, n_x, ctas) <= SMEM_LIMIT and rows <= 64 and cols <= 128:
+            return ctas
+    return 0
+
+
 def _f32_flat(t, dev, shape=None) -> torch.Tensor:
     """``t`` as a contiguous float32 tensor on ``dev`` (a broadcast view is
     materialised), checked against ``shape``."""
@@ -233,13 +276,16 @@ def _scalars(ops: AdiOps, slv: SlvLeverage | None, dev) -> torch.Tensor:
     return torch.stack([_f32_flat(v.reshape(()), dev) for v in vals])
 
 
-def _check_shapes(ops: AdiOps, start, slv) -> tuple[int, int, int]:
+def _check_shapes(ops: AdiOps, start, slv, ctas: int = 0) -> tuple[int, int, int]:
+    """(n_v, n_x, n_t); with ``ctas`` 0 raises where one CUDA block of the
+    cooperative kernels cannot hold the grid (``ctas``: the cluster of the
+    forward's plan holds it)."""
     n_v, n_x = start.shape
     n_t = ops.bounds.shape[0]
     if n_v < 3 or n_x < 3 or n_t < 1 or ops.bounds.shape != (n_t, 2):
         raise ValueError(f"bad ADI shapes: grid {tuple(start.shape)}, bounds "
                          f"{tuple(ops.bounds.shape)}")
-    if smem_bytes(n_v, n_x) > SMEM_LIMIT:
+    if not ctas and smem_bytes(n_v, n_x) > SMEM_LIMIT:
         raise ValueError(f"a {n_v} x {n_x} grid needs {smem_bytes(n_v, n_x)} bytes of shared "
                          f"memory a CUDA block, more than the {SMEM_LIMIT} it has")
     if slv is None and (ops.x_stencil is None or ops.mixed is None):
@@ -262,11 +308,15 @@ def _adi_cuda(ops: AdiOps, start, mode: int, spd: int = 1, slv: SlvLeverage | No
               history: bool = False):
     """The forward kernel: one launch on PyTorch's current stream, no
     synchronize. Arguments and returns as :func:`_adi_plain`'s, every tensor
-    float32 on one CUDA device. ``_adi_cuda.launches`` counts the launches."""
+    float32 on one CUDA device. The route is :func:`cluster_plan`'s, from
+    the grid's shape alone: one thread-block cluster, or the cooperative
+    kernel where no cluster holds the grid. ``_adi_cuda.launches`` counts
+    the launches."""
     dev = start.device
     if dev.type != "cuda":
         raise ValueError(f"_adi_cuda needs CUDA tensors, got the grid on {dev}")
-    n_v, n_x, n_t = _check_shapes(ops, start, slv)
+    route = cluster_plan(*start.shape)
+    n_v, n_x, n_t = _check_shapes(ops, start, slv, route)
     _check_mode(mode, spd, n_t, slv)
     grid = (n_v, n_x)
     t = {"start": _f32_flat(start, dev, grid), "intr": _f32_flat(ops.intrinsic, dev, grid),
@@ -298,7 +348,7 @@ def _adi_cuda(ops: AdiOps, start, mode: int, spd: int = 1, slv: SlvLeverage | No
     if history:
         t["y2buf"] = torch.empty((n_t, n_v, n_x), device=dev)
     _launch("heston_adi_launch", _FWD_FIELDS, t,
-            (n_v, n_x, n_t, mode, spd, int(slv is not None), int(history)), dev)
+            (n_v, n_x, n_t, mode, spd, int(slv is not None), int(history), route), dev)
     with _LAUNCH_LOCK:
         _adi_cuda.launches += 1
     hist = (t["vbuf"], t["y1buf"], t["y2buf"]) if history else None

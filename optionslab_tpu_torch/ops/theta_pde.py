@@ -77,21 +77,27 @@ def _theta_plain(lo, di, up, a, b, c, w, psi, v, ends, mode: int):
 
 def tile_bytes(n: int, systems: int, itemsize: int) -> int:
     """Shared memory of one block of the kernel (``ThetaTile`` in
-    ``csrc/theta_pde.cu``): twelve n × pitch planes, the contracts' four
-    coefficients, one byte a node for the exercise set, every plane with
-    PAD_ROWS rows of padding at both ends; then (8-byte aligned) the lanes'
-    dump slots."""
+    ``csrc/theta_pde.cu``): twelve n × pitch planes (the implicit side's
+    three diagonals, the right-hand side, v, ψ, the working c', d' and
+    pivots, and the unexercised matrix's tables: den, c' and RN(1/den)), the
+    contracts' four coefficients and one byte a node for the exercise set,
+    every plane with PAD_ROWS rows of padding at both ends; then (8-byte
+    aligned) each contract's first changed row, an int; then the lanes' dump
+    slots."""
     plane = (n + 2 * PAD_ROWS) * (systems | 1)
-    return -(-((12 * plane + 4 * systems) * itemsize + plane) // 8) * 8 + DUMP_BYTES
+    planes = -(-((12 * plane + 4 * systems) * itemsize + plane) // 8) * 8
+    return planes + -(-4 * systems // 8) * 8 + DUMP_BYTES
 
 
 def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: bool = False):
     """The kernel: one launch on PyTorch's current stream, no synchronize.
     Arguments as :func:`_theta_plain`'s, on one CUDA device, of one dtype,
-    float32 or float64. With ``count_solves``, returns (values, solves): an
-    int32 count a CUDA block of the solves each of its contracts ran
-    (Howard stops sweeping a step at its fixed point). A grid too long for
-    one CUDA block's shared memory raises ``ValueError``.
+    float32 or float64. With ``count_solves``, returns (values, solves,
+    pivots): int32 counts a CUDA block of the solves each of its contracts
+    ran (Howard stops sweeping a step at its fixed point) and of the pivot
+    nodes its chains formed (the tables' n, then for each later Howard sweep
+    the rows from its restart on). A grid too long for one CUDA block's
+    shared memory raises ``ValueError``.
     ``_theta_cuda.launches`` counts the launches."""
     ops = (lo, di, up, a, b, c, w, psi, v, ends)
     dev = v.device
@@ -111,18 +117,18 @@ def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: b
     ends = ends.contiguous()
     systems = plan_systems(batch, sm_count(dev.index),
                            lambda k: tile_bytes(n, k, v.element_size()))
-    solves = torch.empty(-(-batch // systems), dtype=torch.int32, device=dev)
+    counts = torch.empty((2, -(-batch // systems)), dtype=torch.int32, device=dev)
     out = torch.empty_like(grid[4])
     err = _build.load_library().theta_pde_launch(
         grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
         grid[3].data_ptr(), grid[4].data_ptr(), ends.data_ptr(), out.data_ptr(),
-        solves.data_ptr(), batch, n, n_time, mode, systems, _DTYPE_ID[v.dtype], dev.index,
+        counts.data_ptr(), batch, n, n_time, mode, systems, _DTYPE_ID[v.dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"theta_pde_launch failed: {_build.error_string(err)} ({err})")
     with _LAUNCH_LOCK:
         _theta_cuda.launches += 1
-    return (out, solves) if count_solves else out
+    return (out, counts[0], counts[1]) if count_solves else out
 
 
 _theta_cuda.launches = 0

@@ -747,7 +747,9 @@ THETA_CASES = [(mode, theta, dtype) for mode in ("european", "projection", "howa
 
 @pytest.mark.parametrize("mode,theta,dtype", THETA_CASES)
 def test_theta_kernel_equals_plain_loop_on_card(cuda_device, mode, theta, dtype):
-    """300 contracts (4 to a CUDA block, the last block ragged) at 41 x 20."""
+    """300 contracts (4 to a CUDA block, the last block ragged) at 41 x 20;
+    Howard's later sweeps restart at the first changed row, and the blocks
+    count the pivot nodes they form."""
     from optionslab_tpu_torch.models import fdm
     from optionslab_tpu_torch.ops import theta_pde as tp
 
@@ -755,11 +757,16 @@ def test_theta_kernel_equals_plain_loop_on_card(cuda_device, mode, theta, dtype)
     _, ops = fdm._cn_operands(*args, 41, 20, theta, mode != "european")
     code = {"european": tp.EUROPEAN, "projection": tp.PROJECTION, "howard": tp.HOWARD}[mode]
     before = tp._theta_cuda.launches
-    got = tp._theta_cuda(*ops, code)
+    got, solves, pivots = tp._theta_cuda(*ops, code, count_solves=True)
     assert tp._theta_cuda.launches == before + 1
     want = tp._theta_plain(*ops, code)
     torch.cuda.synchronize()
     assert got.dtype == dtype and torch.equal(got, want)
+    if code == tp.HOWARD:  # the first sweep of each step on the tables, then restarts
+        assert bool((solves >= 20).all()) and bool((pivots >= 41).all())
+        assert bool((pivots < 41 + (solves - 20) * 41 + 1).all())
+    else:  # every solve on the tables, formed once
+        assert bool((solves == 20).all()) and bool((pivots == 41).all())
 
 
 def test_fdm_price_is_one_time_loop_launch_on_card(cuda_device):
@@ -888,8 +895,9 @@ def test_sharded_mc_price_two_shards_bit_identical_on_card(cuda_device):
     assert torch.all((one.price - bs).abs() < 5 * one.std_error)
 
 
-def _adi_case(kind, device):
-    """(ops, slv, mode, steps a date) of the ADI loop at the CPU tests' grid."""
+def _adi_case(kind, device, n_x=41, n_v=21):
+    """(ops, slv, mode, steps a date) of the ADI loop, by default at the CPU
+    tests' grid."""
     import numpy as np
 
     from optionslab_tpu_torch.models import heston_fdm as hf
@@ -902,21 +910,23 @@ def _adi_case(kind, device):
         x_rows = torch.tensor(np.sort(rng.uniform(-1, 1, (8, 9)), axis=1), dtype=torch.float32)
         l_rows = 1.0 + 0.3 * torch.sin(2.0 * x_rows)
         ops, slv, _, _ = hf._slv_setup(100.0, 100.0, 1.0, 0.03, 0.0, -1.0, par, 0.7, x_rows,
-                                       l_rows, 41, 21, 4, 4, device)
+                                       l_rows, n_x, n_v, 4, 4, device)
         return ops, slv, ha.BERMUDAN, 4
     american = kind != "european"
-    ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, -1.0 if american else 1.0, par, 41, 21,
-                           16, american, device)
+    ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, -1.0 if american else 1.0, par, n_x,
+                           n_v, 16, american, device)
     mode = {"european": ha.EUROPEAN, "american": ha.AMERICAN, "bermudan": ha.BERMUDAN}[kind]
     return ops, None, mode, 4 if kind == "bermudan" else 1
 
 
 @pytest.mark.parametrize("kind", ["european", "american", "bermudan", "slv"])
 def test_heston_adi_kernel_equals_plain_loop_on_card(cuda_device, kind):
+    """At 41 x 21 the plan takes a cluster of 3 CTAs."""
     from optionslab_tpu_torch.ops import heston_adi as ha
 
     ops, slv, mode, spd = _adi_case(kind, cuda_device)
     history = kind in ("european", "american")
+    assert ha.cluster_plan(21, 41) == 3
     before = ha._adi_cuda.launches
     got = ha._adi_cuda(ops, ops.intrinsic, mode, spd, slv, history)
     assert ha._adi_cuda.launches == before + 1
@@ -973,3 +983,48 @@ def test_heston_adi_wrappers_reject_bad_inputs_on_card(cuda_device):
     with pytest.raises(ValueError, match="Bermudan mode only"):
         slv_ops, slv, _, _ = _adi_case("slv", cuda_device)
         ha._adi_cuda(slv_ops, slv_ops.intrinsic, ha.AMERICAN, 1, slv)
+
+
+@pytest.mark.parametrize("kind", ["european", "american", "bermudan", "slv"])
+def test_heston_adi_takes_the_cooperative_route_beyond_a_cluster_on_card(cuda_device, kind):
+    """1001 x 201: no cluster of 16 CTAs holds it, so the plan is the
+    cooperative kernel, bitwise the plain loop (the history or the
+    continuation slices too)."""
+    from optionslab_tpu_torch.ops import heston_adi as ha
+
+    ops, slv, mode, spd = _adi_case(kind, cuda_device, 1001, 201)
+    history = kind in ("european", "american")
+    assert ha.cluster_plan(201, 1001) == 0
+    got = ha._adi_cuda(ops, ops.intrinsic, mode, spd, slv, history)
+    want = ha._adi_plain(ops, ops.intrinsic, mode, spd, slv, history)
+    assert torch.equal(got[0], want[0])
+    if mode == ha.BERMUDAN:
+        assert torch.equal(got[1], want[1])
+    for g, w in zip(got[2] or (), want[2] or ()):
+        assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_quotient_on_a_reciprocal_equals_division_on_card(cuda_device, dtype):
+    """The solves' fast quotient (and its slow path where flagged) against
+    the division intrinsic and torch's division, bitwise, on 2^20 random bit
+    patterns of each operand: every exponent, zeros, subnormals, infinities
+    and NaNs."""
+    from optionslab_tpu_torch.ops import _build
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    ints = torch.int32 if dtype == torch.float32 else torch.int64
+    info = torch.iinfo(ints)
+    num, den = (torch.randint(info.min, info.max, (1 << 20,), generator=gen, dtype=ints,
+                              device=cuda_device).view(dtype) for _ in range(2))
+    out = torch.empty_like(num)
+    counts = torch.tensor([0, 0, -1], dtype=torch.int64, device=cuda_device)
+    err = _build.load_library().tridiag_div_check_launch(
+        num.data_ptr(), den.data_ptr(), out.data_ptr(), counts.data_ptr(), num.numel(),
+        0 if dtype == torch.float32 else 1, 0, torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    want = num / den
+    torch.cuda.synchronize()
+    bad, fast, _ = counts.tolist()
+    assert bad == 0 and fast > num.numel() // 4
+    assert bool(((out.view(ints) == want.view(ints)) | (out.isnan() & want.isnan())).all())

@@ -143,8 +143,9 @@ def test_plan_fills_one_wave(batch, n_sms, want):
 
 def test_plan_halves_until_the_tile_fits():
     # float64 401-node θ-scheme tiles: 16 contracts need 0.7 MB, 4 fit in 227 KB
-    # (planes of 401 nodes and 16 padding rows, 417 mask bytes aligned to 8)
-    assert tp.tile_bytes(401, 1, 8) == (12 * 417 + 4) * 8 + 424 + 256
+    # (planes of 401 nodes and 16 padding rows, 417 mask bytes aligned to 8,
+    # the contract's first changed row in 8 bytes)
+    assert tp.tile_bytes(401, 1, 8) == (12 * 417 + 4) * 8 + 424 + 8 + 256
     assert tt.plan_systems(10_000, 132, lambda k: tp.tile_bytes(401, k, 8)) == 4
     # the tridiagonal tile: a broadcast row is staged once; c' takes its own
     # plane where the upper diagonal is one shared row
