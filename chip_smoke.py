@@ -169,10 +169,13 @@ is printed):
               at 1001 x 201 x 16, where the plan takes the cooperative
               kernel; its reverse kernel's gradients of every input of
               ``_AdiLoop`` against the plain reverse and autograd through the
-              plain loop; device ms of each kernel and plain version beside
-              the chain bound, recounted and old; the step fit on the
-              cluster route (run after the θ-scheme phase, before the
-              pricers);
+              plain loop, European and American, on the cluster of its own
+              plan at 41 x 21 x 16 and 201 x 101 x 200 and on its
+              cooperative route at 1001 x 201 x 16, one launch each and a
+              second launch bit for bit the first; device ms of each kernel
+              and plain version beside the chain bound, recounted and old;
+              the forward's and the reverse's step fits on the cluster route
+              (run after the θ-scheme phase, before the pricers);
 
 18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
               handler at its defaults (65,536 paths x 24 dates, 8 substeps a
@@ -3780,6 +3783,41 @@ ADI_FIT_STEPS = 50
 ADI_COOP = (1001, 201, 16)
 
 
+def step_fit(points) -> tuple[float, float, float, float]:
+    """(c0, cx, cv, largest residual) of t = c0 + cx·n_x + cv·n_v fitted by
+    least squares to (n_x, n_v, µs a step) points."""
+    rows = np.array([(1.0, n_x, n_v) for n_x, n_v, _ in points])
+    times = np.array([t for _, _, t in points])
+    (c0, cx, cv), *_ = np.linalg.lstsq(rows, times, rcond=None)
+    worst = float(np.abs(rows @ np.array([c0, cx, cv]) - times).max())
+    return float(c0), float(cx), float(cv), worst
+
+
+def fit_line(what: str, points, card: str, node_ms: dict) -> dict:
+    """Logs a step fit (:func:`step_fit`) beside the chain probes' nodes and
+    returns {c0, cx, cv} in µs."""
+    c0, cx, cv, worst = step_fit(points)
+    clock = sm_clock_hz()
+    log("adi", f"{what}, µs by CUDA events on (n_x, n_v) = "
+               f"{tuple((n_x, n_v) for n_x, n_v, _ in points)} [{card}]: "
+               + ", ".join(f"{t:.2f}" for _, _, t in points)
+               + f"; fit {c0:.2f} + {cx:.4f}·n_x + {cv:.4f}·n_v (largest residual "
+               f"{worst:.2f}): a node {cx * 1e-6 * clock:.0f} cycles in the x phase, "
+               f"{cv * 1e-6 * clock:.0f} in the v phase, against the chain probes' "
+               f"{node_ms['rhs'][torch.float32] * 1e-3 * clock:.1f} (right-hand side) and "
+               f"{node_ms['pivot'][torch.float32] * 1e-3 * clock:.1f} (pivot)")
+    return {"c0": c0, "cx": cx, "cv": cv}
+
+
+def adi_fit_ops(dev, n_x: int, n_v: int):
+    """The European loop's operands of a step-fit grid, ADI_FIT_STEPS steps."""
+    from optionslab_tpu_torch.models import heston_fdm as hf
+
+    hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
+    return hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, 1.0, hp, n_x, n_v, ADI_FIT_STEPS, False,
+                         dev)[0]
+
+
 def adi_step_fit(dev, card: str, node_ms: dict) -> dict:
     """Where a forward step's time goes: device µs a step (CUDA events) of
     the European loop on ADI_FIT_GRIDS (each a cluster by the plan), fitted
@@ -3787,29 +3825,42 @@ def adi_step_fit(dev, card: str, node_ms: dict) -> dict:
     cost in the x- and v-sweep phases (the solve and the node-parallel work
     around it), c0 the rest (the barriers, a phase's fixed staging); set
     beside the chain probes' nodes. Returns {c0, cx, cv} in µs."""
-    from optionslab_tpu_torch.models import heston_fdm as hf
-
-    hp = hmodel.HestonParams.make(*SL_HESTON, device=dev)
-    rows, times = [], []
+    points = []
     for n_x, n_v in ADI_FIT_GRIDS:
-        ops, _ = hf._adi_setup(100.0, 100.0, 1.0, 0.05, 0.0, 1.0, hp, n_x, n_v, ADI_FIT_STEPS,
-                               False, dev)
+        ops = adi_fit_ops(dev, n_x, n_v)
         check(ha.cluster_plan(n_v, n_x) > 0, f"the plan puts {n_x} x {n_v} in no cluster")
         ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN)
         ms = event_time(lambda: ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN), 5)
-        rows.append((1.0, n_x, n_v))
-        times.append(ms / ADI_FIT_STEPS * 1e3)
-    (c0, cx, cv), *_ = np.linalg.lstsq(np.array(rows), np.array(times), rcond=None)
-    worst = max(abs(c0 + cx * r[1] + cv * r[2] - t) for r, t in zip(rows, times))
-    clock = sm_clock_hz()
-    log("adi", f"a forward step on the cluster route, µs by CUDA events on (n_x, n_v) = "
-               f"{ADI_FIT_GRIDS} [{card}]: " + ", ".join(f"{t:.2f}" for t in times)
-               + f"; fit {c0:.2f} + {cx:.4f}·n_x + {cv:.4f}·n_v (largest residual "
-               f"{worst:.2f}): a node {cx * 1e-6 * clock:.0f} cycles in the x phase, "
-               f"{cv * 1e-6 * clock:.0f} in the v phase, against the chain probes' "
-               f"{node_ms['rhs'][torch.float32] * 1e-3 * clock:.1f} (right-hand side) and "
-               f"{node_ms['pivot'][torch.float32] * 1e-3 * clock:.1f} (pivot)")
-    return {"c0": float(c0), "cx": float(cx), "cv": float(cv)}
+        points.append((n_x, n_v, ms / ADI_FIT_STEPS * 1e3))
+    return fit_line("a forward step on the cluster route", points, card, node_ms)
+
+
+def adi_reverse_fit_inputs(dev):
+    """(n_x, n_v, ops, history, weight) of the reverse step fit: the
+    European loop's history on each grid of ADI_FIT_GRIDS that the reverse
+    plan puts in a cluster (its bands hold every accumulator: not 401 x 101
+    nor 201 x 201, which take the cooperative route)."""
+    for n_x, n_v in ADI_FIT_GRIDS:
+        if not ha.adjoint_cluster_plan(n_v, n_x):
+            continue
+        ops = adi_fit_ops(dev, n_x, n_v)
+        _, _, hist = ha._adi_cuda(ops, ops.intrinsic, ha.EUROPEAN, history=True)
+        weight = torch.tensor(np.random.default_rng(n_x + n_v).normal(size=(n_v, n_x)),
+                              dtype=torch.float32, device=dev)
+        yield n_x, n_v, ops, hist, weight
+
+
+def adi_reverse_step_fit(dev, card: str, node_ms: dict) -> dict:
+    """Where a reverse step's time goes: device µs a step (CUDA events) of
+    the reverse kernel on the cluster route over adi_reverse_fit_inputs,
+    fitted as :func:`adi_step_fit` fits the forward. Returns {c0, cx, cv}."""
+    points = []
+    for n_x, n_v, ops, hist, weight in adi_reverse_fit_inputs(dev):
+        def run():
+            ha._adi_adjoint_cuda(ops, ops.intrinsic, hist, weight, False)
+        run()
+        points.append((n_x, n_v, event_time(run, 5) / ADI_FIT_STEPS * 1e3))
+    return fit_line("a reverse step on the cluster route", points, card, node_ms)
 
 
 def adi_grad_gap(got, want) -> float:
@@ -3849,12 +3900,14 @@ def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
     tests' grid and at the defaults, where the plan takes a cluster, and at
     ADI_COOP, where it takes the cooperative kernel; one launch a loop; the
     reverse kernel's gradients of every input of ``_AdiLoop`` against the plain
-    reverse and autograd through the plain loop (European and American,
-    small and default grids, one launch); device ms by CUDA events of each
-    kernel, route and plain version beside the chain bound (recounted, and
-    the old count). Returns (largest forward difference, {tag: timing},
-    {"rel": largest relative gradient gap, "abs": largest absolute
-    difference to the plain reverse})."""
+    reverse and autograd through the plain loop (European and American, on
+    the cluster of ``adjoint_cluster_plan`` at the small and default grids and
+    on the cooperative route at ADI_COOP; one launch, a second launch bit for
+    bit the first); device ms by CUDA events of each kernel, route and plain
+    version beside the chain bound (recounted, and the old count); the
+    forward's and the reverse's step fits. Returns (largest forward
+    difference, {tag: timing}, {"rel": largest relative gradient gap, "abs":
+    largest absolute difference to the plain reverse})."""
     t_phase = time.perf_counter()
     worst, timing = 0.0, {}
     for tag, ops, slv, mode, spd in adi_cases(dev) + adi_coop_cases(dev):
@@ -3894,11 +3947,15 @@ def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
     timing["fit"] = adi_step_fit(dev, card, node_ms)
 
     gap = {"rel": 0.0, "abs": 0.0}
-    for tag, ops, slv, mode, spd in adi_cases(dev):
+    for tag, ops, slv, mode, spd in adi_cases(dev) + adi_coop_cases(dev):
         if mode == ha.BERMUDAN:
             continue
         start, american = ops.intrinsic, mode == ha.AMERICAN
         n_t, (n_v, n_x) = ops.bounds.shape[0], start.shape
+        ctas, blocks = ha._adjoint_route(n_v, n_x, dev)
+        check((ctas == 0) == (n_x == ADI_COOP[0]),
+              f"heston_adi adjoint {tag}: the route is {ctas} CTAs")
+        name = f"a cluster of {ctas}" if ctas else f"the cooperative kernel on {blocks} blocks"
         weight = torch.tensor(np.random.default_rng(n_x).normal(size=(n_v, n_x)),
                               dtype=torch.float32, device=dev)
         _, _, hist = ha._adi_cuda(ops, start, mode, history=True)
@@ -3906,6 +3963,10 @@ def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
         got = ha._adi_adjoint_cuda(ops, start, hist, weight, american)
         check(ha._adi_adjoint_cuda.launches == before + 1, f"heston_adi adjoint {tag}: not one "
                                                            "launch")
+        again = ha._adi_adjoint_cuda(ops, start, hist, weight, american)
+        torch.cuda.synchronize()
+        check(all(torch.equal(g_, a_) for g_, a_ in zip(got, again)),
+              f"heston_adi adjoint {tag} ({name}): two launches differ")
         plain = []  # timed on its one call: host-issued, ≈10 s at the defaults
         plain_ms = event_time(lambda: plain.append(
             ha._adi_reverse_plain(ops, start, hist, weight, american)), 1)
@@ -3924,20 +3985,23 @@ def phase_heston_adi(dev, card: str, node_ms: dict) -> tuple[float, dict, dict]:
         check(g_plain < ADI_GRAD_RTOL and g_auto < ADI_GRAD_RTOL,
               f"heston_adi adjoint {tag}: {g_plain:.2e} off the plain reverse, {g_auto:.2e} off "
               f"autograd of the plain loop ({each})")
-        log("adi", f"adjoint {tag}: one launch; largest relative gap to the plain reverse "
-                   f"{g_plain:.2e}, to autograd of the plain loop {g_auto:.2e} (< "
-                   f"{ADI_GRAD_RTOL}); by input vs autograd: "
+        log("adi", f"adjoint {tag} ({name} by the plan): one launch, two launches bitwise "
+                   f"equal; largest relative gap to the plain reverse {g_plain:.2e}, to autograd "
+                   f"of the plain loop {g_auto:.2e} (< {ADI_GRAD_RTOL}); by input vs autograd: "
                    + ", ".join(f"{k_} {v_:.1e}" for k_, v_ in each.items()))
         if n_x == 41:
             continue
         ms = event_time(lambda: ha._adi_adjoint_cuda(ops, start, hist, weight, american), 5)
         bound, by, chain, old = adi_bound(n_x, n_v, n_t, node_ms, reverse=True)
         timing[f"adjoint {tag}"] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-                                    "bound_by": by, "chain_ms": chain, "old_chain_ms": old}
-        log("adi", f"adjoint {tag}: device ms by CUDA events [{card}]: kernel {ms:.4f}, plain "
+                                    "bound_by": by, "chain_ms": chain, "old_chain_ms": old,
+                                    "ctas": ctas}
+        log("adi", f"adjoint {tag} ({name}): device ms by CUDA events [{card}]: kernel "
+                   f"{ms:.4f}, plain "
                    f"reverse {plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}, "
                    f"{chain / ms:.2f} of the kernel; the old count {old:.4f}, "
                    f"{old / ms:.2f}); {ms / n_t * 1e3:.2f} us a step")
+    timing["adjoint fit"] = adi_reverse_step_fit(dev, card, node_ms)
     log("adi", f"phase {time.perf_counter() - t_phase:.1f} s")
     return worst, timing, gap
 

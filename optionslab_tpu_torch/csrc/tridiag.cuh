@@ -388,7 +388,9 @@ __device__ __forceinline__ T rhs_group(const T (&a)[U], const T (&d)[U], const T
 }
 
 // Nodes [i0, i0 + U) of rhs_chain: the group's operands, its chain, its d'.
-template <typename T, int U>
+// Without kCheck the chain is fast_quotient's three operations alone, no
+// range check and no vote (see rhs_chain).
+template <typename T, int U, bool kCheck>
 __device__ __forceinline__ T rhs_nodes(int i0, T prev, Col<T> lo, Col<T> rhs, Col<T> den,
                                        Col<T> rcp, Col<T> out) {
   T ra[U], rd[U], rn[U], ry[U], rq[U];
@@ -399,9 +401,18 @@ __device__ __forceinline__ T rhs_nodes(int i0, T prev, Col<T> lo, Col<T> rhs, Co
     rn[q] = den[i0 + q];
     ry[q] = rcp[i0 + q];
   }
-  prev = rhs_group<T, U>(ra, rd, rn, ry, prev, rq);
+  if constexpr (kCheck) {
+    prev = rhs_group<T, U>(ra, rd, rn, ry, prev, rq);
 #pragma unroll
-  for (int q = 0; q < U; ++q) out.put(i0 + q, rq[q]);
+    for (int q = 0; q < U; ++q) out.put(i0 + q, rq[q]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      bool unused = false;
+      prev = fast_quotient(Arith<T>::sub(rd[q], Arith<T>::mul(ra[q], prev)), rn[q], ry[q], unused);
+      out.put(i0 + q, prev);
+    }
+  }
   return prev;
 }
 
@@ -412,17 +423,48 @@ __device__ __forceinline__ T rhs_nodes(int i0, T prev, Col<T> lo, Col<T> rhs, Co
 // right-hand side 1, den 1 and reciprocal 1 there, and write there). lo, den
 // and rcp may be one column that every lane reads. All 32 lanes of the warp
 // call it; a lane without a system reads another's columns and writes to a
-// dump column.
-template <typename T>
+// dump column. With j0 the chain starts at node j0 from prev = d'_{j0−1}
+// (j0 the same on every lane).
+//
+// Without kCheck: no range check and no vote, so no comparison sits between
+// a node's dependent operations (a warp issues in order, and on the card
+// those comparisons doubled a node's time). For a caller that then holds
+// every node to the division's bits (rhs_node_holds, a block's other threads
+// at once) and runs the checked chain again from a sweep's first node that
+// does not hold.
+template <typename T, bool kCheck = true>
 __device__ __forceinline__ void rhs_chain(int n, Col<T> lo, Col<T> rhs, Col<T> den, Col<T> rcp,
-                                          Col<T> out) {
+                                          Col<T> out, int j0 = 0, T prev = T(0)) {
   constexpr int kGroup = kRhsGroup<T>;
-  T prev = T(0);
-  int i0 = 0;
+  int i0 = j0;
   for (; i0 + kGroup <= n + kPad; i0 += kGroup) {
-    prev = rhs_nodes<T, kGroup>(i0, prev, lo, rhs, den, rcp, out);
+    prev = rhs_nodes<T, kGroup, kCheck>(i0, prev, lo, rhs, den, rcp, out);
   }
-  for (; i0 < n; i0 += kUnroll) prev = rhs_nodes<T, kUnroll>(i0, prev, lo, rhs, den, rcp, out);
+  for (; i0 < n; i0 += kUnroll) {
+    prev = rhs_nodes<T, kUnroll, kCheck>(i0, prev, lo, rhs, den, rcp, out);
+  }
+}
+
+__device__ __forceinline__ bool same_bits(float a, float b) {
+  return __float_as_uint(a) == __float_as_uint(b);
+}
+__device__ __forceinline__ bool same_bits(double a, double b) {
+  return __double_as_longlong(a) == __double_as_longlong(b);
+}
+
+// Whether node j of an unchecked chain holds the division's bits given the
+// d'_{j−1} the chain stored (0 at node 0): where fast_quotient's check lets
+// its numerator d_j − a_j·d'_{j−1} and q0 pass, its three operations are the
+// division's; where it flags them, the stored value is held to
+// flagged_quotient's, which is the division's. A chain whose every node
+// holds is, by induction from d'_{−1} = 0, the checked chain bit for bit.
+template <typename T>
+__device__ __forceinline__ bool rhs_node_holds(T a, T d, T den, T y, T prev, T stored) {
+  using A = Arith<T>;
+  const T num = A::sub(d, A::mul(a, prev));
+  bool bad = false;
+  fast_quotient(num, den, y, bad);
+  return !bad || same_bits(flagged_quotient(num, den, y), stored);
 }
 
 // One lane a system over a block's warps: system s runs on warp

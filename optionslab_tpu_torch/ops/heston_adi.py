@@ -22,7 +22,9 @@ the mixed coefficient change every step with the frozen leverage row.
 :func:`adi_loop` puts the European and American loops behind an
 ``autograd.Function``; its backward is one launch of
 ``heston_adi_adjoint_kernel`` (the hand-written reverse recursion
-:func:`_adi_reverse_plain` on the CPU) over the grids the forward kept: each
+:func:`_adi_reverse_plain` on the CPU) over the grids the forward kept, on
+one thread-block cluster where :func:`adjoint_cluster_plan` finds one that
+holds the grid's bands and one cooperative launch otherwise: each
 solve's adjoint is ``_TridiagSolve.backward``'s rule (the transposed system,
 diag ← −λx, lower ← −λx₋₁, upper ← −λx₊₁), the projection splits a tie half
 and half as ``torch.maximum``'s derivative does.
@@ -195,20 +197,25 @@ _REV_FIELDS = ("a1", "b1", "c1", "lo1", "di1", "up1", "a2", "b2", "c2", "lo2", "
                "mc", "scal", "intr", "vin", "y1h", "vph", "gout",
                "g_a1", "g_b1", "g_c1", "g_lo1", "g_di1", "g_up1", "p_a2", "p_b2", "p_c2",
                "p_lo2", "p_di2", "p_up2", "p_mc", "p_dts", "p_td1", "p_td2", "p_b1", "p_bv",
-               "g_intr", "g_start", "w_gy1", "w_ga2p", "w_rl", "w_ga2", "w_gn", "xpiv")
+               "g_intr", "g_start", "stage")
 KWARPS = 4  # warps a CUDA block (csrc/heston_adi.cu kWarps)
 
 
+def _r4(n: int) -> int:
+    return -(-n // 4) * 4
+
+
 def smem_bytes(n_v: int, n_x: int) -> int:
-    """Shared memory of one CUDA block of either kernel (``Layout`` in
-    ``csrc/heston_adi.cu``): three block-wide v-sweep planes of n_v + 2·8
-    nodes; per warp six solve planes of max(n_x, n_v) + 2·8 nodes, five
-    x-rows of n_x + 2, three v-columns of n_v + 2 and the dump slots."""
-    vplane = -(-(n_v + 2 * PAD_ROWS) // 4) * 4
+    """Shared memory of one CUDA block of the cooperative forward kernel
+    (``Layout`` in ``csrc/heston_adi.cu``): four block-wide v-sweep planes
+    of n_v + 2·8 nodes (the lower diagonal and the tables); per warp six
+    solve planes of max(n_x, n_v) + 2·8 nodes, five x-rows of n_x + 2, three
+    v-columns of n_v + 2 and the dump slots."""
+    vplane = _r4(n_v + 2 * PAD_ROWS)
     plane = max(n_x, n_v) + 2 * PAD_ROWS
     per_warp = 6 * plane + 5 * (n_x + 2) + 3 * (n_v + 2)
-    per_warp = -(-per_warp // 4) * 4 + DUMP_BYTES // 4
-    return 4 * (3 * vplane + KWARPS * per_warp)
+    per_warp = _r4(per_warp) + DUMP_BYTES // 4
+    return 4 * (4 * vplane + KWARPS * per_warp)
 
 
 MAX_CLUSTER = 16  # CTAs of the largest cluster an H100 runs (non-portable above 8)
@@ -254,6 +261,63 @@ def cluster_plan(n_v: int, n_x: int) -> int:
     return 0
 
 
+MAX_BAND = 128  # systems a phase of one CTA solves: a lane each on four chain warps
+ROW_SUMS = 7  # sums a row of the reverse kernel keeps (csrc/heston_adi.cu kRowSums)
+
+
+def adjoint_layout(n_v: int, n_x: int, blocks: int, cluster: bool) -> dict:
+    """The planes of one CTA of the reverse kernel (``AdjointLayout`` in
+    ``csrc/heston_adi.cu``) on ``blocks`` CTAs of the cluster route (two
+    history buffers; the sweeps' forward halves apart from their solutions,
+    so the check runs beside the back substitution) or of the cooperative
+    route (one buffer; each solution over its forward half): {plane:
+    (offset, floats)} in floats, each plane rounded up to 4 floats, and
+    "rows", "cols", "recv" (the moves' span, which the cooperative route
+    stages in global memory a block) and "floats"."""
+    rows, cols = _bands(n_v, n_x, blocks)
+    bufs = 2 if cluster else 1
+    w, hx, vt = _r4(n_x + 2 * PAD_ROWS), _r4(n_x + 2), _r4(n_v + 2 * PAD_ROWS)
+    xch = -(-n_x // 32)
+    sizes = {"xlo": rows * w, "xden": rows * w, "xcs": rows * w, "xrcp": rows * w,
+             "xd": rows * w if cluster else 0, "xlam1": rows * w, "vrow": bufs * (rows + 2) * hx, "y1row": bufs * rows * hx,
+             "ga1": rows * hx, "racc": 6 * rows * n_x, "rsum": ROW_SUMS * rows,
+             "rpart": ROW_SUMS * rows * xch, "vlo": vt, "vden": vt, "vcs": vt, "vrcp": vt,
+             "vst": 4 * n_v, "pcol": bufs * cols * (n_v + 2), "icol": cols * n_v,
+             "vrhs": vt * (cols | 1), "vd": vt * (cols | 1) if cluster else 0,
+             "vds": vt * (cols | 1), "gedge": 2 * n_v,
+             "cacc": 4 * cols * n_v, "first": max(rows, cols), "xlam2": rows * w, "rl": n_v * cols, "ga2": n_v * cols,
+             "gn": n_v * (cols + 8), "peers": MAX_CLUSTER, "dump": DUMP_BYTES // 4}
+    out, at = {}, 0
+    for name, size in sizes.items():
+        out[name] = (at, size)
+        at += _r4(size)
+    out.update(rows=rows, cols=cols, floats=at,
+               recv=out["peers"][0] - out["xlam2"][0])
+    return out
+
+
+def adjoint_bytes(n_v: int, n_x: int, blocks: int, cluster: bool) -> int:
+    """Shared memory of one CTA of the reverse kernel: :func:`adjoint_layout`'s
+    floats. Its largest parts at 201 × 101 on 13 CTAs: the six node
+    accumulators of the row band and the four of the column band, the
+    x-sweeps' tables and the two history buffers."""
+    return 4 * adjoint_layout(n_v, n_x, blocks, cluster)["floats"]
+
+
+def adjoint_cluster_plan(n_v: int, n_x: int) -> int:
+    """The reverse kernel's route for an (n_v, n_x) grid, from its shape
+    alone: the CTAs of the one thread-block cluster whose bands, every
+    accumulator and two history buffers fit in :data:`SMEM_LIMIT` a CTA
+    (about :data:`BAND_ROWS` rows a CTA, 2 to :data:`MAX_CLUSTER`; at most
+    :data:`MAX_BAND` rows and columns a band), or 0 where no cluster of 16
+    holds them: the cooperative kernel, one block an SM."""
+    for ctas in range(min(MAX_CLUSTER, max(2, -(-n_v // BAND_ROWS))), MAX_CLUSTER + 1):
+        rows, cols = _bands(n_v, n_x, ctas)
+        if adjoint_bytes(n_v, n_x, ctas, True) <= SMEM_LIMIT and max(rows, cols) <= MAX_BAND:
+            return ctas
+    return 0
+
+
 def _f32_flat(t, dev, shape=None) -> torch.Tensor:
     """``t`` as a contiguous float32 tensor on ``dev`` (a broadcast view is
     materialised), checked against ``shape``."""
@@ -278,8 +342,8 @@ def _scalars(ops: AdiOps, slv: SlvLeverage | None, dev) -> torch.Tensor:
 
 def _check_shapes(ops: AdiOps, start, slv, ctas: int = 0) -> tuple[int, int, int]:
     """(n_v, n_x, n_t); with ``ctas`` 0 raises where one CUDA block of the
-    cooperative kernels cannot hold the grid (``ctas``: the cluster of the
-    forward's plan holds it)."""
+    cooperative forward kernel cannot hold the grid (``ctas``: the blocks
+    of the route that holds it)."""
     n_v, n_x = start.shape
     n_t = ops.bounds.shape[0]
     if n_v < 3 or n_x < 3 or n_t < 1 or ops.bounds.shape != (n_t, 2):
@@ -328,7 +392,7 @@ def _adi_cuda(ops: AdiOps, start, mode: int, spd: int = 1, slv: SlvLeverage | No
                             (*ops.x_stencil, *ops.x_sweep)):
             t[name] = _f32_flat(op, dev, grid)
         t["mc"] = _f32_flat(ops.mixed, dev, (n_v - 2, 1))
-        t["xpiv"] = torch.empty((2, n_v, n_x), device=dev)  # the x-sweeps' pivots
+        t["xpiv"] = torch.empty((3, n_v, n_x), device=dev)  # the x-sweeps' tables
     else:
         t["lev"] = _f32_flat(slv.lev, dev)
         rows = torch.tensor(slv.rows, dtype=torch.int32)
@@ -464,15 +528,31 @@ def _adi_reverse_plain(ops: AdiOps, start, hist, g, american: bool):
     return (*g_x[:3], *g_x[3:], *(x[None, :] for x in g_v), g_mc[:, None], g_dt, g_b, g_i, g)
 
 
-def _adi_adjoint_cuda(ops: AdiOps, start, hist, g, american: bool):
-    """The reverse kernel: one launch on PyTorch's current stream.
-    Arguments and returns as :func:`_adi_reverse_plain`'s (the history as
-    :func:`_adi_cuda` returns it). ``_adi_adjoint_cuda.launches`` counts
-    the launches."""
+def _adjoint_route(n_v: int, n_x: int, dev) -> tuple[int, int]:
+    """(CTAs of the cluster or 0, blocks) of the reverse kernel: the cluster
+    of :func:`adjoint_cluster_plan`, else one cooperative block an SM of the
+    card; raises where the cooperative blocks' bands do not fit either."""
+    ctas = adjoint_cluster_plan(n_v, n_x)
+    if ctas:
+        return ctas, ctas
+    blocks = torch.cuda.get_device_properties(dev).multi_processor_count
+    layout = adjoint_layout(n_v, n_x, blocks, False)
+    if 4 * layout["floats"] > SMEM_LIMIT or max(layout["rows"], layout["cols"]) > MAX_BAND:
+        raise ValueError(f"no route of the reverse kernel holds a {n_v} x {n_x} grid: "
+                         f"{4 * layout['floats']} bytes a block on {blocks} blocks")
+    return 0, blocks
+
+
+def _adjoint_operands(ops: AdiOps, start, hist, g, american: bool) -> tuple[dict, tuple]:
+    """(tensors by field, dims) of one reverse launch on the route of
+    :func:`_adjoint_route`: the operands as float32 on the card, the
+    gradient slots zeroed, and on the cooperative route the staging buffer
+    of the moves, zeroed."""
     dev = start.device
     if dev.type != "cuda":
         raise ValueError(f"_adi_adjoint_cuda needs CUDA tensors, got the grid on {dev}")
-    n_v, n_x, n_t = _check_shapes(ops, start, None)
+    ctas, blocks = _adjoint_route(*start.shape, dev)
+    n_v, n_x, n_t = _check_shapes(ops, start, None, blocks)
     grid = (n_v, n_x)
     t = {"intr": _f32_flat(ops.intrinsic, dev, grid), "scal": _scalars(ops, None, dev),
          "gout": _f32_flat(g, dev, grid), "mc": _f32_flat(ops.mixed, dev, (n_v - 2, 1))}
@@ -485,23 +565,42 @@ def _adi_adjoint_cuda(ops: AdiOps, start, hist, g, american: bool):
     n = n_v * n_x
     sizes = {"g_a1": n, "g_b1": n, "g_c1": n, "g_lo1": n, "g_di1": n, "g_up1": n,
              "p_a2": n_v, "p_b2": n_v, "p_c2": n_v, "p_lo2": n_x * n_v, "p_di2": n_x * n_v,
-             "p_up2": n_x * n_v, "p_mc": n_v, "p_dts": n_v, "p_td1": n_v, "p_td2": n_x,
-             "p_b1": n_t * n_v * 2, "p_bv": n_t * 2, "g_intr": n, "g_start": n, "w_gy1": n,
-             "w_ga2p": n, "w_rl": n, "w_ga2": n, "w_gn": n, "xpiv": 2 * n}
+             "p_up2": n_x * n_v, "p_mc": n_v, "p_dts": n_v, "p_td1": n_v, "p_td2": n_v,
+             "p_b1": n_t * n_v * 2, "p_bv": n_t * 2, "g_intr": n, "g_start": n}
     buf = torch.zeros(sum(sizes.values()), device=dev)
     at = 0
     for name, size in sizes.items():
         t[name] = buf[at:at + size]
         at += size
-    _launch("heston_adi_adjoint_launch", _REV_FIELDS, t, (n_v, n_x, n_t, int(american)), dev)
-    with _LAUNCH_LOCK:
-        _adi_adjoint_cuda.launches += 1
+    if not ctas:  # the cooperative route's moves, a block each, moved 16 bytes at a time
+        t["stage"] = torch.zeros(blocks * adjoint_layout(n_v, n_x, blocks, False)["recv"],
+                                 device=dev)
+    return t, (n_v, n_x, n_t, int(american), ctas, blocks)
+
+
+def _adjoint_grads(t: dict, n_v: int, n_x: int, n_t: int) -> tuple:
+    """The gradients of :func:`_adi_reverse_plain`'s order from a reverse
+    launch's slots: the per-row, per-column and per-step slots summed."""
+    grid = (n_v, n_x)
     g_dt = t["p_dts"].sum() + THETA_S * -(t["p_td1"].sum() + t["p_td2"].sum())
     g_b = t["p_b1"].view(n_t, n_v, 2).sum(1) + t["p_bv"].view(n_t, 2)
     return (*(t[k].view(grid) for k in ("g_a1", "g_b1", "g_c1", "g_lo1", "g_di1", "g_up1")),
             *(t[k][None, :] for k in ("p_a2", "p_b2", "p_c2")),
             *(t[k].view(n_x, n_v).sum(0, keepdim=True) for k in ("p_lo2", "p_di2", "p_up2")),
             t["p_mc"][1:-1, None], g_dt, g_b, t["g_intr"].view(grid), t["g_start"].view(grid))
+
+
+def _adi_adjoint_cuda(ops: AdiOps, start, hist, g, american: bool):
+    """The reverse kernel: one launch on PyTorch's current stream.
+    Arguments and returns as :func:`_adi_reverse_plain`'s (the history as
+    :func:`_adi_cuda` returns it). The route is :func:`_adjoint_route`'s,
+    from the grid's shape (and, on the cooperative route, the card's SM
+    count). ``_adi_adjoint_cuda.launches`` counts the launches."""
+    t, dims = _adjoint_operands(ops, start, hist, g, american)
+    _launch("heston_adi_adjoint_launch", _REV_FIELDS, t, dims, start.device)
+    with _LAUNCH_LOCK:
+        _adi_adjoint_cuda.launches += 1
+    return _adjoint_grads(t, *dims[:3])
 
 
 _adi_adjoint_cuda.launches = 0

@@ -954,6 +954,30 @@ def test_heston_adi_adjoint_matches_plain_reverse_on_card(cuda_device, kind):
         assert (a - b).abs().max() <= 1e-5 * b.abs().max().clamp_min(1e-30), name
 
 
+@pytest.mark.parametrize("kind", ["european", "american"])
+def test_heston_adi_adjoint_on_both_routes_is_repeatable_on_card(cuda_device, kind):
+    """The reverse kernel on a cluster at 41 x 21 and on the cooperative
+    route at 1001 x 201 (no cluster holds its bands): one launch, the plain
+    reverse's gradients within 1e-5 of each one's largest entry, and a second
+    launch bit for bit the first."""
+    from optionslab_tpu_torch.ops import heston_adi as ha
+
+    for n_x, n_v in ((41, 21), (1001, 201)):
+        ops, _, mode, _ = _adi_case(kind, cuda_device, n_x, n_v)
+        ctas, blocks = ha._adjoint_route(n_v, n_x, cuda_device)
+        assert (ctas == 0) == (n_x == 1001) and blocks >= 1
+        g = torch.linspace(-1.0, 1.0, n_v * n_x, device=cuda_device).view(n_v, n_x)
+        _, _, hist = ha._adi_cuda(ops, ops.intrinsic, mode, history=True)
+        before = ha._adi_adjoint_cuda.launches
+        got = ha._adi_adjoint_cuda(ops, ops.intrinsic, hist, g, kind == "american")
+        again = ha._adi_adjoint_cuda(ops, ops.intrinsic, hist, g, kind == "american")
+        assert ha._adi_adjoint_cuda.launches == before + 2
+        want = ha._adi_reverse_plain(ops, ops.intrinsic, hist, g, kind == "american")
+        for name, a, b, c in zip(ha._INPUTS, got, want, again):
+            assert torch.equal(a, c), name
+            assert (a - b).abs().max() <= 1e-5 * b.abs().max().clamp_min(1e-30), name
+
+
 def test_heston_fdm_greeks_on_card_one_reverse_launch(cuda_device):
     from optionslab_tpu_torch.models.heston import HestonParams
     from optionslab_tpu_torch.models.heston_fdm import heston_fdm_greeks

@@ -18,8 +18,10 @@
   exercise rows lie at the top of the grid) over a few steps.
 * The ADI forward kernel's cluster plan fits 227 KB a CTA and at most 16 CTAs
   at every grid the package and ``chip_smoke.py`` use and sends a larger grid
-  to the cooperative kernel; the θ-scheme tile counts the tables, and the
-  systems plan still halves until it fits.
+  to the cooperative kernel; so does the reverse kernel's, whose bands hold
+  every accumulator (two grids of the step fit go to its cooperative route,
+  one block an SM); the θ-scheme tile counts the tables, and the systems plan
+  still halves until it fits.
 """
 
 import math
@@ -277,13 +279,33 @@ ADI_GRIDS = [(41, 21), (201, 101), (161, 81), (101, 101), (201, 51), (401, 101),
              (301, 61)]
 
 
-@pytest.mark.parametrize("n_x,n_v", ADI_GRIDS)
-def test_adi_cluster_plan_fits_the_package_grids(n_x, n_v):
-    ctas = ha.cluster_plan(n_v, n_x)
+# grids whose reverse bands (every accumulator and two history buffers) no
+# cluster of 16 CTAs holds: the reverse takes its cooperative route there
+ADI_REVERSE_COOP = [(401, 101), (201, 201)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("n_x,n_v,kernel", [pytest.param(*g, "forward", id=f"{g[0]}-{g[1]}")
+                                            for g in ADI_GRIDS]
+                         + [pytest.param(*g, "reverse", id=f"{g[0]}-{g[1]}-reverse")
+                            for g in ADI_GRIDS])
+def test_adi_cluster_plan_fits_the_package_grids(n_x, n_v, kernel):
+    if kernel == "reverse":
+        ctas = ha.adjoint_cluster_plan(n_v, n_x)
+        if (n_x, n_v) in ADI_REVERSE_COOP:
+            assert ctas == 0
+            assert ha.adjoint_bytes(n_v, n_x, ha.MAX_CLUSTER, True) > ha.SMEM_LIMIT
+            assert ha.adjoint_bytes(n_v, n_x, H100_SMS, False) <= ha.SMEM_LIMIT
+            return
+        assert ha.adjoint_bytes(n_v, n_x, ctas, True) <= ha.SMEM_LIMIT
+        limit = ha.MAX_BAND
+    else:
+        ctas = ha.cluster_plan(n_v, n_x)
+        assert ha.cluster_bytes(n_v, n_x, ctas) <= ha.SMEM_LIMIT == 227 * 1024
+        limit = 64
     assert 2 <= ctas <= ha.MAX_CLUSTER
-    assert ha.cluster_bytes(n_v, n_x, ctas) <= ha.SMEM_LIMIT == 227 * 1024
     rows, cols = -(-n_v // ctas), -(-n_x // ctas)
-    assert rows * ctas >= n_v and cols * ctas >= n_x and rows <= 64 and cols <= 128
+    assert rows * ctas >= n_v and cols * ctas >= n_x and rows <= limit and cols <= 128
 
 
 def test_adi_cluster_layout_and_the_cooperative_route():
@@ -304,6 +326,46 @@ def test_adi_cluster_layout_and_the_cooperative_route():
         ops = ha.AdiOps(None, None, None, None, None, None, None, torch.zeros(1, 2),
                         torch.zeros(3, 3))
         ha._adi_cuda(ops, torch.zeros(3, 3), ha.EUROPEAN)
+
+
+def test_adi_adjoint_layout_and_the_cooperative_route():
+    # 201 x 101 on 13 CTAs: 8 rows and 16 columns a CTA; in floats, the row
+    # band: the x tables (lower, den, c', 1/den), the forward halves d' and
+    # λ1, six planes of 8 rows of 220 (201 nodes and 8 of padding each side,
+    # to 4), V's rows with their halos and y1's, two buffers of 10 and 8 rows
+    # of 204, the gradient of a1v (8 x 204), six accumulators a node (6 x 8 x
+    # 201), seven sums a row and a step's by chunk of 32 columns (56,
+    # 7 x 8 x 7); the column band: the v tables (4 x 120), its stencil and
+    # the mixed coefficient (4 x 101), the new grid on the columns (2
+    # buffers of 16 x 103), the exercise value (16 x 101), the v-sweeps'
+    # right-hand sides, forward halves and solutions (3 x 120 x 17), the
+    # pinned columns' gradient (202, to 204), four accumulators a node
+    # (4 x 16 x 101), the first node off the division's bits a system (16);
+    # the moves: λ2 on the rows (8 x 220), the row-local part and g_a2v on
+    # the columns (2 x 101 x 16), the mixed gradient with its halo columns
+    # (101 x 24); 16 window addresses, 64 dump floats
+    assert ha.adjoint_cluster_plan(101, 201) == 13
+    layout = ha.adjoint_layout(101, 201, 13, True)
+    assert (layout["rows"], layout["cols"]) == (8, 16)
+    rows = 6 * 8 * 220 + 2 * 10 * 204 + 2 * 8 * 204 + 8 * 204 + 6 * 8 * 201 + 56 + 7 * 8 * 7
+    cols = 4 * 120 + 4 * 101 + 2 * 16 * 103 + 16 * 101 + 3 * 120 * 17 + 204 + 4 * 16 * 101 + 16
+    moves = 8 * 220 + 2 * 101 * 16 + 101 * 24
+    assert layout["recv"] == moves
+    assert layout["floats"] == rows + cols + moves + 16 + 64
+    assert ha.adjoint_bytes(101, 201, 13, True) == 4 * layout["floats"] <= ha.SMEM_LIMIT
+    # the package's test grid takes a cluster of 3
+    assert ha.adjoint_cluster_plan(21, 41) == 3
+    # 1001 x 201: no cluster holds it; the cooperative route's 132 blocks of
+    # 2 rows and 8 columns, one history buffer and the forward halves over
+    # the solutions, do
+    assert ha.adjoint_cluster_plan(201, 1001) == 0
+    coop = ha.adjoint_layout(201, 1001, H100_SMS, False)
+    assert (coop["rows"], coop["cols"]) == (2, 8)
+    assert 4 * coop["floats"] <= ha.SMEM_LIMIT < ha.adjoint_bytes(201, 1001, H100_SMS, True)
+    with pytest.raises(ValueError, match="CUDA"):  # the wrapper's route runs on the card
+        ops = ha.AdiOps(None, None, None, None, None, None, None, torch.zeros(1, 2),
+                        torch.zeros(3, 3))
+        ha._adi_adjoint_cuda(ops, torch.zeros(3, 3), None, None, False)
 
 
 def test_theta_tile_counts_the_tables_and_the_plan_halves():

@@ -1,8 +1,8 @@
-"""Time the θ-scheme and ADI forward kernels of two source trees in turns on one card.
+"""Time the θ-scheme and ADI kernels of two source trees in turns on one card.
 
 Usage (on a machine with a CUDA card and ``nvcc``)::
 
-    python tools/pde_in_turns.py --parent DIR [--out FILE]
+    python tools/pde_in_turns.py --parent DIR [--out FILE] [--only reverse] [--fit]
 
 ``DIR`` is the root of another tree of this repository, for example an
 earlier commit unpacked with ``git archive``. Each tree's
@@ -13,9 +13,19 @@ library of their own; both are driven through this checkout's wrappers
 float32 and float64) and the Heston ADI loops at the defaults (European and
 American 201 x 101 x 200, Bermudan 50 and 25 dates x 8 steps, SLV 161 x 81 at
 25 x 8). The two outputs of each case must be bitwise equal; each kernel is
-timed by CUDA events in turns: other, this, this, other. Prints one line a
-case and the card's name and power limit; with ``--out`` also writes the
-times there as JSON.
+timed by CUDA events in turns: other, this, this, other. The ADI reverse
+kernels run at 201 x 101 x 200, European and American, on one history and
+one seeded weight grid, each tree driven through its own pointer table
+(``_REV_FIELDS``, read from its source; the fields this tree lacks get zeroed
+buffers of the size their name has: a work grid, or three for ``xpiv``; its
+``p_td2`` slots one a column or a row, whichever is more) and
+this tree's dims (route included); the two trees' gradients may differ by
+their sums' order, and the largest gap, relative to each gradient's largest
+entry, is printed. With ``--fit`` each tree's reverse step is also fitted to
+t = c0 + cx·n_x + cv·n_v (``chip_smoke.step_fit``) on the grids of
+``chip_smoke.adi_reverse_fit_inputs``, in turns. ``--only reverse`` skips the
+forward and θ-scheme cases. Prints one line a case and the card's name and
+power limit; with ``--out`` also writes the times there as JSON.
 
 The ABI this assumes of the other tree, checked before anything is built:
 ``theta_pde_launch`` and ``heston_adi_launch`` take the parameter types of
@@ -24,7 +34,9 @@ table) is this tree's; its forward launch reads no ``dims`` entry past this
 tree's last (index 7, the route, which a tree without the cluster kernel
 does not read); and its θ kernel writes at most the two ints a block of the
 counts buffer that this tree's wrapper allocates (a tree that counts only
-the solves writes the first).
+the solves writes the first); ``heston_adi_adjoint_launch`` reads no ``dims``
+entry past this tree's last (index 5) and its pointer table names only
+fields this tool can allocate.
 """
 
 from __future__ import annotations
@@ -53,6 +65,9 @@ from optionslab_tpu_torch.ops import theta_pde as tp  # noqa: E402
 SOURCES = ("theta_pde.cu", "heston_adi.cu")
 LAUNCHES = {"theta_pde.cu": "theta_pde_launch", "heston_adi.cu": "heston_adi_launch"}
 FORWARD_DIMS = 8  # dims entries this tree's ADI wrapper passes
+REVERSE_DIMS = 6  # and its reverse wrapper
+# the other tree's reverse fields this tree does not have: grids of work each
+OTHER_FIELDS = {"w_gy1": 1, "w_ga2p": 1, "w_rl": 1, "w_ga2": 1, "w_gn": 1, "xpiv": 3}
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
@@ -64,30 +79,43 @@ def launch_types(src: str, name: str) -> list[str]:
     return [" ".join(p.split()[:-1]) for p in m.group(1).split(",")]
 
 
-def fwd_fields(path: pathlib.Path) -> tuple:
-    """``_FWD_FIELDS`` of an ``ops/heston_adi.py``, read without importing it."""
+def fields(path: pathlib.Path, name: str) -> tuple:
+    """A pointer table (``_FWD_FIELDS``, ``_REV_FIELDS``) of an
+    ``ops/heston_adi.py``, read without importing it."""
     for node in ast.parse(path.read_text()).body:
-        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == "_FWD_FIELDS"
+        if isinstance(node, ast.Assign) and any(getattr(t, "id", None) == name
                                                 for t in node.targets):
             return ast.literal_eval(node.value)
-    raise SystemExit(f"pde_in_turns: no _FWD_FIELDS in {path}")
+    raise SystemExit(f"pde_in_turns: no {name} in {path}")
+
+
+def dims_read(src: str, name: str) -> int:
+    """One past the largest ``dims`` index that ``extern "C" int name`` reads."""
+    body = src[src.index(f'extern "C" int {name}'):]
+    end = body.find('extern "C"', 1)
+    body = body if end < 0 else body[:end]
+    return max(int(k) for k in re.findall(r"dims\[(\d+)\]", body)) + 1
 
 
 def check_abi(other: pathlib.Path) -> None:
     """Stops unless the other tree's launches take this checkout's arguments
     (the ABI in the module's docstring)."""
-    for name in SOURCES:
+    for name, fn in [*LAUNCHES.items(), ("heston_adi.cu", "heston_adi_adjoint_launch")]:
         theirs = (other / "optionslab_tpu_torch" / "csrc" / name).read_text()
         ours = (_build.CSRC / name).read_text()
-        if launch_types(theirs, LAUNCHES[name]) != launch_types(ours, LAUNCHES[name]):
-            raise SystemExit(f"pde_in_turns: {LAUNCHES[name]} takes other arguments there")
-    if fwd_fields(other / "optionslab_tpu_torch" / "ops" / "heston_adi.py") != ha._FWD_FIELDS:
+        if launch_types(theirs, fn) != launch_types(ours, fn):
+            raise SystemExit(f"pde_in_turns: {fn} takes other arguments there")
+    py = other / "optionslab_tpu_torch" / "ops" / "heston_adi.py"
+    if fields(py, "_FWD_FIELDS") != ha._FWD_FIELDS:
         raise SystemExit("pde_in_turns: the other tree's ADI pointer table differs")
+    unknown = set(fields(py, "_REV_FIELDS")) - set(ha._REV_FIELDS) - set(OTHER_FIELDS)
+    if unknown:
+        raise SystemExit(f"pde_in_turns: the other tree's reverse takes {sorted(unknown)}")
     src = (other / "optionslab_tpu_torch" / "csrc" / "heston_adi.cu").read_text()
-    body = src[src.index('extern "C" int heston_adi_launch'):]
-    body = body[:body.find('extern "C"', 1)]
-    if max(int(k) for k in re.findall(r"dims\[(\d+)\]", body)) >= FORWARD_DIMS:
+    if dims_read(src, "heston_adi_launch") > FORWARD_DIMS:
         raise SystemExit("pde_in_turns: the other tree's ADI launch reads more dims")
+    if dims_read(src, "heston_adi_adjoint_launch") > REVERSE_DIMS:
+        raise SystemExit("pde_in_turns: the other tree's ADI reverse launch reads more dims")
 
 
 def build(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
@@ -109,8 +137,9 @@ def build(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
     lib = ctypes.CDLL(str(lib_path))
     lib.theta_pde_launch.argtypes = [_P] * 9 + [_I] * 7 + [_P]
     lib.theta_pde_launch.restype = _I
-    lib.heston_adi_launch.argtypes = [_P, _P, _I, _P]
-    lib.heston_adi_launch.restype = _I
+    for fn in ("heston_adi_launch", "heston_adi_adjoint_launch"):
+        getattr(lib, fn).argtypes = [_P, _P, _I, _P]
+        getattr(lib, fn).restype = _I
     return lib
 
 
@@ -149,11 +178,52 @@ def adi_cases(dev):
                    ops, ops.intrinsic, mode, spd, slv)[0], 5)
 
 
+def reverse(ops, hist, weight, american: bool, rev_fields: tuple):
+    """One launch of the reverse kernel through the pointer table
+    ``rev_fields``, on this tree's operands and dims; the gradients as
+    ``ha._adi_adjoint_cuda`` returns them."""
+    start = ops.intrinsic
+    t, dims = ha._adjoint_operands(ops, start, hist, weight, american)
+    n = dims[0] * dims[1]
+    for name in rev_fields:
+        if name not in t and name in OTHER_FIELDS:
+            t[name] = torch.zeros(OTHER_FIELDS[name] * n, device=start.device)
+    if rev_fields != ha._REV_FIELDS:  # a tree that sums λ2·a2v by column
+        t["p_td2"] = torch.zeros(max(dims[0], dims[1]), device=start.device)
+    ha._launch("heston_adi_adjoint_launch", rev_fields, t, dims, start.device)
+    return ha._adjoint_grads(t, *dims[:3])
+
+
+def reverse_cases(dev, rev: dict):
+    """The reverse at the defaults, European and American: (tag, {tree: fn})."""
+    for tag, ops, _, mode, _ in cs.adi_cases(dev):
+        if ops.intrinsic.shape[1] == 41 or mode == ha.BERMUDAN:
+            continue
+        n_v, n_x = ops.intrinsic.shape
+        _, _, hist = ha._adi_cuda(ops, ops.intrinsic, mode, history=True)
+        weight = torch.tensor(cs.np.random.default_rng(n_x).normal(size=(n_v, n_x)),
+                              dtype=torch.float32, device=dev)
+        yield f"adi adjoint {tag}", {
+            who: (lambda f=f, ops=ops, hist=hist, weight=weight, mode=mode: reverse(
+                ops, hist, weight, mode == ha.AMERICAN, f)) for who, f in rev.items()}
+
+
+def in_turns(libs: dict, fns: dict, iters: int) -> dict:
+    """Device ms of each tree's ``fns[tree]`` on its library, in turns:
+    other, this, this, other."""
+    times = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        times[who].append(cs.event_time(on(libs[who], fns[who]), iters))
+    return times
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--parent", required=True, type=pathlib.Path,
                         help="the root of the other tree")
     parser.add_argument("--out", type=pathlib.Path, help="a JSON file for the times")
+    parser.add_argument("--only", choices=("reverse",), help="time only the ADI reverse")
+    parser.add_argument("--fit", action="store_true", help="fit each tree's reverse step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("pde_in_turns: no CUDA device")
@@ -165,20 +235,49 @@ def main() -> None:
                                pathlib.Path(tmp) / "other"),
                 "this": build(_build.CSRC, pathlib.Path(tmp) / "this")}
         results = {}
-        for tag, fn, iters in [*theta_cases(dev), *adi_cases(dev)]:
+        forward = [] if args.only else [*theta_cases(dev), *adi_cases(dev)]
+        for tag, fn, iters in forward:
             outs = {k: on(lib, fn)() for k, lib in libs.items()}
             torch.cuda.synchronize()
             if not torch.equal(outs["other"], outs["this"]):
                 raise SystemExit(f"{tag}: the two trees' kernels differ")
-            times = {"other": [], "this": []}
-            for who in ("other", "this", "this", "other"):
-                times[who].append(cs.event_time(on(libs[who], fn), iters))
-            results[tag] = times
+            results[tag] = times = in_turns(libs, {"other": fn, "this": fn}, iters)
             print(f"{tag}: bitwise equal; device ms by CUDA events, in turns [{card}]: other "
                   + " / ".join(f"{t:.4f}" for t in times["other"]) + ", this "
                   + " / ".join(f"{t:.4f}" for t in times["this"])
                   + f"; this / other {min(times['this']) / min(times['other']):.3f}",
                   flush=True)
+        rev = {"other": fields(args.parent / "optionslab_tpu_torch" / "ops" / "heston_adi.py",
+                               "_REV_FIELDS"), "this": ha._REV_FIELDS}
+        for tag, fns in reverse_cases(dev, rev):
+            outs = {k: on(libs[k], fns[k])() for k in libs}
+            torch.cuda.synchronize()
+            gap = cs.adi_grad_gap(outs["this"], outs["other"])
+            results[tag] = times = in_turns(libs, fns, 5)
+            print(f"{tag}: largest relative gap of the gradients {gap:.2e}; device ms by CUDA "
+                  f"events, in turns [{card}]: other "
+                  + " / ".join(f"{t:.4f}" for t in times["other"]) + ", this "
+                  + " / ".join(f"{t:.4f}" for t in times["this"])
+                  + f"; this / other {min(times['this']) / min(times['other']):.3f}",
+                  flush=True)
+        if args.fit:
+            points = {"other": [], "this": []}
+            for n_x, n_v, ops, hist, weight in cs.adi_reverse_fit_inputs(dev):
+                fns = {who: (lambda f=f: reverse(ops, hist, weight, False, f))
+                       for who, f in rev.items()}
+                for who in libs:
+                    on(libs[who], fns[who])()
+                times = in_turns(libs, fns, 5)
+                for who in libs:
+                    points[who].append((n_x, n_v, min(times[who]) / cs.ADI_FIT_STEPS * 1e3))
+            for who in ("other", "this"):
+                c0, cx, cv, worst = cs.step_fit(points[who])
+                results[f"adi adjoint fit {who}"] = {"points": points[who], "c0": c0, "cx": cx,
+                                                     "cv": cv}
+                print(f"adi adjoint step fit, {who} tree, µs a step on (n_x, n_v, µs) "
+                      f"{[(x, v, round(t, 2)) for x, v, t in points[who]]} [{card}]: "
+                      f"{c0:.2f} + {cx:.4f}·n_x + {cv:.4f}·n_v (largest residual {worst:.2f})",
+                      flush=True)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "cases": results}, indent=1))
