@@ -176,6 +176,23 @@ is printed):
               and plain version beside the chain bound, recounted and old;
               the forward's and the reverse's step fits on the cluster route
               (run after the θ-scheme phase, before the pricers);
+17b. loops  — the θ-scheme reverse kernel (``theta_pde_adjoint_kernel``)
+              at ``fdm_price``'s defaults, European, projection and Howard,
+              float32 and float64: the forward with its history bit for bit
+              the plain loop's, the ten gradients against the plain reverse
+              within a stated bound, one launch and no tridiagonal launch,
+              two launches bitwise; ``fdm_price``'s gradient one forward and
+              one reverse launch, delta's sign, rho and dividend rho against
+              central differences; the θ-scheme kernel's jump table on the
+              dividend PDE (401 x 400, European and American, bit for bit
+              its plain loop; the public call one launch; the parity gap);
+              the local-vol loop kernel (``csrc/lv_pde.cu``) bit for bit its
+              plain loop for ``_lv_solve`` (201 x 200, European and
+              American) and ``lv_bermudan_slices`` (401 x 25 dates x 8), one
+              launch a call and no tridiagonal launch, the flat surface
+              against Black–Scholes; each kernel's device ms beside its
+              plain loop's and its chain bound (run after the θ-scheme
+              phase, before the pricers);
 
 18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
               handler at its defaults (65,536 paths x 24 dates, 8 substeps a
@@ -189,8 +206,8 @@ is printed):
               allocations summing to the CVA, the CVA Greeks, wrong-way risk,
               the AMC in + out barriers against the vanilla; ``greeks_fdm``
               on 256 contracts (201 x 100, European against Black–Scholes,
-              American against the 2048-step lattice), which launches the
-              θ-scheme and tridiagonal kernels; VaR/ES, component ES, option
+              American against the 2048-step lattice), one θ-scheme launch
+              and one of its reverse a call; VaR/ES, component ES, option
               VaR, stress and sensitivity on a frame without pandas, the
               portfolio's Greeks against the sum of ``bs_greeks``; each call's
               warm wall ms and CUDA kernel count, none of the eleven Monte
@@ -202,15 +219,15 @@ is printed):
               against the reference tests' oracles (SSVI rmse, arbitrage,
               held-out vols); an 8,192-quote synthetic chain at the defaults;
               the Dupire surface of that fit (121 x 60): its PDE against
-              Black–Scholes at the surface's vol (200 tridiagonal launches a
-              price) and the local-vol kernel 8,126,464 x 100 on it (one
-              launch a call); ``calibrate_model_to_chain`` heston, bates,
-              heston-mc (exactly 202 chain launches) and rbergomi at their
-              defaults; ``mc_convergence_study`` and ``validate_pricer``;
-              each call's warm wall and CUDA kernels (the Adam loops counted
-              from one- and two-step loops); then ``/calibrate`` through its
-              handler and over a socket, and a 400; no other Monte Carlo
-              kernel launched.
+              Black–Scholes at the surface's vol (one launch of the
+              local-vol loop a price) and the local-vol kernel 8,126,464 x
+              100 on it (one launch a call); ``calibrate_model_to_chain``
+              heston, bates, heston-mc (exactly 202 chain launches) and
+              rbergomi at their defaults; ``mc_convergence_study`` and
+              ``validate_pricer``; each call's warm wall and CUDA kernels
+              (the Adam loops counted from one- and two-step loops); then
+              ``/calibrate`` through its handler and over a socket, and a
+              400; no other Monte Carlo kernel launched.
 20. learned — the learned surfaces, the pricing surrogate and ``optimize/``
               at the models' defaults, with ``pandas`` unimportable: on the
               CBOE chain (every 7th quote held out) ``MLPModel`` (held-out
@@ -309,6 +326,7 @@ from optionslab_tpu_torch.ops import heston_adi as ha
 from optionslab_tpu_torch.ops import heston_exotic_kernel as hx
 from optionslab_tpu_torch.ops import heston_kernel as hk
 from optionslab_tpu_torch.ops import local_vol_kernel as lk
+from optionslab_tpu_torch.ops import lv_pde as lvp
 from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 from optionslab_tpu_torch.ops import slv_kernel as sk
 from optionslab_tpu_torch.ops import theta_pde as tp
@@ -326,6 +344,27 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 def log(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
+
+
+def clock_phases() -> None:
+    """Wraps every ``phase_*`` function of this script so that it logs its
+    seconds, and the seconds since this call, as it returns: where the run's
+    1,200 s go (the host-bound phases vary most between machines)."""
+    start = time.perf_counter()
+
+    def clocked(name, fn):
+        def run(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                now = time.perf_counter()
+                log("clock", f"{name} {now - t0:.1f} s, {now - start:.1f} s since the start")
+        return run
+
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            globals()[name] = clocked(name, fn)
 
 
 def card_line() -> str:
@@ -2624,20 +2663,30 @@ def in_turns(fns: dict) -> dict:
     return out
 
 
-def kernel_launches(fns: list, calls: int) -> dict:
+def kernel_launches(fns: list, calls: int, sessions: int = 3) -> dict:
     """CUDA kernels the profiler sees in ``calls`` calls of each of ``fns``
-    (one profiler session), by name."""
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for fn in fns:
-            for _ in range(calls):
-                fn()
-        torch.cuda.synchronize()
+    in one profiler session, by name: for each name the most that one of
+    ``sessions`` sessions saw. The profiler's CUDA records are not all
+    delivered in every session: a run whose earlier phases had opened
+    profiler sessions of thousands of launches saw 17 and 18 of these 25
+    launches in one session (NVIDIA H100 80GB HBM3), and ``cuda_kernels``
+    sees a few dozen go missing now and then. A lost record only lowers a
+    count, so the most of a few sessions is the count; a launch too many or
+    one missing in every session still shows."""
     out = {"multi_asset_kernel": 0, "reduce_rows_kernel": 0}
-    for e in prof.key_averages():
-        for name in out:
-            if name in e.key:
-                out[name] += e.count
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for fn in fns:
+                for _ in range(calls):
+                    fn()
+            torch.cuda.synchronize()
+        seen = dict.fromkeys(out, 0)
+        for e in prof.key_averages():
+            for name in seen:
+                if name in e.key:
+                    seen[name] += e.count
+        out = {name: max(out[name], seen[name]) for name in out}
     return out
 
 
@@ -2983,15 +3032,19 @@ def phase_pricers(dev, card: str) -> dict:
         got = loop_launches(lambda a=american: fdm.fdm_price(fbook, american=a))
         check(got == (1, 0), f"fdm_price american={american}: {got} (θ-scheme, tridiag) "
                              f"launches, not (1, 0)")
-    # one gradient: the backward runs the plain loop on the card under
-    # autograd, one tridiagonal launch a solve each way
+    # one gradient: one forward launch with its history and one launch of
+    # the reverse kernel, no tridiagonal launch
     def fdm_grad(n_time=200):
         leaves = [getattr(fbook, f).detach().requires_grad_(True) for f in FDM_FIELDS[:6]]
         price = fdm.fdm_price(ContractBatch(*leaves, fbook.cp), n_time=n_time)
         return torch.autograd.grad(price.sum(), leaves)
 
-    grads = record("fdm_price european gradient 256x201x200", fdm_grad,
-                   lambda: linear_kernels(fdm_grad, 200), warm=lambda: fdm_grad(2))
+    grads = record("fdm_price european gradient 256x201x200", fdm_grad, iters=3)
+    before = tp._theta_adjoint_cuda.launches
+    got = loop_launches(fdm_grad)
+    check(got == (1, 0) and tp._theta_adjoint_cuda.launches == before + 1,
+          f"fdm_price gradient: {got} (θ-scheme, tridiag) launches and "
+          f"{tp._theta_adjoint_cuda.launches - before} reverse launches, not (1, 0) and 1")
     check(all(bool(torch.isfinite(g).all()) for g in grads), "fdm_price gradient not finite")
     check(bool(((grads[0] * fbook.cp) > 0).all()), "fdm_price delta has the wrong sign")
     crr_am = bn.binomial_price(fbook, american=True, n_steps=2048)
@@ -3698,6 +3751,367 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
     return worst, timing
 
 
+# the θ-scheme reverse kernel (csrc/theta_pde.cu theta_pde_adjoint_kernel)
+# against the plain reverse at fdm_price's defaults, each gradient relative
+# to its largest entry: the adjoint solve by LU (Uᵀ then Lᵀ on the step's
+# pivots) against the plain reverse's Thomas solve on the transposed
+# diagonals, the sums over nodes and steps in another order (as
+# tests/test_torch_cuda.py's THETA_REVERSE_RTOL)
+THETA_REVERSE_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+# fdm_price's rho and dividend rho (float64, European: the grid moves with
+# neither r nor q, and the price is smooth in both) against central
+# differences of step THETA_FD_STEP
+THETA_FD_STEP = 1e-5
+THETA_FD_RTOL = 1e-6
+THETA_NAMES = ("lo", "di", "up", "a", "b", "c", "w", "psi", "v0", "ends")
+
+
+def theta_reverse_bound(ops, dtype, node_ms: dict, howard: bool) -> tuple[float, str, float]:
+    """(bound ms, what binds, chain ms) of one reverse launch: the operands,
+    the history and the gradient read once and the ten gradients written
+    once at the card's memory rate; 30 float operations a node a step (34
+    with Howard's pivots) at its peak rate for the dtype; and a contract's
+    chain, the contracts side by side. Each step's Uᵀ sweep is a forward
+    chain of products and differences and its Lᵀ sweep a back chain with a
+    quotient, on the same pivots: n nodes of the right-hand-side probe,
+    whose node is a forward and a back node; and the pivots once, n nodes at
+    the pivot probe's node less a back node (as :func:`theta_bound` charges
+    the forward's tables). For Howard each step's matrix is new: its pivots
+    beside the Uᵀ sweep and then the Lᵀ sweep, n nodes at the pivot probe's
+    node, which is a pivot, a right-hand side and a back node."""
+    size = torch.finfo(dtype).bits // 8
+    batch, n = ops[-2].shape
+    n_time = ops[-1].shape[1]
+    grids = batch * n
+    hist = batch * n_time * n
+    nbytes = (6 * grids + 4 * batch + hist + 5 * grids + 4 * batch + 2 * batch * n_time) * size
+    nbytes += hist if howard else 0  # the exercise sets, a byte a node
+    flops = (34.0 if howard else 30.0) * hist
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS) * 1e3
+    pivot, rhs, back = (node_ms[k][dtype] for k in ("pivot", "rhs", "back"))
+    chain = n_time * n * pivot if howard else n * (pivot - back) + n_time * n * rhs
+    bound = max(t_bytes, t_ops, chain)
+    return bound, "bytes" if t_bytes >= bound else "operations", chain
+
+
+def grad_gaps(got, want) -> tuple[float, float]:
+    """(largest relative gap, each gradient relative to its largest entry;
+    largest absolute gap) of two gradient lists."""
+    rel = max(((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+              for g, w in zip(got, want))
+    return rel, max((g - w).abs().max().item() for g, w in zip(got, want))
+
+
+def phase_theta_reverse(dev, card: str, node_ms: dict) -> tuple[float, dict]:
+    """The θ-scheme reverse kernel at fdm_price's defaults (THETA_SHAPE):
+    European, projection and Howard, float32 and float64; the forward with
+    its history one launch, bit for bit the plain loop's (values, solutions,
+    exercise sets); the reverse's ten gradients against the plain reverse on
+    that history within THETA_REVERSE_RTOL, one launch and no tridiagonal
+    launch, a second launch bit for bit the first; device ms of the reverse,
+    the forward with its history and the plain reverse by CUDA events beside
+    the bound (:func:`theta_reverse_bound`). Then ``fdm_price``'s gradient
+    through the Function (one forward and one reverse launch, no
+    tridiagonal launch; its warm wall), delta's sign, and rho and dividend
+    rho against central differences. Returns (largest absolute difference of
+    a float32 gradient, {tag: timing})."""
+    from optionslab_tpu_torch.models import fdm
+
+    t_phase = time.perf_counter()
+    book = pricer_book(THETA_SHAPE[0], dev, seed=11)
+    worst, timing = 0.0, {}
+    for dtype in (torch.float32, torch.float64):
+        args = [getattr(book, f).to(dtype) for f in FDM_FIELDS]
+        for name, mode in THETA_MODES.items():
+            _, ops = fdm._cn_operands(*args, *THETA_SHAPE[1:], 0.5, mode != tp.EUROPEAN)
+            before = tp._theta_cuda.launches
+            out, hist_u, hist_m = tp._theta_cuda(*ops, mode, history=True)
+            check(tp._theta_cuda.launches == before + 1, "θ-scheme with history: not one launch")
+            plain = tp._theta_plain(*ops, mode, history=True)
+            torch.cuda.synchronize()
+            tag = f"{name} {str(dtype)[6:]}"
+            check(torch.equal(out, plain[0]) and torch.equal(hist_u, plain[1])
+                  and (hist_m is None) == (plain[2] is None)
+                  and (hist_m is None or torch.equal(hist_m, plain[2])),
+                  f"θ-scheme {tag}: the forward or its history differs from the plain loop's")
+            gen = torch.Generator(device=dev).manual_seed(5)
+            g = torch.randn(out.shape, generator=gen, device=dev, dtype=dtype)
+            before = tp._theta_adjoint_cuda.launches, tri._tridiag_cuda.launches
+            got = tp._theta_adjoint_cuda(*ops, mode, hist_u, hist_m, g)
+            again = tp._theta_adjoint_cuda(*ops, mode, hist_u, hist_m, g)
+            torch.cuda.synchronize()
+            check((tp._theta_adjoint_cuda.launches, tri._tridiag_cuda.launches)
+                  == (before[0] + 2, before[1]), "θ reverse: not one launch a call, or a "
+                                                 "tridiagonal launch")
+            check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                  f"θ reverse {tag}: two launches differ")
+            want = tp._theta_reverse_plain(*ops, mode, hist_u, hist_m, g)
+            torch.cuda.synchronize()
+            rel, err = grad_gaps(got, want)
+            each = {nm: grad_gaps([x], [y])[0] for nm, x, y in zip(THETA_NAMES, got, want)}
+            check(rel < THETA_REVERSE_RTOL[dtype], f"θ reverse {tag}: {rel:.2e} off the plain "
+                                                   f"reverse ({each})")
+            if dtype == torch.float32:
+                worst = max(worst, err)
+            ms = event_time(lambda: tp._theta_adjoint_cuda(*ops, mode, hist_u, hist_m, g), 3)
+            fwd_ms = event_time(lambda: tp._theta_cuda(*ops, mode, history=True), 3)
+            plain_ms = event_time(lambda: tp._theta_reverse_plain(*ops, mode, hist_u, hist_m, g),
+                                  1)
+            bound, by, chain = theta_reverse_bound(ops, dtype, node_ms, mode == tp.HOWARD)
+            timing[tag] = {"ms": ms, "forward_ms": fwd_ms, "plain_ms": plain_ms,
+                           "bound_ms": bound, "bound_by": by, "chain_ms": chain, "rel": rel}
+            log("theta-reverse", f"{tag} {'x'.join(map(str, THETA_SHAPE))}: the forward and "
+                                 f"its history bitwise the plain loop's; the reverse within "
+                                 f"{rel:.2e} of the plain reverse (largest gradient "
+                                 f"{max(each, key=each.get)}), two launches bitwise; device ms "
+                                 f"by CUDA events [{card}]: reverse {ms:.4f}, forward with "
+                                 f"history {fwd_ms:.4f}, plain reverse {plain_ms:.3f}, bound "
+                                 f"{bound:.4f} ({by}; the chain {chain:.4f}, {chain / ms:.2f} "
+                                 f"of the kernel)")
+
+    for dtype in (torch.float32, torch.float64):  # the longest grid the forward takes
+        size = torch.finfo(dtype).bits // 8
+        n = 3
+        while tp.tile_bytes(n + 1, 1, size) <= tri.SMEM_LIMIT:
+            n += 1
+        args = [getattr(book, f)[:2].to(dtype) for f in FDM_FIELDS]
+        _, ops = fdm._cn_operands(*args, n, 4, 0.5, True)
+        out, hist_u, hist_m = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+        g = torch.ones_like(out)
+        before = tp._theta_adjoint_cuda.launches
+        got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+        # the float64 plain reverse on the same history, and the plain
+        # reverse's own gap to it: on so long a float32 grid both reach ≈1e-3
+        exact = tp._theta_reverse_plain(*(o.double() for o in ops), tp.HOWARD,
+                                        hist_u.double(), hist_m, g.double())
+        own, _ = grad_gaps(tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g), exact)
+        torch.cuda.synchronize()
+        rel, _ = grad_gaps(got, exact)
+        limit = max(2 * own, THETA_REVERSE_RTOL[dtype])
+        check(tp._theta_adjoint_cuda.launches == before + 1 and rel < limit,
+              f"θ reverse at the forward's longest grid ({n} nodes, {str(dtype)[6:]}): "
+              f"{rel:.2e} off the float64 plain reverse, the plain reverse {own:.2e}")
+        log("theta-reverse", f"the forward's longest grid, {n} nodes {str(dtype)[6:]} (one "
+                             f"contract a block), Howard, 2 contracts x 4 steps: one reverse "
+                             f"launch, {rel:.2e} off the float64 plain reverse on its history "
+                             f"(the plain reverse of its dtype {own:.2e}; limit {limit:.1e})")
+
+    # walls only in this phase and the two after it: the public calls' kernel
+    # counts come from the pricers, slice, risk and surface phases
+    def fdm_grad(fields, american):
+        leaves = [x.detach().requires_grad_(True) for x in fields[:6]]
+        price = fdm.fdm_price(ContractBatch(*leaves, fields[6]), american=american)
+        return torch.autograd.grad(price.sum(), leaves)
+
+    for dtype in (torch.float32, torch.float64):
+        fields = [getattr(book, f).to(dtype) for f in FDM_FIELDS]
+        for american in (False, True):
+            before = (tp._theta_cuda.launches, tp._theta_adjoint_cuda.launches,
+                      tri._tridiag_cuda.launches)
+            grads, ms = timed(lambda: fdm_grad(fields, american), 3)
+            after = (tp._theta_cuda.launches, tp._theta_adjoint_cuda.launches,
+                     tri._tridiag_cuda.launches)
+            tag = f"fdm_price {'american' if american else 'european'} gradient " \
+                  f"{'x'.join(map(str, THETA_SHAPE))} {str(dtype)[6:]}"
+            check(tuple(a - b for a, b in zip(after, before)) == (4, 4, 0),
+                  f"{tag}: (forward, reverse, tridiag) launches {after} from {before}, not one "
+                  f"forward and one reverse a call")
+            check(all(bool(torch.isfinite(x).all()) for x in grads), f"{tag}: not finite")
+            check(bool(((grads[0] * fields[6]) > 0).all()), f"{tag}: delta has the wrong sign")
+            timing[tag] = {"wall_ms": ms}
+            log("theta-reverse", f"{tag}: one forward and one reverse launch, no tridiagonal "
+                                 f"launch; warm wall {ms:.1f} ms [{card}]")
+            if dtype != torch.float64 or american:
+                continue
+            for i, name in ((3, "rho"), (5, "dividend rho")):
+                def price_at(shift, i=i):
+                    moved = list(fields)
+                    moved[i] = fields[i] + shift
+                    return fdm.fdm_price(ContractBatch(*moved))
+                fd = (price_at(THETA_FD_STEP) - price_at(-THETA_FD_STEP)) / (2 * THETA_FD_STEP)
+                gap = ((grads[i] - fd).abs().max() / fd.abs().max()).item()
+                check(gap < THETA_FD_RTOL, f"{tag}: {name} {gap:.2e} off central differences")
+                log("theta-reverse", f"{tag}: {name} within {gap:.2e} of central differences "
+                                     f"(step {THETA_FD_STEP}, relative to the largest)")
+    log("theta-reverse", f"phase {time.perf_counter() - t_phase:.1f} s")
+    return worst, timing
+
+
+# the dividend PDE at fdm_price_discrete_dividends' defaults: nodes, steps
+DIV_SHAPE = (401, 400)
+
+
+def phase_div_loop(dev, card: str, node_ms: dict) -> tuple[float, dict]:
+    """The θ-scheme kernel's jump table on the dividend PDE at its defaults
+    (DIV_SHAPE, SL_DIVS, float32): European and American (Howard), call and
+    put, bit for bit the plain loop with the table; device ms of kernel and
+    plain loop by CUDA events beside :func:`theta_bound`; the public call
+    one θ-scheme launch and no tridiagonal launch, its warm wall; the
+    European parity gap and the American put above the European. Returns
+    (largest absolute difference of kernel and plain loop, {tag: timing})."""
+    from optionslab_tpu_torch.models import dividends as dv
+
+    t_phase = time.perf_counter()
+    steps = dv._div_steps([t for t, _ in SL_DIVS], 1.0, DIV_SHAPE[1])
+    amounts = np.asarray([d for _, d in SL_DIVS], np.float32)
+    worst, timing = 0.0, {}
+    for american in (False, True):
+        mode = tp.HOWARD if american else tp.EUROPEAN
+        for cp in (1.0, -1.0):
+            _, _, ops, jumps = dv._fdm_div_operands(
+                100.0, 100.0, 1.0, 0.05, 0.2, amounts, cp=cp, n_space=DIV_SHAPE[0],
+                n_time=DIV_SHAPE[1], american=american, div_steps=steps, device=dev)
+            before = tp._theta_cuda.launches, tp._theta_cuda.jump_launches
+            kern, solves, pivots = tp._theta_cuda(*ops, mode, count_solves=True, jumps=jumps)
+            check((tp._theta_cuda.launches, tp._theta_cuda.jump_launches)
+                  == (before[0] + 1, before[1] + 1), "dividend loop: not one launch")
+            plain = tp._theta_plain(*ops, mode, jumps=jumps)
+            torch.cuda.synchronize()
+            tag = f"{'american' if american else 'european'} {'call' if cp > 0 else 'put'} " \
+                  f"{DIV_SHAPE[0]}x{DIV_SHAPE[1]}"
+            diff = (kern - plain).abs().max().item()
+            worst = max(worst, diff)
+            check(torch.equal(kern, plain), f"dividend loop {tag}: kernel differs from the "
+                                            f"plain loop by {diff:.3e}")
+            if (cp > 0) == american:  # time the European call and the American put
+                continue
+            ms = event_time(lambda: tp._theta_cuda(*ops, mode, jumps=jumps), 5)
+            plain_ms = event_time(lambda: tp._theta_plain(*ops, mode, jumps=jumps), 1)
+            bound, by, chain, old, _ = theta_bound(ops, torch.float32, node_ms, solves, pivots)
+            timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                           "chain_ms": chain, "solves": int(solves.max().item())}
+            log("div-loop", f"{tag}: bitwise equal to the plain loop with its jump table; "
+                            f"device ms by CUDA events [{card}]: kernel {ms:.4f}, plain loop "
+                            f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}, "
+                            f"{chain / ms:.2f} of the kernel; {int(solves.max().item())} "
+                            f"solves)")
+
+    def div_pde(cp, american=False):
+        return dv.fdm_price_discrete_dividends(100.0, 100.0, 1.0, 0.05, 0.2, SL_DIVS, cp=cp,
+                                               american=american, device=dev)
+
+    prices = {}
+    for cp, american in ((1.0, False), (-1.0, False), (-1.0, True)):
+        got = loop_launches(lambda: div_pde(cp, american))
+        check(got == (1, 0), f"the dividend PDE (cp {cp}, american={american}): {got} "
+                             f"(θ-scheme, tridiag) launches, not (1, 0)")
+        prices[cp, american], ms = timed(lambda: div_pde(cp, american), 3)
+        timing[f"wall {cp} {american}"] = {"wall_ms": ms}
+        log("div-loop", f"fdm_price_discrete_dividends cp={cp} american={american} "
+                        f"{DIV_SHAPE[0]}x{DIV_SHAPE[1]}: one θ-scheme launch, no tridiagonal "
+                        f"launch; warm wall {ms:.2f} ms [{card}]")
+    gap = dv.dividend_parity_gap(prices[1.0, False], prices[-1.0, False], 100.0, 100.0, 1.0,
+                                 0.05, SL_DIVS)
+    check(gap < 0.02, f"dividend PDE parity gap {gap:.2e}")
+    check(prices[-1.0, True] > prices[-1.0, False], "the American put is not above the European")
+    log("div-loop", f"parity gap {gap:.2e} (< 0.02); American put {prices[-1.0, True]:.5f} > "
+                    f"European {prices[-1.0, False]:.5f}; phase "
+                    f"{time.perf_counter() - t_phase:.1f} s")
+    return worst, timing
+
+
+# the local-vol loop: _lv_solve at DupireLocalVol.price's defaults (nodes,
+# steps) and lv_bermudan_slices at local_vol_american_bracket's (nodes,
+# dates, steps a date)
+LV_PDE = (201, 200)
+LV_BERMUDAN = (401, 25, 8)
+
+
+def lv_bound(lo, node_ms: dict, n_conts: int) -> tuple[float, str, float]:
+    """(bound ms, what binds, chain ms) of one local-vol loop launch: the
+    step tables, ψ and v read once, v and the slices written once at the
+    card's memory rate; 8 float operations a node a step (the solve) at the
+    float32 peak; and the chain: each step's matrix is new, so each step's
+    solve is n nodes at the pivot probe's node (a node of the pivots' chain
+    and of the back substitution)."""
+    batch, n_time, n = lo.shape
+    nbytes = (4 * batch * n_time * n + 2 * batch * n_time + 3 * batch * n
+              + n_conts * batch * n) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 8.0 * batch * n_time * n / FP32_FLOPS * 1e3
+    chain = n_time * n * node_ms["pivot"][torch.float32]
+    bound = max(t_bytes, t_ops, chain)
+    return bound, "bytes" if t_bytes >= bound else "operations", chain
+
+
+def lv_launches(fn) -> tuple[int, int]:
+    """(local-vol loop, tridiagonal) kernel launches in one call of ``fn``."""
+    before = lvp._lv_cuda.launches
+    solves = tri_solves(fn)
+    return lvp._lv_cuda.launches - before, solves
+
+
+def phase_lv_loop(dev, card: str, node_ms: dict) -> tuple[float, dict]:
+    """The local-vol loop kernel (``csrc/lv_pde.cu``) on the sample smile:
+    ``_lv_solve``'s European call and American put at LV_PDE and
+    ``lv_bermudan_slices``' put at LV_BERMUDAN, each bit for bit the plain
+    loop on the same step tables (the slices too), one launch; device ms of
+    kernel and plain loop by CUDA events beside :func:`lv_bound`; then
+    ``DupireLocalVol.price``, the American PDE and the bracket's slices one
+    launch each and no tridiagonal launch, their warm walls, and the PDE on
+    a flat surface against Black–Scholes. Returns (largest absolute
+    difference, {tag: timing})."""
+    from optionslab_tpu_torch.models import local_vol_american as lva
+    from optionslab_tpu_torch.models.black_scholes import bs_price
+
+    t_phase = time.perf_counter()
+    dup = smile_dupire(dev)
+    s = dup.surface
+    grids = (s.k_grid, s.t_grid, s.grid)
+    n_b, dates, spd = LV_BERMUDAN
+    cases = (("european call", (100.0, 1.0, 1.0, *LV_PDE, False), lvp.EUROPEAN, 1),
+             ("american put", (100.0, 1.0, -1.0, *LV_PDE, False), lvp.PROJECTION, 1),
+             ("bermudan put", (100.0, 1.0, -1.0, n_b, dates * spd, True), lvp.BERMUDAN, spd))
+    worst, timing = 0.0, {}
+    for name, args, mode, steps in cases:
+        _, intr, lo, di, up, ends = lvm._lv_tables(*grids, S0, RATE, 0.0, *args)
+        ops = [t[None] for t in (lo, di, up, ends, intr, intr)]
+        before = lvp._lv_cuda.launches
+        kern = lvp._lv_cuda(*ops, mode, steps)
+        check(lvp._lv_cuda.launches == before + 1, "local-vol loop: not one launch")
+        plain = lvp._lv_plain(*ops, mode, steps)
+        torch.cuda.synchronize()
+        tag = f"{name} {lo.shape[1]}x{lo.shape[0]}"
+        worst = max(worst, (kern[0] - plain[0]).abs().max().item())
+        check(torch.equal(kern[0], plain[0]) and (kern[1] is None) == (plain[1] is None)
+              and (kern[1] is None or torch.equal(kern[1], plain[1])),
+              f"local-vol loop {tag}: kernel differs from the plain loop")
+        ms = event_time(lambda: lvp._lv_cuda(*ops, mode, steps), 5)
+        plain_ms = event_time(lambda: lvp._lv_plain(*ops, mode, steps), 1)
+        n_conts = dates - 1 if mode == lvp.BERMUDAN else 0
+        bound, by, chain = lv_bound(ops[0], node_ms, n_conts)
+        timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "chain_ms": chain}
+        log("lv-loop", f"{tag}: bitwise equal to the plain loop{' (slices too)' if n_conts else ''}"
+                       f"; device ms by CUDA events [{card}]: kernel {ms:.4f}, plain loop "
+                       f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}, "
+                       f"{chain / ms:.2f} of the kernel)")
+    calls = (("DupireLocalVol.price european call 201x200", lambda: dup.price(S0, 100.0, 1.0)),
+             ("_lv_solve american put 201x200",
+              lambda: lvm._lv_solve(*grids, S0, RATE, 0.0, 100.0, 1.0, -1.0, american=True)),
+             (f"lv_bermudan_slices put {n_b}x{dates}x{spd}",
+              lambda: lva.lv_bermudan_slices(*grids, S0, RATE, 0.0, 100.0, 1.0, -1.0, dates, spd,
+                                             n_b)[1]))
+    for name, fn in calls:
+        got = lv_launches(fn)
+        check(got == (1, 0), f"{name}: {got} (local-vol loop, tridiag) launches, not (1, 0)")
+        out, ms = timed(fn, 3)
+        on_card(out)
+        check(bool(torch.isfinite(out).all()), f"{name}: not finite")
+        timing[name] = {"wall_ms": ms}
+        log("lv-loop", f"{name}: one local-vol loop launch, no tridiagonal launch; warm wall "
+                       f"{ms:.2f} ms [{card}]")
+    flat = smile_dupire(dev, flat=True)
+    got = flat.price(S0, 100.0, 1.0).item()
+    want = bs_price(torch.tensor(S0, device=dev), 100.0, 1.0, RATE, 0.2, 1.0).item()
+    check(abs(got - want) < 0.02, f"the local-vol PDE on a flat surface {got:.5f} vs "
+                                  f"Black–Scholes {want:.5f}")
+    log("lv-loop", f"flat 0.2 surface: the PDE {got:.5f} vs Black–Scholes {want:.5f} (< 0.02, "
+                   f"tests/test_torch_local_vol.py); phase {time.perf_counter() - t_phase:.1f} s")
+    return worst, timing
+
+
 # the Douglas ADI kernels (csrc/heston_adi.cu): the CPU tests' grid, then
 # the defaults of heston_fdm_price/_greeks, of the ADI bracket
 # (heston_american_bracket: 50 dates x 8 steps), of /american heston (25 x
@@ -4171,8 +4585,7 @@ def phase_slice(dev, card: str) -> dict:
                                                american=american, n_time=n_time, device=dev)
 
     bs_c = bs_price(torch.tensor(100.0, device=dev), 100.0, 1.0, 0.05, 0.2, 1.0).item()
-    c0 = record("fdm_price_discrete_dividends european 401x400", lambda: div_pde(1.0, []),
-                lambda: linear_kernels(lambda k: div_pde(1.0, [], n_time=k), 400, base=10))
+    c0 = record("fdm_price_discrete_dividends european 401x400", lambda: div_pde(1.0, []))
     check(abs(c0 - bs_c) < 0.01, f"dividend PDE without dividends {c0:.5f} vs BS {bs_c:.5f}")
     c, p = div_pde(1.0), div_pde(-1.0)
     gap = dv.dividend_parity_gap(c, p, 100.0, 100.0, 1.0, 0.05, SL_DIVS)
@@ -4189,9 +4602,7 @@ def phase_slice(dev, card: str) -> dict:
         z[cp] = (pde - mc) / se
         check(abs(pde - mc) < 3 * se + 0.03, f"dividend PDE {pde:.5f} vs MC {mc:.5f} ± {se:.1e}")
     am_p = record("fdm_price_discrete_dividends american put 401x400",
-                  lambda: div_pde(-1.0, american=True),
-                  lambda: linear_kernels(lambda k: div_pde(-1.0, american=True, n_time=k), 400,
-                                         base=10))
+                  lambda: div_pde(-1.0, american=True))
     check(am_p > p, f"American put {am_p:.5f} not above the European {p:.5f}")
     log("slice", f"dividends: no-div {c0:.5f} vs BS {bs_c:.5f}; parity gap {gap:.1e}; (PDE − "
                  f"MC)/se call {z[1.0]:.2f}, put {z[-1.0]:.2f}; American put {am_p:.5f} > "
@@ -4315,6 +4726,10 @@ RK_XVA = (65_536, 24, 8)  # /xva's defaults: paths, dates, AMC substeps a date
 RK_BS_CAP = (1_048_576, 120)  # /xva's caps on the closed-form engine
 RK_AMC_CAP = (524_288, 120, 8)  # and on the AMC engine
 RK_FDM_BOOK = 256  # greeks_fdm at fdm_price_fn's defaults, 201 x 100
+RK_FDM_2ND = 16  # the PDE's second-order Greeks, the first 16 calls of that book
+# gamma and vomma of the PDE (float32, 201 x 100) against Black–Scholes: ≈4x
+# the gaps a CPU run of the same calls shows (3.4e-4 and 0.37)
+RK_FDM_2ND_TOLS = {"gamma": 1.5e-3, "vomma": 1.5}
 RK_HAZARD, RK_RECOVERY = 0.02, 0.4
 RK_MPOR = 10.0 / 252.0
 RK_CORR = [[1.0, 0.5], [0.5, 1.0]]
@@ -4480,19 +4895,23 @@ def phase_risk(dev, card: str) -> dict:
     n_call = int((book256.cp > 0).sum())
     calls = [x[book256.cp > 0] for x in args + (book256.dividend,)]
     puts = [x[book256.cp < 0] for x in args + (book256.dividend,)]
+    # each call one θ-scheme launch forward and one of its reverse kernel
     gf = record(f"greeks_fdm european {n_call} calls 201x100",
-                lambda: gr.greeks_fdm(*calls[:5], "call", calls[5]),
-                lambda: linear_kernels(lambda k: gr.greeks_from_fn(
-                    gr.fdm_price_fn(1.0, n_time=k), *calls, second_order=False), 100))
+                lambda: gr.greeks_fdm(*calls[:5], "call", calls[5]))
     ex = bs_greeks(*calls[:5], 1.0, calls[5])
     d_err = (gf["delta"] - ex["delta"]).abs().max().item()
     v_err = (gf["vega"] - ex["vega"]).abs().max().item()
     check(d_err < 5e-3 and v_err < 0.5, f"greeks_fdm vs BS: delta {d_err}, vega {v_err}")
     ga = record(f"greeks_fdm american {RK_FDM_BOOK - n_call} puts 201x100",
-                lambda: gr.greeks_fdm(*puts[:5], "put", puts[5], american=True),
-                lambda: linear_kernels(lambda k: gr.greeks_from_fn(
-                    gr.fdm_price_fn(-1.0, n_time=k, american=True), *puts,
-                    second_order=False), 100))
+                lambda: gr.greeks_fdm(*puts[:5], "put", puts[5], american=True))
+    for name, fn in (("european", lambda: gr.greeks_fdm(*calls[:5], "call", calls[5])),
+                     ("american", lambda: gr.greeks_fdm(*puts[:5], "put", puts[5],
+                                                        american=True))):
+        before = tp._theta_adjoint_cuda.launches
+        got = loop_launches(fn)
+        check(got == (1, 0) and tp._theta_adjoint_cuda.launches == before + 1,
+              f"greeks_fdm {name}: {got} (θ-scheme, tridiag) launches and "
+              f"{tp._theta_adjoint_cuda.launches - before} reverse launches, not (1, 0) and 1")
     lat = bn.binomial_greeks(ContractBatch(*puts[:5], puts[5], -torch.ones_like(puts[0])),
                              american=True, n_steps=2048)
     a_err = (ga["delta"] - lat["delta"]).abs().max().item()
@@ -4501,6 +4920,31 @@ def phase_risk(dev, card: str) -> dict:
     on_card(gf["delta"], ga["delta"])
     log("risk", f"greeks_fdm vs BS: max |delta| {d_err:.2e}, |vega| {v_err:.3f}; American "
                 f"delta vs CRR@2048 {a_err:.2e}")
+    # the PDE's second-order Greeks: the first gradient is asked for with a
+    # graph, so the θ-scheme Function's backward reruns the plain loop under
+    # autograd (a tridiagonal launch a solve each way; vomma differentiates
+    # it); vanna and charm differentiate delta, which reads the loop's values
+    # directly, through a first-order backward: one reverse launch a call
+    book2 = [x[:RK_FDM_2ND] for x in calls]
+
+    def fdm_second():
+        return gr.greeks_from_fn(gr.fdm_price_fn(1.0), *book2, second_order=True)
+
+    before = tp._theta_adjoint_cuda.launches, tri._tridiag_cuda.launches
+    fdm_second()
+    torch.cuda.synchronize()
+    check(tp._theta_adjoint_cuda.launches == before[0] + 1
+          and tri._tridiag_cuda.launches > before[1],
+          f"the second-order PDE Greeks ran {tp._theta_adjoint_cuda.launches - before[0]} "
+          f"reverse launches and {tri._tridiag_cuda.launches - before[1]} tridiagonal ones, "
+          f"not one and the recompute's")
+    g2 = record(f"greeks_from_fn fdm second order {RK_FDM_2ND} calls 201x100", fdm_second)
+    ex2 = bs_greeks(*book2[:5], 1.0, book2[5])
+    g_err = {k: (g2[k] - ex2[k]).abs().max().item() for k in RK_FDM_2ND_TOLS}
+    check(all(g_err[k] < tol for k, tol in RK_FDM_2ND_TOLS.items()),
+          f"second-order PDE Greeks vs BS: {g_err} (bounds {RK_FDM_2ND_TOLS})")
+    log("risk", f"second-order PDE Greeks vs BS, max abs: {g_err} (bounds {RK_FDM_2ND_TOLS}); "
+                f"the recompute's tridiagonal launches and one reverse launch a call")
 
     # VaR/ES, stress, sensitivity and the portfolio, on the card
     gen = torch.Generator(device=dev).manual_seed(5)
@@ -4607,7 +5051,8 @@ SF_KERNELS = {"gbm_mc": gk._gbm_moments_cuda, "exotic_mc": ek._exotic_moments_cu
               "heston_chain": hk._heston_chain_cuda, "heston_exotic": hx._heston_exotic_cuda,
               "local_vol_mc": lk._lv_cuda, "slv_mc": sk._slv_cuda,
               "multi_asset_mc": mk._ma_cuda, "tridiag": tri._tridiag_cuda,
-              "theta_pde": tp._theta_cuda, "heston_adi": ha._adi_cuda,
+              "theta_pde": tp._theta_cuda, "theta_pde_adjoint": tp._theta_adjoint_cuda,
+              "lv_pde": lvp._lv_cuda, "heston_adi": ha._adi_cuda,
               "heston_adi_adjoint": ha._adi_adjoint_cuda}
 
 
@@ -4782,11 +5227,10 @@ def phase_surface(dev, card: str) -> dict:
         bs_at[(strike, mat)] = float(bs_price(synth.spot, strike, mat, synth.rate, vol, 1.0))
         pde, launched = warm_call(f"DupireLocalVol.price K={strike} T={mat} (201 x 200)",
                                   lambda s=strike, m=mat: lv.price(synth.spot, s, m),
-                                  lambda: None, lambda s=strike, m=mat: linear_kernels(
-                                      lambda n: lv._solve(s, m, 1.0, n_time=n), 200),
-                                  stats, card)
-        check(launched.get("tridiag", 0) == 200, f"the PDE made {launched} launches, not 200 "
-                                                 "tridiagonal solves")
+                                  lambda: None, lambda s=strike, m=mat: cuda_kernels(
+                                      lambda: lv.price(synth.spot, s, m)), stats, card)
+        check(launched == {"lv_pde": 1}, f"the PDE made launches {launched}, not one of the "
+                                         "local-vol loop")
         gap = abs(float(pde) / bs_at[(strike, mat)] - 1.0)
         check(gap < SF_PDE_TOL, f"PDE K={strike} T={mat}: {float(pde)} vs BS "
                                 f"{bs_at[(strike, mat)]} ({gap})")
@@ -6015,6 +6459,7 @@ def phase_parallel(dev, card: str) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
+    clock_phases()
     dev = torch.device("cuda", 0)
     card = card_line()
     log("device", f"{card} | torch {torch.__version__} CUDA {torch.version.cuda} | "
@@ -6033,6 +6478,9 @@ def main() -> None:
     ma_err = phase_ma_parity(dev)
     tri_err, tri_t, node_ms = phase_tridiag(dev, card)
     theta_err, theta_t = phase_theta(dev, card, node_ms)
+    rev_err, rev_t = phase_theta_reverse(dev, card, node_ms)
+    div_err, div_t = phase_div_loop(dev, card, node_ms)
+    lvl_err, lvl_t = phase_lv_loop(dev, card, node_ms)
     adi_err, adi_t, adi_grad = phase_heston_adi(dev, card, node_ms)
     fdm_grid_check(dev)
 
@@ -6148,6 +6596,9 @@ def main() -> None:
     # of the tridiagonal kernel
     tri._tridiag_cuda.launches = 0
     tp._theta_cuda.launches = 0
+    tp._theta_cuda.jump_launches = 0
+    tp._theta_adjoint_cuda.launches = 0
+    lvp._lv_cuda.launches = 0
     ha._adi_cuda.launches = 0
     ha._adi_adjoint_cuda.launches = 0
     phase_pricers(dev, card)
@@ -6158,18 +6609,25 @@ def main() -> None:
     phase_slice_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
           "the slice launched one of the eleven Monte Carlo kernels")
-    pde_before = (tri._tridiag_cuda.launches, tp._theta_cuda.launches)
+    check(tp._theta_cuda.jump_launches > 0, "the dividend PDE never launched the θ-scheme "
+                                            "kernel with its jump table")
+    check(lvp._lv_cuda.launches > 0, "the local-vol bracket never launched the local-vol loop")
+    pde_before = (tri._tridiag_cuda.launches, tp._theta_cuda.launches,
+                  tp._theta_adjoint_cuda.launches)
     phase_risk(dev, card)
     phase_risk_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
           "the risk engine launched one of the eleven Monte Carlo kernels")
     risk_tri = tri._tridiag_cuda.launches - pde_before[0]
     risk_theta = tp._theta_cuda.launches - pde_before[1]
-    log("launches", f"the risk engine's share: tridiag {risk_tri}, theta_pde {risk_theta}")
-    check(risk_theta > 0, "greeks_fdm never launched the θ-scheme kernel")
+    risk_rev = tp._theta_adjoint_cuda.launches - pde_before[2]
+    log("launches", f"the risk engine's share: tridiag {risk_tri}, theta_pde {risk_theta}, "
+                    f"theta_pde_adjoint {risk_rev}")
+    check(risk_theta > 0 and risk_rev > 0 and risk_tri > 0,
+          "greeks_fdm never launched the θ-scheme kernel or its reverse, or the second-order "
+          "PDE Greeks never ran the recompute")
     # the chain-to-surface slice, with pandas unimportable (the card's machine
-    # has none): heston_chain, local_vol_mc and tridiag launch, nothing else
-    # of the Monte Carlo kernels
+    # has none): heston_chain, local_vol_mc and lv_pde launch, nothing else
     had_pandas = sys.modules.get("pandas", False)
     sys.modules["pandas"] = None
     try:
@@ -6205,7 +6663,8 @@ def main() -> None:
             del sys.modules["pandas"]
         else:
             sys.modules["pandas"] = had_pandas
-    check(all(cl[k] > 0 for k in cl if k not in ("heston_qe", "tridiag", "heston_adi_adjoint")),
+    check(all(cl[k] > 0 for k in cl if k not in ("heston_qe", "tridiag", "heston_adi_adjoint",
+                                                  "theta_pde_adjoint", "lv_pde")),
           f"the command line never launched a kernel of its path: {cl}")
     # parallel/: every kernel route sharded over meshes of this card
     pl_before = launch_counts()
@@ -6213,7 +6672,8 @@ def main() -> None:
     pl_after = launch_counts()
     pl = {k: pl_after[k] - pl_before[k] for k in pl_after}
     log("launches", f"the parallel slice's share: {pl}")
-    off_path = ("heston_chain", "tridiag", "theta_pde", "heston_adi", "heston_adi_adjoint")
+    off_path = ("heston_chain", "tridiag", "theta_pde", "theta_pde_adjoint", "lv_pde",
+                "heston_adi", "heston_adi_adjoint")
     check(all(pl[k] > 0 for k in pl if k not in off_path),
           f"the parallel slice never launched a kernel of its path: {pl}")
     check(all(pl[k] == 0 for k in off_path),
@@ -6229,9 +6689,10 @@ def main() -> None:
     check(sf_launches["heston_chain"] >= 202, "the heston-mc fit never ran its 202 launches")
     check(sf_launches["local_vol_mc"] == surf["lv"],
           f"local_vol_mc launched {sf_launches['local_vol_mc']} times for {surf['lv']} calls")
-    check(sf_launches["tridiag"] > 0, "the chain's Dupire PDE never launched tridiag")
+    check(sf_launches["lv_pde"] > 0, "the chain's Dupire PDE never launched the local-vol "
+                                     "loop")
     check(all(n == 0 for k, n in sf_launches.items()
-              if k not in ("heston_chain", "local_vol_mc", "tridiag")),
+              if k not in ("heston_chain", "local_vol_mc", "lv_pde")),
           f"the surface slice launched another kernel: {sf_launches}")
     tri_launches = tri._tridiag_cuda.launches
     log("launches", f"tridiag launched {tri_launches} times over the pricers, the slice, "
@@ -6241,6 +6702,12 @@ def main() -> None:
     log("launches", f"theta_pde launched {theta_launches} times over the pricers, the slice, "
                     "the risk engine and the command line")
     check(theta_launches > 0, "the PDE path never launched the θ-scheme kernel")
+    rev_launches, jump_launches = tp._theta_adjoint_cuda.launches, tp._theta_cuda.jump_launches
+    lv_loop_launches = lvp._lv_cuda.launches
+    log("launches", f"theta_pde_adjoint launched {rev_launches} times, theta_pde with a jump "
+                    f"table {jump_launches}, lv_pde {lv_loop_launches}, over the same paths")
+    check(min(rev_launches, jump_launches, lv_loop_launches) > 0,
+          "the PDE path never launched the θ reverse, the jump table or the local-vol loop")
     adi_launched = (ha._adi_cuda.launches, ha._adi_adjoint_cuda.launches)
     log("launches", f"heston_adi launched {adi_launched[0]} times, heston_adi_adjoint "
                     f"{adi_launched[1]}, over the slice, its routes and the command line")
@@ -6316,6 +6783,19 @@ def main() -> None:
                  "optionslab_tpu/models/fdm.py:162 (lax.scan) and :101 (fori_loop), no Pallas "
                  "kernel", theta_launches, theta_err, theta_t["howard θ=0.5 float32"]),
          "chain_ms": theta_t["howard θ=0.5 float32"]["chain_ms"]},
+        {**entry("theta_pde_adjoint_kernel", "theta_pde.cu",
+                 "optionslab_tpu/models/fdm.py:162 and :101 (the reverse mode jax.grad runs), "
+                 "no Pallas kernel", rev_launches, rev_err, rev_t["howard float32"]),
+         "chain_ms": rev_t["howard float32"]["chain_ms"]},
+        {**entry("theta_pde_kernel (jump table)", "theta_pde.cu",
+                 "optionslab_tpu/models/dividends.py:137 (lax.scan of _fdm_div_single), no "
+                 "Pallas kernel", jump_launches, div_err, div_t["american put 401x400"]),
+         "chain_ms": div_t["american put 401x400"]["chain_ms"]},
+        {**entry("lv_pde_kernel", "lv_pde.cu",
+                 "optionslab_tpu/models/local_vol.py:197 and local_vol_american.py:85-125 "
+                 "(lax.scan), no Pallas kernel", lv_loop_launches, lvl_err,
+                 lvl_t["european call 201x200"]),
+         "chain_ms": lvl_t["european call 201x200"]["chain_ms"]},
         {**entry("heston_adi_kernel", "heston_adi.cu",
                  "optionslab_tpu/models/heston_fdm.py:200, :219, :331, :403 (lax.scan over the "
                  "step at :160-177), no Pallas kernel", adi_launched[0], adi_err,

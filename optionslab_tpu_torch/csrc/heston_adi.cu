@@ -1030,17 +1030,6 @@ struct AdjointLayout {
   }
 };
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;" ::: "memory"); }
-
 // Barrier 1 of the CTA's threads, by parts: the chain warps arrive when
 // their forward halves are stored and go on to the back substitution; the
 // other warps wait there and then check the halves.
@@ -1220,13 +1209,13 @@ __global__ void __launch_bounds__(kClusterThreads, 1) heston_adi_adjoint_kernel(
       if (r < 0 || r >= n_v) continue;
       const float* src = (y1 ? yk : vk) + static_cast<int64_t>(r) * n_x;
       float* dst = y1 ? yr + (q - halo_rows) * hx + 1 : vr + q * hx + 1;
-      for (int c = lane; c < n_x; c += 32) cp_async4(dst + c, src + c);
+      for (int c = lane; c < n_x; c += 32) tri::cp_async(dst + c, src + c);
     }
     for (int r = warp - w0; r < n_v; r += nw) {
       const float* src = pk + static_cast<int64_t>(r) * n_x + c0;
-      for (int jc = lane; jc < nc; jc += 32) cp_async4(pcb + jc * hv + r + 1, src + jc);
+      for (int jc = lane; jc < nc; jc += 32) tri::cp_async(pcb + jc * hv + r + 1, src + jc);
     }
-    cp_async_commit();
+    tri::cp_async_commit();
   };
   // the gradient of V_k at (r, c0 + jc) from step k's moves, in the plain
   // reverse's order
@@ -1321,7 +1310,7 @@ __global__ void __launch_bounds__(kClusterThreads, 1) heston_adi_adjoint_kernel(
   const float inv_xch = 1.0f / xch;
   for (int k = a.n_t - 1; k >= 0; --k) {
     const int buf = k % L.bufs;
-    cp_async_wait_all();
+    tri::cp_async_wait_all();
     __syncthreads();
     const float* pcb = smem + L.pcol + buf * C * hv;
     for (int jc = tid; jc < nc; jc += kClusterThreads) first[jc] = n_v;

@@ -68,23 +68,6 @@ constexpr int kWarp = 32;
 constexpr int kChunk = 32;
 constexpr int kStages = 2;
 
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned saddr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(saddr), "l"(src),
-               "n"(sizeof(T))
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The shared-memory tile of one block: a plane per operand, node-major
 // (node j of system s at [j * pitch + s], a broadcast operand's one row at
 // [j]), each with tri::kPad rows of padding at both ends, then c' and d'
@@ -128,11 +111,11 @@ __device__ __forceinline__ void stage(const T* g, int64_t sb, int64_t se, T* t, 
                                       int rows, int j0, int len, int lane) {
   if (se != 1 && sb == 1) {
     if (lane < rows) {
-      for (int j = j0; j < j0 + len; ++j) cp_async(t + j * step + lane, g + lane + j * se);
+      for (int j = j0; j < j0 + len; ++j) tri::cp_async(t + j * step + lane, g + lane + j * se);
     }
   } else if (lane < len) {
     const int j = j0 + lane;
-    for (int s = 0; s < rows; ++s) cp_async(t + j * step + s, g + s * sb + j * se);
+    for (int s = 0; s < rows; ++s) tri::cp_async(t + j * step + s, g + s * sb + j * se);
   }
 }
 
@@ -163,7 +146,7 @@ __global__ void __launch_bounds__(kWarp) tridiag_kernel(Operand lo, Operand di, 
               ops[o].sb == 0 ? 1 : rows, j0, len, lane);
       }
     }
-    cp_async_commit();  // an empty group past the end keeps the count
+    tri::cp_async_commit();  // an empty group past the end keeps the count
   };
   for (int k = 0; k < kStages; ++k) stage_chunk(k);
   for (int o = 0; o < 4; ++o) {  // the padding, seen after the first wait's __syncwarp
@@ -191,7 +174,7 @@ __global__ void __launch_bounds__(kWarp) tridiag_kernel(Operand lo, Operand di, 
   T den = T(1);
   for (int k = 0; k < n_chunks; ++k) {
     stage_chunk(k + kStages);
-    cp_async_wait<kStages>();  // chunk k has landed (this lane's copies)
+    tri::cp_async_wait<kStages>();  // chunk k has landed (this lane's copies)
     __syncwarp();              // and every lane's
     // the partners' last node a step after the pivots'
     const int j1 = k + 1 == n_chunks ? n + 1 : (k + 1) * kChunk;

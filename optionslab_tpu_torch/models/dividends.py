@@ -5,10 +5,12 @@ The port of ``optionslab_tpu/models/dividends.py``. GBM between ex-dates; at
 each ex-date the spot drops S -> max(S - D, 0).
 
 * :func:`fdm_price_discrete_dividends` — the θ = 1/2 scheme on the log-spot
-  grid of ``models/fdm.py`` (one tridiagonal launch a step, or Howard's
-  policy iteration for the American) with the jump condition
-  V(S, t_d^-) = V(S - D, t_d^+) applied by interpolation at the step whose
-  time level crosses t_d. European and American, float32, on ``device``.
+  grid of ``models/fdm.py`` (Howard's policy iteration for the American)
+  with the jump condition V(S, t_d^-) = V(S - D, t_d^+) applied by
+  interpolation at the step whose time level crosses t_d: the whole loop
+  one :func:`theta_loop` with a jump table, one launch of
+  ``csrc/theta_pde.cu`` on the card. European and American, float32, on
+  ``device``.
 * :func:`mc_price_discrete_dividends` — exact simulation, one lognormal
   factor per inter-dividend interval, antithetic, from one
   ``torch.Generator`` on ``device``; simulated in float32, reduced in
@@ -22,12 +24,11 @@ import math
 import numpy as np
 import torch
 
-from ..ops.theta_pde import howard_lcp_solve
-from ..ops.tridiag import tridiag_solve
+from ..ops.theta_pde import EUROPEAN, HOWARD, Jumps, theta_loop
 from ..utils.config import EPS_TIME
 from ..utils.exceptions import ValidationError
 from .fdm import _grid, _read_price
-from .slv import _interp
+from .slv import _interp_table
 
 __all__ = ["fdm_price_discrete_dividends", "mc_price_discrete_dividends",
            "dividend_parity_gap"]
@@ -46,11 +47,15 @@ def _check_divs(dividends, maturity):
     return t[order], a[order]
 
 
-def _fdm_div_single(spot, strike, maturity, rate, vol, div_amounts, *, cp: float, n_space: int,
-                    n_time: int, american: bool, div_steps: tuple, device):
-    """Backward θ = 1/2 scheme with the dividend shifts at fixed steps
+def _fdm_div_operands(spot, strike, maturity, rate, vol, div_amounts, *, cp: float,
+                      n_space: int, n_time: int, american: bool, div_steps: tuple, device):
+    """The grid and the arguments of :func:`theta_loop` (but the mode) of the
+    backward θ = 1/2 scheme with the dividend shifts at fixed steps
     (``div_steps``: the step after which the new time level has crossed that
-    dividend's date, backward from T)."""
+    dividend's date, backward from T): (x, spot, ops, the jump table or
+    None). The per-step end values are one table, formed by the per-step
+    loop's elementwise operations on all the steps at once (the step's k + 1
+    is exact in float32, so each entry rounds as that step's did)."""
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32, device=device).reshape(1)  # noqa: E731
     spot, strike, maturity, rate, vol = map(f32, (spot, strike, maturity, rate, vol))
     t = torch.clamp_min(maturity, EPS_TIME)
@@ -72,38 +77,57 @@ def _fdm_div_single(spot, strike, maturity, rate, vol, div_amounts, *, cp: float
     di = torch.where(edge, 1.0, 1.0 - theta_s * dt * b * ones)
     up = torch.where(edge, 0.0, -theta_s * dt * c * ones)
     amounts = [float(d) for d in div_amounts]
-    div_at = dict(zip(div_steps, amounts))
     # forward times of the dividends, for the PV of those still to come
     div_t = [t - dt * (k + 1.0) for k in div_steps]
+    tau = torch.arange(1, n_time + 1, dtype=torch.float32, device=device) * dt  # (k + 1)·dt
+    t_now = t - tau
+    rem = 0.0
+    for td, amt in zip(div_t, amounts):
+        rem = rem + torch.where(td > t_now, amt * torch.exp(-rate * (td - t_now)), 0.0)
+    low = (0.0 if cp > 0 else strike * torch.exp(-rate * tau) - (s_nodes[:, 0] - rem)) + \
+        torch.zeros_like(tau)
+    high = (s_nodes[:, -1] - rem - strike * torch.exp(-rate * tau) if cp > 0 else 0.0) + \
+        torch.zeros_like(tau)
+    if american:
+        low = torch.maximum(low, intrinsic[:, 0])
+        high = torch.maximum(high, intrinsic[:, -1])
+    ends = torch.stack([torch.clamp_min(low, 0.0), torch.clamp_min(high, 0.0)], dim=-1)[None]
+    # the jump condition V(S, t_d^-) = V(max(S - D, S_min), t_d^+) at each
+    # dividend's step: _interp's gather table on the grid (None: no jump)
+    shifts = [(k, d) for k, d in zip(div_steps, amounts) if d > 0.0]
+    table = None
+    if shifts:
+        codes, weights = zip(*(_interp_table(torch.clamp_min(s_nodes[0] - d, s_nodes[0, 0]),
+                                             s_nodes[0]) for _, d in shifts))
+        table = Jumps(tuple(k for k, _ in shifts), torch.stack(codes)[None],
+                      torch.stack(weights)[None])
     w = (1.0 - theta_s) * dt
-    v = intrinsic
-    for k in range(n_time):
-        tau = (k + 1.0) * dt
-        rhs = v + w * (a * torch.roll(v, 1, dims=1) + b * v + c * torch.roll(v, -1, dims=1))
-        t_now = t - tau
-        rem = 0.0
-        for td, amt in zip(div_t, amounts):
-            rem = rem + torch.where(td > t_now, amt * torch.exp(-rate * (td - t_now)), 0.0)
-        low = (0.0 if cp > 0 else strike * torch.exp(-rate * tau) - (s_nodes[:, 0] - rem)) + \
-            torch.zeros_like(tau)
-        high = (s_nodes[:, -1] - rem - strike * torch.exp(-rate * tau) if cp > 0 else 0.0) + \
-            torch.zeros_like(tau)
-        if american:
-            low = torch.maximum(low, intrinsic[:, 0])
-            high = torch.maximum(high, intrinsic[:, -1])
-        rhs = torch.cat([torch.clamp_min(low, 0.0)[:, None], rhs[:, 1:-1],
-                         torch.clamp_min(high, 0.0)[:, None]], dim=1)
-        if american:
-            v = howard_lcp_solve(lo, di, up, rhs, intrinsic)
-        else:
-            v = tridiag_solve(lo, di, up, rhs)
-        d = div_at.get(k, 0.0)
-        if d > 0.0:  # the jump condition V(S, t_d^-) = V(max(S - D, S_min), t_d^+)
-            s_shift = torch.clamp_min(s_nodes[0] - d, s_nodes[0, 0])
-            v = _interp(s_shift, s_nodes[0], v[0])[None, :]
-            if american:  # exercise allowed the instant before the drop
-                v = torch.maximum(v, intrinsic)
+    col = lambda z: z.reshape(1, 1)  # noqa: E731
+    ops = (lo, di, up, col(a), col(b), col(c), col(w), intrinsic, intrinsic, ends)
+    return x, spot, ops, table
+
+
+def _fdm_div_single(spot, strike, maturity, rate, vol, div_amounts, *, cp: float, n_space: int,
+                    n_time: int, american: bool, div_steps: tuple, device):
+    """Backward θ = 1/2 scheme with the dividend shifts at fixed steps: one
+    :func:`theta_loop` with a jump table (European, or Howard's obstacle
+    step for the American)."""
+    x, spot, ops, jumps = _fdm_div_operands(
+        spot, strike, maturity, rate, vol, div_amounts, cp=cp, n_space=n_space, n_time=n_time,
+        american=american, div_steps=div_steps, device=device)
+    v = theta_loop(*ops, HOWARD if american else EUROPEAN, jumps=jumps)
     return _read_price(v, x, spot)[0]
+
+
+def _div_steps(div_times, maturity: float, n_time: int) -> tuple:
+    """The step whose new time level sits just past each ex-date (backward):
+    tau crosses T - t_d at k = round((T - t_d)/dt) - 1."""
+    dt = maturity / n_time
+    steps = tuple(int(np.clip(np.round((maturity - tdi) / dt) - 1, 0, n_time - 1))
+                  for tdi in div_times)
+    if len(set(steps)) != len(steps):
+        raise ValidationError("dividend dates too close for the time grid; raise n_time")
+    return steps
 
 
 def fdm_price_discrete_dividends(spot, strike, maturity, rate, vol, dividends, cp: float = 1.0,
@@ -115,13 +139,7 @@ def fdm_price_discrete_dividends(spot, strike, maturity, rate, vol, dividends, c
     td, da = _check_divs(dividends, float(maturity))
     if n_space % 2 == 0:
         raise ValidationError("n_space must be odd")
-    dt = float(maturity) / n_time
-    # the step whose new time level sits just past the ex-date (backward):
-    # tau crosses T - t_d at k = round((T - t_d)/dt) - 1
-    steps = tuple(int(np.clip(np.round((float(maturity) - tdi) / dt) - 1, 0, n_time - 1))
-                  for tdi in td)
-    if len(set(steps)) != len(steps):
-        raise ValidationError("dividend dates too close for the time grid; raise n_time")
+    steps = _div_steps(td, float(maturity), n_time)
     return float(_fdm_div_single(
         float(spot), float(strike), float(maturity), float(rate), float(vol),
         np.asarray(da, np.float32), cp=float(cp), n_space=n_space, n_time=n_time,

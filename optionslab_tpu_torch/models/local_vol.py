@@ -12,7 +12,8 @@ The port of ``optionslab_tpu/models/local_vol.py``.
   of ∂w); the result is a :class:`LocalVolSurface`, bilinear in
   (log-forward-moneyness, T), clamped at the grid's edges.
 * ``DupireLocalVol.price`` solves the local-vol PDE: implicit time steps
-  through the surface, a Thomas solve each (``ops/tridiag.py``).
+  through the surface, every step's diagonals formed as one table and the
+  whole loop one launch of ``csrc/lv_pde.cu`` (``ops/lv_pde.py``).
 * :func:`local_vol_mc_price` and the swap strikes run the scan engine: a
   log-Euler loop over the steps with a bilinear σ(S, t) lookup per step and
   antithetic normals from an explicit ``torch.Generator``; the statistical
@@ -33,7 +34,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..ops.tridiag import tridiag_solve
+from ..ops.lv_pde import EUROPEAN, PROJECTION, lv_loop
 from ..utils.config import EPS_TIME
 from ..utils.exceptions import ValidationError
 
@@ -188,49 +189,69 @@ def _sigma_at(k_grid, t_grid, vol_grid, spot, rate, dividend):
     return sigma_at
 
 
-def _lv_solve(k_grid, t_grid, vol_grid, spot, rate, dividend, strike, maturity, cp,
-              n_space: int = 201, n_time: int = 200, american: bool = False) -> torch.Tensor:
-    """Implicit time stepping of the local-vol PDE in log-spot through the
-    interpolated surface; the value at the spot node."""
+def _lv_tables(k_grid, t_grid, vol_grid, spot, rate, dividend, strike, maturity, cp,
+               n_space: int, n_time: int, floor_low: bool):
+    """The grid and every step's operands of the implicit local-vol loop,
+    float32 on the surface's device: (x, intrinsic, lo, di, up, ends). Step
+    i runs from calendar time T − (i + 1)·dt to T − i·dt and reads σ(S, t)
+    at its midpoint (clamped to 1e-4); ``lo``, ``di``, ``up`` are its (n_time,
+    n) diagonals, ``ends`` its (n_time, 2) end values at time to expiry (i +
+    1)·dt: the put's discounted strike less the low node (floored at
+    intrinsic with ``floor_low``, the American put's deep boundary), the
+    call's forward less the discounted strike at the high node. One pass of
+    the per-step loop's elementwise operations on all the steps at once
+    (i + 0.5 and i + 1 are exact in float32), so each entry rounds as that
+    step's did."""
     dev = vol_grid.device
 
-    def f32(x):
-        return torch.as_tensor(x, dtype=torch.float32, device=dev)
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
 
-    strike, maturity, cp = f32(strike), f32(maturity), f32(cp)
-    t_total = torch.clamp_min(maturity, EPS_TIME)
+    strike, cp = f32(strike), f32(cp)
+    t_total = torch.clamp_min(f32(maturity), EPS_TIME)
     sigma_at = _sigma_at(k_grid, t_grid, vol_grid, spot, rate, dividend)
     atm_vol = sigma_at(f32(spot), 0.5 * t_total)
     half = 6.0 * torch.clamp_min(atm_vol, 0.1) * torch.sqrt(t_total)
-    x = math.log(spot) + torch.linspace(-1.0, 1.0, n_space, device=dev) * half
+    x = math.log(spot) + torch.linspace(-1.0, 1.0, n_space, dtype=torch.float32, device=dev) * half
     dx = x[1] - x[0]
     s_nodes = torch.exp(x)
     dt = t_total / n_time
     intrinsic = torch.clamp_min(cp * (s_nodes - strike), 0.0)
     edge = torch.zeros(n_space, dtype=torch.bool, device=dev)
     edge[0] = edge[-1] = True
-    v = intrinsic
-    for i in range(n_time):
-        tau = t_total - (i + 0.5) * dt  # calendar time of this step
-        sig = sigma_at(s_nodes, torch.clamp_min(tau, 1e-4))
-        sig2 = sig * sig
-        mu = rate - dividend - 0.5 * sig2
-        a = 0.5 * sig2 / dx**2 - 0.5 * mu / dx
-        b = -sig2 / dx**2 - rate
-        c = 0.5 * sig2 / dx**2 + 0.5 * mu / dx
-        lo = torch.where(edge, 0.0, -dt * a)
-        di = torch.where(edge, 1.0, 1.0 - dt * b)
-        up = torch.where(edge, 0.0, -dt * c)
-        tau_exp = (i + 1.0) * dt
-        df_exp = strike * torch.exp(-rate * tau_exp)
-        vlo = torch.where(cp > 0, 0.0, df_exp - s_nodes[0])
-        vhi = torch.where(cp > 0, s_nodes[-1] * torch.exp(-dividend * tau_exp) - df_exp, 0.0)
-        rhs = torch.cat([torch.clamp_min(vlo, 0.0).reshape(1), v[1:-1],
-                         torch.clamp_min(vhi, 0.0).reshape(1)])
-        v = tridiag_solve(lo, di, up, rhs)
-        if american:
-            v = torch.maximum(v, intrinsic)
-    return v[n_space // 2]
+    steps = torch.arange(n_time, dtype=torch.float32, device=dev)
+    tau = t_total - (steps + 0.5) * dt  # calendar time of each step
+    sig = sigma_at(s_nodes, torch.clamp_min(tau, 1e-4)[:, None])  # (n_time, n)
+    sig2 = sig * sig
+    mu = rate - dividend - 0.5 * sig2
+    a = 0.5 * sig2 / dx**2 - 0.5 * mu / dx
+    b = -sig2 / dx**2 - rate
+    c = 0.5 * sig2 / dx**2 + 0.5 * mu / dx
+    lo = torch.where(edge, 0.0, -dt * a)
+    di = torch.where(edge, 1.0, 1.0 - dt * b)
+    up = torch.where(edge, 0.0, -dt * c)
+    tau_exp = (steps + 1.0) * dt
+    df_exp = strike * torch.exp(-rate * tau_exp)
+    low = df_exp - s_nodes[0]
+    if floor_low:
+        low = torch.maximum(low, intrinsic[0])
+    vlo = torch.where(cp > 0, 0.0, low)
+    vhi = torch.where(cp > 0, s_nodes[-1] * torch.exp(-dividend * tau_exp) - df_exp, 0.0)
+    ends = torch.stack([torch.clamp_min(vlo, 0.0), torch.clamp_min(vhi, 0.0)], dim=-1)
+    return x, intrinsic, lo, di, up, ends
+
+
+def _lv_solve(k_grid, t_grid, vol_grid, spot, rate, dividend, strike, maturity, cp,
+              n_space: int = 201, n_time: int = 200, american: bool = False) -> torch.Tensor:
+    """Implicit time stepping of the local-vol PDE in log-spot through the
+    interpolated surface, the American clamped to intrinsic after each step:
+    one :func:`lv_loop` on the step tables of :func:`_lv_tables`. The value
+    at the spot node."""
+    _, intrinsic, lo, di, up, ends = _lv_tables(k_grid, t_grid, vol_grid, spot, rate, dividend,
+                                                strike, maturity, cp, n_space, n_time, False)
+    v, _ = lv_loop(lo[None], di[None], up[None], ends[None], intrinsic[None], intrinsic[None],
+                   PROJECTION if american else EUROPEAN)
+    return v[0, n_space // 2]
 
 
 def _lv_scan(surface, maturity, generator: torch.Generator, n_paths: int, n_steps: int,

@@ -3,9 +3,9 @@
 The port of ``optionslab_tpu/models/local_vol_american.py``.
 
 * :func:`lv_bermudan_slices` — a Bermudan implicit solve through σ(S, t)
-  (``ops/tridiag.py``, one Thomas solve per step), projecting on the
-  exercise value only at the ``n_dates`` exercise dates and recording the
-  continuation slice at each.
+  (one launch of ``csrc/lv_pde.cu`` on the card, ``ops/lv_pde.py``),
+  projecting on the exercise value only at the ``n_dates`` exercise dates
+  and recording the continuation slice at each.
 * Those slices drive the exercise policy, the dual martingale's value
   surface and the martingale control variate of the lower bound
   (:func:`_lv_dual_pipeline`): the martingale's increments are the surface
@@ -23,10 +23,9 @@ import math
 
 import torch
 
-from ..ops.tridiag import tridiag_solve
-from ..utils.config import EPS_TIME
+from ..ops.lv_pde import BERMUDAN, lv_loop
 from ..utils.exceptions import ValidationError
-from .local_vol import DupireLocalVol, _sigma_at
+from .local_vol import DupireLocalVol, _lv_tables, _sigma_at
 
 __all__ = ["local_vol_american_bracket", "lv_bermudan_slices"]
 
@@ -34,67 +33,19 @@ __all__ = ["local_vol_american_bracket", "lv_bermudan_slices"]
 def lv_bermudan_slices(k_grid, t_grid, vol_grid, spot, rate, dividend, strike, maturity, cp,
                        n_dates: int, steps_per_date: int = 8, n_space: int = 401):
     """Bermudan implicit solve through σ(S, t) on the surface's device,
-    float32. Returns ``(price0, cont_all, x)``: ``cont_all`` is (n_dates + 1,
-    n_space) continuation values by forward date index (entry 0 unused,
-    entry n_dates zero), ``x`` the uniform log-spot nodes (spot mid-grid)."""
-    dev = vol_grid.device
-
-    def f32(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=dev)
-
-    strike, cp = f32(strike), f32(cp)
-    t_total = torch.clamp_min(f32(maturity), EPS_TIME)
-    spd = steps_per_date
-    n_time = n_dates * spd
-    sig_of = _sigma_at(k_grid, t_grid, vol_grid, spot, rate, dividend)
-    atm_vol = sig_of(f32(spot), 0.5 * t_total)
-    half = 6.0 * torch.clamp_min(atm_vol, 0.1) * torch.sqrt(t_total)
-    x = math.log(spot) + torch.linspace(-1.0, 1.0, n_space, dtype=torch.float32, device=dev) * half
-    dx = x[1] - x[0]
-    s_nodes = torch.exp(x)
-    dt = t_total / n_time
-    intrinsic = torch.clamp_min(cp * (s_nodes - strike), 0.0)
-    edge = torch.zeros(n_space, dtype=torch.bool, device=dev)
-    edge[0] = edge[-1] = True
-
-    def step(v, i):
-        tau = t_total - (i + 0.5) * dt
-        sig = sig_of(s_nodes, torch.clamp_min(tau, 1e-4))
-        sig2 = sig * sig
-        mu = rate - dividend - 0.5 * sig2
-        a = 0.5 * sig2 / dx**2 - 0.5 * mu / dx
-        b = -sig2 / dx**2 - rate
-        c = 0.5 * sig2 / dx**2 + 0.5 * mu / dx
-        lo = torch.where(edge, 0.0, -dt * a)
-        di = torch.where(edge, 1.0, 1.0 - dt * b)
-        up = torch.where(edge, 0.0, -dt * c)
-        tau_exp = (i + 1.0) * dt
-        # deep boundaries: the American put floors at intrinsic, the call
-        # takes the forward
-        vlo = torch.where(cp > 0, 0.0, torch.maximum(strike * torch.exp(-rate * tau_exp)
-                                                     - s_nodes[0], intrinsic[0]))
-        vhi = torch.where(cp > 0, s_nodes[-1] * torch.exp(-dividend * tau_exp)
-                          - strike * torch.exp(-rate * tau_exp), 0.0)
-        rhs = torch.cat([torch.clamp_min(vlo, 0.0).reshape(1), v[1:-1],
-                         torch.clamp_min(vhi, 0.0).reshape(1)])
-        return tridiag_solve(lo, di, up, rhs)
-
-    def run_block(v, b):
-        for j in range(spd):
-            v = step(v, float(b * spd + j))
-        return v
-
-    v = intrinsic
-    conts = []
-    for b in range(n_dates - 1):
-        v = run_block(v, b)
-        conts.append(v)
-        v = torch.maximum(v, intrinsic)
-    v = run_block(v, n_dates - 1)
-    zero = torch.zeros((1, n_space), dtype=torch.float32, device=dev)
-    cont_all = torch.cat([zero, torch.stack(conts[::-1]), zero]) if conts else \
-        torch.cat([zero, zero])
-    return v[n_space // 2], cont_all, x
+    float32: one :func:`lv_loop` on the step tables of ``_lv_tables`` (the
+    put's low end floored at intrinsic). Returns ``(price0, cont_all, x)``:
+    ``cont_all`` is (n_dates + 1, n_space) continuation values by forward
+    date index (entry 0 unused, entry n_dates zero), ``x`` the uniform
+    log-spot nodes (spot mid-grid)."""
+    x, intrinsic, lo, di, up, ends = _lv_tables(k_grid, t_grid, vol_grid, spot, rate, dividend,
+                                                strike, maturity, cp, n_space,
+                                                n_dates * steps_per_date, True)
+    v, conts = lv_loop(lo[None], di[None], up[None], ends[None], intrinsic[None],
+                       intrinsic[None], BERMUDAN, steps_per_date)
+    zero = torch.zeros((1, n_space), dtype=torch.float32, device=x.device)
+    cont_all = torch.cat([zero, conts[0].flip(0), zero])
+    return v[0, n_space // 2], cont_all, x
 
 
 def _interp1(sl, x0, dx, n_x, s):

@@ -79,6 +79,25 @@ def _interp(x, xp, fp):
     return torch.where(x > xp[-1], fp[-1], f)
 
 
+def _interp_table(x, xp):
+    """:func:`_interp` at ``x`` as a gather table for any ``fp`` on ``xp``:
+    (code, weight), each of x's shape. A node that interpolates has code
+    i − 1 ≥ 0 and weight (x − x0)/dx, so f0 + weight·(f1 − f0) rounds as
+    :func:`_interp` does; a node that takes one value of fp (a tie of nodes,
+    or x beyond an end) has code −1 − (its index). The same operations as
+    :func:`_interp`'s, in its order."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, n - 1)
+    x0 = xp[i - 1]
+    dx = xp[i] - x0
+    tiny = dx.abs() <= torch.finfo(xp.dtype).eps * torch.finfo(xp.dtype).eps
+    weight = (x - x0) / torch.where(tiny, 1.0, dx)
+    code = torch.where(tiny, -i, i - 1)
+    code = torch.where(x < xp[0], -1, code)
+    code = torch.where(x > xp[-1], -n, code)
+    return code.to(torch.int32), weight
+
+
 def _slv_scan(generator: torch.Generator, spot, maturity, rate, dividend, params, mixing,
               lv_grids, n_paths: int, n_steps: int, n_bins: int, init, update, antithetic: bool,
               leverage_rows=None, wants_var: bool = False):

@@ -225,10 +225,28 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _P, _P, _P,              # lower, diag, upper, coef (a, b, c, w)
         _P, _P, _P,                  # psi, v0, ends
         _P, _P,                      # out, counts (2, blocks): solves, pivot nodes
+        _P, _P,                      # history: solutions, exercise sets (or null)
+        _P, _P, _P, _I,              # jump table: at, index, weight (or null); jumps
         _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, systems per block, dtype
         _I, _P,                      # device, stream
     ]
     lib.theta_pde_launch.restype = _I
+    lib.theta_pde_adjoint_launch.argtypes = [
+        _P, _P, _P, _P,              # lower, diag, upper, coef (a, b, c, w)
+        _P, _P,                      # psi, v0
+        _P, _P, _P,                  # history: solutions, exercise sets; the gradient
+        _P, _P, _P,                  # gradients: grid (5, batch, n), coef, ends
+        _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, systems per block, dtype
+        _I, _P,                      # device, stream
+    ]
+    lib.theta_pde_adjoint_launch.restype = _I
+    lib.lv_pde_launch.argtypes = [
+        _P, _P, _P, _P,              # lower, diag, upper (batch, n_time, n), ends
+        _P, _P, _P, _P,              # psi, v0, out, Bermudan slices (or null)
+        _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, steps a date, dtype
+        _I, _P,                      # device, stream
+    ]
+    lib.lv_pde_launch.restype = _I
     for name in ("heston_adi_launch", "heston_adi_adjoint_launch"):
         fn = getattr(lib, name)
         fn.argtypes = [_P, _P, _I, _P]  # pointers (host int64[]), dims (host int32[]), dev, st

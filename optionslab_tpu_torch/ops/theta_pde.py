@@ -1,40 +1,59 @@
-"""The θ-scheme time loop of the Crank–Nicolson book (``models/fdm.py``).
+"""The θ-scheme time loop of the Crank–Nicolson book (``models/fdm.py``) and
+of the cash-dividend PDE (``models/dividends.py``), forward and reverse.
 
 The reference runs the loop on the device: a ``lax.scan`` over the time
-steps (``optionslab_tpu/models/fdm.py:162``) with Howard's policy sweeps in
-a ``fori_loop`` (``:101``). Here :func:`theta_loop` runs it in one launch of
-the CUDA kernel ``csrc/theta_pde.cu`` on CUDA tensors, and as the plain
-torch loop (:func:`_theta_plain`, one batched tridiagonal solve a step or a
-sweep) on CPU tensors; any other device raises.
+steps (``optionslab_tpu/models/fdm.py:162``, ``optionslab_tpu/models/
+dividends.py:137``) with Howard's policy sweeps in a ``fori_loop``
+(``fdm.py:101``), and ``jax.grad`` runs its reverse mode. Here
+:func:`theta_loop` runs it in one launch of the CUDA kernel
+``csrc/theta_pde.cu`` on CUDA tensors, and as the plain torch loop
+(:func:`_theta_plain`, one batched tridiagonal solve a step or a sweep) on
+CPU tensors; any other device raises.
 
 Each step forms the explicit right-hand side ``v + w·(a·v₋ + b·v + c·v₊)``,
 sets its ends from a table, and solves ``(lo, di, up)·v = rhs``: as it is
 (European), clamped to ψ after the solve (projection), or as the obstacle
-problem min(B·v − rhs, v − ψ) = 0 by Howard's policy iteration.
+problem min(B·v − rhs, v − ψ) = 0 by Howard's policy iteration. A jump
+table (:class:`Jumps`) then replaces v at a few steps by its linear
+interpolation at shifted nodes (a cash dividend's drop), clamped to ψ again
+in the American modes.
 
-:func:`theta_loop` is a ``torch.autograd.Function``. Its forward is the one
-launch (the plain loop on the CPU); its backward runs the plain loop again
-on the same device under autograd (each solve then one launch of the
-tridiagonal kernel and its adjoint) and returns the gradient of that graph,
-as a ``jax.checkpoint`` of the whole loop would. The kernel's forward equals
-the plain loop bit for bit, so the recomputed graph is the graph of the
-value returned.
+:func:`theta_loop` is a ``torch.autograd.Function`` where a gradient is
+needed. Its forward is the one launch, which then keeps each step's
+solution and, for Howard, the exercise set of the step's last solve (on the
+CPU the plain loop's ``history``). Its first-order backward is one launch of
+the reverse kernel ``theta_pde_adjoint_kernel`` (on the CPU
+:func:`_theta_reverse_plain`, the same recursion written out step by step).
+Asked for a graph of the gradient (``create_graph=True``, a second
+derivative), the backward runs the plain loop again under autograd and
+differentiates that, as a ``jax.checkpoint`` of the whole loop would; the
+kernel's forward equals the plain loop bit for bit, so that graph is the
+graph of the value returned.
 """
 
 from __future__ import annotations
 
-import threading
+from typing import NamedTuple
 
 import torch
 
 from . import _build
-from .tridiag import (DUMP_BYTES, PAD_ROWS, plan_systems, sm_count, tridiag_apply,
-                      tridiag_solve)
+from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, DUMP_BYTES, PAD_ROWS, _neighbours, _solve,
+                      check_operands, plan_systems, sm_count, tridiag_apply, tridiag_solve)
 
 EUROPEAN, PROJECTION, HOWARD = 0, 1, 2
 HOWARD_SWEEPS = 8
-_DTYPE_ID = {torch.float32: 0, torch.float64: 1}
-_LAUNCH_LOCK = threading.Lock()  # the server prices from several threads
+
+
+class Jumps(NamedTuple):
+    """A jump table: after step ``steps[i]`` (its solve and clamp), node j of
+    contract b takes ``f0 + weight·(f1 − f0)`` with f0 = v[code], f1 =
+    v[code + 1] for ``code = index[b, i, j] ≥ 0``, and v[−1 − code] for a
+    negative code. ``index``: (B, J, n) int32; ``weight``: (B, J, n) of v's
+    dtype."""
+    steps: tuple
+    index: torch.Tensor
+    weight: torch.Tensor
 
 
 def set_ends(v, first, last):
@@ -42,37 +61,127 @@ def set_ends(v, first, last):
     return torch.cat([first[:, None], v[:, 1:-1], last[:, None]], dim=1)
 
 
-def howard_lcp_solve(lo, di, up, rhs, psi, n_iter: int = HOWARD_SWEEPS):
-    """Obstacle problem min(B·v − rhs, v − ψ) = 0 by policy (Howard)
-    iteration: each sweep solves the tridiagonal system with the exercise
-    rows replaced by v = ψ, then re-selects them from the complementarity
-    residuals; the end rows stay Dirichlet. All (B, n)."""
+def _howard(lo, di, up, rhs, psi):
+    """The obstacle problem min(B·v − rhs, v − ψ) = 0 by policy (Howard)
+    iteration: each of HOWARD_SWEEPS sweeps solves the tridiagonal system
+    with the exercise rows replaced by v = ψ, then re-selects them from the
+    complementarity residuals; the end rows stay Dirichlet. All (B, n).
+    Returns (the last sweep's solution before the clamp to ψ, the exercise
+    set that sweep solved with): where the sweeps stop short of their fixed
+    point, the set its residuals then pick is another."""
     interior = torch.ones_like(rhs, dtype=torch.bool)
     interior[:, 0] = False
     interior[:, -1] = False
     m = torch.zeros_like(rhs, dtype=torch.bool)
-    v = torch.maximum(rhs, psi)
-    for _ in range(n_iter):
+    for _ in range(HOWARD_SWEEPS):
+        used = m
         v = tridiag_solve(torch.where(m, 0.0, lo), torch.where(m, 1.0, di),
                           torch.where(m, 0.0, up), torch.where(m, psi, rhs))
         m = ((tridiag_apply(lo, di, up, v) - rhs) > (v - psi)) & interior
-    return torch.maximum(v, psi)
+    return v, used
 
 
-def _theta_plain(lo, di, up, a, b, c, w, psi, v, ends, mode: int):
+def apply_jump(v, index, weight):
+    """One jump of a :class:`Jumps` table on (B, n) values: ``index`` and
+    ``weight`` (B, n)."""
+    code = index.long()
+    left = code.clamp_min(0)
+    f0 = v.gather(1, left)
+    f1 = v.gather(1, (left + 1).clamp_max(v.shape[1] - 1))
+    return torch.where(code >= 0, f0 + weight * (f1 - f0), v.gather(1, (-1 - code).clamp_min(0)))
+
+
+def _theta_plain(lo, di, up, a, b, c, w, psi, v, ends, mode: int, jumps: Jumps | None = None,
+                 history: bool = False):
     """The plain loop: (B, n) diagonals ``lo``, ``di``, ``up`` of the
     implicit side, ψ and the initial ``v``; (B, 1) explicit operator ``a``,
-    ``b``, ``c`` and weight ``w``; (B, n_time, 2) end values ``ends``."""
+    ``b``, ``c`` and weight ``w``; (B, n_time, 2) end values ``ends``.
+    With ``history`` returns (v, each step's solution before the clamp
+    (B, n_time, n), and for Howard the exercise set of each step's last
+    solve (B, n_time, n) bool, else None)."""
+    jump_at = {} if jumps is None else {k: i for i, k in enumerate(jumps.steps)}
+    sols, sets = [], []
     for k in range(ends.shape[1]):
         rhs = v + w * (a * torch.roll(v, 1, dims=1) + b * v + c * torch.roll(v, -1, dims=1))
         rhs = set_ends(rhs, ends[:, k, 0], ends[:, k, 1])
         if mode == HOWARD:
-            v = howard_lcp_solve(lo, di, up, rhs, psi)
+            u, m = _howard(lo, di, up, rhs, psi)
+            v = torch.maximum(u, psi)
         else:
-            v = tridiag_solve(lo, di, up, rhs)
-            if mode == PROJECTION:
+            u, m = tridiag_solve(lo, di, up, rhs), None
+            v = torch.maximum(u, psi) if mode == PROJECTION else u
+        if history:
+            sols.append(u)
+            sets.append(m)
+        i = jump_at.get(k)
+        if i is not None:
+            v = apply_jump(v, jumps.index[:, i], jumps.weight[:, i])
+            if mode != EUROPEAN:
                 v = torch.maximum(v, psi)
-    return v
+    if not history:
+        return v
+    if not sols:
+        empty = v.new_empty((v.shape[0], 0, v.shape[1]))
+        return v, empty, empty.bool() if mode == HOWARD else None
+    return v, torch.stack(sols, 1), torch.stack(sets, 1) if mode == HOWARD else None
+
+
+def _theta_reverse_plain(lo, di, up, a, b, c, w, psi, v0, ends, mode: int, hist_u, hist_m, g):
+    """The reverse of the loop by hand (not autograd), step by step from the
+    last, over the forward's history (``hist_u``: each step's solution before
+    the clamp; ``hist_m``: Howard's exercise set of each step's last solve).
+    ``g`` is the gradient of the values returned. Each step: the clamp's
+    adjoint (a tie splits half and half, as ``torch.maximum``'s derivative
+    does); the adjoint solve on the transposed diagonals of the step's
+    matrix (Howard's exercised rows replaced by v = ψ: their λ goes to ψ);
+    the right-hand side's adjoint (its ends to ``ends``, its interior to the
+    step's input v and to a, b, c and w). Returns the gradients of (lo, di,
+    up, a, b, c, w, ψ, v0, ends), each of its operand's broadcast shape
+    ((B, n), (B, 1) or (B, n_time, 2))."""
+    batch, n_time, n = hist_u.shape
+    lo, di, up, psi, v0 = (t.expand(batch, n) for t in (lo, di, up, psi, v0))
+    a, b, c, w = (t.expand(batch, 1) for t in (a, b, c, w))
+    grid = [torch.zeros_like(v0) for _ in range(4)]  # lo, di, up, ψ
+    coef = [torch.zeros_like(a) for _ in range(4)]  # a, b, c, w
+    g_ends = torch.zeros((batch, n_time, 2), dtype=v0.dtype, device=v0.device)
+    edge = torch.zeros_like(v0, dtype=torch.bool)
+    edge[:, 0] = edge[:, -1] = True
+    ex = torch.zeros_like(edge)
+    lo_m, di_m, up_m = lo, di, up
+    g = g.expand(batch, n)
+    for k in reversed(range(n_time)):
+        u = hist_u[:, k]
+        vin = v0 if k == 0 else hist_u[:, k - 1]
+        if mode != EUROPEAN:
+            if k:
+                vin = torch.maximum(vin, psi)
+            split = torch.where(u == psi, g / 2, g)
+            grid[3] = grid[3] + split.masked_fill(u > psi, 0.0)
+            g = split.masked_fill(u < psi, 0.0)
+        if mode == HOWARD:
+            ex = hist_m[:, k]
+            lo_m, di_m, up_m = (torch.where(ex, 0.0, lo), torch.where(ex, 1.0, di),
+                                torch.where(ex, 0.0, up))
+        lo_t, _ = _neighbours(up_m)  # the transposed diagonals: upper[i-1], lower[i+1]
+        _, up_t = _neighbours(lo_m)
+        lam = _solve(lo_t, di_m, up_t, g)
+        grid[3] = grid[3] + torch.where(ex, lam, 0.0)
+        lam = torch.where(ex, 0.0, lam)
+        u_left, u_right = _neighbours(u)
+        for i, x in enumerate((u_left, u, u_right)):
+            grid[i] = grid[i] - lam * x
+        g_ends[:, k, 0] = lam[:, 0]
+        g_ends[:, k, 1] = lam[:, -1]
+        gi = torch.where(edge, 0.0, lam)
+        v_left, v_right = _neighbours(vin)
+        coef[3] = coef[3] + (gi * (a * v_left + b * vin + c * v_right)).sum(1, keepdim=True)
+        gw = w * gi
+        for i, x in enumerate((v_left, vin, v_right)):
+            coef[i] = coef[i] + (gw * x).sum(1, keepdim=True)
+        _, right = _neighbours(a * gw)
+        left, _ = _neighbours(c * gw)
+        g = gi + b * gw + right + left
+    return (*grid[:3], *coef, grid[3], g, g_ends)
 
 
 def tile_bytes(n: int, systems: int, itemsize: int) -> int:
@@ -89,80 +198,187 @@ def tile_bytes(n: int, systems: int, itemsize: int) -> int:
     return planes + -(-4 * systems // 8) * 8 + DUMP_BYTES
 
 
-def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: bool = False):
+ADJOINT_PLANES = 11
+SHARE_CHUNK = 32  # the nodes whose shares of a, b, c and w one warp reduces
+
+
+def adjoint_tile_bytes(n: int, systems: int, itemsize: int) -> int:
+    """Shared memory of one block of the reverse kernel (``AdjointTile`` in
+    ``csrc/theta_pde.cu``): eleven n × pitch planes (the three diagonals,
+    the gradient, the right-hand side's share of λ, the pivots and c' of the
+    step's matrix, and the accumulators of lo, di, up and ψ), the contracts'
+    four coefficients, four share slots a contract and chunk of SHARE_CHUNK
+    nodes, and one byte a node for the exercise set; 8-byte aligned. Never
+    more than :func:`tile_bytes`: the reverse takes every grid the forward
+    takes."""
+    plane = n * (systems | 1)
+    slots = 4 * systems * -(-n // SHARE_CHUNK)
+    return -(-((ADJOINT_PLANES * plane + 4 * systems + slots) * itemsize + plane) // 8) * 8
+
+
+def _grid_operands(lo, di, up, a, b, c, w, psi, v, batch, n):
+    grid = [t.expand(batch, n).contiguous() for t in (lo, di, up, psi, v)]
+    coef = torch.stack([t.reshape(-1).expand(batch) for t in (a, b, c, w)]).contiguous()
+    return grid, coef
+
+
+def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: bool = False,
+                history: bool = False, jumps: Jumps | None = None):
     """The kernel: one launch on PyTorch's current stream, no synchronize.
     Arguments as :func:`_theta_plain`'s, on one CUDA device, of one dtype,
-    float32 or float64. With ``count_solves``, returns (values, solves,
-    pivots): int32 counts a CUDA block of the solves each of its contracts
-    ran (Howard stops sweeping a step at its fixed point) and of the pivot
-    nodes its chains formed (the tables' n, then for each later Howard sweep
-    the rows from its restart on). A grid too long for one CUDA block's
-    shared memory raises ``ValueError``.
-    ``_theta_cuda.launches`` counts the launches."""
+    float32 or float64. Returns the values; with ``history`` also the
+    step's solutions and exercise sets of :func:`_theta_plain`'s history
+    (the sets as bool, one byte a node); with ``count_solves`` also
+    (solves, pivots): int32 counts a CUDA block of the solves each of its
+    contracts ran (Howard stops sweeping a step at its fixed point) and of
+    the pivot nodes its chains formed (the tables' n, then for each later
+    Howard sweep the rows from its restart on). A grid too long for one CUDA
+    block's shared memory raises ``ValueError``.
+    ``_theta_cuda.launches`` counts the launches, ``jump_launches`` those
+    of them with a jump table."""
     ops = (lo, di, up, a, b, c, w, psi, v, ends)
-    dev = v.device
-    if dev.type != "cuda" or any(t.device != dev for t in ops):
-        raise ValueError(f"_theta_cuda needs CUDA tensors on one device, got "
-                         f"{[t.device for t in ops]}")
-    if v.dtype not in _DTYPE_ID or any(t.dtype != v.dtype for t in ops):
-        raise ValueError(f"the θ-scheme kernel takes float32 or float64 operands of one "
-                         f"dtype, got {[t.dtype for t in ops]}")
+    dev = check_operands("_theta_cuda", ops)
     batch, n = v.shape
     n_time = ends.shape[1]
     if n < 3 or batch < 1 or ends.shape != (batch, n_time, 2) or mode not in (0, 1, 2):
         raise ValueError(f"bad θ-scheme shapes or mode: v {tuple(v.shape)}, ends "
                          f"{tuple(ends.shape)}, mode {mode}")
-    grid = [t.expand(batch, n).contiguous() for t in (lo, di, up, psi, v)]
-    coef = torch.stack([t.reshape(-1).expand(batch) for t in (a, b, c, w)])
+    if history and jumps is not None:
+        raise ValueError("the θ-scheme kernel keeps no history across a jump table")
+    grid, coef = _grid_operands(lo, di, up, a, b, c, w, psi, v, batch, n)
     ends = ends.contiguous()
     systems = plan_systems(batch, sm_count(dev.index),
                            lambda k: tile_bytes(n, k, v.element_size()))
     counts = torch.empty((2, -(-batch // systems)), dtype=torch.int32, device=dev)
     out = torch.empty_like(grid[4])
+    hist_u = hist_m = None
+    if history:
+        hist_u = torch.empty((batch, n_time, n), dtype=v.dtype, device=dev)
+        hist_m = torch.empty(hist_u.shape, dtype=torch.bool, device=dev) if mode == HOWARD \
+            else None
+    jump_at = index = weight = None
+    n_jumps = 0
+    if jumps is not None and jumps.steps:
+        n_jumps = len(jumps.steps)
+        if jumps.index.shape != (batch, n_jumps, n) or jumps.weight.shape != (batch, n_jumps, n):
+            raise ValueError(f"bad jump table: index {tuple(jumps.index.shape)}, weight "
+                             f"{tuple(jumps.weight.shape)} for {n_jumps} steps")
+        at = [-1] * n_time
+        for i, k in enumerate(jumps.steps):
+            at[k] = i
+        jump_at = torch.tensor(at, dtype=torch.int32).to(dev)
+        index = jumps.index.to(dev, torch.int32).contiguous()
+        weight = jumps.weight.to(dev, v.dtype).contiguous()
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     err = _build.load_library().theta_pde_launch(
         grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
         grid[3].data_ptr(), grid[4].data_ptr(), ends.data_ptr(), out.data_ptr(),
-        counts.data_ptr(), batch, n, n_time, mode, systems, _DTYPE_ID[v.dtype], dev.index,
+        counts.data_ptr(), ptr(hist_u), ptr(hist_m), ptr(jump_at), ptr(index), ptr(weight),
+        n_jumps, batch, n, n_time, mode, systems, _DTYPE_ID[v.dtype], dev.index,
         torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"theta_pde_launch failed: {_build.error_string(err)} ({err})")
     with _LAUNCH_LOCK:
         _theta_cuda.launches += 1
-    return (out, counts[0], counts[1]) if count_solves else out
+        _theta_cuda.jump_launches += n_jumps > 0
+    result = (out,) + ((hist_u, hist_m) if history else ()) \
+        + ((counts[0], counts[1]) if count_solves else ())
+    return result if len(result) > 1 else out
 
 
 _theta_cuda.launches = 0
+_theta_cuda.jump_launches = 0
+
+
+def _theta_adjoint_cuda(lo, di, up, a, b, c, w, psi, v0, ends, mode: int, hist_u, hist_m, g):
+    """The reverse kernel: one launch on PyTorch's current stream, no
+    synchronize. Arguments and returns as :func:`_theta_reverse_plain`'s (the
+    history as :func:`_theta_cuda` keeps it). Every accumulator stays in the
+    block's shared memory for the launch and is written once; the sums run
+    in a fixed order, no atomics. ``_theta_adjoint_cuda.launches`` counts
+    the launches."""
+    ops = (lo, di, up, a, b, c, w, psi, v0, ends, hist_u, g)
+    dev = check_operands("_theta_adjoint_cuda", ops)
+    batch, n_time, n = hist_u.shape
+    if n < 3 or ends.shape != (batch, n_time, 2) or mode not in (0, 1, 2) \
+            or (mode == HOWARD) != (hist_m is not None):
+        raise ValueError(f"bad θ-scheme reverse: history {tuple(hist_u.shape)}, ends "
+                         f"{tuple(ends.shape)}, mode {mode}")
+    grid, coef = _grid_operands(lo, di, up, a, b, c, w, psi, v0, batch, n)
+    systems = plan_systems(batch, sm_count(dev.index),
+                           lambda k: adjoint_tile_bytes(n, k, v0.element_size()))
+    hist_u = hist_u.contiguous()
+    if hist_m is not None:
+        hist_m = hist_m.to(torch.bool).contiguous()
+    g = g.expand(batch, n).contiguous()
+    g_grid = torch.empty((5, batch, n), dtype=v0.dtype, device=dev)  # lo, di, up, ψ, v0
+    g_coef = torch.empty((4, batch), dtype=v0.dtype, device=dev)
+    g_ends = torch.empty((batch, n_time, 2), dtype=v0.dtype, device=dev)
+    err = _build.load_library().theta_pde_adjoint_launch(
+        grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
+        grid[3].data_ptr(), grid[4].data_ptr(), hist_u.data_ptr(),
+        0 if hist_m is None else hist_m.data_ptr(), g.data_ptr(), g_grid.data_ptr(),
+        g_coef.data_ptr(), g_ends.data_ptr(), batch, n, n_time, mode, systems,
+        _DTYPE_ID[v0.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise RuntimeError(f"theta_pde_adjoint_launch failed: {_build.error_string(err)} "
+                           f"({err})")
+    with _LAUNCH_LOCK:
+        _theta_adjoint_cuda.launches += 1
+    return (*g_grid[:3], *(x[:, None] for x in g_coef), g_grid[3], g_grid[4], g_ends)
+
+
+_theta_adjoint_cuda.launches = 0
+
+
+def _dispatch(*ops, mode: int, history: bool = False, jumps: Jumps | None = None):
+    """The kernel for CUDA tensors, the plain loop for CPU tensors."""
+    dev = ops[-2].device
+    if dev.type == "cuda":
+        return _theta_cuda(*ops, mode, history=history, jumps=jumps)
+    if dev.type == "cpu":
+        return _theta_plain(*ops, mode, jumps=jumps, history=history)
+    raise ValueError(f"no θ-scheme time loop for device {dev}")
 
 
 class _ThetaLoop(torch.autograd.Function):
     @staticmethod
     def forward(ctx, mode, *ops):
+        out, hist_u, hist_m = _dispatch(*ops, mode=mode, history=True)
         ctx.mode = mode
-        ctx.save_for_backward(*ops)
-        dev = ops[-2].device
-        if dev.type == "cuda":
-            return _theta_cuda(*ops, mode)
-        if dev.type == "cpu":
-            return _theta_plain(*ops, mode)
-        raise ValueError(f"no θ-scheme time loop for device {dev}")
+        ctx.save_for_backward(*ops, hist_u, hist_m)
+        return out
 
     @staticmethod
     def backward(ctx, g):
+        saved = ctx.saved_tensors
+        ops, (hist_u, hist_m) = saved[:-2], saved[-2:]
         needs = ctx.needs_input_grad[1:]
-        with torch.enable_grad():
-            # a view of each input that needs a gradient: distinct nodes, so
-            # an input passed twice (ψ and the initial v) gets each part once,
-            # and the graph stays attached for a higher derivative
-            xs = [t.view_as(t) if need else t.detach()
-                  for t, need in zip(ctx.saved_tensors, needs)]
-            out = _theta_plain(*xs, ctx.mode)
-        want = [x for x, need in zip(xs, needs) if need]
-        grads = iter(torch.autograd.grad(out, want, g, create_graph=torch.is_grad_enabled(),
-                                         allow_unused=True))
-        return (None,) + tuple(next(grads) if need else None for need in needs)
+        if torch.is_grad_enabled():
+            # a graph of the gradient is asked for (a higher derivative): the
+            # plain loop again under autograd, on a view of each input that
+            # needs a gradient (distinct nodes, so an input passed twice, ψ
+            # and the initial v, gets each part once)
+            with torch.enable_grad():
+                xs = [t.view_as(t) if need else t.detach() for t, need in zip(ops, needs)]
+                out = _theta_plain(*xs, ctx.mode)
+            want = [x for x, need in zip(xs, needs) if need]
+            grads = iter(torch.autograd.grad(out, want, g, create_graph=True,
+                                             allow_unused=True))
+            return (None,) + tuple(next(grads) if need else None for need in needs)
+        dev = g.device
+        if dev.type == "cuda":
+            grads = _theta_adjoint_cuda(*ops, ctx.mode, hist_u, hist_m, g)
+        elif dev.type == "cpu":
+            grads = _theta_reverse_plain(*ops, ctx.mode, hist_u, hist_m, g)
+        else:
+            raise ValueError(f"no θ-scheme reverse for device {dev}")
+        return (None,) + tuple(gr.sum_to_size(x.shape) if need else None
+                               for gr, x, need in zip(grads, ops, needs))
 
 
-def theta_loop(lo, di, up, a, b, c, w, psi, v, ends, mode: int) -> torch.Tensor:
+def theta_loop(lo, di, up, a, b, c, w, psi, v, ends, mode: int,
+               jumps: Jumps | None = None) -> torch.Tensor:
     """``ends.shape[1]`` θ-scheme steps from ``v``; returns the (B, n) values.
 
     ``lo``, ``di``, ``up``: (B, n) diagonals of ``I − θ·dt·L`` with Dirichlet
@@ -170,6 +386,16 @@ def theta_loop(lo, di, up, a, b, c, w, psi, v, ends, mode: int) -> torch.Tensor:
     weights; ``w``: (B, 1) the explicit weight ``(1 − θ)·dt``; ``psi``: (B, n)
     the exercise value; ``ends``: (B, n_time, 2) the right-hand side's first
     and last value at each step; ``mode``: :data:`EUROPEAN`,
-    :data:`PROJECTION` or :data:`HOWARD`. Differentiable in every tensor.
+    :data:`PROJECTION` or :data:`HOWARD`; ``jumps``: a :class:`Jumps` table
+    or None. Differentiable in every tensor where there is no jump table: a
+    loop with one takes no gradient.
     """
-    return _ThetaLoop.apply(mode, lo, di, up, a, b, c, w, psi, v, ends)
+    ops = (lo, di, up, a, b, c, w, psi, v, ends)
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in ops)
+    if jumps is not None:
+        if grad:
+            raise ValueError("a θ-scheme loop with a jump table takes no gradient")
+        return _dispatch(*ops, mode=mode, jumps=jumps)
+    if grad:
+        return _ThetaLoop.apply(mode, *ops)
+    return _dispatch(*ops, mode=mode)

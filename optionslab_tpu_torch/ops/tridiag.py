@@ -57,6 +57,20 @@ def plan_systems(batch: int, n_sms: int, tile_bytes) -> int:
     return systems
 
 
+def check_operands(name: str, ops) -> torch.device:
+    """The device of a kernel's operands: CUDA tensors on one device, of one
+    dtype, float32 or float64 (the θ-scheme and local-vol loops); raises
+    ``ValueError`` otherwise."""
+    dev = ops[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in ops):
+        raise ValueError(f"{name} needs CUDA tensors on one device, got "
+                         f"{[t.device for t in ops]}")
+    if ops[0].dtype not in _DTYPE_ID or any(t.dtype != ops[0].dtype for t in ops):
+        raise ValueError(f"{name} takes float32 or float64 operands of one dtype, got "
+                         f"{[t.dtype for t in ops]}")
+    return dev
+
+
 def tile_bytes(n: int, systems: int, broadcast, itemsize: int) -> int:
     """Shared memory of one block of the tridiagonal kernel (``Tile`` in
     ``csrc/tridiag.cu``): each operand n × pitch values (n for a broadcast

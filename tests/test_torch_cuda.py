@@ -800,6 +800,194 @@ def test_fdm_gradient_on_card_equals_autograd_of_the_plain_loop(cuda_device, ame
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
 
 
+# the reverse kernel against the plain reverse, relative to each gradient's
+# largest entry: the adjoint solve by LU (Uᵀ then Lᵀ on the forward's
+# pivots) against the plain reverse's Thomas solve on the transposed
+# diagonals, and the sums over nodes and steps in another order
+THETA_REVERSE_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
+THETA_CODES = ("european", "projection", "howard")
+
+
+def _grad_gap(got, want) -> float:
+    return max(((g - w).abs().max() / w.abs().max().clamp_min(1e-300)).item()
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("mode", THETA_CODES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_theta_reverse_kernel_matches_plain_reverse_on_card(cuda_device, mode, dtype):
+    """300 contracts at 41 x 20: the forward with its history is one launch,
+    bit for bit the plain loop's (values, solutions, Howard's exercise sets);
+    the reverse kernel's gradients of all ten operands within
+    THETA_REVERSE_RTOL of the plain reverse on the same history, one launch
+    and no tridiagonal launch, a second launch bit for bit the first."""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    code = THETA_CODES.index(mode)
+    args = [t.to(dtype) for t in _book_fields(300, cuda_device)]
+    _, ops = fdm._cn_operands(*args, 41, 20, 0.5, mode != "european")
+    before = tp._theta_cuda.launches
+    out, hist_u, hist_m = tp._theta_cuda(*ops, code, history=True)
+    assert tp._theta_cuda.launches == before + 1
+    want = tp._theta_plain(*ops, code, history=True)
+    assert torch.equal(out, want[0]) and torch.equal(hist_u, want[1])
+    assert (hist_m is None) == (want[2] is None)
+    assert hist_m is None or torch.equal(hist_m, want[2])
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    g = torch.randn(out.shape, generator=gen, device=cuda_device, dtype=dtype)
+    before = tp._theta_adjoint_cuda.launches, tridiag._tridiag_cuda.launches
+    got = tp._theta_adjoint_cuda(*ops, code, hist_u, hist_m, g)
+    again = tp._theta_adjoint_cuda(*ops, code, hist_u, hist_m, g)
+    torch.cuda.synchronize()
+    assert (tp._theta_adjoint_cuda.launches, tridiag._tridiag_cuda.launches) == (before[0] + 2,
+                                                                                before[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = tp._theta_reverse_plain(*ops, code, hist_u, hist_m, g)
+    assert _grad_gap(got, plain) < THETA_REVERSE_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_theta_reverse_kernel_at_the_forwards_longest_grid(cuda_device, dtype):
+    """Two contracts on the longest grid the forward takes with one contract
+    a block (4,722 nodes in float32, 2,377 in float64), Howard, 4 steps: the
+    reverse kernel launches, and is as close to the float64 plain reverse on
+    the same history as the plain reverse of its own dtype, within twice
+    that one's gap or THETA_REVERSE_RTOL. (On so long a grid float32's own
+    rounding reaches ≈1e-3 of a gradient's largest entry, the plain reverse
+    as much as the kernel.)"""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    size = torch.finfo(dtype).bits // 8
+    n = 3
+    while tp.tile_bytes(n + 1, 1, size) <= tridiag.SMEM_LIMIT:
+        n += 1
+    args = [t.to(dtype) for t in _book_fields(2, cuda_device)]
+    _, ops = fdm._cn_operands(*args, n, 4, 0.5, True)
+    out, hist_u, hist_m = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+    g = torch.ones_like(out)
+    before = tp._theta_adjoint_cuda.launches
+    got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+    torch.cuda.synchronize()
+    assert tp._theta_adjoint_cuda.launches == before + 1
+    plain = tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g)
+    exact = tp._theta_reverse_plain(*(o.double() for o in ops), tp.HOWARD, hist_u.double(),
+                                    hist_m, g.double())
+    own = _grad_gap(plain, exact)
+    assert _grad_gap(got, exact) < max(2 * own, THETA_REVERSE_RTOL[dtype])
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_fdm_gradient_on_card_is_one_forward_and_one_reverse_launch(cuda_device, american):
+    """The first-order gradient: one forward launch with its history and one
+    reverse launch, no tridiagonal launch; a second derivative (a graph of
+    the gradient) runs the plain loop again under autograd instead, with no
+    reverse launch."""
+    from optionslab_tpu_torch.models.fdm import fdm_price
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    fields = [t.double() for t in _book_fields(16, cuda_device)]
+
+    def counts():
+        torch.cuda.synchronize()
+        return (tp._theta_cuda.launches, tp._theta_adjoint_cuda.launches,
+                tridiag._tridiag_cuda.launches)
+
+    leaves = [t.clone().requires_grad_(True) for t in fields[:6]]
+    before = counts()
+    price = fdm_price(ContractBatch(*leaves, fields[6]), 41, 20, american=american)
+    grads = torch.autograd.grad(price.sum(), leaves)
+    assert counts() == (before[0] + 1, before[1] + 1, before[2])
+    assert bool(((grads[0] * fields[6]) > 0).all())
+    vol = fields[4].clone().requires_grad_(True)  # the loop's operands move with σ
+    price = fdm_price(ContractBatch(*fields[:4], vol, *fields[5:]), 41, 20, american=american)
+    mid = counts()
+    (vega,) = torch.autograd.grad(price.sum(), vol, create_graph=True)
+    torch.autograd.grad(vega.sum(), vol)
+    end = counts()
+    assert mid[1] == end[1] == before[1] + 1 and end[2] > mid[2]
+
+
+@pytest.mark.parametrize("american", [False, True])
+@pytest.mark.parametrize("divs", [[(0.3, 2.0)], [(0.3, 2.0), (0.8, 2.5)]])
+def test_dividend_pde_is_one_theta_launch_on_card(cuda_device, american, divs):
+    """The dividend PDE's loop with its jump table: the kernel bit for bit
+    its plain loop at 101 x 100; the public call one θ-scheme launch and no
+    tridiagonal launch."""
+    from optionslab_tpu_torch.models import dividends as dv
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    steps = dv._div_steps([t for t, _ in divs], 1.0, 100)
+    for cp in (1.0, -1.0):
+        _, _, ops, jumps = dv._fdm_div_operands(
+            100.0, 95.0, 1.0, 0.05, 0.2, [d for _, d in divs], cp=cp, n_space=101, n_time=100,
+            american=american, div_steps=steps, device=cuda_device)
+        mode = tp.HOWARD if american else tp.EUROPEAN
+        got = tp._theta_cuda(*ops, mode, jumps=jumps)
+        want = tp._theta_plain(*ops, mode, jumps=jumps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        before = tp._theta_cuda.launches, tridiag._tridiag_cuda.launches
+        price = dv.fdm_price_discrete_dividends(100.0, 95.0, 1.0, 0.05, 0.2, divs, cp, american,
+                                                101, 100, device="cuda")
+        torch.cuda.synchronize()
+        assert (tp._theta_cuda.launches, tridiag._tridiag_cuda.launches) == (before[0] + 1,
+                                                                            before[1])
+        assert math.isfinite(price) and price > 0.0
+
+
+@pytest.mark.parametrize("mode", ["european", "projection", "bermudan"])
+def test_lv_kernel_equals_plain_loop_on_card(smile_dupire, mode):
+    """The local-vol loop on the smile's step tables, a call and a put as a
+    book of two, 101 nodes x 48 steps (Bermudan: 6 dates of 8): bit for bit
+    the plain loop, continuation slices included, in one launch."""
+    from optionslab_tpu_torch.models import local_vol as lv
+    from optionslab_tpu_torch.ops import lv_pde
+
+    s = smile_dupire.surface
+    code = ("european", "projection", "bermudan").index(mode)
+    tabs = [lv._lv_tables(s.k_grid, s.t_grid, s.grid, 100.0, 0.05, 0.01, strike, 1.0, cp, 101,
+                          48, mode == "bermudan")[1:] for strike, cp in ((105.0, 1.0),
+                                                                         (95.0, -1.0))]
+    intr, lo, di, up, ends = (torch.stack(parts) for parts in zip(*tabs))
+    ops = (lo, di, up, ends, intr, intr)
+    before = lv_pde._lv_cuda.launches
+    got = lv_pde._lv_cuda(*ops, code, 8)
+    assert lv_pde._lv_cuda.launches == before + 1
+    want = lv_pde._lv_plain(*ops, code, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (want[1] is None)
+    assert got[1] is None or (got[1].shape == (2, 5, 101) and torch.equal(got[1], want[1]))
+
+
+def test_local_vol_pdes_are_one_launch_on_card(smile_dupire):
+    """``DupireLocalVol.price`` (European and the American PDE) and
+    ``lv_bermudan_slices``: one launch of the local-vol loop each, no
+    tridiagonal launch."""
+    from optionslab_tpu_torch.models.local_vol import _lv_solve
+    from optionslab_tpu_torch.models.local_vol_american import lv_bermudan_slices
+    from optionslab_tpu_torch.ops import lv_pde, tridiag
+
+    s = smile_dupire.surface
+    grids = (s.k_grid, s.t_grid, s.grid)
+    calls = (lambda: smile_dupire.price(100.0, 100.0, 1.0),
+             lambda: _lv_solve(*grids, 100.0, 0.05, 0.0, 100.0, 1.0, -1.0, american=True),
+             lambda: lv_bermudan_slices(*grids, 100.0, 0.05, 0.0, 100.0, 1.0, -1.0, 5, 4, 201))
+    for call in calls:
+        before = lv_pde._lv_cuda.launches, tridiag._tridiag_cuda.launches
+        out = call()
+        torch.cuda.synchronize()
+        assert (lv_pde._lv_cuda.launches, tridiag._tridiag_cuda.launches) == (before[0] + 1,
+                                                                             before[1])
+        assert bool(torch.isfinite(out if isinstance(out, torch.Tensor) else out[1]).all())
+
+
 def test_american_price_interval_runs_on_card(cuda_device):
     from optionslab_tpu_torch.models.american import american_price_interval
 
