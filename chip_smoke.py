@@ -106,10 +106,11 @@ is printed):
               and CUDA kernel count, and none of the eleven kernels
               launched; then ``/price`` binomial|vg|nig|merton, ``/iv``,
               ``/varswap`` and ``/american`` over a socket;
-15. tridiag — the two chain probes of ``csrc/tridiag.cu`` (a node of the
+15. tridiag — the three chain probes of ``csrc/tridiag.cu`` (a node of the
               pivots' chain; a node of the right-hand side's chain on a
               reciprocal formed once; the second probe with no forward node,
-              a back node alone), each bitwise its plain loop; the
+              a back node alone; a dependent FMA on shared-memory operands,
+              the θ-scheme reverse's node), each bitwise its plain loop; the
               division check: the fast quotient of ``tridiag.cuh`` against
               the division intrinsic and torch's division on 2^24 seeded
               pairs a dtype over the exponent range and every pair of an
@@ -181,7 +182,10 @@ is printed):
               float32 and float64: the forward with its history bit for bit
               the plain loop's, the ten gradients against the plain reverse
               within a stated bound, one launch and no tridiagonal launch,
-              two launches bitwise; ``fdm_price``'s gradient one forward and
+              two launches bitwise; the same on hand-built exercise sets
+              (each run of continuation rows on the LU tables, the UL
+              tables or pivots of its own) and at the forward's longest
+              grids on the device route; ``fdm_price``'s gradient one forward and
               one reverse launch, delta's sign, rho and dividend rho against
               central differences; the θ-scheme kernel's jump table on the
               dividend PDE (401 x 400, European and American, bit for bit
@@ -330,6 +334,8 @@ from optionslab_tpu_torch.ops import lv_pde as lvp
 from optionslab_tpu_torch.ops import multi_asset_kernel as mk
 from optionslab_tpu_torch.ops import slv_kernel as sk
 from optionslab_tpu_torch.ops import theta_pde as tp
+from optionslab_tpu_torch.ops.theta_cases import (THETA_REVERSE_RTOL, exercise_sets,
+                                                  short_howard_step)
 from optionslab_tpu_torch.ops import tridiag as tri
 
 BS_ATM_CALL = 10.450583572185565  # S=K=100, T=1, r=0.05, σ=0.2
@@ -3317,6 +3323,7 @@ def tri_system(batch: int, n: int, dtype, dev, seed: int = 0, column: bool = Fal
 
 PROBE_CHECK_NODES = 512  # the probes against their plain loops (≈3,000 torch launches each)
 PROBE_ABCD = (0.5, 3.0, -0.5, 1.0)  # lower, diagonal (the rhs probe's den), upper, rhs
+FMA_ROW = 32  # the FMA probe's row for the reverse's walk (csrc/tridiag.cu kFmaRow)
 DIV_PAIRS = 1 << 24  # the division check's seeded pairs a dtype
 
 
@@ -3324,7 +3331,12 @@ def probe_run(kind: str, dtype, dev, n_nodes: int, out: torch.Tensor) -> None:
     """One launch of a chain probe of ``csrc/tridiag.cu`` over ``n_nodes``
     nodes and as many back nodes: "pivot" the pivots' chain, "rhs" the
     right-hand side's chain on a reciprocal formed once; "back" the
-    right-hand side's probe with no forward node, ``n_nodes`` back nodes."""
+    right-hand side's probe with no forward node, ``n_nodes`` back nodes;
+    "fma" ``n_nodes`` nodes of a dependent FMA chain on shared-memory
+    operands, no back node, by the θ-scheme reverse's own walk over a row of
+    FMA_ROW nodes again and again (each pass a chain from 0 on the values
+    the pass before stored); "fma ahead" one chain of ``n_nodes`` nodes,
+    the next group's loads issued during a group's."""
     key = (dtype, dev)
     if key not in probe_run.abcd:  # made once: a graph capture copies nothing
         probe_run.abcd[key] = torch.tensor(PROBE_ABCD, dtype=dtype, device=dev)
@@ -3335,23 +3347,40 @@ def probe_run(kind: str, dtype, dev, n_nodes: int, out: torch.Tensor) -> None:
     if kind == "pivot":
         name = "tridiag_chain_launch"
         err = lib.tridiag_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes, *tail)
+    elif kind.startswith("fma"):
+        name = "tridiag_fma_chain_launch"
+        err = lib.tridiag_fma_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes,
+                                           int(kind == "fma ahead"), *tail)
     else:
         name = "tridiag_rhs_chain_launch"
         err = lib.tridiag_rhs_chain_launch(abcd.data_ptr(), out.data_ptr(),
                                            0 if kind == "back" else n_nodes, n_nodes, *tail)
     check(err == 0, f"{name} ({kind}) failed: {_build.error_string(err)}")
-    probe_run.launches["pivot" if kind == "pivot" else "rhs"] += 1
+    probe_run.launches[{"back": "rhs", "fma ahead": "fma"}.get(kind, kind)] += 1
 
 
-probe_run.launches = {"pivot": 0, "rhs": 0}
+probe_run.launches = {"pivot": 0, "rhs": 0, "fma": 0}
 probe_run.abcd = {}
 
 
 def probe_plain(kind: str, dtype, dev, n_nodes: int) -> torch.Tensor:
     """The probe's chain as a plain torch loop on the card: the same
-    roundings one torch op at a time (the pivot's guard as the solve's)."""
+    roundings one torch op at a time (the pivot's guard as the solve's; the
+    FMA probe's product m·prev is exact, m being a power of two, so one
+    rounding of the sum is the FMA's)."""
     a, b, c, d = (torch.tensor(v, dtype=dtype, device=dev) for v in PROBE_ABCD)
     prev = torch.zeros((), dtype=dtype, device=dev)
+    if kind == "fma ahead":
+        for _ in range(n_nodes):
+            prev = -a * prev + d
+        return prev
+    if kind == "fma":  # m = −a·2⁻²⁰ (csrc/tridiag.cu tridiag_fma_chain_kernel)
+        row, m = [d] * FMA_ROW, -a * 2.0 ** -20
+        for _ in range(n_nodes // FMA_ROW):
+            prev = torch.zeros((), dtype=dtype, device=dev)
+            for i in range(FMA_ROW):
+                prev = row[i] = m * prev + row[i]
+        return prev
     for _ in range(n_nodes):
         if kind == "pivot":
             den = b - a * prev
@@ -3382,7 +3411,8 @@ def tri_chain_node_ms(kind: str, dtype, dev) -> float:
 def probe_check(kind: str, dtype, dev) -> dict:
     """The probe at PROBE_CHECK_NODES nodes against its plain loop, bitwise;
     device ms of both by CUDA events, and the bound of that work: 8 float
-    operations a node at the card's peak rate (its bytes: five values)."""
+    operations a node at the card's peak rate (the FMA probe 2; its bytes:
+    five values)."""
     out = torch.empty(1, dtype=dtype, device=dev)
     probe_run(kind, dtype, dev, PROBE_CHECK_NODES, out)
     plain = probe_plain(kind, dtype, dev, PROBE_CHECK_NODES)
@@ -3392,7 +3422,7 @@ def probe_check(kind: str, dtype, dev) -> dict:
     ms = min(graph_time(lambda: probe_run(kind, dtype, dev, PROBE_CHECK_NODES, out)))
     plain_ms = event_time(lambda: probe_plain(kind, dtype, dev, PROBE_CHECK_NODES), 1)
     peak = FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
-    t_ops = 8.0 * PROBE_CHECK_NODES / peak * 1e3
+    t_ops = (2.0 if kind.startswith("fma") else 8.0) * PROBE_CHECK_NODES / peak * 1e3
     t_bytes = 5 * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
@@ -3563,18 +3593,22 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
     and plain version by CUDA events (the kernel inside a CUDA graph of 20
     calls, the host's issue left out) beside the bound and beside
     ``torch.linalg.solve`` on the dense matrix (built outside the timed
-    region; the library call that computes the same x). Before them the two
+    region; the library call that computes the same x). Before them the
     chain probes (each bitwise its plain loop) and the division check.
-    Returns (largest absolute difference, {tag: timing}, {"pivot" | "rhs":
-    {dtype: chain ms a node}})."""
+    Returns (largest absolute difference, {tag: timing}, {"pivot" | "rhs" |
+    "back" | "fma" | "fma ahead": {dtype: chain ms a node}}; "fma" the
+    faster of the FMA probe's two load schedules)."""
     worst, timing = 0.0, {}
     clock = sm_clock_hz()
-    node_ms = {"pivot": {}, "rhs": {}, "back": {}}
+    node_ms = {"pivot": {}, "rhs": {}, "back": {}, "fma": {}, "fma ahead": {}}
     for dtype in (torch.float32, torch.float64):
-        for kind in ("pivot", "rhs"):
+        for kind in ("pivot", "rhs", "fma", "fma ahead"):
             node_ms[kind][dtype] = tri_chain_node_ms(kind, dtype, dev)
             timing[f"probe {kind} {str(dtype)[6:]}"] = probe_check(kind, dtype, dev)
         node_ms["back"][dtype] = tri_chain_node_ms("back", dtype, dev)
+        # the least an FMA node costs: the faster of the two load schedules
+        fma_own = node_ms["fma"][dtype]
+        node_ms["fma"][dtype] = min(fma_own, node_ms["fma ahead"][dtype])
         log("tridiag", f"dependent chain, {str(dtype)[6:]}, a forward and a back node, by the "
                        f"chain probes [{card}]: pivot {node_ms['pivot'][dtype] * 1e6:.2f} ns "
                        f"({node_ms['pivot'][dtype] * 1e-3 * clock:.1f} cycles at the "
@@ -3582,7 +3616,11 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
                        f"{node_ms['rhs'][dtype] * 1e6:.2f} ns "
                        f"({node_ms['rhs'][dtype] * 1e-3 * clock:.1f} cycles); a back node alone "
                        f"{node_ms['back'][dtype] * 1e6:.2f} ns "
-                       f"({node_ms['back'][dtype] * 1e-3 * clock:.1f} cycles); each probe "
+                       f"({node_ms['back'][dtype] * 1e-3 * clock:.1f} cycles); an FMA node on "
+                       f"shared-memory operands, loaded as the θ reverse loads them "
+                       f"{fma_own * 1e6:.2f} ns ({fma_own * 1e-3 * clock:.1f} cycles), the next "
+                       f"group's loads during a chain {node_ms['fma ahead'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['fma ahead'][dtype] * 1e-3 * clock:.1f} cycles); each probe "
                        f"bitwise its plain loop at {PROBE_CHECK_NODES} nodes")
         timing[f"division {str(dtype)[6:]}"] = div_check(dtype, dev, card)
     for batch, n, column in TRI_SHAPES:
@@ -3751,13 +3789,6 @@ def phase_theta(dev, card: str, node_ms: dict) -> tuple[float, dict]:
     return worst, timing
 
 
-# the θ-scheme reverse kernel (csrc/theta_pde.cu theta_pde_adjoint_kernel)
-# against the plain reverse at fdm_price's defaults, each gradient relative
-# to its largest entry: the adjoint solve by LU (Uᵀ then Lᵀ on the step's
-# pivots) against the plain reverse's Thomas solve on the transposed
-# diagonals, the sums over nodes and steps in another order (as
-# tests/test_torch_cuda.py's THETA_REVERSE_RTOL)
-THETA_REVERSE_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 # fdm_price's rho and dividend rho (float64, European: the grid moves with
 # neither r nor q, and the price is smooth in both) against central
 # differences of step THETA_FD_STEP
@@ -3766,22 +3797,54 @@ THETA_FD_RTOL = 1e-6
 THETA_NAMES = ("lo", "di", "up", "a", "b", "c", "w", "psi", "v0", "ends")
 
 
-def theta_reverse_bound(ops, dtype, node_ms: dict, howard: bool) -> tuple[float, str, float]:
-    """(bound ms, what binds, chain ms) of one reverse launch: the operands,
-    the history and the gradient read once and the ten gradients written
-    once at the card's memory rate; 30 float operations a node a step (34
-    with Howard's pivots) at its peak rate for the dtype; and a contract's
-    chain, the contracts side by side. Each step's Uᵀ sweep is a forward
-    chain of products and differences and its Lᵀ sweep a back chain with a
-    quotient, on the same pivots: n nodes of the right-hand-side probe,
-    whose node is a forward and a back node; and the pivots once, n nodes at
-    the pivot probe's node less a back node (as :func:`theta_bound` charges
-    the forward's tables). For Howard each step's matrix is new: its pivots
-    beside the Uᵀ sweep and then the Lᵀ sweep, n nodes at the pivot probe's
-    node, which is a pivot, a right-hand side and a back node."""
+def reverse_runs(hist_m, n: int) -> dict[str, torch.Tensor]:
+    """The runs of continuation rows of each contract's exercise set at each
+    step, from Howard's history ``hist_m`` (B, n_time, n): the runs the
+    reverse kernel solves side by side. Returns (B, n_time, runs) tensors
+    (runs n + 1, the unused ones of length 0): "length" each run's rows,
+    "both" a run that touches row 0 and row n − 1, "interior" one that
+    touches neither (the kernel forms its pivots; the others run on the
+    tables formed once)."""
+    cont = ~hist_m
+    first = cont.clone()
+    first[..., 1:] &= ~cont[..., :-1]
+    ids = torch.where(cont, torch.cumsum(first, -1), 0)
+    length = torch.zeros((*ids.shape[:-1], n + 1), dtype=torch.long, device=ids.device)
+    length.scatter_add_(-1, ids, cont.long())
+    runs = torch.arange(n + 1, device=ids.device)
+    low = (runs == 1) & cont[..., :1]  # the run that holds row 0
+    high = (runs == ids[..., -1:]) & cont[..., -1:]  # the run that holds row n − 1
+    used = length > 0
+    return {"length": length, "both": used & low & high, "interior": used & ~low & ~high}
+
+
+def theta_reverse_bound(ops, dtype, node_ms: dict,
+                        hist_m) -> tuple[float, str, float, float, float]:
+    """(bound ms, what binds, chain ms, the first old count, the second old
+    count) of one reverse launch: the operands, the history and the
+    gradient read once and the ten gradients written once at the card's
+    memory rate; 30 float operations a node a step (34 with Howard's
+    exercise sets) at its peak rate for the dtype; and the longest
+    contract's chain, the contracts side by side. A contract's chain: the
+    tables once, n nodes at the pivot probe's node less a back node (the LU
+    and UL factorizations side by side); each step, its slowest run of
+    continuation rows (``hist_m``'s runs, :func:`reverse_runs`; without a
+    set one run of all n rows), the runs side by side. A run that touches
+    both ends solves twisted: its upper part on the LU tables and its lower
+    part on the UL tables sweep towards a middle row side by side, that
+    row's λ, then both parts substitute back outwards, 2⌈(len − 1)/2⌉ + 1
+    nodes at the FMA probe's node; any other run sweeps Uᵀ and Lᵀ one after
+    the other, 2·len nodes at the FMA probe's node (the pivots of only one
+    end are in the tables), and a run that touches neither end forms its
+    pivots, len more nodes at the pivot probe's node. The first old count,
+    of the kernel that divided on its chains: n nodes a step at the
+    right-hand-side probe's node after the tables, and for Howard n a step
+    at the pivot probe's node; the second, of every run swept one way: 2·len
+    FMA nodes of the longest run a step and every interior run's pivots."""
     size = torch.finfo(dtype).bits // 8
     batch, n = ops[-2].shape
     n_time = ops[-1].shape[1]
+    howard = hist_m is not None
     grids = batch * n
     hist = batch * n_time * n
     nbytes = (6 * grids + 4 * batch + hist + 5 * grids + 4 * batch + 2 * batch * n_time) * size
@@ -3789,10 +3852,93 @@ def theta_reverse_bound(ops, dtype, node_ms: dict, howard: bool) -> tuple[float,
     flops = (34.0 if howard else 30.0) * hist
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS) * 1e3
-    pivot, rhs, back = (node_ms[k][dtype] for k in ("pivot", "rhs", "back"))
-    chain = n_time * n * pivot if howard else n * (pivot - back) + n_time * n * rhs
+    pivot, rhs, back, fma = (node_ms[k][dtype] for k in ("pivot", "rhs", "back", "fma"))
+    if howard:
+        runs = reverse_runs(hist_m, n)
+    else:  # one run of all n rows, at every step
+        length = torch.zeros((1, n_time, n + 1), dtype=torch.long)
+        length[..., 1] = n
+        runs = {"length": length, "both": length == n, "interior": length < 0}
+    length = runs["length"].double()
+    own = pivot * torch.where(runs["interior"], length, 0.0)
+    swept = 2.0 * fma * length + own
+    twisted = fma * (2.0 * torch.ceil((length - 1) / 2) + 1.0)
+    step = torch.where(runs["both"], twisted, swept).max(-1).values
+    tables = n * (pivot - back)
+    chain = tables + step.sum(-1).max().item()
+    old2 = tables + (2.0 * fma * runs["length"].max(-1).values.double()
+                     + own.sum(-1)).sum(-1).max().item()
+    old = n_time * n * pivot if howard else tables + n_time * n * rhs
     bound = max(t_bytes, t_ops, chain)
-    return bound, "bytes" if t_bytes >= bound else "operations", chain
+    return bound, "bytes" if t_bytes >= bound else "operations", chain, old, old2
+
+
+# the hand-built exercise sets the reverse is held to the plain reverse on
+# (nodes, steps, contracts a set), and a book that mixes them in blocks
+REVERSE_SETS = (41, 3, 4)
+REVERSE_MIXED = 300
+
+
+def off_word(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of byte tensor ``t`` whose data starts one byte
+    past a 4-byte word and ends at its storage's end."""
+    store = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = store[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def reverse_on_sets(dev, book) -> float:
+    """The reverse kernel on hand-built exercise sets against the plain
+    reverse on the same history (a forward's, Howard, American operands),
+    within THETA_REVERSE_RTOL, two launches bit for bit: each set of
+    :func:`exercise_sets` at every step of REVERSE_SETS contracts, all of them
+    mixed in blocks over REVERSE_MIXED contracts (its second launch on the
+    sets in a view off 4-byte words, :func:`off_word`), and the step that
+    stops short of its fixed point; float32 and float64. Returns the largest
+    gap."""
+    from optionslab_tpu_torch.models import fdm
+
+    n, steps, per = REVERSE_SETS
+    sets = exercise_sets(n)
+    worst = 0.0
+    for dtype in (torch.float32, torch.float64):
+        cases = []
+        for name, m in [*sets.items(), ("mixed", None)]:
+            batch = per if m is not None else REVERSE_MIXED
+            fields = [getattr(book, f)[:batch].to(dtype) for f in FDM_FIELDS]
+            if batch > len(fields[0]):
+                fields = [f.repeat(-(-batch // len(f)))[:batch] for f in fields]
+            _, ops = fdm._cn_operands(*fields, n, steps, 0.5, True)
+            rows = np.stack([m if m is not None else list(sets.values())[b % len(sets)]
+                             for b in range(batch)])
+            hist_m = torch.tensor(rows, device=dev)[:, None].expand(batch, steps, n)
+            cases.append((name, ops, hist_m.contiguous()))
+        cases.append(("short of the fixed point", short_howard_step(dtype, dev), None))
+        for name, ops, hist_m in cases:
+            _, hist_u, own = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+            hist_m = own if hist_m is None else hist_m
+            gen = torch.Generator(device=dev).manual_seed(9)
+            g = torch.randn(hist_u[:, 0].shape, generator=gen, device=dev, dtype=dtype)
+            got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+            # the mixed book's second launch on the same sets in a view that
+            # starts off a 4-byte word and ends at its storage's end
+            again = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u,
+                                           off_word(hist_m) if name == "mixed" else hist_m, g)
+            want = tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g)
+            torch.cuda.synchronize()
+            rel, _ = grad_gaps(got, want)
+            worst = max(worst, rel)
+            check(all(torch.equal(x, y) for x, y in zip(got, again)) and
+                  rel < THETA_REVERSE_RTOL[dtype],
+                  f"θ reverse on the exercise set {name!r} ({str(dtype)[6:]}): {rel:.2e} off the "
+                  f"plain reverse, or two launches differ")
+    log("theta-reverse", f"hand-built exercise sets ({', '.join(sets)}, mixed in blocks over "
+                         f"{REVERSE_MIXED} contracts, a step short of its fixed point) at "
+                         f"{n} nodes x {steps} steps, float32 and float64: within {worst:.2e} of "
+                         f"the plain reverse, two launches bitwise each (the mixed book's "
+                         f"second on its sets off 4-byte words)")
+    return worst
 
 
 def grad_gaps(got, want) -> tuple[float, float]:
@@ -3811,7 +3957,10 @@ def phase_theta_reverse(dev, card: str, node_ms: dict) -> tuple[float, dict]:
     that history within THETA_REVERSE_RTOL, one launch and no tridiagonal
     launch, a second launch bit for bit the first; device ms of the reverse,
     the forward with its history and the plain reverse by CUDA events beside
-    the bound (:func:`theta_reverse_bound`). Then ``fdm_price``'s gradient
+    the bound (:func:`theta_reverse_bound`, with the old counts). Then the
+    hand-built exercise sets (:func:`reverse_on_sets`), and the forward's
+    longest grids on the reverse's device route, on their own and on the
+    hand-built sets, against the float64 plain reverse. Then ``fdm_price``'s gradient
     through the Function (one forward and one reverse launch, no
     tridiagonal launch; its warm wall), delta's sign, and rho and dividend
     rho against central differences. Returns (largest absolute difference of
@@ -3858,9 +4007,10 @@ def phase_theta_reverse(dev, card: str, node_ms: dict) -> tuple[float, dict]:
             fwd_ms = event_time(lambda: tp._theta_cuda(*ops, mode, history=True), 3)
             plain_ms = event_time(lambda: tp._theta_reverse_plain(*ops, mode, hist_u, hist_m, g),
                                   1)
-            bound, by, chain = theta_reverse_bound(ops, dtype, node_ms, mode == tp.HOWARD)
+            bound, by, chain, old, old2 = theta_reverse_bound(ops, dtype, node_ms, hist_m)
             timing[tag] = {"ms": ms, "forward_ms": fwd_ms, "plain_ms": plain_ms,
-                           "bound_ms": bound, "bound_by": by, "chain_ms": chain, "rel": rel}
+                           "bound_ms": bound, "bound_by": by, "chain_ms": chain,
+                           "old_chain_ms": old, "old_chain_2n_ms": old2, "rel": rel}
             log("theta-reverse", f"{tag} {'x'.join(map(str, THETA_SHAPE))}: the forward and "
                                  f"its history bitwise the plain loop's; the reverse within "
                                  f"{rel:.2e} of the plain reverse (largest gradient "
@@ -3868,34 +4018,49 @@ def phase_theta_reverse(dev, card: str, node_ms: dict) -> tuple[float, dict]:
                                  f"by CUDA events [{card}]: reverse {ms:.4f}, forward with "
                                  f"history {fwd_ms:.4f}, plain reverse {plain_ms:.3f}, bound "
                                  f"{bound:.4f} ({by}; the chain {chain:.4f}, {chain / ms:.2f} "
-                                 f"of the kernel)")
+                                 f"of the kernel; the old counts {old:.4f} and, every run "
+                                 f"swept one way, {old2:.4f})")
+    reverse_on_sets(dev, book)
 
     for dtype in (torch.float32, torch.float64):  # the longest grid the forward takes
         size = torch.finfo(dtype).bits // 8
         n = 3
         while tp.tile_bytes(n + 1, 1, size) <= tri.SMEM_LIMIT:
             n += 1
-        args = [getattr(book, f)[:2].to(dtype) for f in FDM_FIELDS]
-        _, ops = fdm._cn_operands(*args, n, 4, 0.5, True)
-        out, hist_u, hist_m = tp._theta_cuda(*ops, tp.HOWARD, history=True)
-        g = torch.ones_like(out)
-        before = tp._theta_adjoint_cuda.launches
-        got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
-        # the float64 plain reverse on the same history, and the plain
-        # reverse's own gap to it: on so long a float32 grid both reach ≈1e-3
-        exact = tp._theta_reverse_plain(*(o.double() for o in ops), tp.HOWARD,
-                                        hist_u.double(), hist_m, g.double())
-        own, _ = grad_gaps(tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g), exact)
-        torch.cuda.synchronize()
-        rel, _ = grad_gaps(got, exact)
-        limit = max(2 * own, THETA_REVERSE_RTOL[dtype])
-        check(tp._theta_adjoint_cuda.launches == before + 1 and rel < limit,
-              f"θ reverse at the forward's longest grid ({n} nodes, {str(dtype)[6:]}): "
-              f"{rel:.2e} off the float64 plain reverse, the plain reverse {own:.2e}")
-        log("theta-reverse", f"the forward's longest grid, {n} nodes {str(dtype)[6:]} (one "
-                             f"contract a block), Howard, 2 contracts x 4 steps: one reverse "
-                             f"launch, {rel:.2e} off the float64 plain reverse on its history "
-                             f"(the plain reverse of its dtype {own:.2e}; limit {limit:.1e})")
+        _, device = tp.adjoint_plan(2, n, size, tri.sm_count(dev.index))
+        check(device, f"θ reverse at {n} nodes ({str(dtype)[6:]}): not the device route")
+        sets = exercise_sets(n)
+        for name, steps in (("its own", 4), ("hand-built", 2)):
+            batch = 2 if name == "its own" else len(sets)
+            args = [getattr(book, f)[:batch].to(dtype) for f in FDM_FIELDS]
+            _, ops = fdm._cn_operands(*args, n, steps, 0.5, True)
+            out, hist_u, hist_m = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+            if name == "hand-built":  # one set a contract, the same at every step
+                hist_m = torch.tensor(np.stack(list(sets.values())), device=dev)[:, None]
+                hist_m = hist_m.expand(batch, steps, n).contiguous()
+            g = torch.ones_like(out)
+            before = tp._theta_adjoint_cuda.launches
+            got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+            # the float64 plain reverse on the same history, and the plain
+            # reverse's own gap to it: on so long a float32 grid both reach
+            # ≈1e-3
+            exact = tp._theta_reverse_plain(*(o.double() for o in ops), tp.HOWARD,
+                                            hist_u.double(), hist_m, g.double())
+            own, _ = grad_gaps(tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g),
+                               exact)
+            torch.cuda.synchronize()
+            rel, _ = grad_gaps(got, exact)
+            limit = max(2 * own, THETA_REVERSE_RTOL[dtype])
+            check(tp._theta_adjoint_cuda.launches == before + 1 and rel < limit,
+                  f"θ reverse at the forward's longest grid ({n} nodes, {str(dtype)[6:]}, "
+                  f"{name} exercise sets): {rel:.2e} off the float64 plain reverse, the plain "
+                  f"reverse {own:.2e}")
+            log("theta-reverse", f"the forward's longest grid, {n} nodes {str(dtype)[6:]} (the "
+                                 f"device route, one contract a block), Howard on {name} "
+                                 f"exercise sets, {batch} contracts x {steps} steps: one reverse "
+                                 f"launch, {rel:.2e} off the float64 plain reverse on its "
+                                 f"history (the plain reverse of its dtype {own:.2e}; limit "
+                                 f"{limit:.1e})")
 
     # walls only in this phase and the two after it: the public calls' kernel
     # counts come from the pricers, slice, risk and surface phases
@@ -6786,7 +6951,9 @@ def main() -> None:
         {**entry("theta_pde_adjoint_kernel", "theta_pde.cu",
                  "optionslab_tpu/models/fdm.py:162 and :101 (the reverse mode jax.grad runs), "
                  "no Pallas kernel", rev_launches, rev_err, rev_t["howard float32"]),
-         "chain_ms": rev_t["howard float32"]["chain_ms"]},
+         "chain_ms": rev_t["howard float32"]["chain_ms"],
+         "old_chain_ms": rev_t["howard float32"]["old_chain_ms"],
+         "old_chain_2n_ms": rev_t["howard float32"]["old_chain_2n_ms"]},
         {**entry("theta_pde_kernel (jump table)", "theta_pde.cu",
                  "optionslab_tpu/models/dividends.py:137 (lax.scan of _fdm_div_single), no "
                  "Pallas kernel", jump_launches, div_err, div_t["american put 401x400"]),
@@ -6810,7 +6977,8 @@ def main() -> None:
                 "kernel", probe_run.launches[kind], tri_t[f"probe {kind} float32"]["err"],
                 tri_t[f"probe {kind} float32"])
           for name, kind in (("tridiag_chain_kernel", "pivot"),
-                             ("tridiag_rhs_chain_kernel", "rhs"))),
+                             ("tridiag_rhs_chain_kernel", "rhs"),
+                             ("tridiag_fma_chain_kernel", "fma"))),
         {**entry("tridiag_div_check_kernel", "tridiag.cu", "none: the check of the PDE kernels' "
                  "quotient on reciprocals, no TPU kernel", div_check.launches,
                  tri_t["division float32"]["err"], tri_t["division float32"]),

@@ -59,6 +59,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "tridiag.cuh"
 
@@ -391,84 +392,233 @@ cudaError_t launch(const void* lo, const void* di, const void* up, const void* c
 //   1. the clamp v = max(u, ψ) (projection, Howard): ḡ to u where u > ψ, to
 //      ψ where u < ψ, half to each at a tie (torch.maximum's derivative; on
 //      every exercised Howard row u = ψ exactly);
-//   2. the adjoint solve Aᵀλ = ḡ on the step's matrix A = LU (L: the pivots
-//      den on its diagonal and lo below; U: 1 and c' above), Uᵀ then Lᵀ on
-//      the pivots and c' formed once (per step in Howard mode, whose matrix
-//      has each exercised row replaced by v = ψ: there λ goes to ψ and
-//      nothing to lo, di or up); lo, di, up take −λ_j·u_{j−1}, −λ_j·u_j,
-//      −λ_j·u_{j+1};
+//   2. the adjoint solve Aᵀλ = ḡ on the step's matrix A (Howard: each
+//      exercised row replaced by v = ψ; there λ goes to ψ and nothing to lo,
+//      di or up); lo, di, up take −λ_j·u_{j−1}, −λ_j·u_j, −λ_j·u_{j+1};
 //   3. the right-hand side v + w·((a·v₋ + b·v) + c·v₊) with its ends: rows 0
 //      and n − 1 send λ to the step's end values, the interior rows to the
 //      step's input v (the new ḡ) and to a, b, c and w.
 //
-// What bounds it. The chains: each step each contract's Uᵀ sweep (a forward
-// chain of products and differences) and Lᵀ sweep (a back chain with a
-// quotient), n nodes of a forward and a back node, and in Howard mode the
-// step's pivots beside the Uᵀ sweep; the contracts run side by side, one
-// thread each. What the design does: one CUDA block a tile of contracts (the
-// forward's plan), the diagonals, the chains' working planes and the
-// accumulators of lo, di, up and ψ in shared memory for the launch, written
-// once at the end; the step's solution and input read from the history in
-// global memory, neighbouring threads on neighbouring nodes; the node work
-// spread over the block's threads; the shares of a, b, c and w reduced each
-// step over 32 nodes at a time by a fixed butterfly into one slot per
-// contract and chunk, the slots summed in chunk order at the end: fixed-order
-// sums, no atomics. The tile is eleven planes, against the forward's twelve
-// and their padding, so the reverse takes every grid the forward takes. A
-// simple kernel: its chains divide (no reciprocal tables) and one thread
-// runs a contract's chains.
-constexpr int kAdjointPlanes = 11;
-constexpr int kChunk = 32;  // the nodes of a share reduction, a warp's lanes
+// The solve by runs. An exercised row e of A is an identity row, so λ_e
+// appears only in its own equation of Aᵀλ = ḡ,
+//   λ_e = ḡ_e − up_{e−1}·λ_{e−1} − lo_{e+1}·λ_{e+1}
+// (a term whose row is exercised too is absent), and the system splits into
+// independent runs of continuation rows, each a principal submatrix of the
+// unexercised matrix. A run that starts at row 0 has the leading pivots of
+// that matrix's LU factorization from row 0, and a run that ends at row
+// n − 1 the trailing pivots of its UL factorization from row n − 1; both
+// sets of tables are formed once a launch. Only a run that touches neither
+// end (never seen on fdm_price's exercise sets: a put's exercise rows are a
+// block at the grid's low end, a call's at its high end) forms its own
+// pivots, with the division. Rows 0 and n − 1 are Dirichlet identity rows
+// in every caller; the kernel does not rely on it: they join the run beside
+// them, which the tables cover. European and projection steps are the
+// one-run case, on the LU tables.
+//
+// What bounds it. The chains: each step each run is a forward chain
+// (Uᵀz = ḡ, z_j = fma(−c'_{j−1}, z_{j−1}, ḡ_j)) and a back chain (Lᵀλ = z,
+// λ_j = fma(−m_j, λ_{j+1}, z_j·r_j), with r_j = RN(1/den_j) and m_j =
+// RN(lo_{j+1}·r_j) from the tables), one dependent FMA a node each: tridiag.cu's
+// FMA probe times such a node. The contracts and their runs run side by side.
+// A run that touches both ends (every European and projection step) could be
+// solved twisted, its upper part on the LU tables and its lower part on the
+// UL tables sweeping towards a middle row side by side and then back
+// outwards: about half the nodes, which is what the bound counts
+// (chip_smoke.py theta_reverse_bound). This kernel sweeps every run one way.
+// The node work around the chains (the clamp, λ to the accumulators and to
+// a, b, c and w, the step's input) is a few operations a node over the
+// block's threads.
+//
+// What the design does about it:
+// - the tables (−c', r, −m of the LU factorization; the mirror of the UL)
+//   are formed once a launch, the LU's and the UL's on two lanes of
+//   different warps side by side, so neither chain holds a quotient, a
+//   range check or a vote;
+// - every plane is contract-major, each contract's row an odd number of 16
+//   bytes (lanes of a warp on several contracts' rows hit different banks),
+//   so a chain's step is one element and its direction a template argument:
+//   tri::vec_walk loads each group of kWalk<T> nodes by 16-byte vectors at
+//   immediate offsets before the group's chain and stores its outputs by
+//   vectors after it. On the card a scalar load a node, with a stride known
+//   only at run time, cost ≈23 cycles a node (each address a dependent add);
+//   issuing the next group's loads during a chain made the chain wait for
+//   them too (the loads share the six scoreboards);
+// - Howard's runs are found from the step's exercise set by a warp's ballots
+//   in the phase before the step's chains (find_runs), and each run goes to a
+//   lane of its own, spread over the warps;
+// - one CUDA block a tile of `systems` contracts (the forward's plan), each
+//   contract's node work on a fixed set of the block's threads: the
+//   diagonals, ψ, the chains' planes and the accumulators of lo, di, up and
+//   ψ stay in shared memory for the launch, and each thread's shares of a,
+//   b, c and w in its registers, summed over the threads in a fixed order at
+//   the end (no atomics);
+// - the step's data land a step ahead: each step's solution, its input and
+//   its exercise set come into a ring of shared-memory rows by cp.async
+//   while the steps before them run, and the clamp's adjoint of step k − 1
+//   runs in the phase that forms the gradient of step k's input: three
+//   barriers a step;
+// - a grid whose tile does not fit in shared memory takes the same kernel
+//   with its tables in a device-memory workspace and its history read from
+//   the history itself (kDevice): every grid the forward takes.
+//
+// Arithmetic. The reverse has never been bitwise the plain reverse, which
+// solves by Thomas on the transposed diagonals: it is held to a tolerance
+// (THETA_REVERSE_RTOL in chip_smoke.py and tests/test_torch_cuda.py). So the
+// chains round by FMA and by the tables' reciprocals, not as the division
+// does; the forward's and the ADI reverse's bitwise rules do not apply. The
+// order of every operation is fixed, so two launches agree bit for bit.
+constexpr int kAdjointPlanes = 10;      // lo, di, up, ψ, ḡ, gi, and lo, di, up, ψ's accumulators
+constexpr int kAdjointTablePlanes = 9;  // the shared route's tables and history ring
+constexpr int kWorkRows = 7;            // the device route's workspace rows a contract
+constexpr int kRing = 3;                // history rows in flight: u_k, u_{k−1}, u_{k−2}
 
-// The shared-memory tile of the reverse kernel: eleven node-major planes
-// (node j of contract s at [j * pitch + s]): lo, di, up, the gradient ḡ
-// (then z, then λ), the right-hand side's share of λ, the pivots and c' of
-// the step's matrix, and the accumulators of lo, di, up and ψ; the
-// contracts' a, b, c and w; the shares of a, b, c and w, four slots a
-// contract and chunk of kChunk nodes; the exercise set, one byte a node.
+// The planes of the reverse's tile, node j of contract s at [s * ld + j].
+enum AdjointPlane {
+  kLo = 0, kDi, kUp, kPsi,
+  kG,    // ḡ, then z·r on a run's rows, then λ
+  kGi,   // the right-hand side's interior share of λ (a Howard step's own pivots' −m before)
+  kAcc,  // lo, di, up, ψ: four planes
+  kTab = kAcc + 4,  // the shared route: the workspace rows below, then the ring
+  kRingPlane = kTab + 6,
+};
+// Rows of the tables (planes kTab + row on the shared route, a contract's
+// workspace rows on the device route): −c', r, −m of the LU factorization,
+// the UL's alike; then the −m of a run that forms its own pivots (the gi
+// plane on the shared route).
+enum WorkRow { kRowLU = 0, kRowUL = 3, kRowPivots = 6 };
+
+// The shared-memory tile of one block of the reverse: the planes (ten, and
+// on the shared route nine more: the two factorizations' tables and kRing
+// history rows), the contracts' a, b, c and w, each thread's shares of a,
+// b, c and w; then (8-byte aligned) each contract's count of runs and its
+// runs (first and last row, at most ⌈n / 2⌉); then on the shared route two
+// exercise-set rows a contract, each the 4-byte words that hold the set's n
+// bytes.
 struct AdjointTile {
-  int pitch;
-  int chunks;     // ⌈n / kChunk⌉
-  int64_t plane;  // n × pitch
+  int ld;  // a contract's row of a plane: n rounded up to an odd number of 16 bytes
+  int max_runs;
+  int mask_stride;  // bytes of a contract's exercise-set row
+  int64_t plane;    // systems × ld
+  int64_t runs;     // byte offsets: the runs' counts, the runs, the exercise sets
+  int64_t run_list;
+  int64_t masks;
   int64_t bytes;
 
-  __host__ __device__ AdjointTile(int n, int systems, int size) {
-    pitch = systems | 1;
-    chunks = (n + kChunk - 1) / kChunk;
-    plane = static_cast<int64_t>(n) * pitch;
-    bytes = ((kAdjointPlanes * plane + 4 * systems + 4LL * systems * chunks) * size + plane + 7) /
-            8 * 8;
+  __host__ __device__ AdjointTile(int n, int systems, int size, bool device) {
+    const int per16 = 16 / size;
+    ld = ((n + per16 - 1) / per16 | 1) * per16;
+    max_runs = (n + 1) / 2;
+    mask_stride = (n + 6) / 4 * 4;
+    plane = static_cast<int64_t>(systems) * ld;
+    const int planes = kAdjointPlanes + (device ? 0 : kAdjointTablePlanes);
+    runs = ((planes * plane + 4 * systems + 4 * kThreads) * size + 7) / 8 * 8;
+    run_list = runs + (4 * systems + 7) / 8 * 8;
+    masks = run_list + 8LL * systems * max_runs;
+    bytes = (masks + (device ? 0 : 2LL * systems * mask_stride) + 7) / 8 * 8;
   }
 };
 
-// den_j and c'_j of one contract's step matrix, exercised rows (mask may
-// be null: none) replaced by the identity row: the plain solve's pivots,
-// guard and quotient (tri::guard_pivot, tri::quotient).
+// A contract's row of the device route's workspace: node i at ptr + i·step
+// (step may be negative: a walk towards row 0); on the shared route a row is
+// a tri::Col.
 template <typename T>
-__device__ void adjoint_tables(int n, int p, const T* lo, const T* di, const T* up,
-                               const unsigned char* mask, T* den, T* cs) {
-  using A = tri::Arith<T>;
-  T c = T(0);
-  for (int j = 0; j < n; ++j) {
-    const int t = j * p;
-    const bool ex = mask != nullptr && mask[t] != 0;
-    const T g = tri::guard_pivot(A::sub(ex ? T(1) : di[t], A::mul(ex ? T(0) : lo[t], c)));
-    c = tri::quotient(ex ? T(0) : up[t], g);
-    den[t] = g;
-    cs[t] = c;
+struct GCol {
+  T* ptr;
+  int step;
+  __device__ __forceinline__ T operator[](int i) const { return ptr[i * step]; }
+  __device__ __forceinline__ void put(int i, T v) const { ptr[i * step] = v; }
+  // the row seen from node j, walking dir = ±1 node a step
+  __device__ __forceinline__ GCol walk(int j, int dir) const {
+    return GCol{ptr + j * step, dir * step};
+  }
+};
+
+// A chain of a run, `len` nodes from node `first` walking kDir, y a row of
+// the tile: on the shared route tri::vec_walk; on the device route (x and r rows
+// of its workspace) the same chain in groups of tri::kWalk<T> nodes, each
+// group's operands loaded before its chain.
+template <typename T, bool kScale, int kDir, typename Tab>
+__device__ __forceinline__ void run_walk(int len, int first, const Tab& x, const Tab& r,
+                                         const tri::Col<T>& y) {
+  if constexpr (std::is_same_v<Tab, tri::Col<T>>) {
+    tri::vec_walk<T, kScale, kDir>(len, first, x.addr, r.addr, y.addr);
+  } else {
+    constexpr int U = tri::kWalk<T>;
+    const tri::Walk<T, kDir, T*> xw{x.ptr + first}, rw{r.ptr + first};
+    const tri::Walk<T, kDir, unsigned> yw{y.addr + first * y.stride};
+    T acc = T(0);
+    for (int i0 = 0; i0 < len; i0 += U) {
+      acc = tri::walk_nodes<T, kScale, U>(i0, min(U, len - i0), acc, xw, rw, yw);
+    }
   }
 }
 
-// The sum of a warp's 32 values by a fixed butterfly; lane 0's sum is the
-// one kept (each lane's adds run in an order fixed by its lane number).
-template <typename T>
-__device__ __forceinline__ T warp_sum(T x) {
+// The tables of a factorization, walking the rows from their node 0:
+// den_j = guard(di_j − lo_j·c'_{j−1}) (tri::guard_pivot), c'_j = up_j / den_j
+// (the division), and at node j: −c'_{j−1} (0 at node 0), r_j = RN(1/den_j)
+// and −m_j = −RN(lo_{j+1}·r_j) (0 at the last node). On rows walked from
+// row n − 1 with lo and up swapped: the UL factorization's mirror.
+template <typename T, typename X>
+__device__ void form_factors(int n, tri::Col<T> lo, tri::Col<T> di, tri::Col<T> up, X zt, X rt,
+                             X mt) {
   using A = tri::Arith<T>;
-  for (int d = 16; d > 0; d >>= 1) x = A::add(x, __shfl_xor_sync(0xffffffffu, x, d));
-  return x;
+  T c = T(0);
+  for (int j = 0; j < n; ++j) {
+    const T den = tri::guard_pivot(A::sub(di[j], A::mul(lo[j], c)));
+    const T r = A::rcp(den);
+    zt.put(j, -c);
+    rt.put(j, r);
+    mt.put(j, j + 1 < n ? -A::mul(lo[j + 1], r) : T(0));
+    c = tri::quotient(up[j], den);
+  }
 }
 
-template <typename T>
+// The Uᵀ sweep of a run that touches neither end, on pivots it forms as it
+// goes (form_factors' recursion from the run's first row, whose lower
+// neighbour is exercised): y_i ← z_i·r_i and m_i ← −m_i, for the Lᵀ sweep.
+template <typename T, typename X>
+__device__ void pivot_walk(int len, tri::Col<T> lo, tri::Col<T> di, tri::Col<T> up,
+                           tri::Col<T> y, X m) {
+  using A = tri::Arith<T>;
+  T c = T(0), z = T(0);
+  for (int i = 0; i < len; ++i) {
+    const T den = tri::guard_pivot(A::sub(di[i], A::mul(lo[i], c)));
+    const T r = A::rcp(den);
+    z = A::fma(-c, z, y[i]);
+    y.put(i, A::mul(z, r));
+    m.put(i, -A::mul(lo[i + 1], r));
+    c = tri::quotient(up[i], den);
+  }
+}
+
+// A contract's runs of continuation rows in an exercise set (ex: a byte a
+// row), by one warp: 32 rows a ballot, each run's first and last row at its
+// place in the list (runs in row order). All 32 lanes call it; lane 0
+// writes the count.
+__device__ void find_runs(int n, const unsigned char* ex, int* count, int2* runs) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  int firsts = 0, lasts = 0;
+#pragma unroll 2
+  for (int c0 = 0; c0 < n; c0 += 32) {
+    const int j = c0 + lane;
+    const bool in = j < n;
+    const bool cont = in && ex[j] == 0;
+    const bool first = cont && (j == 0 || ex[j - 1] != 0);
+    const bool last = cont && (j == n - 1 || ex[j + 1] != 0);
+    const unsigned bf = __ballot_sync(0xffffffffu, first);
+    const unsigned bl = __ballot_sync(0xffffffffu, last);
+    if (first) runs[firsts + __popc(bf & below)].x = j;
+    if (last) runs[lasts + __popc(bl & below)].y = j;
+    firsts += __popc(bf);
+    lasts += __popc(bl);
+  }
+  if (lane == 0) *count = firsts;
+}
+
+// kDevice: the device route (the tables in `work`, (batch, kWorkRows, n);
+// the history read where it lies), else `work` is null.
+template <typename T, bool kDevice>
 __global__ void __launch_bounds__(kThreads)
     theta_pde_adjoint_kernel(const T* __restrict__ lo, const T* __restrict__ di,
                              const T* __restrict__ up, const T* __restrict__ coef,
@@ -476,217 +626,357 @@ __global__ void __launch_bounds__(kThreads)
                              const T* __restrict__ hist_u,
                              const unsigned char* __restrict__ hist_m,
                              const T* __restrict__ g_out, T* __restrict__ g_grid,
-                             T* __restrict__ g_coef, T* __restrict__ g_ends, int batch, int n,
-                             int n_time, int mode, int systems) {
+                             T* __restrict__ g_coef, T* __restrict__ g_ends, T* __restrict__ work,
+                             int batch, int n, int n_time, int mode, int systems) {
   using A = tri::Arith<T>;
+  using Tab = std::conditional_t<kDevice, GCol<T>, tri::Col<T>>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  const AdjointTile tile(n, systems, sizeof(T));
-  const int p = tile.pitch;
-  const int chunks = tile.chunks;
-  T* planes[kAdjointPlanes];
-  for (int i = 0; i < kAdjointPlanes; ++i) {
-    planes[i] = reinterpret_cast<T*>(smem_raw) + i * tile.plane;
-  }
-  T* s_lo = planes[0];
-  T* s_di = planes[1];
-  T* s_up = planes[2];
-  T* s_g = planes[3];   // ḡ, then z = U⁻ᵀḡ, then λ
-  T* s_gi = planes[4];  // the right-hand side's interior share of λ
-  T* s_den = planes[5];
-  T* s_cs = planes[6];
-  T* acc = planes[7];  // lo, di, up, ψ: a plane each
-  T* s_coef = reinterpret_cast<T*>(smem_raw) + kAdjointPlanes * tile.plane;
-  T* s_part = s_coef + 4 * systems;  // [contract][chunk][a, b, c, w]
-  unsigned char* s_m = reinterpret_cast<unsigned char*>(s_part + 4 * systems * chunks);
-  const int64_t pl = tile.plane;
+  const AdjointTile tile(n, systems, sizeof(T), kDevice);
+  const int ld = tile.ld;
+  const int pl = static_cast<int>(tile.plane);
+  T* const base = reinterpret_cast<T*>(smem_raw);
+  T* const s_lo = base + kLo * pl;
+  T* const s_di = base + kDi * pl;
+  T* const s_up = base + kUp * pl;
+  T* const s_psi = base + kPsi * pl;
+  T* const s_g = base + kG * pl;
+  T* const s_gi = base + kGi * pl;
+  T* const s_acc = base + kAcc * pl;  // lo, di, up, ψ: a plane each
+  T* const s_coef = base + (kAdjointPlanes + (kDevice ? 0 : kAdjointTablePlanes)) * pl;
+  T* const s_part = s_coef + 4 * systems;  // each thread's shares of a, b, c, w
+  int* const s_nruns = reinterpret_cast<int*>(smem_raw + tile.runs);
+  int2* const s_runs = reinterpret_cast<int2*>(smem_raw + tile.run_list);
+  unsigned char* const s_sets = smem_raw + tile.masks;
+  const unsigned sbase = static_cast<unsigned>(__cvta_generic_to_shared(smem_raw));
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
   const int warp = tid >> 5;
   const int b0 = blockIdx.x * systems;
   const int rows = min(systems, batch - b0);
-  const int cells = rows * n;
   const bool howard = mode == kHoward;
-  for (int e = tid; e < cells; e += kThreads) {  // along each contract's row
-    const int s = e / n;
-    const int j = e - s * n;
-    const int64_t g = static_cast<int64_t>(b0 + s) * n + j;
-    const int t = j * p + s;
-    s_lo[t] = lo[g];
-    s_di[t] = di[g];
-    s_up[t] = up[g];
-    s_g[t] = g_out[g];
-    for (int q = 0; q < 4; ++q) acc[q * pl + t] = T(0);
-    s_m[t] = 0;
+  const bool clamp = mode != kEuropean;
+  const int last = n_time - 1;
+  // the node work: contract `mine` on threads [mine·span, (mine + 1)·span),
+  // thread `first` of them on nodes first, first + span, ...
+  const int span = kThreads / systems;
+  const int mine = tid / span;
+  const int first = tid - mine * span;
+  const bool owner = mine < rows;
+
+  // plane `plane`'s row of contract s
+  constexpr int kSize = static_cast<int>(sizeof(T));
+  auto col = [&](int plane, int s) {
+    return tri::Col<T>{sbase + static_cast<unsigned>((plane * pl + s * ld) * kSize),
+                       static_cast<unsigned>(kSize)};
+  };
+  // a table's row of contract s (WorkRow)
+  auto table = [&](int row, int s) -> Tab {
+    if constexpr (kDevice) {
+      return GCol<T>{work + (static_cast<int64_t>(b0 + s) * kWorkRows + row) * n, 1};
+    } else {
+      return col(row == kRowPivots ? kGi : kTab + row, s);
+    }
+  };
+  auto ring = [](int i) { return (i + kRing) % kRing; };  // step i's history row (i ≥ −1)
+  auto hist_row = [&](int i, int s) {  // the solution of step i, v0 for i = −1
+    return i >= 0 ? hist_u + (static_cast<int64_t>(b0 + s) * n_time + i) * n
+                  : v0 + static_cast<int64_t>(b0 + s) * n;
+  };
+  // where the node work reads the solution of step i (v0 for i = −1)
+  auto u_row = [&](int i, int s) -> const T* {
+    if constexpr (kDevice) {
+      return hist_row(i, s);
+    } else {
+      return base + (kRingPlane + ring(i)) * pl + s * ld;
+    }
+  };
+  // the exercise set of step i's last solve, contract s; a ring row holds the
+  // row's bytes at their offset within hist_m's 4-byte words
+  auto set_row = [&](int i, int s) {
+    return hist_m + (static_cast<int64_t>(b0 + s) * n_time + i) * n;
+  };
+  auto head_of = [](const unsigned char* p) {
+    return static_cast<int>(reinterpret_cast<uintptr_t>(p) & 3);
+  };
+  auto set_of = [&](int i, int s) -> const unsigned char* {
+    if constexpr (kDevice) {
+      return set_row(i, s);
+    } else {
+      return s_sets + (i % 2 * systems + s) * tile.mask_stride + head_of(set_row(i, s));
+    }
+  };
+  // cp.async of step i's solution (v0 for i = −1) into its ring row, and of
+  // step i's exercise set: the 4-byte words that lie inside the row by
+  // cp.async, the bytes of a word the row only shares (its first and last)
+  // one by one, so no byte outside the row is read
+  auto stage_u = [&](int i) {
+    if (owner) {
+      T* const dst = base + (kRingPlane + ring(i)) * pl + mine * ld;
+      const T* const src = hist_row(i, mine);
+      for (int j = first; j < n; j += span) tri::cp_async(dst + j, src + j);
+    }
+  };
+  auto stage_set = [&](int i) {
+    if (owner) {
+      const unsigned char* const row = set_row(i, mine);
+      const int head = head_of(row);
+      const unsigned char* const src = row - head;  // 4-byte aligned
+      unsigned char* const dst = s_sets + (i % 2 * systems + mine) * tile.mask_stride;
+      const int end = head + n;
+      for (int w = first; w < (end + 3) / 4; w += span) {
+        const int b = 4 * w;
+        if (b >= head && b + 4 <= end) {
+          tri::cp_async(reinterpret_cast<unsigned*>(dst) + w,
+                        reinterpret_cast<const unsigned*>(src) + w);
+        } else {
+          for (int e = max(b, head); e < min(b + 4, end); ++e) dst[e] = src[e];
+        }
+      }
+    }
+  };
+
+  if (owner) {
+    const int64_t row = static_cast<int64_t>(b0 + mine) * n;
+    for (int j = first; j < n; j += span) {
+      const int t = mine * ld + j;
+      s_lo[t] = lo[row + j];
+      s_di[t] = di[row + j];
+      s_up[t] = up[row + j];
+      s_psi[t] = psi[row + j];
+      s_g[t] = g_out[row + j];
+      for (int q = 0; q < 4; ++q) s_acc[q * pl + t] = T(0);
+    }
   }
   for (int e = tid; e < 4 * rows; e += kThreads) {
     const int q = e / rows;
     const int s = e - q * rows;
     s_coef[q * systems + s] = coef[static_cast<int64_t>(q) * batch + b0 + s];
   }
-  for (int e = tid; e < 4 * rows * chunks; e += kThreads) s_part[e] = T(0);
+  if (!howard && tid < rows) {  // one run, the whole system
+    s_nruns[tid] = 1;
+    s_runs[tid * tile.max_runs] = make_int2(0, n - 1);
+  }
+  if constexpr (!kDevice) {
+    if (n_time > 0) {
+      for (int i = last; i >= max(last - 2, -1); --i) stage_u(i);
+      if (howard) {
+        for (int i = last; i >= max(last - 1, 0); --i) stage_set(i);
+      }
+      tri::cp_async_commit();
+      tri::cp_async_wait_all();
+    }
+  }
   __syncthreads();
-  // the chains: contract `sys` on one thread, the contracts spread over the
-  // warps
-  const int sys = tri::spread_system(kWarps);
-  const bool chain = sys < rows;
-  if (chain && !howard) adjoint_tables(n, p, s_lo + sys, s_di + sys, s_up + sys,
-                                       static_cast<const unsigned char*>(nullptr), s_den + sys,
-                                       s_cs + sys);
-  for (int k = n_time - 1; k >= 0; --k) {
-    // the clamp's adjoint on the step's solution from the history
-    for (int e = tid; e < cells; e += kThreads) {
-      const int s = e / n;
-      const int j = e - s * n;
-      const int t = j * p + s;
-      const int64_t h = (static_cast<int64_t>(b0 + s) * n_time + k) * n + j;
-      if (mode != kEuropean) {
-        const T u = hist_u[h];
-        const T pv = psi[static_cast<int64_t>(b0 + s) * n + j];
-        const T gv = s_g[t];
-        const T half = A::mul(gv, T(0.5));
-        const T gu = u < pv ? T(0) : (u == pv ? half : gv);
-        const T gp = u > pv ? T(0) : (u == pv ? half : gv);
-        acc[3 * pl + t] = A::add(acc[3 * pl + t], gp);
-        s_g[t] = gu;
+  const T* const s_a = s_coef;
+  const T* const s_b = s_coef + systems;
+  const T* const s_c = s_coef + 2 * systems;
+  const T* const s_w = s_coef + 3 * systems;
+  T share[4] = {T(0), T(0), T(0), T(0)};  // this thread's shares of a, b, c, w
+
+  // the chains' jobs: job q is run q / systems of contract q % systems, on
+  // warp q % kWarps, lane q / kWarps (then q + kThreads): the contracts' and
+  // the runs' chains side by side on different warps
+  const int job0 = tri::spread_system(kWarps);
+  {  // the tables, once: the LU factorization's on job (s, 0), the UL's on (s, 1)
+    const int s = job0 % systems;
+    const int r = job0 / systems;
+    if (s < rows && r < (howard ? 2 : 1)) {
+      const tri::Col<T> l = col(kLo, s), d = col(kDi, s), u = col(kUp, s);
+      const bool ul = r == 1;
+      const int row = ul ? kRowUL : kRowLU;
+      const int from = ul ? n - 1 : 0;
+      const int dir = ul ? -1 : 1;
+      form_factors(n, (ul ? u : l).walk(from, dir), d.walk(from, dir), (ul ? l : u).walk(from, dir),
+                   table(row, s).walk(from, dir), table(row + 1, s).walk(from, dir),
+                   table(row + 2, s).walk(from, dir));
+    }
+  }
+  // the clamp's adjoint of the last step, and its runs
+  if (n_time > 0 && clamp && owner) {
+    const T* const u = u_row(last, mine);
+    for (int j = first; j < n; j += span) {
+      const int t = mine * ld + j;
+      const T uv = u[j];
+      const T pv = s_psi[t];
+      const T gv = s_g[t];
+      const T half = A::mul(gv, T(0.5));
+      s_acc[3 * pl + t] = A::add(s_acc[3 * pl + t], uv > pv ? T(0) : (uv == pv ? half : gv));
+      s_g[t] = uv < pv ? T(0) : (uv == pv ? half : gv);
+    }
+  }
+  if (n_time > 0 && howard) {
+    for (int s = warp; s < rows; s += kWarps) {
+      find_runs(n, set_of(last, s), s_nruns + s, s_runs + s * tile.max_runs);
+    }
+  }
+  __syncthreads();
+
+  for (int k = last; k >= 0; --k) {
+    // A. the adjoint solve, run by run: Uᵀ then Lᵀ
+    int most = 1;
+    if (howard) {
+      most = 0;
+      for (int s = 0; s < rows; ++s) most = max(most, s_nruns[s]);
+    }
+    for (int q = job0; q < systems * most; q += kThreads) {
+      const int s = q % systems;
+      const int r = q / systems;
+      if (s >= rows || r >= s_nruns[s]) continue;
+      const int2 run = s_runs[s * tile.max_runs + r];
+      const int len = run.y - run.x + 1;
+      const tri::Col<T> g = col(kG, s);
+      if (run.x > 0 && run.y < n - 1) {  // a run that forms its own pivots
+        const Tab m = table(kRowPivots, s);
+        pivot_walk(len, col(kLo, s).walk(run.x, 1), col(kDi, s).walk(run.x, 1),
+                   col(kUp, s).walk(run.x, 1), g.walk(run.x, 1), m.walk(run.x, 1));
+        run_walk<T, false, -1>(len, run.y, m, m, g);
+      } else if (run.x == 0) {  // on the LU tables, from row 0
+        run_walk<T, true, 1>(len, 0, table(kRowLU, s), table(kRowLU + 1, s), g);
+        run_walk<T, false, -1>(len, run.y, table(kRowLU + 2, s), table(kRowLU + 2, s), g);
+      } else {  // on the UL tables, from row n − 1
+        run_walk<T, true, -1>(len, n - 1, table(kRowUL, s), table(kRowUL + 1, s), g);
+        run_walk<T, false, 1>(len, run.x, table(kRowUL + 2, s), table(kRowUL + 2, s), g);
       }
-      if (howard) s_m[t] = hist_m[h];
     }
     __syncthreads();
-    // the adjoint solve: Uᵀz = ḡ, then Lᵀλ = z, on the step's pivots and c'
-    if (chain) {
-      const int s = sys;
-      if (howard) adjoint_tables(n, p, s_lo + s, s_di + s, s_up + s, s_m + s, s_den + s,
-                                 s_cs + s);
-      T z = s_g[s];
-      for (int j = 1; j < n; ++j) {
-        const int t = j * p + s;
-        z = A::sub(s_g[t], A::mul(s_cs[t - p], z));
-        s_g[t] = z;
-      }
-      T lam = A::quo(z, s_den[(n - 1) * p + s]);
-      s_g[(n - 1) * p + s] = lam;
-      for (int j = n - 2; j >= 0; --j) {
-        const int t = j * p + s;
-        const T l1 = howard && s_m[t + p] ? T(0) : s_lo[t + p];
-        lam = A::quo(A::sub(s_g[t], A::mul(l1, lam)), s_den[t]);
-        s_g[t] = lam;
-      }
-    }
-    __syncthreads();
-    // λ to ψ (exercised rows), to lo, di, up, to the ends, and the right-hand
-    // side's interior share to a, b, c, w: a warp a chunk of one contract's
-    // nodes, so the shares reduce over the warp
-    for (int q = warp; q < rows * chunks; q += kWarps) {
-      const int s = q / chunks;
-      const int j = (q - s * chunks) * kChunk + lane;
-      T sa = T(0), sb = T(0), sc = T(0), sw = T(0);
-      if (j < n) {
-        const int t = j * p + s;
-        const int64_t row = static_cast<int64_t>(b0 + s) * n;
-        const int64_t h = (static_cast<int64_t>(b0 + s) * n_time + k) * n + j;
+    // B. λ to ψ (exercised rows: their own equation), to lo, di, up, to the
+    // ends, and the right-hand side's interior share to this thread's shares
+    // of a, b, c, w
+    if (owner) {
+      const int s = mine;
+      const unsigned char* const ex = howard ? set_of(k, s) : nullptr;
+      const T* const u = u_row(k, s);
+      const T* const vin = u_row(k - 1, s);
+      const bool clamped = k > 0 && clamp;  // the step's input is the clamped solution
+      for (int j = first; j < n; j += span) {
+        const int t = s * ld + j;
         T lam = s_g[t];
-        if (howard && s_m[t]) {
-          acc[3 * pl + t] = A::add(acc[3 * pl + t], lam);
+        T gi = T(0);
+        if (howard && ex[j]) {
+          if (j > 0 && !ex[j - 1]) lam = A::sub(lam, A::mul(s_up[t - 1], s_g[t - 1]));
+          if (j < n - 1 && !ex[j + 1]) lam = A::sub(lam, A::mul(s_lo[t + 1], s_g[t + 1]));
+          s_acc[3 * pl + t] = A::add(s_acc[3 * pl + t], lam);
           lam = T(0);
         } else {
-          const T ul = j > 0 ? hist_u[h - 1] : T(0);
-          const T ur = j < n - 1 ? hist_u[h + 1] : T(0);
-          acc[t] = A::sub(acc[t], A::mul(lam, ul));
-          acc[pl + t] = A::sub(acc[pl + t], A::mul(lam, hist_u[h]));
-          acc[2 * pl + t] = A::sub(acc[2 * pl + t], A::mul(lam, ur));
+          const T ul = j > 0 ? u[j - 1] : T(0);
+          const T ur = j < n - 1 ? u[j + 1] : T(0);
+          s_acc[t] = A::sub(s_acc[t], A::mul(lam, ul));
+          s_acc[pl + t] = A::sub(s_acc[pl + t], A::mul(lam, u[j]));
+          s_acc[2 * pl + t] = A::sub(s_acc[2 * pl + t], A::mul(lam, ur));
+          if (j > 0 && j < n - 1) {
+            gi = lam;
+            T v[3];
+            for (int d = 0; d < 3; ++d) {
+              v[d] = vin[j - 1 + d];
+              if (clamped) v[d] = A::max(v[d], s_psi[t - 1 + d]);
+            }
+            const T lap = A::add(A::add(A::mul(s_a[s], v[0]), A::mul(s_b[s], v[1])),
+                                 A::mul(s_c[s], v[2]));
+            const T gw = A::mul(s_w[s], gi);
+            share[0] = A::add(share[0], A::mul(gw, v[0]));
+            share[1] = A::add(share[1], A::mul(gw, v[1]));
+            share[2] = A::add(share[2], A::mul(gw, v[2]));
+            share[3] = A::add(share[3], A::mul(gi, lap));
+          }
         }
-        T gi = T(0);
         if (j == 0 || j == n - 1) {
           g_ends[(static_cast<int64_t>(b0 + s) * n_time + k) * 2 + (j == 0 ? 0 : 1)] = lam;
-        } else {
-          gi = lam;
-          // the step's input: v0, or the step before's solution, clamped
-          // to ψ outside the European mode
-          T vin[3];
-          for (int d = 0; d < 3; ++d) {
-            const int jj = j - 1 + d;
-            if (k == 0) {
-              vin[d] = v0[row + jj];
-            } else {
-              vin[d] = hist_u[h - n - 1 + d];
-              if (mode != kEuropean) vin[d] = A::max(vin[d], psi[row + jj]);
-            }
-          }
-          const T lap =
-              A::add(A::add(A::mul(s_coef[s], vin[0]), A::mul(s_coef[systems + s], vin[1])),
-                     A::mul(s_coef[2 * systems + s], vin[2]));
-          const T gw = A::mul(s_coef[3 * systems + s], gi);
-          sa = A::mul(gw, vin[0]);
-          sb = A::mul(gw, vin[1]);
-          sc = A::mul(gw, vin[2]);
-          sw = A::mul(gi, lap);
         }
         s_gi[t] = gi;
       }
-      sa = warp_sum(sa);
-      sb = warp_sum(sb);
-      sc = warp_sum(sc);
-      sw = warp_sum(sw);
-      if (lane == 0) {
-        T* part = s_part + 4 * q;
-        part[0] = A::add(part[0], sa);
-        part[1] = A::add(part[1], sb);
-        part[2] = A::add(part[2], sc);
-        part[3] = A::add(part[3], sw);
+    }
+    if constexpr (!kDevice) tri::cp_async_wait_all();  // step k − 1's set, k − 2's solution
+    __syncthreads();
+    // C. the gradient of the step's input, gi + b·w·gi + a·w·gi₊ + c·w·gi₋,
+    // and the clamp's adjoint of step k − 1 on it
+    if (owner) {
+      const int s = mine;
+      const T* const u = u_row(k - 1, s);
+      const T w = s_w[s];
+      for (int j = first; j < n; j += span) {
+        const int t = s * ld + j;
+        const T gi = s_gi[t];
+        const T right = j < n - 1 ? A::mul(s_a[s], A::mul(w, s_gi[t + 1])) : T(0);
+        const T left = j > 0 ? A::mul(s_c[s], A::mul(w, s_gi[t - 1])) : T(0);
+        T gv = A::add(A::add(A::add(gi, A::mul(s_b[s], A::mul(w, gi))), right), left);
+        if (k > 0 && clamp) {
+          const T uv = u[j];
+          const T pv = s_psi[t];
+          const T half = A::mul(gv, T(0.5));
+          s_acc[3 * pl + t] = A::add(s_acc[3 * pl + t], uv > pv ? T(0) : (uv == pv ? half : gv));
+          gv = uv < pv ? T(0) : (uv == pv ? half : gv);
+        }
+        s_g[t] = gv;
+      }
+    }
+    if constexpr (!kDevice) {  // into the rows step k's phases B and C no longer read
+      if (k >= 2) stage_u(k - 3);
+      if (howard && k >= 2) stage_set(k - 2);
+      tri::cp_async_commit();
+    }
+    if (howard && k > 0) {
+      for (int s = warp; s < rows; s += kWarps) {
+        find_runs(n, set_of(k - 1, s), s_nruns + s, s_runs + s * tile.max_runs);
       }
     }
     __syncthreads();
-    // the gradient of the step's input: gi + b·w·gi + a·w·gi₊ + c·w·gi₋
-    for (int e = tid; e < cells; e += kThreads) {
-      const int s = e / n;
-      const int j = e - s * n;
-      const int t = j * p + s;
-      const T w = s_coef[3 * systems + s];
-      const T gi = s_gi[t];
-      const T right = j < n - 1 ? A::mul(s_coef[s], A::mul(w, s_gi[t + p])) : T(0);
-      const T left = j > 0 ? A::mul(s_coef[2 * systems + s], A::mul(w, s_gi[t - p])) : T(0);
-      s_g[t] = A::add(A::add(A::add(gi, A::mul(s_coef[systems + s], A::mul(w, gi))), right),
-                      left);
-    }
-    __syncthreads();
   }
-  const int64_t bn = static_cast<int64_t>(batch) * n;
-  for (int e = tid; e < cells; e += kThreads) {
-    const int s = e / n;
-    const int j = e - s * n;
-    const int t = j * p + s;
-    const int64_t g = static_cast<int64_t>(b0 + s) * n + j;
-    for (int q = 0; q < 4; ++q) g_grid[q * bn + g] = acc[q * pl + t];
-    g_grid[4 * bn + g] = s_g[t];
-  }
-  if (chain) {  // a, b, c, w: each contract's chunk slots summed in chunk order
-    for (int q = 0; q < 4; ++q) {
-      T sum = T(0);
-      for (int c = 0; c < chunks; ++c) sum = A::add(sum, s_part[4 * (sys * chunks + c) + q]);
-      g_coef[static_cast<int64_t>(q) * batch + b0 + sys] = sum;
+  for (int q = 0; q < 4; ++q) s_part[q * kThreads + tid] = share[q];
+  if (owner) {
+    const int64_t row = static_cast<int64_t>(b0 + mine) * n;
+    const int64_t bn = static_cast<int64_t>(batch) * n;
+    for (int j = first; j < n; j += span) {
+      const int t = mine * ld + j;
+      for (int q = 0; q < 4; ++q) g_grid[q * bn + row + j] = s_acc[q * pl + t];
+      g_grid[4 * bn + row + j] = s_g[t];
     }
   }
+  __syncthreads();
+  // a, b, c, w: each contract's threads' shares summed in thread order
+  if (tid < 4 * rows) {
+    const int q = tid / rows;
+    const int s = tid - q * rows;
+    const T* const part = s_part + q * kThreads + s * span;
+    T sum = T(0);
+    for (int i = 0; i < span; ++i) sum = A::add(sum, part[i]);
+    g_coef[static_cast<int64_t>(q) * batch + b0 + s] = sum;
+  }
+}
+
+template <typename T, bool kDevice>
+cudaError_t launch_adjoint_route(const void* lo, const void* di, const void* up,
+                                 const void* coef, const void* psi, const void* v0,
+                                 const void* hist_u, const void* hist_m, const void* g_out,
+                                 void* g_grid, void* g_coef, void* g_ends, void* work, int batch,
+                                 int n, int n_time, int mode, int systems, cudaStream_t st) {
+  const AdjointTile tile(n, systems, sizeof(T), kDevice);
+  if (tile.bytes > tri::kMaxSmem) return cudaErrorInvalidValue;
+  cudaError_t err =
+      tri::allow_smem(theta_pde_adjoint_kernel<T, kDevice>, static_cast<int>(tile.bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + systems - 1) / systems;
+  theta_pde_adjoint_kernel<T, kDevice><<<blocks, kThreads, static_cast<size_t>(tile.bytes), st>>>(
+      static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
+      static_cast<const T*>(coef), static_cast<const T*>(psi), static_cast<const T*>(v0),
+      static_cast<const T*>(hist_u), static_cast<const unsigned char*>(hist_m),
+      static_cast<const T*>(g_out), static_cast<T*>(g_grid), static_cast<T*>(g_coef),
+      static_cast<T*>(g_ends), static_cast<T*>(work), batch, n, n_time, mode, systems);
+  return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_adjoint(const void* lo, const void* di, const void* up, const void* coef,
                            const void* psi, const void* v0, const void* hist_u,
                            const void* hist_m, const void* g_out, void* g_grid, void* g_coef,
-                           void* g_ends, int batch, int n, int n_time, int mode, int systems,
-                           cudaStream_t st) {
-  const AdjointTile tile(n, systems, sizeof(T));
-  if (tile.bytes > tri::kMaxSmem) return cudaErrorInvalidValue;
-  cudaError_t err = tri::allow_smem(theta_pde_adjoint_kernel<T>, static_cast<int>(tile.bytes));
-  if (err != cudaSuccess) return err;
-  const int blocks = (batch + systems - 1) / systems;
-  theta_pde_adjoint_kernel<T><<<blocks, kThreads, static_cast<size_t>(tile.bytes), st>>>(
-      static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
-      static_cast<const T*>(coef), static_cast<const T*>(psi), static_cast<const T*>(v0),
-      static_cast<const T*>(hist_u), static_cast<const unsigned char*>(hist_m),
-      static_cast<const T*>(g_out), static_cast<T*>(g_grid), static_cast<T*>(g_coef),
-      static_cast<T*>(g_ends), batch, n, n_time, mode, systems);
-  return cudaGetLastError();
+                           void* g_ends, void* work, int batch, int n, int n_time, int mode,
+                           int systems, cudaStream_t st) {
+  return work != nullptr
+             ? launch_adjoint_route<T, true>(lo, di, up, coef, psi, v0, hist_u, hist_m, g_out,
+                                             g_grid, g_coef, g_ends, work, batch, n, n_time,
+                                             mode, systems, st)
+             : launch_adjoint_route<T, false>(lo, di, up, coef, psi, v0, hist_u, hist_m, g_out,
+                                              g_grid, g_coef, g_ends, work, batch, n, n_time,
+                                              mode, systems, st);
 }
 
 }  // namespace
@@ -739,28 +1029,30 @@ extern "C" int theta_pde_launch(const void* lo, const void* di, const void* up,
 // (the same, one byte a node; Howard mode only, else may be null) the
 // exercise set of each step's last solve. Writes g_grid (5, batch, n): the
 // gradients of lo, di, up, psi and v0; g_coef (4, batch): of a, b, c, w;
-// g_ends (batch, n_time, 2). mode and systems as theta_pde_launch's (the
-// plan of adjoint_tile_bytes in ops/theta_pde.py). Returns a cudaError_t
-// code (0 on success).
+// g_ends (batch, n_time, 2). work: null for the shared-memory route, else
+// the device route's workspace, (batch, 7, n) values. mode and systems as
+// theta_pde_launch's, systems a power of two (the plan of adjoint_plan in
+// ops/theta_pde.py).
+// Returns a cudaError_t code (0 on success).
 extern "C" int theta_pde_adjoint_launch(const void* lo, const void* di, const void* up,
                                         const void* coef, const void* psi, const void* v0,
                                         const void* hist_u, const void* hist_m, const void* g,
-                                        void* g_grid, void* g_coef, void* g_ends, int batch,
-                                        int n, int n_time, int mode, int systems, int dtype,
-                                        int device, void* stream) {
+                                        void* g_grid, void* g_coef, void* g_ends, void* work,
+                                        int batch, int n, int n_time, int mode, int systems,
+                                        int dtype, int device, void* stream) {
   using namespace optionslab;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch < 1 || n < 3 || n_time < 0 || mode < kEuropean || mode > kHoward || systems < 1 ||
-      systems > tri::kPair || (dtype != 0 && dtype != 1) ||
+      systems > tri::kPair || (systems & (systems - 1)) != 0 || (dtype != 0 && dtype != 1) ||
       (mode == kHoward && hist_m == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   err = dtype == 0
             ? launch_adjoint<float>(lo, di, up, coef, psi, v0, hist_u, hist_m, g, g_grid, g_coef,
-                                    g_ends, batch, n, n_time, mode, systems, st)
+                                    g_ends, work, batch, n, n_time, mode, systems, st)
             : launch_adjoint<double>(lo, di, up, coef, psi, v0, hist_u, hist_m, g, g_grid,
-                                     g_coef, g_ends, batch, n, n_time, mode, systems, st);
+                                     g_coef, g_ends, work, batch, n, n_time, mode, systems, st);
   return static_cast<int>(err);
 }

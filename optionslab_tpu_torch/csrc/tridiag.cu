@@ -8,10 +8,11 @@
 // reverse pass of the θ-scheme time loop (theta_pde.cu solves through the
 // same functions, tridiag.cuh).
 //
-// Beside the solve: the two chain probes that time a node of the PDE
+// Beside the solve: the three chain probes that time a node of the PDE
 // kernels' chains (the pivots' here, the right-hand side's on tables formed
-// once in tridiag_rhs_chain_kernel) and the division check that holds the
-// fast quotient of tridiag.cuh to the division intrinsic.
+// once in tridiag_rhs_chain_kernel, the θ-scheme reverse's FMA sweeps in
+// tridiag_fma_chain_kernel) and the division check that holds the fast
+// quotient of tridiag.cuh to the division intrinsic.
 //
 // What bounds it. A system of n unknowns is a chain of n dependent pivots
 // (den_j = b_j − a_j·c'_{j−1}, c'_j = c_j / den_j, each precise quotient a
@@ -256,6 +257,72 @@ __global__ void tridiag_rhs_chain_kernel(const T* __restrict__ abcd, T* __restri
   if (threadIdx.x == 0) out[0] = x;
 }
 
+// The FMA chain alone, for the bound of theta_pde.cu's reverse sweeps: one
+// thread runs n_nodes nodes of acc = fma(m, acc, d), m and d of each node
+// read from shared memory and each node's value stored back, as a lane of
+// the reverse runs a node of its Lᵀ sweep (its Uᵀ sweep adds a product off
+// the chain). Two schedules of the loads: kAhead false, the reverse's own
+// walk (tri::vec_walk) over a row of kFmaRow nodes again and again, each
+// pass a chain from 0 on the values the pass before stored, each group's
+// operands by 16-byte vectors just before its chain (m = −a·2⁻²⁰, exact:
+// the passes compound, and so small an m keeps the row within 1 ± 2⁻⁸ over
+// 4,096 passes, where m = −a would overflow it); kAhead true, one chain
+// in groups of tri::kWalk<T> nodes on two groups' rows, the next group's
+// scalar loads issued while a group's chain runs. The faster one's time over
+// n_nodes is the least a node of those sweeps costs on the card. n_nodes a
+// multiple of kFmaRow.
+constexpr int kFmaRow = 32;
+
+template <typename T, bool kAhead>
+__global__ void tridiag_fma_chain_kernel(const T* __restrict__ abcd, T* __restrict__ out,
+                                         int n_nodes) {
+  using A = tri::Arith<T>;
+  constexpr int U = tri::kWalk<T>;
+  static_assert(kFmaRow % (2 * U) == 0, "a row holds two groups");
+  __shared__ __align__(16) T s_m[kFmaRow];
+  __shared__ __align__(16) T s_d[kFmaRow];
+  __shared__ __align__(16) T s_y[kFmaRow];
+  for (int q = 0; q < kFmaRow; ++q) {
+    s_m[q] = kAhead ? -abcd[0] : -abcd[0] * T(0x1p-20);
+    s_d[q] = abcd[3];
+    s_y[q] = abcd[3];
+  }
+  const tri::Col<T> m = tri::col<T>(s_m, 0, 1);
+  const tri::Col<T> d = tri::col<T>(s_d, 0, 1);
+  const tri::Col<T> y = tri::col<T>(s_y, 0, 1);
+  T acc = T(0);
+  if constexpr (kAhead) {
+    T m0[U], d0[U], m1[U], d1[U];
+    auto load = [&](T (&rm)[U], T (&rd)[U], int at) {
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        rm[q] = m[at + q];
+        rd[q] = d[at + q];
+      }
+    };
+    load(m0, d0, 0);
+    for (int i = 0; i < n_nodes; i += 2 * U) {
+      load(m1, d1, U);
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        acc = A::fma(m0[q], acc, d0[q]);
+        y.put(q, acc);
+      }
+      load(m0, d0, 0);
+#pragma unroll
+      for (int q = 0; q < U; ++q) {
+        acc = A::fma(m1[q], acc, d1[q]);
+        y.put(U + q, acc);
+      }
+    }
+  } else {
+    for (int i = 0; i < n_nodes; i += kFmaRow) {
+      acc = tri::vec_walk<T, false, 1>(kFmaRow, 0, m.addr, m.addr, y.addr);
+    }
+  }
+  out[0] = acc;
+}
+
 __device__ __forceinline__ unsigned long long bits(float x) { return __float_as_uint(x); }
 __device__ __forceinline__ unsigned long long bits(double x) {
   return static_cast<unsigned long long>(__double_as_longlong(x));
@@ -373,6 +440,36 @@ extern "C" int tridiag_rhs_chain_launch(const void* abcd, void* out, int n_nodes
     tridiag_rhs_chain_kernel<double><<<1, 32, 0, st>>>(static_cast<const double*>(abcd),
                                                       static_cast<double*>(out), n_nodes,
                                                       n_back);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The FMA chain probe: one block of one thread, n_nodes nodes (a multiple
+// of 32); ahead 0 the reverse's own walk, 1 the next group's loads during a
+// group's chain. abcd: lower (m is its negation), den,
+// upper, rhs (d). Returns a cudaError_t.
+extern "C" int tridiag_fma_chain_launch(const void* abcd, void* out, int n_nodes, int ahead,
+                                        int dtype, int device, void* stream) {
+  using namespace optionslab;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_nodes < 32 || n_nodes % 32 != 0 || (ahead != 0 && ahead != 1) ||
+      (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(abcd);
+  const double* ad = static_cast<const double*>(abcd);
+  float* of = static_cast<float*>(out);
+  double* od = static_cast<double*>(out);
+  if (dtype == 0 && ahead) {
+    tridiag_fma_chain_kernel<float, true><<<1, 1, 0, st>>>(af, of, n_nodes);
+  } else if (dtype == 0) {
+    tridiag_fma_chain_kernel<float, false><<<1, 1, 0, st>>>(af, of, n_nodes);
+  } else if (ahead) {
+    tridiag_fma_chain_kernel<double, true><<<1, 1, 0, st>>>(ad, od, n_nodes);
+  } else {
+    tridiag_fma_chain_kernel<double, false><<<1, 1, 0, st>>>(ad, od, n_nodes);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,6 +27,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace optionslab {
 namespace tri {
@@ -196,7 +197,166 @@ struct Col {
   unsigned stride;
   __device__ __forceinline__ T operator[](int j) const { return ld_shared<T>(addr + j * stride); }
   __device__ __forceinline__ void put(int j, T v) const { st_shared(addr + j * stride, v); }
+  // the column seen from node j, walking dir = ±1 node a step (a step
+  // towards node 0 wraps the unsigned stride: the addresses are modular)
+  __device__ __forceinline__ Col walk(int j, int dir) const {
+    return Col{addr + j * stride, static_cast<unsigned>(dir) * stride};
+  }
 };
+
+// 16 bytes of shared memory as T values: ld.shared / st.shared .v4.f32 or
+// .v2.f64 at a 16-byte aligned byte address of the shared window.
+template <typename T>
+struct Vec16;
+template <>
+struct Vec16<float> {
+  static constexpr int kN = 4;
+  static __device__ __forceinline__ void load(unsigned a, float* v) {
+    asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "r"(a)
+                 : "memory");
+  }
+  static __device__ __forceinline__ void store(unsigned a, const float* v) {
+    asm volatile("st.shared.v4.f32 [%0], {%1, %2, %3, %4};" ::"r"(a), "f"(v[0]), "f"(v[1]),
+                 "f"(v[2]), "f"(v[3])
+                 : "memory");
+  }
+};
+template <>
+struct Vec16<double> {
+  static constexpr int kN = 2;
+  static __device__ __forceinline__ void load(unsigned a, double* v) {
+    asm volatile("ld.shared.v2.f64 {%0, %1}, [%2];" : "=d"(v[0]), "=d"(v[1]) : "r"(a) : "memory");
+  }
+  static __device__ __forceinline__ void store(unsigned a, const double* v) {
+    asm volatile("st.shared.v2.f64 [%0], {%1, %2};" ::"r"(a), "d"(v[0]), "d"(v[1]) : "memory");
+  }
+};
+
+// Nodes [i0, i0 + U) of a shared-memory row (node j at row0 + j·sizeof(T))
+// walked from node `first` in direction kDir, as a lane's registers v[q] =
+// node i0 + q, loaded (or stored) by 16-byte vectors: the group's lowest
+// node, first + i0 (kDir = 1) or first − i0 − U + 1, on a 16-byte boundary.
+template <typename T, int kDir, int U>
+__device__ __forceinline__ unsigned group_addr(unsigned row0, int first, int i0) {
+  const int low = kDir > 0 ? first + i0 : first - i0 - U + 1;
+  return row0 + static_cast<unsigned>(low * static_cast<int>(sizeof(T)));
+}
+template <typename T, int kDir, int U>
+__device__ __forceinline__ void group_load(unsigned row0, int first, int i0, T (&v)[U]) {
+  constexpr int V = Vec16<T>::kN;
+  const unsigned a = group_addr<T, kDir, U>(row0, first, i0);
+#pragma unroll
+  for (int k = 0; k < U / V; ++k) {
+    T w[V];
+    Vec16<T>::load(a + k * 16, w);
+#pragma unroll
+    for (int e = 0; e < V; ++e) v[kDir > 0 ? k * V + e : U - 1 - (k * V + e)] = w[e];
+  }
+}
+template <typename T, int kDir, int U>
+__device__ __forceinline__ void group_store(unsigned row0, int first, int i0, const T (&v)[U]) {
+  constexpr int V = Vec16<T>::kN;
+  const unsigned a = group_addr<T, kDir, U>(row0, first, i0);
+#pragma unroll
+  for (int k = 0; k < U / V; ++k) {
+    T w[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e) w[e] = v[kDir > 0 ? k * V + e : U - 1 - (k * V + e)];
+    Vec16<T>::store(a + k * 16, w);
+  }
+}
+
+// Nodes of an FMA chain whose operands a lane loads together, before the
+// chain (theta_pde.cu's reverse sweeps, and tridiag.cu's probe of them).
+template <typename T>
+constexpr int kWalk = sizeof(T) == 4 ? 16 : 8;
+
+// A chain's view of a row from its first node, kDir = ±1 node a step known
+// at compile time (node i of a group at an immediate offset from the group's
+// first address): P the row's place, a byte address of the shared window
+// (unsigned) or a pointer to device memory (T*).
+template <typename T, int kDir, typename P>
+struct Walk {
+  P at;
+  __device__ __forceinline__ T operator[](int i) const {
+    if constexpr (std::is_pointer_v<P>) {
+      return at[i * kDir];
+    } else {
+      return ld_shared<T>(at + static_cast<unsigned>(i * kDir * static_cast<int>(sizeof(T))));
+    }
+  }
+  __device__ __forceinline__ void put(int i, T v) const {
+    if constexpr (std::is_pointer_v<P>) {
+      at[i * kDir] = v;
+    } else {
+      st_shared(at + static_cast<unsigned>(i * kDir * static_cast<int>(sizeof(T))), v);
+    }
+  }
+};
+
+// Up to U nodes [i0, i0 + m) of a chain, its operands loaded first (each
+// load predicated), then the chain: acc_i = fma(x_i, acc_{i−1}, y_i),
+// y_i ← acc_i·r_i (kScale) or acc_i. Returns acc.
+template <typename T, bool kScale, int U, typename X, typename Y>
+__device__ __forceinline__ T walk_nodes(int i0, int m, T acc, const X& x, const X& r, const Y& y) {
+  using A = Arith<T>;
+  T rx[U], rr[U], ry[U];
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    if (q < m) {
+      rx[q] = x[i0 + q];
+      if (kScale) rr[q] = r[i0 + q];
+      ry[q] = y[i0 + q];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < U; ++q) {
+    if (q < m) {
+      acc = A::fma(rx[q], acc, ry[q]);
+      y.put(i0 + q, kScale ? A::mul(acc, rr[q]) : acc);
+    }
+  }
+  return acc;
+}
+
+// One chain of a run on rows of the shared route's tile (each row's node 0
+// 16-byte aligned; x0, r0, y0 the rows' node-0 addresses), `len` nodes from
+// node `first` walking kDir: acc_i = fma(x_i, acc_{i−1}, y_i) from acc_{−1} =
+// 0, y_i ← acc_i·r_i (kScale: the Uᵀ sweep, z·r) or acc_i (the Lᵀ sweep, λ).
+// The nodes up to the first 16-byte boundary in the walk's direction (at
+// most 3), then whole groups of kWalk<T> nodes, each group's operands
+// loaded by 16-byte vectors before its chain and its outputs stored by
+// vectors after it, then the last nodes. Returns the last acc.
+template <typename T, bool kScale, int kDir>
+__device__ __forceinline__ T vec_walk(int len, int first, unsigned x0, unsigned r0,
+                                      unsigned y0) {
+  using A = Arith<T>;
+  using W = Walk<T, kDir, unsigned>;
+  constexpr int U = kWalk<T>;
+  constexpr int V = Vec16<T>::kN;
+  const unsigned from = static_cast<unsigned>(first * static_cast<int>(sizeof(T)));
+  const W x{x0 + from}, r{r0 + from}, y{y0 + from};
+  const int lead = min(kDir > 0 ? (V - first % V) % V : (first + 1) % V, len);
+  T acc = walk_nodes<T, kScale, V>(0, lead, T(0), x, r, y);
+  const int start = first + kDir * lead;  // the groups' first node
+  const int full = (len - lead) / U;
+  for (int g = 0; g < full; ++g) {
+    T rx[U], rr[U], ry[U];
+    group_load<T, kDir, U>(x0, start, g * U, rx);
+    if (kScale) group_load<T, kDir, U>(r0, start, g * U, rr);
+    group_load<T, kDir, U>(y0, start, g * U, ry);
+#pragma unroll
+    for (int q = 0; q < U; ++q) {
+      acc = A::fma(rx[q], acc, ry[q]);
+      ry[q] = kScale ? A::mul(acc, rr[q]) : acc;
+    }
+    group_store<T, kDir, U>(y0, start, g * U, ry);
+  }
+  const int done = lead + full * U;
+  return walk_nodes<T, kScale, U>(done, len - done, acc, x, r, y);
+}
 
 template <typename T>
 __device__ __forceinline__ Col<T> col(const void* node0, int column, int pitch) {

@@ -216,6 +216,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tridiag_rhs_chain_launch.argtypes = [  # abcd, out, n, back nodes, dtype, dev, st
         _P, _P, _I, _I, _I, _I, _P]
     lib.tridiag_rhs_chain_launch.restype = _I
+    lib.tridiag_fma_chain_launch.argtypes = [  # abcd, out, n, ahead, dtype, dev, st
+        _P, _P, _I, _I, _I, _I, _P]
+    lib.tridiag_fma_chain_launch.restype = _I
     lib.tridiag_div_check_launch.argtypes = [
         _P, _P, _P, _P,              # num, den, out, counts (uint64[3])
         ctypes.c_int64, _I, _I, _P,  # n, dtype, device, stream
@@ -236,6 +239,7 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _P,                      # psi, v0
         _P, _P, _P,                  # history: solutions, exercise sets; the gradient
         _P, _P, _P,                  # gradients: grid (5, batch, n), coef, ends
+        _P,                          # the device route's workspace (or null)
         _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, systems per block, dtype
         _I, _P,                      # device, stream
     ]

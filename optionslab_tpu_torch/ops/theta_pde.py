@@ -38,8 +38,9 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, DUMP_BYTES, PAD_ROWS, _neighbours, _solve,
-                      check_operands, plan_systems, sm_count, tridiag_apply, tridiag_solve)
+from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, DUMP_BYTES, PAD_ROWS, SMEM_LIMIT, _neighbours,
+                      _solve, check_operands, plan_systems, sm_count, tridiag_apply,
+                      tridiag_solve)
 
 EUROPEAN, PROJECTION, HOWARD = 0, 1, 2
 HOWARD_SWEEPS = 8
@@ -198,22 +199,52 @@ def tile_bytes(n: int, systems: int, itemsize: int) -> int:
     return planes + -(-4 * systems // 8) * 8 + DUMP_BYTES
 
 
-ADJOINT_PLANES = 11
-SHARE_CHUNK = 32  # the nodes whose shares of a, b, c and w one warp reduces
+ADJOINT_PLANES = 10  # the diagonals, ψ, the gradient, λ's share, four accumulators
+ADJOINT_TABLE_PLANES = 9  # the shared route's tables and history rows
+ADJOINT_WORK_ROWS = 7  # the device route's workspace rows a contract
+ADJOINT_THREADS = 128  # a CUDA block of the reverse: each thread's four shares in the tile
 
 
-def adjoint_tile_bytes(n: int, systems: int, itemsize: int) -> int:
+def _round8(nbytes: int) -> int:
+    return -(-nbytes // 8) * 8
+
+
+def adjoint_row(n: int, itemsize: int) -> int:
+    """Values in a contract's row of a plane of the reverse kernel's tile:
+    n rounded up to an odd number of 16-byte units (16-byte vector loads,
+    and lanes on several contracts' rows in different banks)."""
+    per16 = 16 // itemsize
+    return (-(-n // per16) | 1) * per16
+
+
+def adjoint_tile_bytes(n: int, systems: int, itemsize: int, device_tables: bool = False) -> int:
     """Shared memory of one block of the reverse kernel (``AdjointTile`` in
-    ``csrc/theta_pde.cu``): eleven n × pitch planes (the three diagonals,
-    the gradient, the right-hand side's share of λ, the pivots and c' of the
-    step's matrix, and the accumulators of lo, di, up and ψ), the contracts'
-    four coefficients, four share slots a contract and chunk of SHARE_CHUNK
-    nodes, and one byte a node for the exercise set; 8-byte aligned. Never
-    more than :func:`tile_bytes`: the reverse takes every grid the forward
-    takes."""
-    plane = n * (systems | 1)
-    slots = 4 * systems * -(-n // SHARE_CHUNK)
-    return -(-((ADJOINT_PLANES * plane + 4 * systems + slots) * itemsize + plane) // 8) * 8
+    ``csrc/theta_pde.cu``): ADJOINT_PLANES planes of a row of
+    :func:`adjoint_row` values a contract (the three diagonals, ψ, the
+    gradient, the right-hand side's share of λ, and the accumulators of lo,
+    di, up and ψ), on the shared
+    route ADJOINT_TABLE_PLANES more (the LU and UL factorizations' tables,
+    three history rows), the contracts' four coefficients and each thread's
+    shares of a, b, c and w; then (8-byte aligned) each contract's count of
+    runs and its runs (two ints each, at most ⌈n / 2⌉); on the shared route
+    two exercise-set rows a contract of 4 · ⌊(n + 6) / 4⌋ bytes.
+    ``device_tables``: the device route, whose tables and history stay in
+    device memory."""
+    planes = ADJOINT_PLANES + (0 if device_tables else ADJOINT_TABLE_PLANES)
+    values = planes * systems * adjoint_row(n, itemsize) + 4 * systems + 4 * ADJOINT_THREADS
+    runs = _round8(values * itemsize)
+    masks = runs + _round8(4 * systems) + 8 * systems * ((n + 1) // 2)
+    sets = 0 if device_tables else 2 * systems * ((n + 6) // 4 * 4)
+    return _round8(masks + sets)
+
+
+def adjoint_plan(batch: int, n: int, itemsize: int, n_sms: int) -> tuple[int, bool]:
+    """(contracts a CUDA block, device route) of the reverse kernel: the
+    shared route wherever one contract's tile fits in a block's shared
+    memory (:func:`plan_systems` on its tile), else the device route, whose
+    tile holds every grid the forward takes."""
+    device = adjoint_tile_bytes(n, 1, itemsize) > SMEM_LIMIT
+    return plan_systems(batch, n_sms, lambda k: adjoint_tile_bytes(n, k, itemsize, device)), device
 
 
 def _grid_operands(lo, di, up, a, b, c, w, psi, v, batch, n):
@@ -293,10 +324,14 @@ _theta_cuda.jump_launches = 0
 def _theta_adjoint_cuda(lo, di, up, a, b, c, w, psi, v0, ends, mode: int, hist_u, hist_m, g):
     """The reverse kernel: one launch on PyTorch's current stream, no
     synchronize. Arguments and returns as :func:`_theta_reverse_plain`'s (the
-    history as :func:`_theta_cuda` keeps it). Every accumulator stays in the
-    block's shared memory for the launch and is written once; the sums run
-    in a fixed order, no atomics. ``_theta_adjoint_cuda.launches`` counts
-    the launches."""
+    history as :func:`_theta_cuda` keeps it). The route is
+    :func:`adjoint_plan`'s: the accumulators of lo, di, up and ψ stay in the
+    block's shared memory for the launch and each thread's shares of a, b, c
+    and w in its registers, each written once; the tables and the history
+    rows are in shared memory too, or on the device route (grids too long for
+    that) in a workspace of device memory and in the history itself. The
+    sums run in a fixed order, no atomics. ``_theta_adjoint_cuda.launches``
+    counts the launches."""
     ops = (lo, di, up, a, b, c, w, psi, v0, ends, hist_u, g)
     dev = check_operands("_theta_adjoint_cuda", ops)
     batch, n_time, n = hist_u.shape
@@ -305,8 +340,7 @@ def _theta_adjoint_cuda(lo, di, up, a, b, c, w, psi, v0, ends, mode: int, hist_u
         raise ValueError(f"bad θ-scheme reverse: history {tuple(hist_u.shape)}, ends "
                          f"{tuple(ends.shape)}, mode {mode}")
     grid, coef = _grid_operands(lo, di, up, a, b, c, w, psi, v0, batch, n)
-    systems = plan_systems(batch, sm_count(dev.index),
-                           lambda k: adjoint_tile_bytes(n, k, v0.element_size()))
+    systems, device = adjoint_plan(batch, n, v0.element_size(), sm_count(dev.index))
     hist_u = hist_u.contiguous()
     if hist_m is not None:
         hist_m = hist_m.to(torch.bool).contiguous()
@@ -314,12 +348,15 @@ def _theta_adjoint_cuda(lo, di, up, a, b, c, w, psi, v0, ends, mode: int, hist_u
     g_grid = torch.empty((5, batch, n), dtype=v0.dtype, device=dev)  # lo, di, up, ψ, v0
     g_coef = torch.empty((4, batch), dtype=v0.dtype, device=dev)
     g_ends = torch.empty((batch, n_time, 2), dtype=v0.dtype, device=dev)
+    work = torch.empty((batch, ADJOINT_WORK_ROWS, n), dtype=v0.dtype, device=dev) if device \
+        else None
     err = _build.load_library().theta_pde_adjoint_launch(
         grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
         grid[3].data_ptr(), grid[4].data_ptr(), hist_u.data_ptr(),
         0 if hist_m is None else hist_m.data_ptr(), g.data_ptr(), g_grid.data_ptr(),
-        g_coef.data_ptr(), g_ends.data_ptr(), batch, n, n_time, mode, systems,
-        _DTYPE_ID[v0.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        g_coef.data_ptr(), g_ends.data_ptr(), 0 if work is None else work.data_ptr(), batch, n,
+        n_time, mode, systems, _DTYPE_ID[v0.dtype], dev.index,
+        torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"theta_pde_adjoint_launch failed: {_build.error_string(err)} "
                            f"({err})")

@@ -10,6 +10,7 @@ card every test here skips: a CUDA kernel has no CPU mode.
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -17,6 +18,8 @@ from optionslab_tpu_torch import ContractBatch, MCMethod, MonteCarloPricer, bs_p
 from optionslab_tpu_torch.models import exotics as tex
 from optionslab_tpu_torch.ops import exotic_kernel as ek
 from optionslab_tpu_torch.ops import gbm_kernel as gk
+from optionslab_tpu_torch.ops.theta_cases import (THETA_REVERSE_RTOL, exercise_sets,
+                                                  short_howard_step)
 
 # per-row sums: the kernel and the plain version draw bit-equal paths with
 # CUDA's libm on the card; summation order is the only difference
@@ -800,11 +803,6 @@ def test_fdm_gradient_on_card_equals_autograd_of_the_plain_loop(cuda_device, ame
         torch.testing.assert_close(got, want, rtol=1e-10, atol=1e-12)
 
 
-# the reverse kernel against the plain reverse, relative to each gradient's
-# largest entry: the adjoint solve by LU (Uᵀ then Lᵀ on the forward's
-# pivots) against the plain reverse's Thomas solve on the transposed
-# diagonals, and the sums over nodes and steps in another order
-THETA_REVERSE_RTOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 THETA_CODES = ("european", "projection", "howard")
 
 
@@ -873,6 +871,111 @@ def test_theta_reverse_kernel_at_the_forwards_longest_grid(cuda_device, dtype):
     got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
     torch.cuda.synchronize()
     assert tp._theta_adjoint_cuda.launches == before + 1
+    plain = tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g)
+    exact = tp._theta_reverse_plain(*(o.double() for o in ops), tp.HOWARD, hist_u.double(),
+                                    hist_m, g.double())
+    own = _grad_gap(plain, exact)
+    assert _grad_gap(got, exact) < max(2 * own, THETA_REVERSE_RTOL[dtype])
+
+
+# the hand-built exercise sets (ops/theta_cases.py), all of
+# them mixed in blocks over 300 contracts, and the Howard step that stops
+# short of its fixed point with the set its last solve ran on
+REVERSE_SETS = (*exercise_sets(41), "mixed", "short of the fixed point")
+
+
+def _set_history(sets, names, steps, device):
+    """Howard's history of exercise sets, (len(names), steps, n): contract b
+    on ``sets[names[b]]`` at every step."""
+    rows = torch.tensor(np.stack([sets[nm] for nm in names]), device=device)
+    return rows[:, None].expand(len(names), steps, rows.shape[1]).contiguous()
+
+
+@pytest.mark.parametrize("name", REVERSE_SETS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_theta_reverse_kernel_on_hand_built_exercise_sets(cuda_device, name, dtype):
+    """The reverse kernel on exercise sets built by hand (passed as the
+    history's sets; the solutions a forward's, American operands, 41 nodes
+    x 3 steps): each run of continuation rows on the LU tables, the UL
+    tables or pivots of its own, each exercised row from its own equation.
+    Within THETA_REVERSE_RTOL of the plain reverse on the same history, a
+    second launch bit for bit the first."""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+
+    n, steps = 41, 3
+    sets = exercise_sets(n)
+    if name == "short of the fixed point":
+        ops = short_howard_step(dtype, cuda_device)
+        _, hist_u, hist_m = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+    else:
+        names = [name] * 4 if name != "mixed" else [list(sets)[b % len(sets)] for b in range(300)]
+        args = [t.to(dtype) for t in _book_fields(len(names), cuda_device)]
+        _, ops = fdm._cn_operands(*args, n, steps, 0.5, True)
+        _, hist_u, _ = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+        hist_m = _set_history(sets, names, steps, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    g = torch.randn(hist_u[:, 0].shape, generator=gen, device=cuda_device, dtype=dtype)
+    got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+    again = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    plain = tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g)
+    assert _grad_gap(got, plain) < THETA_REVERSE_RTOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_theta_reverse_kernel_reads_a_misaligned_set_view_exactly(cuda_device, dtype):
+    """The exercise sets as a view whose rows start off 4-byte words (a
+    contiguous slice along the batch, n·n_time odd) and whose last row ends
+    at its storage's end: the kernel reads each row's bytes and nothing
+    around them, bit for bit its launch on a fresh copy of the same sets."""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+
+    n, steps = 41, 3
+    sets = exercise_sets(n)
+    names = [list(sets)[b % len(sets)] for b in range(2 * len(sets))]
+    args = [t.to(dtype) for t in _book_fields(len(names), cuda_device)]
+    _, ops = fdm._cn_operands(*args, n, steps, 0.5, True)
+    _, hist_u, _ = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+    fresh = _set_history(sets, names, steps, cuda_device)
+    store = torch.empty(len(names) * steps * n + 1, dtype=torch.bool, device=cuda_device)
+    view = store[1:].view(fresh.shape)
+    view.copy_(fresh)
+    assert view.is_contiguous() and view.data_ptr() % 4 != 0
+    g = torch.ones_like(hist_u[:, 0])
+    got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, view, g)
+    want = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, fresh, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_theta_reverse_kernel_on_hand_built_sets_at_the_longest_grid(cuda_device, dtype):
+    """The device route: one contract on each hand-built exercise set at the
+    longest grid the forward takes, 2 steps, held to the float64 plain
+    reverse on the same history as closely as the plain reverse of its own
+    dtype (as at the longest grid above), two launches bit for bit."""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    size = torch.finfo(dtype).bits // 8
+    n = 3
+    while tp.tile_bytes(n + 1, 1, size) <= tridiag.SMEM_LIMIT:
+        n += 1
+    sets = exercise_sets(n)
+    assert tp.adjoint_plan(len(sets), n, size, tridiag.sm_count(cuda_device.index))[1]
+    args = [t.to(dtype) for t in _book_fields(len(sets), cuda_device)]
+    _, ops = fdm._cn_operands(*args, n, 2, 0.5, True)
+    _, hist_u, _ = tp._theta_cuda(*ops, tp.HOWARD, history=True)
+    hist_m = _set_history(sets, list(sets), 2, cuda_device)
+    g = torch.ones_like(hist_u[:, 0])
+    got = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+    again = tp._theta_adjoint_cuda(*ops, tp.HOWARD, hist_u, hist_m, g)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
     plain = tp._theta_reverse_plain(*ops, tp.HOWARD, hist_u, hist_m, g)
     exact = tp._theta_reverse_plain(*(o.double() for o in ops), tp.HOWARD, hist_u.double(),
                                     hist_m, g.double())

@@ -23,6 +23,15 @@ on the CPU.
 * A second derivative (a graph of the gradient) runs the plain loop again
   under autograd and never the reverse; a first derivative runs the reverse
   and never the plain loop again (counted through wrappers of both).
+* The algebra the reverse kernel (``csrc/theta_pde.cu``) solves each step's
+  adjoint system by, written out in torch: on hand-built exercise sets the
+  runs of continuation rows solved apart, a run that touches row 0 on the
+  whole matrix's LU tables and one that touches row n − 1 on its UL tables
+  (each formed once), any other run on pivots of its own, each exercised
+  row from its own equation; against the plain reverse's solve on the
+  masked transposed diagonals within THETA_REVERSE_RTOL (the kernel's
+  tolerance on the card).
+* The reverse kernel's plan gives every grid the forward takes a route.
 """
 
 import numpy as np
@@ -31,6 +40,9 @@ import torch
 
 from optionslab_tpu_torch.models import fdm as tf
 from optionslab_tpu_torch.ops import theta_pde as tp
+from optionslab_tpu_torch.ops.theta_cases import (THETA_REVERSE_RTOL, exercise_sets,
+                                                  short_howard_step)
+from optionslab_tpu_torch.ops.tridiag import _neighbours, _solve
 from optionslab_tpu_torch.types import ContractBatch
 
 
@@ -148,26 +160,8 @@ def test_gradient_matches_jax_grad(jax_fdm_grads, mode, dtype):
                                    atol=JAX_RTOL[dtype] * np.abs(want).max(), err_msg=name)
 
 
-def _slow_howard_step():
-    """One Howard step whose sweeps release one exercised row a sweep
-    (strong coupling, ψ = 1, the right-hand side 0.99 inside): 8 sweeps stop
-    short of the fixed point. The operands of ``theta_loop``, a = b = c = w =
-    0, so the right-hand side is the initial values with the ends' table."""
-    n, k = 41, 100.0
-    lo = torch.full((1, n), -k, dtype=torch.float64)
-    up = lo.clone()
-    di = torch.full((1, n), 1 + 2 * k, dtype=torch.float64)
-    for t, end in ((lo, 0.0), (up, 0.0), (di, 1.0)):
-        t[:, 0] = t[:, -1] = end
-    psi = torch.ones((1, n), dtype=torch.float64)
-    v0 = torch.full((1, n), 0.99, dtype=torch.float64)
-    zero = torch.zeros((1, 1), dtype=torch.float64)
-    ends = torch.tensor([[[0.0, 1.5]]], dtype=torch.float64)
-    return [lo, di, up, zero, zero, zero, zero, psi, v0, ends]
-
-
 def test_howard_reverse_reads_the_set_of_the_last_solve():
-    ops = _slow_howard_step()
+    ops = short_howard_step()
     lo, di, up, psi, ends = ops[0], ops[1], ops[2], ops[7], ops[9]
     rhs = tp.set_ends(ops[8], ends[:, 0, 0], ends[:, 0, 1])
     u, used = tp._howard(lo, di, up, rhs, psi)
@@ -240,20 +234,121 @@ def test_second_derivative_runs_the_recompute_and_the_first_the_reverse(monkeypa
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 def test_reverse_tile_fits_every_grid_the_forward_takes(itemsize):
-    """The reverse kernel's shared-memory tile is never larger than the
-    forward's, at every tile of 1 to 16 contracts, up to the longest grid
-    the forward takes with one contract a block; so every grid that
-    ``fdm_price`` prices on the card also takes a first-order gradient."""
+    """Every grid the forward takes with one contract a block gets a route
+    of the reverse kernel whose tile fits in a block's shared memory, at
+    every batch: the shared route while one contract's whole tile (tables,
+    shares and history rows) fits, the device route beyond; so every grid
+    that ``fdm_price`` prices on the card also takes a first-order gradient.
+    ``fdm_price``'s defaults take the shared route."""
     from optionslab_tpu_torch.ops import tridiag as tt
 
     longest = 3
     while tp.tile_bytes(longest + 1, 1, itemsize) <= tt.SMEM_LIMIT:
         longest += 1
     assert longest == {4: 4722, 8: 2377}[itemsize]
+    assert tp.adjoint_plan(256, 201, itemsize, 132) == (2, False)
+    routes = set()
     for n in (*range(3, 200), *range(200, longest + 1, 37), longest):
-        for systems in range(1, 17):
-            assert tp.adjoint_tile_bytes(n, systems, itemsize) <= tp.tile_bytes(n, systems,
-                                                                                itemsize)
-    slots = 4 * -(-longest // tp.SHARE_CHUNK)  # one contract: a plane is `longest` values
-    assert tp.adjoint_tile_bytes(longest, 1, itemsize) == \
-        -(-((11 * longest + 4 + slots) * itemsize + longest) // 8) * 8
+        for batch in (1, 256, 4096):
+            systems, device = tp.adjoint_plan(batch, n, itemsize, 132)
+            assert tp.adjoint_tile_bytes(n, systems, itemsize, device) <= tt.SMEM_LIMIT
+            assert device == (tp.adjoint_tile_bytes(n, 1, itemsize) > tt.SMEM_LIMIT)
+            routes.add(device)
+    assert routes == {False, True}
+    runs = 8 * ((longest + 1) // 2)  # up to ⌈n / 2⌉ runs of two ints, after a count
+    row = (-(-longest // (16 // itemsize)) | 1) * (16 // itemsize)  # odd 16-byte units
+    assert row == tp.adjoint_row(longest, itemsize) and row * itemsize % 32 == 16
+    values = 10 * row + 4 + 4 * 128  # ten rows, a, b, c, w, the threads' shares
+    assert tp.adjoint_tile_bytes(longest, 1, itemsize, True) == \
+        -(-(values * itemsize) // 8) * 8 + 8 + runs
+
+
+def _factors(lo, di, up):
+    """The kernel's tables of one contract's columns (``form_factors``): at
+    node j, −c'_{j−1}, r_j = 1/den_j and −m_j = −lo_{j+1}·r_j, den_j the
+    pivot with the solve's guard."""
+    n = di.shape[0]
+    z, r, m = (torch.zeros_like(di) for _ in range(3))
+    c = torch.zeros((), dtype=di.dtype)
+    for j in range(n):
+        den = di[j] - lo[j] * c
+        den = torch.where(den.abs() < 1e-30, torch.sign(den) * 1e-30 + 1e-30, den)
+        z[j], r[j] = -c, 1 / den
+        m[j] = -lo[j + 1] * r[j] if j + 1 < n else 0.0
+        c = up[j] / den
+    return z, r, m
+
+
+def _solve_by_runs(lo, di, up, ex, g):
+    """λ of Aᵀλ = g for one contract, A with the rows ``ex`` exercised
+    (identity rows), the kernel's way: the runs of continuation rows apart,
+    each a forward sweep z_j = g_j − c'_{j−1}·z_{j−1} and a back sweep
+    λ_j = z_j·r_j − m_j·λ_{j+1} on tables (the whole matrix's LU tables for a
+    run at row 0, its UL tables mirrored for a run at row n − 1, its own
+    pivots for any other); then each exercised row from its own equation."""
+    n = g.shape[0]
+    lu = _factors(lo, di, up)
+    ul = [t.flip(0) for t in _factors(up.flip(0), di.flip(0), lo.flip(0))]
+    cont = [j for j in range(n) if not ex[j]]
+    runs = [[j] for j in cont[:1]]
+    for j in cont[1:]:
+        if j == runs[-1][-1] + 1:
+            runs[-1].append(j)
+        else:
+            runs.append([j])
+    lam = g.clone()
+    for run in runs:
+        a, b = run[0], run[-1]
+        if a == 0:
+            (z, r, m), order = lu, run
+        elif b == n - 1:
+            (z, r, m), order = ul, run[::-1]
+        else:
+            z, r, m = (torch.zeros_like(g) for _ in range(3))
+            z[a:b + 1], r[a:b + 1], m[a:b + 1] = _factors(lo[a:b + 1], di[a:b + 1], up[a:b + 1])
+            order = run
+        y, acc = torch.zeros_like(g), 0.0
+        for j in order:
+            acc = z[j] * acc + g[j]
+            y[j] = acc * r[j]
+        acc = 0.0
+        for j in order[::-1]:
+            acc = m[j] * acc + y[j]
+            lam[j] = acc
+    for e in np.flatnonzero(ex):
+        if e > 0 and not ex[e - 1]:
+            lam[e] = lam[e] - up[e - 1] * lam[e - 1]
+        if e < n - 1 and not ex[e + 1]:
+            lam[e] = lam[e] - lo[e + 1] * lam[e + 1]
+    return lam
+
+
+SETS = [*exercise_sets(41), "short of the fixed point"]
+
+
+@pytest.mark.parametrize("name", SETS)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_adjoint_solve_by_runs_matches_the_plain_solve(name, dtype):
+    """The kernel's way of solving a step's masked adjoint system against
+    the plain reverse's solve on the masked transposed diagonals, on
+    ``fdm_price``'s American operands (three contracts, 41 nodes) with each
+    hand-built exercise set, and on the Howard step whose eight sweeps stop
+    short of their fixed point with the set its last solve ran on."""
+    if name == "short of the fixed point":
+        ops = short_howard_step(dtype)
+        lo, di, up, psi, ends = ops[0], ops[1], ops[2], ops[7], ops[9]
+        rhs = tp.set_ends(ops[8], ends[:, 0, 0], ends[:, 0, 1])
+        _, ex = tp._howard(lo, di, up, rhs, psi)
+    else:
+        _, ops = tf._cn_operands(*_args(_book(3), dtype), 41, 4, 0.5, True)
+        lo, di, up = ops[:3]
+        ex = torch.tensor(exercise_sets(41)[name]).expand(lo.shape)
+    g = torch.tensor(np.random.default_rng(6).normal(size=tuple(lo.shape)), dtype=dtype)
+    lo_m, di_m, up_m = (torch.where(ex, 0.0, lo), torch.where(ex, 1.0, di),
+                        torch.where(ex, 0.0, up))
+    lo_t, _ = _neighbours(up_m)
+    _, up_t = _neighbours(lo_m)
+    want = _solve(lo_t, di_m, up_t, g)
+    got = torch.stack([_solve_by_runs(lo[b], di[b], up[b], ex[b].numpy(), g[b])
+                       for b in range(lo.shape[0])])
+    assert _gap([got], [want]) < THETA_REVERSE_RTOL[dtype]

@@ -13,8 +13,18 @@ library of their own; both are driven through this checkout's wrappers
 float32 and float64) and the Heston ADI loops at the defaults (European and
 American 201 x 101 x 200, Bermudan 50 and 25 dates x 8 steps, SLV 161 x 81 at
 25 x 8). The two outputs of each case must be bitwise equal; each kernel is
-timed by CUDA events in turns: other, this, this, other. The ADI reverse
-kernels run at 201 x 101 x 200, European and American, on one history and
+timed by CUDA events in turns: other, this, this, other. The θ-scheme
+reverse kernels run at 256 x 201 x 200, European, projection and Howard,
+float32 and float64, on one forward's history and one seeded gradient, each
+tree through its own launch (this tree's plan: the shared route, which a
+tree without the device route's workspace argument also takes); their
+gradients may differ by the order of their sums and by their rounding, and
+the largest gap, relative to each gradient's largest entry, is printed.
+``fdm_price``'s first-order gradient at 256 x 201 x 200 float32 (European and
+American), the forward with its history and the reverse on each tree's
+kernels, is timed by the host clock (a mean of 5 warm calls) in the same
+turns. The ADI reverse kernels run at 201 x 101 x 200, European and American,
+on one history and
 one seeded weight grid, each tree driven through its own pointer table
 (``_REV_FIELDS``, read from its source; the fields this tree lacks get zeroed
 buffers of the size their name has: a work grid, or three for ``xpiv``; its
@@ -23,9 +33,9 @@ this tree's dims (route included); the two trees' gradients may differ by
 their sums' order, and the largest gap, relative to each gradient's largest
 entry, is printed. With ``--fit`` each tree's reverse step is also fitted to
 t = c0 + cx·n_x + cv·n_v (``chip_smoke.step_fit``) on the grids of
-``chip_smoke.adi_reverse_fit_inputs``, in turns. ``--only reverse`` skips the
-forward and θ-scheme cases. Prints one line a case and the card's name and
-power limit; with ``--out`` also writes the times there as JSON.
+``chip_smoke.adi_reverse_fit_inputs``, in turns. ``--only reverse`` times the
+θ-scheme and ADI reverse kernels alone. Prints one line a case and the card's
+name and power limit; with ``--out`` also writes the times there as JSON.
 
 The ABI this assumes of the other tree, checked before anything is built:
 ``theta_pde_launch`` and ``heston_adi_launch`` take the parameter types of
@@ -34,7 +44,9 @@ table) is this tree's; its forward launch reads no ``dims`` entry past this
 tree's last (index 7, the route, which a tree without the cluster kernel
 does not read); and its θ kernel writes at most the two ints a block of the
 counts buffer that this tree's wrapper allocates (a tree that counts only
-the solves writes the first); ``heston_adi_adjoint_launch`` reads no ``dims``
+the solves writes the first); ``theta_pde_adjoint_launch`` takes this tree's
+parameters, or those without the workspace pointer after ``g_ends``;
+``heston_adi_adjoint_launch`` reads no ``dims``
 entry past this tree's last (index 5) and its pointer table names only
 fields this tool can allocate.
 """
@@ -97,6 +109,21 @@ def dims_read(src: str, name: str) -> int:
     return max(int(k) for k in re.findall(r"dims\[(\d+)\]", body)) + 1
 
 
+def reverse_abi(other: pathlib.Path) -> bool:
+    """Whether the other tree's ``theta_pde_adjoint_launch`` takes this
+    tree's parameters (True) or those without the workspace pointer (False);
+    stops on any other."""
+    name = "theta_pde_adjoint_launch"
+    theirs = launch_types((other / "optionslab_tpu_torch" / "csrc" / "theta_pde.cu").read_text(),
+                          name)
+    ours = launch_types((_build.CSRC / "theta_pde.cu").read_text(), name)
+    if theirs == ours:
+        return True
+    if theirs == ours[:12] + ours[13:]:
+        return False
+    raise SystemExit(f"pde_in_turns: {name} takes other arguments there")
+
+
 def check_abi(other: pathlib.Path) -> None:
     """Stops unless the other tree's launches take this checkout's arguments
     (the ABI in the module's docstring)."""
@@ -105,6 +132,7 @@ def check_abi(other: pathlib.Path) -> None:
         ours = (_build.CSRC / name).read_text()
         if launch_types(theirs, fn) != launch_types(ours, fn):
             raise SystemExit(f"pde_in_turns: {fn} takes other arguments there")
+    reverse_abi(other)
     py = other / "optionslab_tpu_torch" / "ops" / "heston_adi.py"
     if fields(py, "_FWD_FIELDS") != ha._FWD_FIELDS:
         raise SystemExit("pde_in_turns: the other tree's ADI pointer table differs")
@@ -118,8 +146,9 @@ def check_abi(other: pathlib.Path) -> None:
         raise SystemExit("pde_in_turns: the other tree's ADI reverse launch reads more dims")
 
 
-def build(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
-    """The library of ``csrc``'s PDE kernels, each source by its own nvcc."""
+def build(csrc: pathlib.Path, out: pathlib.Path, workspace: bool = True) -> ctypes.CDLL:
+    """The library of ``csrc``'s PDE kernels, each source by its own nvcc;
+    ``workspace``: its θ-scheme reverse launch takes the workspace pointer."""
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.cuda_tool("nvcc")
 
@@ -135,8 +164,10 @@ def build(csrc: pathlib.Path, out: pathlib.Path) -> ctypes.CDLL:
     subprocess.run([nvcc, "-shared", "-o", str(lib_path), *objects], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.theta_pde_launch.argtypes = [_P] * 9 + [_I] * 7 + [_P]
+    lib.theta_pde_launch.argtypes = [_P] * 14 + [_I] * 8 + [_P]
     lib.theta_pde_launch.restype = _I
+    lib.theta_pde_adjoint_launch.argtypes = [_P] * (13 if workspace else 12) + [_I] * 7 + [_P]
+    lib.theta_pde_adjoint_launch.restype = _I
     for fn in ("heston_adi_launch", "heston_adi_adjoint_launch"):
         getattr(lib, fn).argtypes = [_P, _P, _I, _P]
         getattr(lib, fn).restype = _I
@@ -176,6 +207,74 @@ def adi_cases(dev):
         yield (f"adi {tag}",
                lambda ops=ops, slv=slv, mode=mode, spd=spd: ha._adi_cuda(
                    ops, ops.intrinsic, mode, spd, slv)[0], 5)
+
+
+def theta_reverse(lib, workspace: bool, ops, mode, hist_u, hist_m, g):
+    """One launch of a tree's θ-scheme reverse kernel on this tree's plan
+    (the shared route: the tree without the workspace argument has no other)
+    and operands; the gradients as ``tp._theta_adjoint_cuda`` returns them."""
+    if workspace:
+        return on(lib, lambda: tp._theta_adjoint_cuda(*ops, mode, hist_u, hist_m, g))()
+    dev = g.device
+    batch, n_time, n = hist_u.shape
+    systems, device = tp.adjoint_plan(batch, n, g.element_size(), tp.sm_count(dev.index))
+    if device:
+        raise SystemExit("pde_in_turns: the other tree's θ reverse has no device route")
+    grid, coef = tp._grid_operands(*ops[:9], batch, n)
+    g_grid = torch.empty((5, batch, n), dtype=g.dtype, device=dev)
+    g_coef = torch.empty((4, batch), dtype=g.dtype, device=dev)
+    g_ends = torch.empty((batch, n_time, 2), dtype=g.dtype, device=dev)
+    err = lib.theta_pde_adjoint_launch(
+        grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
+        grid[3].data_ptr(), grid[4].data_ptr(), hist_u.data_ptr(),
+        0 if hist_m is None else hist_m.data_ptr(), g.data_ptr(), g_grid.data_ptr(),
+        g_coef.data_ptr(), g_ends.data_ptr(), batch, n, n_time, mode, systems,
+        0 if g.dtype == torch.float32 else 1, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    if err:
+        raise SystemExit(f"pde_in_turns: the other tree's θ reverse failed: CUDA error {err}")
+    return (*g_grid[:3], *(x[:, None] for x in g_coef), g_grid[3], g_grid[4], g_ends)
+
+
+def theta_reverse_cases(dev, workspace: dict, lib):
+    """The θ-scheme reverse at THETA_SHAPE in three modes and two dtypes on
+    one forward's history (this tree's forward on ``lib``): (tag, {tree:
+    fn(lib)})."""
+    from optionslab_tpu_torch.models import fdm
+
+    book = cs.pricer_book(cs.THETA_SHAPE[0], dev, seed=11)
+    for dtype in (torch.float32, torch.float64):
+        args = [getattr(book, f).to(dtype) for f in cs.FDM_FIELDS]
+        for name, mode in cs.THETA_MODES.items():
+            _, ops = fdm._cn_operands(*args, *cs.THETA_SHAPE[1:], 0.5, mode != tp.EUROPEAN)
+            _, hist_u, hist_m = on(lib, lambda ops=ops, mode=mode: tp._theta_cuda(
+                *ops, mode, history=True))()
+            gen = torch.Generator(device=dev).manual_seed(5)
+            g = torch.randn(hist_u[:, 0].shape, generator=gen, device=dev, dtype=dtype)
+            yield (f"theta adjoint {name} {'x'.join(map(str, cs.THETA_SHAPE))} {str(dtype)[6:]}",
+                   {who: (lambda lib, w=w, ops=ops, mode=mode, hist_u=hist_u, hist_m=hist_m,
+                          g=g: theta_reverse(lib, w, ops, mode, hist_u, hist_m, g))
+                    for who, w in workspace.items()})
+
+
+def gradient_wall(lib, workspace: bool, fields, american: bool) -> float:
+    """Host ms (a mean of 5 warm calls) of ``fdm_price``'s gradient in S, K,
+    T, r, σ and q on the library ``lib``: its forward with the history, and
+    its reverse through :func:`theta_reverse`."""
+    from optionslab_tpu_torch.models import fdm
+    from optionslab_tpu_torch.types import ContractBatch
+
+    def call():
+        leaves = [x.detach().requires_grad_(True) for x in fields[:6]]
+        price = fdm.fdm_price(ContractBatch(*leaves, fields[6]), american=american)
+        return torch.autograd.grad(price.sum(), leaves)
+
+    saved = tp._theta_adjoint_cuda
+    if not workspace:  # a launch this tree's wrapper cannot make
+        tp._theta_adjoint_cuda = lambda *a: theta_reverse(lib, False, a[:10], *a[10:])
+    try:
+        return on(lib, lambda: cs.timed(call, 5)[1])()
+    finally:
+        tp._theta_adjoint_cuda = saved
 
 
 def reverse(ops, hist, weight, american: bool, rev_fields: tuple):
@@ -222,17 +321,19 @@ def main() -> None:
     parser.add_argument("--parent", required=True, type=pathlib.Path,
                         help="the root of the other tree")
     parser.add_argument("--out", type=pathlib.Path, help="a JSON file for the times")
-    parser.add_argument("--only", choices=("reverse",), help="time only the ADI reverse")
+    parser.add_argument("--only", choices=("reverse",),
+                        help="time only the θ-scheme and ADI reverse kernels")
     parser.add_argument("--fit", action="store_true", help="fit each tree's reverse step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("pde_in_turns: no CUDA device")
     dev = torch.device("cuda", 0)
     check_abi(args.parent)
+    workspace = {"other": reverse_abi(args.parent), "this": True}
     card = cs.card_line()
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"other": build(args.parent / "optionslab_tpu_torch" / "csrc",
-                               pathlib.Path(tmp) / "other"),
+                               pathlib.Path(tmp) / "other", workspace["other"]),
                 "this": build(_build.CSRC, pathlib.Path(tmp) / "this")}
         results = {}
         forward = [] if args.only else [*theta_cases(dev), *adi_cases(dev)]
@@ -247,6 +348,31 @@ def main() -> None:
                   + " / ".join(f"{t:.4f}" for t in times["this"])
                   + f"; this / other {min(times['this']) / min(times['other']):.3f}",
                   flush=True)
+        for tag, fns in theta_reverse_cases(dev, workspace, libs["this"]):
+            calls = {k: (lambda k=k: fns[k](libs[k])) for k in libs}
+            outs = {k: on(libs[k], calls[k])() for k in libs}
+            torch.cuda.synchronize()
+            gap = cs.grad_gaps(outs["this"], outs["other"])[0]
+            results[tag] = times = in_turns(libs, calls, 3)
+            print(f"{tag}: largest relative gap of the gradients {gap:.2e}; device ms by CUDA "
+                  f"events, in turns [{card}]: other "
+                  + " / ".join(f"{t:.4f}" for t in times["other"]) + ", this "
+                  + " / ".join(f"{t:.4f}" for t in times["this"])
+                  + f"; this / other {min(times['this']) / min(times['other']):.3f}",
+                  flush=True)
+        book = cs.pricer_book(cs.THETA_SHAPE[0], dev, seed=11)
+        book_fields = [getattr(book, f) for f in cs.FDM_FIELDS]
+        for american in (False, True):
+            tag = f"fdm_price gradient {'american' if american else 'european'} " \
+                  f"{'x'.join(map(str, cs.THETA_SHAPE))} float32"
+            times = {"other": [], "this": []}
+            for who in ("other", "this", "this", "other"):
+                times[who].append(gradient_wall(libs[who], workspace[who], book_fields, american))
+            results[tag] = times
+            print(f"{tag}: host wall ms (a mean of 5 warm calls), in turns [{card}]: other "
+                  + " / ".join(f"{t:.2f}" for t in times["other"]) + ", this "
+                  + " / ".join(f"{t:.2f}" for t in times["this"])
+                  + f"; this / other {min(times['this']) / min(times['other']):.3f}", flush=True)
         rev = {"other": fields(args.parent / "optionslab_tpu_torch" / "ops" / "heston_adi.py",
                                "_REV_FIELDS"), "this": ha._REV_FIELDS}
         for tag, fns in reverse_cases(dev, rev):
