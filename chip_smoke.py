@@ -187,16 +187,20 @@ is printed):
               tables or pivots of its own) and at the forward's longest
               grids on the device route; ``fdm_price``'s gradient one forward and
               one reverse launch, delta's sign, rho and dividend rho against
-              central differences; the θ-scheme kernel's jump table on the
-              dividend PDE (401 x 400, European and American, bit for bit
-              its plain loop; the public call one launch; the parity gap);
-              the local-vol loop kernel (``csrc/lv_pde.cu``) bit for bit its
-              plain loop for ``_lv_solve`` (201 x 200, European and
-              American) and ``lv_bermudan_slices`` (401 x 25 dates x 8), one
-              launch a call and no tridiagonal launch, the flat surface
-              against Black–Scholes; each kernel's device ms beside its
-              plain loop's and its chain bound (run after the θ-scheme
-              phase, before the pricers);
+              central differences; the jump-table kernel
+              (``theta_jump_kernel``, a warp a contract, each solve split
+              over its lanes) on the dividend PDE (401 x 400, European,
+              projection and Howard, float32 and float64, bit for bit its
+              plain loop on the warp-partitioned solve; the public call one
+              launch; the parity gap); the local-vol loop kernel
+              (``csrc/lv_pde.cu``, the same solve, the steps' factors formed
+              ahead by producer warps) bit for bit its plain loop for
+              ``_lv_solve`` (201 x 200, European and American) and
+              ``lv_bermudan_slices`` (401 x 25 dates x 8), float32 and
+              float64, one launch a call and no tridiagonal launch, the flat
+              surface against Black–Scholes; each kernel's device ms beside
+              its plain loop's, its chain bound and the old count (run after
+              the θ-scheme phase, before the pricers);
 
 18. risk    — the risk engine (``greeks``, ``risk``) on the card: ``/xva``'s
               handler at its defaults (65,536 paths x 24 dates, 8 substeps a
@@ -3322,6 +3326,7 @@ def tri_system(batch: int, n: int, dtype, dev, seed: int = 0, column: bool = Fal
 
 
 PROBE_CHECK_NODES = 512  # the probes against their plain loops (≈3,000 torch launches each)
+WARP_PROBES = ("muladd", "stage", "fstage")  # tridiag_warp_probe_launch's kinds 0, 1, 2
 PROBE_ABCD = (0.5, 3.0, -0.5, 1.0)  # lower, diagonal (the rhs probe's den), upper, rhs
 FMA_ROW = 32  # the FMA probe's row for the reverse's walk (csrc/tridiag.cu kFmaRow)
 DIV_PAIRS = 1 << 24  # the division check's seeded pairs a dtype
@@ -3336,7 +3341,11 @@ def probe_run(kind: str, dtype, dev, n_nodes: int, out: torch.Tensor) -> None:
     operands, no back node, by the θ-scheme reverse's own walk over a row of
     FMA_ROW nodes again and again (each pass a chain from 0 on the values
     the pass before stored); "fma ahead" one chain of ``n_nodes`` nodes,
-    the next group's loads issued during a group's."""
+    the next group's loads issued during a group's; the warp-partitioned
+    solve's probe (csrc/tridiag.cu tridiag_warp_probe_kernel, one warp):
+    "muladd" ``n_nodes`` nodes of its right-hand side's pass, "stage"
+    ``n_nodes`` stages of its cyclic reduction, "fstage" ``n_nodes`` stages
+    of the reduced system's factors."""
     key = (dtype, dev)
     if key not in probe_run.abcd:  # made once: a graph capture copies nothing
         probe_run.abcd[key] = torch.tensor(PROBE_ABCD, dtype=dtype, device=dev)
@@ -3347,6 +3356,10 @@ def probe_run(kind: str, dtype, dev, n_nodes: int, out: torch.Tensor) -> None:
     if kind == "pivot":
         name = "tridiag_chain_launch"
         err = lib.tridiag_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes, *tail)
+    elif kind in WARP_PROBES:
+        name = "tridiag_warp_probe_launch"
+        err = lib.tridiag_warp_probe_launch(abcd.data_ptr(), out.data_ptr(), n_nodes,
+                                            WARP_PROBES.index(kind), *tail)
     elif kind.startswith("fma"):
         name = "tridiag_fma_chain_launch"
         err = lib.tridiag_fma_chain_launch(abcd.data_ptr(), out.data_ptr(), n_nodes,
@@ -3356,10 +3369,11 @@ def probe_run(kind: str, dtype, dev, n_nodes: int, out: torch.Tensor) -> None:
         err = lib.tridiag_rhs_chain_launch(abcd.data_ptr(), out.data_ptr(),
                                            0 if kind == "back" else n_nodes, n_nodes, *tail)
     check(err == 0, f"{name} ({kind}) failed: {_build.error_string(err)}")
-    probe_run.launches[{"back": "rhs", "fma ahead": "fma"}.get(kind, kind)] += 1
+    probe_run.launches[{"back": "rhs", "fma ahead": "fma"}.get(
+        kind, "warp" if kind in WARP_PROBES else kind)] += 1
 
 
-probe_run.launches = {"pivot": 0, "rhs": 0, "fma": 0}
+probe_run.launches = {"pivot": 0, "rhs": 0, "fma": 0, "warp": 0}
 probe_run.abcd = {}
 
 
@@ -3370,6 +3384,30 @@ def probe_plain(kind: str, dtype, dev, n_nodes: int) -> torch.Tensor:
     rounding of the sum is the FMA's)."""
     a, b, c, d = (torch.tensor(v, dtype=dtype, device=dev) for v in PROBE_ABCD)
     prev = torch.zeros((), dtype=dtype, device=dev)
+    if kind in WARP_PROBES:  # one warp: (1, 32) rows, shuffles as tri._shfl_up/_shfl_down
+        if kind == "muladd":
+            rho = torch.ones_like(b) / b
+            ell, q = a * rho, d * rho
+            for _ in range(n_nodes):
+                prev = q - ell * prev
+            return prev
+        lanes = torch.arange(32, dtype=dtype, device=dev)[None]
+        if kind == "stage":
+            k = a - a
+            dd = d + lanes
+            for i in range(n_nodes):
+                s_ = 1 << (i % 5)
+                dd = (dd - tri._shfl_up(dd, s_) * k) - tri._shfl_down(dd, s_) * k
+            return dd[0, 0]
+        ra, rb, rc = (x + 0.0 * lanes for x in (a, b, c))
+        for i in range(n_nodes):
+            s_ = 1 << (i % 5)
+            k1 = ra / tri._shfl_up(rb, s_)
+            k2 = rc / tri._shfl_down(rb, s_)
+            ra, rb, rc = (-(tri._shfl_up(ra, s_) * k1),
+                          (rb - tri._shfl_up(rc, s_) * k1) - tri._shfl_down(ra, s_) * k2,
+                          -(tri._shfl_down(rc, s_) * k2))
+        return rb[0, 0]
     if kind == "fma ahead":
         for _ in range(n_nodes):
             prev = -a * prev + d
@@ -3411,8 +3449,9 @@ def tri_chain_node_ms(kind: str, dtype, dev) -> float:
 def probe_check(kind: str, dtype, dev) -> dict:
     """The probe at PROBE_CHECK_NODES nodes against its plain loop, bitwise;
     device ms of both by CUDA events, and the bound of that work: 8 float
-    operations a node at the card's peak rate (the FMA probe 2; its bytes:
-    five values)."""
+    operations a node at the card's peak rate (the FMA probe 2, the
+    partitioned solve's node 2 a lane, its stage 4 a lane and its factors'
+    stage 8 a lane, 32 lanes; its bytes: five values)."""
     out = torch.empty(1, dtype=dtype, device=dev)
     probe_run(kind, dtype, dev, PROBE_CHECK_NODES, out)
     plain = probe_plain(kind, dtype, dev, PROBE_CHECK_NODES)
@@ -3422,7 +3461,9 @@ def probe_check(kind: str, dtype, dev) -> dict:
     ms = min(graph_time(lambda: probe_run(kind, dtype, dev, PROBE_CHECK_NODES, out)))
     plain_ms = event_time(lambda: probe_plain(kind, dtype, dev, PROBE_CHECK_NODES), 1)
     peak = FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
-    t_ops = (2.0 if kind.startswith("fma") else 8.0) * PROBE_CHECK_NODES / peak * 1e3
+    per_node = {"muladd": 64.0, "stage": 128.0, "fstage": 256.0}.get(
+        kind, 2.0 if kind.startswith("fma") else 8.0)
+    t_ops = per_node * PROBE_CHECK_NODES / peak * 1e3
     t_bytes = 5 * (torch.finfo(dtype).bits // 8) / HBM_BYTES_PER_S * 1e3
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None,
@@ -3596,13 +3637,15 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
     region; the library call that computes the same x). Before them the
     chain probes (each bitwise its plain loop) and the division check.
     Returns (largest absolute difference, {tag: timing}, {"pivot" | "rhs" |
-    "back" | "fma" | "fma ahead": {dtype: chain ms a node}}; "fma" the
-    faster of the FMA probe's two load schedules)."""
+    "back" | "fma" | "fma ahead" | "muladd" | "stage" | "fstage": {dtype:
+    chain ms a node}}; "fma" the faster of the FMA probe's two load
+    schedules; the last three the warp-partitioned solve's node and stages)."""
     worst, timing = 0.0, {}
     clock = sm_clock_hz()
-    node_ms = {"pivot": {}, "rhs": {}, "back": {}, "fma": {}, "fma ahead": {}}
+    node_ms = {"pivot": {}, "rhs": {}, "back": {}, "fma": {}, "fma ahead": {},
+               **{kind: {} for kind in WARP_PROBES}}
     for dtype in (torch.float32, torch.float64):
-        for kind in ("pivot", "rhs", "fma", "fma ahead"):
+        for kind in ("pivot", "rhs", "fma", "fma ahead", *WARP_PROBES):
             node_ms[kind][dtype] = tri_chain_node_ms(kind, dtype, dev)
             timing[f"probe {kind} {str(dtype)[6:]}"] = probe_check(kind, dtype, dev)
         node_ms["back"][dtype] = tri_chain_node_ms("back", dtype, dev)
@@ -3622,6 +3665,15 @@ def phase_tridiag(dev, card: str) -> tuple[float, dict, dict]:
                        f"group's loads during a chain {node_ms['fma ahead'][dtype] * 1e6:.2f} ns "
                        f"({node_ms['fma ahead'][dtype] * 1e-3 * clock:.1f} cycles); each probe "
                        f"bitwise its plain loop at {PROBE_CHECK_NODES} nodes")
+        log("tridiag", f"the warp-partitioned solve's chain, {str(dtype)[6:]}, by its probe "
+                       f"[{card}]: a node of the right-hand side's pass "
+                       f"{node_ms['muladd'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['muladd'][dtype] * 1e-3 * clock:.1f} cycles), a stage of its "
+                       f"reduction {node_ms['stage'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['stage'][dtype] * 1e-3 * clock:.1f} cycles), a stage of the "
+                       f"reduced system's factors {node_ms['fstage'][dtype] * 1e6:.2f} ns "
+                       f"({node_ms['fstage'][dtype] * 1e-3 * clock:.1f} cycles); each bitwise "
+                       f"its plain loop at {PROBE_CHECK_NODES}")
         timing[f"division {str(dtype)[6:]}"] = div_check(dtype, dev, card)
     for batch, n, column in TRI_SHAPES:
         for dtype in (torch.float32, torch.float64):
@@ -4103,54 +4155,121 @@ def phase_theta_reverse(dev, card: str, node_ms: dict) -> tuple[float, dict]:
     return worst, timing
 
 
+def warp_chain(n: int, node_ms: dict, dtype) -> tuple[float, float]:
+    """(ms of one solve's chain, ms of one factor formation's chain) of the
+    warp-partitioned solve (csrc/warp_tridiag.cuh) of n unknowns, m =
+    ⌈n/32⌉ rows a lane (at least 2), by the probes' nodes. A solve: the
+    right-hand side's forward and backward passes, 2(m − 2) nodes at the
+    "muladd" probe's node, and seven shuffle stages at its "stage" node (the
+    separator's row, five of cyclic reduction, the recovery). The factors:
+    the forward pass's m − 1 pivots at the pivot probe's node less a back
+    node, the backward pass's m − 2 nodes at the "muladd" node, and five
+    stages at the "fstage" node."""
+    m = tri.warp_rows(n)
+    muladd, stage, fstage = (node_ms[k][dtype] for k in ("muladd", "stage", "fstage"))
+    pivot = node_ms["pivot"][dtype] - node_ms["back"][dtype]
+    solve = 2 * (m - 2) * muladd + 7 * stage
+    factors = (m - 1) * pivot + (m - 2) * muladd + 5 * fstage
+    return solve, factors
+
+
 # the dividend PDE at fdm_price_discrete_dividends' defaults: nodes, steps
 DIV_SHAPE = (401, 400)
 
 
+def jump_bound(ops, dtype, node_ms: dict, solves: torch.Tensor) -> tuple[float, str, float,
+                                                                        float]:
+    """(bound ms, what binds, chain ms, the old count of the chain) of one
+    launch of the jump-table kernel: each input read once and the values
+    written once at the card's memory rate; the float operations (9 a node a
+    solve, 7 a node a step for the explicit step, and for each later Howard
+    sweep 7 a node of residual and 12 of factors) at the card's peak rate
+    for the dtype; and the longest contract's chain (the contracts run side
+    by side): the unexercised matrix's factors once, each solve's chain
+    (:func:`warp_chain`), and for each later Howard sweep (it runs only
+    where a block's exercise rows changed, and re-forms that block) one
+    more formation. The old count is row 13's Thomas count: every solve n
+    nodes at the pivot probe's node."""
+    size = torch.finfo(dtype).bits // 8
+    batch, n = ops[-2].shape
+    n_time = ops[-1].shape[1]
+    nbytes = (sum(o.numel() for o in ops) + batch * n) * size
+    later = (solves - n_time).double()
+    flops = float((n * (9.0 * solves.double() + 7.0 * n_time + 19.0 * later)).sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / (FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS) * 1e3
+    solve, factors = warp_chain(n, node_ms, dtype)
+    chain = float((factors + solves.double() * solve + later * factors).max())
+    old = int(solves.max().item()) * n * node_ms["pivot"][dtype]
+    bound = max(t_bytes, t_ops, chain)
+    return bound, "bytes" if t_bytes >= bound else "operations", chain, old
+
+
+def div_launches(fn) -> tuple[int, int, int]:
+    """(jump-table, θ-scheme, tridiagonal) kernel launches in one call of
+    ``fn``."""
+    before = tp._theta_jumps_cuda.launches, tp._theta_cuda.launches
+    solves = tri_solves(fn)
+    return (tp._theta_jumps_cuda.launches - before[0], tp._theta_cuda.launches - before[1],
+            solves)
+
+
 def phase_div_loop(dev, card: str, node_ms: dict) -> tuple[float, dict]:
-    """The θ-scheme kernel's jump table on the dividend PDE at its defaults
-    (DIV_SHAPE, SL_DIVS, float32): European and American (Howard), call and
-    put, bit for bit the plain loop with the table; device ms of kernel and
-    plain loop by CUDA events beside :func:`theta_bound`; the public call
-    one θ-scheme launch and no tridiagonal launch, its warm wall; the
-    European parity gap and the American put above the European. Returns
-    (largest absolute difference of kernel and plain loop, {tag: timing})."""
+    """The jump-table kernel (``csrc/theta_pde.cu theta_jump_kernel``, one
+    warp a contract) on the dividend PDE at its defaults (DIV_SHAPE,
+    SL_DIVS): European, projection and Howard, call and put, float32, and
+    the European and Howard put in float64, each bit for bit the plain loop
+    with the table (the warp-partitioned solve's model); device ms of the
+    kernel alone (a CUDA graph of calls) and of the plain loop by CUDA events
+    beside :func:`jump_bound` and the old count; the public call one launch
+    of it and none of the θ-scheme or tridiagonal kernels, its warm wall;
+    the European parity gap and the American put above the European.
+    Returns (largest absolute difference of kernel and plain loop, {tag:
+    timing})."""
     from optionslab_tpu_torch.models import dividends as dv
 
     t_phase = time.perf_counter()
     steps = dv._div_steps([t for t, _ in SL_DIVS], 1.0, DIV_SHAPE[1])
     amounts = np.asarray([d for _, d in SL_DIVS], np.float32)
     worst, timing = 0.0, {}
-    for american in (False, True):
-        mode = tp.HOWARD if american else tp.EUROPEAN
-        for cp in (1.0, -1.0):
-            _, _, ops, jumps = dv._fdm_div_operands(
-                100.0, 100.0, 1.0, 0.05, 0.2, amounts, cp=cp, n_space=DIV_SHAPE[0],
-                n_time=DIV_SHAPE[1], american=american, div_steps=steps, device=dev)
-            before = tp._theta_cuda.launches, tp._theta_cuda.jump_launches
-            kern, solves, pivots = tp._theta_cuda(*ops, mode, count_solves=True, jumps=jumps)
-            check((tp._theta_cuda.launches, tp._theta_cuda.jump_launches)
-                  == (before[0] + 1, before[1] + 1), "dividend loop: not one launch")
-            plain = tp._theta_plain(*ops, mode, jumps=jumps)
-            torch.cuda.synchronize()
-            tag = f"{'american' if american else 'european'} {'call' if cp > 0 else 'put'} " \
-                  f"{DIV_SHAPE[0]}x{DIV_SHAPE[1]}"
-            diff = (kern - plain).abs().max().item()
-            worst = max(worst, diff)
-            check(torch.equal(kern, plain), f"dividend loop {tag}: kernel differs from the "
-                                            f"plain loop by {diff:.3e}")
-            if (cp > 0) == american:  # time the European call and the American put
-                continue
-            ms = event_time(lambda: tp._theta_cuda(*ops, mode, jumps=jumps), 5)
-            plain_ms = event_time(lambda: tp._theta_plain(*ops, mode, jumps=jumps), 1)
-            bound, by, chain, old, _ = theta_bound(ops, torch.float32, node_ms, solves, pivots)
-            timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                           "chain_ms": chain, "solves": int(solves.max().item())}
-            log("div-loop", f"{tag}: bitwise equal to the plain loop with its jump table; "
-                            f"device ms by CUDA events [{card}]: kernel {ms:.4f}, plain loop "
-                            f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}, "
-                            f"{chain / ms:.2f} of the kernel; {int(solves.max().item())} "
-                            f"solves)")
+    cases = [(mode, cp, torch.float32) for mode in (tp.EUROPEAN, tp.PROJECTION, tp.HOWARD)
+             for cp in (1.0, -1.0)] + [(mode, -1.0, torch.float64)
+                                       for mode in (tp.EUROPEAN, tp.HOWARD)]
+    for mode, cp, dtype in cases:
+        _, _, ops, jumps = dv._fdm_div_operands(
+            100.0, 100.0, 1.0, 0.05, 0.2, amounts, cp=cp, n_space=DIV_SHAPE[0],
+            n_time=DIV_SHAPE[1], american=mode != tp.EUROPEAN, div_steps=steps, device=dev)
+        ops = [o.to(dtype) for o in ops]
+        jumps = tp.Jumps(jumps.steps, jumps.index, jumps.weight.to(dtype))
+        launch, kern, counts = tp._jump_launch(*ops, mode, jumps)
+        before = tp._theta_jumps_cuda.launches
+        launch()
+        check(tp._theta_jumps_cuda.launches == before + 1, "dividend loop: not one launch")
+        plain = tp._theta_plain(*ops, mode, jumps=jumps)
+        torch.cuda.synchronize()
+        name = {tp.EUROPEAN: "european", tp.PROJECTION: "projection", tp.HOWARD: "american"}[mode]
+        tag = f"{name} {'call' if cp > 0 else 'put'} {DIV_SHAPE[0]}x{DIV_SHAPE[1]}" \
+              + ("" if dtype == torch.float32 else " float64")
+        diff = (kern - plain).abs().max().item()
+        worst = max(worst, diff)
+        check(torch.equal(kern, plain), f"dividend loop {tag}: kernel differs from the "
+                                        f"plain loop by {diff:.3e}")
+        solves, reformed = counts[0].clone(), counts[1].clone()
+        if (cp > 0) == (mode != tp.EUROPEAN):  # time the European call and the American puts
+            log("div-loop", f"{tag}: bitwise equal to the plain loop with its jump table")
+            continue
+        ms = min(graph_time(launch, iters=10, reps=3))
+        plain_ms = event_time(lambda: tp._theta_plain(*ops, mode, jumps=jumps), 1)
+        bound, by, chain, old = jump_bound(ops, dtype, node_ms, solves)
+        timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                       "chain_ms": chain, "old_chain_ms": old, "solves": int(solves.max()),
+                       "reformed_rows": int(reformed.max())}
+        log("div-loop", f"{tag}: bitwise equal to the plain loop with its jump table; device "
+                        f"ms [{card}]: kernel {ms:.4f} (a CUDA graph of calls), plain loop "
+                        f"{plain_ms:.3f} (CUDA events), bound {bound:.4f} ({by}; the chain "
+                        f"{chain:.4f}, {chain / ms:.2f} of the kernel; the old count "
+                        f"{old:.4f}); {int(solves.max())} solves, {int(reformed.max())} rows "
+                        f"re-formed")
 
     def div_pde(cp, american=False):
         return dv.fdm_price_discrete_dividends(100.0, 100.0, 1.0, 0.05, 0.2, SL_DIVS, cp=cp,
@@ -4158,14 +4277,14 @@ def phase_div_loop(dev, card: str, node_ms: dict) -> tuple[float, dict]:
 
     prices = {}
     for cp, american in ((1.0, False), (-1.0, False), (-1.0, True)):
-        got = loop_launches(lambda: div_pde(cp, american))
-        check(got == (1, 0), f"the dividend PDE (cp {cp}, american={american}): {got} "
-                             f"(θ-scheme, tridiag) launches, not (1, 0)")
+        got = div_launches(lambda: div_pde(cp, american))
+        check(got == (1, 0, 0), f"the dividend PDE (cp {cp}, american={american}): {got} "
+                                f"(jump-table, θ-scheme, tridiag) launches, not (1, 0, 0)")
         prices[cp, american], ms = timed(lambda: div_pde(cp, american), 3)
         timing[f"wall {cp} {american}"] = {"wall_ms": ms}
         log("div-loop", f"fdm_price_discrete_dividends cp={cp} american={american} "
-                        f"{DIV_SHAPE[0]}x{DIV_SHAPE[1]}: one θ-scheme launch, no tridiagonal "
-                        f"launch; warm wall {ms:.2f} ms [{card}]")
+                        f"{DIV_SHAPE[0]}x{DIV_SHAPE[1]}: one jump-table launch, no θ-scheme or "
+                        f"tridiagonal launch; warm wall {ms:.2f} ms [{card}]")
     gap = dv.dividend_parity_gap(prices[1.0, False], prices[-1.0, False], 100.0, 100.0, 1.0,
                                  0.05, SL_DIVS)
     check(gap < 0.02, f"dividend PDE parity gap {gap:.2e}")
@@ -4183,21 +4302,27 @@ LV_PDE = (201, 200)
 LV_BERMUDAN = (401, 25, 8)
 
 
-def lv_bound(lo, node_ms: dict, n_conts: int) -> tuple[float, str, float]:
-    """(bound ms, what binds, chain ms) of one local-vol loop launch: the
-    step tables, ψ and v read once, v and the slices written once at the
-    card's memory rate; 8 float operations a node a step (the solve) at the
-    float32 peak; and the chain: each step's matrix is new, so each step's
-    solve is n nodes at the pivot probe's node (a node of the pivots' chain
-    and of the back substitution)."""
+def lv_bound(lo, node_ms: dict, n_conts: int) -> tuple[float, str, float, float]:
+    """(bound ms, what binds, chain ms, the old count) of one local-vol loop
+    launch: the step tables, ψ and v read once, v and the slices written once
+    at the card's memory rate; 21 float operations a node a step (the
+    factors and the solve) at the peak rate for the dtype; and the chain of
+    the contract's solves: every step's factors are formed ahead by the
+    producer warps, so only the first step's formation and then each step's
+    solve (:func:`warp_chain`) lie on it. The old count (every step's Thomas
+    solve, n nodes at the pivot probe's node) beside it."""
     batch, n_time, n = lo.shape
+    dtype = lo.dtype
+    size = torch.finfo(dtype).bits // 8
     nbytes = (4 * batch * n_time * n + 2 * batch * n_time + 3 * batch * n
-              + n_conts * batch * n) * 4
+              + n_conts * batch * n) * size
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 8.0 * batch * n_time * n / FP32_FLOPS * 1e3
-    chain = n_time * n * node_ms["pivot"][torch.float32]
+    t_ops = 21.0 * batch * n_time * n / (FP64_FLOPS if size == 8 else FP32_FLOPS) * 1e3
+    solve, factors = warp_chain(n, node_ms, dtype)
+    chain = factors + n_time * solve
+    old = n_time * n * node_ms["pivot"][dtype]
     bound = max(t_bytes, t_ops, chain)
-    return bound, "bytes" if t_bytes >= bound else "operations", chain
+    return bound, "bytes" if t_bytes >= bound else "operations", chain, old
 
 
 def lv_launches(fn) -> tuple[int, int]:
@@ -4208,15 +4333,18 @@ def lv_launches(fn) -> tuple[int, int]:
 
 
 def phase_lv_loop(dev, card: str, node_ms: dict) -> tuple[float, dict]:
-    """The local-vol loop kernel (``csrc/lv_pde.cu``) on the sample smile:
-    ``_lv_solve``'s European call and American put at LV_PDE and
-    ``lv_bermudan_slices``' put at LV_BERMUDAN, each bit for bit the plain
-    loop on the same step tables (the slices too), one launch; device ms of
-    kernel and plain loop by CUDA events beside :func:`lv_bound`; then
-    ``DupireLocalVol.price``, the American PDE and the bracket's slices one
-    launch each and no tridiagonal launch, their warm walls, and the PDE on
-    a flat surface against Black–Scholes. Returns (largest absolute
-    difference, {tag: timing})."""
+    """The local-vol loop kernel (``csrc/lv_pde.cu``, a block a contract:
+    the solving warp and six warps forming the steps' factors ahead) on
+    the sample smile: ``_lv_solve``'s European call and American put at
+    LV_PDE and ``lv_bermudan_slices``' put at LV_BERMUDAN, float32, and the
+    three in float64, each bit for bit the plain loop on the same step
+    tables (the slices too), one launch; device ms of the kernel alone (a
+    CUDA graph of calls) and of the plain loop by CUDA events beside
+    :func:`lv_bound` and the old count; then ``DupireLocalVol.price``, the
+    American PDE and the bracket's slices one launch each and no
+    tridiagonal launch, their warm walls, and the PDE on a flat surface
+    against Black–Scholes. Returns (largest absolute difference, {tag:
+    timing})."""
     from optionslab_tpu_torch.models import local_vol_american as lva
     from optionslab_tpu_torch.models.black_scholes import bs_price
 
@@ -4229,29 +4357,33 @@ def phase_lv_loop(dev, card: str, node_ms: dict) -> tuple[float, dict]:
              ("american put", (100.0, 1.0, -1.0, *LV_PDE, False), lvp.PROJECTION, 1),
              ("bermudan put", (100.0, 1.0, -1.0, n_b, dates * spd, True), lvp.BERMUDAN, spd))
     worst, timing = 0.0, {}
-    for name, args, mode, steps in cases:
-        _, intr, lo, di, up, ends = lvm._lv_tables(*grids, S0, RATE, 0.0, *args)
-        ops = [t[None] for t in (lo, di, up, ends, intr, intr)]
-        before = lvp._lv_cuda.launches
-        kern = lvp._lv_cuda(*ops, mode, steps)
-        check(lvp._lv_cuda.launches == before + 1, "local-vol loop: not one launch")
-        plain = lvp._lv_plain(*ops, mode, steps)
-        torch.cuda.synchronize()
-        tag = f"{name} {lo.shape[1]}x{lo.shape[0]}"
-        worst = max(worst, (kern[0] - plain[0]).abs().max().item())
-        check(torch.equal(kern[0], plain[0]) and (kern[1] is None) == (plain[1] is None)
-              and (kern[1] is None or torch.equal(kern[1], plain[1])),
-              f"local-vol loop {tag}: kernel differs from the plain loop")
-        ms = event_time(lambda: lvp._lv_cuda(*ops, mode, steps), 5)
-        plain_ms = event_time(lambda: lvp._lv_plain(*ops, mode, steps), 1)
-        n_conts = dates - 1 if mode == lvp.BERMUDAN else 0
-        bound, by, chain = lv_bound(ops[0], node_ms, n_conts)
-        timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
-                       "chain_ms": chain}
-        log("lv-loop", f"{tag}: bitwise equal to the plain loop{' (slices too)' if n_conts else ''}"
-                       f"; device ms by CUDA events [{card}]: kernel {ms:.4f}, plain loop "
-                       f"{plain_ms:.3f}, bound {bound:.4f} ({by}; the chain {chain:.4f}, "
-                       f"{chain / ms:.2f} of the kernel)")
+    for dtype in (torch.float32, torch.float64):
+        for name, args, mode, steps in cases:
+            _, intr, lo, di, up, ends = lvm._lv_tables(*grids, S0, RATE, 0.0, *args)
+            ops = [t[None].to(dtype) for t in (lo, di, up, ends, intr, intr)]
+            launch, out, conts = lvp._lv_launch(*ops, mode, steps)
+            before = lvp._lv_cuda.launches
+            launch()
+            check(lvp._lv_cuda.launches == before + 1, "local-vol loop: not one launch")
+            plain = lvp._lv_plain(*ops, mode, steps)
+            torch.cuda.synchronize()
+            tag = f"{name} {lo.shape[1]}x{lo.shape[0]}" + \
+                ("" if dtype == torch.float32 else " float64")
+            worst = max(worst, (out - plain[0]).abs().max().item())
+            check(torch.equal(out, plain[0]) and (conts is None) == (plain[1] is None)
+                  and (conts is None or torch.equal(conts, plain[1])),
+                  f"local-vol loop {tag}: kernel differs from the plain loop")
+            ms = min(graph_time(launch, iters=10, reps=3))
+            plain_ms = event_time(lambda: lvp._lv_plain(*ops, mode, steps), 1)
+            n_conts = dates - 1 if mode == lvp.BERMUDAN else 0
+            bound, by, chain, old = lv_bound(ops[0], node_ms, n_conts)
+            timing[tag] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                           "chain_ms": chain, "old_chain_ms": old}
+            log("lv-loop", f"{tag}: bitwise equal to the plain loop"
+                           f"{' (slices too)' if n_conts else ''}; device ms [{card}]: kernel "
+                           f"{ms:.4f} (a CUDA graph of calls), plain loop {plain_ms:.3f} (CUDA "
+                           f"events), bound {bound:.4f} ({by}; the chain {chain:.4f}, "
+                           f"{chain / ms:.2f} of the kernel; the old count {old:.4f})")
     calls = (("DupireLocalVol.price european call 201x200", lambda: dup.price(S0, 100.0, 1.0)),
              ("_lv_solve american put 201x200",
               lambda: lvm._lv_solve(*grids, S0, RATE, 0.0, 100.0, 1.0, -1.0, american=True)),
@@ -5217,7 +5349,8 @@ SF_KERNELS = {"gbm_mc": gk._gbm_moments_cuda, "exotic_mc": ek._exotic_moments_cu
               "local_vol_mc": lk._lv_cuda, "slv_mc": sk._slv_cuda,
               "multi_asset_mc": mk._ma_cuda, "tridiag": tri._tridiag_cuda,
               "theta_pde": tp._theta_cuda, "theta_pde_adjoint": tp._theta_adjoint_cuda,
-              "lv_pde": lvp._lv_cuda, "heston_adi": ha._adi_cuda,
+              "theta_jump": tp._theta_jumps_cuda, "lv_pde": lvp._lv_cuda,
+              "heston_adi": ha._adi_cuda,
               "heston_adi_adjoint": ha._adi_adjoint_cuda}
 
 
@@ -6761,7 +6894,7 @@ def main() -> None:
     # of the tridiagonal kernel
     tri._tridiag_cuda.launches = 0
     tp._theta_cuda.launches = 0
-    tp._theta_cuda.jump_launches = 0
+    tp._theta_jumps_cuda.launches = 0
     tp._theta_adjoint_cuda.launches = 0
     lvp._lv_cuda.launches = 0
     ha._adi_cuda.launches = 0
@@ -6774,8 +6907,8 @@ def main() -> None:
     phase_slice_server(dev)
     check([fn.launches for fn in kernel_fns] == before,
           "the slice launched one of the eleven Monte Carlo kernels")
-    check(tp._theta_cuda.jump_launches > 0, "the dividend PDE never launched the θ-scheme "
-                                            "kernel with its jump table")
+    check(tp._theta_jumps_cuda.launches > 0, "the dividend PDE never launched the jump-table "
+                                             "kernel")
     check(lvp._lv_cuda.launches > 0, "the local-vol bracket never launched the local-vol loop")
     pde_before = (tri._tridiag_cuda.launches, tp._theta_cuda.launches,
                   tp._theta_adjoint_cuda.launches)
@@ -6829,7 +6962,7 @@ def main() -> None:
         else:
             sys.modules["pandas"] = had_pandas
     check(all(cl[k] > 0 for k in cl if k not in ("heston_qe", "tridiag", "heston_adi_adjoint",
-                                                  "theta_pde_adjoint", "lv_pde")),
+                                                  "theta_pde_adjoint", "theta_jump", "lv_pde")),
           f"the command line never launched a kernel of its path: {cl}")
     # parallel/: every kernel route sharded over meshes of this card
     pl_before = launch_counts()
@@ -6837,7 +6970,8 @@ def main() -> None:
     pl_after = launch_counts()
     pl = {k: pl_after[k] - pl_before[k] for k in pl_after}
     log("launches", f"the parallel slice's share: {pl}")
-    off_path = ("heston_chain", "tridiag", "theta_pde", "theta_pde_adjoint", "lv_pde",
+    off_path = ("heston_chain", "tridiag", "theta_pde", "theta_pde_adjoint", "theta_jump",
+                "lv_pde",
                 "heston_adi", "heston_adi_adjoint")
     check(all(pl[k] > 0 for k in pl if k not in off_path),
           f"the parallel slice never launched a kernel of its path: {pl}")
@@ -6867,10 +7001,10 @@ def main() -> None:
     log("launches", f"theta_pde launched {theta_launches} times over the pricers, the slice, "
                     "the risk engine and the command line")
     check(theta_launches > 0, "the PDE path never launched the θ-scheme kernel")
-    rev_launches, jump_launches = tp._theta_adjoint_cuda.launches, tp._theta_cuda.jump_launches
+    rev_launches, jump_launches = tp._theta_adjoint_cuda.launches, tp._theta_jumps_cuda.launches
     lv_loop_launches = lvp._lv_cuda.launches
-    log("launches", f"theta_pde_adjoint launched {rev_launches} times, theta_pde with a jump "
-                    f"table {jump_launches}, lv_pde {lv_loop_launches}, over the same paths")
+    log("launches", f"theta_pde_adjoint launched {rev_launches} times, theta_jump "
+                    f"{jump_launches}, lv_pde {lv_loop_launches}, over the same paths")
     check(min(rev_launches, jump_launches, lv_loop_launches) > 0,
           "the PDE path never launched the θ reverse, the jump table or the local-vol loop")
     adi_launched = (ha._adi_cuda.launches, ha._adi_adjoint_cuda.launches)
@@ -6954,15 +7088,17 @@ def main() -> None:
          "chain_ms": rev_t["howard float32"]["chain_ms"],
          "old_chain_ms": rev_t["howard float32"]["old_chain_ms"],
          "old_chain_2n_ms": rev_t["howard float32"]["old_chain_2n_ms"]},
-        {**entry("theta_pde_kernel (jump table)", "theta_pde.cu",
+        {**entry("theta_jump_kernel", "theta_pde.cu",
                  "optionslab_tpu/models/dividends.py:137 (lax.scan of _fdm_div_single), no "
                  "Pallas kernel", jump_launches, div_err, div_t["american put 401x400"]),
-         "chain_ms": div_t["american put 401x400"]["chain_ms"]},
+         "chain_ms": div_t["american put 401x400"]["chain_ms"],
+         "old_chain_ms": div_t["american put 401x400"]["old_chain_ms"]},
         {**entry("lv_pde_kernel", "lv_pde.cu",
                  "optionslab_tpu/models/local_vol.py:197 and local_vol_american.py:85-125 "
                  "(lax.scan), no Pallas kernel", lv_loop_launches, lvl_err,
                  lvl_t["european call 201x200"]),
-         "chain_ms": lvl_t["european call 201x200"]["chain_ms"]},
+         "chain_ms": lvl_t["european call 201x200"]["chain_ms"],
+         "old_chain_ms": lvl_t["european call 201x200"]["old_chain_ms"]},
         {**entry("heston_adi_kernel", "heston_adi.cu",
                  "optionslab_tpu/models/heston_fdm.py:200, :219, :331, :403 (lax.scan over the "
                  "step at :160-177), no Pallas kernel", adi_launched[0], adi_err,
@@ -6979,6 +7115,10 @@ def main() -> None:
           for name, kind in (("tridiag_chain_kernel", "pivot"),
                              ("tridiag_rhs_chain_kernel", "rhs"),
                              ("tridiag_fma_chain_kernel", "fma"))),
+        {**entry("tridiag_warp_probe_kernel", "tridiag.cu", "none: the probe of the "
+                 "warp-partitioned solve's chain, no TPU kernel", probe_run.launches["warp"],
+                 max(tri_t[f"probe {k} float32"]["err"] for k in WARP_PROBES),
+                 tri_t["probe muladd float32"])},
         {**entry("tridiag_div_check_kernel", "tridiag.cu", "none: the check of the PDE kernels' "
                  "quotient on reciprocals, no TPU kernel", div_check.launches,
                  tri_t["division float32"]["err"], tri_t["division float32"]),

@@ -1,16 +1,14 @@
 // The θ-scheme time loop of the Crank–Nicolson book in one launch:
 // n_time steps of a European, a projected American or a Howard (policy
-// iteration) American step for a book of contracts, each on its own grid;
-// optionally a jump table applied after a few steps (a cash dividend's drop
-// of the spot), and the history its reverse reads. Then the reverse of the
-// loop in one more launch (theta_pde_adjoint_kernel, below).
+// iteration) American step for a book of contracts, each on its own grid,
+// and the history its reverse reads. Then the reverse of the loop in one
+// more launch (theta_pde_adjoint_kernel, below), and the loop with a jump
+// table (theta_jump_kernel, at the end: the cash-dividend PDE).
 //
 // Replaces the reference's device loops optionslab_tpu/models/fdm.py:162
 // (the lax.scan over time steps of _cn_single) and :101 (the fori_loop of
-// _howard_lcp_solve's 8 policy sweeps), and optionslab_tpu/models/
-// dividends.py:137 (the lax.scan of _fdm_div_single, its jump condition
-// jnp.interp at the ex-date steps). Without it the port steps on the host:
-// ≈20–55 small torch launches a step around each tridiagonal solve.
+// _howard_lcp_solve's 8 policy sweeps). Without it the port steps on the
+// host: ≈20–55 small torch launches a step around each tridiagonal solve.
 //
 // What bounds it. The dependent chain: each step solves each contract's
 // system once (European, projection) or once a Howard sweep. The matrix of
@@ -62,6 +60,7 @@
 #include <type_traits>
 
 #include "tridiag.cuh"
+#include "warp_tridiag.cuh"
 
 namespace optionslab {
 namespace {
@@ -116,21 +115,16 @@ struct HowardRow {
   }
 };
 
-// The history and the jump table are optional (null pointers): hist_u
-// (batch, n_time, n) each step's solution before the clamp, hist_m the same
-// shape, one byte a node, Howard's exercise set of the step's last solve;
-// jump_at (n_time) the jump after each step (−1 none), jump_index and
-// jump_weight (batch, n_jumps, n) its gather table (see Jumps in
-// ops/theta_pde.py).
+// The history is optional (null pointers): hist_u (batch, n_time, n) each
+// step's solution before the clamp, hist_m the same shape, one byte a node,
+// Howard's exercise set of the step's last solve.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     theta_pde_kernel(const T* __restrict__ lo, const T* __restrict__ di,
                      const T* __restrict__ up, const T* __restrict__ coef,
                      const T* __restrict__ psi, const T* __restrict__ v0,
                      const T* __restrict__ ends, T* __restrict__ out, int* __restrict__ counts,
-                     T* __restrict__ hist_u, unsigned char* __restrict__ hist_m,
-                     const int* __restrict__ jump_at, const int* __restrict__ jump_index,
-                     const T* __restrict__ jump_weight, int n_jumps, int batch, int n,
+                     T* __restrict__ hist_u, unsigned char* __restrict__ hist_m, int batch, int n,
                      int n_time, int mode, int systems) {
   using A = tri::Arith<T>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -318,34 +312,6 @@ __global__ void __launch_bounds__(kThreads)
       }
       __syncthreads();
     }
-    // a jump: each node from the table (models/slv.py _interp's
-    // f0 + ((x − x0)/dx)·(f1 − f0), the quotient the table's weight) into
-    // the right-hand side's plane, free until the next step; then clamped
-    // again in the American modes
-    const int jump = jump_at == nullptr ? -1 : jump_at[k];
-    if (jump >= 0) {
-      for (int e = tid; e < cells; e += kThreads) {
-        const int s = e / n;
-        const int j = e - s * n;
-        const int64_t g = (static_cast<int64_t>(b0 + s) * n_jumps + jump) * n + j;
-        const int code = jump_index[g];
-        T f;
-        if (code >= 0) {
-          const T f0 = s_v[code * p + s];
-          f = A::add(f0, A::mul(jump_weight[g], A::sub(s_v[(code + 1) * p + s], f0)));
-        } else {
-          f = s_v[(-1 - code) * p + s];
-        }
-        s_rhs[j * p + s] = f;
-      }
-      __syncthreads();
-      for (int e = tid; e < cells; e += kThreads) {
-        const int s = e / n;
-        const int t = (e - s * n) * p + s;
-        s_v[t] = mode != kEuropean ? A::max(s_rhs[t], s_psi[t]) : s_rhs[t];
-      }
-      __syncthreads();
-    }
   }
   for (int e = tid; e < cells; e += kThreads) {
     const int s = e / n;
@@ -361,8 +327,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T>
 cudaError_t launch(const void* lo, const void* di, const void* up, const void* coef,
                    const void* psi, const void* v0, const void* ends, void* out, int* counts,
-                   void* hist_u, void* hist_m, const int* jump_at, const int* jump_index,
-                   const void* jump_weight, int n_jumps, int batch, int n, int n_time, int mode,
+                   void* hist_u, void* hist_m, int batch, int n, int n_time, int mode,
                    int systems, cudaStream_t st) {
   const ThetaTile tile(n, systems, sizeof(T));
   if (tile.bytes > tri::kMaxSmem) return cudaErrorInvalidValue;
@@ -373,8 +338,7 @@ cudaError_t launch(const void* lo, const void* di, const void* up, const void* c
       static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
       static_cast<const T*>(coef), static_cast<const T*>(psi), static_cast<const T*>(v0),
       static_cast<const T*>(ends), static_cast<T*>(out), counts, static_cast<T*>(hist_u),
-      static_cast<unsigned char*>(hist_m), jump_at, jump_index,
-      static_cast<const T*>(jump_weight), n_jumps, batch, n, n_time, mode, systems);
+      static_cast<unsigned char*>(hist_m), batch, n, n_time, mode, systems);
   return cudaGetLastError();
 }
 
@@ -979,6 +943,298 @@ cudaError_t launch_adjoint(const void* lo, const void* di, const void* up, const
                                               mode, systems, st);
 }
 
+
+// ---------------------------------------------------------------------------
+// The loop with a jump table (theta_jump_kernel): the cash-dividend PDE
+//
+// Replaces optionslab_tpu/models/dividends.py:137 (the lax.scan of
+// _fdm_div_single, its jump condition jnp.interp at the ex-date steps): the
+// θ-scheme step of theta_pde_kernel, European, projected or Howard, for one
+// contract on one grid, and after a few steps a jump table (a cash
+// dividend's drop of the spot), clamped again in the American modes. It
+// takes no gradient and keeps no history.
+//
+// What bounds it. One contract's chain: each step solves one system of n
+// (401 at the defaults) unknowns once, or once a Howard sweep; a later sweep
+// solves a matrix whose exercised rows changed.
+//
+// What the design does about it: one warp a contract, its system split over
+// the 32 lanes by warp_tridiag.cuh (a solve's chain ≈ 2⌈n/32⌉ nodes and seven
+// shuffle stages):
+// - the unexercised matrix's factors are formed once a launch; a European,
+//   projection or first Howard solve is the right-hand side's pass alone;
+// - a lane's rows, v, the right-hand side, ψ and (K > 0) the factors the
+//   next solve takes live in its registers from the first step to the last;
+//   the explicit step and Howard's residual take their two neighbours by
+//   shuffles;
+// - a later Howard sweep re-forms, in those registers, the factors of the
+//   blocks that hold a changed exercise row (the others keep theirs), then
+//   the reduced system's; the unexercised matrix's factors are kept in
+//   shared memory and loaded again after a step that swept; a step stops
+//   sweeping at its fixed point (no lane's set changed: one vote), which
+//   leaves the 8-sweep loop's values bit for bit;
+// - an ex-date step puts v in shared memory and each lane gathers its rows
+//   from the jump table (models/slv.py _interp's f0 + w·(f1 − f0));
+// - contracts of a book are warps of a block, each on its own: no barrier.
+// Grids too long for the registers (K = 0) keep the rows and both factor
+// sets in a device-memory workspace, the same code on memory.
+//
+// Bit for bit with the plain loop with its jump table (ops/theta_pde.py
+// _theta_plain with jumps, which solves by ops/tridiag.py warp_solve).
+constexpr int kJumpWarps = 4;  // contracts a CUDA block, a warp each
+
+// Values of a warp's area, its planes of `rows` rows (K where the rows are
+// in registers, else m): the
+// unexercised a, b, c and the jump's gather row (four planes), the
+// unexercised matrix's factors; with the rows in memory (K = 0) also v, the
+// right-hand side, ψ and the exercise set (0 or 1) and the current factors.
+__host__ __device__ constexpr int64_t jump_area(int rows, bool regs) {
+  return (regs ? 4 : 8) * static_cast<int64_t>(rows) * wtri::kLanes +
+         (regs ? 1 : 2) * static_cast<int64_t>(wtri::factor_values(rows));
+}
+
+template <typename T, int K>
+__global__ void __launch_bounds__(kJumpWarps * 32)
+    theta_jump_kernel(const T* __restrict__ lo, const T* __restrict__ di,
+                      const T* __restrict__ up, const T* __restrict__ coef,
+                      const T* __restrict__ psi, const T* __restrict__ v0,
+                      const T* __restrict__ ends, T* __restrict__ out, int* __restrict__ counts,
+                      const int* __restrict__ jump_at, const int* __restrict__ jump_index,
+                      const T* __restrict__ jump_weight, T* __restrict__ work, int n_jumps,
+                      int batch, int n, int n_time, int mode) {
+  using A = tri::Arith<T>;
+  using Rows = std::conditional_t<(K > 0), wtri::Regs<T, K>, wtri::Mem<T>>;
+  using Cur = std::conditional_t<(K > 0), wtri::RegFactors<T, K>, wtri::MemFactors<T>>;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int b = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (b >= batch) return;  // each warp on its own: the block has no barrier
+  const int m = wtri::rows_per_lane(n);
+  const int rows = K > 0 ? K : m;  // a plane's rows
+  const int plane = rows * wtri::kLanes;
+  const int64_t area_values = jump_area(rows, K > 0);
+  T* area;
+  if constexpr (K > 0) {
+    area = reinterpret_cast<T*>(smem_raw) + warp * area_values;
+  } else {
+    area = work + b * area_values;
+  }
+  const wtri::Mem<T> sa{area + lane}, sb{area + plane + lane}, sc{area + 2 * plane + lane};
+  T* const gather = area + 3 * plane;  // the jump's row: node g at [g]
+  // the unexercised matrix's factors, kept; `cur` the factors the next solve
+  // takes (Howard's later sweeps re-form their changed blocks there)
+  wtri::MemFactors<T> keep = wtri::mem_factors(area + 4 * plane, rows);
+  Rows v{}, d{}, ps{};
+  Cur cur{};
+  unsigned bits = 0;    // the exercise set, K > 0: bit i for row i
+  wtri::Mem<T> mask{};  // K = 0: a plane of 0 and 1
+  if constexpr (K == 0) {
+    T* rest = area + 4 * plane + wtri::factor_values(rows);
+    v = Rows{rest + lane};
+    d = Rows{rest + plane + lane};
+    ps = Rows{rest + 2 * plane + lane};
+    mask = wtri::Mem<T>{rest + 3 * plane + lane};
+    cur = wtri::mem_factors(rest + 4 * plane, rows);
+  }
+  const auto ex_get = [&](int i) -> bool {
+    if constexpr (K > 0) {
+      return (bits >> i) & 1u;
+    } else {
+      return mask.get(i) != T(0);
+    }
+  };
+  const auto ex_set = [&](int i, bool x) {
+    if constexpr (K > 0) {
+      bits = x ? bits | (1u << i) : bits & ~(1u << i);
+    } else {
+      mask.set(i, x ? T(1) : T(0));
+    }
+  };
+
+  // the lane's rows (padding past n, and the rows past m where K > m: a = c
+  // = 0, b = 1, ψ = v = 0; a_0 and c_{n−1} taken as 0), the unexercised
+  // matrix's factors
+  const int g0 = lane * m;
+  const int64_t row0 = static_cast<int64_t>(b) * n;
+  wtri::rows_up<K>(0, rows, [&](int i) {
+    const int g = g0 + i;
+    const bool in = i < m && g < n;
+    sa.set(i, in && g > 0 ? lo[row0 + g] : T(0));
+    sb.set(i, in ? di[row0 + g] : T(1));
+    sc.set(i, in && g < n - 1 ? up[row0 + g] : T(0));
+    ps.set(i, in ? psi[row0 + g] : T(0));
+    v.set(i, in ? v0[row0 + g] : T(0));
+  });
+  const T ca = coef[b], cb = coef[batch + b], cc = coef[2 * batch + b], w = coef[3 * batch + b];
+  const wtri::Edge<T> base_edge = wtri::form_local<K, T>(
+      m, [&](int i) { return sa.get(i); }, [&](int i) { return sb.get(i); },
+      [&](int i) { return sc.get(i); }, cur);
+  wtri::form_reduced(base_edge, cur);
+  wtri::copy_factors<K, T>(m, cur, keep);
+  wtri::Edge<T> cur_edge = base_edge;
+  bool swept = false;  // a later Howard sweep changed `cur` this step
+
+  const int64_t e_row = static_cast<int64_t>(b) * n_time * 2;
+  T e0 = T(0), e1 = T(0);
+  int jump_next = -1;
+  if (n_time > 0) {
+    e0 = ends[e_row];
+    e1 = ends[e_row + 1];
+    if (jump_at != nullptr) jump_next = jump_at[0];
+  }
+  const int sweeps = mode == kHoward ? kHowardSweeps : 1;
+  int solves = 0, reformed = 0;
+  for (int k = 0; k < n_time; ++k) {
+    const T end0 = e0, end1 = e1;
+    const int jump = jump_next;
+    if (k + 1 < n_time) {  // the next step's end values and jump, off the chain
+      e0 = ends[e_row + 2 * (k + 1)];
+      e1 = ends[e_row + 2 * (k + 1) + 1];
+      if (jump_at != nullptr) jump_next = jump_at[k + 1];
+    }
+    // the explicit step: v + w·((a·v₋ + b·v) + c·v₊), the ends from the table
+    {
+      const T v_left = __shfl_up_sync(wtri::kFull, wtri::last_row<K, T>(m, v), 1);
+      const T v_right = __shfl_down_sync(wtri::kFull, v.get(0), 1);
+      T prev = v_left;
+      wtri::rows_up<K>(0, rows, [&](int i) {  // with K > 0 no branch: selections
+        const int g = g0 + i;
+        const T vc = v.get(i);
+        const T vn = i + 1 < m ? v.get(i + 1) : v_right;
+        const T r = A::add(vc, A::mul(w, A::add(A::add(A::mul(ca, prev), A::mul(cb, vc)),
+                                                 A::mul(cc, vn))));
+        d.set(i, g == 0 ? end0 : (g == n - 1 ? end1 : (i < m && g < n ? r : T(0))));
+        prev = vc;
+      });
+    }
+    // the unexercised matrix: its factors
+    if (swept) {
+      wtri::copy_factors<K, T>(m, keep, cur);
+      cur_edge = base_edge;
+      swept = false;
+    }
+    wtri::solve<K, T>(m, cur, [&](int i) { return d.get(i); }, v);
+    ++solves;
+    if (mode == kHoward) wtri::rows_up<K>(0, m, [&](int i) { ex_set(i, false); });
+    for (int sweep = 1; sweep < sweeps; ++sweep) {
+      // Howard: the rows where exercising beats continuing,
+      // ((lo·v₋ + di·v) + up·v₊) − rhs > v − ψ, on the interior
+      const T v_left = __shfl_up_sync(wtri::kFull, wtri::last_row<K, T>(m, v), 1);
+      const T v_right = __shfl_down_sync(wtri::kFull, v.get(0), 1);
+      bool changed = false;
+      T prev = v_left;
+      wtri::rows_up<K>(0, rows, [&](int i) {  // with K > 0 no branch: selections
+        const int g = g0 + i;
+        const T vc = v.get(i);
+        const T vn = i + 1 < m ? v.get(i + 1) : v_right;
+        const T res = A::sub(A::add(A::add(A::mul(sa.get(i), prev), A::mul(sb.get(i), vc)),
+                                    A::mul(sc.get(i), vn)),
+                             d.get(i));
+        const bool ex = i < m && g > 0 && g < n - 1 && res > A::sub(vc, ps.get(i));
+        changed |= ex != ex_get(i);
+        ex_set(i, ex);
+        prev = vc;
+      });
+      if (!__any_sync(wtri::kFull, changed)) break;  // a fixed point: the rest repeat this solve
+      // the factors of the blocks whose rows changed (exercised rows u = ψ;
+      // the others keep theirs), then the reduced system's
+      if (changed) {
+        cur_edge = wtri::form_local<K, T>(
+            m, [&](int i) { return ex_get(i) ? T(0) : sa.get(i); },
+            [&](int i) { return ex_get(i) ? T(1) : sb.get(i); },
+            [&](int i) { return ex_get(i) ? T(0) : sc.get(i); }, cur);
+        reformed += m - 1;
+      }
+      wtri::form_reduced(cur_edge, cur);
+      wtri::solve<K, T>(m, cur, [&](int i) { return ex_get(i) ? ps.get(i) : d.get(i); }, v);
+      swept = true;
+      ++solves;
+    }
+    if (mode != kEuropean) {
+      wtri::rows_up<K>(0, m, [&](int i) { v.set(i, A::max(v.get(i), ps.get(i))); });
+    }
+    // a jump: each node from the table (models/slv.py _interp's
+    // f0 + ((x − x0)/dx)·(f1 − f0), the quotient the table's weight) on the
+    // values after the step's clamp; then clamped again in the American modes
+    if (jump >= 0) {
+      wtri::rows_up<K>(0, m, [&](int i) {
+        if (g0 + i < n) gather[g0 + i] = v.get(i);
+      });
+      __syncwarp();
+      wtri::rows_up<K>(0, m, [&](int i) {
+        const int g = g0 + i;
+        if (g < n) {
+          const int64_t t = (static_cast<int64_t>(b) * n_jumps + jump) * n + g;
+          const int code = jump_index[t];
+          T f;
+          if (code >= 0) {
+            const T f0 = gather[code];
+            f = A::add(f0, A::mul(jump_weight[t], A::sub(gather[code + 1], f0)));
+          } else {
+            f = gather[-1 - code];
+          }
+          v.set(i, mode != kEuropean ? A::max(f, ps.get(i)) : f);
+        }
+      });
+      __syncwarp();
+    }
+  }
+  wtri::rows_up<K>(0, m, [&](int i) {
+    if (g0 + i < n) out[row0 + g0 + i] = v.get(i);
+  });
+  reformed = __reduce_add_sync(wtri::kFull, reformed);
+  if (lane == 0) {
+    counts[b] = solves;
+    counts[batch + b] = reformed;
+  }
+}
+
+template <typename T, int K>
+cudaError_t launch_jump_rows(const void* lo, const void* di, const void* up, const void* coef,
+                             const void* psi, const void* v0, const void* ends, void* out,
+                             int* counts, const int* jump_at, const int* jump_index,
+                             const void* jump_weight, void* work, int n_jumps, int batch, int n,
+                             int n_time, int mode, int warps, cudaStream_t st) {
+  const int64_t bytes =
+      K > 0 ? warps * jump_area(K, true) * static_cast<int64_t>(sizeof(T)) : 0;
+  if (bytes > tri::kMaxSmem || (K == 0 && work == nullptr)) return cudaErrorInvalidValue;
+  cudaError_t err = tri::allow_smem(theta_jump_kernel<T, K>, static_cast<int>(bytes));
+  if (err != cudaSuccess) return err;
+  const int blocks = (batch + warps - 1) / warps;
+  theta_jump_kernel<T, K><<<blocks, warps * 32, static_cast<size_t>(bytes), st>>>(
+      static_cast<const T*>(lo), static_cast<const T*>(di), static_cast<const T*>(up),
+      static_cast<const T*>(coef), static_cast<const T*>(psi), static_cast<const T*>(v0),
+      static_cast<const T*>(ends), static_cast<T*>(out), counts, jump_at, jump_index,
+      static_cast<const T*>(jump_weight), static_cast<T*>(work), n_jumps, batch, n, n_time, mode);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_jump(const void* lo, const void* di, const void* up, const void* coef,
+                        const void* psi, const void* v0, const void* ends, void* out, int* counts,
+                        const int* jump_at, const int* jump_index, const void* jump_weight,
+                        void* work, int n_jumps, int batch, int n, int n_time, int mode,
+                        int warps, cudaStream_t st) {
+  switch (wtri::register_rows(n, sizeof(T))) {
+    case 8:
+      return launch_jump_rows<T, 8>(lo, di, up, coef, psi, v0, ends, out, counts, jump_at,
+                                    jump_index, jump_weight, work, n_jumps, batch, n, n_time,
+                                    mode, warps, st);
+    case 16:
+      if constexpr (sizeof(T) == 4) {
+        return launch_jump_rows<T, 16>(lo, di, up, coef, psi, v0, ends, out, counts, jump_at,
+                                       jump_index, jump_weight, work, n_jumps, batch, n, n_time,
+                                       mode, warps, st);
+      }
+      return cudaErrorInvalidValue;
+    default:
+      return launch_jump_rows<T, 0>(lo, di, up, coef, psi, v0, ends, out, counts, jump_at,
+                                    jump_index, jump_weight, work, n_jumps, batch, n, n_time,
+                                    mode, warps, st);
+  }
+}
+
 }  // namespace
 }  // namespace optionslab
 
@@ -992,48 +1248,29 @@ cudaError_t launch_adjoint(const void* lo, const void* di, const void* up, const
 // the pivot nodes its chains formed (the tables' n and, for each later
 // Howard sweep, the rows from its restart on). hist_u, hist_m (may be
 // null): the history, (batch, n_time, n), hist_m one byte a node and read
-// only in Howard mode. jump_at (n_time ints, may be null), jump_index (int)
-// and jump_weight (batch, n_jumps, n): the jump table. Returns a
-// cudaError_t code (0 on success).
+// only in Howard mode. Returns a cudaError_t code (0 on success).
 extern "C" int theta_pde_launch(const void* lo, const void* di, const void* up,
                                 const void* coef, const void* psi, const void* v0,
                                 const void* ends, void* out, void* counts, void* hist_u,
-                                void* hist_m, const void* jump_at, const void* jump_index,
-                                const void* jump_weight, int n_jumps, int batch, int n,
-                                int n_time, int mode, int systems, int dtype, int device,
-                                void* stream) {
+                                void* hist_m, int batch, int n, int n_time, int mode,
+                                int systems, int dtype, int device, void* stream) {
   using namespace optionslab;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (batch < 1 || n < 3 || n_time < 0 || mode < kEuropean || mode > kHoward || systems < 1 ||
       systems > tri::kPair || (dtype != 0 && dtype != 1) ||
-      (hist_u != nullptr && mode == kHoward && hist_m == nullptr) ||
-      (jump_at != nullptr && (n_jumps < 1 || jump_index == nullptr || jump_weight == nullptr))) {
+      (hist_u != nullptr && mode == kHoward && hist_m == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int* s = static_cast<int*>(counts);
-  const int* at = static_cast<const int*>(jump_at);
-  const int* idx = static_cast<const int*>(jump_index);
-  err = dtype == 0 ? launch<float>(lo, di, up, coef, psi, v0, ends, out, s, hist_u, hist_m, at,
-                                   idx, jump_weight, n_jumps, batch, n, n_time, mode, systems, st)
-                   : launch<double>(lo, di, up, coef, psi, v0, ends, out, s, hist_u, hist_m, at,
-                                    idx, jump_weight, n_jumps, batch, n, n_time, mode, systems,
-                                    st);
+  err = dtype == 0 ? launch<float>(lo, di, up, coef, psi, v0, ends, out, s, hist_u, hist_m, batch,
+                                   n, n_time, mode, systems, st)
+                   : launch<double>(lo, di, up, coef, psi, v0, ends, out, s, hist_u, hist_m,
+                                    batch, n, n_time, mode, systems, st);
   return static_cast<int>(err);
 }
 
-// The reverse of the loop: lo, di, up, psi, v0 and g (batch, n): the
-// forward's operands and the gradient of its output; coef (4, batch);
-// hist_u (batch, n_time, n) each step's solution before the clamp, hist_m
-// (the same, one byte a node; Howard mode only, else may be null) the
-// exercise set of each step's last solve. Writes g_grid (5, batch, n): the
-// gradients of lo, di, up, psi and v0; g_coef (4, batch): of a, b, c, w;
-// g_ends (batch, n_time, 2). work: null for the shared-memory route, else
-// the device route's workspace, (batch, 7, n) values. mode and systems as
-// theta_pde_launch's, systems a power of two (the plan of adjoint_plan in
-// ops/theta_pde.py).
-// Returns a cudaError_t code (0 on success).
 extern "C" int theta_pde_adjoint_launch(const void* lo, const void* di, const void* up,
                                         const void* coef, const void* psi, const void* v0,
                                         const void* hist_u, const void* hist_m, const void* g,
@@ -1054,5 +1291,41 @@ extern "C" int theta_pde_adjoint_launch(const void* lo, const void* di, const vo
                                     g_ends, work, batch, n, n_time, mode, systems, st)
             : launch_adjoint<double>(lo, di, up, coef, psi, v0, hist_u, hist_m, g, g_grid,
                                      g_coef, g_ends, work, batch, n, n_time, mode, systems, st);
+  return static_cast<int>(err);
+}
+
+// The loop with a jump table: lo, di, up, psi, v0, coef, ends, out as
+// theta_pde_launch's; mode 0 European, 1 projection, 2 Howard. counts: (2,
+// batch) ints, the solves each contract ran, then the rows whose factors its
+// later Howard sweeps re-formed. jump_at (n_time ints, may be null: no jump)
+// the jump after each step (−1 none); jump_index (int) and jump_weight
+// (batch, n_jumps, n) its gather table (see Jumps in ops/theta_pde.py).
+// work: null where the rows fit in registers (ops/tridiag.py
+// warp_capacity), else (batch, jump_area) values of device memory. warps:
+// contracts a CUDA block, 1 to 4. Returns a cudaError_t code (0 on success).
+extern "C" int theta_jump_launch(const void* lo, const void* di, const void* up,
+                                 const void* coef, const void* psi, const void* v0,
+                                 const void* ends, void* out, void* counts, const void* jump_at,
+                                 const void* jump_index, const void* jump_weight, void* work,
+                                 int n_jumps, int batch, int n, int n_time, int mode, int warps,
+                                 int dtype, int device, void* stream) {
+  using namespace optionslab;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (batch < 1 || n < 3 || n_time < 0 || mode < kEuropean || mode > kHoward || warps < 1 ||
+      warps > kJumpWarps || (dtype != 0 && dtype != 1) ||
+      (jump_at != nullptr && (n_jumps < 1 || jump_index == nullptr || jump_weight == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int* s = static_cast<int*>(counts);
+  const int* at = static_cast<const int*>(jump_at);
+  const int* idx = static_cast<const int*>(jump_index);
+  err = dtype == 0 ? launch_jump<float>(lo, di, up, coef, psi, v0, ends, out, s, at, idx,
+                                        jump_weight, work, n_jumps, batch, n, n_time, mode, warps,
+                                        st)
+                   : launch_jump<double>(lo, di, up, coef, psi, v0, ends, out, s, at, idx,
+                                         jump_weight, work, n_jumps, batch, n, n_time, mode,
+                                         warps, st);
   return static_cast<int>(err);
 }

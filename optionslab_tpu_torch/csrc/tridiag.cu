@@ -8,11 +8,12 @@
 // reverse pass of the θ-scheme time loop (theta_pde.cu solves through the
 // same functions, tridiag.cuh).
 //
-// Beside the solve: the three chain probes that time a node of the PDE
-// kernels' chains (the pivots' here, the right-hand side's on tables formed
-// once in tridiag_rhs_chain_kernel, the θ-scheme reverse's FMA sweeps in
-// tridiag_fma_chain_kernel) and the division check that holds the fast
-// quotient of tridiag.cuh to the division intrinsic.
+// Beside the solve: the chain probes that time a node of the PDE kernels'
+// chains (the pivots' here, the right-hand side's on tables formed once in
+// tridiag_rhs_chain_kernel, the θ-scheme reverse's FMA sweeps in
+// tridiag_fma_chain_kernel, the warp-partitioned solve's nodes and shuffle
+// stages in tridiag_warp_probe_kernel) and the division check that holds
+// the fast quotient of tridiag.cuh to the division intrinsic.
 //
 // What bounds it. A system of n unknowns is a chain of n dependent pivots
 // (den_j = b_j − a_j·c'_{j−1}, c'_j = c_j / den_j, each precise quotient a
@@ -323,6 +324,62 @@ __global__ void tridiag_fma_chain_kernel(const T* __restrict__ abcd, T* __restri
   out[0] = acc;
 }
 
+// The warp-partitioned solve's probes (warp_tridiag.cuh), one warp, each
+// lane a chain of n_nodes dependent steps on values in registers:
+// kind 0, a node of the right-hand side's pass, e ← q − ℓ·e (a product and a
+// difference; q = d·ρ, ℓ = a·ρ, ρ = 1/b);
+// kind 1, a stage of its cyclic reduction, D ← (D − D⁻·k1) − D⁺·k2 at the
+// strides 1, 2, 4, 8, 16 in turn (two shuffles, two products, two
+// differences; k1 = k2 = a − a, zeros the compiler cannot see, from
+// D = d + lane);
+// kind 2, a stage of the reduced system's factors, k1 = A/B⁻, k2 = C/B⁺,
+// A ← −(A⁻·k1), B ← (B − C⁻·k1) − A⁺·k2, C ← −(C⁺·k2) (six shuffles, two
+// quotients by tri::quotient as the kernels take them; from A = a, B = b,
+// C = c).
+// Lane 0's last value goes to out[0].
+template <typename T>
+__global__ void tridiag_warp_probe_kernel(const T* __restrict__ abcd, T* __restrict__ out,
+                                          int n_nodes, int kind) {
+  using A = tri::Arith<T>;
+  constexpr unsigned kFull = 0xffffffffu;
+  const T a = abcd[0], b = abcd[1], c = abcd[2], d = abcd[3];
+  const int lane = threadIdx.x;
+  T acc;
+  if (kind == 0) {
+    const T rho = A::quo(T(1), b);
+    const T ell = A::mul(a, rho), q = A::mul(d, rho);
+    T e = T(0);
+    for (int i = 0; i < n_nodes; ++i) e = A::sub(q, A::mul(ell, e));
+    acc = e;
+  } else if (kind == 1) {
+    const T k = A::sub(a, a);
+    T dd = A::add(d, T(lane));
+    for (int i = 0; i < n_nodes; ++i) {
+      const int s = 1 << (i % 5);
+      const T du = __shfl_up_sync(kFull, dd, s);
+      const T dn = __shfl_down_sync(kFull, dd, s);
+      dd = A::sub(A::sub(dd, A::mul(du, k)), A::mul(dn, k));
+    }
+    acc = dd;
+  } else {
+    T ra = a, rb = b, rc = c;
+    for (int i = 0; i < n_nodes; ++i) {
+      const int s = 1 << (i % 5);
+      const T au = __shfl_up_sync(kFull, ra, s), bu = __shfl_up_sync(kFull, rb, s);
+      const T cu = __shfl_up_sync(kFull, rc, s);
+      const T ad = __shfl_down_sync(kFull, ra, s), bd = __shfl_down_sync(kFull, rb, s);
+      const T cd = __shfl_down_sync(kFull, rc, s);
+      const T k1 = tri::quotient(ra, bu);
+      const T k2 = tri::quotient(rc, bd);
+      ra = -A::mul(au, k1);
+      rb = A::sub(A::sub(rb, A::mul(cu, k1)), A::mul(ad, k2));
+      rc = -A::mul(cd, k2);
+    }
+    acc = rb;
+  }
+  if (lane == 0) out[0] = acc;
+}
+
 __device__ __forceinline__ unsigned long long bits(float x) { return __float_as_uint(x); }
 __device__ __forceinline__ unsigned long long bits(double x) {
   return static_cast<unsigned long long>(__double_as_longlong(x));
@@ -497,6 +554,29 @@ extern "C" int tridiag_div_check_launch(const void* num, const void* den, void* 
     tridiag_div_check_kernel<double><<<blocks, threads, 0, st>>>(
         static_cast<const double*>(num), static_cast<const double*>(den),
         static_cast<double*>(out), c, n);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The warp-partitioned solve's probes: one block of one warp, n_nodes steps
+// of kind 0 (a node of the right-hand side's pass), 1 (a stage of its
+// reduction) or 2 (a stage of the reduced system's factors). abcd: lower,
+// diagonal, upper, rhs. Returns a cudaError_t.
+extern "C" int tridiag_warp_probe_launch(const void* abcd, void* out, int n_nodes, int kind,
+                                         int dtype, int device, void* stream) {
+  using namespace optionslab;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_nodes < 1 || kind < 0 || kind > 2 || (dtype != 0 && dtype != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    tridiag_warp_probe_kernel<float><<<1, 32, 0, st>>>(static_cast<const float*>(abcd),
+                                                       static_cast<float*>(out), n_nodes, kind);
+  } else {
+    tridiag_warp_probe_kernel<double><<<1, 32, 0, st>>>(static_cast<const double*>(abcd),
+                                                        static_cast<double*>(out), n_nodes, kind);
   }
   return static_cast<int>(cudaGetLastError());
 }

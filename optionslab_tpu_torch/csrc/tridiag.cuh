@@ -666,7 +666,7 @@ inline cudaError_t allow_smem(Kernel kernel, int bytes) {
 }
 
 // cp.async: sizeof(T) bytes from global to shared memory without a trip
-// through registers (tridiag.cu's chunks, lv_pde.cu's step tables,
+// through registers (tridiag.cu's chunks, theta_pde.cu's history rows,
 // heston_adi.cu's history). A thread's copies land by groups: commit closes
 // a group, cp_async_wait<N> waits until at most N of the thread's groups
 // are still in flight, cp_async_wait_all until none is.

@@ -219,6 +219,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.tridiag_fma_chain_launch.argtypes = [  # abcd, out, n, ahead, dtype, dev, st
         _P, _P, _I, _I, _I, _I, _P]
     lib.tridiag_fma_chain_launch.restype = _I
+    lib.tridiag_warp_probe_launch.argtypes = [_P, _P, _I, _I, _I, _I, _P]  # abcd, out, n, kind
+    lib.tridiag_warp_probe_launch.restype = _I
     lib.tridiag_div_check_launch.argtypes = [
         _P, _P, _P, _P,              # num, den, out, counts (uint64[3])
         ctypes.c_int64, _I, _I, _P,  # n, dtype, device, stream
@@ -229,11 +231,20 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         _P, _P, _P,                  # psi, v0, ends
         _P, _P,                      # out, counts (2, blocks): solves, pivot nodes
         _P, _P,                      # history: solutions, exercise sets (or null)
-        _P, _P, _P, _I,              # jump table: at, index, weight (or null); jumps
         _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, systems per block, dtype
         _I, _P,                      # device, stream
     ]
     lib.theta_pde_launch.restype = _I
+    lib.theta_jump_launch.argtypes = [
+        _P, _P, _P, _P,              # lower, diag, upper, coef (a, b, c, w)
+        _P, _P, _P,                  # psi, v0, ends
+        _P, _P,                      # out, counts (2, batch): solves, re-formed rows
+        _P, _P, _P,                  # jump table: at (or null), index, weight
+        _P, _I,                      # workspace (or null), jumps
+        _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, contracts per block, dtype
+        _I, _P,                      # device, stream
+    ]
+    lib.theta_jump_launch.restype = _I
     lib.theta_pde_adjoint_launch.argtypes = [
         _P, _P, _P, _P,              # lower, diag, upper, coef (a, b, c, w)
         _P, _P,                      # psi, v0
@@ -247,7 +258,8 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.lv_pde_launch.argtypes = [
         _P, _P, _P, _P,              # lower, diag, upper (batch, n_time, n), ends
         _P, _P, _P, _P,              # psi, v0, out, Bermudan slices (or null)
-        _I, _I, _I, _I, _I, _I,      # batch, n, n_time, mode, steps a date, dtype
+        _P,                          # workspace (or null)
+        _I, _I, _I, _I, _I, _I, _I,  # batch, n, n_time, mode, steps a date, ring slots, dtype
         _I, _P,                      # device, stream
     ]
     lib.lv_pde_launch.restype = _I

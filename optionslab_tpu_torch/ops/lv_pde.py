@@ -8,9 +8,10 @@ local_vol_american.py:85-125``). Its diagonals change every step (σ(S, t)
 is read at each step's time), so each step forms its pivots again. Here
 :func:`lv_loop` runs the loop in one launch of the CUDA kernel
 ``csrc/lv_pde.cu`` on CUDA tensors, and as the plain torch loop
-(:func:`_lv_plain`, one tridiagonal solve a step) on CPU tensors; any other
-device raises. The caller forms every step's diagonals and end values first
-as one table (``models/local_vol.py`` ``_lv_tables``).
+(:func:`_lv_plain`, one solve a step by the kernel's warp-partitioned
+solve, :func:`~.tridiag.warp_solve`) on CPU tensors; any other device
+raises. The caller forms every step's diagonals and end values first as one
+table (``models/local_vol.py`` ``_lv_tables``).
 
 Each step sets the right-hand side's ends from the table, solves
 ``(lo_k, di_k, up_k)·v = rhs`` and then, by mode, keeps v (European),
@@ -25,8 +26,8 @@ import torch
 
 from . import _build
 from .theta_pde import set_ends
-from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, DUMP_BYTES, PAD_ROWS, SMEM_LIMIT, check_operands,
-                      tridiag_solve)
+from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, SMEM_LIMIT, WARP_LANES, check_operands,
+                      warp_capacity, warp_factor_values, warp_rows, warp_solve)
 
 EUROPEAN, PROJECTION, BERMUDAN = 0, 1, 2
 
@@ -52,7 +53,7 @@ def _lv_plain(lo, di, up, ends, psi, v, mode: int, spd: int = 1):
     _, _, n_time = _check(lo, di, up, ends, psi, v, mode, spd)
     conts = []
     for k in range(n_time):
-        v = tridiag_solve(lo[:, k], di[:, k], up[:, k], set_ends(v, ends[:, k, 0], ends[:, k, 1]))
+        v = warp_solve(lo[:, k], di[:, k], up[:, k], set_ends(v, ends[:, k, 0], ends[:, k, 1]))
         if mode == PROJECTION:
             v = torch.maximum(v, psi)
         elif mode == BERMUDAN and (k + 1) % spd == 0 and k + 1 < n_time:
@@ -63,40 +64,64 @@ def _lv_plain(lo, di, up, ends, psi, v, mode: int, spd: int = 1):
     return v, torch.stack(conts, 1) if conts else v.new_zeros((v.shape[0], 0, v.shape[1]))
 
 
-def tile_bytes(n: int, itemsize: int) -> int:
-    """Shared memory of one block of the kernel (``LvTile`` in
-    ``csrc/lv_pde.cu``): eleven planes of n nodes and PAD_ROWS rows of
-    padding at both ends (two steps' lower, diagonal and upper, the
-    right-hand side, v, ψ, c' and d'), two steps' end values, then (8-byte
-    aligned) the lanes' dump slots."""
-    return -(-(11 * (n + 2 * PAD_ROWS) + 4) * itemsize // 8) * 8 + DUMP_BYTES
+LV_WARPS = 8  # a CUDA block: the contract's solving warp, an idle warp, 6 producers
+MAX_RING = 2 * (LV_WARPS - 2)  # slots of the factor ring
+FLAG_BYTES = -(-(MAX_RING + 1) * 4 // 16) * 16  # the ring's flags
+
+
+def lv_plan(n: int, itemsize: int) -> tuple[int, int, int]:
+    """(ring slots, shared bytes a block, workspace values a contract) of the
+    kernel. A slot holds one step's factors (:func:`~.tridiag.warp_factor_values`,
+    planes of the register capacity's rows, or of m where the rows do not
+    fit in registers) and its two end values. Where a lane's rows fit in
+    registers (:func:`~.tridiag.warp_capacity`) the ring is in shared memory,
+    as many slots as fit up to MAX_RING; else MAX_RING slots and the solving
+    warp's v in a device-memory workspace. Depends on n and the dtype alone."""
+    m = warp_rows(n)
+    slot = warp_factor_values(warp_capacity(n, itemsize) or m) + 2
+    if warp_capacity(n, itemsize):
+        ring = min(MAX_RING, (SMEM_LIMIT - FLAG_BYTES) // (slot * itemsize))
+        return ring, FLAG_BYTES + ring * slot * itemsize, 0
+    return MAX_RING, FLAG_BYTES, MAX_RING * slot + WARP_LANES * m
+
+
+def _lv_launch(lo, di, up, ends, psi, v, mode: int, spd: int = 1):
+    """The kernel's operands made ready on the card: (launch, out, slices),
+    ``launch()`` one launch of the kernel alone on PyTorch's current stream
+    (what a CUDA graph of calls times), writing ``out`` (B, n) and, Bermudan,
+    the slices (B, n_time/spd − 1, n); else ``slices`` is None."""
+    ops = (lo, di, up, ends, psi, v)
+    dev = check_operands("_lv_cuda", ops)
+    batch, n, n_time = _check(*ops, mode, spd)
+    ring, _, work_values = lv_plan(n, v.element_size())
+    lo, di, up, ends, psi, v0 = (t.contiguous() for t in ops)
+    out = torch.empty_like(v0)
+    n_conts = n_time // spd - 1 if mode == BERMUDAN else 0
+    conts = torch.empty((batch, max(n_conts, 0), n), dtype=v.dtype, device=dev)
+    work = torch.empty((batch, work_values), dtype=v.dtype, device=dev) if work_values else None
+
+    def launch():
+        err = _build.load_library().lv_pde_launch(
+            lo.data_ptr(), di.data_ptr(), up.data_ptr(), ends.data_ptr(), psi.data_ptr(),
+            v0.data_ptr(), out.data_ptr(), conts.data_ptr() if n_conts > 0 else 0,
+            0 if work is None else work.data_ptr(), batch, n, n_time, mode, spd, ring,
+            _DTYPE_ID[v.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"lv_pde_launch failed: {_build.error_string(err)} ({err})")
+        with _LAUNCH_LOCK:
+            _lv_cuda.launches += 1
+
+    return launch, out, conts if mode == BERMUDAN else None
 
 
 def _lv_cuda(lo, di, up, ends, psi, v, mode: int, spd: int = 1):
     """The kernel: one launch on PyTorch's current stream, no synchronize,
     one CUDA block a contract. Arguments and returns as :func:`_lv_plain`'s,
-    on one CUDA device, of one dtype, float32 or float64. A grid too long
-    for one CUDA block's shared memory raises ``ValueError``.
-    ``_lv_cuda.launches`` counts the launches."""
-    ops = (lo, di, up, ends, psi, v)
-    dev = check_operands("_lv_cuda", ops)
-    batch, n, n_time = _check(*ops, mode, spd)
-    if tile_bytes(n, v.element_size()) > SMEM_LIMIT:
-        raise ValueError(f"a {n}-node grid needs {tile_bytes(n, v.element_size())} bytes of "
-                         f"shared memory, more than the {SMEM_LIMIT} a CUDA block has")
-    lo, di, up, ends, psi, v0 = (t.contiguous() for t in ops)
-    out = torch.empty_like(v0)
-    n_conts = n_time // spd - 1 if mode == BERMUDAN else 0
-    conts = torch.empty((batch, max(n_conts, 0), n), dtype=v.dtype, device=dev)
-    err = _build.load_library().lv_pde_launch(
-        lo.data_ptr(), di.data_ptr(), up.data_ptr(), ends.data_ptr(), psi.data_ptr(),
-        v0.data_ptr(), out.data_ptr(), conts.data_ptr() if n_conts > 0 else 0, batch, n, n_time,
-        mode, spd, _DTYPE_ID[v.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
-    if err:
-        raise RuntimeError(f"lv_pde_launch failed: {_build.error_string(err)} ({err})")
-    with _LAUNCH_LOCK:
-        _lv_cuda.launches += 1
-    return out, conts if mode == BERMUDAN else None
+    on one CUDA device, of one dtype, float32 or float64. Any grid runs (the
+    plan of :func:`lv_plan`). ``_lv_cuda.launches`` counts the launches."""
+    launch, out, conts = _lv_launch(lo, di, up, ends, psi, v, mode, spd)
+    launch()
+    return out, conts
 
 
 _lv_cuda.launches = 0

@@ -8,7 +8,11 @@ dividends.py:137``) with Howard's policy sweeps in a ``fori_loop``
 :func:`theta_loop` runs it in one launch of the CUDA kernel
 ``csrc/theta_pde.cu`` on CUDA tensors, and as the plain torch loop
 (:func:`_theta_plain`, one batched tridiagonal solve a step or a sweep) on
-CPU tensors; any other device raises.
+CPU tensors; any other device raises. A loop with a jump table (the
+dividend PDE) is its own kernel, ``theta_jump_kernel``: one warp a
+contract, each solve split over the warp's lanes (``csrc/warp_tridiag.cuh``),
+and its plain loop solves by that partition's model
+(:func:`~.tridiag.warp_solve`), not by Thomas.
 
 Each step forms the explicit right-hand side ``v + w·(a·v₋ + b·v + c·v₊)``,
 sets its ends from a table, and solves ``(lo, di, up)·v = rhs``: as it is
@@ -38,9 +42,10 @@ from typing import NamedTuple
 import torch
 
 from . import _build
-from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, DUMP_BYTES, PAD_ROWS, SMEM_LIMIT, _neighbours,
-                      _solve, check_operands, plan_systems, sm_count, tridiag_apply,
-                      tridiag_solve)
+from .tridiag import (_DTYPE_ID, _LAUNCH_LOCK, DUMP_BYTES, PAD_ROWS, SMEM_LIMIT, WARP_LANES,
+                      _neighbours, _solve, check_operands, plan_systems, sm_count, tridiag_apply,
+                      tridiag_solve, warp_capacity, warp_factor_values, warp_factors, warp_rows,
+                      warp_solve, warp_solve_rhs)
 
 EUROPEAN, PROJECTION, HOWARD = 0, 1, 2
 HOWARD_SWEEPS = 8
@@ -62,23 +67,32 @@ def set_ends(v, first, last):
     return torch.cat([first[:, None], v[:, 1:-1], last[:, None]], dim=1)
 
 
-def _howard(lo, di, up, rhs, psi):
+def _howard(lo, di, up, rhs, psi, solve=tridiag_solve, tables=None):
     """The obstacle problem min(B·v − rhs, v − ψ) = 0 by policy (Howard)
     iteration: each of HOWARD_SWEEPS sweeps solves the tridiagonal system
-    with the exercise rows replaced by v = ψ, then re-selects them from the
-    complementarity residuals; the end rows stay Dirichlet. All (B, n).
-    Returns (the last sweep's solution before the clamp to ψ, the exercise
-    set that sweep solved with): where the sweeps stop short of their fixed
-    point, the set its residuals then pick is another."""
+    with the exercise rows replaced by v = ψ (by ``solve``), then re-selects
+    them from the complementarity residuals; the end rows stay Dirichlet.
+    All (B, n). Returns (the last sweep's solution before the clamp to ψ, the
+    exercise set that sweep solved with): where the sweeps stop short of
+    their fixed point, the set its residuals then pick is another.
+    ``tables``: the unexercised matrix's :func:`~.tridiag.warp_factors`, on
+    which the first sweep solves; the sweeps then stop at their fixed point,
+    as the jump-table kernel does (each later sweep would solve the same
+    system again: the values are the 8 sweeps')."""
     interior = torch.ones_like(rhs, dtype=torch.bool)
     interior[:, 0] = False
     interior[:, -1] = False
     m = torch.zeros_like(rhs, dtype=torch.bool)
-    for _ in range(HOWARD_SWEEPS):
+    for sweep in range(HOWARD_SWEEPS):
         used = m
-        v = tridiag_solve(torch.where(m, 0.0, lo), torch.where(m, 1.0, di),
-                          torch.where(m, 0.0, up), torch.where(m, psi, rhs))
+        if sweep == 0 and tables is not None:
+            v = warp_solve_rhs(tables, rhs)
+        else:
+            v = solve(torch.where(m, 0.0, lo), torch.where(m, 1.0, di),
+                      torch.where(m, 0.0, up), torch.where(m, psi, rhs))
         m = ((tridiag_apply(lo, di, up, v) - rhs) > (v - psi)) & interior
+        if tables is not None and torch.equal(m, used):
+            break
     return v, used
 
 
@@ -99,17 +113,25 @@ def _theta_plain(lo, di, up, a, b, c, w, psi, v, ends, mode: int, jumps: Jumps |
     ``b``, ``c`` and weight ``w``; (B, n_time, 2) end values ``ends``.
     With ``history`` returns (v, each step's solution before the clamp
     (B, n_time, n), and for Howard the exercise set of each step's last
-    solve (B, n_time, n) bool, else None)."""
+    solve (B, n_time, n) bool, else None). With a jump table every solve is
+    the warp-partitioned one (:func:`~.tridiag.warp_solve`, the jump-table
+    kernel's), the unexercised matrix's factors formed once; without, the
+    Thomas solve (``fdm_price``'s)."""
     jump_at = {} if jumps is None else {k: i for i, k in enumerate(jumps.steps)}
+    tables = None
+    if jumps is not None:
+        tables = warp_factors(*torch.broadcast_tensors(lo, di, up, v)[:3])
     sols, sets = [], []
     for k in range(ends.shape[1]):
         rhs = v + w * (a * torch.roll(v, 1, dims=1) + b * v + c * torch.roll(v, -1, dims=1))
         rhs = set_ends(rhs, ends[:, k, 0], ends[:, k, 1])
         if mode == HOWARD:
-            u, m = _howard(lo, di, up, rhs, psi)
+            u, m = _howard(lo, di, up, rhs, psi) if tables is None \
+                else _howard(lo, di, up, rhs, psi, warp_solve, tables)
             v = torch.maximum(u, psi)
         else:
-            u, m = tridiag_solve(lo, di, up, rhs), None
+            u = tridiag_solve(lo, di, up, rhs) if tables is None else warp_solve_rhs(tables, rhs)
+            m = None
             v = torch.maximum(u, psi) if mode == PROJECTION else u
         if history:
             sols.append(u)
@@ -253,29 +275,34 @@ def _grid_operands(lo, di, up, a, b, c, w, psi, v, batch, n):
     return grid, coef
 
 
-def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: bool = False,
-                history: bool = False, jumps: Jumps | None = None):
-    """The kernel: one launch on PyTorch's current stream, no synchronize.
-    Arguments as :func:`_theta_plain`'s, on one CUDA device, of one dtype,
-    float32 or float64. Returns the values; with ``history`` also the
-    step's solutions and exercise sets of :func:`_theta_plain`'s history
-    (the sets as bool, one byte a node); with ``count_solves`` also
-    (solves, pivots): int32 counts a CUDA block of the solves each of its
-    contracts ran (Howard stops sweeping a step at its fixed point) and of
-    the pivot nodes its chains formed (the tables' n, then for each later
-    Howard sweep the rows from its restart on). A grid too long for one CUDA
-    block's shared memory raises ``ValueError``.
-    ``_theta_cuda.launches`` counts the launches, ``jump_launches`` those
-    of them with a jump table."""
-    ops = (lo, di, up, a, b, c, w, psi, v, ends)
-    dev = check_operands("_theta_cuda", ops)
+def _check_loop(name: str, ops, mode: int) -> tuple[torch.device, int, int, int]:
+    """(device, B, n, n_time) of a loop kernel's operands (``ops`` as
+    :func:`_theta_plain`'s); raises on a bad shape, mode, device or dtype."""
+    dev = check_operands(name, ops)
+    v, ends = ops[-2], ops[-1]
     batch, n = v.shape
     n_time = ends.shape[1]
     if n < 3 or batch < 1 or ends.shape != (batch, n_time, 2) or mode not in (0, 1, 2):
         raise ValueError(f"bad θ-scheme shapes or mode: v {tuple(v.shape)}, ends "
                          f"{tuple(ends.shape)}, mode {mode}")
-    if history and jumps is not None:
-        raise ValueError("the θ-scheme kernel keeps no history across a jump table")
+    return dev, batch, n, n_time
+
+
+def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: bool = False,
+                history: bool = False):
+    """The kernel: one launch on PyTorch's current stream, no synchronize.
+    Arguments as :func:`_theta_plain`'s (no jump table), on one CUDA device,
+    of one dtype, float32 or float64. Returns the values; with ``history``
+    also the step's solutions and exercise sets of :func:`_theta_plain`'s
+    history (the sets as bool, one byte a node); with ``count_solves`` also
+    (solves, pivots): int32 counts a CUDA block of the solves each of its
+    contracts ran (Howard stops sweeping a step at its fixed point) and of
+    the pivot nodes its chains formed (the tables' n, then for each later
+    Howard sweep the rows from its restart on). A grid too long for one CUDA
+    block's shared memory raises ``ValueError``.
+    ``_theta_cuda.launches`` counts the launches."""
+    dev, batch, n, n_time = _check_loop("_theta_cuda", (lo, di, up, a, b, c, w, psi, v, ends),
+                                        mode)
     grid, coef = _grid_operands(lo, di, up, a, b, c, w, psi, v, batch, n)
     ends = ends.contiguous()
     systems = plan_systems(batch, sm_count(dev.index),
@@ -287,38 +314,110 @@ def _theta_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, count_solves: b
         hist_u = torch.empty((batch, n_time, n), dtype=v.dtype, device=dev)
         hist_m = torch.empty(hist_u.shape, dtype=torch.bool, device=dev) if mode == HOWARD \
             else None
-    jump_at = index = weight = None
-    n_jumps = 0
-    if jumps is not None and jumps.steps:
-        n_jumps = len(jumps.steps)
-        if jumps.index.shape != (batch, n_jumps, n) or jumps.weight.shape != (batch, n_jumps, n):
-            raise ValueError(f"bad jump table: index {tuple(jumps.index.shape)}, weight "
-                             f"{tuple(jumps.weight.shape)} for {n_jumps} steps")
-        at = [-1] * n_time
-        for i, k in enumerate(jumps.steps):
-            at[k] = i
-        jump_at = torch.tensor(at, dtype=torch.int32).to(dev)
-        index = jumps.index.to(dev, torch.int32).contiguous()
-        weight = jumps.weight.to(dev, v.dtype).contiguous()
     ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
     err = _build.load_library().theta_pde_launch(
         grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
         grid[3].data_ptr(), grid[4].data_ptr(), ends.data_ptr(), out.data_ptr(),
-        counts.data_ptr(), ptr(hist_u), ptr(hist_m), ptr(jump_at), ptr(index), ptr(weight),
-        n_jumps, batch, n, n_time, mode, systems, _DTYPE_ID[v.dtype], dev.index,
-        torch.cuda.current_stream(dev).cuda_stream)
+        counts.data_ptr(), ptr(hist_u), ptr(hist_m), batch, n, n_time, mode, systems,
+        _DTYPE_ID[v.dtype], dev.index, torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"theta_pde_launch failed: {_build.error_string(err)} ({err})")
     with _LAUNCH_LOCK:
         _theta_cuda.launches += 1
-        _theta_cuda.jump_launches += n_jumps > 0
     result = (out,) + ((hist_u, hist_m) if history else ()) \
         + ((counts[0], counts[1]) if count_solves else ())
     return result if len(result) > 1 else out
 
 
 _theta_cuda.launches = 0
-_theta_cuda.jump_launches = 0
+
+JUMP_WARPS = 4  # contracts a CUDA block of the jump-table kernel, a warp each
+
+
+def jump_area(n: int, itemsize: int) -> int:
+    """Values of one contract's area of the jump-table kernel (``jump_area``
+    in ``csrc/theta_pde.cu``), its planes of 32 lanes × the register capacity
+    (:func:`~.tridiag.warp_capacity`) or, where the rows are in device
+    memory, × m rows: the unexercised a, b, c and the jump's gather row,
+    Howard's working factors; in device memory four planes more (v, the
+    right-hand side, ψ, the exercise set) and the tables' factors."""
+    registers = warp_capacity(n, itemsize)
+    rows = registers or warp_rows(n)
+    return (4 if registers else 8) * WARP_LANES * rows \
+        + (1 if registers else 2) * warp_factor_values(rows)
+
+
+def jump_plan(batch: int, n: int, itemsize: int) -> tuple[int, int, int]:
+    """(contracts a CUDA block, shared bytes a block, workspace values a
+    contract) of the jump-table kernel: a warp a contract, up to JUMP_WARPS
+    to a block; each warp's area in shared memory where a lane's rows fit in
+    registers (:func:`~.tridiag.warp_capacity`), else in a device-memory
+    workspace. Depends on n and the dtype alone, never on the card."""
+    warps = min(JUMP_WARPS, batch)
+    if warp_capacity(n, itemsize):
+        return warps, warps * jump_area(n, itemsize) * itemsize, 0
+    return warps, 0, jump_area(n, itemsize)
+
+
+def _jump_launch(lo, di, up, a, b, c, w, psi, v, ends, mode: int, jumps: Jumps):
+    """The jump-table kernel's operands made ready on the card: (launch, out,
+    counts), ``launch()`` one launch of the kernel alone on PyTorch's current
+    stream (what a CUDA graph of calls times), writing ``out`` (B, n) and
+    ``counts`` (2, B) int32: the solves each contract ran, then the rows whose
+    factors its later Howard sweeps re-formed."""
+    dev, batch, n, n_time = _check_loop("_theta_jumps_cuda",
+                                        (lo, di, up, a, b, c, w, psi, v, ends), mode)
+    grid, coef = _grid_operands(lo, di, up, a, b, c, w, psi, v, batch, n)
+    ends = ends.contiguous()
+    jump_at = index = weight = None
+    n_jumps = len(jumps.steps)
+    if n_jumps:
+        if jumps.index.shape != (batch, n_jumps, n) or jumps.weight.shape != (batch, n_jumps, n):
+            raise ValueError(f"bad jump table: index {tuple(jumps.index.shape)}, weight "
+                             f"{tuple(jumps.weight.shape)} for {n_jumps} steps")
+        jump_at = torch.full((n_time,), -1, dtype=torch.int32, device=dev)
+        for i, k in enumerate(jumps.steps):  # fills on the card: no copy from the host
+            jump_at[k] = i
+        index = jumps.index.to(dev, torch.int32).contiguous()
+        weight = jumps.weight.to(dev, v.dtype).contiguous()
+    warps, _, work_values = jump_plan(batch, n, v.element_size())
+    work = torch.empty((batch, work_values), dtype=v.dtype, device=dev) if work_values else None
+    counts = torch.empty((2, batch), dtype=torch.int32, device=dev)
+    out = torch.empty_like(grid[4])
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+
+    def launch():
+        err = _build.load_library().theta_jump_launch(
+            grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
+            grid[3].data_ptr(), grid[4].data_ptr(), ends.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), ptr(jump_at), ptr(index), ptr(weight), ptr(work), n_jumps, batch,
+            n, n_time, mode, warps, _DTYPE_ID[v.dtype], dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise RuntimeError(f"theta_jump_launch failed: {_build.error_string(err)} ({err})")
+        with _LAUNCH_LOCK:
+            _theta_jumps_cuda.launches += 1
+
+    return launch, out, counts
+
+
+def _theta_jumps_cuda(lo, di, up, a, b, c, w, psi, v, ends, mode: int, jumps: Jumps,
+                      count_solves: bool = False):
+    """The jump-table kernel (``theta_jump_kernel``): one launch on PyTorch's
+    current stream, no synchronize, one warp a contract. Arguments as
+    :func:`_theta_plain`'s with its jump table, on one CUDA device, of one
+    dtype, float32 or float64; returns the values, with ``count_solves`` also
+    (solves, re-formed rows): int32 counts a contract of the solves it ran
+    (Howard stops sweeping a step at its fixed point) and of the rows whose
+    factors its later Howard sweeps re-formed. Any grid runs: the rows in
+    registers, or in a workspace of device memory (:func:`jump_plan`).
+    ``_theta_jumps_cuda.launches`` counts the launches."""
+    launch, out, counts = _jump_launch(lo, di, up, a, b, c, w, psi, v, ends, mode, jumps)
+    launch()
+    return (out, counts[0], counts[1]) if count_solves else out
+
+
+_theta_jumps_cuda.launches = 0
 
 
 def _theta_adjoint_cuda(lo, di, up, a, b, c, w, psi, v0, ends, mode: int, hist_u, hist_m, g):
@@ -369,10 +468,13 @@ _theta_adjoint_cuda.launches = 0
 
 
 def _dispatch(*ops, mode: int, history: bool = False, jumps: Jumps | None = None):
-    """The kernel for CUDA tensors, the plain loop for CPU tensors."""
+    """The kernel for CUDA tensors (with a jump table the jump-table
+    kernel), the plain loop for CPU tensors."""
     dev = ops[-2].device
     if dev.type == "cuda":
-        return _theta_cuda(*ops, mode, history=history, jumps=jumps)
+        if jumps is not None:
+            return _theta_jumps_cuda(*ops, mode, jumps)
+        return _theta_cuda(*ops, mode, history=history)
     if dev.type == "cpu":
         return _theta_plain(*ops, mode, jumps=jumps, history=history)
     raise ValueError(f"no θ-scheme time loop for device {dev}")

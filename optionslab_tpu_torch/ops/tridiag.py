@@ -107,6 +107,152 @@ def _tridiag_plain(lower, diag, upper, rhs) -> torch.Tensor:
     return torch.stack(xs, dim=-1)
 
 
+# ---------------------------------------------------------------------------
+# The warp-partitioned solve (csrc/warp_tridiag.cuh), modelled in torch
+#
+# One system of n unknowns split over the 32 lanes of a warp, m =
+# warp_rows(n) rows a lane (lane p holds rows p·m … p·m + m − 1; rows from n
+# on are padding, a = c = d = 0 and b = 1; a_0 and c_{n−1} are taken as 0).
+# The factors depend on the matrix alone (warp_factors); a solve on them is
+# the right-hand side's pass (warp_solve_rhs). Every operation is rounded on
+# its own, in the order the kernel's note names, so on the card this model
+# and the kernel agree bit for bit; a shuffle from past the warp's end gives
+# the lane its own value, as __shfl_up_sync/__shfl_down_sync do. Tensors here
+# are (B, 32) a row: entry [b, p] is row p·m + i of system b.
+# ---------------------------------------------------------------------------
+
+WARP_LANES = 32
+PCR_STAGES = 5  # the reduced system's cyclic reduction: strides 1, 2, 4, 8, 16
+
+
+def warp_rows(n: int) -> int:
+    """Rows a lane of the warp-partitioned solve holds: ⌈n/32⌉, at least 2
+    (a lane's first rows and its last, the separator, are distinct)."""
+    return max(2, -(-n // WARP_LANES))
+
+
+def warp_factor_values(m: int) -> int:
+    """Values of one warp's factors in memory (``wtri::factor_values``):
+    five row planes (ρ, ℓ, γ, α', γ') and 13 scalars (the separator's a and
+    c, r_B, k1 and k2 a stage), 32 lanes each."""
+    return (5 * m + 3 + 2 * PCR_STAGES) * WARP_LANES
+
+
+def warp_capacity(n: int, itemsize: int) -> int:
+    """Rows a lane keeps in registers in the kernels of the partitioned
+    solve (``wtri::register_rows``): 8, or 16 in float32; 0 where a lane's
+    rows do not fit and live in device memory."""
+    m = warp_rows(n)
+    return 8 if m <= 8 else 16 if itemsize == 4 and m <= 16 else 0
+
+
+def _shfl_up(x: torch.Tensor, s: int) -> torch.Tensor:
+    return torch.cat([x[:, :s], x[:, :-s]], 1)
+
+
+def _shfl_down(x: torch.Tensor, s: int) -> torch.Tensor:
+    return torch.cat([x[:, s:], x[:, -s:]], 1)
+
+
+def _lane_rows(x: torch.Tensor, m: int, pad: float) -> list:
+    """(B, n) → m tensors (B, 32): row i of every lane, the padding ``pad``."""
+    batch, n = x.shape
+    full = torch.cat([x, x.new_full((batch, WARP_LANES * m - n), pad)], 1)
+    lanes = full.reshape(batch, WARP_LANES, m)
+    return [lanes[:, :, i] for i in range(m)]
+
+
+def _from_lane_rows(rows: list, n: int) -> torch.Tensor:
+    """The inverse of :func:`_lane_rows`: (B, n)."""
+    return torch.stack(rows, 2).reshape(rows[0].shape[0], -1)[:, :n]
+
+
+def warp_factors(lower, diag, upper) -> dict:
+    """The factors of the partitioned solve of (B, n) systems: the matrix's
+    part of the work, formed once for every solve on the same matrix.
+
+    A lane's first m − 1 rows are its interior, row m − 1 its separator.
+    Forward over the interior (i = 0 … m − 2): piv = b_0, then b_i − a_i·γ_{i−1};
+    ρ_i = 1/piv; ℓ_i = a_i·ρ_i; γ_i = c_i·ρ_i; α_0 = ℓ_0, then α_i = −(ℓ_i·α_{i−1}).
+    Backward (i = m − 3 … 0): α'_i = α_i − γ_i·α'_{i+1}, γ'_i = −(γ_i·γ'_{i+1})
+    (α'_{m−2} = α_{m−2}, γ'_{m−2} = γ_{m−2}): interior row i is then
+    x_i = δ'_i − α'_i·y_{p−1} − γ'_i·y_p, y_p the separator of lane p. The
+    separator rows form the reduced system A·y_{p−1} + B·y_p + C·y_{p+1} = D
+    with A = −(a·α'_{m−2}), B = (b − a·γ'_{m−2}) − c·α'_0⁺, C = −(c·γ'_0⁺) (⁺:
+    lane p + 1's), solved by cyclic reduction: at stride s, k1 = A/B⁻,
+    k2 = C/B⁺ (⁻, ⁺: lanes p ∓ s), A ← −(A⁻·k1), B ← (B − C⁻·k1) − A⁺·k2,
+    C ← −(C⁺·k2); then r_B = 1/B."""
+    lower, diag, upper = torch.broadcast_tensors(lower, diag, upper)
+    n = diag.shape[-1]
+    m = warp_rows(n)
+    lower = torch.cat([torch.zeros_like(lower[:, :1]), lower[:, 1:]], 1)
+    upper = torch.cat([upper[:, :-1], torch.zeros_like(upper[:, :1])], 1)
+    a, b, c = (_lane_rows(t, m, p) for t, p in ((lower, 0.0), (diag, 1.0), (upper, 0.0)))
+    rho, ell, gam, alf = [], [], [], []
+    for i in range(m - 1):
+        piv = b[0] if i == 0 else b[i] - a[i] * gam[i - 1]
+        r = torch.ones_like(piv) / piv
+        rho.append(r)
+        ell.append(a[i] * r)
+        gam.append(c[i] * r)
+        alf.append(ell[0] if i == 0 else -(ell[i] * alf[i - 1]))
+    alf_f, gam_f = list(alf), list(gam)
+    for i in range(m - 3, -1, -1):
+        alf_f[i] = alf[i] - gam[i] * alf_f[i + 1]
+        gam_f[i] = -(gam[i] * gam_f[i + 1])
+    sa, sb, sc = a[m - 1], b[m - 1], c[m - 1]
+    big_a = -(sa * alf_f[m - 2])
+    big_b = (sb - sa * gam_f[m - 2]) - sc * _shfl_down(alf_f[0], 1)
+    big_c = -(sc * _shfl_down(gam_f[0], 1))
+    k1s, k2s = [], []
+    for st in range(PCR_STAGES):
+        s = 1 << st
+        k1 = big_a / _shfl_up(big_b, s)
+        k2 = big_c / _shfl_down(big_b, s)
+        big_a, big_b, big_c = (-(_shfl_up(big_a, s) * k1),
+                               (big_b - _shfl_up(big_c, s) * k1) - _shfl_down(big_a, s) * k2,
+                               -(_shfl_down(big_c, s) * k2))
+        k1s.append(k1)
+        k2s.append(k2)
+    return {"n": n, "m": m, "rho": rho, "ell": ell, "gam": gam, "alf_f": alf_f,
+            "gam_f": gam_f, "sa": sa, "sc": sc, "k1": k1s, "k2": k2s,
+            "rb": torch.ones_like(big_b) / big_b}
+
+
+def warp_solve_rhs(f: dict, rhs) -> torch.Tensor:
+    """The partitioned solve's pass on one right-hand side, (B, n), given
+    the matrix's :func:`warp_factors`. Forward δ_0 = d_0·ρ_0, δ_i =
+    d_i·ρ_i − ℓ_i·δ_{i−1}; backward δ'_i = δ_i − γ_i·δ'_{i+1}; the separator's
+    D = (d_{m−1} − a·δ_{m−2}) − c·δ'_0⁺; at each stride D ← (D − D⁻·k1) − D⁺·k2;
+    y = D·r_B; then x_i = (δ'_i − α'_i·y⁻) − γ'_i·y for the interior rows
+    (y⁻: lane p − 1's separator) and x_{m−1} = y."""
+    n, m = f["n"], f["m"]
+    d = _lane_rows(rhs.expand(f["rb"].shape[0], n), m, 0.0)
+    e = [None] * (m - 1)
+    for i in range(m - 1):
+        q = d[i] * f["rho"][i]
+        e[i] = q if i == 0 else q - f["ell"][i] * e[i - 1]
+    for i in range(m - 3, -1, -1):
+        e[i] = e[i] - f["gam"][i] * e[i + 1]
+    big_d = (d[m - 1] - f["sa"] * e[m - 2]) - f["sc"] * _shfl_down(e[0], 1)
+    for st in range(PCR_STAGES):
+        s = 1 << st
+        big_d = (big_d - _shfl_up(big_d, s) * f["k1"][st]) - _shfl_down(big_d, s) * f["k2"][st]
+    y = big_d * f["rb"]
+    y_left = _shfl_up(y, 1)
+    x = [(e[i] - f["alf_f"][i] * y_left) - f["gam_f"][i] * y for i in range(m - 1)] + [y]
+    return _from_lane_rows(x, n)
+
+
+def warp_solve(lower, diag, upper, rhs) -> torch.Tensor:
+    """Solve T x = rhs, all (B, n), by the warp-partitioned solve: its
+    factors (:func:`warp_factors`), then its right-hand side's pass. The
+    matrices are diagonally dominant in every caller (the θ-scheme's
+    I − θ·dt·L, Howard's identity rows, the local-vol steps), so no pivot is
+    guarded or exchanged. No gradient."""
+    return warp_solve_rhs(warp_factors(lower, diag, upper), rhs)
+
+
 def _tridiag_cuda(lower, diag, upper, rhs) -> torch.Tensor:
     """The kernel: one launch on PyTorch's current stream, no synchronize.
 

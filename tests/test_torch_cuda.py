@@ -1018,9 +1018,10 @@ def test_fdm_gradient_on_card_is_one_forward_and_one_reverse_launch(cuda_device,
 @pytest.mark.parametrize("american", [False, True])
 @pytest.mark.parametrize("divs", [[(0.3, 2.0)], [(0.3, 2.0), (0.8, 2.5)]])
 def test_dividend_pde_is_one_theta_launch_on_card(cuda_device, american, divs):
-    """The dividend PDE's loop with its jump table: the kernel bit for bit
-    its plain loop at 101 x 100; the public call one θ-scheme launch and no
-    tridiagonal launch."""
+    """The dividend PDE's loop with its jump table: the jump-table kernel bit
+    for bit its plain loop (the warp-partitioned solve) at 101 x 100; the
+    public call one launch of it and none of the θ-scheme or tridiagonal
+    kernels."""
     from optionslab_tpu_torch.models import dividends as dv
     from optionslab_tpu_torch.ops import theta_pde as tp
     from optionslab_tpu_torch.ops import tridiag
@@ -1031,17 +1032,67 @@ def test_dividend_pde_is_one_theta_launch_on_card(cuda_device, american, divs):
             100.0, 95.0, 1.0, 0.05, 0.2, [d for _, d in divs], cp=cp, n_space=101, n_time=100,
             american=american, div_steps=steps, device=cuda_device)
         mode = tp.HOWARD if american else tp.EUROPEAN
-        got = tp._theta_cuda(*ops, mode, jumps=jumps)
+        got = tp._theta_jumps_cuda(*ops, mode, jumps)
         want = tp._theta_plain(*ops, mode, jumps=jumps)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
-        before = tp._theta_cuda.launches, tridiag._tridiag_cuda.launches
+        before = (tp._theta_jumps_cuda.launches, tp._theta_cuda.launches,
+                  tridiag._tridiag_cuda.launches)
         price = dv.fdm_price_discrete_dividends(100.0, 95.0, 1.0, 0.05, 0.2, divs, cp, american,
                                                 101, 100, device="cuda")
         torch.cuda.synchronize()
-        assert (tp._theta_cuda.launches, tridiag._tridiag_cuda.launches) == (before[0] + 1,
-                                                                            before[1])
+        assert (tp._theta_jumps_cuda.launches, tp._theta_cuda.launches,
+                tridiag._tridiag_cuda.launches) == (before[0] + 1, before[1], before[2])
         assert math.isfinite(price) and price > 0.0
+
+
+def _div_loop_operands(device, n_space, n_time, mode, dtype, cp=-1.0):
+    from optionslab_tpu_torch.models import dividends as dv
+    from optionslab_tpu_torch.ops import theta_pde as tp
+
+    divs = [(0.3, 2.0), (0.8, 2.5)]
+    steps = dv._div_steps([t for t, _ in divs], 1.0, n_time)
+    _, _, ops, jumps = dv._fdm_div_operands(
+        100.0, 105.0, 1.0, 0.05, 0.2, [d for _, d in divs], cp=cp, n_space=n_space,
+        n_time=n_time, american=mode != tp.EUROPEAN, div_steps=steps, device=device)
+    return [o.to(dtype) for o in ops], tp.Jumps(jumps.steps, jumps.index, jumps.weight.to(dtype))
+
+
+@pytest.mark.parametrize("mode", ["european", "projection", "howard"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jump_kernel_every_mode_bitwise_on_card(cuda_device, mode, dtype):
+    """The jump-table kernel bit for bit its plain loop in every mode and both
+    dtypes at 401 x 60 (float32: 16 rows a lane in registers; float64: the
+    rows in device memory), a put with two dividends."""
+    from optionslab_tpu_torch.ops import theta_pde as tp
+
+    code = {"european": tp.EUROPEAN, "projection": tp.PROJECTION, "howard": tp.HOWARD}[mode]
+    ops, jumps = _div_loop_operands(cuda_device, 401, 60, code, dtype)
+    got, solves, _ = tp._theta_jumps_cuda(*ops, code, jumps, count_solves=True)
+    want = tp._theta_plain(*ops, code, jumps=jumps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(solves[0]) >= 60 and (int(solves[0]) == 60) == (code != tp.HOWARD)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jump_kernel_at_the_largest_old_grid_on_card(cuda_device, dtype):
+    """The longest grid the θ-scheme kernel's jump-table mode took (one
+    contract's tile in shared memory: 4,722 nodes float32, 2,377 float64)
+    runs, Howard, bit for bit its plain loop; a grid longer still too."""
+    from optionslab_tpu_torch.ops import theta_pde as tp
+    from optionslab_tpu_torch.ops import tridiag
+
+    size = torch.finfo(dtype).bits // 8
+    n = 3
+    while tp.tile_bytes(n + 1, 1, size) <= tridiag.SMEM_LIMIT:
+        n += 1
+    for n_space in (n - (n + 1) % 2, n + 200 + (n + 1) % 2):
+        ops, jumps = _div_loop_operands(cuda_device, n_space, 8, tp.HOWARD, dtype)
+        got = tp._theta_jumps_cuda(*ops, tp.HOWARD, jumps)
+        want = tp._theta_plain(*ops, tp.HOWARD, jumps=jumps)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mode", ["european", "projection", "bermudan"])
@@ -1067,6 +1118,68 @@ def test_lv_kernel_equals_plain_loop_on_card(smile_dupire, mode):
     assert torch.equal(got[0], want[0])
     assert (got[1] is None) == (want[1] is None)
     assert got[1] is None or (got[1].shape == (2, 5, 101) and torch.equal(got[1], want[1]))
+
+
+def _lv_operands(dupire, n, n_time, mode, contracts, dtype):
+    from optionslab_tpu_torch.models import local_vol as lv
+
+    s = dupire.surface
+    tabs = [lv._lv_tables(s.k_grid, s.t_grid, s.grid, 100.0, 0.05, 0.01, strike, 1.0, cp, n,
+                          n_time, mode == "bermudan")[1:] for strike, cp in contracts]
+    intr, lo, di, up, ends = (torch.stack(parts).to(dtype) for parts in zip(*tabs))
+    return lo, di, up, ends, intr, intr
+
+
+@pytest.mark.parametrize("mode", ["european", "projection", "bermudan"])
+def test_lv_kernel_float64_bitwise_on_card(smile_dupire, mode):
+    """The local-vol loop in float64, a call and a put at 201 x 48 (8 rows
+    a lane in registers) and a put at 401 x 48 (the rows in device memory):
+    bit for bit the plain loop, slices included."""
+    from optionslab_tpu_torch.ops import lv_pde
+
+    code = ("european", "projection", "bermudan").index(mode)
+    for n, contracts in ((201, ((105.0, 1.0), (95.0, -1.0))), (401, ((95.0, -1.0),))):
+        ops = _lv_operands(smile_dupire, n, 48, mode, contracts, torch.float64)
+        got = lv_pde._lv_cuda(*ops, code, 8)
+        want = lv_pde._lv_plain(*ops, code, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0])
+        assert got[1] is None or torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_lv_kernel_at_the_largest_old_grid_on_card(smile_dupire, dtype):
+    """The longest grid the local-vol kernel took before (its tile in one
+    block's shared memory: 5,260 nodes float32, 2,625 float64) runs, a
+    Bermudan put of 4 dates x 4 steps, bit for bit the plain loop."""
+    from optionslab_tpu_torch.ops import lv_pde
+    from optionslab_tpu_torch.ops import tridiag
+
+    size = torch.finfo(dtype).bits // 8
+    n = 3
+    while -(-(11 * (n + 1 + 16) + 4) * size // 8) * 8 + 256 <= tridiag.SMEM_LIMIT:
+        n += 1
+    assert n >= (5000 if size == 4 else 2500)
+    ops = _lv_operands(smile_dupire, n, 16, "bermudan", ((95.0, -1.0),), dtype)
+    got = lv_pde._lv_cuda(*ops, lv_pde.BERMUDAN, 4)
+    want = lv_pde._lv_plain(*ops, lv_pde.BERMUDAN, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_lv_book_rows_equal_each_contract_alone_on_card(smile_dupire):
+    """A book of three local-vol contracts in one launch (a CUDA block each):
+    each row bit for bit that contract launched alone, Bermudan slices too."""
+    from optionslab_tpu_torch.ops import lv_pde
+
+    contracts = ((105.0, 1.0), (95.0, -1.0), (100.0, -1.0))
+    ops = _lv_operands(smile_dupire, 201, 48, "bermudan", contracts, torch.float32)
+    book = lv_pde._lv_cuda(*ops, lv_pde.BERMUDAN, 8)
+    for i in range(3):
+        alone = lv_pde._lv_cuda(*(o[i:i + 1] for o in ops), lv_pde.BERMUDAN, 8)
+        torch.cuda.synchronize()
+        assert torch.equal(book[0][i:i + 1], alone[0]) and torch.equal(book[1][i:i + 1],
+                                                                         alone[1])
 
 
 def test_local_vol_pdes_are_one_launch_on_card(smile_dupire):

@@ -2,12 +2,18 @@
 (``ops/theta_pde.py`` with a jump table, ``ops/lv_pde.py``) on tables formed
 at once, against the host loops they replaced, kept here step by step.
 
+The host loops take the solve as an argument: the loops with a jump table
+and the local-vol loops solve by the warp-partitioned solve
+(``ops/tridiag.py`` ``warp_solve``, the kernels' ``csrc/warp_tridiag.cuh``),
+the dividend PDE without a dividend by Thomas (``fdm_price``'s loop).
+
 * The dividend PDE (``models/dividends.py``): the per-step end values as one
   table and the jump condition as ``models/slv._interp``'s gather table;
   ``fdm_price_discrete_dividends`` bit for bit the host loop, European and
   American, with one and two dividends and none, float32 at 31 × 24, the
   European at 61 × 60 and the American at 41 × 30 (the host's Howard loop
-  costs seconds); with one dividend against the reference
+  costs seconds); the loop with its jump table within ``LOOP_RTOL`` of the
+  host loop on Thomas's solve; with one dividend against the reference
   ``fdm_price_discrete_dividends`` (a European call and an American put) to
   ``test_torch_dividends.py``'s 2e-5 relative (which holds two). The gather
   table applied by ``apply_jump`` equals ``_interp`` bit for bit, beyond
@@ -17,7 +23,8 @@ at once, against the host loops they replaced, kept here step by step.
   of ``_lv_tables`` equal the per-step diagonals and ends bit for bit (the
   Bermudan put's low end floored at intrinsic, ``_lv_solve``'s not); the
   plain loop ``_lv_plain`` through the public functions bit for bit the host
-  loops, European, American and Bermudan; their agreement with the
+  loops, European, American and Bermudan, and within ``LOOP_RTOL`` of the
+  host loops on Thomas's solve; their agreement with the
   reference is held by ``test_torch_local_vol.py`` (1e-5) and
   ``test_torch_local_vol_american.py``.
 """
@@ -35,8 +42,15 @@ from optionslab_tpu_torch.models.fdm import _grid, _read_price
 from optionslab_tpu_torch.models.slv import _interp, _interp_table
 from optionslab_tpu_torch.ops import lv_pde
 from optionslab_tpu_torch.ops import theta_pde as tp
-from optionslab_tpu_torch.ops.tridiag import tridiag_solve
+from optionslab_tpu_torch.ops.tridiag import tridiag_solve, warp_solve
 from optionslab_tpu_torch.utils.config import EPS_TIME
+
+# the loops on the warp-partitioned solve against the host loops on Thomas's,
+# relative to the largest value: each solve within 128 ε of the largest |x|
+# (tests/test_torch_warp_solve.py), and the stable implicit steps carry no
+# more than a few solves' rounding forward (measured ≤ 1.8e-6 in float32, a
+# Bermudan slice at 101 × 48)
+LOOP_RTOL = 1e-5
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -54,7 +68,7 @@ def _one_torch_thread():
 # ---------------------------------------------------------------------------
 
 def _div_host_loop(spot, strike, maturity, rate, vol, div_amounts, *, cp, n_space, n_time,
-                   american, div_steps):
+                   american, div_steps, solve=tridiag_solve):
     f32 = lambda a: torch.as_tensor(a, dtype=torch.float32).reshape(1)  # noqa: E731
     spot, strike, maturity, rate, vol = map(f32, (spot, strike, maturity, rate, vol))
     t = torch.clamp_min(maturity, EPS_TIME)
@@ -98,9 +112,9 @@ def _div_host_loop(spot, strike, maturity, rate, vol, div_amounts, *, cp, n_spac
         rhs = torch.cat([torch.clamp_min(low, 0.0)[:, None], rhs[:, 1:-1],
                          torch.clamp_min(high, 0.0)[:, None]], dim=1)
         if american:
-            v = torch.maximum(tp._howard(lo, di, up, rhs, intrinsic)[0], intrinsic)
+            v = torch.maximum(tp._howard(lo, di, up, rhs, intrinsic, solve)[0], intrinsic)
         else:
-            v = tridiag_solve(lo, di, up, rhs)
+            v = solve(lo, di, up, rhs)
         d = div_at.get(k, 0.0)
         if d > 0.0:
             s_shift = torch.clamp_min(s_nodes[0] - d, s_nodes[0, 0])
@@ -154,14 +168,14 @@ def _lv_host_steps(k_grid, t_grid, vol_grid, spot, rate, dividend, strike, matur
     return x, intrinsic, [torch.stack(z) for z in zip(*out)]
 
 
-def _lv_host_loop(steps, intrinsic, mode, spd):
+def _lv_host_loop(steps, intrinsic, mode, spd, solve=warp_solve):
     """The loops of ``_lv_solve`` (European, American) and
     ``lv_bermudan_slices`` on their per-step operands: (v, slices)."""
     lo, di, up, ends = steps
     v, conts = intrinsic, []
     for i in range(lo.shape[0]):
         rhs = torch.cat([ends[i, 0].reshape(1), v[1:-1], ends[i, 1].reshape(1)])
-        v = tridiag_solve(lo[i], di[i], up[i], rhs)
+        v = solve(lo[i][None], di[i][None], up[i][None], rhs[None])[0]
         if mode == "american":
             v = torch.maximum(v, intrinsic)
         elif mode == "bermudan" and (i + 1) % spd == 0 and i + 1 < lo.shape[0]:
@@ -188,9 +202,10 @@ def test_dividend_loop_equals_the_host_loop(american, divs, shape):
     steps = dv._div_steps([t for t, _ in dvs], 1.0, n_time)
     amounts = np.asarray([d for _, d in dvs], np.float32)
     cp, strike = (1.0, 95.0) if divs != "one" else (-1.0, 105.0)
+    solve = tridiag_solve if divs == "none" else warp_solve  # no dividend: no jump table
     want, want_ends = _div_host_loop(100.0, strike, 1.0, 0.05, 0.2, amounts, cp=cp,
                                      n_space=n_space, n_time=n_time, american=american,
-                                     div_steps=steps)
+                                     div_steps=steps, solve=solve)
     _, _, ops, jumps = dv._fdm_div_operands(100.0, strike, 1.0, 0.05, 0.2, amounts, cp=cp,
                                             n_space=n_space, n_time=n_time, american=american,
                                             div_steps=steps, device=torch.device("cpu"))
@@ -199,6 +214,20 @@ def test_dividend_loop_equals_the_host_loop(american, divs, shape):
     got = dv.fdm_price_discrete_dividends(100.0, strike, 1.0, 0.05, 0.2, dvs, cp, american,
                                           n_space, n_time, device="cpu")
     assert got == float(want)
+
+
+@pytest.mark.parametrize("american", [False, True])
+def test_dividend_loop_within_tolerance_of_the_thomas_loop(american):
+    """The loop with its jump table (the warp-partitioned solve) against the
+    host loop on Thomas's solve: two dividends, a put, 41 × 30."""
+    dvs = DIV_CASES["two"]
+    steps = dv._div_steps([t for t, _ in dvs], 1.0, 30)
+    amounts = np.asarray([d for _, d in dvs], np.float32)
+    want = _div_host_loop(100.0, 105.0, 1.0, 0.05, 0.2, amounts, cp=-1.0, n_space=41, n_time=30,
+                          american=american, div_steps=steps)[0]
+    got = dv.fdm_price_discrete_dividends(100.0, 105.0, 1.0, 0.05, 0.2, dvs, -1.0, american, 41,
+                                          30, device="cpu")
+    assert abs(got - float(want)) <= LOOP_RTOL * float(want)
 
 
 ONE_DIV_CASES = [(1.0, 95.0, False), (-1.0, 105.0, True)]
@@ -280,6 +309,23 @@ def test_lv_solve_equals_the_host_loop(smile, american, cp, strike):
     want, _ = _lv_host_loop(steps, intrinsic, "american" if american else "european", 1)
     got = lv._lv_solve(*args[:9], n_space=101, n_time=50, american=american)
     assert torch.equal(got, want[50])
+
+
+@pytest.mark.parametrize("mode", ["european", "american", "bermudan"])
+def test_lv_loops_within_tolerance_of_the_thomas_loop(smile, mode):
+    """The plain loop (the warp-partitioned solve) against the host loop on
+    Thomas's solve, every node and every Bermudan slice, a put at 101 × 48."""
+    args = (*smile, 100.0, 0.05, 0.01, 110.0, 1.0, -1.0, 101, 48)
+    _, intrinsic, steps = _lv_host_steps(*args, mode == "bermudan")
+    want, want_conts = _lv_host_loop(steps, intrinsic, mode, 8, tridiag_solve)
+    got, conts = lv_pde._lv_plain(*(t[None] for t in (*steps[:3], steps[3], intrinsic,
+                                                      intrinsic)),
+                                  {"european": lv_pde.EUROPEAN, "american": lv_pde.PROJECTION,
+                                   "bermudan": lv_pde.BERMUDAN}[mode], 8)
+    scale = float(want.abs().max())
+    assert float((got[0] - want).abs().max()) <= LOOP_RTOL * scale
+    for i, slice_ in enumerate(want_conts):
+        assert float((conts[0, i] - slice_).abs().max()) <= LOOP_RTOL * scale
 
 
 @pytest.mark.parametrize("n_dates", [1, 2, 5])

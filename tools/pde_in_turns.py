@@ -1,13 +1,13 @@
-"""Time the θ-scheme and ADI kernels of two source trees in turns on one card.
+"""Time the θ-scheme, ADI and local-vol kernels of two source trees in turns on one card.
 
 Usage (on a machine with a CUDA card and ``nvcc``)::
 
-    python tools/pde_in_turns.py --parent DIR [--out FILE] [--only reverse] [--fit]
+    python tools/pde_in_turns.py --parent DIR [--out FILE] [--only reverse|loops] [--fit]
 
 ``DIR`` is the root of another tree of this repository, for example an
 earlier commit unpacked with ``git archive``. Each tree's
-``csrc/theta_pde.cu`` and ``csrc/heston_adi.cu`` are built by ``nvcc`` into a
-library of their own; both are driven through this checkout's wrappers
+``csrc/theta_pde.cu``, ``csrc/heston_adi.cu`` and ``csrc/lv_pde.cu`` are built
+by ``nvcc`` into a library of their own; both are driven through this checkout's wrappers
 (``ops/theta_pde.py``, ``ops/heston_adi.py``) on the same operands:
 ``fdm_price``'s 256 x 201 x 200 book (European, projection and Howard,
 float32 and float64) and the Heston ADI loops at the defaults (European and
@@ -34,12 +34,29 @@ their sums' order, and the largest gap, relative to each gradient's largest
 entry, is printed. With ``--fit`` each tree's reverse step is also fitted to
 t = c0 + cx·n_x + cv·n_v (``chip_smoke.step_fit``) on the grids of
 ``chip_smoke.adi_reverse_fit_inputs``, in turns. ``--only reverse`` times the
-θ-scheme and ADI reverse kernels alone. Prints one line a case and the card's
+θ-scheme and ADI reverse kernels alone.
+
+The two single-contract loops (``--only loops`` times them alone): the
+dividend PDE at 401 x 400 float32 (``chip_smoke.DIV_SHAPE``, its two
+dividends; the European call and the American put) and the local-vol loop
+on the sample smile (the European and American at 201 x 200, the Bermudan
+put at 401 x 25 dates x 8), each tree's kernel launched alone on operands
+made ready first (its own launch: a tree with ``theta_jump_launch`` takes the
+dividend loop there, one without through ``theta_pde_launch``'s jump table;
+``lv_pde_launch`` with or without the ring and the workspace), timed as a
+CUDA graph of calls (``chip_smoke.graph_time``) in turns. Their solves round
+otherwise (Thomas's against the warp-partitioned solve), so the largest gap
+of the two outputs, relative to the largest value, is printed.
+
+Prints one line a case and the card's
 name and power limit; with ``--out`` also writes the times there as JSON.
 
 The ABI this assumes of the other tree, checked before anything is built:
-``theta_pde_launch`` and ``heston_adi_launch`` take the parameter types of
-this tree's; the other tree's ``_FWD_FIELDS`` (the forward launch's pointer
+``heston_adi_launch`` takes the parameter types of this tree's;
+``theta_pde_launch`` this tree's, or those with the jump table (three
+pointers after ``hist_m`` and the count of jumps), which the θ cases pass as
+null; ``lv_pde_launch`` this tree's, or those without the workspace pointer
+and the ring; the other tree's ``_FWD_FIELDS`` (the forward launch's pointer
 table) is this tree's; its forward launch reads no ``dims`` entry past this
 tree's last (index 7, the route, which a tree without the cluster kernel
 does not read); and its θ kernel writes at most the two ints a block of the
@@ -74,8 +91,8 @@ from optionslab_tpu_torch.ops import _build  # noqa: E402
 from optionslab_tpu_torch.ops import heston_adi as ha  # noqa: E402
 from optionslab_tpu_torch.ops import theta_pde as tp  # noqa: E402
 
-SOURCES = ("theta_pde.cu", "heston_adi.cu")
-LAUNCHES = {"theta_pde.cu": "theta_pde_launch", "heston_adi.cu": "heston_adi_launch"}
+SOURCES = ("theta_pde.cu", "heston_adi.cu", "lv_pde.cu")
+LAUNCHES = {"heston_adi.cu": "heston_adi_launch"}
 FORWARD_DIMS = 8  # dims entries this tree's ADI wrapper passes
 REVERSE_DIMS = 6  # and its reverse wrapper
 # the other tree's reverse fields this tree does not have: grids of work each
@@ -124,9 +141,35 @@ def reverse_abi(other: pathlib.Path) -> bool:
     raise SystemExit(f"pde_in_turns: {name} takes other arguments there")
 
 
+def forward_abi(other: pathlib.Path) -> dict:
+    """Which launches the other tree's θ-scheme and local-vol sources take:
+    {"jump_table": its ``theta_pde_launch`` takes a jump table (the tree
+    before the jump-table kernel), "jump_kernel": it has
+    ``theta_jump_launch``, "lv_ring": its ``lv_pde_launch`` takes this
+    tree's arguments (else those without the workspace and the ring)};
+    stops on any other."""
+    csrc = other / "optionslab_tpu_torch" / "csrc"
+    theta, lv = (csrc / "theta_pde.cu").read_text(), (csrc / "lv_pde.cu").read_text()
+    ours = launch_types((_build.CSRC / "theta_pde.cu").read_text(), "theta_pde_launch")
+    theirs = launch_types(theta, "theta_pde_launch")
+    if theirs not in (ours, ours[:11] + ["const void*"] * 3 + ["int"] + ours[11:]):
+        raise SystemExit("pde_in_turns: theta_pde_launch takes other arguments there")
+    lv_ours = launch_types((_build.CSRC / "lv_pde.cu").read_text(), "lv_pde_launch")
+    lv_theirs = launch_types(lv, "lv_pde_launch")
+    if lv_theirs not in (lv_ours, lv_ours[:8] + lv_ours[9:14] + lv_ours[15:]):
+        raise SystemExit("pde_in_turns: lv_pde_launch takes other arguments there")
+    jump_kernel = 'extern "C" int theta_jump_launch' in theta
+    if jump_kernel and launch_types(theta, "theta_jump_launch") != launch_types(
+            (_build.CSRC / "theta_pde.cu").read_text(), "theta_jump_launch"):
+        raise SystemExit("pde_in_turns: theta_jump_launch takes other arguments there")
+    return {"jump_table": theirs != ours, "jump_kernel": jump_kernel,
+            "lv_ring": lv_theirs == lv_ours}
+
+
 def check_abi(other: pathlib.Path) -> None:
     """Stops unless the other tree's launches take this checkout's arguments
     (the ABI in the module's docstring)."""
+    forward_abi(other)
     for name, fn in [*LAUNCHES.items(), ("heston_adi.cu", "heston_adi_adjoint_launch")]:
         theirs = (other / "optionslab_tpu_torch" / "csrc" / name).read_text()
         ours = (_build.CSRC / name).read_text()
@@ -146,9 +189,27 @@ def check_abi(other: pathlib.Path) -> None:
         raise SystemExit("pde_in_turns: the other tree's ADI reverse launch reads more dims")
 
 
-def build(csrc: pathlib.Path, out: pathlib.Path, workspace: bool = True) -> ctypes.CDLL:
+class _JumpTableLib:
+    """A library whose ``theta_pde_launch`` takes a jump table, seen through
+    this tree's launch: the θ cases' calls get null jump pointers and no
+    jumps; every other function is the library's."""
+
+    def __init__(self, lib):
+        self.lib = lib
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+    def theta_pde_launch(self, *args):
+        return self.lib.theta_pde_launch(*args[:11], 0, 0, 0, 0, *args[11:])
+
+
+def build(csrc: pathlib.Path, out: pathlib.Path, workspace: bool = True,
+          abi: dict | None = None):
     """The library of ``csrc``'s PDE kernels, each source by its own nvcc;
-    ``workspace``: its θ-scheme reverse launch takes the workspace pointer."""
+    ``workspace``: its θ-scheme reverse launch takes the workspace pointer;
+    ``abi``: :func:`forward_abi` of the tree (None: this tree's)."""
+    abi = abi or {"jump_table": False, "jump_kernel": True, "lv_ring": True}
     out.mkdir(parents=True, exist_ok=True)
     nvcc = _build.cuda_tool("nvcc")
 
@@ -164,14 +225,21 @@ def build(csrc: pathlib.Path, out: pathlib.Path, workspace: bool = True) -> ctyp
     subprocess.run([nvcc, "-shared", "-o", str(lib_path), *objects], check=True,
                    capture_output=True, text=True)
     lib = ctypes.CDLL(str(lib_path))
-    lib.theta_pde_launch.argtypes = [_P] * 14 + [_I] * 8 + [_P]
+    lib.theta_pde_launch.argtypes = [_P] * (14 if abi["jump_table"] else 11) \
+        + [_I] * (8 if abi["jump_table"] else 7) + [_P]
     lib.theta_pde_launch.restype = _I
+    if abi["jump_kernel"]:
+        lib.theta_jump_launch.argtypes = [_P] * 13 + [_I] * 8 + [_P]
+        lib.theta_jump_launch.restype = _I
+    lib.lv_pde_launch.argtypes = [_P] * (9 if abi["lv_ring"] else 8) \
+        + [_I] * (8 if abi["lv_ring"] else 7) + [_P]
+    lib.lv_pde_launch.restype = _I
     lib.theta_pde_adjoint_launch.argtypes = [_P] * (13 if workspace else 12) + [_I] * 7 + [_P]
     lib.theta_pde_adjoint_launch.restype = _I
     for fn in ("heston_adi_launch", "heston_adi_adjoint_launch"):
         getattr(lib, fn).argtypes = [_P, _P, _I, _P]
         getattr(lib, fn).restype = _I
-    return lib
+    return _JumpTableLib(lib) if abi["jump_table"] else lib
 
 
 def on(lib, fn):
@@ -307,6 +375,103 @@ def reverse_cases(dev, rev: dict):
                 ops, hist, weight, mode == ha.AMERICAN, f)) for who, f in rev.items()}
 
 
+def jump_table_launch(lib, ops, mode, jumps):
+    """The dividend loop on a tree before the jump-table kernel: its
+    ``theta_pde_launch`` with the jump table, one contract a block, on
+    operands made ready first. Returns (launch, out)."""
+    dev = ops[-2].device
+    batch, n = ops[-2].shape
+    n_time = ops[-1].shape[1]
+    grid, coef = tp._grid_operands(*ops[:9], batch, n)
+    ends = ops[-1].contiguous()
+    jump_at = torch.full((n_time,), -1, dtype=torch.int32, device=dev)
+    for i, k in enumerate(jumps.steps):
+        jump_at[k] = i
+    index = jumps.index.to(dev, torch.int32).contiguous()
+    weight = jumps.weight.to(dev, grid[0].dtype).contiguous()
+    counts = torch.empty((2, batch), dtype=torch.int32, device=dev)
+    out = torch.empty_like(grid[4])
+
+    def launch():
+        err = lib.lib.theta_pde_launch(
+            grid[0].data_ptr(), grid[1].data_ptr(), grid[2].data_ptr(), coef.data_ptr(),
+            grid[3].data_ptr(), grid[4].data_ptr(), ends.data_ptr(), out.data_ptr(),
+            counts.data_ptr(), 0, 0, jump_at.data_ptr(), index.data_ptr(), weight.data_ptr(),
+            len(jumps.steps), batch, n, n_time, mode, 1, 0 if grid[0].dtype == torch.float32
+            else 1, dev.index, torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise SystemExit(f"pde_in_turns: the other tree's jump table failed: CUDA error {err}")
+
+    return launch, out
+
+
+def lv_plain_launch(lib, ops, mode, spd):
+    """The local-vol loop on a tree whose ``lv_pde_launch`` takes no ring
+    and no workspace (a block a contract, the tile in shared memory), on
+    operands made ready first. Returns (launch, out)."""
+    from optionslab_tpu_torch.ops import lv_pde as lvp
+
+    lo, di, up, ends, psi, v0 = (t.contiguous() for t in ops)
+    batch, n_time, n = lo.shape
+    dev = lo.device
+    out = torch.empty_like(v0)
+    n_conts = n_time // spd - 1 if mode == lvp.BERMUDAN else 0
+    conts = torch.empty((batch, max(n_conts, 0), n), dtype=v0.dtype, device=dev)
+
+    def launch():
+        err = lib.lv_pde_launch(
+            lo.data_ptr(), di.data_ptr(), up.data_ptr(), ends.data_ptr(), psi.data_ptr(),
+            v0.data_ptr(), out.data_ptr(), conts.data_ptr() if n_conts > 0 else 0, batch, n,
+            n_time, mode, spd, 0 if v0.dtype == torch.float32 else 1, dev.index,
+            torch.cuda.current_stream(dev).cuda_stream)
+        if err:
+            raise SystemExit(f"pde_in_turns: the other tree's lv_pde_launch failed: CUDA error "
+                             f"{err}")
+
+    return launch, out
+
+
+def loop_cases(dev, libs: dict, abi: dict):
+    """The dividend and local-vol loops: (tag, {tree: (launch, out)}), each
+    tree's kernel on operands made ready on its library."""
+    from optionslab_tpu_torch.models import dividends as dv
+    from optionslab_tpu_torch.models import local_vol as lvm
+    from optionslab_tpu_torch.ops import lv_pde as lvp
+
+    steps = dv._div_steps([t for t, _ in cs.SL_DIVS], 1.0, cs.DIV_SHAPE[1])
+    amounts = cs.np.asarray([d for _, d in cs.SL_DIVS], cs.np.float32)
+    for name, cp, mode in (("european call", 1.0, tp.EUROPEAN), ("american put", -1.0, tp.HOWARD)):
+        _, _, ops, jumps = dv._fdm_div_operands(
+            100.0, 100.0, 1.0, 0.05, 0.2, amounts, cp=cp, n_space=cs.DIV_SHAPE[0],
+            n_time=cs.DIV_SHAPE[1], american=mode == tp.HOWARD, div_steps=steps, device=dev)
+        made = {}
+        for who, lib in libs.items():
+            if who == "other" and not abi["jump_kernel"]:
+                made[who] = jump_table_launch(lib, ops, mode, jumps)
+            else:
+                launch, out, _ = on(lib, lambda ops=ops, mode=mode, jumps=jumps: tp._jump_launch(
+                    *ops, mode, jumps))()
+                made[who] = (on(lib, launch), out)
+        yield f"dividend {name} {'x'.join(map(str, cs.DIV_SHAPE))} float32", made
+    dup = cs.smile_dupire(dev)
+    grids = (dup.surface.k_grid, dup.surface.t_grid, dup.surface.grid)
+    n_b, dates, spd = cs.LV_BERMUDAN
+    for name, args, mode, k in (
+            ("european call", (100.0, 1.0, 1.0, *cs.LV_PDE, False), lvp.EUROPEAN, 1),
+            ("american put", (100.0, 1.0, -1.0, *cs.LV_PDE, False), lvp.PROJECTION, 1),
+            ("bermudan put", (100.0, 1.0, -1.0, n_b, dates * spd, True), lvp.BERMUDAN, spd)):
+        _, intr, lo, di, up, ends = lvm._lv_tables(*grids, cs.S0, cs.RATE, 0.0, *args)
+        ops = [t[None] for t in (lo, di, up, ends, intr, intr)]
+        made = {}
+        for who, lib in libs.items():
+            if who == "other" and not abi["lv_ring"]:
+                made[who] = lv_plain_launch(lib, ops, mode, k)
+            else:
+                launch, out, _ = lvp._lv_launch(*ops, mode, k)
+                made[who] = (on(lib, launch), out)
+        yield f"local-vol {name} {lo.shape[1]}x{lo.shape[0]} float32", made
+
+
 def in_turns(libs: dict, fns: dict, iters: int) -> dict:
     """Device ms of each tree's ``fns[tree]`` on its library, in turns:
     other, this, this, other."""
@@ -321,21 +486,42 @@ def main() -> None:
     parser.add_argument("--parent", required=True, type=pathlib.Path,
                         help="the root of the other tree")
     parser.add_argument("--out", type=pathlib.Path, help="a JSON file for the times")
-    parser.add_argument("--only", choices=("reverse",),
-                        help="time only the θ-scheme and ADI reverse kernels")
+    parser.add_argument("--only", choices=("reverse", "loops"),
+                        help="time only the θ-scheme and ADI reverse kernels, or only the "
+                             "dividend and local-vol loops")
     parser.add_argument("--fit", action="store_true", help="fit each tree's reverse step")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("pde_in_turns: no CUDA device")
     dev = torch.device("cuda", 0)
     check_abi(args.parent)
+    abi = forward_abi(args.parent)
     workspace = {"other": reverse_abi(args.parent), "this": True}
     card = cs.card_line()
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"other": build(args.parent / "optionslab_tpu_torch" / "csrc",
-                               pathlib.Path(tmp) / "other", workspace["other"]),
+                               pathlib.Path(tmp) / "other", workspace["other"], abi),
                 "this": build(_build.CSRC, pathlib.Path(tmp) / "this")}
         results = {}
+        if args.only != "reverse":
+            for tag, made in loop_cases(dev, libs, abi):
+                for launch, _ in made.values():
+                    launch()
+                torch.cuda.synchronize()
+                outs = {who: out for who, (_, out) in made.items()}
+                gap = ((outs["this"] - outs["other"]).abs().max()
+                       / outs["other"].abs().max()).item()
+                times = {"other": [], "this": []}
+                for who in ("other", "this", "this", "other"):
+                    reads = cs.graph_time(made[who][0], iters=10, reps=3)
+                    times[who].append(min(reads))
+                results[tag] = {**times, "gap": gap}
+                print(f"{tag}: the two trees' values within {gap:.2e} of the largest; device ms "
+                      f"of the kernel alone (a CUDA graph of calls), in turns [{card}]: other "
+                      + " / ".join(f"{t:.4f}" for t in times["other"]) + ", this "
+                      + " / ".join(f"{t:.4f}" for t in times["this"])
+                      + f"; this / other {min(times['this']) / min(times['other']):.3f}",
+                      flush=True)
         forward = [] if args.only else [*theta_cases(dev), *adi_cases(dev)]
         for tag, fn, iters in forward:
             outs = {k: on(lib, fn)() for k, lib in libs.items()}
@@ -348,7 +534,9 @@ def main() -> None:
                   + " / ".join(f"{t:.4f}" for t in times["this"])
                   + f"; this / other {min(times['this']) / min(times['other']):.3f}",
                   flush=True)
-        for tag, fns in theta_reverse_cases(dev, workspace, libs["this"]):
+        reverse_cases_ = [] if args.only == "loops" else theta_reverse_cases(dev, workspace,
+                                                                              libs["this"])
+        for tag, fns in reverse_cases_:
             calls = {k: (lambda k=k: fns[k](libs[k])) for k in libs}
             outs = {k: on(libs[k], calls[k])() for k in libs}
             torch.cuda.synchronize()
@@ -362,7 +550,7 @@ def main() -> None:
                   flush=True)
         book = cs.pricer_book(cs.THETA_SHAPE[0], dev, seed=11)
         book_fields = [getattr(book, f) for f in cs.FDM_FIELDS]
-        for american in (False, True):
+        for american in () if args.only == "loops" else (False, True):
             tag = f"fdm_price gradient {'american' if american else 'european'} " \
                   f"{'x'.join(map(str, cs.THETA_SHAPE))} float32"
             times = {"other": [], "this": []}
@@ -375,7 +563,7 @@ def main() -> None:
                   + f"; this / other {min(times['this']) / min(times['other']):.3f}", flush=True)
         rev = {"other": fields(args.parent / "optionslab_tpu_torch" / "ops" / "heston_adi.py",
                                "_REV_FIELDS"), "this": ha._REV_FIELDS}
-        for tag, fns in reverse_cases(dev, rev):
+        for tag, fns in [] if args.only == "loops" else reverse_cases(dev, rev):
             outs = {k: on(libs[k], fns[k])() for k in libs}
             torch.cuda.synchronize()
             gap = cs.adi_grad_gap(outs["this"], outs["other"])
